@@ -1,0 +1,306 @@
+"""Simulation driver: timestep loop, metric contract, validation, CLI.
+
+Port of `neutral_tpu/driver.py` for one device.  The per-step print is the
+reference's metric contract (main.c:118-125), so runs compare line by
+line with the reference and with the JAX package:
+
+    Iteration  <tt>
+    Handled <n> particles, with <k> event sweeps
+    Step time  <s>
+    Wallclock  <s>
+    Facets     <n>
+    Collisions <n>
+    Facet Events / s <rate>
+    Collision Events / s <rate>
+    ...
+    Final global_energy_tally <sum>
+    PASSED validation.        (or FAILED ..., against problems/neutral.tests)
+    Final Wallclock <s>
+    Elapsed Simulation Time <s>
+
+Engines: `kernel` runs each census through the CUDA sweep kernel
+(sweep_kernel.py) and needs a CUDA device; `plain` runs the plain PyTorch
+event sweeps (transport.py) on any device, and on CUDA only when asked for
+by name; `auto` is `kernel` on CUDA and `plain` on the CPU.
+
+The JAX driver's power-of-4 compaction ladder is not ported: it exists
+because masked sweeps pay for dead lanes, and a thread-per-lane kernel
+whose finished lanes exit at once does not pay that way (ROADMAP keeps the
+question open for the H100).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .config import SimConfig, load_config
+from .constants import VALIDATE_TOLERANCE
+from .mesh import build_mesh, region_cell_bounds
+from .particles import inject_particles
+from .profiler import Profile
+from .sweep_kernel import MAX_EVENTS, sweep_chunk_kernel, sweep_chunk_plain
+from .transport import Geometry, begin_timestep, use_local_coords
+from .xs import CrossSection, find_cs_files
+
+ENGINES = ("auto", "plain", "kernel")
+
+
+def load_cross_sections(cfg: SimConfig, dtype: torch.dtype, device
+                        ) -> tuple[CrossSection, CrossSection]:
+    """(scatter, absorb) tables: user `.cs` files if present (cwd, then the
+    deck's directory), else regenerated from the published formula.
+    Tables on the generated grid take the analytic mode under fast_math."""
+    paths = find_cs_files(cfg.params_path)
+    if paths is None:
+        return (CrossSection.resonance(dtype=dtype, analytic=cfg.fast_math,
+                                       device=device),
+                CrossSection.resonance(dtype=dtype, analytic=cfg.fast_math,
+                                       device=device))
+    tabs = []
+    for path in paths:
+        t = CrossSection.from_file(path, dtype=dtype, device=device)
+        t.analytic = cfg.fast_math and t.quartic
+        tabs.append(t)
+    return tabs[0], tabs[1]
+
+
+def make_geometry(cfg: SimConfig) -> Geometry:
+    """Geometry of the whole domain: uniform pitch and the problem
+    regions as cell rectangles (mesh.region_cell_bounds)."""
+    if cfg.uses_density_grid:
+        raise NotImplementedError(
+            "density grids (density_file, fast_math=False) are not ported "
+            "yet (ROADMAP: kernel 1 grid mode)")
+    if not cfg.uniform_mesh:
+        raise NotImplementedError(
+            "non-uniform meshes are not ported yet (ROADMAP: deck variants)")
+    if cfg.rng != "threefry":
+        raise NotImplementedError(
+            f"rng {cfg.rng!r} is not ported yet (ROADMAP: pcg64si)")
+    return Geometry(nx=cfg.nx, ny=cfg.ny, dx=cfg.width / cfg.nx,
+                    dy=cfg.height / cfg.ny, regions=region_cell_bounds(cfg),
+                    rng_scheme=cfg.rng)
+
+
+@dataclass
+class StepMetrics:
+    step: int
+    step_time: float
+    nfacets: int
+    ncollisions: int
+    nprocessed: int
+    nsweeps: int          # plain engine: event sweeps run
+    nlaunches: int        # kernel engine: kernel launches
+    # Wall-clock split of the step: "begin" (begin_timestep, up to the
+    # host read of the live count) and "sweep" (the census sweeps).
+    phases: dict
+
+
+def within_tolerance(expected: float, actual: float, tol: float) -> bool:
+    """Relative-tolerance check, as arch's within_tolerance."""
+    if expected == 0.0:
+        return abs(actual) <= tol
+    return abs(actual - expected) / abs(expected) <= tol
+
+
+class Simulation:
+    """Single-device simulation on a CUDA device or the CPU."""
+
+    def __init__(self, cfg: SimConfig, *, device="cpu", engine: str = "auto",
+                 quiet: bool = False):
+        if cfg.visit_dump:
+            raise NotImplementedError("visit_dump output is not ported yet "
+                                      "(ROADMAP: io_utils)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        self.quiet = quiet
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {engine}")
+        if engine == "auto":
+            engine = "kernel" if self.device.type == "cuda" else "plain"
+        if engine == "kernel" and self.device.type != "cuda":
+            raise ValueError("engine='kernel' needs a CUDA device, got "
+                             f"{self.device}")
+        self.engine = engine
+
+        self.geom = make_geometry(cfg)
+        self.mesh = build_mesh(cfg, dtype=self.dtype, device=self.device)
+        self.cs_scatter, self.cs_absorb = load_cross_sections(
+            cfg, self.dtype, self.device)
+        # The reference ships byte-identical capture/scatter tables; when
+        # the loaded pair matches, one lookup serves both.
+        if (torch.equal(self.cs_scatter.keys, self.cs_absorb.keys)
+                and torch.equal(self.cs_scatter.values,
+                                self.cs_absorb.values)):
+            self.geom = dataclasses.replace(self.geom, same_xs=True)
+
+        local = use_local_coords(self.geom, self.dtype)
+        self.state = inject_particles(
+            self.mesh, nparticles=cfg.nparticles,
+            source_x0=cfg.source.xpos * cfg.width,
+            source_y0=cfg.source.ypos * cfg.height,
+            source_width=cfg.source.width * cfg.width,
+            source_height=cfg.source.height * cfg.height,
+            initial_energy=cfg.initial_energy, dt=cfg.dt, dtype=self.dtype,
+            rng_scheme=cfg.rng,
+            local_coords=(self.geom.dx, self.geom.dy) if local else None,
+            device=self.device)
+        self.tally = torch.zeros(cfg.nx * cfg.ny,
+                                 dtype=getattr(torch, cfg.tally_dtype),
+                                 device=self.device)
+        self.elapsed_sim_time = 0.0
+        self.wallclock = 0.0
+        self.profile = Profile(self.device)
+        self.step_metrics: list[StepMetrics] = []
+        # Injection belongs to set-up, not to step 1's time.
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def step(self, tt: int) -> StepMetrics:
+        """Advance one census timestep (master_key = tt, as main.c:101)."""
+        self.profile.start()
+        t0 = time.perf_counter()
+        state = begin_timestep(self.state, self.geom, self.cs_scatter,
+                               self.cfg.dt, tt)
+        nprocessed = int((~state.dead).sum())     # waits for the device
+        t_begin = time.perf_counter()
+        inv_ntotal = 1.0 / self.cfg.nparticles
+        nsweeps = nlaunches = 0
+        if self.engine == "kernel":
+            state, nf, nc, nlaunches = sweep_chunk_kernel(
+                state, self.tally, self.geom, self.cs_scatter,
+                self.cs_absorb, tt, inv_ntotal)
+        else:
+            state, nf, nc, nsweeps = sweep_chunk_plain(
+                state, self.tally, self.geom, self.cs_scatter,
+                self.cs_absorb, tt, inv_ntotal)
+        self.state = state
+        step_time = self.profile.stop(f"step{tt}")
+        phases = {"begin": t_begin - t0,
+                  "sweep": time.perf_counter() - t_begin}
+        m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
+                        ncollisions=nc, nprocessed=nprocessed,
+                        nsweeps=nsweeps, nlaunches=nlaunches, phases=phases)
+        self.step_metrics.append(m)
+        return m
+
+    def run(self) -> float:
+        """Full timestep loop.  Returns the global tally sum."""
+        out = self._print
+        for tt in range(1, self.cfg.niters + 1):
+            out(f"\nIteration  {tt}")
+            m = self.step(tt)
+            self.wallclock += m.step_time
+            if self.engine == "kernel":
+                # No sweeps exist here: each lane runs its events in one
+                # thread.  The count printed in their place is kernel
+                # launches x events per lane per launch, a bound on the
+                # events any lane ran.
+                out(f"Handled {m.nprocessed} particles, with "
+                    f"{m.nlaunches * MAX_EVENTS} event sweeps "
+                    f"({m.nlaunches} kernel launches x {MAX_EVENTS} "
+                    "events)")
+            else:
+                out(f"Handled {m.nprocessed} particles, "
+                    f"with {m.nsweeps} event sweeps")
+            out(f"Step time  {m.step_time:.4f}s")
+            out(f"Wallclock  {self.wallclock:.4f}s")
+            out(f"Facets     {m.nfacets}")
+            out(f"Collisions {m.ncollisions}")
+            out(f"Facet Events / s {m.nfacets / m.step_time:.2e}")
+            out(f"Collision Events / s {m.ncollisions / m.step_time:.2e}")
+            self.elapsed_sim_time += self.cfg.dt
+            if self.elapsed_sim_time >= self.cfg.sim_end:
+                out("Reached end of simulation time")
+                break
+        result = self.validate()
+        out(f"Final Wallclock {self.wallclock:.9f}s")
+        out(f"Elapsed Simulation Time {self.elapsed_sim_time:.6f}s")
+        out(self.profile.summary())
+        agg = {}
+        for sm in self.step_metrics:
+            for k, v in sm.phases.items():
+                agg[k] = agg.get(k, 0.0) + v
+        out("PHASE BREAKDOWN (cumulative): "
+            + "  ".join(f"{k}={v:.4f}s" for k, v in agg.items()))
+        return result
+
+    def host_tally(self) -> np.ndarray:
+        """Flat (ny*nx,) tally as float64 on the host."""
+        return self.tally.cpu().numpy().astype(np.float64)
+
+    def validate(self) -> float:
+        """Global tally sum + golden comparison (omp3/neutral.c:520-557)."""
+        total = float(self.host_tally().sum())
+        out = self._print
+        out(f"Final global_energy_tally {total:.15e}")
+        expected = self.cfg.expected_tally
+        if expected is None:
+            out("WARNING: could not find a golden result to validate against")
+        elif within_tolerance(expected, total, VALIDATE_TOLERANCE):
+            out("PASSED validation.")
+        else:
+            out(f"FAILED validation: expected {expected:.12e}, "
+                f"got {total:.12e}")
+        return total
+
+    def _print(self, msg: str) -> None:
+        if not self.quiet:
+            print(msg, flush=True)
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="neutral_tpu_torch",
+        description="Monte Carlo neutral-particle transport in PyTorch, "
+                    "with a CUDA sweep kernel")
+    p.add_argument("params", help="problem deck (.params file)")
+    p.add_argument("--dtype", default=None, choices=["float32", "float64"],
+                   help="compute and tally dtype (default: float32)")
+    p.add_argument("--nparticles", type=int, default=None,
+                   help="override the deck's particle count")
+    p.add_argument("--iterations", type=int, default=None,
+                   help="override the deck's timestep count")
+    p.add_argument("--mesh-scale", type=int, default=None,
+                   help="divide nx/ny by this factor (quick runs)")
+    p.add_argument("--engine", default="auto", choices=ENGINES,
+                   help="kernel = CUDA sweep kernel; plain = PyTorch event "
+                        "sweeps; auto = kernel on CUDA, plain on the CPU")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda when available, "
+                        "else cpu)")
+    args = p.parse_args(argv)
+
+    cfg = load_config(args.params)
+    if args.nparticles:
+        cfg = cfg.with_(nparticles=args.nparticles, expected_tally=None)
+    if args.iterations:
+        cfg = cfg.with_(niters=args.iterations, expected_tally=None)
+    if args.mesh_scale:
+        cfg = cfg.with_(nx=cfg.nx // args.mesh_scale,
+                        ny=cfg.ny // args.mesh_scale, expected_tally=None)
+    if args.dtype:
+        cfg = cfg.with_(dtype=args.dtype, tally_dtype=args.dtype)
+    device = torch.device(args.device or
+                          ("cuda" if torch.cuda.is_available() else "cpu"))
+
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"Starting up on device {device} ({name}).")
+    print(f"Loading problem from {args.params}.")
+    sim = Simulation(cfg, device=device, engine=args.engine)
+    print(f"Engine: {sim.engine}.")
+    sim.run()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

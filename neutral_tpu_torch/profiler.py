@@ -1,0 +1,52 @@
+"""Step-level wall-clock timers (port of `neutral_tpu/profiler.py`).
+
+The counterpart of the reference harness's profiler entries (main.c:54-59,
+82, 99, 115-116).  PyTorch returns before the device finishes, so on a
+CUDA device every stop first waits for the device with
+`torch.cuda.synchronize()`: a step's time covers its device work.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass
+class ProfileEntry:
+    name: str
+    time: float
+
+
+@dataclass
+class Profile:
+    """Ordered named wall-clock entries, like arch's profiler_entries."""
+    device: torch.device = torch.device("cpu")
+    entries: list[ProfileEntry] = field(default_factory=list)
+    _t0: float = 0.0
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def start(self) -> None:
+        self._sync()
+        self._t0 = time.perf_counter()
+
+    def stop(self, name: str) -> float:
+        self._sync()
+        dt = time.perf_counter() - self._t0
+        self.entries.append(ProfileEntry(name, dt))
+        return dt
+
+    def total(self) -> float:
+        return sum(e.time for e in self.entries)
+
+    def summary(self) -> str:
+        lines = ["PROFILING RESULTS:"]
+        for e in self.entries:
+            lines.append(f"  {e.name:<24s} {e.time:.6f}s")
+        lines.append(f"  {'TOTAL':<24s} {self.total():.6f}s")
+        return "\n".join(lines)

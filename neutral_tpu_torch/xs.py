@@ -1,0 +1,186 @@
+"""Cross-section tables: generation, loading, and vectorized lookup.
+
+Port of `neutral_tpu/xs.py`.  The reference ships two 29,999-row
+`(energy_eV, cross_section_barns)` tables (capture.cs / elastic_scatter.cs,
+byte-identical dummy resonance data) generated by
+
+    energy[r] = 1e8 * (r/29999)^4 + 1e-2          for r in 1..29999
+    value[r]  = 1e3 * ((30000-r)/29999) + 1       (descending)
+
+The tables are regenerated from that formula, or read from user `.cs`
+files in the reference's text format.  `CrossSection.lookup` has three
+modes: analytic (keys and values in closed form, no memory reads — the
+mode the CUDA sweep kernel implements), quartic (O(1) bracketing index
+into a stored table) and searchsorted (any ascending table).  The last two
+run only in the plain PyTorch path.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .constants import CS_CAPTURE_FILENAME, CS_SCATTER_FILENAME
+
+_N_DEFAULT = 30000
+
+
+def make_resonance_table(n: int = _N_DEFAULT) -> tuple[np.ndarray, np.ndarray]:
+    """Regenerate the dummy resonance table (float64 host arrays)."""
+    r = np.arange(1, n, dtype=np.float64)
+    u = r / (n - 1)
+    energy = 1.0e8 * u**4 + 1.0e-2
+    value = 1.0e3 * ((n - r) / (n - 1)) + 1.0
+    return energy, value
+
+
+def find_cs_files(params_path: str | None = None
+                  ) -> tuple[str, str] | None:
+    """Locate user (elastic_scatter.cs, capture.cs) table files, or None.
+
+    The reference loads both tables by fixed filename from the working
+    directory (neutral_data.c:119,173-178).  We look in cwd first, then the
+    deck's own directory, and require the PAIR (a lone file would silently
+    mix user and generated data).
+    """
+    dirs = [os.getcwd()]
+    if params_path:
+        dirs.append(os.path.dirname(os.path.abspath(params_path)))
+    for d in dirs:
+        s_path = os.path.join(d, CS_SCATTER_FILENAME)
+        a_path = os.path.join(d, CS_CAPTURE_FILENAME)
+        if os.path.isfile(s_path) and os.path.isfile(a_path):
+            return s_path, a_path
+    return None
+
+
+def read_cs_file(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Read a `.cs` text table (rows of `energy value`)."""
+    data = np.loadtxt(path, dtype=np.float64)
+    if data.ndim == 1:
+        data = data[None, :]
+    return np.ascontiguousarray(data[:, 0]), np.ascontiguousarray(data[:, 1])
+
+
+def is_quartic_grid(keys: np.ndarray, rtol: float = 1e-9) -> bool:
+    """Whether `keys` follow the generated resonance grid."""
+    n = keys.shape[0]
+    r = np.arange(1, n + 1, dtype=np.float64)
+    expect = 1.0e8 * (r / n) ** 4 + 1.0e-2
+    return bool(np.allclose(keys, expect, rtol=rtol, atol=1e-12))
+
+
+def const(v: float, dtype: torch.dtype) -> float:
+    """The Python float `v` rounded once to `dtype` (neutral_tpu's
+    `np.dtype(dtype).type(v)`), so that every constant enters the
+    arithmetic already in the working precision, as in the CUDA kernel."""
+    return float(np.float32(v)) if dtype == torch.float32 else float(v)
+
+
+def div(a: torch.Tensor, s: float) -> torch.Tensor:
+    """a / s as a true division.
+
+    PyTorch's CUDA backend turns division by a host scalar into a
+    multiplication by its reciprocal, which rounds differently; dividing
+    by a device tensor keeps IEEE division, as the CUDA kernel does.
+    """
+    return a / torch.tensor(s, dtype=a.dtype, device=a.device)
+
+
+@dataclass
+class CrossSection:
+    """Cross-section table with optional closed-form modes.
+
+    `keys`/`values` are 1-D tensors in the working dtype.  `quartic` marks
+    tables on the generated resonance grid (O(1) bracketing index);
+    `analytic` evaluates keys and values from the generating formula and
+    reads no memory.  Analytic results match the table path to float
+    rounding only, so comparisons must use the same mode.
+    """
+    keys: torch.Tensor
+    values: torch.Tensor
+    quartic: bool = False
+    analytic: bool = False
+
+    @property
+    def nentries(self) -> int:
+        return self.keys.shape[0]
+
+    @classmethod
+    def resonance(cls, n: int = _N_DEFAULT, dtype=torch.float64,
+                  analytic: bool = False, device=None) -> "CrossSection":
+        keys, values = make_resonance_table(n)
+        return cls(torch.as_tensor(keys, dtype=dtype, device=device),
+                   torch.as_tensor(values, dtype=dtype, device=device),
+                   quartic=True, analytic=analytic)
+
+    @classmethod
+    def from_file(cls, path: str, dtype=torch.float64,
+                  device=None) -> "CrossSection":
+        keys, values = read_cs_file(path)
+        return cls(torch.as_tensor(keys, dtype=dtype, device=device),
+                   torch.as_tensor(values, dtype=dtype, device=device),
+                   quartic=is_quartic_grid(keys))
+
+    # ------------------------------------------------------------------
+    def lookup_index(self, energy: torch.Tensor) -> torch.Tensor:
+        """Bracketing index i with keys[i] <= energy < keys[i+1] (clipped)."""
+        n = self.nentries
+        if self.quartic:
+            u = ((energy - 1.0e-2) * 1.0e-8) ** 0.25
+            idx = torch.floor(u * float(n)).to(torch.int64) - 1
+            idx = idx.clamp(0, n - 2)
+            # Float rounding can land one bin off; nudge once each way.
+            idx = torch.where(energy < self.keys[idx], idx - 1, idx)
+            k_hi = self.keys[(idx + 1).clamp(0, n - 1)]
+            idx = torch.where(energy >= k_hi, idx + 1, idx)
+            return idx.clamp(0, n - 2)
+        idx = torch.searchsorted(self.keys, energy, right=True) - 1
+        return idx.clamp(0, n - 2)
+
+    # -- closed-form grid evaluation (analytic mode) -------------------
+    def _key_at(self, i: torch.Tensor, dtype) -> torch.Tensor:
+        """keys[i] from the generating formula: 1e8*((i+1)/M)^4 + 1e-2."""
+        t = div(i.to(dtype) + 1.0, const(float(self.nentries), dtype))
+        t2 = t * t
+        return const(1.0e8, dtype) * (t2 * t2) + const(1.0e-2, dtype)
+
+    def _val_at(self, i: torch.Tensor, dtype) -> torch.Tensor:
+        """values[i] from the formula: 1e3*(M - i)/M + 1."""
+        m = const(float(self.nentries), dtype)
+        return const(1.0e3, dtype) * div(m - i.to(dtype), m) + 1.0
+
+    def _analytic_index(self, energy: torch.Tensor) -> torch.Tensor:
+        """lookup_index without the one-off nudge gathers."""
+        n = self.nentries
+        dtype = energy.dtype
+        u = torch.sqrt(torch.sqrt((energy - const(1.0e-2, dtype))
+                                  * const(1.0e-8, dtype)))
+        idx = torch.floor(u * const(float(n), dtype)).to(torch.int32) - 1
+        idx = idx.clamp(0, n - 2)
+        idx = torch.where(energy < self._key_at(idx, dtype), idx - 1, idx)
+        idx = torch.where(
+            energy >= self._key_at((idx + 1).clamp(0, n - 1), dtype),
+            idx + 1, idx)
+        return idx.clamp(0, n - 2)
+
+    def lookup(self, energy: torch.Tensor) -> torch.Tensor:
+        """Linearly interpolated microscopic cross-section at `energy`
+        (the reference's interpolation, omp3/neutral.c:513-516)."""
+        if self.analytic:
+            dtype = energy.dtype
+            idx = self._analytic_index(energy)
+            k0 = self._key_at(idx, dtype)
+            k1 = self._key_at(idx + 1, dtype)
+            v0 = self._val_at(idx, dtype)
+            v1 = self._val_at(idx + 1, dtype)
+        else:
+            idx = self.lookup_index(energy)
+            k0 = self.keys[idx]
+            k1 = self.keys[idx + 1]
+            v0 = self.values[idx]
+            v1 = self.values[idx + 1]
+        return v0 + ((energy - k0) / (k1 - k0)) * (v1 - v0)
