@@ -7,21 +7,38 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. Device: needs `torch.cuda.is_available()` (no CPU run); prints the
    card's name and `nvidia-smi`'s name and power limit.
-2. Build: compiles csrc/*.cu with nvcc (neutral_tpu_torch/build.py), timed.
-3. Kernel against plain version on the card: the scatter deck's geometry
-   and physics (4000^2 mesh, float32) at 65,536, at 1,000,000 and at the
-   deck's own 10,000,000 particles (the main path's step-1 state); one
-   begin_timestep state goes through the CUDA sweep kernel and through the
-   plain PyTorch engine.  Facet and collision totals and all 14 per-lane
-   state fields must be exactly equal; the tally sums agree to a relative
-   1e-5 (atomics add in another order).  Both times are printed.  A third
-   kernel run with 64 events per launch must match too (many launches per
-   census).
-4. Main path: `neutral_tpu_torch.driver.main(["problems/scatter.params"])`
-   in-process at full size (10M particles, 4000^2, 2 steps).  It must
-   print `PASSED validation.`, the kernel must have launched, and the plain
-   engine must not have run.
-5. Result: a JSON line on the kernels, then the JSON result line.
+2. Build: compiles csrc/*.cu with nvcc (neutral_tpu_torch/build.py), one
+   process per source, timed.
+3. Sweep kernel against its plain version on the card: the scatter deck's
+   geometry and physics (4000^2 mesh, float32) at 65,536, at 1,000,000 and
+   at the deck's own 10,000,000 particles (the main path's step-1 state);
+   one begin_timestep state goes through the CUDA sweep kernel and through
+   the plain PyTorch engine.  Facet and collision totals and all 14
+   per-lane state fields must be exactly equal; the tally sums agree to a
+   relative 1e-5 (atomics add in another order).  Both times are printed.
+   A third kernel run with 64 events per launch must match too (many
+   launches per census).
+4. Main path, scatter: `driver.main(["problems/scatter.params"])` in-process
+   at full size (10M particles, 4000^2, 2 steps).  It must print `PASSED
+   validation.`, the sweep kernel must have launched, and no plain version
+   may have run.
+5. Flight kernel against its plain version (flight_chunk_plain) on the
+   card, at the full 1,000,000 particles of stream, split and csp, from one
+   begin_timestep state of step 1: facet and collision totals and all 14
+   per-lane fields exactly equal, the segment rows equal as multisets
+   (bitwise, after sorting: atomics append them in another order), tally
+   sums to a relative 1e-5.  Again with one piece per launch (many launches
+   per census).  Both times are printed.
+6. Segment-deposit kernel against its plain version on the segment rows of
+   stream's step-1 census: per-cell largest difference and sums to 1e-5.
+7. Main path, flight decks: `driver.main` on the full stream and split
+   decks (each must print `PASSED validation.`) and csp (10 steps; its
+   shipped golden is a known outlier that the reference's own omp3 misses,
+   so it prints FAILED against it and is held here to omp3's converged
+   tally, 1.1201464e7, within 1e-3).  The flight and segment-deposit
+   kernels must have launched in every run, and no plain version may have
+   run.  Events/s per step and peak device memory are printed.
+8. Result: a JSON line on the kernels, then the JSON result line.
 """
 
 from __future__ import annotations
@@ -35,8 +52,11 @@ import subprocess
 import sys
 import time
 
-DECK = "problems/scatter.params"
+SCATTER = "problems/scatter.params"
 COMPARE_SIZES = (65_536, 1_000_000, 10_000_000)
+FLIGHT_DECKS = ("problems/stream.params", "problems/split.params",
+                "problems/csp.params")
+CSP_OMP3_TALLY = 1.1201464e7     # omp3's converged csp tally (BASELINE.md)
 
 
 class _Tee(io.TextIOBase):
@@ -74,6 +94,15 @@ def differing_field(a, b, torch, fields):
     return None
 
 
+def timed(torch, fn, *args, **kw):
+    """(milliseconds, result) of fn(*args, **kw), device synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
 def compare(nparticles: int, torch, driver, transport, sweep_kernel,
             fields):
     """Phase 3 at one size: returns (kernel_ms, plain_ms, max_abs_err).
@@ -81,25 +110,21 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     Besides the timed runs, the kernel runs once more with 64 events per
     launch, so that one census takes many launches; its state must be
     equal too (the main path's census fits in one launch)."""
-    cfg = driver.load_config(DECK).with_(nparticles=nparticles,
-                                         expected_tally=None)
+    cfg = driver.load_config(SCATTER).with_(nparticles=nparticles,
+                                            expected_tally=None)
     sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
-    inv = 1.0 / cfg.nparticles
+    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
 
-    def timed(fn, **kw):
+    def run(fn, **kw):
         state, tally = start.clone(), torch.zeros_like(sim.tally)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, nf, nc, _ = fn(state, tally, sim.geom, sim.cs_scatter,
-                              sim.cs_absorb, 1, inv, **kw)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, state, nf, nc, tally
+        ms, (state, nf, nc, _) = timed(torch, fn, state, tally, *args, **kw)
+        return ms, state, nf, nc, tally
 
-    timed(sweep_kernel.sweep_chunk_kernel)            # warm-up
-    k_ms, ks, knf, knc, kt = timed(sweep_kernel.sweep_chunk_kernel)
-    p_ms, ps, pnf, pnc, pt = timed(sweep_kernel.sweep_chunk_plain)
+    run(sweep_kernel.sweep_chunk_kernel)            # warm-up
+    k_ms, ks, knf, knc, kt = run(sweep_kernel.sweep_chunk_kernel)
+    p_ms, ps, pnf, pnc, pt = run(sweep_kernel.sweep_chunk_plain)
     print(f"[compare n={nparticles}] kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms; facets {knf} / {pnf}, collisions {knc} / {pnc}",
           flush=True)
@@ -122,8 +147,7 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     if not rel <= 1e-5:
         fail(f"n={nparticles}: tally sums differ by {rel:.3e} (> 1e-5)")
     launches0 = sweep_kernel.sweep_chunk_kernel.launches
-    _, cs, cnf, cnc, _ = timed(sweep_kernel.sweep_chunk_kernel,
-                               max_events=64)
+    _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel, max_events=64)
     nl = sweep_kernel.sweep_chunk_kernel.launches - launches0
     if nl < 2 or (cnf, cnc) != (pnf, pnc) or differing_field(
             cs, ps, torch, fields) is not None:
@@ -132,6 +156,138 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     print(f"[compare n={nparticles}] 64 events per launch: {nl} launches, "
           "counts and per-lane state equal")
     return k_ms, p_ms, max_abs_err
+
+
+def sorted_rows(torch, segs):
+    """Segment rows as int32 bit patterns, sorted lexicographically."""
+    rows = torch.cat(segs).contiguous().view(torch.int32)
+    idx = torch.arange(rows.shape[0], device=rows.device)
+    for c in reversed(range(rows.shape[1])):
+        idx = idx[torch.sort(rows[idx, c], stable=True)[1]]
+    return rows[idx]
+
+
+def compare_flight(deck: str, torch, driver, transport, flight,
+                   flight_kernel, fields):
+    """Phase 5 on one deck: returns (kernel_ms, plain_ms, max_abs_err,
+    segment rows of the kernel's census)."""
+    cfg = driver.load_config(deck).with_(expected_tally=None)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+    if sim.transport != "flight":
+        fail(f"{deck}: auto picked the {sim.transport} transport")
+    start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
+                                     cfg.dt, 1)
+    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
+    name = deck.split("/")[-1].split(".")[0]
+
+    def run(fn, segments=None, **kw):
+        state, tally = start.clone(), torch.zeros_like(sim.tally)
+        ms, (state, nf, nc, n, _) = timed(torch, fn, state, tally, *args,
+                                          segments=segments, **kw)
+        return ms, state, nf, nc, n, tally
+
+    ksegs, psegs, csegs = [], [], []
+    run(flight_kernel.flight_chunk_kernel, ksegs)   # warm-up, collects rows
+    k_ms, ks, knf, knc, kl, kt = run(flight_kernel.flight_chunk_kernel)
+    p_ms, ps, pnf, pnc, pn, pt = run(flight.flight_chunk_plain, psegs)
+    print(f"[flight {name}] kernel {k_ms:.3f} ms ({kl} launches), plain "
+          f"{p_ms:.3f} ms ({pn} sweeps); facets {knf} / {pnf}, collisions "
+          f"{knc} / {pnc}", flush=True)
+    if (knf, knc) != (pnf, pnc):
+        fail(f"{name}: event counts differ: kernel {(knf, knc)} plain "
+             f"{(pnf, pnc)}")
+    if knf == 0:
+        fail(f"{name}: no facet events, the comparison is empty")
+    f = differing_field(ks, ps, torch, fields)
+    if f is not None:
+        n_bad = int((getattr(ks, f) != getattr(ps, f)).sum())
+        fail(f"{name}: state.{f} differs on {n_bad} lanes")
+    krows, prows = sorted_rows(torch, ksegs), sorted_rows(torch, psegs)
+    if not torch.equal(krows, prows):
+        fail(f"{name}: segment rows differ ({krows.shape[0]} kernel, "
+             f"{prows.shape[0]} plain)")
+    ksum, psum = float(kt.double().sum()), float(pt.double().sum())
+    max_abs_err = float((kt.double() - pt.double()).abs().max())
+    rel = abs(ksum - psum) / abs(psum)
+    print(f"[flight {name}] all {len(fields)} per-lane state fields equal, "
+          f"{krows.shape[0]} segment rows equal as multisets; tally sums "
+          f"{ksum:.9e} / {psum:.9e} (rel {rel:.3e}), max abs err per cell "
+          f"{max_abs_err:.3e}")
+    if not rel <= 1e-5:
+        fail(f"{name}: tally sums differ by {rel:.3e} (> 1e-5)")
+    c_ms, cs, cnf, cnc, cl, _ = run(flight_kernel.flight_chunk_kernel, csegs,
+                                    max_pieces=1)
+    if (cl < 2 or (cnf, cnc) != (pnf, pnc)
+            or differing_field(cs, ps, torch, fields) is not None
+            or not torch.equal(sorted_rows(torch, csegs), prows)):
+        fail(f"{name}: the census in {cl} launches of 1 piece differs from "
+             "the plain version")
+    print(f"[flight {name}] 1 piece per launch: {cl} launches in "
+          f"{c_ms:.3f} ms, counts, per-lane state and segment rows equal")
+    return k_ms, p_ms, max_abs_err, ksegs
+
+
+def compare_raster(segs, torch, geom, raster, raster_kernel):
+    """Phase 6: returns (kernel_ms, plain_ms, max_abs_err)."""
+    rows = torch.cat(segs).contiguous()
+    nseg = torch.tensor([rows.shape[0]], dtype=torch.int64,
+                        device=rows.device)
+    n = geom.nx * geom.ny
+    kt = torch.zeros(n, dtype=torch.float32, device=rows.device)
+    pt = torch.zeros_like(kt)
+    raster_kernel.deposit_segments_kernel(kt, rows, nseg, geom.nx, geom.ny)
+    kt.zero_()                                       # after the warm-up
+    k_ms, _ = timed(torch, raster_kernel.deposit_segments_kernel, kt, rows,
+                    nseg, geom.nx, geom.ny)
+    p_ms, _ = timed(torch, raster.deposit_segments_plain, pt, rows, geom.nx,
+                    geom.ny)
+    ksum, psum = float(kt.double().sum()), float(pt.double().sum())
+    max_abs_err = float((kt.double() - pt.double()).abs().max())
+    peak = float(pt.double().abs().max())
+    rel = abs(ksum - psum) / abs(psum)
+    print(f"[raster stream] {rows.shape[0]} segment rows: kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms; sums {ksum:.9e} / "
+          f"{psum:.9e} (rel {rel:.3e}); max abs err per cell "
+          f"{max_abs_err:.3e} (largest cell {peak:.3e})", flush=True)
+    if not (rel <= 1e-5 and max_abs_err <= 1e-5 * peak):
+        fail("segment deposit: kernel and plain version differ by more "
+             "than 1e-5")
+    return k_ms, p_ms, max_abs_err
+
+
+def reset_counts(wrappers):
+    for fn, attr in wrappers:
+        setattr(fn, attr, 0)
+
+
+def main_path(deck, torch, driver, wrappers, argv=()):
+    """Run driver.main on `deck` with every count set to 0 just before;
+    returns (stdout, {wrapper name: count}) read just after."""
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = driver.main([deck, *argv])
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: getattr(fn, attr) for fn, attr in wrappers}
+    out = tee.buf.getvalue()
+    name = deck.split("/")[-1].split(".")[0]
+    if rc != 0:
+        fail(f"{name}: driver.main returned {rc}")
+    total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
+    if not math.isfinite(total):
+        fail(f"{name}: tally sum {total} is not finite")
+    steps = re.findall(r"Step time\s+(\S+)s\nWallclock.*\nFacets\s+(\d+)\n"
+                       r"Collisions\s+(\d+)", out)
+    for i, (st, nf, nc) in enumerate(steps, 1):
+        st, ev = float(st), int(nf) + int(nc)
+        print(f"[main {name}] step {i}: {ev} events in {st:.4f} s = "
+              f"{ev / st:.4e} events/s")
+    print(f"[main {name}] counts {counts}, tally {total:.12e}, wall "
+          f"{wall:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return out, total, counts
 
 
 def main() -> int:
@@ -147,70 +303,125 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; nvidia-smi: {smi}", flush=True)
 
-    from neutral_tpu_torch import build, driver, sweep_kernel, transport
+    from neutral_tpu_torch import (build, driver, flight, flight_kernel,
+                                   raster, raster_kernel, sweep_kernel,
+                                   transport)
     from neutral_tpu_torch.particles import STATE_FIELDS
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     path, log = build.build()
     sweep_kernel.load_library()
+    flight_kernel.load_library()
+    raster_kernel.load_library()
     print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if re.search(r"registers|spill|bytes stack", line):
+        if re.search(r"Compiling entry|registers|spill|bytes stack", line):
             print(f"[build] {line.strip()}")
 
-    # ---- 3. kernel against plain version --------------------------------
+    wrappers = [(sweep_kernel.sweep_chunk_kernel, "launches"),
+                (sweep_kernel.sweep_chunk_plain, "calls"),
+                (flight_kernel.flight_chunk_kernel, "launches"),
+                (flight.flight_chunk_plain, "calls"),
+                (raster_kernel.deposit_segments_kernel, "launches")]
+
+    # ---- 3. sweep kernel against plain version --------------------------
     results = {n: compare(n, torch, driver, transport, sweep_kernel,
                           STATE_FIELDS)
                for n in COMPARE_SIZES}
 
-    # ---- 4. main path ---------------------------------------------------
-    torch.cuda.reset_peak_memory_stats()
-    sweep_kernel.sweep_chunk_kernel.launches = 0
-    sweep_kernel.sweep_chunk_plain.calls = 0
-    tee = _Tee(sys.stdout)
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
-        rc = driver.main([DECK])
-    wall = time.perf_counter() - t0
-    launches = sweep_kernel.sweep_chunk_kernel.launches
-    plain_calls = sweep_kernel.sweep_chunk_plain.calls
-    out = tee.buf.getvalue()
-    if rc != 0:
-        fail(f"driver.main returned {rc}")
+    # ---- 4. main path, scatter ------------------------------------------
+    out, _, c = main_path(SCATTER, torch, driver, wrappers)
     if "PASSED validation." not in out:
         fail("the full scatter deck did not print 'PASSED validation.'")
-    if launches <= 0 or plain_calls != 0:
-        fail(f"main path: {launches} kernel launches, {plain_calls} plain "
-             "runs (want > 0 and 0)")
-    total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
-    if not math.isfinite(total):
-        fail(f"tally sum {total} is not finite")
-    steps = re.findall(r"Step time\s+(\S+)s\nWallclock.*\nFacets\s+(\d+)\n"
-                       r"Collisions\s+(\d+)", out)
-    for i, (st, nf, nc) in enumerate(steps, 1):
-        st, ev = float(st), int(nf) + int(nc)
-        print(f"[main] step {i}: {ev} events in {st:.4f} s = "
-              f"{ev / st:.4e} events/s")
-    print(f"[main] {launches} kernel launches, 0 plain runs, tally "
-          f"{total:.12e}, wall {wall:.1f} s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if c["sweep_chunk_kernel"] <= 0 or c["sweep_chunk_plain"] != 0:
+        fail(f"scatter main path: counts {c} (want sweep kernel launches "
+             "and no plain run)")
+    sweep_launches = c["sweep_chunk_kernel"]
 
-    # ---- 5. result ------------------------------------------------------
+    # ---- 5. flight kernel against plain version -------------------------
+    flight_results = {}
+    for deck in FLIGHT_DECKS:
+        flight_results[deck] = compare_flight(
+            deck, torch, driver, transport, flight, flight_kernel,
+            STATE_FIELDS)
+
+    # ---- 6. segment-deposit kernel against plain version ----------------
+    stream = FLIGHT_DECKS[0]
+    geom = driver.make_geometry(driver.load_config(stream))
+    r_ms, r_plain_ms, r_err = compare_raster(
+        flight_results[stream][3], torch, geom, raster, raster_kernel)
+    for deck in FLIGHT_DECKS:
+        flight_results[deck] = flight_results[deck][:3]
+
+    # ---- 7. main path, flight decks -------------------------------------
+    flight_launches = raster_launches = 0
+    for deck in FLIGHT_DECKS:
+        name = deck.split("/")[-1].split(".")[0]
+        out, total, c = main_path(deck, torch, driver, wrappers)
+        if "Transport: flight." not in out or "Engine: kernel." not in out:
+            fail(f"{name}: the main path did not run the flight kernels")
+        if (c["flight_chunk_kernel"] <= 0
+                or c["deposit_segments_kernel"] <= 0
+                or c["flight_chunk_plain"] != 0
+                or c["sweep_chunk_plain"] != 0):
+            fail(f"{name} main path: counts {c} (want flight and segment "
+                 "kernel launches and no plain run)")
+        flight_launches += c["flight_chunk_kernel"]
+        raster_launches += c["deposit_segments_kernel"]
+        if name == "csp":
+            rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
+            print(f"[main csp] tally {total:.9e} against omp3's "
+                  f"{CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
+            if not rel <= 1e-3:
+                fail(f"csp tally {total:.9e} is {rel:.3e} from omp3's "
+                     f"{CSP_OMP3_TALLY:.7e} (> 1e-3)")
+        elif "PASSED validation." not in out:
+            fail(f"the full {name} deck did not print 'PASSED validation.'")
+
+    # ---- 8. result ------------------------------------------------------
     k_ms, p_ms, err = results[COMPARE_SIZES[-1]]
+    fk = sum(v[0] for v in flight_results.values())
+    fp = sum(v[1] for v in flight_results.values())
+    fe = max(v[2] for v in flight_results.values())
+    per_deck = {d.split("/")[-1].split(".")[0]: {"ms": v[0], "plain_ms": v[1]}
+                for d, v in flight_results.items()}
     print(f"[device] nvidia-smi: {nvidia_smi()}")
-    print(json.dumps({"kernels": [{
-        "name": "sweep_kernel",
-        "route": "cuda",
-        "source": "neutral_tpu_torch/csrc/sweep.cu",
-        "replaces": "neutral_tpu/pallas_sweep.py:59",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "shape": f"scatter deck, {COMPARE_SIZES[-1]} particles, 4000x4000 "
-                 "mesh, one census; ms and plain_ms are whole-census times",
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "sweep_kernel",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/sweep.cu",
+         "replaces": "neutral_tpu/pallas_sweep.py:59",
+         "launches": sweep_launches,
+         "max_abs_err": err,
+         "ms": k_ms,
+         "plain_ms": p_ms,
+         "shape": f"scatter deck, {COMPARE_SIZES[-1]} particles, 4000x4000 "
+                  "mesh, one census; ms and plain_ms are whole-census times"},
+        {"name": "flight_kernel",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/flight.cu",
+         "replaces": "neutral_tpu/pallas_flight.py:59",
+         "launches": flight_launches,
+         "max_abs_err": fe,
+         "ms": fk,
+         "plain_ms": fp,
+         "per_deck": per_deck,
+         "shape": "stream, split and csp decks, 1,000,000 particles each, "
+                  "4000x4000 mesh, one step-1 census each (segment deposits "
+                  "included); ms and plain_ms are the sums of the three; "
+                  "max_abs_err is the largest per-cell tally difference"},
+        {"name": "segment_deposit_kernel",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/raster.cu",
+         "replaces": "neutral_tpu/raster.py:331 and neutral_tpu/raster.py:161",
+         "launches": raster_launches,
+         "max_abs_err": r_err,
+         "ms": r_ms,
+         "plain_ms": r_plain_ms,
+         "shape": "the segment rows of the stream deck's step-1 census "
+                  "(1,000,000 particles, 4000x4000 mesh) in one deposit"},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels (csrc/*.cu) into one shared library.
 
-nvcc compiles the sources at first use into a library with a plain C
-interface, which sweep_kernel.py loads with ctypes; no PyTorch header is
-compiled, so a build takes seconds.  The library goes to
+nvcc compiles the sources at first use, one process per `.cu` file, all
+started together, and links the objects into a library with a plain C
+interface, which the kernel wrappers load with ctypes (`load()`); no
+PyTorch header is compiled, so a build takes seconds.  The library goes to
 `neutral_tpu_torch/build/` under a name that carries a hash of the sources
 and flags, so an edited source is rebuilt and an unchanged one is not.
 The build raises with nvcc's output if it fails.
@@ -10,6 +11,8 @@ The build raises with nvcc's output if it fails.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,11 +23,11 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 # -fmad=false: PyTorch's elementwise arithmetic never fuses a*b+c, so the
-# kernel must not either, or its branch decisions drift from the plain
-# version's (csrc/sweep.cu).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+# kernels must not either, or their branch decisions drift from the plain
+# versions' (csrc/common.cuh).
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list[Path]:
@@ -56,6 +59,27 @@ def library_path() -> Path:
     return BUILD_DIR / f"libneutral_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process; raise with its output if one failed."""
+    outputs = []
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        outputs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed with exit code {rc}:\n"
+                           f"{' '.join(cmd)}\n{out}")
+    return "".join(outputs)
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> tuple[Path, str]:
     """Compile the library unless it is up to date.
 
@@ -67,14 +91,40 @@ def build() -> tuple[Path, str]:
     if lib.is_file():
         return lib, log.read_text() if log.is_file() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = []
+    procs = []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(_start([nvcc, *NVCC_FLAGS, "-c", str(src),
+                             "-o", str(obj)]))
+    output = _run(procs)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    output = proc.stdout + proc.stderr
+    output += _run([_start([nvcc, *GENCODE, "-shared", "-o", str(tmp),
+                            *(str(o) for o in objs)])])
+    for obj in objs:
+        obj.unlink()
     log.write_text(output)
     os.replace(tmp, lib)
     return lib, output
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the library, once per process."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    lib.nt_error_string.argtypes = [ctypes.c_int]
+    lib.nt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.nt_error_string(err).decode()}")

@@ -1,0 +1,326 @@
+// Free-flight kernel for NVIDIA Hopper (sm_90a): one thread per particle lane.
+//
+// Replaces the TPU kernel neutral_tpu/pallas_flight.py::_kernel and
+// ::_kernel_body (:59, :129; its pl.pallas_call is at :322).  That kernel
+// advanced a VMEM-resident block of lanes through k_pieces masked flight
+// pieces (flight.flight_core) and pushed tally flushes into per-lane flush
+// rings and segments into per-lane segment rings, which the host drained
+// between calls, because the TPU has no fast scatter or atomics.  Here each
+// thread owns one lane: it runs up to `max_pieces` pieces (stopping early
+// when the particle dies or reaches census), with the plain version's
+// (neutral_tpu_torch/flight.py flight_core) operations in the same order and
+// the same float32 constants.  Per piece:
+//
+//   * the first cell's flush and the final cell's death/census flush go
+//     straight into the tally with atomicAdd(float*), skipping zero values
+//     (a vacuum piece deposits exactly 0), as pallas_flight.py:156-161 does;
+//   * a piece that crosses at least 2 cell boundaries appends one row
+//     [gx0, gy0, gx1, gy1, kk] to a global segment buffer at a slot taken
+//     with an atomic counter.  The buffer holds n * max_pieces rows, so a
+//     launch cannot overflow it; raster.cu deposits it after the launch.
+//   * facet and collision counts go into 64-bit totals (a piece can cross
+//     nx + ny cells), reduced per warp.
+//
+// Rings, pause gating, the segment-plane layout and ring extraction have no
+// counterpart.  Only the float32, analytic cross-section, uniform mesh,
+// threefry configuration with at most kMaxRegions rects is implemented; the
+// wrapper (flight_kernel.py) rejects everything else.  The build passes
+// -fmad=false (build.py), so no a*b+c is fused.
+//
+// What bounds it on the H100: in dense rects, Threefry-2x64-20's integer
+// work (two draws per collision), as in sweep.cu; in vacuum, nothing much —
+// a piece crosses a whole rect in ~150 float operations.  Warps diverge in
+// the census tail, where a warp runs as long as its longest history.  This
+// first version does nothing about either yet.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+using nt::kMaxRegions;
+
+// Layout shared with flight_kernel._FlightParams (ctypes); nt_flight_params
+// _size() lets the wrapper check that the two agree.
+struct FlightParams {
+  float* x;
+  float* y;
+  float* omega_x;
+  float* omega_y;
+  float* energy;
+  float* weight;
+  float* dt_to_census;
+  float* mfp_to_collision;
+  float* deposit;
+  int32_t* cellx;
+  int32_t* celly;
+  uint8_t* dead;
+  const int64_t* pid;
+  int64_t* counter;
+  float* tally;                 // (ny * nx,) flat, row-major
+  float* segs;                  // (seg_cap, 5) rows [gx0, gy0, gx1, gy1, kk]
+  // [facets, collisions, lanes still working, segment rows written]
+  unsigned long long* counts;
+  unsigned long long master_key;
+  long long n;
+  long long seg_cap;
+  int max_pieces;
+  int nx;
+  int ny;
+  int scatter_entries;
+  int absorb_entries;
+  int same_xs;
+  float dx;
+  float dy;
+  float inv_dx;
+  float inv_dy;
+  float inv_ntotal;
+  int nrects;
+  int rect_bounds[kMaxRegions * 4];   // (ix0, ix1, iy0, iy1) per rect
+  float rect_density[kMaxRegions];
+};
+
+namespace {
+
+using namespace nt;
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+flight_kernel(const FlightParams p) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  unsigned long long n_facets = 0, n_colls = 0, n_working = 0;
+
+  if (i < p.n && !p.dead[i] && p.dt_to_census[i] > 0.0f) {
+    float x = p.x[i], y = p.y[i];
+    float omega_x = p.omega_x[i], omega_y = p.omega_y[i];
+    float energy = p.energy[i], weight = p.weight[i];
+    float dt = p.dt_to_census[i], mfp = p.mfp_to_collision[i];
+    float deposit = p.deposit[i];
+    int cellx = p.cellx[i], celly = p.celly[i];
+    const uint64_t pid = static_cast<uint64_t>(p.pid[i]);
+    uint64_t counter = static_cast<uint64_t>(p.counter[i]);
+    bool dead = false;
+
+    for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f;
+         ++piece) {
+      // ---- current rect by cell membership (rects are disjoint) ----
+      float rho = 0.0f;
+      int rix0 = 0, rix1 = p.nx, riy0 = 0, riy1 = p.ny;
+#pragma unroll
+      for (int r = 0; r < kMaxRegions; ++r) {
+        if (r >= p.nrects) break;
+        if (cellx >= p.rect_bounds[4 * r] &&
+            cellx < p.rect_bounds[4 * r + 1] &&
+            celly >= p.rect_bounds[4 * r + 2] &&
+            celly < p.rect_bounds[4 * r + 3]) {
+          rho = p.rect_density[r];
+          rix0 = p.rect_bounds[4 * r];
+          rix1 = p.rect_bounds[4 * r + 1];
+          riy0 = p.rect_bounds[4 * r + 2];
+          riy1 = p.rect_bounds[4 * r + 3];
+        }
+      }
+
+      // ---- material state ----
+      const float sig_s = xs_lookup(energy, p.scatter_entries);
+      const float sig_a =
+          p.same_xs ? sig_s : xs_lookup(energy, p.absorb_entries);
+      const float sig_t = sig_s + sig_a;
+      const float number_density = rho * kInvMolar;
+      const float mac_s = number_density * sig_s * kBarns;
+      const float mac_a = number_density * sig_a * kBarns;
+      const float mac_t = mac_s + mac_a;
+      const float cell_mfp = 1.0f / mac_t;
+      const float speed = sqrtf(kSpeedCoef * energy);
+
+      // ---- distances to the rect walls (the open left/bottom wall
+      // overshoots by kObc) ----
+      const float u_x_inv = 1.0f / (omega_x * speed);
+      const float u_y_inv = 1.0f / (omega_y * speed);
+      const float wx_pos = static_cast<float>(rix1) * p.dx;
+      const float wx_neg = static_cast<float>(rix0) * p.dx - kObc;
+      const float wy_pos = static_cast<float>(riy1) * p.dy;
+      const float wy_neg = static_cast<float>(riy0) * p.dy - kObc;
+      const float dt_x = omega_x >= 0.0f ? (wx_pos - x) * u_x_inv
+                                         : (wx_neg - x) * u_x_inv;
+      const float dt_y = omega_y >= 0.0f ? (wy_pos - y) * u_y_inv
+                                         : (wy_neg - y) * u_y_inv;
+      const bool x_wall = dt_x < dt_y;
+      const float d_exit = (x_wall ? dt_x : dt_y) * speed;
+      const float d_coll = mfp * cell_mfp;
+      const float d_census = speed * dt;
+
+      const bool is_coll = (d_coll < d_exit) && (d_coll < d_census);
+      const bool is_exit = !is_coll && (d_exit < d_census);
+      const bool is_census = !is_coll && !is_exit;
+      const float d =
+          tmax(is_coll ? d_coll : (is_exit ? d_exit : d_census), 0.0f);
+
+      // ---- endpoint and new cell ----
+      const float x1 = x + d * omega_x;
+      const float y1 = y + d * omega_y;
+      const bool pos_x = omega_x > 0.0f;
+      const bool pos_y = omega_y > 0.0f;
+      const bool exit_x = is_exit && x_wall;
+      const bool exit_y = is_exit && !x_wall;
+      const bool refl_x =
+          exit_x && ((pos_x && rix1 == p.nx) || (!pos_x && rix0 == 0));
+      const bool refl_y =
+          exit_y && ((pos_y && riy1 == p.ny) || (!pos_y && riy0 == 0));
+
+      const int fcx = static_cast<int>(floorf(x1 * p.inv_dx));
+      const int fcy = static_cast<int>(floorf(y1 * p.inv_dy));
+      const int in_cx = min(max(fcx, rix0), rix1 - 1);
+      const int in_cy = min(max(fcy, riy0), riy1 - 1);
+      const int cx1 =
+          exit_x ? (refl_x ? (pos_x ? rix1 - 1 : rix0)
+                           : (pos_x ? rix1 : rix0 - 1))
+                 : in_cx;
+      const int cy1 =
+          exit_y ? (refl_y ? (pos_y ? riy1 - 1 : riy0)
+                           : (pos_y ? riy1 : riy0 - 1))
+                 : in_cy;
+
+      // ---- facet events: boundary crossings (+1 for the reflection) ----
+      const int ncross = abs(cx1 - cellx) + abs(cy1 - celly);
+      n_facets += static_cast<unsigned long long>(ncross) +
+                  ((refl_x || refl_y) ? 1ULL : 0ULL);
+
+      // ---- deposit bookkeeping: K = deposit per unit path ----
+      const float heating =
+          energy - (1.0f - sig_a / sig_t) * (energy * kAvgScatterFrac);
+      const float K = weight * (sig_t * kBarns) * heating * number_density;
+
+      // Exit distance of the first cell.
+      const float ex_pos = static_cast<float>(cellx + 1) * p.dx;
+      const float ex_neg = static_cast<float>(cellx) * p.dx - kObc;
+      const float ey_pos = static_cast<float>(celly + 1) * p.dy;
+      const float ey_neg = static_cast<float>(celly) * p.dy - kObc;
+      const float cdt_x = omega_x >= 0.0f ? (ex_pos - x) * u_x_inv
+                                          : (ex_neg - x) * u_x_inv;
+      const float cdt_y = omega_y >= 0.0f ? (ey_pos - y) * u_y_inv
+                                          : (ey_neg - y) * u_y_inv;
+      const float d_head = tmin(tmax(tmin(cdt_x, cdt_y) * speed, 0.0f), d);
+
+      // Entry distance of the final cell.
+      const float d_inx =
+          cx1 > cellx ? (static_cast<float>(cx1) * p.dx - x) * u_x_inv
+          : cx1 < cellx
+              ? (static_cast<float>(cx1 + 1) * p.dx - x) * u_x_inv
+              : 0.0f;
+      const float d_iny =
+          cy1 > celly ? (static_cast<float>(cy1) * p.dy - y) * u_y_inv
+          : cy1 < celly
+              ? (static_cast<float>(cy1 + 1) * p.dy - y) * u_y_inv
+              : 0.0f;
+      const float d_in =
+          tmax(tmin(tmax(tmax(d_inx, d_iny) * speed, 0.0f), d), d_head);
+
+      const bool crossed = ncross > 0;
+      const bool emit = ncross >= 2;
+      // One crossing: no interior cells; the head takes the gap.
+      const float d_head_eff = emit ? d_head : d_in;
+
+      // First cell: accumulate, then flush on leaving it.
+      const float acc1 = deposit + K * (crossed ? d_head_eff : d);
+      if (crossed) {
+        const float v1 = acc1 * p.inv_ntotal;
+        if (v1 != 0.0f) atomicAdd(&p.tally[celly * p.nx + cellx], v1);
+      }
+      // Final cell: the tail accumulates.
+      const float acc2 = crossed ? K * (d - d_in) : acc1;
+
+      // ---- interior segment, from the pre-piece position ----
+      if (emit) {
+        const float seg_len = tmax(d_in - d_head_eff, 0.0f);
+        const unsigned long long row = atomicAdd(&p.counts[3], 1ULL);
+        if (row < static_cast<unsigned long long>(p.seg_cap)) {
+          float* out = p.segs + 5 * row;
+          out[0] = (x + d_head_eff * omega_x) * p.inv_dx;
+          out[1] = (y + d_head_eff * omega_y) * p.inv_dy;
+          out[2] = (x + d_in * omega_x) * p.inv_dx;
+          out[3] = (y + d_in * omega_y) * p.inv_dy;
+          out[4] = (K * seg_len) * p.inv_ntotal;
+        }
+      }
+
+      // ---- collision (omega after the collision, then the reflection) ----
+      bool died = false;
+      if (is_coll) {
+        died = collide(pid, p.master_key, counter, energy, weight, omega_x,
+                       omega_y, mfp, mac_a, mac_t, number_density,
+                       p.scatter_entries);
+        n_colls += 1;
+      }
+      if (refl_x) omega_x = -omega_x;
+      if (refl_y) omega_y = -omega_y;
+
+      // Death or census: flush the final cell.
+      if (died || is_census) {
+        const float v2 = acc2 * p.inv_ntotal;
+        if (v2 != 0.0f) atomicAdd(&p.tally[cy1 * p.nx + cx1], v2);
+        deposit = 0.0f;
+      } else {
+        deposit = acc2;
+      }
+
+      // ---- mean free path and census clock ----
+      if (is_exit || is_census) mfp = mfp - d / cell_mfp;
+      dt = dt - d / speed;
+      if (is_census) dt = 0.0f;
+
+      x = x1;
+      y = y1;
+      cellx = cx1;
+      celly = cy1;
+      dead = died;
+    }
+
+    n_working = (!dead && dt > 0.0f) ? 1 : 0;
+    p.x[i] = x;
+    p.y[i] = y;
+    p.omega_x[i] = omega_x;
+    p.omega_y[i] = omega_y;
+    p.energy[i] = energy;
+    p.weight[i] = weight;
+    p.dt_to_census[i] = dt;
+    p.mfp_to_collision[i] = mfp;
+    p.deposit[i] = deposit;
+    p.cellx[i] = cellx;
+    p.celly[i] = celly;
+    p.dead[i] = dead;
+    p.counter[i] = static_cast<int64_t>(counter);
+  }
+
+  // Counts: reduce per warp, one atomic per warp and count.
+  n_facets = warp_sum_u64(n_facets);
+  n_colls = warp_sum_u64(n_colls);
+  n_working = warp_sum_u64(n_working);
+  if ((threadIdx.x & 31u) == 0) {
+    if (n_facets) atomicAdd(&p.counts[0], n_facets);
+    if (n_colls) atomicAdd(&p.counts[1], n_colls);
+    if (n_working) atomicAdd(&p.counts[2], n_working);
+  }
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes by flight_kernel.py.
+
+extern "C" int nt_flight_params_size() {
+  return static_cast<int>(sizeof(FlightParams));
+}
+
+extern "C" int nt_flight_max_rects() { return kMaxRegions; }
+
+// Launches one round of up to p->max_pieces pieces over all p->n lanes on
+// `stream` and returns cudaGetLastError() (0 when the launch was accepted).
+extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
+  if (p->n <= 0) return 0;
+  const long long blocks = (p->n + kThreads - 1) / kThreads;
+  flight_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -30,7 +30,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-constexpr int kMaxRegions = 16;
+#include "common.cuh"
+
+using nt::kMaxRegions;
 
 // Layout shared with sweep_kernel._SweepParams (ctypes); nt_params_size()
 // lets the wrapper check that the two agree.  It has external linkage, so
@@ -70,96 +72,9 @@ struct SweepParams {
 
 namespace {
 
+using namespace nt;
+
 constexpr int kThreads = 128;
-
-// Constants as the plain version rounds them: the float64 value, then one
-// rounding to float32 (neutral_tpu's np.float32(v)).
-constexpr double kAvogadros = 6.02214085774e23;
-constexpr double kMolarMass = 1.0e-2;
-constexpr double kEvToJ = 1.60217646e-19;
-constexpr double kParticleMass = 1.674927471213e-27;
-constexpr double kMassNo = 1.0e2;
-
-constexpr float kInvMolar = static_cast<float>(kAvogadros / kMolarMass);
-constexpr float kBarns = static_cast<float>(1.0e-28);
-constexpr float kAvgScatterFrac = static_cast<float>(
-    (kMassNo * kMassNo + kMassNo + 1.0) / ((kMassNo + 1.0) * (kMassNo + 1.0)));
-constexpr float kSpeedCoef = static_cast<float>(2.0 * kEvToJ / kParticleMass);
-constexpr float kMinEnergy = static_cast<float>(1.0);
-constexpr float kObc = static_cast<float>(1.0e-13);
-constexpr float kA = static_cast<float>(kMassNo);
-constexpr float kE8 = static_cast<float>(1.0e8);
-constexpr float kEm2 = static_cast<float>(1.0e-2);
-constexpr float kEm8 = static_cast<float>(1.0e-8);
-constexpr float kE3 = static_cast<float>(1.0e3);
-constexpr float kTwoM32 = 0x1p-32f;
-constexpr float kTwoM33 = 0x1p-33f;
-
-__device__ __forceinline__ uint64_t rotl64(uint64_t v, int r) {
-  return (v << r) | (v >> (64 - r));
-}
-
-// Threefry-2x64, 20 rounds (Salmon et al., SC'11), with the key schedule of
-// Random123's threefry2x64 as the reference uses it.
-__device__ __forceinline__ void threefry2x64(uint64_t c0, uint64_t c1,
-                                             uint64_t k0, uint64_t k1,
-                                             uint64_t& o0, uint64_t& o1) {
-  const uint64_t ks[3] = {k0, k1, 0x1BD11BDAA9FC1A22ULL ^ k0 ^ k1};
-  constexpr int kRot[8] = {16, 42, 12, 31, 16, 32, 24, 21};
-  uint64_t x0 = c0 + k0;
-  uint64_t x1 = c1 + k1;
-#pragma unroll
-  for (int r = 0; r < 20; ++r) {
-    x0 += x1;
-    x1 = rotl64(x1, kRot[r % 8]);
-    x1 ^= x0;
-    if ((r + 1) % 4 == 0) {
-      const int j = (r + 1) / 4;
-      x0 += ks[j % 3];
-      x1 += ks[(j + 1) % 3] + static_cast<uint64_t>(j);
-    }
-  }
-  o0 = x0;
-  o1 = x1;
-}
-
-// Pair draw (ctr = (counter, 0), key = (pid, master_key)) mapped to float32
-// from the high words: u = hi * 2^-32 + 2^-33, strictly inside (0, 1).
-__device__ __forceinline__ void uniform2_f32(uint64_t pid, uint64_t master_key,
-                                             uint64_t counter, float& u0,
-                                             float& u1) {
-  uint64_t v0, v1;
-  threefry2x64(counter, 0, pid, master_key, v0, v1);
-  u0 = __uint2float_rn(static_cast<uint32_t>(v0 >> 32)) * kTwoM32 + kTwoM33;
-  u1 = __uint2float_rn(static_cast<uint32_t>(v1 >> 32)) * kTwoM32 + kTwoM33;
-}
-
-// Analytic resonance table (xs.CrossSection analytic mode): keys and
-// values of the generated grid in closed form.
-__device__ __forceinline__ float key_at(int i, float m) {
-  const float t = (static_cast<float>(i) + 1.0f) / m;
-  const float t2 = t * t;
-  return kE8 * (t2 * t2) + kEm2;
-}
-
-__device__ __forceinline__ float val_at(int i, float m) {
-  return kE3 * ((m - static_cast<float>(i)) / m) + 1.0f;
-}
-
-__device__ __forceinline__ float xs_lookup(float e, int n) {
-  const float m = static_cast<float>(n);
-  const float u = sqrtf(sqrtf((e - kEm2) * kEm8));
-  int idx = static_cast<int>(floorf(u * m)) - 1;
-  idx = min(max(idx, 0), n - 2);
-  if (e < key_at(idx, m)) idx -= 1;
-  if (e >= key_at(min(max(idx + 1, 0), n - 1), m)) idx += 1;
-  idx = min(max(idx, 0), n - 2);
-  const float k0 = key_at(idx, m);
-  const float k1 = key_at(idx + 1, m);
-  const float v0 = val_at(idx, m);
-  const float v1 = val_at(idx + 1, m);
-  return v0 + ((e - k0) / (k1 - k0)) * (v1 - v0);
-}
 
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const SweepParams p) {
@@ -237,35 +152,9 @@ sweep_kernel(const SweepParams p) {
       // mean free path ----
       bool died = false;
       if (is_coll) {
-        const float p_absorb = mac_a / mac_t;
-        float rn1a, rn1b;
-        uniform2_f32(pid, p.master_key, counter, rn1a, rn1b);
-        if (rn1a < p_absorb) {
-          weight = weight * (1.0f - p_absorb);
-          died = energy < kMinEnergy;
-        } else {
-          const float mu_cm = 1.0f - 2.0f * rn1b;
-          const float e_new =
-              energy * ((kA * kA + (2.0f * kA) * mu_cm) + 1.0f) /
-              ((kA + 1.0f) * (kA + 1.0f));
-          const float cos_t = 0.5f * ((kA + 1.0f) * sqrtf(e_new / energy) -
-                                      (kA - 1.0f) * sqrtf(energy / e_new));
-          const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-          const float ox = omega_x * cos_t - omega_y * sin_t;
-          const float oy = omega_x * sin_t + omega_y * cos_t;
-          omega_x = ox;
-          omega_y = oy;
-          energy = e_new;
-        }
-        counter += 1;
-        if (!died) {
-          const float mac_s2 =
-              number_density * xs_lookup(energy, p.scatter_entries) * kBarns;
-          float rn2a, rn2b;
-          uniform2_f32(pid, p.master_key, counter, rn2a, rn2b);
-          counter += 1;
-          mfp = -logf(rn2a) / mac_s2;
-        }
+        died = collide(pid, p.master_key, counter, energy, weight, omega_x,
+                       omega_y, mfp, mac_a, mac_t, number_density,
+                       p.scatter_entries);
         dt = dt - d_coll / speed;
       }
       if (is_facet) {

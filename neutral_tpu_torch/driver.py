@@ -18,10 +18,17 @@ line with the reference and with the JAX package:
     Final Wallclock <s>
     Elapsed Simulation Time <s>
 
-Engines: `kernel` runs each census through the CUDA sweep kernel
-(sweep_kernel.py) and needs a CUDA device; `plain` runs the plain PyTorch
-event sweeps (transport.py) on any device, and on CUDA only when asked for
-by name; `auto` is `kernel` on CUDA and `plain` on the CPU.
+Two choices decide how a census runs.  The transport: `sweep` steps each
+particle one event (facet, collision or census) at a time (transport.py);
+`flight` moves it one closed-form flight piece at a time across any number
+of cells and deposits the interior cells as line segments (flight.py,
+raster.py).  `auto` takes flight when the deck has a region of density
+below 1.0 (a near-vacuum region, where facet events dominate: stream, csp,
+split) and sweep otherwise (scatter).  The engine: `kernel` runs the
+census through the transport's CUDA kernels (sweep_kernel.py, or
+flight_kernel.py with raster_kernel.py) and needs a CUDA device; `plain`
+runs the plain PyTorch version on any device, and on CUDA only when asked
+for by name; `auto` is `kernel` on CUDA and `plain` on the CPU.
 
 The JAX driver's power-of-4 compaction ladder is not ported: it exists
 because masked sweeps pay for dead lanes, and a thread-per-lane kernel
@@ -42,6 +49,8 @@ import torch
 
 from .config import SimConfig, load_config
 from .constants import VALIDATE_TOLERANCE
+from .flight import disjoint_rects, flight_chunk_plain
+from .flight_kernel import MAX_PIECES, flight_chunk_kernel
 from .mesh import build_mesh, region_cell_bounds
 from .particles import inject_particles
 from .profiler import Profile
@@ -50,6 +59,7 @@ from .transport import Geometry, begin_timestep, use_local_coords
 from .xs import CrossSection, find_cs_files
 
 ENGINES = ("auto", "plain", "kernel")
+TRANSPORTS = ("auto", "sweep", "flight")
 
 
 def load_cross_sections(cfg: SimConfig, dtype: torch.dtype, device
@@ -72,8 +82,9 @@ def load_cross_sections(cfg: SimConfig, dtype: torch.dtype, device
 
 
 def make_geometry(cfg: SimConfig) -> Geometry:
-    """Geometry of the whole domain: uniform pitch and the problem
-    regions as cell rectangles (mesh.region_cell_bounds)."""
+    """Geometry of the whole domain: uniform pitch, the problem regions as
+    cell rectangles (mesh.region_cell_bounds) and their disjoint partition
+    for the flight transport (flight.disjoint_rects)."""
     if cfg.uses_density_grid:
         raise NotImplementedError(
             "density grids (density_file, fast_math=False) are not ported "
@@ -84,9 +95,21 @@ def make_geometry(cfg: SimConfig) -> Geometry:
     if cfg.rng != "threefry":
         raise NotImplementedError(
             f"rng {cfg.rng!r} is not ported yet (ROADMAP: pcg64si)")
+    regions = region_cell_bounds(cfg)
     return Geometry(nx=cfg.nx, ny=cfg.ny, dx=cfg.width / cfg.nx,
-                    dy=cfg.height / cfg.ny, regions=region_cell_bounds(cfg),
-                    rng_scheme=cfg.rng)
+                    dy=cfg.height / cfg.ny, regions=regions,
+                    rng_scheme=cfg.rng,
+                    rects=disjoint_rects(regions, cfg.nx, cfg.ny))
+
+
+def auto_transport(cfg: SimConfig) -> str:
+    """`neutral_tpu`'s rule for its free-flight engine, on every device:
+    flight for a uniform analytic deck with a region of density below 1.0
+    (near-vacuum regions, where facet events dominate), else sweep."""
+    if (cfg.fast_math and cfg.uniform_mesh and not cfg.density_file
+            and any(r.density < 1.0 for r in cfg.problems)):
+        return "flight"
+    return "sweep"
 
 
 @dataclass
@@ -96,10 +119,14 @@ class StepMetrics:
     nfacets: int
     ncollisions: int
     nprocessed: int
-    nsweeps: int          # plain engine: event sweeps run
-    nlaunches: int        # kernel engine: kernel launches
-    # Wall-clock split of the step: "begin" (begin_timestep, up to the
-    # host read of the live count) and "sweep" (the census sweeps).
+    nsweeps: int          # plain engine: sweeps run (events or pieces)
+    nlaunches: int        # kernel engine: sweep or flight kernel launches
+    # Split of the step, in seconds: "begin" (begin_timestep, up to the host
+    # read of the live count; wall clock), then for the sweep transport
+    # "sweep" (the census; wall clock), for the flight transport "flight"
+    # and "raster" (the pieces and the segment deposits: device time from
+    # CUDA events with the kernel engine, wall clock with the plain one)
+    # and "loop" (the rest of the census's wall time: the host loop).
     phases: dict
 
 
@@ -114,7 +141,7 @@ class Simulation:
     """Single-device simulation on a CUDA device or the CPU."""
 
     def __init__(self, cfg: SimConfig, *, device="cpu", engine: str = "auto",
-                 quiet: bool = False):
+                 transport: str = "auto", quiet: bool = False):
         if cfg.visit_dump:
             raise NotImplementedError("visit_dump output is not ported yet "
                                       "(ROADMAP: io_utils)")
@@ -130,6 +157,11 @@ class Simulation:
             raise ValueError("engine='kernel' needs a CUDA device, got "
                              f"{self.device}")
         self.engine = engine
+        if transport not in TRANSPORTS:
+            raise ValueError(f"transport must be one of {TRANSPORTS}, got "
+                             f"{transport}")
+        self.transport = (auto_transport(cfg) if transport == "auto"
+                          else transport)
 
         self.geom = make_geometry(cfg)
         self.mesh = build_mesh(cfg, dtype=self.dtype, device=self.device)
@@ -142,7 +174,10 @@ class Simulation:
                                 self.cs_absorb.values)):
             self.geom = dataclasses.replace(self.geom, same_xs=True)
 
-        local = use_local_coords(self.geom, self.dtype)
+        # Flight pieces span many cells: the flight transport keeps global
+        # positions in every dtype.
+        local = (self.transport == "sweep"
+                 and use_local_coords(self.geom, self.dtype))
         self.state = inject_particles(
             self.mesh, nparticles=cfg.nparticles,
             source_x0=cfg.source.xpos * cfg.width,
@@ -173,19 +208,28 @@ class Simulation:
         nprocessed = int((~state.dead).sum())     # waits for the device
         t_begin = time.perf_counter()
         inv_ntotal = 1.0 / self.cfg.nparticles
+        args = (state, self.tally, self.geom, self.cs_scatter,
+                self.cs_absorb, tt, inv_ntotal)
         nsweeps = nlaunches = 0
-        if self.engine == "kernel":
-            state, nf, nc, nlaunches = sweep_chunk_kernel(
-                state, self.tally, self.geom, self.cs_scatter,
-                self.cs_absorb, tt, inv_ntotal)
+        parts = {}
+        if self.transport == "flight":
+            if self.engine == "kernel":
+                state, nf, nc, nlaunches, parts = flight_chunk_kernel(*args)
+            else:
+                state, nf, nc, nsweeps, parts = flight_chunk_plain(*args)
+        elif self.engine == "kernel":
+            state, nf, nc, nlaunches = sweep_chunk_kernel(*args)
         else:
-            state, nf, nc, nsweeps = sweep_chunk_plain(
-                state, self.tally, self.geom, self.cs_scatter,
-                self.cs_absorb, tt, inv_ntotal)
+            state, nf, nc, nsweeps = sweep_chunk_plain(*args)
         self.state = state
         step_time = self.profile.stop(f"step{tt}")
-        phases = {"begin": t_begin - t0,
-                  "sweep": time.perf_counter() - t_begin}
+        census = time.perf_counter() - t_begin
+        phases = {"begin": t_begin - t0}
+        if self.transport == "flight":
+            phases.update(parts)
+            phases["loop"] = census - parts["flight"] - parts["raster"]
+        else:
+            phases["sweep"] = census
         m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
                         ncollisions=nc, nprocessed=nprocessed,
                         nsweeps=nsweeps, nlaunches=nlaunches, phases=phases)
@@ -199,7 +243,14 @@ class Simulation:
             out(f"\nIteration  {tt}")
             m = self.step(tt)
             self.wallclock += m.step_time
-            if self.engine == "kernel":
+            if self.engine == "kernel" and self.transport == "flight":
+                # As below, with flight pieces: a piece is one collision,
+                # rect exit or census, crossing any number of cells.
+                out(f"Handled {m.nprocessed} particles, with "
+                    f"{m.nlaunches * MAX_PIECES} event sweeps "
+                    f"({m.nlaunches} flight kernel launches x {MAX_PIECES} "
+                    "flight pieces)")
+            elif self.engine == "kernel":
                 # No sweeps exist here: each lane runs its events in one
                 # thread.  The count printed in their place is kernel
                 # launches x events per lane per launch, a bound on the
@@ -208,6 +259,10 @@ class Simulation:
                     f"{m.nlaunches * MAX_EVENTS} event sweeps "
                     f"({m.nlaunches} kernel launches x {MAX_EVENTS} "
                     "events)")
+            elif self.transport == "flight":
+                out(f"Handled {m.nprocessed} particles, with {m.nsweeps} "
+                    "event sweeps (flight sweeps: one flight piece per "
+                    "lane each)")
             else:
                 out(f"Handled {m.nprocessed} particles, "
                     f"with {m.nsweeps} event sweeps")
@@ -261,7 +316,7 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         prog="neutral_tpu_torch",
         description="Monte Carlo neutral-particle transport in PyTorch, "
-                    "with a CUDA sweep kernel")
+                    "with CUDA sweep, flight and segment-deposit kernels")
     p.add_argument("params", help="problem deck (.params file)")
     p.add_argument("--dtype", default=None, choices=["float32", "float64"],
                    help="compute and tally dtype (default: float32)")
@@ -272,8 +327,13 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--mesh-scale", type=int, default=None,
                    help="divide nx/ny by this factor (quick runs)")
     p.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="kernel = CUDA sweep kernel; plain = PyTorch event "
-                        "sweeps; auto = kernel on CUDA, plain on the CPU")
+                   help="kernel = the transport's CUDA kernels; plain = "
+                        "their plain PyTorch versions; auto = kernel on "
+                        "CUDA, plain on the CPU")
+    p.add_argument("--transport", default="auto", choices=TRANSPORTS,
+                   help="sweep = one event per step; flight = closed-form "
+                        "flight pieces and segment deposits; auto = flight "
+                        "when a region has density below 1.0, else sweep")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda when available, "
                         "else cpu)")
@@ -296,8 +356,10 @@ def main(argv: list[str] | None = None) -> int:
             else "cpu")
     print(f"Starting up on device {device} ({name}).")
     print(f"Loading problem from {args.params}.")
-    sim = Simulation(cfg, device=device, engine=args.engine)
+    sim = Simulation(cfg, device=device, engine=args.engine,
+                     transport=args.transport)
     print(f"Engine: {sim.engine}.")
+    print(f"Transport: {sim.transport}.")
     sim.run()
     return 0
 

@@ -1,0 +1,162 @@
+"""The flight kernel (csrc/flight.cu) and its host loop.
+
+Counterpart of `neutral_tpu/pallas_flight.py`.  `flight_chunk_kernel` runs
+every lane to census or death with the hand-written CUDA flight kernel:
+one thread per lane, each running up to `max_pieces` flight pieces per
+launch (`max_pieces` means exactly that: pieces per lane per launch).
+Flushes go into the tally by atomicAdd; segment rows go to a buffer of
+n * max_pieces rows through an atomic counter, so no launch can overflow
+it.  Per round the host launches the flight kernel, launches the
+segment-deposit kernel (raster_kernel.py) on the buffer, whose row count
+it reads on the device, resets the counter, and reads back 8 bytes: how
+many lanes still have work.  All per-history state lives in the state
+tensors between launches, so the number of launches changes nothing in the
+result.
+
+The plain version is `flight.flight_chunk_plain`.  `flight_chunk_kernel`
+launches the kernel or raises: on a state that does not lie on a CUDA
+device, and on any configuration the kernel does not implement.
+`flight_chunk_kernel.launches` counts flight-kernel launches; callers may
+reset it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+from .particles import ParticleState
+from .raster_kernel import deposit_segments_kernel
+from .sweep_kernel import MAX_REGIONS, check_inputs, state_pointers
+from .transport import Geometry
+from .xs import CrossSection
+
+MAX_PIECES = 64            # flight pieces per lane per launch
+
+
+class _FlightParams(ctypes.Structure):
+    """Mirror of `FlightParams` in csrc/flight.cu."""
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in (
+            "x", "y", "omega_x", "omega_y", "energy", "weight",
+            "dt_to_census", "mfp_to_collision", "deposit", "cellx",
+            "celly", "dead", "pid", "counter", "tally", "segs", "counts")]
+        + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64),
+           ("seg_cap", ctypes.c_int64)]
+        + [(f, ctypes.c_int) for f in (
+            "max_pieces", "nx", "ny", "scatter_entries", "absorb_entries",
+            "same_xs")]
+        + [(f, ctypes.c_float) for f in (
+            "dx", "dy", "inv_dx", "inv_dy", "inv_ntotal")]
+        + [("nrects", ctypes.c_int),
+           ("rect_bounds", ctypes.c_int * (4 * MAX_REGIONS)),
+           ("rect_density", ctypes.c_float * MAX_REGIONS)])
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    lib = build.load()
+    lib.nt_flight_params_size.argtypes = []
+    lib.nt_flight_params_size.restype = ctypes.c_int
+    lib.nt_flight_max_rects.argtypes = []
+    lib.nt_flight_max_rects.restype = ctypes.c_int
+    lib.nt_flight_launch.argtypes = [ctypes.POINTER(_FlightParams),
+                                     ctypes.c_void_p]
+    lib.nt_flight_launch.restype = ctypes.c_int
+    if (lib.nt_flight_params_size() != ctypes.sizeof(_FlightParams)
+            or lib.nt_flight_max_rects() != MAX_REGIONS):
+        raise RuntimeError("csrc/flight.cu FlightParams does not match "
+                           "flight_kernel._FlightParams")
+    return lib
+
+
+def _params(state: ParticleState, tally: torch.Tensor, segbuf: torch.Tensor,
+            counts: torch.Tensor, geom: Geometry, scatter_tab: CrossSection,
+            absorb_tab: CrossSection, master_key: int, inv_ntotal: float,
+            max_pieces: int) -> _FlightParams:
+    p = _FlightParams()
+    state_pointers(p, state)
+    p.tally = tally.data_ptr()
+    p.segs = segbuf.data_ptr()
+    p.counts = counts.data_ptr()
+    p.master_key = int(master_key)
+    p.n = state.n
+    p.seg_cap = segbuf.shape[0]
+    p.max_pieces = int(max_pieces)
+    p.nx, p.ny = geom.nx, geom.ny
+    p.scatter_entries = scatter_tab.nentries
+    p.absorb_entries = absorb_tab.nentries
+    p.same_xs = int(geom.same_xs)
+    # ctypes rounds each Python float to float32 as np.float32 does, as
+    # xs.const does for the plain version.
+    p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
+    p.inv_dx, p.inv_dy = 1.0 / geom.dx, 1.0 / geom.dy
+    p.nrects = len(geom.rects)
+    for r, (ix0, ix1, iy0, iy1, d) in enumerate(geom.rects):
+        p.rect_bounds[4 * r:4 * r + 4] = [ix0, ix1, iy0, iy1]
+        p.rect_density[r] = d
+    return p
+
+
+def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
+                        geom: Geometry, scatter_tab: CrossSection,
+                        absorb_tab: CrossSection, master_key: int,
+                        inv_ntotal: float, max_pieces: int = MAX_PIECES,
+                        segments: list | None = None):
+    """Run every lane to census or death with the CUDA flight kernel.
+
+    Updates `state`'s tensors and `tally` in place.  When `segments` is a
+    list, each round's segment rows are appended to it as an (nseg, 5)
+    copy (one more host read per round; for checks).  Returns (state,
+    nfacets, ncollisions, nlaunches, phases) with `phases` the device
+    seconds of the flight launches ("flight") and of the segment deposits
+    ("raster"), from CUDA events.
+    """
+    if geom.rects is None:
+        raise ValueError("flight kernel needs geom.rects")
+    check_inputs(state, tally, geom, scatter_tab, absorb_tab,
+                 "flight kernel", geom.rects)
+    if max_pieces < 1:
+        raise ValueError(f"max_pieces must be >= 1, got {max_pieces}")
+    lib = load_library()
+    dev = state.device
+    # [facets, collisions, lanes still working, segment rows written]
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    segbuf = torch.empty((state.n * max_pieces, 5), dtype=torch.float32,
+                         device=dev)
+    params = _params(state, tally, segbuf, counts, geom, scatter_tab,
+                     absorb_tab, master_key, inv_ntotal, max_pieces)
+    launches = 0
+    marks = []
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        while True:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            build.check_launch(
+                lib, lib.nt_flight_launch(ctypes.byref(params), stream),
+                "flight kernel")
+            flight_chunk_kernel.launches += 1
+            launches += 1
+            ev[1].record()
+            deposit_segments_kernel(tally, segbuf, counts[3:4], geom.nx,
+                                    geom.ny)
+            ev[2].record()
+            marks.append(ev)
+            if segments is not None:
+                segments.append(segbuf[:int(counts[3])].clone())
+            counts[3].zero_()
+            if int(counts[2]) == 0:      # waits for both launches
+                break
+            counts[2].zero_()
+    phases = {"flight": sum(e[0].elapsed_time(e[1]) for e in marks) / 1e3,
+              "raster": sum(e[1].elapsed_time(e[2]) for e in marks) / 1e3}
+    nf, nc = (int(v) for v in counts[:2].tolist())
+    return state, nf, nc, launches, phases
+
+
+flight_chunk_kernel.launches = 0

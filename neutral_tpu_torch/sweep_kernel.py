@@ -10,10 +10,10 @@ included, lives in the state tensors between launches, so the number of
 launches changes nothing in the result.
 
 `sweep_chunk_plain` is the plain PyTorch version (transport.sweep_chunk run
-to completion).  `sweep_chunk_kernel` hands a state that lies on the CPU
-to it, since no kernel runs there, and reports 0 launches; a CUDA state
-always goes to the kernel, which raises on any configuration it does not
-implement.
+to completion).  `sweep_chunk_kernel` launches the kernel or raises: on a
+state that does not lie on a CUDA device, and on any configuration the
+kernel does not implement.  Choosing the plain version is the caller's
+(the driver's `engine`).
 
 `sweep_chunk_kernel.launches` counts kernel launches and
 `sweep_chunk_plain.calls` counts plain runs; callers may reset both.
@@ -33,7 +33,7 @@ from .transport import Geometry
 from .xs import CrossSection
 
 MAX_EVENTS = 4096          # events per lane per launch
-_MAX_REGIONS = 16
+MAX_REGIONS = 16           # density regions or rects (csrc/common.cuh)
 
 
 class _SweepParams(ctypes.Structure):
@@ -49,15 +49,14 @@ class _SweepParams(ctypes.Structure):
             "same_xs")]
         + [(f, ctypes.c_float) for f in ("dx", "dy", "inv_ntotal")]
         + [("nregions", ctypes.c_int),
-           ("region_bounds", ctypes.c_int * (4 * _MAX_REGIONS)),
-           ("region_density", ctypes.c_float * _MAX_REGIONS)])
+           ("region_bounds", ctypes.c_int * (4 * MAX_REGIONS)),
+           ("region_density", ctypes.c_float * MAX_REGIONS)])
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
-    path, _ = build.build()
-    lib = ctypes.CDLL(str(path))
+    lib = build.load()
     lib.nt_params_size.argtypes = []
     lib.nt_params_size.restype = ctypes.c_int
     lib.nt_max_regions.argtypes = []
@@ -65,10 +64,8 @@ def load_library() -> ctypes.CDLL:
     lib.nt_sweep_launch.argtypes = [ctypes.POINTER(_SweepParams),
                                     ctypes.c_void_p]
     lib.nt_sweep_launch.restype = ctypes.c_int
-    lib.nt_error_string.argtypes = [ctypes.c_int]
-    lib.nt_error_string.restype = ctypes.c_char_p
     if (lib.nt_params_size() != ctypes.sizeof(_SweepParams)
-            or lib.nt_max_regions() != _MAX_REGIONS):
+            or lib.nt_max_regions() != MAX_REGIONS):
         raise RuntimeError("csrc/sweep.cu SweepParams does not match "
                            "sweep_kernel._SweepParams")
     return lib
@@ -83,12 +80,27 @@ _DTYPES = {"x": torch.float32, "y": torch.float32,
            "counter": torch.int64}
 
 
-def _check(state: ParticleState, tally: torch.Tensor, geom: Geometry,
-           scatter_tab: CrossSection, absorb_tab: CrossSection) -> None:
-    """Raise unless the kernel implements this configuration."""
+def check_inputs(state: ParticleState, tally: torch.Tensor, geom: Geometry,
+                 scatter_tab: CrossSection, absorb_tab: CrossSection,
+                 what: str, rects: tuple) -> None:
+    """Raise unless the kernel `what` implements this configuration: CUDA
+    tensors of the kernel's dtypes, a uniform pitch, threefry, analytic
+    cross-sections and at most 16 density `rects`."""
+    if not geom.dx:
+        raise ValueError(f"{what} needs a uniform-pitch mesh (geom.dx)")
+    if geom.rng_scheme != "threefry":
+        raise NotImplementedError(f"{what}: only threefry draws are "
+                                  "ported (ROADMAP: pcg64si)")
+    if not (scatter_tab.analytic and absorb_tab.analytic):
+        raise NotImplementedError(f"{what}: only analytic cross-"
+                                  "sections are ported (ROADMAP: kernel 1 "
+                                  "table mode)")
+    if len(rects) > MAX_REGIONS:
+        raise ValueError(f"{what} takes at most {MAX_REGIONS} density "
+                         f"rectangles, got {len(rects)}")
     dev = state.device
     if dev.type != "cuda":
-        raise ValueError(f"sweep kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
     for f, dt in _DTYPES.items():
         t = getattr(state, f)
         if t.device != dev or t.dtype != dt or t.shape != (state.n,) \
@@ -101,18 +113,12 @@ def _check(state: ParticleState, tally: torch.Tensor, geom: Geometry,
             or not tally.is_contiguous()):
         raise ValueError("tally: expected a contiguous float32 "
                          f"({geom.nx * geom.ny},) tensor on {dev}")
-    if not transport.use_local_coords(geom, torch.float32):
-        raise ValueError("sweep kernel needs a uniform-pitch mesh (geom.dx)")
-    if geom.rng_scheme != "threefry":
-        raise NotImplementedError("sweep kernel: only threefry draws are "
-                                  "ported (ROADMAP: pcg64si)")
-    if not (scatter_tab.analytic and absorb_tab.analytic):
-        raise NotImplementedError("sweep kernel: only analytic cross-"
-                                  "sections are ported (ROADMAP: kernel 1 "
-                                  "table mode)")
-    if len(geom.regions) > _MAX_REGIONS:
-        raise ValueError(f"sweep kernel takes at most {_MAX_REGIONS} "
-                         f"regions, got {len(geom.regions)}")
+
+
+def state_pointers(p: ctypes.Structure, state: ParticleState) -> None:
+    """Set the 14 state pointer fields of a kernel's parameter struct."""
+    for f in _DTYPES:
+        setattr(p, f, getattr(state, f).data_ptr())
 
 
 def _params(state: ParticleState, tally: torch.Tensor, counts: torch.Tensor,
@@ -120,8 +126,7 @@ def _params(state: ParticleState, tally: torch.Tensor, counts: torch.Tensor,
             absorb_tab: CrossSection, master_key: int, inv_ntotal: float,
             max_events: int) -> _SweepParams:
     p = _SweepParams()
-    for f in _DTYPES:
-        setattr(p, f, getattr(state, f).data_ptr())
+    state_pointers(p, state)
     p.tally = tally.data_ptr()
     p.counts = counts.data_ptr()
     p.master_key = int(master_key)
@@ -166,15 +171,10 @@ def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     """Run every lane to census or death with the CUDA sweep kernel.
 
     Updates `state`'s tensors and `tally` in place (no copy of the 14
-    state arrays).  Returns (state, nfacets, ncollisions, nlaunches).  A
-    state on the CPU goes to sweep_chunk_plain instead, with nlaunches 0.
+    state arrays).  Returns (state, nfacets, ncollisions, nlaunches).
     """
-    if state.device.type == "cpu":
-        state, nf, nc, _ = sweep_chunk_plain(state, tally, geom, scatter_tab,
-                                             absorb_tab, master_key,
-                                             inv_ntotal)
-        return state, nf, nc, 0
-    _check(state, tally, geom, scatter_tab, absorb_tab)
+    check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel",
+                 geom.regions)
     if max_events < 1:
         raise ValueError(f"max_events must be >= 1, got {max_events}")
     lib = load_library()
@@ -186,10 +186,9 @@ def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream().cuda_stream
         while True:
-            err = lib.nt_sweep_launch(ctypes.byref(params), stream)
-            if err != 0:
-                raise RuntimeError("sweep kernel launch failed: "
-                                   f"{lib.nt_error_string(err).decode()}")
+            build.check_launch(
+                lib, lib.nt_sweep_launch(ctypes.byref(params), stream),
+                "sweep kernel")
             sweep_chunk_kernel.launches += 1
             launches += 1
             if int(counts[2]) == 0:      # waits for the launch

@@ -54,6 +54,8 @@ class Geometry:
       background of 0 (mesh.region_cell_bounds).
     * ``same_xs`` — the absorb table equals the scatter table, so one
       lookup serves both.
+    * ``rects`` — disjoint constant-density cell rectangles covering the
+      domain (flight.disjoint_rects), for the flight transport.
     """
     nx: int
     ny: int
@@ -62,16 +64,19 @@ class Geometry:
     regions: tuple
     rng_scheme: str = "threefry"
     same_xs: bool = False
+    rects: tuple | None = None
 
 
 def use_local_coords(geom: Geometry, dtype: torch.dtype) -> bool:
-    """Whether particle x/y are CELL-LOCAL offsets instead of global.
+    """Whether the facet-stepping engine keeps particle x/y as CELL-LOCAL
+    offsets instead of global coordinates.
 
     float32 positions measured from the domain origin resolve a 4000-cell
     mesh to only ~1e-3 of a cell near the far edge; near-facet collisions
     then turn into spurious facet crossings (~100x on the scatter deck).
     Offsets from the particle's own cell keep ~1e-7 of a cell everywhere.
-    float64 keeps global coordinates.
+    float64 keeps global coordinates, and so does the flight transport in
+    every dtype (flight.flight_core).
     """
     return bool(geom.dx) and dtype == torch.float32
 

@@ -67,22 +67,23 @@ def test_pcg64si_deck_raises(tmp_path):
 
 
 def test_kernel_wrapper_on_cpu_runs_plain_version():
-    """A CPU state reaches the plain version through the kernel's wrapper:
-    the same result as sweep_chunk_plain, 0 launches, no launch counted."""
+    """The kernel's wrapper does not run the plain version for a CPU state:
+    it raises and launches nothing.  Choosing the plain version is the
+    driver's (`engine`), and on the CPU the driver runs it itself."""
     cfg = tt.load_config(DECK).with_(nparticles=500, nx=64, ny=64)
     sim = driver.Simulation(cfg, device="cpu", quiet=True)
+    assert sim.engine == "plain"
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
-    kt, pt = torch.zeros_like(sim.tally), torch.zeros_like(sim.tally)
+    kt = torch.zeros_like(sim.tally)
     launches0 = sweep_chunk_kernel.launches
-    ks, knf, knc, launches = sweep_chunk_kernel(start.clone(), kt, *args)
-    ps, pnf, pnc, _ = sweep_chunk_plain(start.clone(), pt, *args)
-    assert launches == 0 and sweep_chunk_kernel.launches == launches0
-    assert (knf, knc) == (pnf, pnc) and knc > 0
-    for f in STATE_FIELDS:
-        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
-    assert torch.equal(kt, pt)
+    calls0 = sweep_chunk_plain.calls
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep_chunk_kernel(start.clone(), kt, *args)
+    assert sweep_chunk_kernel.launches == launches0
+    assert sweep_chunk_plain.calls == calls0
+    assert not kt.any()
 
 
 @pytest.mark.cuda
