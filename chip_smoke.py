@@ -38,7 +38,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    tally, 1.1201464e7, within 1e-3).  The flight and segment-deposit
    kernels must have launched in every run, and no plain version may have
    run.  Events/s per step and peak device memory are printed.
-8. Result: a JSON line on the kernels, then the JSON result line.
+8. pcg64si: copies of the decks with `rng pcg64si` in a temporary
+   directory (each keeps its basename, so that the golden is found in
+   problems/neutral_pcg.tests).  The sweep kernel against its plain
+   version on scatter, and the flight kernel on stream and split, at
+   1,000,000 particles, exactly as in phases 3 and 5; then all four decks
+   at full size through `driver.main`, each printing `PASSED validation.`
+   against its pcg64si golden (made by the native engine, so csp has no
+   outlier exception here).
+9. Table mode: copies of scatter and split beside `elastic_scatter.cs` and
+   `capture.cs`, the resonance formula resampled at 30,000 log-spaced
+   energies (xs.resonance_log_table: not on the quartic grid, 4.3e-8 from
+   the generated table over 1 eV - 1 MeV).  Sweep kernel on scatter and
+   flight kernel on split against their plain versions at 1M; both decks
+   at full size through `driver.main`, `PASSED validation.`
+10. Grid mode: the sweep kernel against its plain version at 1M on the
+   scatter deck with a random 4000^2 density grid with 25% vacuum cells;
+   then the scatter deck with its own density as `density_file` at full
+   size through `driver.main`: `PASSED validation.`, and per-step facet
+   and collision counts equal to phase 4's region run.
+   Every main path of phases 8-10 must show kernel launches and no plain
+   run, as phases 4 and 7 do.
+11. Result: a JSON line on the kernels (each with the times of every mode
+   it ran), then the JSON result line.
 """
 
 from __future__ import annotations
@@ -47,9 +69,12 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SCATTER = "problems/scatter.params"
@@ -57,6 +82,7 @@ COMPARE_SIZES = (65_536, 1_000_000, 10_000_000)
 FLIGHT_DECKS = ("problems/stream.params", "problems/split.params",
                 "problems/csp.params")
 CSP_OMP3_TALLY = 1.1201464e7     # omp3's converged csp tally (BASELINE.md)
+MODE_N = 1_000_000               # particles of the phase 8-10 comparisons
 
 
 class _Tee(io.TextIOBase):
@@ -104,15 +130,18 @@ def timed(torch, fn, *args, **kw):
 
 
 def compare(nparticles: int, torch, driver, transport, sweep_kernel,
-            fields):
-    """Phase 3 at one size: returns (kernel_ms, plain_ms, max_abs_err).
+            fields, deck=SCATTER, label="compare"):
+    """Phase 3 at one size (and phases 8-10 on `deck`): returns
+    (kernel_ms, plain_ms, max_abs_err).
 
     Besides the timed runs, the kernel runs once more with 64 events per
     launch, so that one census takes many launches; its state must be
     equal too (the main path's census fits in one launch)."""
-    cfg = driver.load_config(SCATTER).with_(nparticles=nparticles,
-                                            expected_tally=None)
+    cfg = driver.load_config(deck).with_(nparticles=nparticles,
+                                         expected_tally=None)
     sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+    if sim.transport != "sweep":
+        fail(f"{label}: auto picked the {sim.transport} transport")
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
@@ -125,35 +154,35 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     run(sweep_kernel.sweep_chunk_kernel)            # warm-up
     k_ms, ks, knf, knc, kt = run(sweep_kernel.sweep_chunk_kernel)
     p_ms, ps, pnf, pnc, pt = run(sweep_kernel.sweep_chunk_plain)
-    print(f"[compare n={nparticles}] kernel {k_ms:.3f} ms, plain "
+    print(f"[{label} n={nparticles}] kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms; facets {knf} / {pnf}, collisions {knc} / {pnc}",
           flush=True)
     if (knf, knc) != (pnf, pnc):
-        fail(f"n={nparticles}: event counts differ: kernel {(knf, knc)} "
+        fail(f"{label} n={nparticles}: event counts differ: kernel {(knf, knc)} "
              f"plain {(pnf, pnc)}")
     if knc == 0:
-        fail(f"n={nparticles}: no collisions, the comparison is empty")
+        fail(f"{label} n={nparticles}: no collisions, the comparison is empty")
     f = differing_field(ks, ps, torch, fields)
     if f is not None:
         n_bad = int((getattr(ks, f) != getattr(ps, f)).sum())
-        fail(f"n={nparticles}: state.{f} differs on {n_bad} lanes")
+        fail(f"{label} n={nparticles}: state.{f} differs on {n_bad} lanes")
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
     rel = abs(ksum - psum) / abs(psum)
-    print(f"[compare n={nparticles}] all {len(fields)} per-lane state fields "
+    print(f"[{label} n={nparticles}] all {len(fields)} per-lane state fields "
           "equal; tally sums "
           f"{ksum:.9e} / {psum:.9e} (rel {rel:.3e}), max abs err per cell "
           f"{max_abs_err:.3e}")
     if not rel <= 1e-5:
-        fail(f"n={nparticles}: tally sums differ by {rel:.3e} (> 1e-5)")
+        fail(f"{label} n={nparticles}: tally sums differ by {rel:.3e} (> 1e-5)")
     launches0 = sweep_kernel.sweep_chunk_kernel.launches
     _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel, max_events=64)
     nl = sweep_kernel.sweep_chunk_kernel.launches - launches0
     if nl < 2 or (cnf, cnc) != (pnf, pnc) or differing_field(
             cs, ps, torch, fields) is not None:
-        fail(f"n={nparticles}: the census in {nl} launches of 64 events "
+        fail(f"{label} n={nparticles}: the census in {nl} launches of 64 events "
              "differs from the plain version")
-    print(f"[compare n={nparticles}] 64 events per launch: {nl} launches, "
+    print(f"[{label} n={nparticles}] 64 events per launch: {nl} launches, "
           "counts and per-lane state equal")
     return k_ms, p_ms, max_abs_err
 
@@ -168,17 +197,18 @@ def sorted_rows(torch, segs):
 
 
 def compare_flight(deck: str, torch, driver, transport, flight,
-                   flight_kernel, fields):
-    """Phase 5 on one deck: returns (kernel_ms, plain_ms, max_abs_err,
-    segment rows of the kernel's census)."""
-    cfg = driver.load_config(deck).with_(expected_tally=None)
+                   flight_kernel, fields, label="flight"):
+    """Phase 5 on one deck (and phases 8-9): returns (kernel_ms, plain_ms,
+    max_abs_err, segment rows of the kernel's census)."""
+    cfg = driver.load_config(deck).with_(nparticles=MODE_N,
+                                         expected_tally=None)
     sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
     if sim.transport != "flight":
         fail(f"{deck}: auto picked the {sim.transport} transport")
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
-    name = deck.split("/")[-1].split(".")[0]
+    name = f"{label} {deck.split('/')[-1].split('.')[0]}"
 
     def run(fn, segments=None, **kw):
         state, tally = start.clone(), torch.zeros_like(sim.tally)
@@ -190,7 +220,7 @@ def compare_flight(deck: str, torch, driver, transport, flight,
     run(flight_kernel.flight_chunk_kernel, ksegs)   # warm-up, collects rows
     k_ms, ks, knf, knc, kl, kt = run(flight_kernel.flight_chunk_kernel)
     p_ms, ps, pnf, pnc, pn, pt = run(flight.flight_chunk_plain, psegs)
-    print(f"[flight {name}] kernel {k_ms:.3f} ms ({kl} launches), plain "
+    print(f"[{name}] kernel {k_ms:.3f} ms ({kl} launches), plain "
           f"{p_ms:.3f} ms ({pn} sweeps); facets {knf} / {pnf}, collisions "
           f"{knc} / {pnc}", flush=True)
     if (knf, knc) != (pnf, pnc):
@@ -209,7 +239,7 @@ def compare_flight(deck: str, torch, driver, transport, flight,
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
     rel = abs(ksum - psum) / abs(psum)
-    print(f"[flight {name}] all {len(fields)} per-lane state fields equal, "
+    print(f"[{name}] all {len(fields)} per-lane state fields equal, "
           f"{krows.shape[0]} segment rows equal as multisets; tally sums "
           f"{ksum:.9e} / {psum:.9e} (rel {rel:.3e}), max abs err per cell "
           f"{max_abs_err:.3e}")
@@ -222,7 +252,7 @@ def compare_flight(deck: str, torch, driver, transport, flight,
             or not torch.equal(sorted_rows(torch, csegs), prows)):
         fail(f"{name}: the census in {cl} launches of 1 piece differs from "
              "the plain version")
-    print(f"[flight {name}] 1 piece per launch: {cl} launches in "
+    print(f"[{name}] 1 piece per launch: {cl} launches in "
           f"{c_ms:.3f} ms, counts, per-lane state and segment rows equal")
     return k_ms, p_ms, max_abs_err, ksegs
 
@@ -255,14 +285,30 @@ def compare_raster(segs, torch, geom, raster, raster_kernel):
     return k_ms, p_ms, max_abs_err
 
 
+def deck_copy(src: str, dirpath: str, extra: str = "") -> str:
+    """A copy of deck `src` in `dirpath` under its own basename (so that
+    its golden is found by name), with `extra` lines appended."""
+    path = os.path.join(dirpath, os.path.basename(src))
+    shutil.copy(src, path)
+    with open(path, "a") as f:
+        f.write(extra)
+    return path
+
+
+def step_counts(out: str) -> list:
+    """[(facets, collisions), ...] per step of a driver.main output."""
+    return [(int(f), int(c)) for f, c in re.findall(
+        r"Facets\s+(\d+)\nCollisions\s+(\d+)", out)]
+
+
 def reset_counts(wrappers):
     for fn, attr in wrappers:
         setattr(fn, attr, 0)
 
 
-def main_path(deck, torch, driver, wrappers, argv=()):
+def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     """Run driver.main on `deck` with every count set to 0 just before;
-    returns (stdout, {wrapper name: count}) read just after."""
+    returns (stdout, tally, {wrapper name: count}) read just after."""
     reset_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
@@ -272,7 +318,7 @@ def main_path(deck, torch, driver, wrappers, argv=()):
     wall = time.perf_counter() - t0
     counts = {fn.__name__: getattr(fn, attr) for fn, attr in wrappers}
     out = tee.buf.getvalue()
-    name = deck.split("/")[-1].split(".")[0]
+    name = label or deck.split("/")[-1].split(".")[0]
     if rc != 0:
         fail(f"{name}: driver.main returned {rc}")
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
@@ -288,6 +334,117 @@ def main_path(deck, torch, driver, wrappers, argv=()):
           f"{wall:.1f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return out, total, counts
+
+
+def check_kernel_path(name: str, out: str, c: dict) -> tuple:
+    """Fail unless a main path of phases 8-10 printed `PASSED validation.`
+    and ran its transport's kernels and no plain version; returns its
+    (sweep, flight, segment-deposit) launch counts."""
+    if "PASSED validation." not in out:
+        fail(f"the full {name} deck did not print 'PASSED validation.'")
+    if c["sweep_chunk_plain"] != 0 or c["flight_chunk_plain"] != 0:
+        fail(f"{name} main path: counts {c} (a plain version ran)")
+    if "Transport: flight." in out:
+        ok = c["flight_chunk_kernel"] > 0 and c["deposit_segments_kernel"] > 0
+    else:
+        ok = c["sweep_chunk_kernel"] > 0
+    if not ok or "Engine: kernel." not in out:
+        fail(f"{name} main path: counts {c} (want kernel launches)")
+    return (c["sweep_chunk_kernel"], c["flight_chunk_kernel"],
+            c["deposit_segments_kernel"])
+
+
+def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
+              flight_kernel, fields, wrappers, scatter_counts) -> dict:
+    """Phases 8-10.  Returns the per-mode comparison results of the sweep
+    and flight kernels and the launches of the main paths."""
+    import numpy as np
+    from neutral_tpu_torch.mesh import build_density
+    from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
+
+    res = {"sweep": {}, "flight": {}, "sweep_launches": 0,
+           "flight_launches": 0, "raster_launches": 0}
+
+    def add_launches(counts):
+        res["sweep_launches"] += counts[0]
+        res["flight_launches"] += counts[1]
+        res["raster_launches"] += counts[2]
+
+    def sweep_mode(mode, deck, shape):
+        k_ms, p_ms, err = compare(MODE_N, torch, driver, transport,
+                                  sweep_kernel, fields, deck=deck,
+                                  label=f"compare {mode}")
+        res["sweep"][mode] = {"ms": k_ms, "plain_ms": p_ms,
+                              "max_abs_err": err, "shape": shape}
+
+    def flight_mode(mode, decks, shape):
+        runs = [compare_flight(d, torch, driver, transport, flight,
+                               flight_kernel, fields, label=f"flight {mode}")
+                for d in decks]
+        res["flight"][mode] = {"ms": sum(r[0] for r in runs),
+                               "plain_ms": sum(r[1] for r in runs),
+                               "max_abs_err": max(r[2] for r in runs),
+                               "shape": shape}
+
+    # ---- 8. pcg64si -----------------------------------------------------
+    pcg = os.path.join(tmp, "pcg")
+    os.mkdir(pcg)
+    decks = {d: deck_copy(d, pcg, "rng pcg64si\n")
+             for d in (SCATTER, *FLIGHT_DECKS)}
+    sweep_mode("pcg64si", decks[SCATTER],
+               f"scatter with rng pcg64si, {MODE_N} particles, one census")
+    flight_mode("pcg64si", [decks[d] for d in FLIGHT_DECKS[:2]],
+                f"stream + split with rng pcg64si, {MODE_N} particles each, "
+                "one step-1 census each")
+    for src, deck in decks.items():
+        name = f"pcg64si {os.path.basename(src).split('.')[0]}"
+        out, _, c = main_path(deck, torch, driver, wrappers, label=name)
+        add_launches(check_kernel_path(name, out, c))
+
+    # ---- 9. table mode --------------------------------------------------
+    table = os.path.join(tmp, "table")
+    os.mkdir(table)
+    keys, values = resonance_log_table()
+    for fname in ("elastic_scatter.cs", "capture.cs"):
+        write_cs_file(os.path.join(table, fname), keys, values)
+    split = FLIGHT_DECKS[1]
+    decks = {d: deck_copy(d, table) for d in (SCATTER, split)}
+    sweep_mode("table", decks[SCATTER],
+               f"scatter with 30,000-entry .cs tables, {MODE_N} particles, "
+               "one census")
+    flight_mode("table", [decks[split]],
+                f"split with 30,000-entry .cs tables, {MODE_N} particles, "
+                "one step-1 census")
+    for src, deck in decks.items():
+        name = f"table {os.path.basename(src).split('.')[0]}"
+        out, _, c = main_path(deck, torch, driver, wrappers, label=name)
+        add_launches(check_kernel_path(name, out, c))
+
+    # ---- 10. grid mode --------------------------------------------------
+    rgrid = os.path.join(tmp, "random_grid")
+    own = os.path.join(tmp, "own_grid")
+    os.mkdir(rgrid)
+    os.mkdir(own)
+    cfg = driver.load_config(SCATTER)
+    rng = np.random.default_rng(7)
+    dens = rng.uniform(1.0e3, 2.0e4, size=(cfg.ny, cfg.nx))
+    dens[rng.random((cfg.ny, cfg.nx)) < 0.25] = 0.0
+    np.save(os.path.join(rgrid, "dens.npy"), dens)
+    np.save(os.path.join(own, "dens.npy"), build_density(cfg))
+    del dens
+    sweep_mode("grid", deck_copy(SCATTER, rgrid, "density_file dens.npy\n"),
+               f"scatter on a random 4000x4000 grid, 25% vacuum cells, "
+               f"{MODE_N} particles, one census")
+    out, _, c = main_path(deck_copy(SCATTER, own, "density_file dens.npy\n"),
+                          torch, driver, wrappers, label="grid scatter")
+    add_launches(check_kernel_path("grid scatter", out, c))
+    grid_counts = step_counts(out)
+    print(f"[main grid scatter] per-step (facets, collisions) {grid_counts}; "
+          f"region run {scatter_counts}")
+    if grid_counts != scatter_counts or not grid_counts:
+        fail("the grid scatter deck's event counts differ from the region "
+             "deck's")
+    return res
 
 
 def main() -> int:
@@ -331,8 +488,8 @@ def main() -> int:
                for n in COMPARE_SIZES}
 
     # ---- 4. main path, scatter ------------------------------------------
-    out, _, c = main_path(SCATTER, torch, driver, wrappers)
-    if "PASSED validation." not in out:
+    out_scatter, _, c = main_path(SCATTER, torch, driver, wrappers)
+    if "PASSED validation." not in out_scatter:
         fail("the full scatter deck did not print 'PASSED validation.'")
     if c["sweep_chunk_kernel"] <= 0 or c["sweep_chunk_plain"] != 0:
         fail(f"scatter main path: counts {c} (want sweep kernel launches "
@@ -379,13 +536,34 @@ def main() -> int:
         elif "PASSED validation." not in out:
             fail(f"the full {name} deck did not print 'PASSED validation.'")
 
-    # ---- 8. result ------------------------------------------------------
+    # ---- 8-10. pcg64si, table and grid modes ---------------------------
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    modes = run_modes(tmp.name, torch, driver, transport, flight,
+                      sweep_kernel, flight_kernel, STATE_FIELDS, wrappers,
+                      step_counts(out_scatter))
+    tmp.cleanup()
+    sweep_launches += modes["sweep_launches"]
+    flight_launches += modes["flight_launches"]
+    raster_launches += modes["raster_launches"]
+
+    # ---- 11. result -----------------------------------------------------
     k_ms, p_ms, err = results[COMPARE_SIZES[-1]]
     fk = sum(v[0] for v in flight_results.values())
     fp = sum(v[1] for v in flight_results.values())
     fe = max(v[2] for v in flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {"ms": v[0], "plain_ms": v[1]}
                 for d, v in flight_results.items()}
+
+    def entry(ms, plain_ms, max_abs_err, shape):
+        return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs_err,
+                "shape": shape}
+
+    sweep_modes = {"analytic": entry(
+        k_ms, p_ms, err, f"scatter, {COMPARE_SIZES[-1]} particles")}
+    sweep_modes.update(modes["sweep"])
+    flight_modes = {"analytic": entry(
+        fk, fp, fe, "stream + split + csp, 1,000,000 particles each")}
+    flight_modes.update(modes["flight"])
     print(f"[device] nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": [
         {"name": "sweep_kernel",
@@ -396,8 +574,11 @@ def main() -> int:
          "max_abs_err": err,
          "ms": k_ms,
          "plain_ms": p_ms,
+         "modes": sweep_modes,
          "shape": f"scatter deck, {COMPARE_SIZES[-1]} particles, 4000x4000 "
-                  "mesh, one census; ms and plain_ms are whole-census times"},
+                  "mesh, one census; ms and plain_ms are whole-census times "
+                  "(analytic, region, threefry); launches are summed over "
+                  "every main path"},
         {"name": "flight_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/flight.cu",
@@ -407,6 +588,7 @@ def main() -> int:
          "ms": fk,
          "plain_ms": fp,
          "per_deck": per_deck,
+         "modes": flight_modes,
          "shape": "stream, split and csp decks, 1,000,000 particles each, "
                   "4000x4000 mesh, one step-1 census each (segment deposits "
                   "included); ms and plain_ms are the sums of the three; "
@@ -419,8 +601,12 @@ def main() -> int:
          "max_abs_err": r_err,
          "ms": r_ms,
          "plain_ms": r_plain_ms,
+         "modes": {"analytic": entry(
+             r_ms, r_plain_ms, r_err, "stream's step-1 segment rows")},
          "shape": "the segment rows of the stream deck's step-1 census "
-                  "(1,000,000 particles, 4000x4000 mesh) in one deposit"},
+                  "(1,000,000 particles, 4000x4000 mesh) in one deposit; "
+                  "the kernel has no modes of its own and also ran in the "
+                  "pcg64si and table flight main paths"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

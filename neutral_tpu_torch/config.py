@@ -55,8 +55,8 @@ class SimConfig:
     problems: tuple[ProblemRegion, ...] = ()
     # Deck grammar beyond the reference (a (ny, nx) density grid, and
     # non-uniform edges from files or a geometric stretch).  Parsed here
-    # exactly as in neutral_tpu; the port's transport rejects such decks
-    # until they are ported (ROADMAP).
+    # exactly as in neutral_tpu; the port runs density grids and rejects
+    # non-uniform meshes until they are ported (ROADMAP).
     density_file: str = ""
     edgex_file: str = ""
     edgey_file: str = ""
@@ -76,11 +76,6 @@ class SimConfig:
 
     def with_(self, **kw) -> "SimConfig":
         return replace(self, **kw)
-
-    @property
-    def uses_density_grid(self) -> bool:
-        """Material density comes from a (ny, nx) grid, not analytic regions."""
-        return bool(self.density_file) or not self.fast_math
 
     @property
     def uniform_mesh(self) -> bool:

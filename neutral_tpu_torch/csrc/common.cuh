@@ -1,9 +1,15 @@
 // Device code shared by the sweep kernel (sweep.cu) and the flight kernel
-// (flight.cu): constants, Threefry-2x64 draws, the analytic cross-section
-// lookup and the collision event.  Every function here follows the plain
-// PyTorch version (neutral_tpu_torch/transport.py, xs.py, rng.py) operation
-// by operation, with the same float32 constants; the build passes
-// -fmad=false so that no a*b+c is fused (see build.py).
+// (flight.cu): constants, Threefry-2x64 and PCG64si draws, the analytic and
+// table cross-section lookups and the collision event.  Every function here
+// follows the plain PyTorch version (neutral_tpu_torch/transport.py, xs.py,
+// rng.py) operation by operation, with the same float32 constants; the
+// build passes -fmad=false so that no a*b+c is fused (see build.py).
+//
+// The deck's modes are template parameters, so that each combination is
+// its own instantiation and the analytic/threefry one is the code without
+// the others: XsMode (analytic resonance formula, or a stored table
+// searched in global memory), RngScheme (threefry or pcg64si) and, in the
+// sweep kernel, DensityMode (region rectangles, or a per-cell grid).
 
 #pragma once
 
@@ -12,7 +18,9 @@
 
 namespace nt {
 
-constexpr int kMaxRegions = 16;
+enum class XsMode : int { kAnalytic = 0, kTable = 1 };
+enum class RngScheme : int { kThreefry = 0, kPcg64si = 1 };
+enum class DensityMode : int { kRegions = 0, kGrid = 1 };
 
 // Constants as the plain version rounds them: the float64 value, then one
 // rounding to float32 (neutral_tpu's np.float32(v)).
@@ -65,15 +73,42 @@ __device__ __forceinline__ void threefry2x64(uint64_t c0, uint64_t c1,
   o1 = x1;
 }
 
-// Pair draw (ctr = (counter, 0), key = (pid, master_key)) mapped to float32
-// from the high words: u = hi * 2^-32 + 2^-33, strictly inside (0, 1).
+// PCG64si (pcg_oneseq_64_rxs_m_xs_64): first output of a generator freshly
+// seeded with `seed`, state = (INC + seed) * MULT + INC (rng.pcg64si_first).
+__device__ __forceinline__ uint64_t pcg64si_first(uint64_t seed) {
+  constexpr uint64_t kMult = 6364136223846793005ULL;
+  constexpr uint64_t kInc = 1442695040888963407ULL;
+  constexpr uint64_t kOutMult = 12605985483714917081ULL;
+  const uint64_t state = (kInc + seed) * kMult + kInc;
+  const uint64_t word =
+      ((state >> ((state >> 59u) + 5u)) ^ state) * kOutMult;
+  return (word >> 43u) ^ word;
+}
+
+// u = hi * 2^-32 + 2^-33 from a word's high half, strictly inside (0, 1).
+__device__ __forceinline__ float hi_to_f32(uint64_t v) {
+  return __uint2float_rn(static_cast<uint32_t>(v >> 32)) * kTwoM32 + kTwoM33;
+}
+
+// Pair draw mapped to float32 from the high words (rng.uniform2_scheme).
+// threefry: ctr = (counter, 0), key = (pid, master_key).  pcg64si: the
+// generators seeded seed and seed + 1, seed = 1e15*master_key + 1e4*pid +
+// 2*counter (mod 2^64).
+template <RngScheme R>
 __device__ __forceinline__ void uniform2_f32(uint64_t pid, uint64_t master_key,
                                              uint64_t counter, float& u0,
                                              float& u1) {
   uint64_t v0, v1;
-  threefry2x64(counter, 0, pid, master_key, v0, v1);
-  u0 = __uint2float_rn(static_cast<uint32_t>(v0 >> 32)) * kTwoM32 + kTwoM33;
-  u1 = __uint2float_rn(static_cast<uint32_t>(v1 >> 32)) * kTwoM32 + kTwoM33;
+  if constexpr (R == RngScheme::kThreefry) {
+    threefry2x64(counter, 0, pid, master_key, v0, v1);
+  } else {
+    const uint64_t seed =
+        1000000000000000ULL * master_key + 10000ULL * pid + 2ULL * counter;
+    v0 = pcg64si_first(seed);
+    v1 = pcg64si_first(seed + 1ULL);
+  }
+  u0 = hi_to_f32(v0);
+  u1 = hi_to_f32(v1);
 }
 
 // Analytic resonance table (xs.CrossSection analytic mode): keys and
@@ -103,6 +138,47 @@ __device__ __forceinline__ float xs_lookup(float e, int n) {
   return v0 + ((e - k0) / (k1 - k0)) * (v1 - v0);
 }
 
+// Stored table (xs.CrossSection searchsorted mode): the bracketing index
+// max{i : keys[i] <= e}, clipped to [0, n-2], by binary search over the
+// ascending keys in global memory (a 30,000-entry table is 120 KB and stays
+// in L2), then the same interpolation.  The test !(k > e) is
+// torch.searchsorted(right=True)'s, so a NaN energy lands where it does.
+__device__ __forceinline__ float table_lookup(float e, const float* keys,
+                                              const float* values, int n) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!(__ldg(keys + mid) > e)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int idx = min(max(lo - 1, 0), n - 2);
+  const float k0 = __ldg(keys + idx);
+  const float k1 = __ldg(keys + idx + 1);
+  const float v0 = __ldg(values + idx);
+  const float v1 = __ldg(values + idx + 1);
+  return v0 + ((e - k0) / (k1 - k0)) * (v1 - v0);
+}
+
+// One cross-section table as the kernels see it: its entry count, and in
+// table mode its keys and values (float32, contiguous, on the device).
+struct XsTable {
+  const float* keys;
+  const float* values;
+  int n;
+};
+
+template <XsMode X>
+__device__ __forceinline__ float xs_value(float e, const XsTable& t) {
+  if constexpr (X == XsMode::kAnalytic) {
+    return xs_lookup(e, t.n);
+  } else {
+    return table_lookup(e, t.keys, t.values, t.n);
+  }
+}
+
 // torch.minimum / torch.maximum / clamp_min on float32: NaN propagates,
 // otherwise fminf / fmaxf.
 __device__ __forceinline__ float tmin(float a, float b) {
@@ -118,17 +194,18 @@ __device__ __forceinline__ float tmax(float a, float b) {
 // scatter, then a fresh mean free path at the new energy for a survivor.
 // Counter c is consumed by the collision, c+1 by the new mean free path.
 // Returns whether the particle died.
+template <XsMode X, RngScheme R>
 __device__ __forceinline__ bool collide(uint64_t pid, uint64_t master_key,
                                         uint64_t& counter, float& energy,
                                         float& weight, float& omega_x,
                                         float& omega_y, float& mfp,
                                         float mac_a, float mac_t,
                                         float number_density,
-                                        int scatter_entries) {
+                                        const XsTable& scatter) {
   bool died = false;
   const float p_absorb = mac_a / mac_t;
   float rn1a, rn1b;
-  uniform2_f32(pid, master_key, counter, rn1a, rn1b);
+  uniform2_f32<R>(pid, master_key, counter, rn1a, rn1b);
   if (rn1a < p_absorb) {
     weight = weight * (1.0f - p_absorb);
     died = energy < kMinEnergy;
@@ -148,9 +225,9 @@ __device__ __forceinline__ bool collide(uint64_t pid, uint64_t master_key,
   counter += 1;
   if (!died) {
     const float mac_s2 =
-        number_density * xs_lookup(energy, scatter_entries) * kBarns;
+        number_density * xs_value<X>(energy, scatter) * kBarns;
     float rn2a, rn2b;
-    uniform2_f32(pid, master_key, counter, rn2a, rn2b);
+    uniform2_f32<R>(pid, master_key, counter, rn2a, rn2b);
     counter += 1;
     mfp = -logf(rn2a) / mac_s2;
   }

@@ -22,23 +22,25 @@
 //     nx + ny cells), reduced per warp.
 //
 // Rings, pause gating, the segment-plane layout and ring extraction have no
-// counterpart.  Only the float32, analytic cross-section, uniform mesh,
-// threefry configuration with at most kMaxRegions rects is implemented; the
-// wrapper (flight_kernel.py) rejects everything else.  The build passes
-// -fmad=false (build.py), so no a*b+c is fused.
+// counterpart.  float32 on a uniform mesh with constant-density rects only
+// (an (R, 4) int32 bounds array and an (R,) float32 density array on the
+// device, any R); the cross-section mode (analytic or a stored table) and
+// the RNG scheme (threefry or pcg64si) are template parameters (common.cuh),
+// one instantiation per combination, chosen at launch.  The wrapper
+// (flight_kernel.py) rejects everything else.  The build passes -fmad=false
+// (build.py), so no a*b+c is fused.
 //
-// What bounds it on the H100: in dense rects, Threefry-2x64-20's integer
-// work (two draws per collision), as in sweep.cu; in vacuum, nothing much —
-// a piece crosses a whole rect in ~150 float operations.  Warps diverge in
-// the census tail, where a warp runs as long as its longest history.  This
-// first version does nothing about either yet.
+// What bounds it on the H100: in dense rects, the draws' integer work (two
+// draws per collision), as in sweep.cu, and in table mode the dependent L2
+// loads of the table searches; in vacuum, nothing much — a piece crosses a
+// whole rect in ~150 float operations.  Warps diverge in the census tail,
+// where a warp runs as long as its longest history.  This version does
+// nothing about either yet.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-
-using nt::kMaxRegions;
 
 // Layout shared with flight_kernel._FlightParams (ctypes); nt_flight_params
 // _size() lets the wrapper check that the two agree.
@@ -61,6 +63,12 @@ struct FlightParams {
   float* segs;                  // (seg_cap, 5) rows [gx0, gy0, gx1, gy1, kk]
   // [facets, collisions, lanes still working, segment rows written]
   unsigned long long* counts;
+  const float* scatter_keys;    // table mode: (scatter_entries,) ascending
+  const float* scatter_values;
+  const float* absorb_keys;     // table mode: (absorb_entries,)
+  const float* absorb_values;
+  const int32_t* rect_bounds;   // (nrects, 4) ix0 ix1 iy0 iy1, disjoint
+  const float* rect_density;    // (nrects,)
   unsigned long long master_key;
   long long n;
   long long seg_cap;
@@ -70,14 +78,14 @@ struct FlightParams {
   int scatter_entries;
   int absorb_entries;
   int same_xs;
+  int nrects;
+  int xs_mode;                  // nt::XsMode
+  int rng;                      // nt::RngScheme
   float dx;
   float dy;
   float inv_dx;
   float inv_dy;
   float inv_ntotal;
-  int nrects;
-  int rect_bounds[kMaxRegions * 4];   // (ix0, ix1, iy0, iy1) per rect
-  float rect_density[kMaxRegions];
 };
 
 namespace {
@@ -86,6 +94,7 @@ using namespace nt;
 
 constexpr int kThreads = 128;
 
+template <XsMode X, RngScheme R>
 __global__ void __launch_bounds__(kThreads)
 flight_kernel(const FlightParams p) {
   const long long i =
@@ -102,31 +111,42 @@ flight_kernel(const FlightParams p) {
     const uint64_t pid = static_cast<uint64_t>(p.pid[i]);
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
+    const XsTable scatter{p.scatter_keys, p.scatter_values,
+                          p.scatter_entries};
+    const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_entries};
+    const int4* bounds = reinterpret_cast<const int4*>(p.rect_bounds);
+    // The lane's rect, searched again only when the cell has left it: the
+    // rects are disjoint and cover the domain (flight.disjoint_rects), so
+    // while the cell stays inside, the search would find the same rect.
+    // The empty rect forces the first search.
+    float rho = 0.0f;
+    int rix0 = 0, rix1 = 0, riy0 = 0, riy1 = 0;
 
     for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f;
          ++piece) {
-      // ---- current rect by cell membership (rects are disjoint) ----
-      float rho = 0.0f;
-      int rix0 = 0, rix1 = p.nx, riy0 = 0, riy1 = p.ny;
-#pragma unroll
-      for (int r = 0; r < kMaxRegions; ++r) {
-        if (r >= p.nrects) break;
-        if (cellx >= p.rect_bounds[4 * r] &&
-            cellx < p.rect_bounds[4 * r + 1] &&
-            celly >= p.rect_bounds[4 * r + 2] &&
-            celly < p.rect_bounds[4 * r + 3]) {
-          rho = p.rect_density[r];
-          rix0 = p.rect_bounds[4 * r];
-          rix1 = p.rect_bounds[4 * r + 1];
-          riy0 = p.rect_bounds[4 * r + 2];
-          riy1 = p.rect_bounds[4 * r + 3];
+      // ---- current rect by cell membership ----
+      if (!(cellx >= rix0 && cellx < rix1 && celly >= riy0 &&
+            celly < riy1)) {
+        rho = 0.0f;
+        rix0 = 0;
+        rix1 = p.nx;
+        riy0 = 0;
+        riy1 = p.ny;
+        for (int r = 0; r < p.nrects; ++r) {
+          const int4 b = __ldg(bounds + r);
+          if (cellx >= b.x && cellx < b.y && celly >= b.z && celly < b.w) {
+            rho = __ldg(p.rect_density + r);
+            rix0 = b.x;
+            rix1 = b.y;
+            riy0 = b.z;
+            riy1 = b.w;
+          }
         }
       }
 
       // ---- material state ----
-      const float sig_s = xs_lookup(energy, p.scatter_entries);
-      const float sig_a =
-          p.same_xs ? sig_s : xs_lookup(energy, p.absorb_entries);
+      const float sig_s = xs_value<X>(energy, scatter);
+      const float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
       const float sig_t = sig_s + sig_a;
       const float number_density = rho * kInvMolar;
       const float mac_s = number_density * sig_s * kBarns;
@@ -249,9 +269,9 @@ flight_kernel(const FlightParams p) {
       // ---- collision (omega after the collision, then the reflection) ----
       bool died = false;
       if (is_coll) {
-        died = collide(pid, p.master_key, counter, energy, weight, omega_x,
-                       omega_y, mfp, mac_a, mac_t, number_density,
-                       p.scatter_entries);
+        died = collide<X, R>(pid, p.master_key, counter, energy, weight,
+                             omega_x, omega_y, mfp, mac_a, mac_t,
+                             number_density, scatter);
         n_colls += 1;
       }
       if (refl_x) omega_x = -omega_x;
@@ -313,14 +333,29 @@ extern "C" int nt_flight_params_size() {
   return static_cast<int>(sizeof(FlightParams));
 }
 
-extern "C" int nt_flight_max_rects() { return kMaxRegions; }
-
 // Launches one round of up to p->max_pieces pieces over all p->n lanes on
-// `stream` and returns cudaGetLastError() (0 when the launch was accepted).
+// `stream`, with the instantiation of p's modes, and returns
+// cudaGetLastError() (0 when the launch was accepted; cudaErrorInvalidValue
+// for an unknown mode).
 extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
   if (p->n <= 0) return 0;
-  const long long blocks = (p->n + kThreads - 1) / kThreads;
-  flight_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(*p);
+  const unsigned int blocks =
+      static_cast<unsigned int>((p->n + kThreads - 1) / kThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using X = XsMode;
+  using R = RngScheme;
+  switch ((p->xs_mode << 1) | p->rng) {
+#define NT_FLIGHT_CASE(x, r)                                              \
+  case ((static_cast<int>(x) << 1) | static_cast<int>(r)):               \
+    flight_kernel<x, r><<<blocks, kThreads, 0, s>>>(*p);                  \
+    break;
+    NT_FLIGHT_CASE(X::kAnalytic, R::kThreefry)
+    NT_FLIGHT_CASE(X::kAnalytic, R::kPcg64si)
+    NT_FLIGHT_CASE(X::kTable, R::kThreefry)
+    NT_FLIGHT_CASE(X::kTable, R::kPcg64si)
+#undef NT_FLIGHT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

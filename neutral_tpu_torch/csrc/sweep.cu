@@ -17,22 +17,35 @@
 // The build passes -fmad=false: nvcc would otherwise contract a*b+c into
 // fused multiply-adds, which PyTorch's one-operation-per-kernel arithmetic
 // does not do, and branch decisions would drift from the plain version.
-// Only the float32, analytic cross-section, region density, uniform mesh,
-// threefry configuration is implemented (the scatter deck); the wrapper
-// (sweep_kernel.py) rejects everything else.
+// float32 on a uniform mesh only; the deck's modes are template parameters
+// (common.cuh), one instantiation per combination, chosen at launch:
+//
+//   * cross-sections: the analytic resonance formula, or a stored table
+//     searched in global memory (table mode, for user .cs files);
+//   * density: the region rectangles, an (R, 4) int32 bounds array and an
+//     (R,) float32 density array on the device, scanned in order (later
+//     regions override earlier ones; any R), or a per-cell grid (grid mode,
+//     density_file decks).  Grid mode reads density[flat_cell] of the cell
+//     the event starts in, so the whole event uses that cell's material, as
+//     in the reference; neutral_tpu's carried density, stale freeze and
+//     refresh gather (pallas_sweep.py:120-145) are TPU mechanisms with no
+//     counterpart here;
+//   * draws: threefry or pcg64si.
+//
+// The wrapper (sweep_kernel.py) rejects everything else.
 //
 // What bounds it on the H100: integer throughput of Threefry-2x64-20 (about
 // 20 rounds of 64-bit add, rotate and xor per draw, two draws per
-// collision), and warp divergence in the census tail, where a warp runs as
-// long as its longest history.  This first version does nothing about
-// either yet.
+// collision; a pcg64si draw is two 64-bit multiply chains instead), the
+// dependent L2 loads of a table search in table mode (about 15 per lookup,
+// two or three lookups per collision), and warp divergence in the census
+// tail, where a warp runs as long as its longest history.  This version
+// does nothing about any of them yet.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-
-using nt::kMaxRegions;
 
 // Layout shared with sweep_kernel._SweepParams (ctypes); nt_params_size()
 // lets the wrapper check that the two agree.  It has external linkage, so
@@ -54,6 +67,13 @@ struct SweepParams {
   int64_t* counter;
   float* tally;                 // (ny * nx,) flat, row-major
   unsigned long long* counts;   // [facets, collisions, lanes still working]
+  const float* scatter_keys;    // table mode: (scatter_entries,) ascending
+  const float* scatter_values;
+  const float* absorb_keys;     // table mode: (absorb_entries,)
+  const float* absorb_values;
+  const int32_t* region_bounds; // region mode: (nregions, 4) ix0 ix1 iy0 iy1
+  const float* region_density;  // region mode: (nregions,)
+  const float* density;         // grid mode: (ny * nx,) flat, row-major
   unsigned long long master_key;
   long long n;
   int max_events;
@@ -62,12 +82,13 @@ struct SweepParams {
   int scatter_entries;
   int absorb_entries;
   int same_xs;
+  int nregions;
+  int xs_mode;                  // nt::XsMode
+  int density_mode;             // nt::DensityMode
+  int rng;                      // nt::RngScheme
   float dx;
   float dy;
   float inv_ntotal;
-  int nregions;
-  int region_bounds[kMaxRegions * 4];   // (ix0, ix1, iy0, iy1) per region
-  float region_density[kMaxRegions];
 };
 
 namespace {
@@ -76,6 +97,7 @@ using namespace nt;
 
 constexpr int kThreads = 128;
 
+template <XsMode X, DensityMode D, RngScheme R>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const SweepParams p) {
   const long long i =
@@ -92,25 +114,39 @@ sweep_kernel(const SweepParams p) {
     const uint64_t pid = static_cast<uint64_t>(p.pid[i]);
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
+    const XsTable scatter{p.scatter_keys, p.scatter_values,
+                          p.scatter_entries};
+    const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_entries};
+
+    // The density is a function of the cell alone, so it is looked up
+    // again only when the lane has entered another cell (in a dense deck
+    // nearly every event is a collision in the same cell).
+    int density_cell = -1;
+    float density = 0.0f;
 
     for (int ev = 0; ev < p.max_events && !dead && dt > 0.0f; ++ev) {
-      // ---- local material state (later regions override earlier) ----
+      // ---- local material state: the grid's cell, or the regions (later
+      // regions override earlier ones) ----
       const int flat_cell =
           min(max(celly * p.nx + cellx, 0), p.nx * p.ny - 1);
-      float density = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kMaxRegions; ++r) {
-        if (r >= p.nregions) break;
-        if (cellx >= p.region_bounds[4 * r] &&
-            cellx < p.region_bounds[4 * r + 1] &&
-            celly >= p.region_bounds[4 * r + 2] &&
-            celly < p.region_bounds[4 * r + 3]) {
-          density = p.region_density[r];
+      if (flat_cell != density_cell) {
+        density_cell = flat_cell;
+        if constexpr (D == DensityMode::kGrid) {
+          density = __ldg(p.density + flat_cell);
+        } else {
+          const int4* bounds =
+              reinterpret_cast<const int4*>(p.region_bounds);
+          density = 0.0f;
+          for (int r = 0; r < p.nregions; ++r) {
+            const int4 b = __ldg(bounds + r);
+            if (cellx >= b.x && cellx < b.y && celly >= b.z && celly < b.w) {
+              density = __ldg(p.region_density + r);
+            }
+          }
         }
       }
-      const float sig_s = xs_lookup(energy, p.scatter_entries);
-      const float sig_a =
-          p.same_xs ? sig_s : xs_lookup(energy, p.absorb_entries);
+      const float sig_s = xs_value<X>(energy, scatter);
+      const float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
       const float sig_t = sig_s + sig_a;
       const float number_density = density * kInvMolar;
       const float mac_s = number_density * sig_s * kBarns;
@@ -152,9 +188,9 @@ sweep_kernel(const SweepParams p) {
       // mean free path ----
       bool died = false;
       if (is_coll) {
-        died = collide(pid, p.master_key, counter, energy, weight, omega_x,
-                       omega_y, mfp, mac_a, mac_t, number_density,
-                       p.scatter_entries);
+        died = collide<X, R>(pid, p.master_key, counter, energy, weight,
+                             omega_x, omega_y, mfp, mac_a, mac_t,
+                             number_density, scatter);
         dt = dt - d_coll / speed;
       }
       if (is_facet) {
@@ -249,15 +285,36 @@ sweep_kernel(const SweepParams p) {
 
 extern "C" int nt_params_size() { return static_cast<int>(sizeof(SweepParams)); }
 
-extern "C" int nt_max_regions() { return kMaxRegions; }
-
-// Launches one sweep over all p->n lanes on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// Launches one sweep over all p->n lanes on `stream`, with the
+// instantiation of p's modes, and returns cudaGetLastError() (0 when the
+// launch was accepted; cudaErrorInvalidValue for an unknown mode).
 extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
   if (p->n <= 0) return 0;
-  const long long blocks = (p->n + kThreads - 1) / kThreads;
-  sweep_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(*p);
+  const unsigned int blocks =
+      static_cast<unsigned int>((p->n + kThreads - 1) / kThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = (p->xs_mode << 2) | (p->density_mode << 1) | p->rng;
+  using X = XsMode;
+  using D = DensityMode;
+  using R = RngScheme;
+  switch (mode) {
+#define NT_SWEEP_CASE(x, d, r)                                            \
+  case ((static_cast<int>(x) << 2) | (static_cast<int>(d) << 1) |       \
+        static_cast<int>(r)):                                             \
+    sweep_kernel<x, d, r><<<blocks, kThreads, 0, s>>>(*p);                \
+    break;
+    NT_SWEEP_CASE(X::kAnalytic, D::kRegions, R::kThreefry)
+    NT_SWEEP_CASE(X::kAnalytic, D::kRegions, R::kPcg64si)
+    NT_SWEEP_CASE(X::kAnalytic, D::kGrid, R::kThreefry)
+    NT_SWEEP_CASE(X::kAnalytic, D::kGrid, R::kPcg64si)
+    NT_SWEEP_CASE(X::kTable, D::kRegions, R::kThreefry)
+    NT_SWEEP_CASE(X::kTable, D::kRegions, R::kPcg64si)
+    NT_SWEEP_CASE(X::kTable, D::kGrid, R::kThreefry)
+    NT_SWEEP_CASE(X::kTable, D::kGrid, R::kPcg64si)
+#undef NT_SWEEP_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

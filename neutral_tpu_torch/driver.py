@@ -28,7 +28,9 @@ split) and sweep otherwise (scatter).  The engine: `kernel` runs the
 census through the transport's CUDA kernels (sweep_kernel.py, or
 flight_kernel.py with raster_kernel.py) and needs a CUDA device; `plain`
 runs the plain PyTorch version on any device, and on CUDA only when asked
-for by name; `auto` is `kernel` on CUDA and `plain` on the CPU.
+for by name; `auto` is `kernel` on CUDA in float32 and `plain` otherwise
+(`pick_engine`: the kernels are float32 only, as `neutral_tpu`'s are).
+Grid decks (`density_file`) run on the sweep transport only.
 
 The JAX driver's power-of-4 compaction ladder is not ported: it exists
 because masked sweeps pay for dead lanes, and a thread-per-lane kernel
@@ -51,7 +53,7 @@ from .config import SimConfig, load_config
 from .constants import VALIDATE_TOLERANCE
 from .flight import disjoint_rects, flight_chunk_plain
 from .flight_kernel import MAX_PIECES, flight_chunk_kernel
-from .mesh import build_mesh, region_cell_bounds
+from .mesh import build_mesh, density_grid, region_cell_bounds
 from .particles import inject_particles
 from .profiler import Profile
 from .sweep_kernel import MAX_EVENTS, sweep_chunk_kernel, sweep_chunk_plain
@@ -81,25 +83,54 @@ def load_cross_sections(cfg: SimConfig, dtype: torch.dtype, device
     return tabs[0], tabs[1]
 
 
-def make_geometry(cfg: SimConfig) -> Geometry:
-    """Geometry of the whole domain: uniform pitch, the problem regions as
-    cell rectangles (mesh.region_cell_bounds) and their disjoint partition
-    for the flight transport (flight.disjoint_rects)."""
-    if cfg.uses_density_grid:
-        raise NotImplementedError(
-            "density grids (density_file, fast_math=False) are not ported "
-            "yet (ROADMAP: kernel 1 grid mode)")
+def make_geometry(cfg: SimConfig, dtype: torch.dtype = torch.float32,
+                  device=None) -> Geometry:
+    """Geometry of the whole domain, with the uniform pitch.
+
+    A region deck carries the problem regions as cell rectangles
+    (mesh.region_cell_bounds) and their disjoint partition for the flight
+    transport (flight.disjoint_rects).  A grid deck (`density_file`)
+    carries its density field in `dtype` on `device` instead, with no
+    regions and no rects, as `neutral_tpu`'s grid geometry does.
+    """
     if not cfg.uniform_mesh:
         raise NotImplementedError(
             "non-uniform meshes are not ported yet (ROADMAP: deck variants)")
-    if cfg.rng != "threefry":
+    if not (cfg.fast_math or cfg.density_file):
         raise NotImplementedError(
-            f"rng {cfg.rng!r} is not ported yet (ROADMAP: pcg64si)")
+            "fast_math 0 without a density_file (neutral_tpu's verification "
+            "mode, edge-array facets) is not ported yet (ROADMAP: deck "
+            "variants)")
+    if cfg.rng not in ("threefry", "pcg64si"):
+        raise ValueError(f"unknown rng scheme {cfg.rng!r}")
+    pitch = dict(nx=cfg.nx, ny=cfg.ny, dx=cfg.width / cfg.nx,
+                 dy=cfg.height / cfg.ny, rng_scheme=cfg.rng)
+    if cfg.density_file:
+        return Geometry(regions=None, rects=None,
+                        density=density_grid(cfg, dtype, device), **pitch)
     regions = region_cell_bounds(cfg)
-    return Geometry(nx=cfg.nx, ny=cfg.ny, dx=cfg.width / cfg.nx,
-                    dy=cfg.height / cfg.ny, regions=regions,
-                    rng_scheme=cfg.rng,
-                    rects=disjoint_rects(regions, cfg.nx, cfg.ny))
+    return Geometry(regions=regions,
+                    rects=disjoint_rects(regions, cfg.nx, cfg.ny), **pitch)
+
+
+def pick_engine(engine: str, device: torch.device,
+                dtype: torch.dtype) -> str:
+    """The engine that runs a deck, by `neutral_tpu`'s rule for its kernels
+    (they take only float32): `auto` is `kernel` on a CUDA device in
+    float32 and `plain` everywhere else; `kernel` raises on the CPU and in
+    float64, which the kernels do not implement."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine}")
+    if engine == "auto":
+        return ("kernel" if device.type == "cuda" and dtype == torch.float32
+                else "plain")
+    if engine == "kernel" and device.type != "cuda":
+        raise ValueError(f"engine='kernel' needs a CUDA device, got {device}")
+    if engine == "kernel" and dtype != torch.float32:
+        raise ValueError("engine='kernel' needs dtype float32 (the kernels "
+                         f"are float32 only), got {dtype}; use --engine "
+                         "plain or auto")
+    return engine
 
 
 def auto_transport(cfg: SimConfig) -> str:
@@ -149,21 +180,18 @@ class Simulation:
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.quiet = quiet
-        if engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES}, got {engine}")
-        if engine == "auto":
-            engine = "kernel" if self.device.type == "cuda" else "plain"
-        if engine == "kernel" and self.device.type != "cuda":
-            raise ValueError("engine='kernel' needs a CUDA device, got "
-                             f"{self.device}")
-        self.engine = engine
+        self.engine = pick_engine(engine, self.device, self.dtype)
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, got "
                              f"{transport}")
         self.transport = (auto_transport(cfg) if transport == "auto"
                           else transport)
+        if self.transport == "flight" and cfg.density_file:
+            raise ValueError("transport='flight' needs constant-density "
+                             "rectangles; a density_file deck runs on the "
+                             "sweep transport")
 
-        self.geom = make_geometry(cfg)
+        self.geom = make_geometry(cfg, self.dtype, self.device)
         self.mesh = build_mesh(cfg, dtype=self.dtype, device=self.device)
         self.cs_scatter, self.cs_absorb = load_cross_sections(
             cfg, self.dtype, self.device)
@@ -327,9 +355,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--mesh-scale", type=int, default=None,
                    help="divide nx/ny by this factor (quick runs)")
     p.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="kernel = the transport's CUDA kernels; plain = "
-                        "their plain PyTorch versions; auto = kernel on "
-                        "CUDA, plain on the CPU")
+                   help="kernel = the transport's CUDA kernels (float32); "
+                        "plain = their plain PyTorch versions; auto = "
+                        "kernel on CUDA in float32, else plain")
     p.add_argument("--transport", default="auto", choices=TRANSPORTS,
                    help="sweep = one event per step; flight = closed-form "
                         "flight pieces and segment deposits; auto = flight "
@@ -351,6 +379,8 @@ def main(argv: list[str] | None = None) -> int:
         cfg = cfg.with_(dtype=args.dtype, tally_dtype=args.dtype)
     device = torch.device(args.device or
                           ("cuda" if torch.cuda.is_available() else "cpu"))
+    # Refuse an engine the deck cannot take before touching the device.
+    pick_engine(args.engine, device, getattr(torch, cfg.dtype))
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")

@@ -13,9 +13,12 @@ many lanes still have work.  All per-history state lives in the state
 tensors between launches, so the number of launches changes nothing in the
 result.
 
-The plain version is `flight.flight_chunk_plain`.  `flight_chunk_kernel`
-launches the kernel or raises: on a state that does not lie on a CUDA
-device, and on any configuration the kernel does not implement.
+The kernel's modes follow the deck: analytic cross-sections or stored
+tables, threefry or pcg64si draws (csrc/flight.cu); the rects are device
+arrays of any length.  The plain version is `flight.flight_chunk_plain`.
+`flight_chunk_kernel` launches the kernel or raises: on a state that does
+not lie on a CUDA device, and on any configuration the kernel does not
+implement.
 `flight_chunk_kernel.launches` counts flight-kernel launches; callers may
 reset it.
 """
@@ -30,7 +33,8 @@ import torch
 from . import build
 from .particles import ParticleState
 from .raster_kernel import deposit_segments_kernel
-from .sweep_kernel import MAX_REGIONS, check_inputs, state_pointers
+from .sweep_kernel import (check_inputs, rect_arrays, state_pointers,
+                           table_fields)
 from .transport import Geometry
 from .xs import CrossSection
 
@@ -43,17 +47,16 @@ class _FlightParams(ctypes.Structure):
         [(f, ctypes.c_void_p) for f in (
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
-            "celly", "dead", "pid", "counter", "tally", "segs", "counts")]
+            "celly", "dead", "pid", "counter", "tally", "segs", "counts",
+            "scatter_keys", "scatter_values", "absorb_keys", "absorb_values",
+            "rect_bounds", "rect_density")]
         + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64),
            ("seg_cap", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "max_pieces", "nx", "ny", "scatter_entries", "absorb_entries",
-            "same_xs")]
+            "same_xs", "nrects", "xs_mode", "rng")]
         + [(f, ctypes.c_float) for f in (
-            "dx", "dy", "inv_dx", "inv_dy", "inv_ntotal")]
-        + [("nrects", ctypes.c_int),
-           ("rect_bounds", ctypes.c_int * (4 * MAX_REGIONS)),
-           ("rect_density", ctypes.c_float * MAX_REGIONS)])
+            "dx", "dy", "inv_dx", "inv_dy", "inv_ntotal")])
 
 
 @functools.cache
@@ -62,43 +65,39 @@ def load_library() -> ctypes.CDLL:
     lib = build.load()
     lib.nt_flight_params_size.argtypes = []
     lib.nt_flight_params_size.restype = ctypes.c_int
-    lib.nt_flight_max_rects.argtypes = []
-    lib.nt_flight_max_rects.restype = ctypes.c_int
     lib.nt_flight_launch.argtypes = [ctypes.POINTER(_FlightParams),
                                      ctypes.c_void_p]
     lib.nt_flight_launch.restype = ctypes.c_int
-    if (lib.nt_flight_params_size() != ctypes.sizeof(_FlightParams)
-            or lib.nt_flight_max_rects() != MAX_REGIONS):
+    if lib.nt_flight_params_size() != ctypes.sizeof(_FlightParams):
         raise RuntimeError("csrc/flight.cu FlightParams does not match "
                            "flight_kernel._FlightParams")
     return lib
 
 
 def _params(state: ParticleState, tally: torch.Tensor, segbuf: torch.Tensor,
-            counts: torch.Tensor, geom: Geometry, scatter_tab: CrossSection,
-            absorb_tab: CrossSection, master_key: int, inv_ntotal: float,
+            counts: torch.Tensor, rects: tuple, geom: Geometry,
+            scatter_tab: CrossSection, absorb_tab: CrossSection,
+            master_key: int, inv_ntotal: float,
             max_pieces: int) -> _FlightParams:
+    """The kernel's parameters; `rects` is rect_arrays(geom.rects)."""
     p = _FlightParams()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
     p.segs = segbuf.data_ptr()
     p.counts = counts.data_ptr()
+    table_fields(p, geom, scatter_tab, absorb_tab)
+    p.nrects = rects[0].shape[0]
+    p.rect_bounds = rects[0].data_ptr()
+    p.rect_density = rects[1].data_ptr()
     p.master_key = int(master_key)
     p.n = state.n
     p.seg_cap = segbuf.shape[0]
     p.max_pieces = int(max_pieces)
     p.nx, p.ny = geom.nx, geom.ny
-    p.scatter_entries = scatter_tab.nentries
-    p.absorb_entries = absorb_tab.nentries
-    p.same_xs = int(geom.same_xs)
     # ctypes rounds each Python float to float32 as np.float32 does, as
     # xs.const does for the plain version.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
     p.inv_dx, p.inv_dy = 1.0 / geom.dx, 1.0 / geom.dy
-    p.nrects = len(geom.rects)
-    for r, (ix0, ix1, iy0, iy1, d) in enumerate(geom.rects):
-        p.rect_bounds[4 * r:4 * r + 4] = [ix0, ix1, iy0, iy1]
-        p.rect_density[r] = d
     return p
 
 
@@ -119,7 +118,7 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     if geom.rects is None:
         raise ValueError("flight kernel needs geom.rects")
     check_inputs(state, tally, geom, scatter_tab, absorb_tab,
-                 "flight kernel", geom.rects)
+                 "flight kernel")
     if max_pieces < 1:
         raise ValueError(f"max_pieces must be >= 1, got {max_pieces}")
     lib = load_library()
@@ -128,7 +127,8 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     segbuf = torch.empty((state.n * max_pieces, 5), dtype=torch.float32,
                          device=dev)
-    params = _params(state, tally, segbuf, counts, geom, scatter_tab,
+    rects = rect_arrays(geom.rects, dev)
+    params = _params(state, tally, segbuf, counts, rects, geom, scatter_tab,
                      absorb_tab, master_key, inv_ntotal, max_pieces)
     launches = 0
     marks = []

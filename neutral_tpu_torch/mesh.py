@@ -7,7 +7,8 @@ bounds come out identical; only the finished arrays become tensors.
   * edgex (nx+1,), edgey (ny+1,) — cell edge coordinates (tensors),
   * density (ny, nx) — a host array built from the deck's `problem_N`
     rectangles, later entries overwriting earlier ones (membership test:
-    cell center inside the half-open box [lo, hi)).
+    cell center inside the half-open box [lo, hi)), or read from the
+    deck's `density_file`; `density_grid` puts it on the device.
 """
 
 from __future__ import annotations
@@ -141,13 +142,23 @@ def region_cell_bounds(cfg: SimConfig) -> tuple:
     return tuple(out)
 
 
+def density_grid(cfg: SimConfig, dtype: torch.dtype = torch.float32,
+                 device=None) -> torch.Tensor:
+    """The flat (ny*nx,) density field as a tensor in `dtype`, row-major
+    (flat cell = celly*nx + cellx): what a grid deck's transport gathers
+    from (transport.Geometry.density)."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return torch.as_tensor(build_density(cfg, np_dtype).reshape(-1),
+                           device=device)
+
+
 def build_mesh(cfg: SimConfig, dtype: torch.dtype = torch.float32,
                device=None) -> Mesh2D:
     """Mesh edges as tensors.
 
-    The analytic-region transport never reads the (ny, nx) density grid
-    (64 MB in f32 at 4000^2), so the mesh carries none; build_density
-    gives it on the host.
+    The mesh carries no density: the analytic-region transport never reads
+    the (ny, nx) grid (64 MB in f32 at 4000^2), and a grid deck's geometry
+    holds it (density_grid).
     """
     edgex, edgey = build_edges(cfg)
     np_dtype = np.float32 if dtype == torch.float32 else np.float64

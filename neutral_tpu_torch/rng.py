@@ -1,7 +1,8 @@
-"""Counter-based RNG: Threefry-2x64 (20 rounds) on torch tensors.
+"""Counter-based RNGs: Threefry-2x64 (20 rounds) and PCG64si on torch tensors.
 
-Port of `neutral_tpu/rng.py`, bitwise equal to it.  Each particle history
-draws from an independent, order-independent stream keyed by
+Port of `neutral_tpu/rng.py`, bitwise equal to it.  Under the default
+scheme, threefry, each particle history draws from an independent,
+order-independent stream keyed by
 
     key     = (particle_id, master_key)       # master_key = timestep index
     counter = (draw_counter, 0)
@@ -12,11 +13,17 @@ threefry2x64 with 20 rounds).  Every draw is a pure function of
 anywhere in the port: lanes can be processed in any order, on any device,
 and reproduce the same histories.
 
-PyTorch on the CPU has no uint64 add or shift and only partial uint32
-support, so each u64 word is carried as two 32-bit halves, each held in an
-int64 tensor with values in [0, 2^32).  Adds carry explicitly and every
-result is masked with `& 0xFFFFFFFF`; no int64 operation can overflow.  The
-CUDA kernel (csrc/sweep.cu) uses native `uint64_t` for the same cipher.
+Under `rng pcg64si` (the RNG contract of the reference's oacc and raja
+backends) a pair draw seeds two fresh PCG64si generators with
+seed = 1e15*master_key + 1e4*pid + 2*counter and seed + 1, and takes the
+first output of each (see `uniform2_pcg_f64`).
+
+PyTorch on the CPU has no uint64 add, shift or multiply and only partial
+uint32 support, so each u64 word is carried as two 32-bit halves, each
+held in an int64 tensor with values in [0, 2^32).  Adds carry explicitly
+and every result is masked with `& 0xFFFFFFFF`; products are split into
+16-bit limbs (`_mul32x32`), so no int64 operation can overflow.  The CUDA
+kernels (csrc/common.cuh) use native `uint64_t` for both generators.
 """
 
 from __future__ import annotations
@@ -120,40 +127,41 @@ def raw_draw(pkey, master_key, counter):
     return threefry2x64(c_hi, c_lo, 0, 0, p_hi, p_lo, m_hi, m_lo)
 
 
-def uniform2_f64(pkey, master_key, counter):
-    """Two float64 uniforms in (0, 1) per lane, bitwise equal to the
-    reference's (double)u64 * 2^-64 + 2^-65.
+def _to_f64(hi, lo):
+    """The reference's (double)u64 * 2^-64 + 2^-65, strictly inside (0, 1).
 
     hi * 2^32 and lo are exact in float64, so their sum is the single
     round-to-nearest conversion of the u64 word.
     """
-    v0h, v0l, v1h, v1l = raw_draw(pkey, master_key, counter)
-
-    def conv(hi, lo):
-        v = hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64)
-        return v * _FACTOR64 + _HALF_FACTOR64
-
-    return conv(v0h, v0l), conv(v1h, v1l)
+    v = hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64)
+    return v * _FACTOR64 + _HALF_FACTOR64
 
 
-def uniform2_f32(pkey, master_key, counter):
-    """Two float32 uniforms in (0, 1) per lane from the high words:
-    u = hi * 2^-32 + 2^-33.
+def _to_f32(hi):
+    """u = hi * 2^-32 + 2^-33 in float32, from the high word alone.
 
     `neutral_tpu` converts hi through two exact 16-bit halves because the
     TPU has only int32 -> float32 casts; their single rounded sum equals a
     direct round-to-nearest u32 -> f32 cast, which is what this does.
     """
+    return hi.to(torch.float32) * _FACTOR32_HI + _HALF_FACTOR32
+
+
+def uniform2_f64(pkey, master_key, counter):
+    """Two float64 uniforms in (0, 1) per lane, bitwise equal to the
+    reference's mapping of the two Threefry words."""
+    v0h, v0l, v1h, v1l = raw_draw(pkey, master_key, counter)
+    return _to_f64(v0h, v0l), _to_f64(v1h, v1l)
+
+
+def uniform2_f32(pkey, master_key, counter):
+    """Two float32 uniforms in (0, 1) per lane from the high words."""
     v0h, _, v1h, _ = raw_draw(pkey, master_key, counter)
-
-    def conv(hi):
-        return hi.to(torch.float32) * _FACTOR32_HI + _HALF_FACTOR32
-
-    return conv(v0h), conv(v1h)
+    return _to_f32(v0h), _to_f32(v1h)
 
 
 def uniform2(pkey, master_key, counter, dtype: torch.dtype):
-    """Dtype-dispatching pair draw."""
+    """Dtype-dispatching pair draw (threefry)."""
     if dtype == torch.float32:
         return uniform2_f32(pkey, master_key, counter)
     if dtype == torch.float64:
@@ -161,10 +169,127 @@ def uniform2(pkey, master_key, counter, dtype: torch.dtype):
     raise ValueError(f"unsupported dtype {dtype}")
 
 
+# ----------------------------------------------------------------------------
+# PCG64si (pcg_oneseq_64_rxs_m_xs_64, M.E. O'Neill's public algorithm): the
+# RNG scheme of the reference's oacc/raja backends, which seed a fresh
+# generator per draw (oacc/neutral.c:710-719).
+# ----------------------------------------------------------------------------
+
+_PCG_MULT = 6364136223846793005
+_PCG_INC = 1442695040888963407
+_PCG_OUT_MULT = 12605985483714917081
+_MASTER_KEY_OFF = 10 ** 15
+_PARTICLE_KEY_OFF = 10 ** 4
+_M16 = 0xFFFF
+
+
+def _mul32x32(a, b):
+    """Full 64-bit product of two 32-bit values as (hi, lo) halves.
+
+    b is split into 16-bit limbs, so each partial product is below 2^48
+    and no int64 operation overflows (JAX's `_mul32x32` splits both
+    factors because its words are uint32).
+    """
+    p0 = a * (b & _M16)
+    p1 = a * (b >> 16)
+    lo = p0 + ((p1 & _M16) << 16)              # < 2^49
+    return (p1 >> 16) + (lo >> 32), lo & _M32
+
+
+def _mul32_lo(a, b):
+    """(a * b) mod 2^32 through 16-bit limbs of b (no int64 overflow)."""
+    return (a * (b & _M16) + (((a * (b >> 16)) & _M16) << 16)) & _M32
+
+
+def _mul64_lo(ahi, alo, bhi, blo):
+    """(a * b) mod 2^64 on (hi, lo) halves.  The cross terms alo*bhi and
+    ahi*blo count only mod 2^32 (JAX lets them wrap in uint32)."""
+    hi, lo = _mul32x32(alo, blo)
+    hi = (hi + _mul32_lo(alo, bhi) + _mul32_lo(ahi, blo)) & _M32
+    return hi, lo
+
+
+def _shr64_dyn(hi, lo, r):
+    """(hi, lo) >> r for per-lane shift amounts r in [1, 63]."""
+    small = r < 32
+    rs = torch.where(small, r, 31)             # shift of the r < 32 lanes
+    rb = torch.where(small, 0, r - 32)         # shift of the r >= 32 lanes
+    lo_small = (lo >> rs) | ((hi << (32 - rs)) & _M32)
+    return (torch.where(small, hi >> rs, 0),
+            torch.where(small, lo_small, hi >> rb))
+
+
+def _pcg_out(hi, lo):
+    """The rxs_m_xs_64 output permutation of a state."""
+    shi, slo = _shr64_dyn(hi, lo, (hi >> 27) + 5)    # state >> (state>>59)+5
+    whi, wlo = _mul64_lo(shi ^ hi, slo ^ lo,
+                         _PCG_OUT_MULT >> 32, _PCG_OUT_MULT & _M32)
+    # word ^ (word >> 43): the shifted word's hi half is 0.
+    return whi, wlo ^ (whi >> 11)
+
+
+def pcg64si_first(seed_hi, seed_lo):
+    """First output of freshly seeded PCG64si generators:
+    state = (INC + seed) * MULT + INC, then the output permutation."""
+    hi, lo = _add64(_PCG_INC >> 32, _PCG_INC & _M32, seed_hi, seed_lo)
+    hi, lo = _mul64_lo(hi, lo, _PCG_MULT >> 32, _PCG_MULT & _M32)
+    hi, lo = _add64(hi, lo, _PCG_INC >> 32, _PCG_INC & _M32)
+    return _pcg_out(hi, lo)
+
+
+def pcg64si_raw(seed_hi, seed_lo):
+    """First outputs of the generators seeded `seed` and `seed + 1`, as
+    four halves (a_hi, a_lo, b_hi, b_lo): one pair draw."""
+    a_hi, a_lo = pcg64si_first(seed_hi, seed_lo)
+    s_hi, s_lo = _add64(seed_hi, seed_lo, 0, 1)
+    b_hi, b_lo = pcg64si_first(s_hi, s_lo)
+    return a_hi, a_lo, b_hi, b_lo
+
+
+def _pcg_pair_seed(pkey, master_key, counter):
+    """seed = 1e15*master_key + 1e4*pid + 2*counter mod 2^64, as halves.
+
+    Arguments as for `raw_draw`.  Pair p of a history takes the
+    reference's per-draw counters 2p and 2p+1.
+    """
+    like = next(a for a in (pkey, counter, master_key)
+                if isinstance(a, torch.Tensor))
+    p_hi, p_lo = _split64(pkey, like)
+    m_hi, m_lo = _split64(master_key, like)
+    c_hi, c_lo = _split64(counter, like)
+    s_hi, s_lo = _mul64_lo(m_hi, m_lo, _MASTER_KEY_OFF >> 32,
+                           _MASTER_KEY_OFF & _M32)
+    k_hi, k_lo = _mul64_lo(p_hi, p_lo, 0, _PARTICLE_KEY_OFF)
+    s_hi, s_lo = _add64(s_hi, s_lo, k_hi, k_lo)
+    c2_hi = ((c_hi << 1) & _M32) | (c_lo >> 31)
+    c2_lo = (c_lo << 1) & _M32
+    return _add64(s_hi, s_lo, c2_hi, c2_lo)
+
+
+def uniform2_pcg_f64(pkey, master_key, counter):
+    """Two float64 uniforms per lane under pcg64si, bitwise equal to
+    `neutral_tpu.rng.uniform2_pcg_f64`."""
+    a_hi, a_lo, b_hi, b_lo = pcg64si_raw(
+        *_pcg_pair_seed(pkey, master_key, counter))
+    return _to_f64(a_hi, a_lo), _to_f64(b_hi, b_lo)
+
+
+def uniform2_pcg_f32(pkey, master_key, counter):
+    """Two float32 uniforms per lane under pcg64si, from the high words,
+    bitwise equal to `neutral_tpu.rng.uniform2_pcg_f32`."""
+    a_hi, _, b_hi, _ = pcg64si_raw(*_pcg_pair_seed(pkey, master_key, counter))
+    return _to_f32(a_hi), _to_f32(b_hi)
+
+
 def uniform2_scheme(pkey, master_key, counter, dtype: torch.dtype,
                     scheme: str):
-    """Scheme- and dtype-dispatching pair draw (threefry only so far)."""
-    if scheme != "threefry":
-        raise NotImplementedError(
-            f"rng scheme {scheme!r} is not ported yet (ROADMAP: pcg64si)")
-    return uniform2(pkey, master_key, counter, dtype)
+    """Scheme- and dtype-dispatching pair draw."""
+    if scheme == "threefry":
+        return uniform2(pkey, master_key, counter, dtype)
+    if scheme != "pcg64si":
+        raise ValueError(f"unknown rng scheme {scheme!r}")
+    if dtype == torch.float32:
+        return uniform2_pcg_f32(pkey, master_key, counter)
+    if dtype == torch.float64:
+        return uniform2_pcg_f64(pkey, master_key, counter)
+    raise ValueError(f"unsupported dtype {dtype}")

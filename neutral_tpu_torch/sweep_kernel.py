@@ -9,6 +9,10 @@ and launches again until none has.  All per-history state, `deposit`
 included, lives in the state tensors between launches, so the number of
 launches changes nothing in the result.
 
+The kernel's modes follow the deck: analytic cross-sections or stored
+tables, region rectangles or a density grid, threefry or pcg64si draws;
+each combination is its own instantiation (csrc/sweep.cu).
+
 `sweep_chunk_plain` is the plain PyTorch version (transport.sweep_chunk run
 to completion).  `sweep_chunk_kernel` launches the kernel or raises: on a
 state that does not lie on a CUDA device, and on any configuration the
@@ -33,7 +37,10 @@ from .transport import Geometry
 from .xs import CrossSection
 
 MAX_EVENTS = 4096          # events per lane per launch
-MAX_REGIONS = 16           # density regions or rects (csrc/common.cuh)
+
+# RngScheme codes of csrc/common.cuh (its XsMode and DensityMode codes are
+# 0 for analytic/regions and 1 for table/grid).
+RNG_SCHEMES = {"threefry": 0, "pcg64si": 1}
 
 
 class _SweepParams(ctypes.Structure):
@@ -42,15 +49,14 @@ class _SweepParams(ctypes.Structure):
         [(f, ctypes.c_void_p) for f in (
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
-            "celly", "dead", "pid", "counter", "tally", "counts")]
+            "celly", "dead", "pid", "counter", "tally", "counts",
+            "scatter_keys", "scatter_values", "absorb_keys", "absorb_values",
+            "region_bounds", "region_density", "density")]
         + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "max_events", "nx", "ny", "scatter_entries", "absorb_entries",
-            "same_xs")]
-        + [(f, ctypes.c_float) for f in ("dx", "dy", "inv_ntotal")]
-        + [("nregions", ctypes.c_int),
-           ("region_bounds", ctypes.c_int * (4 * MAX_REGIONS)),
-           ("region_density", ctypes.c_float * MAX_REGIONS)])
+            "same_xs", "nregions", "xs_mode", "density_mode", "rng")]
+        + [(f, ctypes.c_float) for f in ("dx", "dy", "inv_ntotal")])
 
 
 @functools.cache
@@ -59,13 +65,10 @@ def load_library() -> ctypes.CDLL:
     lib = build.load()
     lib.nt_params_size.argtypes = []
     lib.nt_params_size.restype = ctypes.c_int
-    lib.nt_max_regions.argtypes = []
-    lib.nt_max_regions.restype = ctypes.c_int
     lib.nt_sweep_launch.argtypes = [ctypes.POINTER(_SweepParams),
                                     ctypes.c_void_p]
     lib.nt_sweep_launch.restype = ctypes.c_int
-    if (lib.nt_params_size() != ctypes.sizeof(_SweepParams)
-            or lib.nt_max_regions() != MAX_REGIONS):
+    if lib.nt_params_size() != ctypes.sizeof(_SweepParams):
         raise RuntimeError("csrc/sweep.cu SweepParams does not match "
                            "sweep_kernel._SweepParams")
     return lib
@@ -80,39 +83,58 @@ _DTYPES = {"x": torch.float32, "y": torch.float32,
            "counter": torch.int64}
 
 
+def _check_tensor(name: str, t: torch.Tensor, shape: tuple,
+                  dtype: torch.dtype, dev: torch.device) -> None:
+    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous {shape} {dtype} "
+                         f"tensor on {dev}, got {tuple(t.shape)} {t.dtype} "
+                         f"on {t.device}")
+
+
 def check_inputs(state: ParticleState, tally: torch.Tensor, geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection,
-                 what: str, rects: tuple) -> None:
+                 what: str) -> None:
     """Raise unless the kernel `what` implements this configuration: CUDA
-    tensors of the kernel's dtypes, a uniform pitch, threefry, analytic
-    cross-sections and at most 16 density `rects`."""
+    tensors of the kernel's dtypes, a uniform pitch, threefry or pcg64si
+    draws, both cross-sections analytic or both stored tables (float32 on
+    the device), and region rectangles or a float32 density grid."""
     if not geom.dx:
         raise ValueError(f"{what} needs a uniform-pitch mesh (geom.dx)")
-    if geom.rng_scheme != "threefry":
-        raise NotImplementedError(f"{what}: only threefry draws are "
-                                  "ported (ROADMAP: pcg64si)")
-    if not (scatter_tab.analytic and absorb_tab.analytic):
-        raise NotImplementedError(f"{what}: only analytic cross-"
-                                  "sections are ported (ROADMAP: kernel 1 "
-                                  "table mode)")
-    if len(rects) > MAX_REGIONS:
-        raise ValueError(f"{what} takes at most {MAX_REGIONS} density "
-                         f"rectangles, got {len(rects)}")
+    if geom.rng_scheme not in RNG_SCHEMES:
+        raise ValueError(f"{what}: unknown rng scheme {geom.rng_scheme!r}")
+    if scatter_tab.analytic != absorb_tab.analytic:
+        raise NotImplementedError(
+            f"{what}: one analytic and one stored cross-section table; the "
+            "kernels take both in one mode (a quartic .cs file beside a "
+            "non-quartic one runs on the plain engine)")
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {dev}")
     for f, dt in _DTYPES.items():
-        t = getattr(state, f)
-        if t.device != dev or t.dtype != dt or t.shape != (state.n,) \
-                or not t.is_contiguous():
-            raise ValueError(f"state.{f}: expected a contiguous ({state.n},)"
-                             f" {dt} tensor on {dev}, got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
-    if (tally.device != dev or tally.dtype != torch.float32
-            or tally.shape != (geom.nx * geom.ny,)
-            or not tally.is_contiguous()):
-        raise ValueError("tally: expected a contiguous float32 "
-                         f"({geom.nx * geom.ny},) tensor on {dev}")
+        _check_tensor(f"state.{f}", getattr(state, f), (state.n,), dt, dev)
+    ncells = geom.nx * geom.ny
+    _check_tensor("tally", tally, (ncells,), torch.float32, dev)
+    if not scatter_tab.analytic:
+        for name, tab in (("scatter", scatter_tab), ("absorb", absorb_tab)):
+            if tab.nentries < 2:
+                raise ValueError(f"{name} table: needs at least 2 entries")
+            for part in ("keys", "values"):
+                _check_tensor(f"{name} table {part}", getattr(tab, part),
+                              (tab.nentries,), torch.float32, dev)
+    if geom.regions is None:
+        _check_tensor("geom.density", geom.density, (ncells,),
+                      torch.float32, dev)
+
+
+def rect_arrays(rects: tuple, device: torch.device):
+    """Region or rect tables as the kernels take them: (R, 4) int32 bounds
+    (ix0, ix1, iy0, iy1) and (R,) float32 densities on `device`; any R."""
+    bounds = torch.tensor([r[:4] for r in rects], dtype=torch.int32,
+                          device=device).reshape(len(rects), 4)
+    density = torch.tensor([r[4] for r in rects], dtype=torch.float32,
+                           device=device)
+    return bounds, density
 
 
 def state_pointers(p: ctypes.Structure, state: ParticleState) -> None:
@@ -121,27 +143,46 @@ def state_pointers(p: ctypes.Structure, state: ParticleState) -> None:
         setattr(p, f, getattr(state, f).data_ptr())
 
 
+def table_fields(p: ctypes.Structure, geom: Geometry,
+                 scatter_tab: CrossSection, absorb_tab: CrossSection) -> None:
+    """Set a kernel's cross-section and RNG fields: entry counts, same_xs,
+    the mode codes, and in table mode the tables' device pointers."""
+    p.scatter_entries = scatter_tab.nentries
+    p.absorb_entries = absorb_tab.nentries
+    p.same_xs = int(geom.same_xs)
+    p.rng = RNG_SCHEMES[geom.rng_scheme]
+    p.xs_mode = int(not scatter_tab.analytic)
+    if not scatter_tab.analytic:
+        p.scatter_keys = scatter_tab.keys.data_ptr()
+        p.scatter_values = scatter_tab.values.data_ptr()
+        p.absorb_keys = absorb_tab.keys.data_ptr()
+        p.absorb_values = absorb_tab.values.data_ptr()
+
+
 def _params(state: ParticleState, tally: torch.Tensor, counts: torch.Tensor,
-            geom: Geometry, scatter_tab: CrossSection,
+            regions: tuple, geom: Geometry, scatter_tab: CrossSection,
             absorb_tab: CrossSection, master_key: int, inv_ntotal: float,
             max_events: int) -> _SweepParams:
+    """The kernel's parameters; `regions` is rect_arrays(geom.regions), or
+    None for a grid deck."""
     p = _SweepParams()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
     p.counts = counts.data_ptr()
+    table_fields(p, geom, scatter_tab, absorb_tab)
     p.master_key = int(master_key)
     p.n = state.n
     p.max_events = int(max_events)
     p.nx, p.ny = geom.nx, geom.ny
-    p.scatter_entries = scatter_tab.nentries
-    p.absorb_entries = absorb_tab.nentries
-    p.same_xs = int(geom.same_xs)
     # ctypes rounds each Python float to float32 as np.float32 does.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
-    p.nregions = len(geom.regions)
-    for r, (ix0, ix1, iy0, iy1, d) in enumerate(geom.regions):
-        p.region_bounds[4 * r:4 * r + 4] = [ix0, ix1, iy0, iy1]
-        p.region_density[r] = d
+    if regions is None:
+        p.density_mode = 1
+        p.density = geom.density.data_ptr()
+    else:
+        p.nregions = regions[0].shape[0]
+        p.region_bounds = regions[0].data_ptr()
+        p.region_density = regions[1].data_ptr()
     return p
 
 
@@ -173,15 +214,16 @@ def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     Updates `state`'s tensors and `tally` in place (no copy of the 14
     state arrays).  Returns (state, nfacets, ncollisions, nlaunches).
     """
-    check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel",
-                 geom.regions)
+    check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel")
     if max_events < 1:
         raise ValueError(f"max_events must be >= 1, got {max_events}")
     lib = load_library()
     # [facets, collisions, lanes still working after the launch]
     counts = torch.zeros(3, dtype=torch.int64, device=state.device)
-    params = _params(state, tally, counts, geom, scatter_tab, absorb_tab,
-                     master_key, inv_ntotal, max_events)
+    regions = (None if geom.regions is None
+               else rect_arrays(geom.regions, state.device))
+    params = _params(state, tally, counts, regions, geom, scatter_tab,
+                     absorb_tab, master_key, inv_ntotal, max_events)
     launches = 0
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -16,15 +16,16 @@ float32 runs on one device reproduce the kernel's per-lane state bitwise.
 Division by a constant goes through `xs.div` (a true division on every
 backend).
 
-Covered: analytic density regions, uniform pitch, analytic or table
-cross-sections, threefry draws, float32 or float64.  The TPU engine's
-slab/column offsets, `gate` and carried `density` arguments belong to its
-rings, sharding and grid mode and are not ported.
+Covered: analytic density regions or a density grid, uniform pitch,
+analytic or table cross-sections, threefry or pcg64si draws, float32 or
+float64.  The TPU engine's slab/column offsets, `gate` and carried
+`density` arguments belong to its rings, its sharding and its grid-mode
+stale freeze, and are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -51,20 +52,25 @@ class Geometry:
       use_local_coords).
     * ``regions`` — ``((ix0, ix1, iy0, iy1, density), ...)`` global
       cell-index rectangles, later entries overriding earlier ones over a
-      background of 0 (mesh.region_cell_bounds).
+      background of 0 (mesh.region_cell_bounds); None for a grid deck.
     * ``same_xs`` — the absorb table equals the scatter table, so one
       lookup serves both.
     * ``rects`` — disjoint constant-density cell rectangles covering the
-      domain (flight.disjoint_rects), for the flight transport.
+      domain (flight.disjoint_rects), for the flight transport; None for a
+      grid deck, which the flight transport refuses.
+    * ``density`` — a grid deck's flat (ny*nx,) density in the state
+      dtype, on the state's device (mesh.density_grid), with
+      ``regions=None``.
     """
     nx: int
     ny: int
     dx: float
     dy: float
-    regions: tuple
+    regions: tuple | None
     rng_scheme: str = "threefry"
     same_xs: bool = False
     rects: tuple | None = None
+    density: torch.Tensor | None = field(default=None, compare=False)
 
 
 def use_local_coords(geom: Geometry, dtype: torch.dtype) -> bool:
@@ -83,7 +89,11 @@ def use_local_coords(geom: Geometry, dtype: torch.dtype) -> bool:
 
 def _density_of(cellx: torch.Tensor, celly: torch.Tensor, geom: Geometry,
                 dtype: torch.dtype) -> torch.Tensor:
-    """Per-lane material density from the analytic region rectangles."""
+    """Per-lane material density: the analytic region rectangles, or a
+    gather from the grid deck's density (neutral_tpu's grid branch)."""
+    if geom.regions is None:
+        flat_cell = (celly * geom.nx + cellx).clamp(0, geom.nx * geom.ny - 1)
+        return geom.density[flat_cell]
     density = torch.zeros(cellx.shape, dtype=dtype, device=cellx.device)
     for (ix0, ix1, iy0, iy1, d) in geom.regions:
         inside = ((cellx >= ix0) & (cellx < ix1) &

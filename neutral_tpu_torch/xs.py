@@ -9,10 +9,15 @@ byte-identical dummy resonance data) generated by
 
 The tables are regenerated from that formula, or read from user `.cs`
 files in the reference's text format.  `CrossSection.lookup` has three
-modes: analytic (keys and values in closed form, no memory reads — the
-mode the CUDA sweep kernel implements), quartic (O(1) bracketing index
-into a stored table) and searchsorted (any ascending table).  The last two
-run only in the plain PyTorch path.
+modes: analytic (keys and values in closed form, no memory reads),
+quartic (O(1) bracketing index into a stored table) and searchsorted (any
+ascending table: max{i : keys[i] <= E}, clipped to [0, n-2]).  The CUDA
+kernels implement the analytic mode and, for any stored table, a binary
+search with the searchsorted index over the `keys`/`values` tensors
+(csrc/common.cuh `table_lookup`).  On the generated grid the quartic
+index equals the searchsorted one for every energy from 1e-2 eV up (below
+it the quartic formula takes the root of a negative number), which
+tests/test_torch_table.py checks.
 """
 
 from __future__ import annotations
@@ -35,6 +40,20 @@ def make_resonance_table(n: int = _N_DEFAULT) -> tuple[np.ndarray, np.ndarray]:
     energy = 1.0e8 * u**4 + 1.0e-2
     value = 1.0e3 * ((n - r) / (n - 1)) + 1.0
     return energy, value
+
+
+def resonance_log_table(n: int = _N_DEFAULT
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """The generating formula of the resonance table sampled at n
+    log-spaced energies over the generated table's range.  Its keys are
+    not on the quartic grid, so it takes the stored-table mode, and its
+    interpolated values agree with the generated table's to 4.3e-8
+    relative over 1 eV - 1 MeV: a user table that the shipped goldens still
+    validate."""
+    grid, _ = make_resonance_table(n)
+    keys = np.geomspace(grid[0], grid[-1], n)
+    r = (n - 1) * ((keys - 1.0e-2) * 1.0e-8) ** 0.25
+    return keys, 1.0e3 * ((n - r) / (n - 1)) + 1.0
 
 
 def find_cs_files(params_path: str | None = None
@@ -63,6 +82,13 @@ def read_cs_file(path: str) -> tuple[np.ndarray, np.ndarray]:
     if data.ndim == 1:
         data = data[None, :]
     return np.ascontiguousarray(data[:, 0]), np.ascontiguousarray(data[:, 1])
+
+
+def write_cs_file(path: str, keys: np.ndarray, values: np.ndarray) -> None:
+    """Write a table in the reference's `.cs` text format."""
+    with open(path, "w") as f:
+        for k, v in zip(keys, values):
+            f.write(f"{k:.12e} {v:.12e}\n")
 
 
 def is_quartic_grid(keys: np.ndarray, rtol: float = 1e-9) -> bool:

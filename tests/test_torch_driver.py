@@ -1,10 +1,12 @@
 """The port's driver and CLI (neutral_tpu_torch.driver) end to end.
 
-On the CPU the driver runs the plain engine; the CUDA kernel against its
-plain version is checked by the `cuda` test below, which needs a card and
-skips without one (it mirrors phase 3 of chip_smoke.py).  JAX is imported
-only inside the test that compares with it, so that on a machine with a
-card and without JAX the `cuda` test runs on its own:
+On the CPU the driver runs the plain engine; the CUDA kernels against
+their plain versions are checked by the `cuda` tests below, which need a
+card and skip without one (they mirror chip_smoke.py's comparisons).
+`kernel_matches_plain_on_card` is their shared check, which the other
+test_torch_*.py files import.  JAX is imported only inside the test that
+compares with it, so that on a machine with a card and without JAX the
+`cuda` tests run on their own:
 
     python -m pytest tests/test_torch_driver.py -q -m cuda --noconftest
 """
@@ -18,13 +20,53 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import driver, transport
+from neutral_tpu_torch import driver, flight, transport
+from neutral_tpu_torch.flight_kernel import flight_chunk_kernel
 from neutral_tpu_torch.particles import STATE_FIELDS
 from neutral_tpu_torch.sweep_kernel import (sweep_chunk_kernel,
                                             sweep_chunk_plain)
 
 DECK = "problems/scatter.params"
 SMALL = ["--nparticles", "2000", "--mesh-scale", "62"]
+
+
+def _sorted_rows(segs):
+    rows = torch.cat(segs).cpu().numpy()
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def kernel_matches_plain_on_card(cfg, transport_name="auto"):
+    """The transport's kernel and its plain version from one begin_timestep
+    state of `cfg` on the card: equal facet and collision counts, all 14
+    per-lane fields and (flight) the sorted segment rows; tally sums to
+    1e-5 (the kernels' atomics add in another order).  Skips without a
+    card.  Returns the simulation and the (facets, collisions) counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                            transport=transport_name, quiet=True)
+    start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
+                                     cfg.dt, 1)
+    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
+    kt, pt = torch.zeros_like(sim.tally), torch.zeros_like(sim.tally)
+    if sim.transport == "flight":
+        ksegs, psegs = [], []
+        ks, knf, knc, _, _ = flight_chunk_kernel(start.clone(), kt, *args,
+                                                 segments=ksegs)
+        ps, pnf, pnc, _, _ = flight.flight_chunk_plain(start.clone(), pt,
+                                                       *args, segments=psegs)
+        np.testing.assert_array_equal(_sorted_rows(ksegs),
+                                      _sorted_rows(psegs))
+    else:
+        ks, knf, knc, _ = sweep_chunk_kernel(start.clone(), kt, *args)
+        ps, pnf, pnc, _ = sweep_chunk_plain(start.clone(), pt, *args)
+    assert (knf, knc) == (pnf, pnc) and knf > 0
+    for f in STATE_FIELDS:
+        np.testing.assert_array_equal(getattr(ks, f).cpu().numpy(),
+                                      getattr(ps, f).cpu().numpy(), f)
+    ksum, psum = float(kt.double().sum()), float(pt.double().sum())
+    assert abs(ksum - psum) <= 1e-5 * abs(psum)
+    return sim, (knf, knc)
 
 
 def test_cli_scatter_prints_contract_and_matches_jax():
@@ -60,10 +102,41 @@ def test_engine_kernel_on_cpu_raises():
 
 
 def test_pcg64si_deck_raises(tmp_path):
+    """A pcg64si deck runs (its geometry carries the scheme); a deck with
+    an unknown scheme raises before any state is built."""
     deck = tmp_path / "scatter_pcg.params"
     deck.write_text(open(DECK).read() + "rng pcg64si\n")
-    with pytest.raises(NotImplementedError, match="pcg64si"):
-        driver.Simulation(tt.load_config(str(deck)).with_(nparticles=10))
+    cfg = tt.load_config(str(deck)).with_(nparticles=10, nx=16, ny=16)
+    assert driver.Simulation(cfg, quiet=True).geom.rng_scheme == "pcg64si"
+    with pytest.raises(ValueError, match="unknown rng scheme"):
+        driver.Simulation(cfg.with_(rng="mt19937"), quiet=True)
+
+
+@pytest.mark.parametrize("engine,device,dtype,want", [
+    ("auto", "cuda", torch.float32, "kernel"),
+    ("auto", "cuda", torch.float64, "plain"),
+    ("auto", "cpu", torch.float32, "plain"),
+    ("auto", "cpu", torch.float64, "plain"),
+    ("plain", "cuda", torch.float32, "plain"),
+    ("kernel", "cuda", torch.float32, "kernel"),
+])
+def test_pick_engine_routes_by_device_and_dtype(engine, device, dtype, want):
+    """`auto` takes the kernels only on CUDA in float32 (neutral_tpu's
+    is_f32 rule); float64 decks run the plain engine there."""
+    assert driver.pick_engine(engine, torch.device(device), dtype) == want
+
+
+@pytest.mark.parametrize("device,match", [("cuda", "float32"),
+                                          ("cpu", "CUDA")])
+def test_engine_kernel_float64_raises_before_state(device, match):
+    """--engine kernel with float64 (or on the CPU) raises in
+    Simulation.__init__, before any tensor is made on the device."""
+    cfg = tt.load_config(DECK).with_(dtype="float64", tally_dtype="float64")
+    with pytest.raises(ValueError, match=match):
+        driver.Simulation(cfg, device=device, engine="kernel")
+    with pytest.raises(ValueError, match=match):
+        driver.main([DECK, "--dtype", "float64", "--engine", "kernel",
+                     "--device", device])
 
 
 def test_kernel_wrapper_on_cpu_runs_plain_version():
@@ -111,3 +184,36 @@ def test_kernel_matches_plain_on_card(max_events):
                                       getattr(ps, f).cpu().numpy())
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     assert abs(ksum - psum) <= 1e-5 * abs(psum)
+
+
+@pytest.mark.cuda
+def test_float64_deck_auto_runs_plain_on_card(capsys):
+    """A float64 deck under --engine auto on a CUDA device runs the plain
+    engine (the kernels are float32 only) and prints a finite tally."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert driver.main([DECK, "--dtype", "float64", "--nparticles",
+                        "65536"]) == 0
+    out = capsys.readouterr().out
+    assert "Engine: plain." in out
+    total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
+    assert np.isfinite(total) and total > 0.0
+
+
+def strips_cfg(n=65536):
+    """The stream deck's geometry cut into 20 vertical strips of
+    alternating near-vacuum and dense material: 20 regions and 20 rects,
+    past the former 16-region limit of the kernels."""
+    strips = tuple(tt.ProblemRegion(1.0e-30 if i % 2 else 1.0e3 * (i + 1),
+                                    i / 20, 0.0, 1 / 20, 1.0)
+                   for i in range(20))
+    return tt.load_config("problems/stream.params").with_(
+        nparticles=n, problems=strips, expected_tally=None,
+        initial_energy=1.0e4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport_name", ["sweep", "flight"])
+def test_20_strip_deck_kernel_matches_plain_on_card(transport_name):
+    sim, _ = kernel_matches_plain_on_card(strips_cfg(), transport_name)
+    assert len(sim.geom.regions) == 20 and len(sim.geom.rects) == 20

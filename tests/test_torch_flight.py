@@ -254,15 +254,16 @@ def test_flight_kernel_wrapper_on_cpu_raises():
 
 
 def test_flight_kernel_rejects_more_than_16_rects():
-    """The kernel holds at most 16 density rectangles in its parameters;
-    the wrapper raises above that before it looks at the device."""
+    """The kernels once held at most 16 density rectangles in their
+    parameters; they now take the rects as device arrays of any length, so
+    17 rects pass the wrapper's checks and only the CPU state is refused."""
     stripes = tuple(tt.ProblemRegion(0.5 + 0.01 * i, i / 17, 0.0, 1 / 17, 1.0)
                     for i in range(17))
     cfg = make_cfg(tt, "stream", nx=68, dtype="float32").with_(
         problems=stripes)
     sim = driver.Simulation(cfg, quiet=True)
     assert sim.transport == "flight" and len(sim.geom.rects) == 17
-    with pytest.raises(ValueError, match="at most 16"):
+    with pytest.raises(ValueError, match="CUDA"):
         flight_chunk_kernel(sim.state, sim.tally, sim.geom, sim.cs_scatter,
                             sim.cs_absorb, 1, 1.0 / cfg.nparticles)
 

@@ -80,5 +80,9 @@ def test_python_int_keys_and_dispatch():
     a = trng.uniform2(pid, 3, 9, torch.float64)
     for i in range(64):
         assert (float(a[0][i]), float(a[1][i])) == jrng.uniform2_py(i, 3, 9)
-    with pytest.raises(NotImplementedError, match="pcg64si"):
-        trng.uniform2_scheme(pid, 1, 0, torch.float32, "pcg64si")
+    b = trng.uniform2_scheme(pid, 3, 9, torch.float64, "pcg64si")
+    for i in range(64):
+        assert (float(b[0][i]), float(b[1][i])) == \
+            jrng.uniform2_pcg_py(i, 3, 9)
+    with pytest.raises(ValueError, match="unknown rng scheme"):
+        trng.uniform2_scheme(pid, 1, 0, torch.float32, "mt19937")
