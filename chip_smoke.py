@@ -59,8 +59,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and collision counts equal to phase 4's region run.
    Every main path of phases 8-10 must show kernel launches and no plain
    run, as phases 4 and 7 do.
-11. Result: a JSON line on the kernels (each with the times of every mode
-   it ran), then the JSON result line.
+11. (Phase numbers 12-15 follow the slice that added them.)
+12. Window mode of the sweep kernel: the sweep kernel against its windowed
+   plain version at 1,000,000 scatter particles in the 2x2 block
+   [2000, 4000)^2 that the source box straddles (window-local tally):
+   counts and all 14 fields equal, lanes outside the window bitwise
+   untouched, tally sums to 1e-5; again with 64 events per launch.
+13. Window mode of the flight kernel: the same on split and stream at
+   1,000,000 particles, with the sorted window-local segment rows bitwise
+   equal.
+14. Decomposed main paths, four shards on the one card through
+   `driver.main --shards 4 --decomposition ...`: the full scatter deck
+   under replicated, spatial (4 y-slabs) and spatial2d (2x2 blocks), each
+   `PASSED validation.` with per-step counts equal to phase 4's; stream,
+   split and csp under spatial2d (stream and split `PASSED`, csp within
+   1e-3 of omp3's tally) with per-step counts equal to single-device
+   kernel runs over `flight.split_rects(rects, [2000], [2000])`; the
+   pcg64si split deck and the grid scatter deck under spatial, `PASSED`.
+   Each with its launch counts (kernels launched, no plain version),
+   events/s and lanes migrated per step and peak device memory.
+15. The unwindowed scatter census at 10,000,000 particles timed 5 times
+   (the window parameters' cost; `neutral_tpu_torch/measure.py census`
+   compares two checkouts in one run).
+16. Result: a JSON line on the kernels (each with its bound, and the times
+   of every mode it ran), then the JSON result line.
+
+Each kernel's `bound_ms` is the least time the card could take for the
+work this run gave it: the larger of the bytes it must move (each lane's
+state read once and written once, each segment row written or read once,
+each tally written once) over 3.35 TB/s, and its operations over the peak
+rate of their type: the draws' integer operations (threefry-2x64/20 about
+160 a draw, pcg64si about 30, two draws a collision) over the H100's int32
+issue rate (132 SMs x 64 lanes x 1.98 GHz), the float work (about 60
+operations an event or flight piece, 40 more a collision, 15 a cell
+visited by a segment deposit; pieces counted as at least one a collision
+and one a lane) over 67 TFLOP/s.  No single PyTorch call computes any of
+the three kernels' functions, so `library_ms` is null.
 """
 
 from __future__ import annotations
@@ -83,6 +117,38 @@ FLIGHT_DECKS = ("problems/stream.params", "problems/split.params",
                 "problems/csp.params")
 CSP_OMP3_TALLY = 1.1201464e7     # omp3's converged csp tally (BASELINE.md)
 MODE_N = 1_000_000               # particles of the phase 8-10 comparisons
+BLOCK = (2000, 2000, 2000, 2000)  # (x_off, y_off, nx, ny) of phases 12-13
+SHARDS = ["--shards", "4", "--decomposition"]
+
+# The card's peaks (NVIDIA's H100 SXM data sheet and Hopper white paper).
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_I32 = 132 * 64 * 1.98e9
+LANE_BYTES = 61 + 53             # 14 fields read, 13 written (not pid)
+DRAW_OPS = {"threefry": 160, "pcg64si": 30}
+FLOPS_EVENT, FLOPS_COLLISION, FLOPS_VISIT = 60, 40, 15
+
+
+def bound(nbytes: float, int_ops: float, float_ops: float) -> dict:
+    """bound_ms and bound_by of work that moves `nbytes` and does the given
+    integer and float operations."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(int_ops / PEAK_I32, float_ops / PEAK_F32)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def work_bound(r: dict) -> dict:
+    """The bound of one comparison's census (compare / compare_flight): its
+    lanes, collisions, events or pieces, segment rows and cell visits."""
+    rows = r.get("rows", 0)
+    nbytes = r["n"] * LANE_BYTES + r["ncells"] * 4 + rows * 20 * 2
+    int_ops = r["collisions"] * 2 * DRAW_OPS[r["rng"]]
+    events = (r["collisions"] + r["n"] if "rows" in r
+              else r["facets"] + r["collisions"])
+    float_ops = (events * FLOPS_EVENT + r["collisions"] * FLOPS_COLLISION
+                 + r.get("visits", 0) * FLOPS_VISIT)
+    return bound(nbytes, int_ops, float_ops)
 
 
 class _Tee(io.TextIOBase):
@@ -129,10 +195,40 @@ def timed(torch, fn, *args, **kw):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def window_args(torch, transport, sim, start, window):
+    """(geom, tally, {x_off, y_off}, lanes outside the window) of a
+    comparison in `window` = (x_off, y_off, nx, ny), or of none."""
+    import dataclasses
+    if window is None:
+        return sim.geom, torch.zeros_like(sim.tally), {}, None
+    x_off, y_off, nx, ny = window
+    geom = dataclasses.replace(sim.geom, nx=nx, ny=ny)
+    win = {"x_off": x_off, "y_off": y_off}
+    _, _, inside = transport.window_cells(start, geom, **win)
+    tally = torch.zeros(nx * ny, dtype=sim.tally.dtype, device="cuda")
+    return geom, tally, win, ~inside
+
+
+def check_outside(torch, name, start, state, outside, fields):
+    """Fail unless the lanes outside the window are bitwise untouched."""
+    if outside is None:
+        return
+    if not bool(outside.any()):
+        fail(f"{name}: no lane lies outside the window")
+    for f in fields:
+        if not torch.equal(getattr(state, f)[outside],
+                           getattr(start, f)[outside]):
+            fail(f"{name}: state.{f} changed outside the window")
+    print(f"[{name}] {int(outside.sum())} lanes outside the window "
+          "untouched")
+
+
 def compare(nparticles: int, torch, driver, transport, sweep_kernel,
-            fields, deck=SCATTER, label="compare"):
-    """Phase 3 at one size (and phases 8-10 on `deck`): returns
-    (kernel_ms, plain_ms, max_abs_err).
+            fields, deck=SCATTER, label="compare", window=None):
+    """Phase 3 at one size (and phases 8-10 on `deck`, phase 12 in
+    `window`): returns a dict of the kernel's and the plain version's
+    times (ms, plain_ms), max_abs_err and the work (lanes, cells, counts)
+    for the bound.
 
     Besides the timed runs, the kernel runs once more with 64 events per
     launch, so that one census takes many launches; its state must be
@@ -144,11 +240,14 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
         fail(f"{label}: auto picked the {sim.transport} transport")
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
-    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
+    geom, tally0, win, outside = window_args(torch, transport, sim, start,
+                                             window)
+    args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
 
     def run(fn, **kw):
-        state, tally = start.clone(), torch.zeros_like(sim.tally)
-        ms, (state, nf, nc, _) = timed(torch, fn, state, tally, *args, **kw)
+        state, tally = start.clone(), torch.zeros_like(tally0)
+        ms, (state, nf, nc, _) = timed(torch, fn, state, tally, *args,
+                                       **win, **kw)
         return ms, state, nf, nc, tally
 
     run(sweep_kernel.sweep_chunk_kernel)            # warm-up
@@ -166,6 +265,8 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     if f is not None:
         n_bad = int((getattr(ks, f) != getattr(ps, f)).sum())
         fail(f"{label} n={nparticles}: state.{f} differs on {n_bad} lanes")
+    check_outside(torch, f"{label} n={nparticles}", start, ks, outside,
+                  fields)
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
     rel = abs(ksum - psum) / abs(psum)
@@ -184,7 +285,9 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
              "differs from the plain version")
     print(f"[{label} n={nparticles}] 64 events per launch: {nl} launches, "
           "counts and per-lane state equal")
-    return k_ms, p_ms, max_abs_err
+    return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
+            "n": nparticles, "ncells": geom.nx * geom.ny, "facets": knf,
+            "collisions": knc, "rng": cfg.rng}
 
 
 def sorted_rows(torch, segs):
@@ -196,10 +299,18 @@ def sorted_rows(torch, segs):
     return rows[idx]
 
 
+def cell_visits(torch, rows) -> int:
+    """Cells the segment rows cross: |dcx| + |dcy| + 1 each."""
+    c = torch.floor(rows[:, :4].double()).long()
+    return int(((c[:, 2] - c[:, 0]).abs() + (c[:, 3] - c[:, 1]).abs()
+                + 1).sum())
+
+
 def compare_flight(deck: str, torch, driver, transport, flight,
-                   flight_kernel, fields, label="flight"):
-    """Phase 5 on one deck (and phases 8-9): returns (kernel_ms, plain_ms,
-    max_abs_err, segment rows of the kernel's census)."""
+                   flight_kernel, fields, label="flight", window=None):
+    """Phase 5 on one deck (and phases 8-9, phase 13 in `window`): returns
+    a dict as compare's, with the kernel census's segment rows ("segs")
+    and their count and cell visits."""
     cfg = driver.load_config(deck).with_(nparticles=MODE_N,
                                          expected_tally=None)
     sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
@@ -207,13 +318,15 @@ def compare_flight(deck: str, torch, driver, transport, flight,
         fail(f"{deck}: auto picked the {sim.transport} transport")
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
-    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
+    geom, tally0, win, outside = window_args(torch, transport, sim, start,
+                                             window)
+    args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
     name = f"{label} {deck.split('/')[-1].split('.')[0]}"
 
     def run(fn, segments=None, **kw):
-        state, tally = start.clone(), torch.zeros_like(sim.tally)
+        state, tally = start.clone(), torch.zeros_like(tally0)
         ms, (state, nf, nc, n, _) = timed(torch, fn, state, tally, *args,
-                                          segments=segments, **kw)
+                                          segments=segments, **win, **kw)
         return ms, state, nf, nc, n, tally
 
     ksegs, psegs, csegs = [], [], []
@@ -232,6 +345,7 @@ def compare_flight(deck: str, torch, driver, transport, flight,
     if f is not None:
         n_bad = int((getattr(ks, f) != getattr(ps, f)).sum())
         fail(f"{name}: state.{f} differs on {n_bad} lanes")
+    check_outside(torch, name, start, ks, outside, fields)
     krows, prows = sorted_rows(torch, ksegs), sorted_rows(torch, psegs)
     if not torch.equal(krows, prows):
         fail(f"{name}: segment rows differ ({krows.shape[0]} kernel, "
@@ -254,11 +368,15 @@ def compare_flight(deck: str, torch, driver, transport, flight,
              "the plain version")
     print(f"[{name}] 1 piece per launch: {cl} launches in "
           f"{c_ms:.3f} ms, counts, per-lane state and segment rows equal")
-    return k_ms, p_ms, max_abs_err, ksegs
+    rows = torch.cat(ksegs)
+    return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
+            "n": MODE_N, "ncells": geom.nx * geom.ny, "facets": knf,
+            "collisions": knc, "rng": cfg.rng, "segs": ksegs,
+            "rows": rows.shape[0], "visits": cell_visits(torch, rows)}
 
 
 def compare_raster(segs, torch, geom, raster, raster_kernel):
-    """Phase 6: returns (kernel_ms, plain_ms, max_abs_err)."""
+    """Phase 6: returns a dict of the times, max_abs_err and bound."""
     rows = torch.cat(segs).contiguous()
     nseg = torch.tensor([rows.shape[0]], dtype=torch.int64,
                         device=rows.device)
@@ -282,7 +400,9 @@ def compare_raster(segs, torch, geom, raster, raster_kernel):
     if not (rel <= 1e-5 and max_abs_err <= 1e-5 * peak):
         fail("segment deposit: kernel and plain version differ by more "
              "than 1e-5")
-    return k_ms, p_ms, max_abs_err
+    return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
+            **bound(rows.shape[0] * 20 + n * 4, 0,
+                    cell_visits(torch, rows) * FLOPS_VISIT)}
 
 
 def deck_copy(src: str, dirpath: str, extra: str = "") -> str:
@@ -307,8 +427,9 @@ def reset_counts(wrappers):
 
 
 def main_path(deck, torch, driver, wrappers, argv=(), label=None):
-    """Run driver.main on `deck` with every count set to 0 just before;
-    returns (stdout, tally, {wrapper name: count}) read just after."""
+    """Run driver.main on `deck` (with `argv`) with every count set to 0
+    just before; returns (stdout, tally, {wrapper name: count}) read just
+    after."""
     reset_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
@@ -326,21 +447,25 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
         fail(f"{name}: tally sum {total} is not finite")
     steps = re.findall(r"Step time\s+(\S+)s\nWallclock.*\nFacets\s+(\d+)\n"
                        r"Collisions\s+(\d+)", out)
+    migrated = re.findall(r"Migrated (\d+) particles between shards", out)
     for i, (st, nf, nc) in enumerate(steps, 1):
         st, ev = float(st), int(nf) + int(nc)
+        moved = (f", {migrated[i - 1]} lanes migrated" if migrated else "")
         print(f"[main {name}] step {i}: {ev} events in {st:.4f} s = "
-              f"{ev / st:.4e} events/s")
+              f"{ev / st:.4e} events/s{moved}")
     print(f"[main {name}] counts {counts}, tally {total:.12e}, wall "
           f"{wall:.1f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return out, total, counts
 
 
-def check_kernel_path(name: str, out: str, c: dict) -> tuple:
-    """Fail unless a main path of phases 8-10 printed `PASSED validation.`
-    and ran its transport's kernels and no plain version; returns its
-    (sweep, flight, segment-deposit) launch counts."""
-    if "PASSED validation." not in out:
+def check_kernel_path(name: str, out: str, c: dict,
+                      passed: bool = True) -> tuple:
+    """Fail unless a main path of phases 8-10 and 14 printed `PASSED
+    validation.` (unless `passed` is False) and ran its transport's kernels
+    and no plain version; returns its (sweep, flight, segment-deposit)
+    launch counts."""
+    if passed and "PASSED validation." not in out:
         fail(f"the full {name} deck did not print 'PASSED validation.'")
     if c["sweep_chunk_plain"] != 0 or c["flight_chunk_plain"] != 0:
         fail(f"{name} main path: counts {c} (a plain version ran)")
@@ -352,6 +477,18 @@ def check_kernel_path(name: str, out: str, c: dict) -> tuple:
         fail(f"{name} main path: counts {c} (want kernel launches)")
     return (c["sweep_chunk_kernel"], c["flight_chunk_kernel"],
             c["deposit_segments_kernel"])
+
+
+def mode_entry(runs: list, shape: str) -> dict:
+    """The kernels-line entry of a mode from its comparisons (times and
+    bounds summed over decks, the largest error)."""
+    bounds = [work_bound(r) for r in runs]
+    top = max(bounds, key=lambda b: b["bound_ms"])
+    return {"ms": sum(r["ms"] for r in runs),
+            "plain_ms": sum(r["plain_ms"] for r in runs),
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "bound_ms": sum(b["bound_ms"] for b in bounds),
+            "bound_by": top["bound_by"], "shape": shape}
 
 
 def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
@@ -371,20 +508,15 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
         res["raster_launches"] += counts[2]
 
     def sweep_mode(mode, deck, shape):
-        k_ms, p_ms, err = compare(MODE_N, torch, driver, transport,
-                                  sweep_kernel, fields, deck=deck,
-                                  label=f"compare {mode}")
-        res["sweep"][mode] = {"ms": k_ms, "plain_ms": p_ms,
-                              "max_abs_err": err, "shape": shape}
+        r = compare(MODE_N, torch, driver, transport, sweep_kernel, fields,
+                    deck=deck, label=f"compare {mode}")
+        res["sweep"][mode] = mode_entry([r], shape)
 
     def flight_mode(mode, decks, shape):
         runs = [compare_flight(d, torch, driver, transport, flight,
                                flight_kernel, fields, label=f"flight {mode}")
                 for d in decks]
-        res["flight"][mode] = {"ms": sum(r[0] for r in runs),
-                               "plain_ms": sum(r[1] for r in runs),
-                               "max_abs_err": max(r[2] for r in runs),
-                               "shape": shape}
+        res["flight"][mode] = mode_entry(runs, shape)
 
     # ---- 8. pcg64si -----------------------------------------------------
     pcg = os.path.join(tmp, "pcg")
@@ -447,6 +579,82 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
     return res
 
 
+def split_single_counts(deck, torch, driver, flight) -> list:
+    """Per-step (facets, collisions) of a single-device kernel run of the
+    full `deck` over its rects split at the 2x2 blocks' grid lines (the
+    geometry that spatial2d's windows give)."""
+    import dataclasses
+    sim = driver.Simulation(driver.load_config(deck), quiet=True)
+    sim.geom = dataclasses.replace(sim.geom, rects=flight.split_rects(
+        sim.geom.rects, [2000], [2000]))
+    sim.run()
+    return [(m.nfacets, m.ncollisions) for m in sim.step_metrics]
+
+
+def decomposed_paths(tmp, torch, driver, flight, wrappers,
+                     scatter_counts) -> dict:
+    """Phase 14.  Returns the launches of its main paths and, per run, its
+    per-step counts, migrations and launches."""
+    import numpy as np
+    from neutral_tpu_torch.mesh import build_density
+
+    res = {"sweep_launches": 0, "flight_launches": 0, "raster_launches": 0}
+
+    def run(deck, decomposition, name, want_counts):
+        out, total, c = main_path(deck, torch, driver, wrappers,
+                                  argv=[*SHARDS, decomposition],
+                                  label=f"{decomposition} {name}")
+        if f"Decomposition: {decomposition}, 4 shards on cuda:0" not in out:
+            fail(f"{decomposition} {name}: the decomposition did not run")
+        if name == "csp":
+            rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
+            print(f"[main {decomposition} csp] tally {total:.9e} against "
+                  f"omp3's {CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
+            if not rel <= 1e-3:
+                fail(f"{decomposition} csp tally is {rel:.3e} from omp3's")
+        launches = check_kernel_path(f"{decomposition} {name}", out, c,
+                                     passed=name != "csp")
+        res["sweep_launches"] += launches[0]
+        res["flight_launches"] += launches[1]
+        res["raster_launches"] += launches[2]
+        counts = step_counts(out)
+        if want_counts is not None and counts != want_counts:
+            fail(f"{decomposition} {name}: per-step counts {counts} differ "
+                 f"from the single-device run's {want_counts}")
+        print(f"[main {decomposition} {name}] per-step counts equal to the "
+              f"single-device run's: {want_counts is not None}; launches "
+              f"{launches}", flush=True)
+
+    for decomposition in ("replicated", "spatial", "spatial2d"):
+        run(SCATTER, decomposition, "scatter", scatter_counts)
+    for deck in FLIGHT_DECKS:
+        name = deck.split("/")[-1].split(".")[0]
+        run(deck, "spatial2d", name,
+            split_single_counts(deck, torch, driver, flight))
+    pcg = os.path.join(tmp, "pcg_spatial")
+    grid = os.path.join(tmp, "grid_spatial")
+    os.mkdir(pcg)
+    os.mkdir(grid)
+    cfg = driver.load_config(SCATTER)
+    np.save(os.path.join(grid, "dens.npy"), build_density(cfg))
+    run(deck_copy(FLIGHT_DECKS[1], pcg, "rng pcg64si\n"), "spatial",
+        "pcg64si split", None)
+    run(deck_copy(SCATTER, grid, "density_file dens.npy\n"), "spatial",
+        "grid scatter", scatter_counts)
+    return res
+
+
+def census_repeats(torch) -> dict:
+    """Phase 15: the unwindowed 10M scatter census, 5 times."""
+    from neutral_tpu_torch.measure import census
+    r = census(5)
+    print(f"[census 10M] unwindowed sweep kernel: "
+          + ", ".join(f"{t:.3f}" for t in r["census_ms"])
+          + f" ms (min {r['min_ms']:.3f}, median {r['median_ms']:.3f})",
+          flush=True)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -506,10 +714,10 @@ def main() -> int:
     # ---- 6. segment-deposit kernel against plain version ----------------
     stream = FLIGHT_DECKS[0]
     geom = driver.make_geometry(driver.load_config(stream))
-    r_ms, r_plain_ms, r_err = compare_raster(
-        flight_results[stream][3], torch, geom, raster, raster_kernel)
+    raster_result = compare_raster(flight_results[stream].pop("segs"), torch,
+                                   geom, raster, raster_kernel)
     for deck in FLIGHT_DECKS:
-        flight_results[deck] = flight_results[deck][:3]
+        flight_results[deck].pop("segs", None)
 
     # ---- 7. main path, flight decks -------------------------------------
     flight_launches = raster_launches = 0
@@ -541,28 +749,50 @@ def main() -> int:
     modes = run_modes(tmp.name, torch, driver, transport, flight,
                       sweep_kernel, flight_kernel, STATE_FIELDS, wrappers,
                       step_counts(out_scatter))
-    tmp.cleanup()
     sweep_launches += modes["sweep_launches"]
     flight_launches += modes["flight_launches"]
     raster_launches += modes["raster_launches"]
 
-    # ---- 11. result -----------------------------------------------------
-    k_ms, p_ms, err = results[COMPARE_SIZES[-1]]
-    fk = sum(v[0] for v in flight_results.values())
-    fp = sum(v[1] for v in flight_results.values())
-    fe = max(v[2] for v in flight_results.values())
-    per_deck = {d.split("/")[-1].split(".")[0]: {"ms": v[0], "plain_ms": v[1]}
-                for d, v in flight_results.items()}
+    # ---- 12-13. the window modes ----------------------------------------
+    window = compare(MODE_N, torch, driver, transport, sweep_kernel,
+                     STATE_FIELDS, label="window sweep", window=BLOCK)
+    window_flight = [compare_flight(d, torch, driver, transport, flight,
+                                    flight_kernel, STATE_FIELDS,
+                                    label="window flight", window=BLOCK)
+                     for d in (FLIGHT_DECKS[1], FLIGHT_DECKS[0])]
+    for r in window_flight:
+        r.pop("segs")
+    block = (f"the 2x2 block [2000, 4000)^2 of the 4000x4000 mesh, "
+             f"{MODE_N} particles")
+    modes["sweep"]["window"] = mode_entry([window], f"scatter in {block}")
+    modes["flight"]["window"] = mode_entry(
+        window_flight, f"split + stream in {block}, one census each")
 
-    def entry(ms, plain_ms, max_abs_err, shape):
-        return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs_err,
-                "shape": shape}
+    # ---- 14. decomposed main paths ---------------------------------------
+    decomposed = decomposed_paths(tmp.name, torch, driver, flight, wrappers,
+                                  step_counts(out_scatter))
+    tmp.cleanup()
+    sweep_launches += decomposed["sweep_launches"]
+    flight_launches += decomposed["flight_launches"]
+    raster_launches += decomposed["raster_launches"]
+    for k in ("sweep", "flight"):
+        modes[k]["window"]["launches"] = decomposed[f"{k}_launches"]
 
-    sweep_modes = {"analytic": entry(
-        k_ms, p_ms, err, f"scatter, {COMPARE_SIZES[-1]} particles")}
+    # ---- 15. the window parameters' cost --------------------------------
+    census = census_repeats(torch)
+
+    # ---- 16. result -----------------------------------------------------
+    top = results[COMPARE_SIZES[-1]]
+    flights = list(flight_results.values())
+    per_deck = {d.split("/")[-1].split(".")[0]: {
+        "ms": v["ms"], "plain_ms": v["plain_ms"], **work_bound(v)}
+        for d, v in flight_results.items()}
+    sweep_modes = {"analytic": mode_entry(
+        [top], f"scatter, {COMPARE_SIZES[-1]} particles")}
+    sweep_modes["analytic"]["census_repeats_ms"] = census["census_ms"]
     sweep_modes.update(modes["sweep"])
-    flight_modes = {"analytic": entry(
-        fk, fp, fe, "stream + split + csp, 1,000,000 particles each")}
+    flight_modes = {"analytic": mode_entry(
+        flights, "stream + split + csp, 1,000,000 particles each")}
     flight_modes.update(modes["flight"])
     print(f"[device] nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": [
@@ -571,42 +801,53 @@ def main() -> int:
          "source": "neutral_tpu_torch/csrc/sweep.cu",
          "replaces": "neutral_tpu/pallas_sweep.py:59",
          "launches": sweep_launches,
-         "max_abs_err": err,
-         "ms": k_ms,
-         "plain_ms": p_ms,
+         "max_abs_err": top["max_abs_err"],
+         "ms": top["ms"],
+         "plain_ms": top["plain_ms"],
+         **work_bound(top),
+         "library_ms": None,
          "modes": sweep_modes,
          "shape": f"scatter deck, {COMPARE_SIZES[-1]} particles, 4000x4000 "
                   "mesh, one census; ms and plain_ms are whole-census times "
                   "(analytic, region, threefry); launches are summed over "
-                  "every main path"},
+                  "every main path, the decomposed ones included; the "
+                  "window mode's launches are the decomposed paths'"},
         {"name": "flight_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/flight.cu",
          "replaces": "neutral_tpu/pallas_flight.py:59",
          "launches": flight_launches,
-         "max_abs_err": fe,
-         "ms": fk,
-         "plain_ms": fp,
+         "max_abs_err": flight_modes["analytic"]["max_abs_err"],
+         "ms": flight_modes["analytic"]["ms"],
+         "plain_ms": flight_modes["analytic"]["plain_ms"],
+         "bound_ms": flight_modes["analytic"]["bound_ms"],
+         "bound_by": flight_modes["analytic"]["bound_by"],
+         "library_ms": None,
          "per_deck": per_deck,
          "modes": flight_modes,
          "shape": "stream, split and csp decks, 1,000,000 particles each, "
                   "4000x4000 mesh, one step-1 census each (segment deposits "
-                  "included); ms and plain_ms are the sums of the three; "
-                  "max_abs_err is the largest per-cell tally difference"},
+                  "included); ms, plain_ms and bound_ms are the sums of the "
+                  "three; max_abs_err is the largest per-cell tally "
+                  "difference"},
         {"name": "segment_deposit_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/raster.cu",
          "replaces": "neutral_tpu/raster.py:331 and neutral_tpu/raster.py:161",
          "launches": raster_launches,
-         "max_abs_err": r_err,
-         "ms": r_ms,
-         "plain_ms": r_plain_ms,
-         "modes": {"analytic": entry(
-             r_ms, r_plain_ms, r_err, "stream's step-1 segment rows")},
+         "max_abs_err": raster_result["max_abs_err"],
+         "ms": raster_result["ms"],
+         "plain_ms": raster_result["plain_ms"],
+         "bound_ms": raster_result["bound_ms"],
+         "bound_by": raster_result["bound_by"],
+         "library_ms": None,
+         "modes": {"analytic": {**raster_result,
+                                "shape": "stream's step-1 segment rows"}},
          "shape": "the segment rows of the stream deck's step-1 census "
                   "(1,000,000 particles, 4000x4000 mesh) in one deposit; "
-                  "the kernel has no modes of its own and also ran in the "
-                  "pcg64si and table flight main paths"},
+                  "the kernel has no modes of its own, ran in the pcg64si "
+                  "and table flight main paths, and deposits block-sized "
+                  "window-local rows in the spatial ones"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

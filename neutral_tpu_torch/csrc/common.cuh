@@ -45,6 +45,13 @@ constexpr float kE3 = static_cast<float>(1.0e3);
 constexpr float kTwoM32 = 0x1p-32f;
 constexpr float kTwoM33 = 0x1p-33f;
 
+// Whether global cell (cx, cy) lies in the window [x_off, x_off + nx) x
+// [y_off, y_off + ny) of a decomposed run's shard (always, unwindowed).
+__device__ __forceinline__ bool in_window(int cx, int cy, int x_off,
+                                          int y_off, int nx, int ny) {
+  return cx >= x_off && cx < x_off + nx && cy >= y_off && cy < y_off + ny;
+}
+
 __device__ __forceinline__ uint64_t rotl64(uint64_t v, int r) {
   return (v << r) | (v >> (64 - r));
 }

@@ -21,6 +21,16 @@
 //   * facet and collision counts go into 64-bit totals (a piece can cross
 //     nx + ny cells), reduced per warp.
 //
+// The spatial window of a decomposed run (pallas_flight.py's `windowed`
+// mode, :61, :88-102, :314-318) is a runtime parameter: the launch names
+// the window [x_off, x_off + nx) x [y_off, y_off + ny) of the global_nx x
+// global_ny mesh (an unwindowed launch passes offsets 0 and the global
+// extent).  Rect walls clamp to the window, so a piece ends at the shard's
+// boundary as at a rect wall; the reflecting boundary stays global; flushes
+// and segment rows are window-local; a lane outside the window is not
+// touched, and one that leaves it stops after that piece for the host to
+// migrate.
+//
 // Rings, pause gating, the segment-plane layout and ring extraction have no
 // counterpart.  float32 on a uniform mesh with constant-density rects only
 // (an (R, 4) int32 bounds array and an (R,) float32 density array on the
@@ -59,8 +69,9 @@ struct FlightParams {
   uint8_t* dead;
   const int64_t* pid;
   int64_t* counter;
-  float* tally;                 // (ny * nx,) flat, row-major
+  float* tally;                 // (ny * nx,) flat, row-major, window-local
   float* segs;                  // (seg_cap, 5) rows [gx0, gy0, gx1, gy1, kk]
+                                // in window-local cell units
   // [facets, collisions, lanes still working, segment rows written]
   unsigned long long* counts;
   const float* scatter_keys;    // table mode: (scatter_entries,) ascending
@@ -73,14 +84,18 @@ struct FlightParams {
   long long n;
   long long seg_cap;
   int max_pieces;
-  int nx;
-  int ny;
+  int nx;                       // the window's extent (the whole mesh
+  int ny;                       // when unwindowed)
   int scatter_entries;
   int absorb_entries;
   int same_xs;
   int nrects;
   int xs_mode;                  // nt::XsMode
   int rng;                      // nt::RngScheme
+  int x_off;                    // the window's first global cell
+  int y_off;
+  int global_nx;                // the whole mesh
+  int global_ny;
   float dx;
   float dy;
   float inv_dx;
@@ -101,7 +116,8 @@ flight_kernel(const FlightParams p) {
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   unsigned long long n_facets = 0, n_colls = 0, n_working = 0;
 
-  if (i < p.n && !p.dead[i] && p.dt_to_census[i] > 0.0f) {
+  if (i < p.n && !p.dead[i] && p.dt_to_census[i] > 0.0f &&
+      in_window(p.cellx[i], p.celly[i], p.x_off, p.y_off, p.nx, p.ny)) {
     float x = p.x[i], y = p.y[i];
     float omega_x = p.omega_x[i], omega_y = p.omega_y[i];
     float energy = p.energy[i], weight = p.weight[i];
@@ -111,27 +127,30 @@ flight_kernel(const FlightParams p) {
     const uint64_t pid = static_cast<uint64_t>(p.pid[i]);
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
+    bool inwin = true;
     const XsTable scatter{p.scatter_keys, p.scatter_values,
                           p.scatter_entries};
     const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_entries};
     const int4* bounds = reinterpret_cast<const int4*>(p.rect_bounds);
-    // The lane's rect, searched again only when the cell has left it: the
-    // rects are disjoint and cover the domain (flight.disjoint_rects), so
-    // while the cell stays inside, the search would find the same rect.
-    // The empty rect forces the first search.
+    const float xo = static_cast<float>(p.x_off);
+    const float yo = static_cast<float>(p.y_off);
+    // The lane's rect clamped to the window, searched again only when the
+    // cell has left it: the rects are disjoint and cover the domain
+    // (flight.disjoint_rects), so while the cell stays inside, the search
+    // would find the same rect.  The empty rect forces the first search.
     float rho = 0.0f;
     int rix0 = 0, rix1 = 0, riy0 = 0, riy1 = 0;
 
-    for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f;
+    for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f && inwin;
          ++piece) {
-      // ---- current rect by cell membership ----
+      // ---- current rect by cell membership, clamped to the window ----
       if (!(cellx >= rix0 && cellx < rix1 && celly >= riy0 &&
             celly < riy1)) {
         rho = 0.0f;
         rix0 = 0;
-        rix1 = p.nx;
+        rix1 = p.global_nx;
         riy0 = 0;
-        riy1 = p.ny;
+        riy1 = p.global_ny;
         for (int r = 0; r < p.nrects; ++r) {
           const int4 b = __ldg(bounds + r);
           if (cellx >= b.x && cellx < b.y && celly >= b.z && celly < b.w) {
@@ -142,6 +161,10 @@ flight_kernel(const FlightParams p) {
             riy1 = b.w;
           }
         }
+        rix0 = max(rix0, p.x_off);
+        rix1 = min(rix1, p.x_off + p.nx);
+        riy0 = max(riy0, p.y_off);
+        riy1 = min(riy1, p.y_off + p.ny);
       }
 
       // ---- material state ----
@@ -186,9 +209,9 @@ flight_kernel(const FlightParams p) {
       const bool exit_x = is_exit && x_wall;
       const bool exit_y = is_exit && !x_wall;
       const bool refl_x =
-          exit_x && ((pos_x && rix1 == p.nx) || (!pos_x && rix0 == 0));
+          exit_x && ((pos_x && rix1 == p.global_nx) || (!pos_x && rix0 == 0));
       const bool refl_y =
-          exit_y && ((pos_y && riy1 == p.ny) || (!pos_y && riy0 == 0));
+          exit_y && ((pos_y && riy1 == p.global_ny) || (!pos_y && riy0 == 0));
 
       const int fcx = static_cast<int>(floorf(x1 * p.inv_dx));
       const int fcy = static_cast<int>(floorf(y1 * p.inv_dy));
@@ -247,21 +270,25 @@ flight_kernel(const FlightParams p) {
       const float acc1 = deposit + K * (crossed ? d_head_eff : d);
       if (crossed) {
         const float v1 = acc1 * p.inv_ntotal;
-        if (v1 != 0.0f) atomicAdd(&p.tally[celly * p.nx + cellx], v1);
+        if (v1 != 0.0f) {
+          atomicAdd(&p.tally[(celly - p.y_off) * p.nx + (cellx - p.x_off)],
+                    v1);
+        }
       }
       // Final cell: the tail accumulates.
       const float acc2 = crossed ? K * (d - d_in) : acc1;
 
-      // ---- interior segment, from the pre-piece position ----
+      // ---- interior segment, from the pre-piece position, in window-local
+      // cell units (an exact shift; 0 when unwindowed) ----
       if (emit) {
         const float seg_len = tmax(d_in - d_head_eff, 0.0f);
         const unsigned long long row = atomicAdd(&p.counts[3], 1ULL);
         if (row < static_cast<unsigned long long>(p.seg_cap)) {
           float* out = p.segs + 5 * row;
-          out[0] = (x + d_head_eff * omega_x) * p.inv_dx;
-          out[1] = (y + d_head_eff * omega_y) * p.inv_dy;
-          out[2] = (x + d_in * omega_x) * p.inv_dx;
-          out[3] = (y + d_in * omega_y) * p.inv_dy;
+          out[0] = (x + d_head_eff * omega_x) * p.inv_dx - xo;
+          out[1] = (y + d_head_eff * omega_y) * p.inv_dy - yo;
+          out[2] = (x + d_in * omega_x) * p.inv_dx - xo;
+          out[3] = (y + d_in * omega_y) * p.inv_dy - yo;
           out[4] = (K * seg_len) * p.inv_ntotal;
         }
       }
@@ -280,7 +307,9 @@ flight_kernel(const FlightParams p) {
       // Death or census: flush the final cell.
       if (died || is_census) {
         const float v2 = acc2 * p.inv_ntotal;
-        if (v2 != 0.0f) atomicAdd(&p.tally[cy1 * p.nx + cx1], v2);
+        if (v2 != 0.0f) {
+          atomicAdd(&p.tally[(cy1 - p.y_off) * p.nx + (cx1 - p.x_off)], v2);
+        }
         deposit = 0.0f;
       } else {
         deposit = acc2;
@@ -296,9 +325,10 @@ flight_kernel(const FlightParams p) {
       cellx = cx1;
       celly = cy1;
       dead = died;
+      inwin = in_window(cellx, celly, p.x_off, p.y_off, p.nx, p.ny);
     }
 
-    n_working = (!dead && dt > 0.0f) ? 1 : 0;
+    n_working = (!dead && dt > 0.0f && inwin) ? 1 : 0;
     p.x[i] = x;
     p.y[i] = y;
     p.omega_x[i] = omega_x;

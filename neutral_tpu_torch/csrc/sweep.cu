@@ -32,6 +32,16 @@
 //     counterpart here;
 //   * draws: threefry or pcg64si.
 //
+// The spatial window of a decomposed run (pallas_sweep.py's has_slab and
+// has_col modes, :61 and :91-105) is a runtime parameter, not a template
+// mode: the launch names the window [x_off, x_off + nx) x [y_off, y_off +
+// ny) of the global_nx x global_ny mesh, and an unwindowed launch passes
+// offsets 0 and the global extent.  The tally and a grid deck's density are
+// window-local (row-major over nx columns); the regions and the reflecting
+// boundary are global.  A lane outside the window is not touched; a lane
+// that leaves the window stops after the facet event that took it out (its
+// flush lands in the cell it left), and the host migrates it to its owner.
+//
 // The wrapper (sweep_kernel.py) rejects everything else.
 //
 // What bounds it on the H100: integer throughput of Threefry-2x64-20 (about
@@ -65,7 +75,7 @@ struct SweepParams {
   uint8_t* dead;
   const int64_t* pid;
   int64_t* counter;
-  float* tally;                 // (ny * nx,) flat, row-major
+  float* tally;                 // (ny * nx,) flat, row-major, window-local
   unsigned long long* counts;   // [facets, collisions, lanes still working]
   const float* scatter_keys;    // table mode: (scatter_entries,) ascending
   const float* scatter_values;
@@ -73,12 +83,12 @@ struct SweepParams {
   const float* absorb_values;
   const int32_t* region_bounds; // region mode: (nregions, 4) ix0 ix1 iy0 iy1
   const float* region_density;  // region mode: (nregions,)
-  const float* density;         // grid mode: (ny * nx,) flat, row-major
+  const float* density;         // grid mode: (ny * nx,) window-local
   unsigned long long master_key;
   long long n;
   int max_events;
-  int nx;
-  int ny;
+  int nx;                       // the window's extent (the whole mesh
+  int ny;                       // when unwindowed)
   int scatter_entries;
   int absorb_entries;
   int same_xs;
@@ -86,6 +96,10 @@ struct SweepParams {
   int xs_mode;                  // nt::XsMode
   int density_mode;             // nt::DensityMode
   int rng;                      // nt::RngScheme
+  int x_off;                    // the window's first global cell
+  int y_off;
+  int global_nx;                // the whole mesh
+  int global_ny;
   float dx;
   float dy;
   float inv_ntotal;
@@ -104,7 +118,8 @@ sweep_kernel(const SweepParams p) {
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   unsigned int n_facets = 0, n_colls = 0, n_working = 0;
 
-  if (i < p.n && !p.dead[i] && p.dt_to_census[i] > 0.0f) {
+  if (i < p.n && !p.dead[i] && p.dt_to_census[i] > 0.0f &&
+      in_window(p.cellx[i], p.celly[i], p.x_off, p.y_off, p.nx, p.ny)) {
     float x = p.x[i], y = p.y[i];
     float omega_x = p.omega_x[i], omega_y = p.omega_y[i];
     float energy = p.energy[i], weight = p.weight[i];
@@ -114,6 +129,7 @@ sweep_kernel(const SweepParams p) {
     const uint64_t pid = static_cast<uint64_t>(p.pid[i]);
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
+    bool inwin = true;
     const XsTable scatter{p.scatter_keys, p.scatter_values,
                           p.scatter_entries};
     const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_entries};
@@ -124,11 +140,13 @@ sweep_kernel(const SweepParams p) {
     int density_cell = -1;
     float density = 0.0f;
 
-    for (int ev = 0; ev < p.max_events && !dead && dt > 0.0f; ++ev) {
+    for (int ev = 0; ev < p.max_events && !dead && dt > 0.0f && inwin;
+         ++ev) {
       // ---- local material state: the grid's cell, or the regions (later
       // regions override earlier ones) ----
-      const int flat_cell =
-          min(max(celly * p.nx + cellx, 0), p.nx * p.ny - 1);
+      const int flat_cell = min(
+          max((celly - p.y_off) * p.nx + (cellx - p.x_off), 0),
+          p.nx * p.ny - 1);
       if (flat_cell != density_cell) {
         density_cell = flat_cell;
         if constexpr (D == DensityMode::kGrid) {
@@ -210,11 +228,12 @@ sweep_kernel(const SweepParams p) {
       }
 
       // ---- facet: step into the next cell (re-basing the local
-      // position) or reflect at the domain boundary ----
+      // position) or reflect at the domain boundary; a lane that steps
+      // out of the window stops here ----
       if (is_facet) {
         if (x_facet) {
           if (omega_x > 0.0f) {
-            if (cellx >= p.nx - 1) {
+            if (cellx >= p.global_nx - 1) {
               omega_x = -omega_x;
             } else {
               cellx += 1;
@@ -230,7 +249,7 @@ sweep_kernel(const SweepParams p) {
           }
         } else {
           if (omega_y > 0.0f) {
-            if (celly >= p.ny - 1) {
+            if (celly >= p.global_ny - 1) {
               omega_y = -omega_y;
             } else {
               celly += 1;
@@ -245,6 +264,7 @@ sweep_kernel(const SweepParams p) {
             }
           }
         }
+        inwin = in_window(cellx, celly, p.x_off, p.y_off, p.nx, p.ny);
       }
 
       dead = died;
@@ -252,7 +272,7 @@ sweep_kernel(const SweepParams p) {
       n_colls += is_coll;
     }
 
-    n_working = !dead && dt > 0.0f;
+    n_working = !dead && dt > 0.0f && inwin;
     p.x[i] = x;
     p.y[i] = y;
     p.omega_x[i] = omega_x;

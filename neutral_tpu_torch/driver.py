@@ -32,6 +32,15 @@ for by name; `auto` is `kernel` on CUDA in float32 and `plain` otherwise
 (`pick_engine`: the kernels are float32 only, as `neutral_tpu`'s are).
 Grid decks (`density_file`) run on the sweep transport only.
 
+Runs go to the card unless the caller asks for the CPU (`device="cpu"`,
+`--device cpu`); without a card a CUDA run raises or exits non-zero, and
+never falls back to the CPU.  With more than one shard (`--shards`, by
+default one per visible card) the CLI runs one of the decompositions of
+parallel/ (`--decomposition replicated|spatial|spatial2d`), several shards
+may share one card; with one it runs `Simulation`.  Both share
+`SimulationBase`: set-up, the step print, validation and the phase
+breakdown.
+
 The JAX driver's power-of-4 compaction ladder is not ported: it exists
 because masked sweeps pay for dead lanes, and a thread-per-lane kernel
 whose finished lanes exit at once does not pay that way (ROADMAP keeps the
@@ -62,6 +71,18 @@ from .xs import CrossSection, find_cs_files
 
 ENGINES = ("auto", "plain", "kernel")
 TRANSPORTS = ("auto", "sweep", "flight")
+DECOMPOSITIONS = ("replicated", "spatial", "spatial2d")
+
+
+def check_device(device: torch.device) -> torch.device:
+    """`device` itself; raise on a CUDA device when PyTorch sees no card
+    (a run never moves to the CPU by itself)."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} was asked for, but torch.cuda.is_available() "
+            'is False; pass device="cpu" to run the plain versions on the '
+            "CPU")
+    return device
 
 
 def load_cross_sections(cfg: SimConfig, dtype: torch.dtype, device
@@ -157,8 +178,10 @@ class StepMetrics:
     # "sweep" (the census; wall clock), for the flight transport "flight"
     # and "raster" (the pieces and the segment deposits: device time from
     # CUDA events with the kernel engine, wall clock with the plain one)
-    # and "loop" (the rest of the census's wall time: the host loop).
+    # and "loop" (the rest of the census's wall time: the host loop); a
+    # spatial decomposition adds "migrate" (wall clock).
     phases: dict
+    nmigrated: int = 0    # lanes moved between shards (spatial runs)
 
 
 def within_tolerance(expected: float, actual: float, tol: float) -> bool:
@@ -168,10 +191,14 @@ def within_tolerance(expected: float, actual: float, tol: float) -> bool:
     return abs(actual - expected) / abs(expected) <= tol
 
 
-class Simulation:
-    """Single-device simulation on a CUDA device or the CPU."""
+class SimulationBase:
+    """What every simulation shares: the deck's geometry, mesh and
+    cross-sections on a device, the engine and transport, the timestep
+    loop with the reference's per-step print, validation and the phase
+    breakdown.  Subclasses own the particles and the tally: `step(tt)`
+    returns a StepMetrics, `host_tally()` the global tally."""
 
-    def __init__(self, cfg: SimConfig, *, device="cpu", engine: str = "auto",
+    def __init__(self, cfg: SimConfig, *, device="cuda", engine: str = "auto",
                  transport: str = "auto", quiet: bool = False):
         if cfg.visit_dump:
             raise NotImplementedError("visit_dump output is not ported yet "
@@ -181,6 +208,7 @@ class Simulation:
         self.dtype = getattr(torch, cfg.dtype)
         self.quiet = quiet
         self.engine = pick_engine(engine, self.device, self.dtype)
+        check_device(self.device)
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, got "
                              f"{transport}")
@@ -201,28 +229,121 @@ class Simulation:
                 and torch.equal(self.cs_scatter.values,
                                 self.cs_absorb.values)):
             self.geom = dataclasses.replace(self.geom, same_xs=True)
-
-        # Flight pieces span many cells: the flight transport keeps global
-        # positions in every dtype.
-        local = (self.transport == "sweep"
-                 and use_local_coords(self.geom, self.dtype))
-        self.state = inject_particles(
-            self.mesh, nparticles=cfg.nparticles,
-            source_x0=cfg.source.xpos * cfg.width,
-            source_y0=cfg.source.ypos * cfg.height,
-            source_width=cfg.source.width * cfg.width,
-            source_height=cfg.source.height * cfg.height,
-            initial_energy=cfg.initial_energy, dt=cfg.dt, dtype=self.dtype,
-            rng_scheme=cfg.rng,
-            local_coords=(self.geom.dx, self.geom.dy) if local else None,
-            device=self.device)
-        self.tally = torch.zeros(cfg.nx * cfg.ny,
-                                 dtype=getattr(torch, cfg.tally_dtype),
-                                 device=self.device)
         self.elapsed_sim_time = 0.0
         self.wallclock = 0.0
         self.profile = Profile(self.device)
         self.step_metrics: list[StepMetrics] = []
+
+    def source(self) -> dict:
+        """inject_particles' source box and cell-local frame: the sweep
+        transport in float32 keeps cell-local positions, the flight
+        transport global ones in every dtype (flight pieces span cells)."""
+        cfg = self.cfg
+        local = (self.transport == "sweep"
+                 and use_local_coords(self.geom, self.dtype))
+        return dict(source_x0=cfg.source.xpos * cfg.width,
+                    source_y0=cfg.source.ypos * cfg.height,
+                    source_width=cfg.source.width * cfg.width,
+                    source_height=cfg.source.height * cfg.height,
+                    rng_scheme=cfg.rng,
+                    local_coords=(self.geom.dx, self.geom.dy) if local
+                    else None)
+
+    def step(self, tt: int) -> StepMetrics:
+        raise NotImplementedError
+
+    def host_tally(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def run(self) -> float:
+        """Full timestep loop.  Returns the global tally sum."""
+        out = self._print
+        for tt in range(1, self.cfg.niters + 1):
+            out(f"\nIteration  {tt}")
+            m = self.step(tt)
+            self.wallclock += m.step_time
+            if self.engine == "kernel" and self.transport == "flight":
+                # As below, with flight pieces: a piece is one collision,
+                # rect exit or census, crossing any number of cells.
+                out(f"Handled {m.nprocessed} particles, with "
+                    f"{m.nlaunches * MAX_PIECES} event sweeps "
+                    f"({m.nlaunches} flight kernel launches x {MAX_PIECES} "
+                    "flight pieces)")
+            elif self.engine == "kernel":
+                # No sweeps exist here: each lane runs its events in one
+                # thread.  The count printed in their place is kernel
+                # launches x events per lane per launch, a bound on the
+                # events any lane ran.
+                out(f"Handled {m.nprocessed} particles, with "
+                    f"{m.nlaunches * MAX_EVENTS} event sweeps "
+                    f"({m.nlaunches} kernel launches x {MAX_EVENTS} "
+                    "events)")
+            elif self.transport == "flight":
+                out(f"Handled {m.nprocessed} particles, with {m.nsweeps} "
+                    "event sweeps (flight sweeps: one flight piece per "
+                    "lane each)")
+            else:
+                out(f"Handled {m.nprocessed} particles, "
+                    f"with {m.nsweeps} event sweeps")
+            if "migrate" in m.phases:
+                out(f"Migrated {m.nmigrated} particles between shards")
+            out(f"Step time  {m.step_time:.4f}s")
+            out(f"Wallclock  {self.wallclock:.4f}s")
+            out(f"Facets     {m.nfacets}")
+            out(f"Collisions {m.ncollisions}")
+            out(f"Facet Events / s {m.nfacets / m.step_time:.2e}")
+            out(f"Collision Events / s {m.ncollisions / m.step_time:.2e}")
+            self.elapsed_sim_time += self.cfg.dt
+            if self.elapsed_sim_time >= self.cfg.sim_end:
+                out("Reached end of simulation time")
+                break
+        result = self.validate()
+        out(f"Final Wallclock {self.wallclock:.9f}s")
+        out(f"Elapsed Simulation Time {self.elapsed_sim_time:.6f}s")
+        out(self.profile.summary())
+        agg = {}
+        for sm in self.step_metrics:
+            for k, v in sm.phases.items():
+                agg[k] = agg.get(k, 0.0) + v
+        out("PHASE BREAKDOWN (cumulative): "
+            + "  ".join(f"{k}={v:.4f}s" for k, v in agg.items()))
+        return result
+
+    def validate(self) -> float:
+        """Global tally sum + golden comparison (omp3/neutral.c:520-557)."""
+        total = float(self.host_tally().sum())
+        out = self._print
+        out(f"Final global_energy_tally {total:.15e}")
+        expected = self.cfg.expected_tally
+        if expected is None:
+            out("WARNING: could not find a golden result to validate against")
+        elif within_tolerance(expected, total, VALIDATE_TOLERANCE):
+            out("PASSED validation.")
+        else:
+            out(f"FAILED validation: expected {expected:.12e}, "
+                f"got {total:.12e}")
+        return total
+
+    def _print(self, msg: str) -> None:
+        if not self.quiet:
+            print(msg, flush=True)
+
+
+class Simulation(SimulationBase):
+    """Single-device simulation, on the card unless `device` says
+    otherwise."""
+
+    def __init__(self, cfg: SimConfig, *, device="cuda", engine: str = "auto",
+                 transport: str = "auto", quiet: bool = False):
+        super().__init__(cfg, device=device, engine=engine,
+                         transport=transport, quiet=quiet)
+        self.state = inject_particles(
+            self.mesh, nparticles=cfg.nparticles,
+            initial_energy=cfg.initial_energy, dt=cfg.dt, dtype=self.dtype,
+            device=self.device, **self.source())
+        self.tally = torch.zeros(cfg.nx * cfg.ny,
+                                 dtype=getattr(torch, cfg.tally_dtype),
+                                 device=self.device)
         # Injection belongs to set-up, not to step 1's time.
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -264,80 +385,22 @@ class Simulation:
         self.step_metrics.append(m)
         return m
 
-    def run(self) -> float:
-        """Full timestep loop.  Returns the global tally sum."""
-        out = self._print
-        for tt in range(1, self.cfg.niters + 1):
-            out(f"\nIteration  {tt}")
-            m = self.step(tt)
-            self.wallclock += m.step_time
-            if self.engine == "kernel" and self.transport == "flight":
-                # As below, with flight pieces: a piece is one collision,
-                # rect exit or census, crossing any number of cells.
-                out(f"Handled {m.nprocessed} particles, with "
-                    f"{m.nlaunches * MAX_PIECES} event sweeps "
-                    f"({m.nlaunches} flight kernel launches x {MAX_PIECES} "
-                    "flight pieces)")
-            elif self.engine == "kernel":
-                # No sweeps exist here: each lane runs its events in one
-                # thread.  The count printed in their place is kernel
-                # launches x events per lane per launch, a bound on the
-                # events any lane ran.
-                out(f"Handled {m.nprocessed} particles, with "
-                    f"{m.nlaunches * MAX_EVENTS} event sweeps "
-                    f"({m.nlaunches} kernel launches x {MAX_EVENTS} "
-                    "events)")
-            elif self.transport == "flight":
-                out(f"Handled {m.nprocessed} particles, with {m.nsweeps} "
-                    "event sweeps (flight sweeps: one flight piece per "
-                    "lane each)")
-            else:
-                out(f"Handled {m.nprocessed} particles, "
-                    f"with {m.nsweeps} event sweeps")
-            out(f"Step time  {m.step_time:.4f}s")
-            out(f"Wallclock  {self.wallclock:.4f}s")
-            out(f"Facets     {m.nfacets}")
-            out(f"Collisions {m.ncollisions}")
-            out(f"Facet Events / s {m.nfacets / m.step_time:.2e}")
-            out(f"Collision Events / s {m.ncollisions / m.step_time:.2e}")
-            self.elapsed_sim_time += self.cfg.dt
-            if self.elapsed_sim_time >= self.cfg.sim_end:
-                out("Reached end of simulation time")
-                break
-        result = self.validate()
-        out(f"Final Wallclock {self.wallclock:.9f}s")
-        out(f"Elapsed Simulation Time {self.elapsed_sim_time:.6f}s")
-        out(self.profile.summary())
-        agg = {}
-        for sm in self.step_metrics:
-            for k, v in sm.phases.items():
-                agg[k] = agg.get(k, 0.0) + v
-        out("PHASE BREAKDOWN (cumulative): "
-            + "  ".join(f"{k}={v:.4f}s" for k, v in agg.items()))
-        return result
-
     def host_tally(self) -> np.ndarray:
         """Flat (ny*nx,) tally as float64 on the host."""
         return self.tally.cpu().numpy().astype(np.float64)
 
-    def validate(self) -> float:
-        """Global tally sum + golden comparison (omp3/neutral.c:520-557)."""
-        total = float(self.host_tally().sum())
-        out = self._print
-        out(f"Final global_energy_tally {total:.15e}")
-        expected = self.cfg.expected_tally
-        if expected is None:
-            out("WARNING: could not find a golden result to validate against")
-        elif within_tolerance(expected, total, VALIDATE_TOLERANCE):
-            out("PASSED validation.")
-        else:
-            out(f"FAILED validation: expected {expected:.12e}, "
-                f"got {total:.12e}")
-        return total
 
-    def _print(self, msg: str) -> None:
-        if not self.quiet:
-            print(msg, flush=True)
+def make_simulation(cfg: SimConfig, decomposition: str, devices: list,
+                    **kw) -> SimulationBase:
+    """`Simulation` on one device, or the decomposition's class over
+    `devices` (parallel/) when there are several."""
+    if len(devices) == 1:
+        return Simulation(cfg, device=devices[0], **kw)
+    from . import parallel
+    cls = {"replicated": parallel.ShardedSimulation,
+           "spatial": parallel.SpatialSimulation,
+           "spatial2d": parallel.Spatial2DSimulation}[decomposition]
+    return cls(cfg, devices=devices, **kw)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -362,9 +425,19 @@ def main(argv: list[str] | None = None) -> int:
                    help="sweep = one event per step; flight = closed-form "
                         "flight pieces and segment deposits; auto = flight "
                         "when a region has density below 1.0, else sweep")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, "
-                        "else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; --device cpu runs "
+                        "the plain versions on the CPU)")
+    p.add_argument("--decomposition", default="replicated",
+                   choices=DECOMPOSITIONS,
+                   help="with more than one shard: replicated mesh with "
+                        "particles split by pid, spatial y-slabs, or 2D "
+                        "(x, y) blocks, both with particle migration")
+    p.add_argument("--shards", type=int, default=None,
+                   help="shards of a decomposed run (default: one per "
+                        "visible card, torch.cuda.device_count(); 1 on the "
+                        "CPU); shards take the cards in turn, so several "
+                        "may share one")
     args = p.parse_args(argv)
 
     cfg = load_config(args.params)
@@ -377,19 +450,26 @@ def main(argv: list[str] | None = None) -> int:
                         ny=cfg.ny // args.mesh_scale, expected_tally=None)
     if args.dtype:
         cfg = cfg.with_(dtype=args.dtype, tally_dtype=args.dtype)
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     # Refuse an engine the deck cannot take before touching the device.
     pick_engine(args.engine, device, getattr(torch, cfg.dtype))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"neutral_tpu_torch: --device {args.device}, but "
+              "torch.cuda.is_available() is False; pass --device cpu to "
+              "run on the CPU", file=sys.stderr)
+        return 2
 
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+    from .parallel import shard_devices
+    devices = shard_devices(args.shards, device)
+    name = (torch.cuda.get_device_name(devices[0]) if device.type == "cuda"
             else "cpu")
-    print(f"Starting up on device {device} ({name}).")
+    print(f"Starting up on device {devices[0]} ({name}).")
     print(f"Loading problem from {args.params}.")
-    sim = Simulation(cfg, device=device, engine=args.engine,
-                     transport=args.transport)
+    sim = make_simulation(cfg, args.decomposition, devices,
+                          engine=args.engine, transport=args.transport)
     print(f"Engine: {sim.engine}.")
     print(f"Transport: {sim.transport}.")
+    print(f"Decomposition: {getattr(sim, 'layout', 'none (1 device)')}.")
     sim.run()
     return 0
 

@@ -23,8 +23,12 @@ history draws the same numbers as on the facet-stepping engine.
 (flight_kernel.py, csrc/flight.cu).  It keeps `neutral_tpu`'s operation
 order, so float64 runs reproduce the JAX flight engine's event counts
 exactly and float32 runs on one device reproduce the kernel's per-lane
-state bitwise.  Not ported: the spatial window (`x_off`/`y_off`) and the
-`gate` argument, which belong to `parallel/` and the TPU's rings, and the
+state bitwise.  Under a spatial decomposition (parallel/) `x_off`/`y_off`
+place the shard's window on the mesh, as in `neutral_tpu`: rect walls
+clamp to the window, lanes outside it freeze bitwise until migrated, and
+flush cells and segment rows are window-local.  A decomposed run therefore
+equals a single-device run over `split_rects` at the shard grid lines.
+Not ported: the `gate` argument, which belongs to the TPU's rings, and the
 TPU driver's buffer budgets and vetoes, which only delay a lane.
 """
 
@@ -90,6 +94,26 @@ def disjoint_rects(regions: tuple, nx: int, ny: int) -> tuple:
     return tuple(out)
 
 
+def split_rects(rects: tuple, xcuts, ycuts) -> tuple:
+    """Split disjoint rects along global cell-index grid lines.
+
+    A spatial decomposition with shard boundaries at `xcuts`/`ycuts`
+    clamps every rect wall to the shard's window (flight_core's window),
+    so its per-piece arithmetic equals a single-device run over this
+    partition: the one geometric effect of the window.
+    """
+    out = []
+    for (ix0, ix1, iy0, iy1, d) in rects:
+        xs = [ix0] + [int(c) for c in sorted(set(xcuts))
+                      if ix0 < c < ix1] + [ix1]
+        ys = [iy0] + [int(c) for c in sorted(set(ycuts))
+                      if iy0 < c < iy1] + [iy1]
+        for j in range(len(ys) - 1):
+            for i in range(len(xs) - 1):
+                out.append((xs[i], xs[i + 1], ys[j], ys[j + 1], float(d)))
+    return tuple(out)
+
+
 class FlightPiece(NamedTuple):
     """One flight piece of every lane, in `neutral_tpu.flight.flight_core`'s
     order.  flush1/cell1/val1: the deposit flushed on leaving the first
@@ -117,20 +141,25 @@ class FlightPiece(NamedTuple):
 def flight_core(state: ParticleState, geom: Geometry,
                 scatter_tab: CrossSection, absorb_tab: CrossSection,
                 master_key: int, inv_ntotal: float,
-                tally_dtype: torch.dtype) -> FlightPiece:
+                tally_dtype: torch.dtype, x_off=None,
+                y_off=None) -> FlightPiece:
     """Advance every live lane through exactly one flight piece.
 
     Pure math, no tally update.  Needs geom.rects and the uniform pitch;
     positions are global coordinates (a piece spans many cells, so the
     float32 cell-local frame of the facet-stepping engine does not apply;
     cell membership is decided once per piece by a floor division).
+    `x_off`/`y_off` place the window [x_off, x_off + geom.nx) x [y_off,
+    y_off + geom.ny) (see the module note); None for both: no window.
     """
     if geom.rects is None or not geom.dx:
         raise ValueError("flight transport requires a uniform mesh with "
                          "disjoint constant-density rects (geom.rects)")
     dtype = state.dtype
     i32 = torch.int32
-    live = working_mask(state)
+    windowed = x_off is not None or y_off is not None
+    xo, yo = x_off or 0, y_off or 0
+    live = working_mask(state, geom, x_off, y_off)
 
     dx = const(geom.dx, dtype)
     dy = const(geom.dy, dtype)
@@ -140,9 +169,9 @@ def flight_core(state: ParticleState, geom: Geometry,
     # ---- current rect by cell membership (exact integer tests) -----------
     rho = torch.zeros_like(state.x)
     rix0 = torch.zeros_like(state.cellx)
-    rix1 = torch.full_like(state.cellx, geom.nx)
+    rix1 = torch.full_like(state.cellx, geom.global_nx)
     riy0 = torch.zeros_like(state.cellx)
-    riy1 = torch.full_like(state.cellx, geom.ny)
+    riy1 = torch.full_like(state.cellx, geom.global_ny)
     for (ix0, ix1, iy0, iy1, d) in geom.rects:
         inside = ((state.cellx >= ix0) & (state.cellx < ix1) &
                   (state.celly >= iy0) & (state.celly < iy1))
@@ -151,6 +180,12 @@ def flight_core(state: ParticleState, geom: Geometry,
         rix1 = torch.where(inside, ix1, rix1)
         riy0 = torch.where(inside, iy0, riy0)
         riy1 = torch.where(inside, iy1, riy1)
+    if windowed:
+        # The window's walls act as rect walls (split_rects).
+        rix0 = rix0.clamp_min(xo)
+        rix1 = rix1.clamp_max(xo + geom.nx)
+        riy0 = riy0.clamp_min(yo)
+        riy1 = riy1.clamp_max(yo + geom.ny)
 
     # ---- material state (the formulas of sweep_core) ----------------------
     sig_s = scatter_tab.lookup(state.energy)
@@ -199,8 +234,10 @@ def flight_core(state: ParticleState, geom: Geometry,
     exit_y = is_exit & (~x_wall)
     # Reflection: the exited wall is the domain boundary
     # (omp3/neutral.c:333-369).
-    refl_x = exit_x & ((pos_x & (rix1 == geom.nx)) | ((~pos_x) & (rix0 == 0)))
-    refl_y = exit_y & ((pos_y & (riy1 == geom.ny)) | ((~pos_y) & (riy0 == 0)))
+    refl_x = exit_x & ((pos_x & (rix1 == geom.global_nx))
+                       | ((~pos_x) & (rix0 == 0)))
+    refl_y = exit_y & ((pos_y & (riy1 == geom.global_ny))
+                       | ((~pos_y) & (riy0 == 0)))
     is_refl = refl_x | refl_y
 
     fcx = torch.floor(x1 * inv_dx).to(i32)
@@ -268,7 +305,7 @@ def flight_core(state: ParticleState, geom: Geometry,
     acc1 = state.deposit + torch.where(
         live, K * torch.where(crossed, d_head_eff, d), 0.0)
     flush1 = crossed
-    cell1 = state.celly * geom.nx + state.cellx
+    cell1 = (state.celly - yo) * geom.nx + (state.cellx - xo)
     inv = const(inv_ntotal, tally_dtype)
     val1 = torch.where(flush1, acc1, 0.0).to(tally_dtype) * inv
 
@@ -283,16 +320,20 @@ def flight_core(state: ParticleState, geom: Geometry,
     omega_y = torch.where(refl_y, -omega_y, omega_y)
 
     flush2 = live & (died | is_census)
-    cell2 = cy1 * geom.nx + cx1
+    cell2 = (cy1 - yo) * geom.nx + (cx1 - xo)
     val2 = torch.where(flush2, acc2, 0.0).to(tally_dtype) * inv
     deposit = torch.where(flush2, 0.0,
                           torch.where(live, acc2, state.deposit))
 
-    # ---- interior segment in cell units ----------------------------------
+    # ---- interior segment in cell units (window-local: the integer shift
+    # is exact, so the deposit walks the same arithmetic) -----------------
     p0x = (state.x + d_head_eff * state.omega_x) * inv_dx
     p0y = (state.y + d_head_eff * state.omega_y) * inv_dy
     p1x = (state.x + d_in * state.omega_x) * inv_dx
     p1y = (state.y + d_in * state.omega_y) * inv_dy
+    if windowed:
+        p0x, p1x = p0x - float(xo), p1x - float(xo)
+        p0y, p1y = p0y - float(yo), p1y - float(yo)
     seg_len = (d_in - d_head_eff).clamp_min(0.0)
     kk = (K * seg_len).to(tally_dtype) * inv
 
@@ -314,9 +355,11 @@ def flight_core(state: ParticleState, geom: Geometry,
 def flight_chunk_plain(state: ParticleState, tally: torch.Tensor,
                        geom: Geometry, scatter_tab: CrossSection,
                        absorb_tab: CrossSection, master_key: int,
-                       inv_ntotal: float, segments: list | None = None):
+                       inv_ntotal: float, segments: list | None = None,
+                       x_off=None, y_off=None):
     """Plain version of the flight kernel: flight pieces until no lane has
-    work left.
+    work left (inside the window `x_off`/`y_off`, if given; the tally and
+    segment rows are then window-local).
 
     Flushes go into the flat tally with `index_add_` after every piece.
     Segment rows [gx0, gy0, gx1, gy1, kk] are collected and deposited by
@@ -333,9 +376,9 @@ def flight_chunk_plain(state: ParticleState, tally: torch.Tensor,
     nc = torch.zeros((), dtype=torch.int64, device=tally.device)
     rows = []
     nsweeps = 0
-    while bool(working_mask(state).any()):
+    while bool(working_mask(state, geom, x_off, y_off).any()):
         p = flight_core(state, geom, scatter_tab, absorb_tab, master_key,
-                        inv_ntotal, tally.dtype)
+                        inv_ntotal, tally.dtype, x_off=x_off, y_off=y_off)
         cells = torch.cat([p.cell1[p.flush1], p.cell2[p.flush2]])
         vals = torch.cat([p.val1[p.flush1], p.val2[p.flush2]])
         tally.index_add_(0, cells.to(torch.int64), vals)

@@ -15,12 +15,17 @@ result.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, threefry or pcg64si draws (csrc/flight.cu); the rects are device
-arrays of any length.  The plain version is `flight.flight_chunk_plain`.
+arrays of any length.  The spatial window of a decomposed run
+(`x_off`/`y_off`, flight.py's) is a runtime parameter.  `flight_params`
+and `flight_round` are one round (flight launch and segment deposit);
+`flight_chunk_kernel` loops them for one state, and the decomposed runs
+(parallel/) run a round on every shard before they read the counters of
+all shards at once.  The plain version is `flight.flight_chunk_plain`.
 `flight_chunk_kernel` launches the kernel or raises: on a state that does
 not lie on a CUDA device, and on any configuration the kernel does not
 implement.
-`flight_chunk_kernel.launches` counts flight-kernel launches; callers may
-reset it.
+`flight_chunk_kernel.launches` counts flight-kernel launches (made by
+`flight_round`, from either loop); callers may reset it.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from . import build
 from .particles import ParticleState
 from .raster_kernel import deposit_segments_kernel
 from .sweep_kernel import (check_inputs, rect_arrays, state_pointers,
-                           table_fields)
+                           table_fields, window_fields)
 from .transport import Geometry
 from .xs import CrossSection
 
@@ -54,7 +59,8 @@ class _FlightParams(ctypes.Structure):
            ("seg_cap", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "max_pieces", "nx", "ny", "scatter_entries", "absorb_entries",
-            "same_xs", "nrects", "xs_mode", "rng")]
+            "same_xs", "nrects", "xs_mode", "rng", "x_off", "y_off",
+            "global_nx", "global_ny")]
         + [(f, ctypes.c_float) for f in (
             "dx", "dy", "inv_dx", "inv_dy", "inv_ntotal")])
 
@@ -74,12 +80,22 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _params(state: ParticleState, tally: torch.Tensor, segbuf: torch.Tensor,
-            counts: torch.Tensor, rects: tuple, geom: Geometry,
-            scatter_tab: CrossSection, absorb_tab: CrossSection,
-            master_key: int, inv_ntotal: float,
-            max_pieces: int) -> _FlightParams:
-    """The kernel's parameters; `rects` is rect_arrays(geom.rects)."""
+def flight_params(state: ParticleState, tally: torch.Tensor,
+                  segbuf: torch.Tensor, counts: torch.Tensor, rects: tuple,
+                  geom: Geometry, scatter_tab: CrossSection,
+                  absorb_tab: CrossSection, master_key: int,
+                  inv_ntotal: float, max_pieces: int, x_off=None,
+                  y_off=None) -> _FlightParams:
+    """The parameters of one launch, after check_inputs: `segbuf` holds
+    state.n * max_pieces rows, `counts` is the (4,) int64 [facets,
+    collisions, lanes still working, segment rows written], `rects` is
+    rect_arrays(geom.rects) and `x_off`/`y_off` the window (None: none)."""
+    if geom.rects is None:
+        raise ValueError("flight kernel needs geom.rects")
+    check_inputs(state, tally, geom, scatter_tab, absorb_tab,
+                 "flight kernel")
+    if max_pieces < 1:
+        raise ValueError(f"max_pieces must be >= 1, got {max_pieces}")
     p = _FlightParams()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
@@ -93,7 +109,7 @@ def _params(state: ParticleState, tally: torch.Tensor, segbuf: torch.Tensor,
     p.n = state.n
     p.seg_cap = segbuf.shape[0]
     p.max_pieces = int(max_pieces)
-    p.nx, p.ny = geom.nx, geom.ny
+    window_fields(p, geom, x_off, y_off)
     # ctypes rounds each Python float to float32 as np.float32 does, as
     # xs.const does for the plain version.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
@@ -101,62 +117,74 @@ def _params(state: ParticleState, tally: torch.Tensor, segbuf: torch.Tensor,
     return p
 
 
+def flight_round(params: _FlightParams, tally: torch.Tensor,
+                 segbuf: torch.Tensor, counts: torch.Tensor, geom: Geometry,
+                 device: torch.device, segments: list | None = None) -> list:
+    """One round on `device`'s current stream: a flight launch, the
+    segment deposit of its rows into `tally` (geom.nx x geom.ny, the
+    window's block under a window), and the reset of the row counter.
+    When `segments` is a list, the round's rows are appended to it as an
+    (nseg, 5) copy (a host read; for checks).  Does not wait otherwise.
+    Returns the round's three CUDA events (start, flight done, deposit
+    done)."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        build.check_launch(
+            lib, lib.nt_flight_launch(ctypes.byref(params), stream),
+            "flight kernel")
+        flight_chunk_kernel.launches += 1
+        ev[1].record()
+        deposit_segments_kernel(tally, segbuf, counts[3:4], geom.nx, geom.ny)
+        ev[2].record()
+        if segments is not None:
+            segments.append(segbuf[:int(counts[3])].clone())
+        counts[3].zero_()
+    return ev
+
+
+def event_phases(marks: list) -> dict:
+    """Device seconds of the flight launches ("flight") and of the segment
+    deposits ("raster") of rounds whose events have completed."""
+    return {"flight": sum(e[0].elapsed_time(e[1]) for e in marks) / 1e3,
+            "raster": sum(e[1].elapsed_time(e[2]) for e in marks) / 1e3}
+
+
 def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
                         geom: Geometry, scatter_tab: CrossSection,
                         absorb_tab: CrossSection, master_key: int,
                         inv_ntotal: float, max_pieces: int = MAX_PIECES,
-                        segments: list | None = None):
-    """Run every lane to census or death with the CUDA flight kernel.
+                        segments: list | None = None, x_off=None,
+                        y_off=None):
+    """Run every lane to census or death (or, under the window `x_off`/
+    `y_off`, until it leaves the window) with the CUDA flight kernel.
 
     Updates `state`'s tensors and `tally` in place.  When `segments` is a
-    list, each round's segment rows are appended to it as an (nseg, 5)
-    copy (one more host read per round; for checks).  Returns (state,
-    nfacets, ncollisions, nlaunches, phases) with `phases` the device
-    seconds of the flight launches ("flight") and of the segment deposits
-    ("raster"), from CUDA events.
+    list, each round's segment rows are appended to it (flight_round).
+    Returns (state, nfacets, ncollisions, nlaunches, phases) with `phases`
+    the device seconds of the flight launches ("flight") and of the
+    segment deposits ("raster"), from CUDA events.
     """
-    if geom.rects is None:
-        raise ValueError("flight kernel needs geom.rects")
-    check_inputs(state, tally, geom, scatter_tab, absorb_tab,
-                 "flight kernel")
-    if max_pieces < 1:
-        raise ValueError(f"max_pieces must be >= 1, got {max_pieces}")
-    lib = load_library()
     dev = state.device
     # [facets, collisions, lanes still working, segment rows written]
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     segbuf = torch.empty((state.n * max_pieces, 5), dtype=torch.float32,
                          device=dev)
-    rects = rect_arrays(geom.rects, dev)
-    params = _params(state, tally, segbuf, counts, rects, geom, scatter_tab,
-                     absorb_tab, master_key, inv_ntotal, max_pieces)
-    launches = 0
+    rects = (None if geom.rects is None else rect_arrays(geom.rects, dev))
+    params = flight_params(state, tally, segbuf, counts, rects, geom,
+                           scatter_tab, absorb_tab, master_key, inv_ntotal,
+                           max_pieces, x_off, y_off)
     marks = []
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        while True:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            build.check_launch(
-                lib, lib.nt_flight_launch(ctypes.byref(params), stream),
-                "flight kernel")
-            flight_chunk_kernel.launches += 1
-            launches += 1
-            ev[1].record()
-            deposit_segments_kernel(tally, segbuf, counts[3:4], geom.nx,
-                                    geom.ny)
-            ev[2].record()
-            marks.append(ev)
-            if segments is not None:
-                segments.append(segbuf[:int(counts[3])].clone())
-            counts[3].zero_()
-            if int(counts[2]) == 0:      # waits for both launches
-                break
-            counts[2].zero_()
-    phases = {"flight": sum(e[0].elapsed_time(e[1]) for e in marks) / 1e3,
-              "raster": sum(e[1].elapsed_time(e[2]) for e in marks) / 1e3}
+    while True:
+        marks.append(flight_round(params, tally, segbuf, counts, geom, dev,
+                                  segments))
+        if int(counts[2]) == 0:      # waits for both launches
+            break
+        counts[2].zero_()
     nf, nc = (int(v) for v in counts[:2].tolist())
-    return state, nf, nc, launches, phases
+    return state, nf, nc, len(marks), event_phases(marks)
 
 
 flight_chunk_kernel.launches = 0

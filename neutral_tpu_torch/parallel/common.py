@@ -1,0 +1,332 @@
+"""The decomposed runs' shared machinery: shards, one loop, one read.
+
+Port of `neutral_tpu/parallel/` for one controller that sees every shard.
+A run is split into shards, each with its own device (several shards may
+share one card), its own particles and its own tally.  The JAX package
+built each decomposition from `shard_map` programs with collectives; here
+one Python loop drives every shard (`DecomposedSimulation.step`):
+
+1. every shard with work runs one chunk: one kernel launch (the sweep
+   kernel, or a flight round: flight kernel and segment deposit), bounded
+   by `MAX_EVENTS` or `MAX_PIECES` per lane; with the plain engine, the
+   plain version until no lane in its window has work;
+2. one host read of every shard's counters at once (`read_counters`):
+   facets, collisions, lanes still working and, in the spatial modes, how
+   many lanes leave for each other shard and how many slots are free;
+3. migration (spatial modes): each lane that left its shard's window goes
+   straight to its owner shard, into a dead slot, and the owner's tensors
+   grow when dead slots run out.  The counts of step 2 size every gather,
+   so migration itself waits for nothing.
+
+No shard is waited for on its own.  Histories are keyed by pid, so the
+decomposition changes nothing physical: a replicated run equals the
+single-device run history by history, a spatial sweep run too, and a
+spatial flight run equals a single-device run over
+`flight.split_rects` (the window's walls act as rect walls).  No particle
+is lost or duplicated, and every live lane sits on its owner shard when a
+step ends.
+
+JAX's flight_sharded.py has no module of its own here: its decomposed
+flight step is the flight branch of the same loop.  Not ported, as TPU
+mechanisms: the u32-pair control vector (one int64 read replaces it), the
+pending-flush rings, the compaction ladder, and the fixed `cap_xfer`
+budgets of the neighbour-only `ppermute` exchange with its overflow,
+repartition and abort path (growth replaces them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..driver import SimulationBase, StepMetrics, check_device
+from ..flight import flight_chunk_plain
+from ..flight_kernel import (MAX_PIECES, event_phases, flight_params,
+                             flight_round)
+from ..particles import STATE_FIELDS, ParticleState
+from ..sweep_kernel import (MAX_EVENTS, launch_sweep, rect_arrays,
+                            sweep_chunk_plain, sweep_params)
+from ..transport import Geometry, begin_timestep, window_cells
+
+
+def shard_devices(n: int | None = None, device="cuda") -> list:
+    """The devices of `n` shards on `device`'s type (the counterpart of
+    `make_device_mesh`): the visible cards in turn for "cuda", so that
+    several shards may share one card, the named device alone for an
+    indexed one ("cuda:1"), and the CPU for "cpu".  `n` None: one shard
+    per visible card (torch.cuda.device_count()), or 1 on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        check_device(device)
+        ncards = torch.cuda.device_count()
+        return [torch.device("cuda", i % ncards) for i in range(n or ncards)]
+    return [device] * (n or 1)
+
+
+def to_device(obj, device):
+    """Dataclass `obj` with every tensor field on `device` (itself when
+    they all are there already)."""
+    moved = {f.name: getattr(obj, f.name).to(device)
+             for f in dataclasses.fields(obj)
+             if isinstance(getattr(obj, f.name), torch.Tensor)
+             and getattr(obj, f.name).device != device}
+    return dataclasses.replace(obj, **moved) if moved else obj
+
+
+def read_counters(rows: list) -> np.ndarray:
+    """Every shard's counter row (1-d int64 tensors, one per shard, on the
+    shards' devices) in one host read, as an (nshards, len) array."""
+    return torch.stack([r.to(rows[0].device) for r in rows]).cpu().numpy()
+
+
+def first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the first `k` True lanes of `mask`, in order, where the
+    caller knows that there are at least `k` (no host read)."""
+    pos = torch.cumsum(mask, 0) - 1
+    keep = mask & (pos < k)
+    out = torch.empty(k + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, torch.where(keep, pos, k),
+                 torch.arange(mask.shape[0], device=mask.device))
+    return out[:k]
+
+
+def grow(state: ParticleState, n: int) -> ParticleState:
+    """`state` with n >= state.n lanes: its own first, dead ones after."""
+    out = {}
+    for f in STATE_FIELDS:
+        old = getattr(state, f)
+        new = torch.zeros(n, dtype=old.dtype, device=old.device)
+        new[:old.shape[0]] = old
+        out[f] = new
+    out["dead"][state.n:] = True
+    return ParticleState(**out)
+
+
+@dataclass
+class Shard:
+    """One shard: its device, particles, tally and geometry.
+
+    `geom` has the shard's extent (the whole mesh in the replicated mode,
+    the window's block in the spatial ones, with a grid deck's density
+    block) and `x_off`/`y_off` place the window (None: no window on that
+    axis).  `tables` are the cross-sections on `device`.  The kernel
+    engine keeps its counters, region or rect arrays and segment buffer
+    here; the spatial modes keep each lane's destination shard."""
+    device: torch.device
+    geom: Geometry
+    state: ParticleState
+    tally: torch.Tensor
+    tables: tuple
+    x_off: int | None = None
+    y_off: int | None = None
+    counts: torch.Tensor | None = None
+    rects: tuple | None = None
+    segbuf: torch.Tensor | None = None
+    dest: torch.Tensor | None = None
+
+
+class DecomposedSimulation(SimulationBase):
+    """A run over shards on `devices` (default: one per visible card).
+
+    Subclasses build the shards (`make_shards`) and assemble the tally
+    (`host_tally`); the spatial ones set `migrates` and name each cell's
+    owner shard (`owner`)."""
+
+    decomposition = ""
+    migrates = False
+
+    def __init__(self, cfg, *, devices=None, engine: str = "auto",
+                 transport: str = "auto", quiet: bool = False):
+        devices = (shard_devices() if devices is None
+                   else [torch.device(d) for d in devices])
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"shards on devices of one type only: {devices}")
+        super().__init__(cfg, device=devices[0], engine=engine,
+                         transport=transport, quiet=quiet)
+        for d in devices:
+            check_device(d)
+        self.devices = devices
+        self.nshards = len(devices)
+        self.shards = self.make_shards()
+        names = sorted({str(d) for d in devices})
+        self.layout = (f"{self.decomposition}, {self.nshards} shards on "
+                       f"{', '.join(names)}{self.grid_note()}")
+        for d in {d for d in devices if d.type == "cuda"}:
+            torch.cuda.synchronize(d)     # set-up, not step 1's time
+
+    # -- hooks ------------------------------------------------------------
+    def make_shards(self) -> list:
+        raise NotImplementedError
+
+    def grid_note(self) -> str:
+        return ""
+
+    def owner(self, cellx: torch.Tensor, celly: torch.Tensor) -> torch.Tensor:
+        """The int64 owner shard of each cell (spatial modes)."""
+        raise NotImplementedError
+
+    # -- set-up helpers ---------------------------------------------------
+    def new_shard(self, device, geom: Geometry, pid: torch.Tensor,
+                  x_off=None, y_off=None) -> Shard:
+        """A shard on `device` holding the injected particles `pid`."""
+        from ..particles import inject_fields
+        cfg = self.cfg
+        state = inject_fields(
+            to_device(self.mesh, device), pid.to(device),
+            torch.ones(pid.shape, dtype=torch.bool, device=device),
+            initial_energy=cfg.initial_energy, dt=cfg.dt, dtype=self.dtype,
+            **self.source())
+        geom = to_device(geom, device)
+        tally = torch.zeros(geom.nx * geom.ny,
+                            dtype=getattr(torch, cfg.tally_dtype),
+                            device=device)
+        tables = (to_device(self.cs_scatter, device),
+                  to_device(self.cs_absorb, device))
+        sh = Shard(device, geom, state, tally, tables, x_off, y_off)
+        if self.engine == "kernel":
+            flight = self.transport == "flight"
+            sh.counts = torch.zeros(4 if flight else 3, dtype=torch.int64,
+                                    device=device)
+            rects = geom.rects if flight else geom.regions
+            sh.rects = None if rects is None else rect_arrays(rects, device)
+        return sh
+
+    # -- the step -----------------------------------------------------------
+    def step(self, tt: int) -> StepMetrics:
+        """Advance one census timestep on every shard (master_key = tt)."""
+        cfg = self.cfg
+        self.profile.start()
+        t0 = time.perf_counter()
+        rows = []
+        for sh in self.shards:
+            sh.state = begin_timestep(sh.state, sh.geom, sh.tables[0],
+                                      cfg.dt, tt, sh.x_off, sh.y_off)
+            rows.append((~sh.state.dead).sum().reshape(1))
+        nprocessed = int(read_counters(rows).sum())
+        t_begin = time.perf_counter()
+        n = self.nshards
+        work = [sh.state.n > 0 for sh in self.shards]
+        nf = nc = nsweeps = nlaunches = nmigrated = 0
+        marks, parts, t_migrate = [], {"flight": 0.0, "raster": 0.0}, 0.0
+        while any(work):
+            rows, chunk_sweeps = [], 0
+            for sh, w in zip(self.shards, work):
+                counts, sweeps = (self._chunk(sh, tt, marks, parts) if w
+                                  else (torch.zeros(3, dtype=torch.int64,
+                                                    device=sh.device), 0))
+                chunk_sweeps = max(chunk_sweeps, sweeps)
+                nlaunches += int(w and self.engine == "kernel")
+                rows.append(torch.cat([counts, self._departures(sh)])
+                            if self.migrates else counts)
+            ctrl = read_counters(rows)
+            nf += int(ctrl[:, 0].sum())
+            nc += int(ctrl[:, 1].sum())
+            nsweeps += chunk_sweeps
+            received = np.zeros(n, dtype=np.int64)
+            if self.migrates:
+                t1 = time.perf_counter()
+                sends = ctrl[:, 3:3 + n]
+                self._migrate(sends, ctrl[:, 3 + n])
+                received = sends.sum(axis=0)
+                nmigrated += int(sends.sum())
+                t_migrate += time.perf_counter() - t1
+            work = list((ctrl[:, 2] > 0) | (received > 0))
+        step_time = self.profile.stop(f"step{tt}")
+        census = time.perf_counter() - t_begin
+        phases = {"begin": t_begin - t0}
+        if self.transport == "flight":
+            if self.engine == "kernel":
+                parts = event_phases(marks)
+            phases.update(parts)
+            phases["loop"] = (census - parts["flight"] - parts["raster"]
+                              - t_migrate)
+        else:
+            phases["sweep"] = census - t_migrate
+        if self.migrates:
+            phases["migrate"] = t_migrate
+        m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
+                        ncollisions=nc, nprocessed=nprocessed,
+                        nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
+                        nmigrated=nmigrated)
+        self.step_metrics.append(m)
+        return m
+
+    def _chunk(self, sh: Shard, tt: int, marks: list, parts: dict):
+        """One chunk on shard `sh`: ([facets, collisions, lanes still
+        working] as an int64 tensor on its device, sweeps run)."""
+        scatter, absorb = sh.tables
+        args = (sh.state, sh.tally, sh.geom, scatter, absorb, tt,
+                1.0 / self.cfg.nparticles)
+        win = dict(x_off=sh.x_off, y_off=sh.y_off)
+        if self.engine == "plain":
+            if self.transport == "flight":
+                sh.state, f, c, sweeps, t = flight_chunk_plain(*args, **win)
+                parts["flight"] += t["flight"]
+                parts["raster"] += t["raster"]
+            else:
+                sh.state, f, c, sweeps = sweep_chunk_plain(*args, **win)
+            return torch.tensor([f, c, 0], device=sh.device), sweeps
+        sh.counts.zero_()
+        if self.transport == "flight":
+            rows = sh.state.n * MAX_PIECES
+            if sh.segbuf is None or sh.segbuf.shape[0] != rows:
+                sh.segbuf = torch.empty((rows, 5), dtype=torch.float32,
+                                        device=sh.device)
+            params = flight_params(sh.state, sh.tally, sh.segbuf, sh.counts,
+                                   sh.rects, *args[2:], MAX_PIECES, **win)
+            marks.append(flight_round(params, sh.tally, sh.segbuf, sh.counts,
+                                      sh.geom, sh.device))
+        else:
+            params = sweep_params(sh.state, sh.tally, sh.counts, sh.rects,
+                                  *args[2:], MAX_EVENTS, **win)
+            launch_sweep(params, sh.device)
+        return sh.counts[:3], 0
+
+    # -- migration (spatial modes) -----------------------------------------
+    def _departures(self, sh: Shard) -> torch.Tensor:
+        """[lanes leaving for each shard..., dead lanes] of shard `sh`, as
+        an int64 tensor on its device; records each lane's destination
+        (nshards: it stays)."""
+        n = self.nshards
+        state = sh.state
+        _, _, in_window = window_cells(state, sh.geom, sh.x_off, sh.y_off)
+        leaving = ~state.dead & ~in_window
+        sh.dest = torch.where(leaving, self.owner(state.cellx, state.celly),
+                              n)
+        # One comparison and sum per destination: a scatter_add_ of every
+        # lane into n + 1 counters serialises on their atomics (PERF.md).
+        shards = torch.arange(n, device=sh.device)[:, None]
+        return torch.cat([(sh.dest[None] == shards).sum(1),
+                          state.dead.sum().reshape(1)])
+
+    def _migrate(self, sends: np.ndarray, free: np.ndarray) -> None:
+        """Move every departing lane to its owner shard: sends[s, d] lanes
+        from s to d (read with the counters), free[s] dead slots on s."""
+        out = {}
+        for s, sh in enumerate(self.shards):
+            gone = []
+            for d in np.flatnonzero(sends[s]):
+                idx = first_true(sh.dest == int(d), int(sends[s, d]))
+                out[s, int(d)] = [getattr(sh.state, f)[idx]
+                                  for f in STATE_FIELDS]
+                gone.append(idx)
+            if gone:
+                sh.state.dead[torch.cat(gone)] = True
+        for r, sh in enumerate(self.shards):
+            k = int(sends[:, r].sum())
+            if k == 0:
+                continue
+            avail = int(free[r] + sends[r].sum())
+            if k > avail:
+                sh.state = grow(sh.state,
+                                sh.state.n + max(k - avail, sh.state.n))
+            slots = first_true(sh.state.dead, k)
+            arrivals = [out[s, r] for s in range(self.nshards)
+                        if (s, r) in out]
+            for i, f in enumerate(STATE_FIELDS):
+                getattr(sh.state, f)[slots] = torch.cat(
+                    [a[i].to(sh.device) for a in arrivals])

@@ -1,0 +1,38 @@
+"""Particle-parallel transport over shards that each see the whole mesh.
+
+Port of `neutral_tpu/parallel/sharding.py`'s replicated mode, the
+reference's own distribution on `master` (shard particles, replicate the
+mesh, sum tallies at the end: main.c:62-75, omp3/neutral.c:530).  The
+particles are split by pid into contiguous ranges, one per shard, so a
+shard boundary never changes a particle's RNG stream.  Each shard keeps a
+private full-domain partial tally; `host_tally` sums the partials once, as
+omp3's final reduction does.  No lane ever leaves its shard, so the loop
+of common.py runs with no window and no migration, and a shard whose
+lanes have all finished stops launching without waiting for the others.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .common import DecomposedSimulation
+
+
+class ShardedSimulation(DecomposedSimulation):
+    """Replicated-mesh run: pids split in contiguous ranges over shards."""
+
+    decomposition = "replicated"
+
+    def make_shards(self) -> list:
+        n = self.cfg.nparticles
+        per = -(-n // self.nshards)
+        return [self.new_shard(dev, self.geom, torch.arange(
+                    min(i * per, n), min((i + 1) * per, n), device=dev))
+                for i, dev in enumerate(self.devices)]
+
+    def host_tally(self) -> np.ndarray:
+        """Flat (ny*nx,) global tally: the sum of the shards' partials, in
+        float64 on the host."""
+        return sum(sh.tally.cpu().numpy().astype(np.float64)
+                   for sh in self.shards)

@@ -11,7 +11,12 @@ launches changes nothing in the result.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, region rectangles or a density grid, threefry or pcg64si draws;
-each combination is its own instantiation (csrc/sweep.cu).
+each combination is its own instantiation (csrc/sweep.cu).  The spatial
+window of a decomposed run (`x_off`/`y_off`, transport.py's) is a runtime
+parameter of every instantiation.  `sweep_params` and `launch_sweep` are
+one launch; `sweep_chunk_kernel` loops them for one state, and the
+decomposed runs (parallel/) launch every shard before they read the
+counters of all shards at once.
 
 `sweep_chunk_plain` is the plain PyTorch version (transport.sweep_chunk run
 to completion).  `sweep_chunk_kernel` launches the kernel or raises: on a
@@ -19,8 +24,9 @@ state that does not lie on a CUDA device, and on any configuration the
 kernel does not implement.  Choosing the plain version is the caller's
 (the driver's `engine`).
 
-`sweep_chunk_kernel.launches` counts kernel launches and
-`sweep_chunk_plain.calls` counts plain runs; callers may reset both.
+`sweep_chunk_kernel.launches` counts kernel launches (made by
+`launch_sweep`, from either loop) and `sweep_chunk_plain.calls` counts
+plain runs; callers may reset both.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ class _SweepParams(ctypes.Structure):
         + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "max_events", "nx", "ny", "scatter_entries", "absorb_entries",
-            "same_xs", "nregions", "xs_mode", "density_mode", "rng")]
+            "same_xs", "nregions", "xs_mode", "density_mode", "rng",
+            "x_off", "y_off", "global_nx", "global_ny")]
         + [(f, ctypes.c_float) for f in ("dx", "dy", "inv_ntotal")])
 
 
@@ -137,6 +144,22 @@ def rect_arrays(rects: tuple, device: torch.device):
     return bounds, density
 
 
+def window_fields(p: ctypes.Structure, geom: Geometry, x_off=None,
+                  y_off=None) -> None:
+    """Set a kernel's extent and window fields: nx/ny (the window's, or
+    the whole mesh), the offsets (0 without a window) and the global
+    extent; raise unless the window lies inside the mesh."""
+    xo, yo = x_off or 0, y_off or 0
+    if not (0 <= xo and xo + geom.nx <= geom.global_nx and 0 <= yo
+            and yo + geom.ny <= geom.global_ny):
+        raise ValueError(f"window at ({xo}, {yo}) of {geom.nx}x{geom.ny} "
+                         "cells does not lie inside the "
+                         f"{geom.global_nx}x{geom.global_ny} mesh")
+    p.nx, p.ny = geom.nx, geom.ny
+    p.x_off, p.y_off = xo, yo
+    p.global_nx, p.global_ny = geom.global_nx, geom.global_ny
+
+
 def state_pointers(p: ctypes.Structure, state: ParticleState) -> None:
     """Set the 14 state pointer fields of a kernel's parameter struct."""
     for f in _DTYPES:
@@ -159,12 +182,18 @@ def table_fields(p: ctypes.Structure, geom: Geometry,
         p.absorb_values = absorb_tab.values.data_ptr()
 
 
-def _params(state: ParticleState, tally: torch.Tensor, counts: torch.Tensor,
-            regions: tuple, geom: Geometry, scatter_tab: CrossSection,
-            absorb_tab: CrossSection, master_key: int, inv_ntotal: float,
-            max_events: int) -> _SweepParams:
-    """The kernel's parameters; `regions` is rect_arrays(geom.regions), or
-    None for a grid deck."""
+def sweep_params(state: ParticleState, tally: torch.Tensor,
+                 counts: torch.Tensor, regions: tuple | None, geom: Geometry,
+                 scatter_tab: CrossSection, absorb_tab: CrossSection,
+                 master_key: int, inv_ntotal: float, max_events: int,
+                 x_off=None, y_off=None) -> _SweepParams:
+    """The parameters of one launch, after check_inputs: `counts` is the
+    (3,) int64 [facets, collisions, lanes still working] the kernel adds
+    to, `regions` is rect_arrays(geom.regions), or None for a grid deck,
+    and `x_off`/`y_off` the window (None: none)."""
+    check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel")
+    if max_events < 1:
+        raise ValueError(f"max_events must be >= 1, got {max_events}")
     p = _SweepParams()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
@@ -173,7 +202,7 @@ def _params(state: ParticleState, tally: torch.Tensor, counts: torch.Tensor,
     p.master_key = int(master_key)
     p.n = state.n
     p.max_events = int(max_events)
-    p.nx, p.ny = geom.nx, geom.ny
+    window_fields(p, geom, x_off, y_off)
     # ctypes rounds each Python float to float32 as np.float32 does.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
     if regions is None:
@@ -189,8 +218,9 @@ def _params(state: ParticleState, tally: torch.Tensor, counts: torch.Tensor,
 def sweep_chunk_plain(state: ParticleState, tally: torch.Tensor,
                       geom: Geometry, scatter_tab: CrossSection,
                       absorb_tab: CrossSection, master_key: int,
-                      inv_ntotal: float):
-    """Plain version: event sweeps until no lane has work left.
+                      inv_ntotal: float, x_off=None, y_off=None):
+    """Plain version: event sweeps until no lane has work left (inside the
+    window `x_off`/`y_off`, if given).
 
     Returns (state, nfacets, ncollisions, nsweeps); `tally` is updated in
     place.
@@ -198,44 +228,51 @@ def sweep_chunk_plain(state: ParticleState, tally: torch.Tensor,
     sweep_chunk_plain.calls += 1
     state, nf, nc, nsweeps, _ = transport.sweep_chunk(
         state, tally, geom, scatter_tab, absorb_tab, master_key,
-        inv_ntotal, max_sweeps=np.iinfo(np.int64).max)
+        inv_ntotal, max_sweeps=np.iinfo(np.int64).max, x_off=x_off,
+        y_off=y_off)
     return state, nf, nc, nsweeps
 
 
 sweep_chunk_plain.calls = 0
 
 
+def launch_sweep(params: _SweepParams, device: torch.device) -> None:
+    """One launch of the sweep kernel on `device`'s current stream; does
+    not wait for it."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check_launch(
+            lib, lib.nt_sweep_launch(ctypes.byref(params), stream),
+            "sweep kernel")
+    sweep_chunk_kernel.launches += 1
+
+
 def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
                        geom: Geometry, scatter_tab: CrossSection,
                        absorb_tab: CrossSection, master_key: int,
-                       inv_ntotal: float, max_events: int = MAX_EVENTS):
-    """Run every lane to census or death with the CUDA sweep kernel.
+                       inv_ntotal: float, max_events: int = MAX_EVENTS,
+                       x_off=None, y_off=None):
+    """Run every lane to census or death (or, under the window `x_off`/
+    `y_off`, until it leaves the window) with the CUDA sweep kernel.
 
     Updates `state`'s tensors and `tally` in place (no copy of the 14
     state arrays).  Returns (state, nfacets, ncollisions, nlaunches).
     """
-    check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel")
-    if max_events < 1:
-        raise ValueError(f"max_events must be >= 1, got {max_events}")
-    lib = load_library()
     # [facets, collisions, lanes still working after the launch]
     counts = torch.zeros(3, dtype=torch.int64, device=state.device)
     regions = (None if geom.regions is None
                else rect_arrays(geom.regions, state.device))
-    params = _params(state, tally, counts, regions, geom, scatter_tab,
-                     absorb_tab, master_key, inv_ntotal, max_events)
+    params = sweep_params(state, tally, counts, regions, geom, scatter_tab,
+                          absorb_tab, master_key, inv_ntotal, max_events,
+                          x_off, y_off)
     launches = 0
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        while True:
-            build.check_launch(
-                lib, lib.nt_sweep_launch(ctypes.byref(params), stream),
-                "sweep kernel")
-            sweep_chunk_kernel.launches += 1
-            launches += 1
-            if int(counts[2]) == 0:      # waits for the launch
-                break
-            counts[2].zero_()
+    while True:
+        launch_sweep(params, state.device)
+        launches += 1
+        if int(counts[2]) == 0:      # waits for the launch
+            break
+        counts[2].zero_()
     nf, nc = (int(v) for v in counts[:2].tolist())
     return state, nf, nc, launches
 

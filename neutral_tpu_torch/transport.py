@@ -18,9 +18,20 @@ backend).
 
 Covered: analytic density regions or a density grid, uniform pitch,
 analytic or table cross-sections, threefry or pcg64si draws, float32 or
-float64.  The TPU engine's slab/column offsets, `gate` and carried
-`density` arguments belong to its rings, its sharding and its grid-mode
-stale freeze, and are not ported.
+float64, and the spatial window of a decomposed run (`x_off`/`y_off`, the
+counterparts of `neutral_tpu`'s `x_off_dyn`/`y_off_dyn`; parallel/spatial.py).
+The TPU engine's `gate` and carried `density` arguments belong to its
+rings and its grid-mode stale freeze, and are not ported.
+
+The window: a shard of a spatial decomposition owns the cells
+[x_off, x_off + geom.nx) x [y_off, y_off + geom.ny) of the global
+geom.global_nx x geom.global_ny mesh.  Its tally and a grid deck's density
+are window-local (row-major over geom.nx columns); regions and reflection
+stay global.  A lane whose cell lies outside the window is frozen: it takes
+no event until migration moves it to its owner.  A lane that leaves the
+window does so by a facet event, whose flush lands in the cell it left,
+inside the window.  With both offsets None (one device, or the replicated
+decomposition) the code path is the unwindowed one.
 """
 
 from __future__ import annotations
@@ -60,7 +71,10 @@ class Geometry:
       grid deck, which the flight transport refuses.
     * ``density`` — a grid deck's flat (ny*nx,) density in the state
       dtype, on the state's device (mesh.density_grid), with
-      ``regions=None``.
+      ``regions=None``; under a spatial window, the window's block.
+    * ``nx``/``ny`` — the extent of the tally (and of ``density``): the
+      whole mesh, or a spatial window's block; ``global_nx``/``global_ny``
+      — the whole mesh, where reflection happens (default: nx/ny).
     """
     nx: int
     ny: int
@@ -71,6 +85,14 @@ class Geometry:
     same_xs: bool = False
     rects: tuple | None = None
     density: torch.Tensor | None = field(default=None, compare=False)
+    global_nx: int | None = None
+    global_ny: int | None = None
+
+    def __post_init__(self):
+        if self.global_nx is None:
+            object.__setattr__(self, "global_nx", self.nx)
+        if self.global_ny is None:
+            object.__setattr__(self, "global_ny", self.ny)
 
 
 def use_local_coords(geom: Geometry, dtype: torch.dtype) -> bool:
@@ -87,12 +109,29 @@ def use_local_coords(geom: Geometry, dtype: torch.dtype) -> bool:
     return bool(geom.dx) and dtype == torch.float32
 
 
-def _density_of(cellx: torch.Tensor, celly: torch.Tensor, geom: Geometry,
+def window_cells(state: ParticleState, geom: Geometry, x_off=None,
+                 y_off=None):
+    """(lx, ly, in_window): each lane's window-local cell, and whether it
+    lies inside the window (None when both offsets are None: no window)."""
+    if x_off is None and y_off is None:
+        return state.cellx, state.celly, None
+    lx = state.cellx - (x_off or 0)
+    ly = state.celly - (y_off or 0)
+    return lx, ly, (lx >= 0) & (lx < geom.nx) & (ly >= 0) & (ly < geom.ny)
+
+
+def _flat_cell(lx: torch.Tensor, ly: torch.Tensor,
+               geom: Geometry) -> torch.Tensor:
+    return (ly * geom.nx + lx).clamp(0, geom.nx * geom.ny - 1)
+
+
+def _density_of(cellx: torch.Tensor, celly: torch.Tensor,
+                flat_cell: torch.Tensor, geom: Geometry,
                 dtype: torch.dtype) -> torch.Tensor:
-    """Per-lane material density: the analytic region rectangles, or a
-    gather from the grid deck's density (neutral_tpu's grid branch)."""
+    """Per-lane material density: the analytic region rectangles (global
+    cells), or a gather from the grid deck's density at the window-local
+    flat cell (neutral_tpu's grid branch)."""
     if geom.regions is None:
-        flat_cell = (celly * geom.nx + cellx).clamp(0, geom.nx * geom.ny - 1)
         return geom.density[flat_cell]
     density = torch.zeros(cellx.shape, dtype=dtype, device=cellx.device)
     for (ix0, ix1, iy0, iy1, d) in geom.regions:
@@ -128,13 +167,17 @@ def _heating_response(energy, sig_a, sig_t):
 
 def begin_timestep(state: ParticleState, geom: Geometry,
                    scatter_tab: CrossSection, dt: float,
-                   master_key: int) -> ParticleState:
+                   master_key: int, x_off=None, y_off=None) -> ParticleState:
     """Per-timestep (re)initialisation: reset the census clock and sample
     fresh mean free paths with draw counter 0 (omp3/neutral.c:127-131);
-    every lane's counter becomes 1."""
+    every lane's counter becomes 1.  `x_off`/`y_off` localise a grid deck's
+    density gather to the window (every live lane sits on its owner shard
+    when a step starts)."""
     dtype = state.dtype
     live = ~state.dead
-    density = _density_of(state.cellx, state.celly, geom, dtype)
+    lx, ly, _ = window_cells(state, geom, x_off, y_off)
+    density = _density_of(state.cellx, state.celly, _flat_cell(lx, ly, geom),
+                          geom, dtype)
     sig_s = scatter_tab.lookup(state.energy)
     # neutral_tpu's _macroscopic: density * INV_MOLAR * sig * BARNS.
     mac_s = density * const(_INV_MOLAR, dtype) * sig_s * const(BARNS, dtype)
@@ -211,19 +254,23 @@ def collision_physics(state: ParticleState, geom: Geometry,
 def sweep_core(state: ParticleState, geom: Geometry,
                scatter_tab: CrossSection, absorb_tab: CrossSection,
                master_key: int, inv_ntotal: float,
-               tally_dtype: torch.dtype):
+               tally_dtype: torch.dtype, x_off=None, y_off=None):
     """One event per live lane — pure math, no tally update.
 
-    Returns (state', flush_mask, flat_cell, tally_contrib, is_facet,
-    is_coll); the caller owns the tally update and the counts.
+    Under a window (`x_off`/`y_off`), lanes outside it are not live and
+    keep their state bitwise, and flat_cell is window-local.  Returns
+    (state', flush_mask, flat_cell, tally_contrib, is_facet, is_coll); the
+    caller owns the tally update and the counts.
     """
     dtype = state.dtype
     live = (~state.dead) & (state.dt_to_census > 0.0)
 
     # ---- local material state ------------------------------------------
-    flat_cell = (state.celly * geom.nx + state.cellx).clamp(
-        0, geom.nx * geom.ny - 1)
-    density = _density_of(state.cellx, state.celly, geom, dtype)
+    lx, ly, in_window = window_cells(state, geom, x_off, y_off)
+    if in_window is not None:
+        live = live & in_window
+    flat_cell = _flat_cell(lx, ly, geom)
+    density = _density_of(state.cellx, state.celly, flat_cell, geom, dtype)
     sig_s = scatter_tab.lookup(state.energy)
     sig_a = sig_s if geom.same_xs else absorb_tab.lookup(state.energy)
     sig_t = sig_s + sig_a
@@ -289,20 +336,21 @@ def sweep_core(state: ParticleState, geom: Geometry,
     deposit = torch.where(flush, 0.0, deposit)
 
     # ---- facet cell transition / boundary reflection (post-collision
-    # omega, pre-move cell) ---------------------------------------------
+    # omega, pre-move cell; the global boundary) --------------------------
     fx = is_facet & x_facet
     fy = is_facet & (~x_facet)
     pos_x = omega_x > 0.0
     neg_x = omega_x < 0.0
     pos_y = omega_y > 0.0
     neg_y = omega_y < 0.0
-    refl_x = ((fx & pos_x & (state.cellx >= geom.nx - 1))
+    gnx, gny = geom.global_nx, geom.global_ny
+    refl_x = ((fx & pos_x & (state.cellx >= gnx - 1))
               | (fx & neg_x & (state.cellx <= 0)))
-    refl_y = ((fy & pos_y & (state.celly >= geom.ny - 1))
+    refl_y = ((fy & pos_y & (state.celly >= gny - 1))
               | (fy & neg_y & (state.celly <= 0)))
-    step_x = ((fx & pos_x & (state.cellx < geom.nx - 1)).to(torch.int32)
+    step_x = ((fx & pos_x & (state.cellx < gnx - 1)).to(torch.int32)
               - (fx & neg_x & (state.cellx > 0)).to(torch.int32))
-    step_y = ((fy & pos_y & (state.celly < geom.ny - 1)).to(torch.int32)
+    step_y = ((fy & pos_y & (state.celly < gny - 1)).to(torch.int32)
               - (fy & neg_y & (state.celly > 0)).to(torch.int32))
     omega_x = torch.where(refl_x, -omega_x, omega_x)
     omega_y = torch.where(refl_y, -omega_y, omega_y)
@@ -323,45 +371,52 @@ def sweep_core(state: ParticleState, geom: Geometry,
 
 def event_sweep(state: ParticleState, tally: torch.Tensor, geom: Geometry,
                 scatter_tab: CrossSection, absorb_tab: CrossSection,
-                master_key: int, inv_ntotal: float):
+                master_key: int, inv_ntotal: float, x_off=None, y_off=None):
     """Advance every live particle through exactly one event.
 
-    The tally (flat, ny*nx) is updated in place with `index_add_` (the
-    reference's flush sites omp3/neutral.c:248-250, 325-327, 400-402).
-    Returns (state', nfacets, ncollisions) with the counts as 0-d tensors.
+    The tally (flat, ny*nx, window-local under a window) is updated in
+    place with `index_add_` (the reference's flush sites
+    omp3/neutral.c:248-250, 325-327, 400-402).  Returns (state', nfacets,
+    ncollisions) with the counts as 0-d tensors.
     """
     state, flush, flat_cell, contrib, is_facet, is_coll = sweep_core(
         state, geom, scatter_tab, absorb_tab, master_key, inv_ntotal,
-        tally.dtype)
+        tally.dtype, x_off=x_off, y_off=y_off)
     tally.index_add_(0, flat_cell[flush], contrib[flush])
     return state, is_facet.sum(), is_coll.sum()
 
 
-def working_mask(state: ParticleState) -> torch.Tensor:
-    """Lanes with events left to process."""
-    return (~state.dead) & (state.dt_to_census > 0.0)
+def working_mask(state: ParticleState, geom: Geometry | None = None,
+                 x_off=None, y_off=None) -> torch.Tensor:
+    """Lanes with events left to process (inside the window, if any)."""
+    w = (~state.dead) & (state.dt_to_census > 0.0)
+    _, _, in_window = window_cells(state, geom, x_off, y_off)
+    return w if in_window is None else w & in_window
 
 
 def sweep_chunk(state: ParticleState, tally: torch.Tensor, geom: Geometry,
                 scatter_tab: CrossSection, absorb_tab: CrossSection,
-                master_key: int, inv_ntotal: float, max_sweeps: int):
+                master_key: int, inv_ntotal: float, max_sweeps: int,
+                x_off=None, y_off=None):
     """Run event sweeps until no lane has work left, or `max_sweeps`.
 
-    Returns (state, nfacets, ncollisions, nsweeps, n_work) with Python-int
-    counts; n_work > 0 means more sweeps are needed.  `tally` is updated
-    in place.
+    Under a window, lanes that leave it freeze and the chunk ends when
+    only frozen lanes remain; the caller migrates them.  Returns (state,
+    nfacets, ncollisions, nsweeps, n_work) with Python-int counts; n_work
+    > 0 means more sweeps are needed.  `tally` is updated in place.
     """
     nf = torch.zeros((), dtype=torch.int64, device=tally.device)
     nc = torch.zeros((), dtype=torch.int64, device=tally.device)
     nsweeps = 0
-    n_work = int(working_mask(state).sum())
+    n_work = int(working_mask(state, geom, x_off, y_off).sum())
     while n_work > 0 and nsweeps < max_sweeps:
         state, f, c = event_sweep(state, tally, geom, scatter_tab,
-                                  absorb_tab, master_key, inv_ntotal)
+                                  absorb_tab, master_key, inv_ntotal,
+                                  x_off=x_off, y_off=y_off)
         nf += f
         nc += c
         nsweeps += 1
-        n_work = int(working_mask(state).sum())
+        n_work = int(working_mask(state, geom, x_off, y_off).sum())
     return state, int(nf), int(nc), nsweeps, n_work
 
 

@@ -11,6 +11,7 @@ compares with it, so that on a machine with a card and without JAX the
     python -m pytest tests/test_torch_driver.py -q -m cuda --noconftest
 """
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -35,35 +36,51 @@ def _sorted_rows(segs):
     return rows[np.lexsort(rows.T[::-1])]
 
 
-def kernel_matches_plain_on_card(cfg, transport_name="auto"):
+def kernel_matches_plain_on_card(cfg, transport_name="auto", window=None):
     """The transport's kernel and its plain version from one begin_timestep
     state of `cfg` on the card: equal facet and collision counts, all 14
     per-lane fields and (flight) the sorted segment rows; tally sums to
-    1e-5 (the kernels' atomics add in another order).  Skips without a
-    card.  Returns the simulation and the (facets, collisions) counts."""
+    1e-5 (the kernels' atomics add in another order).  `window` = (x_off,
+    y_off, nx, ny) runs both in that spatial window, with window-local
+    tallies and segments; the lanes outside it must come out untouched.
+    Skips without a card.  Returns the simulation and the (facets,
+    collisions) counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sim = driver.Simulation(cfg, device="cuda", engine="plain",
                             transport=transport_name, quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
-    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
-    kt, pt = torch.zeros_like(sim.tally), torch.zeros_like(sim.tally)
+    geom, win = sim.geom, {}
+    if window is not None:
+        x_off, y_off, nx, ny = window
+        geom = dataclasses.replace(geom, nx=nx, ny=ny)
+        win = {"x_off": x_off, "y_off": y_off}
+    args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
+    kt = torch.zeros(geom.nx * geom.ny, dtype=torch.float32, device="cuda")
+    pt = torch.zeros_like(kt)
     if sim.transport == "flight":
         ksegs, psegs = [], []
         ks, knf, knc, _, _ = flight_chunk_kernel(start.clone(), kt, *args,
-                                                 segments=ksegs)
-        ps, pnf, pnc, _, _ = flight.flight_chunk_plain(start.clone(), pt,
-                                                       *args, segments=psegs)
+                                                 segments=ksegs, **win)
+        ps, pnf, pnc, _, _ = flight.flight_chunk_plain(
+            start.clone(), pt, *args, segments=psegs, **win)
         np.testing.assert_array_equal(_sorted_rows(ksegs),
                                       _sorted_rows(psegs))
     else:
-        ks, knf, knc, _ = sweep_chunk_kernel(start.clone(), kt, *args)
-        ps, pnf, pnc, _ = sweep_chunk_plain(start.clone(), pt, *args)
+        ks, knf, knc, _ = sweep_chunk_kernel(start.clone(), kt, *args, **win)
+        ps, pnf, pnc, _ = sweep_chunk_plain(start.clone(), pt, *args, **win)
     assert (knf, knc) == (pnf, pnc) and knf > 0
     for f in STATE_FIELDS:
         np.testing.assert_array_equal(getattr(ks, f).cpu().numpy(),
                                       getattr(ps, f).cpu().numpy(), f)
+    if window is not None:
+        _, _, inside = transport.window_cells(start, geom, **win)
+        outside = ~inside
+        assert bool(outside.any()) and bool(inside.any())
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(ks, f)[outside],
+                               getattr(start, f)[outside]), f
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     assert abs(ksum - psum) <= 1e-5 * abs(psum)
     return sim, (knf, knc)
@@ -74,7 +91,8 @@ def test_cli_scatter_prints_contract_and_matches_jax():
     import neutral_tpu.driver as jdriver
 
     out = subprocess.run(
-        [sys.executable, "-m", "neutral_tpu_torch", DECK, *SMALL],
+        [sys.executable, "-m", "neutral_tpu_torch", DECK, *SMALL,
+         "--device", "cpu"],
         capture_output=True, text=True, check=True, timeout=300).stdout
     for line in ("Iteration  1", "Iteration  2", "Step time", "Wallclock",
                  "Facets", "Collisions", "Facet Events / s",
@@ -107,9 +125,10 @@ def test_pcg64si_deck_raises(tmp_path):
     deck = tmp_path / "scatter_pcg.params"
     deck.write_text(open(DECK).read() + "rng pcg64si\n")
     cfg = tt.load_config(str(deck)).with_(nparticles=10, nx=16, ny=16)
-    assert driver.Simulation(cfg, quiet=True).geom.rng_scheme == "pcg64si"
+    assert driver.Simulation(cfg, device="cpu",
+                             quiet=True).geom.rng_scheme == "pcg64si"
     with pytest.raises(ValueError, match="unknown rng scheme"):
-        driver.Simulation(cfg.with_(rng="mt19937"), quiet=True)
+        driver.Simulation(cfg.with_(rng="mt19937"), device="cpu", quiet=True)
 
 
 @pytest.mark.parametrize("engine,device,dtype,want", [

@@ -58,7 +58,8 @@ def make_cfg(pkg, kind, n=400, nx=64, iters=2, dtype="float64"):
 @functools.cache
 def run_port(kind, transport_name, **kw):
     cfg = make_cfg(tt, kind, **kw)
-    sim = driver.Simulation(cfg, transport=transport_name, quiet=True)
+    sim = driver.Simulation(cfg, device="cpu", transport=transport_name,
+                            quiet=True)
     stats = [(m.nfacets, m.ncollisions, m.nprocessed)
              for m in (sim.step(s) for s in range(1, cfg.niters + 1))]
     return sim.host_tally(), stats
@@ -111,8 +112,8 @@ def test_auto_transport_follows_the_jax_rule(deck, want):
 def test_flight_keeps_global_coordinates_in_float32():
     cfg = tt.load_config("problems/csp.params").with_(nparticles=64, nx=64,
                                                       ny=64)
-    fl = driver.Simulation(cfg, quiet=True)
-    sw = driver.Simulation(cfg, transport="sweep", quiet=True)
+    fl = driver.Simulation(cfg, device="cpu", quiet=True)
+    sw = driver.Simulation(cfg, device="cpu", transport="sweep", quiet=True)
     assert fl.transport == "flight" and sw.transport == "sweep"
     # Global positions lie inside the source box; cell-local ones inside
     # one cell.
@@ -135,7 +136,8 @@ def test_flight_core_matches_jax_f64(kind):
 
     cfg = make_cfg(tt, kind)
     jcfg = make_cfg(nt, kind)
-    sim = driver.Simulation(cfg, transport="flight", quiet=True)
+    sim = driver.Simulation(cfg, device="cpu", transport="flight",
+                            quiet=True)
     jgeom = dataclasses.replace(jdriver.make_geometry(jcfg), same_xs=True)
     assert sim.geom.same_xs and sim.geom.rects == jgeom.rects
     jtab = nt.CrossSection.resonance(dtype=jnp.float64, analytic=True)
@@ -229,7 +231,7 @@ def test_flight_f32_within_tolerance_of_jax_f64():
 def test_cli_stream_takes_flight_and_matches_golden():
     out = subprocess.run(
         [sys.executable, "-m", "neutral_tpu_torch", "problems/stream.params",
-         "--nparticles", "400", "--mesh-scale", "62"],
+         "--nparticles", "400", "--mesh-scale", "62", "--device", "cpu"],
         capture_output=True, text=True, check=True, timeout=300).stdout
     assert "Engine: plain." in out and "Transport: flight." in out
     assert "flight sweeps" in out
@@ -245,7 +247,7 @@ def test_cli_stream_takes_flight_and_matches_golden():
 
 def test_flight_kernel_wrapper_on_cpu_raises():
     cfg = make_cfg(tt, "split", dtype="float32")
-    sim = driver.Simulation(cfg, quiet=True)
+    sim = driver.Simulation(cfg, device="cpu", quiet=True)
     launches0 = flight_chunk_kernel.launches
     with pytest.raises(ValueError, match="CUDA"):
         flight_chunk_kernel(sim.state, sim.tally, sim.geom, sim.cs_scatter,
@@ -261,7 +263,7 @@ def test_flight_kernel_rejects_more_than_16_rects():
                     for i in range(17))
     cfg = make_cfg(tt, "stream", nx=68, dtype="float32").with_(
         problems=stripes)
-    sim = driver.Simulation(cfg, quiet=True)
+    sim = driver.Simulation(cfg, device="cpu", quiet=True)
     assert sim.transport == "flight" and len(sim.geom.rects) == 17
     with pytest.raises(ValueError, match="CUDA"):
         flight_chunk_kernel(sim.state, sim.tally, sim.geom, sim.cs_scatter,

@@ -68,7 +68,7 @@ def test_grid_geometry(tmp_path):
 def test_grid_deck_flight_refused(tmp_path):
     cfg = grid_cfg(tt, tmp_path)
     with pytest.raises(ValueError, match="constant-density"):
-        driver.Simulation(cfg, transport="flight", quiet=True)
+        driver.Simulation(cfg, device="cpu", transport="flight", quiet=True)
 
 
 def _steps(sim, niters):
@@ -89,7 +89,7 @@ def test_grid_deck_matches_jax_xla_f64(tmp_path, tables):
         keys, values = make_log_table()
         for name in ("elastic_scatter.cs", "capture.cs"):
             write_cs_file(str(tmp_path / name), keys, values)
-    sim = driver.Simulation(grid_cfg(tt, tmp_path), quiet=True)
+    sim = driver.Simulation(grid_cfg(tt, tmp_path), device="cpu", quiet=True)
     assert sim.transport == "sweep" and sim.geom.regions is None
     assert sim.cs_scatter.analytic == (tables == "analytic")
     t_stats = _steps(sim, 2)
@@ -112,9 +112,10 @@ def test_region_deck_as_grid_is_bitwise_the_same(tmp_path, dtype):
     cfg = make_cfg(tt, "csp", dtype=dtype)
     path = tmp_path / "dens.npy"
     np.save(path, build_density(cfg))
-    region = driver.Simulation(cfg, transport="sweep", quiet=True)
+    region = driver.Simulation(cfg, device="cpu", transport="sweep",
+                               quiet=True)
     grid = driver.Simulation(cfg.with_(density_file=str(path), problems=()),
-                             transport="sweep", quiet=True)
+                             device="cpu", transport="sweep", quiet=True)
     assert grid.geom.regions is None and region.geom.regions
     assert _steps(region, cfg.niters) == _steps(grid, cfg.niters)
     for f in STATE_FIELDS:

@@ -131,7 +131,8 @@ def test_inject_pcg64si_matches_jax(dtype):
 @functools.cache
 def run_port(kind, transport_name):
     cfg = make_cfg(tt, kind).with_(rng="pcg64si")
-    sim = driver.Simulation(cfg, transport=transport_name, quiet=True)
+    sim = driver.Simulation(cfg, device="cpu", transport=transport_name,
+                            quiet=True)
     stats = [(m.nfacets, m.ncollisions, m.nprocessed)
              for m in (sim.step(s) for s in range(1, cfg.niters + 1))]
     return sim.host_tally(), stats
@@ -189,7 +190,7 @@ def test_pcg64si_deck_validates_against_pcg_golden(tmp_path):
         f"mini.params result={ref:.12e}\n")
     (small.parent / "neutral.tests").write_text("mini.params result=1.0\n")
     out = subprocess.run([sys.executable, "-m", "neutral_tpu_torch",
-                          str(small)], capture_output=True, text=True,
+                          str(small), "--device", "cpu"], capture_output=True, text=True,
                          check=True, timeout=300).stdout
     assert "PASSED validation." in out, out
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])

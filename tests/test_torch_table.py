@@ -145,7 +145,8 @@ def _runs(tmp_dir, same_xs, transport_name):
 
     deck = f"{tmp_dir}/deck.params"
     cfg = make_cfg(tt, "split").with_(params_path=deck)
-    sim = driver.Simulation(cfg, transport=transport_name, quiet=True)
+    sim = driver.Simulation(cfg, device="cpu", transport=transport_name,
+                            quiet=True)
     assert not sim.cs_scatter.analytic and sim.geom.same_xs == same_xs
     t_stats = [(m.nfacets, m.ncollisions, m.nprocessed)
                for m in (sim.step(s) for s in range(1, cfg.niters + 1))]
