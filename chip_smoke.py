@@ -29,15 +29,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (bitwise, after sorting: atomics append them in another order), tally
    sums to a relative 1e-5.  Again with one piece per launch (many launches
    per census).  Both times are printed.
-6. Segment-deposit kernel against its plain version on the segment rows of
-   stream's step-1 census: per-cell largest difference and sums to 1e-5.
+6. Segment-deposit kernel against its plain version (per-cell largest
+   difference to 1e-5 of the largest cell, sums to 1e-5) on the segment
+   rows of the step-1 censuses of phase 5 (stream, split, csp; 4000^2
+   tally) and, after phase 13, on its window-local rows (split and stream
+   in the 2000^2 block tally).  Each prints the kernel's stage times (bins,
+   tile deposit) from CUDA events, its pieces, the pieces per tile (largest
+   and mean over the tiles with any), T and C.
 7. Main path, flight decks: `driver.main` on the full stream and split
    decks (each must print `PASSED validation.`) and csp (10 steps; its
    shipped golden is a known outlier that the reference's own omp3 misses,
    so it prints FAILED against it and is held here to omp3's converged
    tally, 1.1201464e7, within 1e-3).  The flight and segment-deposit
    kernels must have launched in every run, and no plain version may have
-   run.  Events/s per step and peak device memory are printed.
+   run.  Events/s per step, peak device memory and the deposit's overflow
+   re-runs (its piece buffer grows in a run's first round) are printed.
 8. pcg64si: copies of the decks with `rng pcg64si` in a temporary
    directory (each keeps its basename, so that the golden is found in
    problems/neutral_pcg.tests).  The sweep kernel against its plain
@@ -86,15 +92,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 Each kernel's `bound_ms` is the least time the card could take for the
 work this run gave it: the larger of the bytes it must move (each lane's
-state read once and written once, each segment row written or read once,
-each tally written once) over 3.35 TB/s, and its operations over the peak
-rate of their type: the draws' integer operations (threefry-2x64/20 about
-160 a draw, pcg64si about 30, two draws a collision) over the H100's int32
-issue rate (132 SMs x 64 lanes x 1.98 GHz), the float work (about 60
-operations an event or flight piece, 40 more a collision, 15 a cell
-visited by a segment deposit; pieces counted as at least one a collision
-and one a lane) over 67 TFLOP/s.  No single PyTorch call computes any of
-the three kernels' functions, so `library_ms` is null.
+state read once and written once, each segment row written by the flight
+kernel or read by the deposit once, each tally written once) over 3.35
+TB/s, and its operations over the peak rate of their type: the draws'
+integer operations (threefry-2x64/20 about 160 a draw, pcg64si about 30,
+two draws a collision) over the H100's int32 issue rate (132 SMs x 64
+lanes x 1.98 GHz), the float work (about 60 operations an event or flight
+piece, 40 more a collision, 15 a cell visited by a segment deposit; pieces
+counted as at least one a collision and one a lane) over 67 TFLOP/s.  The
+flight kernel's `ms` is its own device time (CUDA events), without the
+segment deposits, whose time stands beside it.  No single PyTorch call
+computes any of the three kernels' functions, so `library_ms` is null.
 """
 
 from __future__ import annotations
@@ -142,12 +150,11 @@ def work_bound(r: dict) -> dict:
     """The bound of one comparison's census (compare / compare_flight): its
     lanes, collisions, events or pieces, segment rows and cell visits."""
     rows = r.get("rows", 0)
-    nbytes = r["n"] * LANE_BYTES + r["ncells"] * 4 + rows * 20 * 2
+    nbytes = r["n"] * LANE_BYTES + r["ncells"] * 4 + rows * 20
     int_ops = r["collisions"] * 2 * DRAW_OPS[r["rng"]]
     events = (r["collisions"] + r["n"] if "rows" in r
               else r["facets"] + r["collisions"])
-    float_ops = (events * FLOPS_EVENT + r["collisions"] * FLOPS_COLLISION
-                 + r.get("visits", 0) * FLOPS_VISIT)
+    float_ops = events * FLOPS_EVENT + r["collisions"] * FLOPS_COLLISION
     return bound(nbytes, int_ops, float_ops)
 
 
@@ -310,7 +317,10 @@ def compare_flight(deck: str, torch, driver, transport, flight,
                    flight_kernel, fields, label="flight", window=None):
     """Phase 5 on one deck (and phases 8-9, phase 13 in `window`): returns
     a dict as compare's, with the kernel census's segment rows ("segs")
-    and their count and cell visits."""
+    and their count.  "ms" and "plain_ms" are the flight pieces' own time
+    (the kernel's from CUDA events, the plain version's from the clock),
+    "deposit_ms" and "plain_deposit_ms" the segment deposits' and
+    "census_ms" the kernel census's whole time."""
     cfg = driver.load_config(deck).with_(nparticles=MODE_N,
                                          expected_tally=None)
     sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
@@ -322,20 +332,27 @@ def compare_flight(deck: str, torch, driver, transport, flight,
                                              window)
     args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
     name = f"{label} {deck.split('/')[-1].split('.')[0]}"
+    dep = {"deposit": flight_kernel.SegmentDeposit(geom.nx, geom.ny, "cuda")}
+    times = {}
 
     def run(fn, segments=None, **kw):
         state, tally = start.clone(), torch.zeros_like(tally0)
-        ms, (state, nf, nc, n, _) = timed(torch, fn, state, tally, *args,
-                                          segments=segments, **win, **kw)
-        return ms, state, nf, nc, n, tally
+        ms, (state, nf, nc, n, ph) = timed(torch, fn, state, tally, *args,
+                                           segments=segments, **win, **kw)
+        times[fn.__name__] = (ms, ph["flight"] * 1e3, ph["raster"] * 1e3)
+        return state, nf, nc, n, tally
 
     ksegs, psegs, csegs = [], [], []
-    run(flight_kernel.flight_chunk_kernel, ksegs)   # warm-up, collects rows
-    k_ms, ks, knf, knc, kl, kt = run(flight_kernel.flight_chunk_kernel)
-    p_ms, ps, pnf, pnc, pn, pt = run(flight.flight_chunk_plain, psegs)
-    print(f"[{name}] kernel {k_ms:.3f} ms ({kl} launches), plain "
-          f"{p_ms:.3f} ms ({pn} sweeps); facets {knf} / {pnf}, collisions "
-          f"{knc} / {pnc}", flush=True)
+    # warm-up (it grows the deposit's piece buffer), collects the rows
+    run(flight_kernel.flight_chunk_kernel, ksegs, **dep)
+    ks, knf, knc, kl, kt = run(flight_kernel.flight_chunk_kernel, **dep)
+    ps, pnf, pnc, pn, pt = run(flight.flight_chunk_plain, psegs)
+    c_ms, k_ms, kd_ms = times["flight_chunk_kernel"]
+    _, p_ms, pd_ms = times["flight_chunk_plain"]
+    print(f"[{name}] kernel {k_ms:.3f} ms ({kl} launches) + deposits "
+          f"{kd_ms:.3f} ms (census {c_ms:.3f} ms), plain {p_ms:.3f} ms "
+          f"({pn} sweeps) + deposit {pd_ms:.3f} ms; facets {knf} / {pnf}, "
+          f"collisions {knc} / {pnc}", flush=True)
     if (knf, knc) != (pnf, pnc):
         fail(f"{name}: event counts differ: kernel {(knf, knc)} plain "
              f"{(pnf, pnc)}")
@@ -359,49 +376,68 @@ def compare_flight(deck: str, torch, driver, transport, flight,
           f"{max_abs_err:.3e}")
     if not rel <= 1e-5:
         fail(f"{name}: tally sums differ by {rel:.3e} (> 1e-5)")
-    c_ms, cs, cnf, cnc, cl, _ = run(flight_kernel.flight_chunk_kernel, csegs,
-                                    max_pieces=1)
+    cs, cnf, cnc, cl, _ = run(flight_kernel.flight_chunk_kernel, csegs,
+                              max_pieces=1, **dep)
+    one_ms = times["flight_chunk_kernel"][0]
     if (cl < 2 or (cnf, cnc) != (pnf, pnc)
             or differing_field(cs, ps, torch, fields) is not None
             or not torch.equal(sorted_rows(torch, csegs), prows)):
         fail(f"{name}: the census in {cl} launches of 1 piece differs from "
              "the plain version")
     print(f"[{name}] 1 piece per launch: {cl} launches in "
-          f"{c_ms:.3f} ms, counts, per-lane state and segment rows equal")
-    rows = torch.cat(ksegs)
-    return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
-            "n": MODE_N, "ncells": geom.nx * geom.ny, "facets": knf,
-            "collisions": knc, "rng": cfg.rng, "segs": ksegs,
-            "rows": rows.shape[0], "visits": cell_visits(torch, rows)}
+          f"{one_ms:.3f} ms, counts, per-lane state and segment rows equal")
+    return {"ms": k_ms, "plain_ms": p_ms, "deposit_ms": kd_ms,
+            "plain_deposit_ms": pd_ms, "census_ms": c_ms,
+            "max_abs_err": max_abs_err, "n": MODE_N,
+            "ncells": geom.nx * geom.ny, "facets": knf, "collisions": knc,
+            "rng": cfg.rng, "segs": ksegs,
+            "rows": sum(r.shape[0] for r in ksegs)}
 
 
-def compare_raster(segs, torch, geom, raster, raster_kernel):
-    """Phase 6: returns a dict of the times, max_abs_err and bound."""
+def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label):
+    """Phase 6 on one set of segment rows into an nx x ny tally: returns a
+    dict of the kernel's time (CUDA events) and its stages', the plain
+    version's time, max_abs_err, the bins' sizes and the bound."""
     rows = torch.cat(segs).contiguous()
     nseg = torch.tensor([rows.shape[0]], dtype=torch.int64,
                         device=rows.device)
-    n = geom.nx * geom.ny
-    kt = torch.zeros(n, dtype=torch.float32, device=rows.device)
+    kt = torch.zeros(nx * ny, dtype=torch.float32, device=rows.device)
     pt = torch.zeros_like(kt)
-    raster_kernel.deposit_segments_kernel(kt, rows, nseg, geom.nx, geom.ny)
-    kt.zero_()                                       # after the warm-up
-    k_ms, _ = timed(torch, raster_kernel.deposit_segments_kernel, kt, rows,
-                    nseg, geom.nx, geom.ny)
-    p_ms, _ = timed(torch, raster.deposit_segments_plain, pt, rows, geom.nx,
-                    geom.ny)
+    dep = raster_kernel.SegmentDeposit(nx, ny, "cuda")
+    # warm-up: the first launch overflows the new piece buffer, which grows
+    raster_kernel.deposit_segments_kernel(kt, rows, nseg, nx, ny, dep)
+    kt.zero_()
+    stages = []
+    wall_ms, _ = timed(torch, raster_kernel.deposit_segments_kernel, kt, rows,
+                       nseg, nx, ny, dep, stages=stages)
+    if len(stages) != 1:
+        fail(f"segment deposit {label}: {len(stages)} launches after the "
+             "warm-up (want 1)")
+    ev = stages[0]
+    bin_ms, tile_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    st = dep.stats()
+    p_ms, _ = timed(torch, raster.deposit_segments_plain, pt, rows, nx, ny)
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
     peak = float(pt.double().abs().max())
     rel = abs(ksum - psum) / abs(psum)
-    print(f"[raster stream] {rows.shape[0]} segment rows: kernel "
-          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms; sums {ksum:.9e} / "
-          f"{psum:.9e} (rel {rel:.3e}); max abs err per cell "
-          f"{max_abs_err:.3e} (largest cell {peak:.3e})", flush=True)
+    print(f"[raster {label}] {rows.shape[0]} segment rows, {nx}x{ny} tally: "
+          f"kernel {bin_ms + tile_ms:.3f} ms (bins {bin_ms:.3f} + tiles "
+          f"{tile_ms:.3f}; {wall_ms:.3f} ms on the clock), plain "
+          f"{p_ms:.3f} ms; T {st['tile']}, C {st['chunk']}: "
+          f"{st['pieces']} pieces in {st['work_items']} work items, "
+          f"per tile max {st['pieces_per_tile_max']} / mean "
+          f"{st['pieces_per_tile_mean']:.1f} over "
+          f"{st['tiles_with_pieces']} tiles; sums {ksum:.9e} / {psum:.9e} "
+          f"(rel {rel:.3e}); max abs err per cell {max_abs_err:.3e} "
+          f"(largest cell {peak:.3e})", flush=True)
     if not (rel <= 1e-5 and max_abs_err <= 1e-5 * peak):
-        fail("segment deposit: kernel and plain version differ by more "
-             "than 1e-5")
-    return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
-            **bound(rows.shape[0] * 20 + n * 4, 0,
+        fail(f"segment deposit {label}: kernel and plain version differ by "
+             "more than 1e-5")
+    return {"ms": bin_ms + tile_ms, "bin_ms": bin_ms, "tile_ms": tile_ms,
+            "wall_ms": wall_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
+            "rows": rows.shape[0], **st,
+            **bound(rows.shape[0] * 20 + nx * ny * 4, 0,
                     cell_visits(torch, rows) * FLOPS_VISIT)}
 
 
@@ -437,7 +473,9 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     with contextlib.redirect_stdout(tee):
         rc = driver.main([deck, *argv])
     wall = time.perf_counter() - t0
-    counts = {fn.__name__: getattr(fn, attr) for fn, attr in wrappers}
+    counts = {fn.__name__ if attr in ("launches", "calls")
+              else f"{fn.__name__}.{attr}": getattr(fn, attr)
+              for fn, attr in wrappers}
     out = tee.buf.getvalue()
     name = label or deck.split("/")[-1].split(".")[0]
     if rc != 0:
@@ -464,7 +502,7 @@ def check_kernel_path(name: str, out: str, c: dict,
     """Fail unless a main path of phases 8-10 and 14 printed `PASSED
     validation.` (unless `passed` is False) and ran its transport's kernels
     and no plain version; returns its (sweep, flight, segment-deposit)
-    launch counts."""
+    launch counts and the deposit's overflow re-runs."""
     if passed and "PASSED validation." not in out:
         fail(f"the full {name} deck did not print 'PASSED validation.'")
     if c["sweep_chunk_plain"] != 0 or c["flight_chunk_plain"] != 0:
@@ -476,7 +514,8 @@ def check_kernel_path(name: str, out: str, c: dict,
     if not ok or "Engine: kernel." not in out:
         fail(f"{name} main path: counts {c} (want kernel launches)")
     return (c["sweep_chunk_kernel"], c["flight_chunk_kernel"],
-            c["deposit_segments_kernel"])
+            c["deposit_segments_kernel"],
+            c["deposit_segments_kernel.overflows"])
 
 
 def mode_entry(runs: list, shape: str) -> dict:
@@ -484,11 +523,14 @@ def mode_entry(runs: list, shape: str) -> dict:
     bounds summed over decks, the largest error)."""
     bounds = [work_bound(r) for r in runs]
     top = max(bounds, key=lambda b: b["bound_ms"])
-    return {"ms": sum(r["ms"] for r in runs),
-            "plain_ms": sum(r["plain_ms"] for r in runs),
-            "max_abs_err": max(r["max_abs_err"] for r in runs),
-            "bound_ms": sum(b["bound_ms"] for b in bounds),
-            "bound_by": top["bound_by"], "shape": shape}
+    out = {"ms": sum(r["ms"] for r in runs),
+           "plain_ms": sum(r["plain_ms"] for r in runs),
+           "max_abs_err": max(r["max_abs_err"] for r in runs),
+           "bound_ms": sum(b["bound_ms"] for b in bounds),
+           "bound_by": top["bound_by"], "shape": shape}
+    if "deposit_ms" in runs[0]:
+        out["deposit_ms"] = sum(r["deposit_ms"] for r in runs)
+    return out
 
 
 def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
@@ -500,12 +542,13 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
     from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
 
     res = {"sweep": {}, "flight": {}, "sweep_launches": 0,
-           "flight_launches": 0, "raster_launches": 0}
+           "flight_launches": 0, "raster_launches": 0, "overflows": 0}
 
     def add_launches(counts):
         res["sweep_launches"] += counts[0]
         res["flight_launches"] += counts[1]
         res["raster_launches"] += counts[2]
+        res["overflows"] += counts[3]
 
     def sweep_mode(mode, deck, shape):
         r = compare(MODE_N, torch, driver, transport, sweep_kernel, fields,
@@ -598,7 +641,8 @@ def decomposed_paths(tmp, torch, driver, flight, wrappers,
     import numpy as np
     from neutral_tpu_torch.mesh import build_density
 
-    res = {"sweep_launches": 0, "flight_launches": 0, "raster_launches": 0}
+    res = {"sweep_launches": 0, "flight_launches": 0, "raster_launches": 0,
+           "overflows": 0}
 
     def run(deck, decomposition, name, want_counts):
         out, total, c = main_path(deck, torch, driver, wrappers,
@@ -617,6 +661,7 @@ def decomposed_paths(tmp, torch, driver, flight, wrappers,
         res["sweep_launches"] += launches[0]
         res["flight_launches"] += launches[1]
         res["raster_launches"] += launches[2]
+        res["overflows"] += launches[3]
         counts = step_counts(out)
         if want_counts is not None and counts != want_counts:
             fail(f"{decomposition} {name}: per-step counts {counts} differ "
@@ -688,7 +733,8 @@ def main() -> int:
                 (sweep_kernel.sweep_chunk_plain, "calls"),
                 (flight_kernel.flight_chunk_kernel, "launches"),
                 (flight.flight_chunk_plain, "calls"),
-                (raster_kernel.deposit_segments_kernel, "launches")]
+                (raster_kernel.deposit_segments_kernel, "launches"),
+                (raster_kernel.deposit_segments_kernel, "overflows")]
 
     # ---- 3. sweep kernel against plain version --------------------------
     results = {n: compare(n, torch, driver, transport, sweep_kernel,
@@ -712,15 +758,16 @@ def main() -> int:
             STATE_FIELDS)
 
     # ---- 6. segment-deposit kernel against plain version ----------------
-    stream = FLIGHT_DECKS[0]
-    geom = driver.make_geometry(driver.load_config(stream))
-    raster_result = compare_raster(flight_results[stream].pop("segs"), torch,
-                                   geom, raster, raster_kernel)
+    geom = driver.make_geometry(driver.load_config(FLIGHT_DECKS[0]))
+    raster_results = {}
     for deck in FLIGHT_DECKS:
-        flight_results[deck].pop("segs", None)
+        name = deck.split("/")[-1].split(".")[0]
+        raster_results[name] = compare_raster(
+            flight_results[deck].pop("segs"), torch, geom.nx, geom.ny,
+            raster, raster_kernel, name)
 
     # ---- 7. main path, flight decks -------------------------------------
-    flight_launches = raster_launches = 0
+    flight_launches = raster_launches = overflows = 0
     for deck in FLIGHT_DECKS:
         name = deck.split("/")[-1].split(".")[0]
         out, total, c = main_path(deck, torch, driver, wrappers)
@@ -734,6 +781,7 @@ def main() -> int:
                  "kernel launches and no plain run)")
         flight_launches += c["flight_chunk_kernel"]
         raster_launches += c["deposit_segments_kernel"]
+        overflows += c["deposit_segments_kernel.overflows"]
         if name == "csp":
             rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
             print(f"[main csp] tally {total:.9e} against omp3's "
@@ -752,6 +800,7 @@ def main() -> int:
     sweep_launches += modes["sweep_launches"]
     flight_launches += modes["flight_launches"]
     raster_launches += modes["raster_launches"]
+    overflows += modes["overflows"]
 
     # ---- 12-13. the window modes ----------------------------------------
     window = compare(MODE_N, torch, driver, transport, sweep_kernel,
@@ -760,8 +809,9 @@ def main() -> int:
                                     flight_kernel, STATE_FIELDS,
                                     label="window flight", window=BLOCK)
                      for d in (FLIGHT_DECKS[1], FLIGHT_DECKS[0])]
-    for r in window_flight:
-        r.pop("segs")
+    raster_results["window"] = compare_raster(
+        [seg for r in window_flight for seg in r.pop("segs")], torch,
+        BLOCK[2], BLOCK[3], raster, raster_kernel, "window split + stream")
     block = (f"the 2x2 block [2000, 4000)^2 of the 4000x4000 mesh, "
              f"{MODE_N} particles")
     modes["sweep"]["window"] = mode_entry([window], f"scatter in {block}")
@@ -775,6 +825,7 @@ def main() -> int:
     sweep_launches += decomposed["sweep_launches"]
     flight_launches += decomposed["flight_launches"]
     raster_launches += decomposed["raster_launches"]
+    overflows += decomposed["overflows"]
     for k in ("sweep", "flight"):
         modes[k]["window"]["launches"] = decomposed[f"{k}_launches"]
 
@@ -785,7 +836,8 @@ def main() -> int:
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {
-        "ms": v["ms"], "plain_ms": v["plain_ms"], **work_bound(v)}
+        k: v[k] for k in ("ms", "plain_ms", "deposit_ms", "plain_deposit_ms",
+                          "census_ms", "rows")} | work_bound(v)
         for d, v in flight_results.items()}
     sweep_modes = {"analytic": mode_entry(
         [top], f"scatter, {COMPARE_SIZES[-1]} particles")}
@@ -823,31 +875,40 @@ def main() -> int:
          "bound_ms": flight_modes["analytic"]["bound_ms"],
          "bound_by": flight_modes["analytic"]["bound_by"],
          "library_ms": None,
+         "deposit_ms": flight_modes["analytic"]["deposit_ms"],
          "per_deck": per_deck,
          "modes": flight_modes,
          "shape": "stream, split and csp decks, 1,000,000 particles each, "
-                  "4000x4000 mesh, one step-1 census each (segment deposits "
-                  "included); ms, plain_ms and bound_ms are the sums of the "
-                  "three; max_abs_err is the largest per-cell tally "
-                  "difference"},
+                  "4000x4000 mesh, one step-1 census each; ms is the flight "
+                  "kernel's own device time (CUDA events), the segment "
+                  "deposits' beside it as deposit_ms; ms, plain_ms and "
+                  "bound_ms are the sums of the three; max_abs_err is the "
+                  "largest per-cell tally difference"},
         {"name": "segment_deposit_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/raster.cu",
          "replaces": "neutral_tpu/raster.py:331 and neutral_tpu/raster.py:161",
          "launches": raster_launches,
-         "max_abs_err": raster_result["max_abs_err"],
-         "ms": raster_result["ms"],
-         "plain_ms": raster_result["plain_ms"],
-         "bound_ms": raster_result["bound_ms"],
-         "bound_by": raster_result["bound_by"],
+         "max_abs_err": raster_results["stream"]["max_abs_err"],
+         "ms": raster_results["stream"]["ms"],
+         "plain_ms": raster_results["stream"]["plain_ms"],
+         "bound_ms": raster_results["stream"]["bound_ms"],
+         "bound_by": raster_results["stream"]["bound_by"],
          "library_ms": None,
-         "modes": {"analytic": {**raster_result,
-                                "shape": "stream's step-1 segment rows"}},
+         "bin_ms": raster_results["stream"]["bin_ms"],
+         "tile_ms": raster_results["stream"]["tile_ms"],
+         "tile": raster_results["stream"]["tile"],
+         "chunk": raster_results["stream"]["chunk"],
+         "overflows": overflows,
+         "modes": raster_results,
          "shape": "the segment rows of the stream deck's step-1 census "
-                  "(1,000,000 particles, 4000x4000 mesh) in one deposit; "
-                  "the kernel has no modes of its own, ran in the pcg64si "
-                  "and table flight main paths, and deposits block-sized "
-                  "window-local rows in the spatial ones"},
+                  "(1,000,000 particles, 4000x4000 mesh) in one deposit; ms "
+                  "is bins + tiles from CUDA events; modes hold the same for "
+                  "split's and csp's step-1 rows and for the window-local "
+                  "rows of split and stream in the 2000x2000 block; "
+                  "launches and overflows (piece-buffer re-runs) are summed "
+                  "over every flight main path, the decomposed ones "
+                  "included"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -65,6 +65,7 @@ from .flight_kernel import MAX_PIECES, flight_chunk_kernel
 from .mesh import build_mesh, density_grid, region_cell_bounds
 from .particles import inject_particles
 from .profiler import Profile
+from .raster_kernel import SegmentDeposit
 from .sweep_kernel import MAX_EVENTS, sweep_chunk_kernel, sweep_chunk_plain
 from .transport import Geometry, begin_timestep, use_local_coords
 from .xs import CrossSection, find_cs_files
@@ -344,6 +345,10 @@ class Simulation(SimulationBase):
         self.tally = torch.zeros(cfg.nx * cfg.ny,
                                  dtype=getattr(torch, cfg.tally_dtype),
                                  device=self.device)
+        # The segment deposit's buffers, kept from census to census.
+        self.deposit = (SegmentDeposit(cfg.nx, cfg.ny, self.device)
+                        if self.engine == "kernel"
+                        and self.transport == "flight" else None)
         # Injection belongs to set-up, not to step 1's time.
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -363,7 +368,8 @@ class Simulation(SimulationBase):
         parts = {}
         if self.transport == "flight":
             if self.engine == "kernel":
-                state, nf, nc, nlaunches, parts = flight_chunk_kernel(*args)
+                state, nf, nc, nlaunches, parts = flight_chunk_kernel(
+                    *args, deposit=self.deposit)
             else:
                 state, nf, nc, nsweeps, parts = flight_chunk_plain(*args)
         elif self.engine == "kernel":

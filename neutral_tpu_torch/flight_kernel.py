@@ -6,12 +6,15 @@ one thread per lane, each running up to `max_pieces` flight pieces per
 launch (`max_pieces` means exactly that: pieces per lane per launch).
 Flushes go into the tally by atomicAdd; segment rows go to a buffer of
 n * max_pieces rows through an atomic counter, so no launch can overflow
-it.  Per round the host launches the flight kernel, launches the
-segment-deposit kernel (raster_kernel.py) on the buffer, whose row count
-it reads on the device, resets the counter, and reads back 8 bytes: how
-many lanes still have work.  All per-history state lives in the state
-tensors between launches, so the number of launches changes nothing in the
-result.
+it.  Per round the host resets the row counter, launches the flight
+kernel, launches the segment-deposit kernel (raster_kernel.py) on the
+buffer, whose row count it reads on the device, and reads back one slice
+of the counters: how many lanes still have work, and the deposit's piece
+count and overflow flag.  After an overflow it grows the deposit's piece
+buffer (a `SegmentDeposit`, kept between censuses by the caller) and
+deposits the same rows again (`redeposit`) before the next round.  All
+per-history state lives in the state tensors between launches, so the
+number of launches changes nothing in the result.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, threefry or pcg64si draws (csrc/flight.cu); the rects are device
@@ -37,7 +40,8 @@ import torch
 
 from . import build
 from .particles import ParticleState
-from .raster_kernel import deposit_segments_kernel
+from .raster_kernel import (SegmentDeposit, deposit_segments_kernel,
+                            redeposit_segments)
 from .sweep_kernel import (check_inputs, rect_arrays, state_pointers,
                            table_fields, window_fields)
 from .transport import Geometry
@@ -87,8 +91,9 @@ def flight_params(state: ParticleState, tally: torch.Tensor,
                   inv_ntotal: float, max_pieces: int, x_off=None,
                   y_off=None) -> _FlightParams:
     """The parameters of one launch, after check_inputs: `segbuf` holds
-    state.n * max_pieces rows, `counts` is the (4,) int64 [facets,
-    collisions, lanes still working, segment rows written], `rects` is
+    state.n * max_pieces rows, `counts` is the (6,) int64 [facets,
+    collisions, lanes still working, segment rows written, the deposit's
+    pieces, its overflow flag], `rects` is
     rect_arrays(geom.rects) and `x_off`/`y_off` the window (None: none)."""
     if geom.rects is None:
         raise ValueError("flight kernel needs geom.rects")
@@ -119,17 +124,22 @@ def flight_params(state: ParticleState, tally: torch.Tensor,
 
 def flight_round(params: _FlightParams, tally: torch.Tensor,
                  segbuf: torch.Tensor, counts: torch.Tensor, geom: Geometry,
-                 device: torch.device, segments: list | None = None) -> list:
-    """One round on `device`'s current stream: a flight launch, the
-    segment deposit of its rows into `tally` (geom.nx x geom.ny, the
-    window's block under a window), and the reset of the row counter.
-    When `segments` is a list, the round's rows are appended to it as an
+                 device: torch.device, deposit: SegmentDeposit,
+                 segments: list | None = None) -> list:
+    """One round on `device`'s current stream: the reset of the row
+    counter, a flight launch and the segment deposit of its rows into
+    `tally` (geom.nx x geom.ny, the window's block under a window) with
+    the buffers of `deposit`, which writes [pieces, overflow] to
+    counts[4:6].  The rows and their count stay until the next round, so
+    that `redeposit` can run the deposit again after an overflow.  When
+    `segments` is a list, the round's rows are appended to it as an
     (nseg, 5) copy (a host read; for checks).  Does not wait otherwise.
     Returns the round's three CUDA events (start, flight done, deposit
     done)."""
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
+        counts[3].zero_()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         build.check_launch(
@@ -137,12 +147,28 @@ def flight_round(params: _FlightParams, tally: torch.Tensor,
             "flight kernel")
         flight_chunk_kernel.launches += 1
         ev[1].record()
-        deposit_segments_kernel(tally, segbuf, counts[3:4], geom.nx, geom.ny)
+        deposit_segments_kernel(tally, segbuf, counts[3:4], geom.nx, geom.ny,
+                                deposit, counts[4:6])
         ev[2].record()
         if segments is not None:
             segments.append(segbuf[:int(counts[3])].clone())
-        counts[3].zero_()
     return ev
+
+
+def redeposit(tally: torch.Tensor, segbuf: torch.Tensor,
+              counts: torch.Tensor, geom: Geometry, device: torch.device,
+              deposit: SegmentDeposit, need: int) -> list:
+    """After a round whose deposit overflowed (counts[5], read by the
+    caller with need = counts[4]): grow the piece buffer and deposit the
+    round's rows again, before the next flight launch.  Returns events as
+    flight_round's, with no flight time."""
+    with torch.cuda.device(device):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        redeposit_segments(tally, segbuf, counts[3:4], geom.nx, geom.ny,
+                           deposit, counts[4:6], need)
+        ev[1].record()
+    return [ev[0], ev[0], ev[1]]
 
 
 def event_phases(marks: list) -> dict:
@@ -157,34 +183,45 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
                         absorb_tab: CrossSection, master_key: int,
                         inv_ntotal: float, max_pieces: int = MAX_PIECES,
                         segments: list | None = None, x_off=None,
-                        y_off=None):
+                        y_off=None, deposit: SegmentDeposit | None = None):
     """Run every lane to census or death (or, under the window `x_off`/
     `y_off`, until it leaves the window) with the CUDA flight kernel.
 
     Updates `state`'s tensors and `tally` in place.  When `segments` is a
     list, each round's segment rows are appended to it (flight_round).
-    Returns (state, nfacets, ncollisions, nlaunches, phases) with `phases`
-    the device seconds of the flight launches ("flight") and of the
-    segment deposits ("raster"), from CUDA events.
+    `deposit` holds the segment deposit's buffers between calls (a new
+    one when None).  Returns (state, nfacets, ncollisions, nlaunches,
+    phases) with `phases` the device seconds of the flight launches
+    ("flight") and of the segment deposits ("raster"), from CUDA events.
     """
     dev = state.device
-    # [facets, collisions, lanes still working, segment rows written]
-    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    # [facets, collisions, lanes still working, segment rows written,
+    #  pieces of the round's deposit, its overflow flag]
+    counts = torch.zeros(6, dtype=torch.int64, device=dev)
     segbuf = torch.empty((state.n * max_pieces, 5), dtype=torch.float32,
                          device=dev)
     rects = (None if geom.rects is None else rect_arrays(geom.rects, dev))
     params = flight_params(state, tally, segbuf, counts, rects, geom,
                            scatter_tab, absorb_tab, master_key, inv_ntotal,
                            max_pieces, x_off, y_off)
+    if deposit is None:
+        deposit = SegmentDeposit(geom.nx, geom.ny, dev)
     marks = []
+    nlaunches = 0
     while True:
         marks.append(flight_round(params, tally, segbuf, counts, geom, dev,
-                                  segments))
-        if int(counts[2]) == 0:      # waits for both launches
+                                  deposit, segments))
+        nlaunches += 1
+        # One read per round; it waits for the flight launch and deposit.
+        working, _, need, overflow = counts[2:].tolist()
+        if overflow:
+            marks.append(redeposit(tally, segbuf, counts, geom, dev, deposit,
+                                   need))
+        if working == 0:
             break
         counts[2].zero_()
     nf, nc = (int(v) for v in counts[:2].tolist())
-    return state, nf, nc, len(marks), event_phases(marks)
+    return state, nf, nc, nlaunches, event_phases(marks)
 
 
 flight_chunk_kernel.launches = 0

@@ -1,6 +1,11 @@
 """Measurements of the port on a card, beside chip_smoke.py.
 
     python neutral_tpu_torch/measure.py census [--root DIR] [--reps 5]
+    python neutral_tpu_torch/measure.py deposit [--root DIR] [--reps 5]
+        [--rows FILE] [--deck DECK]
+    python neutral_tpu_torch/measure.py run DECK [--root DIR] [--reps 1]
+        [--shards N --decomposition D]
+    python neutral_tpu_torch/measure.py compare FILE [--key total_s]
     python neutral_tpu_torch/measure.py scaled [--nparticles N]
     python neutral_tpu_torch/measure.py profile DECK [--decomposition D]
 
@@ -9,6 +14,28 @@ through the sweep kernel, `--reps` times after a warm-up, with the package
 found under `--root` (default: this checkout).  Given the root of another
 checkout, it times that checkout's kernel, so that two versions compare
 within one run on one card (run them in turns: A, B, B, A).
+
+`deposit` times the segment deposit of the step-1 segment rows of DECK
+(default: the stream deck, 1,000,000 particles, 4000^2 mesh) into a fresh
+tally, `--reps` times after a warm-up, with the package under `--root` as
+`census` does: CUDA events around each call, and for a package with the
+tiled kernel also its two stages (bins, tile deposit), the bins' sizes, T
+and C.  The rows come
+from that package's flight kernel, or from `--rows FILE` when it exists
+(written there otherwise), so that the runs of two checkouts in one call
+deposit the same rows.
+
+`run` runs DECK at full size through `driver.make_simulation` (one device,
+or N shards on the one card under decomposition D) with the package under
+`--root`, once as a warm-up and `--reps` times timed, and prints for each
+timed run its steps' times, the cumulative phases, the launches,
+migrations and peak device memory: run it for two checkouts in turns in
+one call (A, B, B, A, ...) to compare whole steps.  `compare` reads the
+JSON lines of such runs (with other lines between them) and prints, per
+deck and decomposition and per checkout, the runs' count, median, minimum
+and quartiles of `--key` (a dotted key such as phases.raster reads a
+nested one), and the second checkout's medians and minima over the
+first's.
 
 `scaled` runs the scaled dense configuration of `__graft_entry__.py` (a
 4096^2 mesh of density 1e4, the source over the middle 60%, dt 2e-9, one
@@ -67,6 +94,133 @@ def census(reps: int, nparticles: int = 10_000_000) -> dict:
     return {"census_ms": times, "min_ms": min(times),
             "median_ms": sorted(times)[len(times) // 2], "facets": nf,
             "collisions": nc, "nparticles": nparticles}
+
+
+def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
+    """Milliseconds of `reps` segment deposits of `deck`'s step-1 rows."""
+    import torch
+    from neutral_tpu_torch import driver, flight_kernel, raster_kernel
+    from neutral_tpu_torch import transport
+
+    cfg = driver.load_config(deck).with_(expected_tally=None)
+    if rows_path and os.path.exists(rows_path):
+        rows = torch.load(rows_path).cuda()
+    else:
+        sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                                quiet=True)
+        start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
+                                         cfg.dt, 1)
+        segs = []
+        flight_kernel.flight_chunk_kernel(
+            start, torch.zeros_like(sim.tally), sim.geom, sim.cs_scatter,
+            sim.cs_absorb, 1, 1.0 / cfg.nparticles, segments=segs)
+        rows = torch.cat(segs).contiguous()
+        del sim, start, segs
+        if rows_path:
+            torch.save(rows.cpu(), rows_path)
+    nseg = torch.tensor([rows.shape[0]], dtype=torch.int64, device="cuda")
+    tally = torch.zeros(cfg.nx * cfg.ny, dtype=torch.float32, device="cuda")
+    tiled = hasattr(raster_kernel, "SegmentDeposit")
+    kw, stages = {}, []
+    if tiled:
+        kw["deposit"] = raster_kernel.SegmentDeposit(cfg.nx, cfg.ny, "cuda")
+        kw["stages"] = stages
+    times, bin_ms, tile_ms = [], [], []
+    for rep in range(reps + 1):
+        tally.zero_()
+        stages.clear()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        raster_kernel.deposit_segments_kernel(tally, rows, nseg, cfg.nx,
+                                              cfg.ny, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if rep:                                   # the first is a warm-up
+            times.append(ev[0].elapsed_time(ev[1]))
+            for ev0, ev1, ev2 in stages[-1:]:
+                bin_ms.append(ev0.elapsed_time(ev1))
+                tile_ms.append(ev1.elapsed_time(ev2))
+    out = {"deck": deck, "rows": rows.shape[0], "deposit_ms": times,
+           "min_ms": min(times), "median_ms": sorted(times)[len(times) // 2],
+           "tally_sum": float(tally.double().sum())}
+    if tiled:
+        out.update(bin_ms=bin_ms, tile_ms=tile_ms, **kw["deposit"].stats())
+    return out
+
+
+def run(deck: str, shards: int, decomposition: str, reps: int) -> list:
+    """Every step of `deck` at full size, on one device or `shards`
+    shards on the one card, `reps` times after a warm-up run."""
+    import torch
+    from neutral_tpu_torch import driver
+
+    cfg = driver.load_config(deck)
+    devices = [torch.device("cuda", 0)] * shards
+    # warm-up run: builds the kernels, fills PyTorch's caches
+    driver.make_simulation(cfg, decomposition, devices, quiet=True).run()
+    out = []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats()
+        sim = driver.make_simulation(cfg, decomposition, devices, quiet=True)
+        sim.run()
+        phases = {}
+        for m in sim.step_metrics:
+            for k, v in m.phases.items():
+                phases[k] = phases.get(k, 0.0) + v
+        ms = sim.step_metrics
+        out.append({"deck": deck, "shards": shards,
+                    "decomposition": decomposition if shards > 1 else None,
+                    "steps_s": [m.step_time for m in ms],
+                    "total_s": sum(m.step_time for m in ms),
+                    "phases": phases,
+                    "launches": sum(m.nlaunches for m in ms),
+                    "migrated": sum(m.nmigrated for m in ms),
+                    "facets": sum(m.nfacets for m in ms),
+                    "collisions": sum(m.ncollisions for m in ms),
+                    "tally": float(sim.host_tally().sum()),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        del sim
+    return out
+
+
+def compare(path: str, key: str) -> list:
+    """Per (deck, shards, decomposition) and checkout, the spread of `key`
+    over the `run` records in `path`; the first checkout met is the
+    reference."""
+    import numpy as np
+
+    groups = {}
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("{"):
+                continue
+            r = json.loads(line)
+            v = r
+            for k in key.split("."):
+                v = v.get(k) if isinstance(v, dict) else None
+            if v is None or "root" not in r:
+                continue
+            g = groups.setdefault((r["deck"], r.get("shards"),
+                                   r.get("decomposition")), {})
+            g.setdefault(r["root"], []).append(v)
+    out = []
+    for (deck, shards, dec), by_root in groups.items():
+        rec = {"deck": deck, "shards": shards, "decomposition": dec,
+               "key": key}
+        for root, v in by_root.items():
+            v = np.asarray(v)
+            rec[root] = {"n": int(v.size), "median": float(np.median(v)),
+                         "min": float(v.min()),
+                         "p25": float(np.percentile(v, 25)),
+                         "p75": float(np.percentile(v, 75))}
+        roots = list(by_root)
+        if len(roots) == 2:
+            a, b = rec[roots[0]], rec[roots[1]]
+            rec["ratio_median"] = b["median"] / a["median"]
+            rec["ratio_min"] = b["min"] / a["min"]
+        out.append(rec)
+    return out
 
 
 def scaled(nparticles: int) -> list:
@@ -136,6 +290,24 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
     c.add_argument("--reps", type=int, default=5)
+    d = sub.add_parser("deposit", help="time the segment deposit")
+    d.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package to time")
+    d.add_argument("--reps", type=int, default=5)
+    d.add_argument("--rows", default=None,
+                   help="file of the rows (torch.save), read if it exists")
+    d.add_argument("--deck", default="problems/stream.params")
+    r = sub.add_parser("run", help="time every step of a full deck")
+    r.add_argument("deck")
+    r.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package to run")
+    r.add_argument("--reps", type=int, default=1)
+    r.add_argument("--shards", type=int, default=1)
+    r.add_argument("--decomposition", default="replicated",
+                   choices=["replicated", "spatial", "spatial2d"])
+    m = sub.add_parser("compare", help="compare the records of `run`")
+    m.add_argument("file")
+    m.add_argument("--key", default="total_s")
     s = sub.add_parser("scaled", help="the scaled 4096^2 configuration")
     s.add_argument("--nparticles", type=int, default=100_000_000)
     f = sub.add_parser("profile", help="step 1 of a deck under the profiler")
@@ -144,14 +316,25 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["replicated", "spatial", "spatial2d"])
     args = p.parse_args(argv)
 
-    if args.what == "census":
+    if args.what == "compare":
+        for r in compare(args.file, args.key):
+            print(json.dumps(r), flush=True)
+        return 0
+    if args.what in ("census", "deposit", "run"):
         # This file's own directory would shadow nothing useful: the
         # package comes from the root asked for.
+        rows = args.what == "deposit" and args.rows
+        rows = os.path.abspath(rows) if rows else None
         sys.path[0] = os.path.abspath(args.root)
         os.chdir(args.root)
-        rec = census(args.reps)
-        rec["root"] = args.root
-        rec = [rec]
+        if args.what == "census":
+            rec = [census(args.reps)]
+        elif args.what == "deposit":
+            rec = [deposit(args.reps, args.deck, rows)]
+        else:
+            rec = run(args.deck, args.shards, args.decomposition, args.reps)
+        for r in rec:
+            r["root"] = args.root
     else:
         sys.path[0] = os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))

@@ -11,8 +11,11 @@ one Python loop drives every shard (`DecomposedSimulation.step`):
    by `MAX_EVENTS` or `MAX_PIECES` per lane; with the plain engine, the
    plain version until no lane in its window has work;
 2. one host read of every shard's counters at once (`read_counters`):
-   facets, collisions, lanes still working and, in the spatial modes, how
-   many lanes leave for each other shard and how many slots are free;
+   facets, collisions, lanes still working, the segment deposit's piece
+   count and overflow flag and, in the spatial modes, how many lanes leave
+   for each other shard and how many slots are free; a shard whose
+   deposit overflowed grows its piece buffer and deposits the round's
+   rows again (`redeposit`), which needs no read;
 3. migration (spatial modes): each lane that left its shard's window goes
    straight to its owner shard, into a dead slot, and the owner's tensors
    grow when dead slots run out.  The counts of step 2 size every gather,
@@ -46,8 +49,9 @@ import torch
 from ..driver import SimulationBase, StepMetrics, check_device
 from ..flight import flight_chunk_plain
 from ..flight_kernel import (MAX_PIECES, event_phases, flight_params,
-                             flight_round)
+                             flight_round, redeposit)
 from ..particles import STATE_FIELDS, ParticleState
+from ..raster_kernel import SegmentDeposit
 from ..sweep_kernel import (MAX_EVENTS, launch_sweep, rect_arrays,
                             sweep_chunk_plain, sweep_params)
 from ..transport import Geometry, begin_timestep, window_cells
@@ -114,8 +118,9 @@ class Shard:
     the window's block in the spatial ones, with a grid deck's density
     block) and `x_off`/`y_off` place the window (None: no window on that
     axis).  `tables` are the cross-sections on `device`.  The kernel
-    engine keeps its counters, region or rect arrays and segment buffer
-    here; the spatial modes keep each lane's destination shard."""
+    engine keeps its counters, region or rect arrays, segment buffer and
+    segment deposit's buffers here; the spatial modes keep each lane's
+    destination shard."""
     device: torch.device
     geom: Geometry
     state: ParticleState
@@ -126,6 +131,7 @@ class Shard:
     counts: torch.Tensor | None = None
     rects: tuple | None = None
     segbuf: torch.Tensor | None = None
+    deposit: SegmentDeposit | None = None
     dest: torch.Tensor | None = None
 
 
@@ -151,6 +157,12 @@ class DecomposedSimulation(SimulationBase):
             check_device(d)
         self.devices = devices
         self.nshards = len(devices)
+        # A chunk's counters: [facets, collisions, lanes still working], and
+        # with the flight kernel its three more (segment rows, the
+        # deposit's pieces, its overflow flag); the spatial modes append
+        # departures per shard and dead lanes when they read them.
+        self.deposits = self.engine == "kernel" and self.transport == "flight"
+        self.nctrl = 6 if self.deposits else 3
         self.shards = self.make_shards()
         names = sorted({str(d) for d in devices})
         self.layout = (f"{self.decomposition}, {self.nshards} shards on "
@@ -188,11 +200,12 @@ class DecomposedSimulation(SimulationBase):
                   to_device(self.cs_absorb, device))
         sh = Shard(device, geom, state, tally, tables, x_off, y_off)
         if self.engine == "kernel":
-            flight = self.transport == "flight"
-            sh.counts = torch.zeros(4 if flight else 3, dtype=torch.int64,
+            sh.counts = torch.zeros(self.nctrl, dtype=torch.int64,
                                     device=device)
-            rects = geom.rects if flight else geom.regions
+            rects = geom.rects if self.deposits else geom.regions
             sh.rects = None if rects is None else rect_arrays(rects, device)
+            if self.deposits:
+                sh.deposit = SegmentDeposit(geom.nx, geom.ny, device)
         return sh
 
     # -- the step -----------------------------------------------------------
@@ -216,21 +229,28 @@ class DecomposedSimulation(SimulationBase):
             rows, chunk_sweeps = [], 0
             for sh, w in zip(self.shards, work):
                 counts, sweeps = (self._chunk(sh, tt, marks, parts) if w
-                                  else (torch.zeros(3, dtype=torch.int64,
+                                  else (torch.zeros(self.nctrl,
+                                                    dtype=torch.int64,
                                                     device=sh.device), 0))
                 chunk_sweeps = max(chunk_sweeps, sweeps)
                 nlaunches += int(w and self.engine == "kernel")
                 rows.append(torch.cat([counts, self._departures(sh)])
                             if self.migrates else counts)
             ctrl = read_counters(rows)
+            if self.deposits:
+                for s in np.flatnonzero(ctrl[:, 5]):
+                    sh = self.shards[s]
+                    marks.append(redeposit(sh.tally, sh.segbuf, sh.counts,
+                                           sh.geom, sh.device, sh.deposit,
+                                           int(ctrl[s, 4])))
             nf += int(ctrl[:, 0].sum())
             nc += int(ctrl[:, 1].sum())
             nsweeps += chunk_sweeps
             received = np.zeros(n, dtype=np.int64)
             if self.migrates:
                 t1 = time.perf_counter()
-                sends = ctrl[:, 3:3 + n]
-                self._migrate(sends, ctrl[:, 3 + n])
+                sends = ctrl[:, self.nctrl:self.nctrl + n]
+                self._migrate(sends, ctrl[:, self.nctrl + n])
                 received = sends.sum(axis=0)
                 nmigrated += int(sends.sum())
                 t_migrate += time.perf_counter() - t1
@@ -256,8 +276,8 @@ class DecomposedSimulation(SimulationBase):
         return m
 
     def _chunk(self, sh: Shard, tt: int, marks: list, parts: dict):
-        """One chunk on shard `sh`: ([facets, collisions, lanes still
-        working] as an int64 tensor on its device, sweeps run)."""
+        """One chunk on shard `sh`: (its nctrl counters as an int64
+        tensor on its device, sweeps run)."""
         scatter, absorb = sh.tables
         args = (sh.state, sh.tally, sh.geom, scatter, absorb, tt,
                 1.0 / self.cfg.nparticles)
@@ -279,12 +299,12 @@ class DecomposedSimulation(SimulationBase):
             params = flight_params(sh.state, sh.tally, sh.segbuf, sh.counts,
                                    sh.rects, *args[2:], MAX_PIECES, **win)
             marks.append(flight_round(params, sh.tally, sh.segbuf, sh.counts,
-                                      sh.geom, sh.device))
+                                      sh.geom, sh.device, sh.deposit))
         else:
             params = sweep_params(sh.state, sh.tally, sh.counts, sh.rects,
                                   *args[2:], MAX_EVENTS, **win)
             launch_sweep(params, sh.device)
-        return sh.counts[:3], 0
+        return sh.counts, 0
 
     # -- migration (spatial modes) -----------------------------------------
     def _departures(self, sh: Shard) -> torch.Tensor:

@@ -3,15 +3,25 @@
 Counterpart of `neutral_tpu/raster.py`'s two Pallas rasterizers
 (`_raster_kernel` and `_walk_kernel`): every row [gx0, gy0, gx1, gy1, kk]
 of a segment buffer adds kk times its clipped overlap into each cell it
-crosses, one thread per segment, by atomicAdd into the flat tally.  The
-plain version is `raster.deposit_segments_plain`; this wrapper launches the
-kernel or raises (on tensors that are not on a CUDA device, or of other
-types and shapes).
+crosses.  The kernel bins the rows' pieces by `TILE` x `TILE` tally tile
+and deposits every tile's pieces, in work items of C pieces (chosen on the
+device for each call, 1024 to 16384), into the tile held in shared
+memory, which it then adds into the tally.  The
+plain version of the function is `raster.deposit_segments_plain`, those
+of the two stages `raster.tile_pieces_plain` and
+`raster.deposit_pieces_plain`; this wrapper launches the kernel or raises
+(on tensors that are not on a CUDA device, or of other types and shapes).
 
 The row count is passed as a one-element int64 tensor on the device and
 read there, so the flight kernel's segment counter feeds the deposit
-without a host round trip.  `deposit_segments_kernel.launches` counts
-launches; callers may reset it.
+without a host round trip.  The piece buffer lives in a `SegmentDeposit`,
+which a caller keeps between calls; the kernel writes the number of
+pieces and an overflow flag (more pieces than the buffer holds) into two
+int64 counters.  On overflow it deposits nothing: the caller, having read
+the flag, calls `redeposit_segments`, which grows the buffer and launches
+again on the same rows.  `deposit_segments_kernel.launches` counts
+launches (both stages, a re-run included) and `.overflows` the re-runs;
+callers may reset them.
 """
 
 from __future__ import annotations
@@ -23,11 +33,17 @@ import torch
 
 from . import build
 
+TILE = 128                 # T of csrc/raster.cu: tile side in cells
+INITIAL_PIECES = 1 << 20   # piece buffer of a new SegmentDeposit
+GROWTH = 2                 # an overflow grows it to this times the need
+
 
 class _RasterParams(ctypes.Structure):
     """Mirror of `RasterParams` in csrc/raster.cu."""
     _fields_ = [("segs", ctypes.c_void_p), ("nseg", ctypes.c_void_p),
-                ("tally", ctypes.c_void_p), ("cap", ctypes.c_int64),
+                ("tally", ctypes.c_void_p), ("pieces", ctypes.c_void_p),
+                ("work", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("cap", ctypes.c_int64), ("piece_cap", ctypes.c_int64),
                 ("nx", ctypes.c_int), ("ny", ctypes.c_int)]
 
 
@@ -37,23 +53,59 @@ def load_library() -> ctypes.CDLL:
     lib = build.load()
     lib.nt_raster_params_size.argtypes = []
     lib.nt_raster_params_size.restype = ctypes.c_int
-    lib.nt_raster_launch.argtypes = [ctypes.POINTER(_RasterParams),
-                                     ctypes.c_void_p]
-    lib.nt_raster_launch.restype = ctypes.c_int
+    for fn in (lib.nt_raster_bin, lib.nt_raster_tiles):
+        fn.argtypes = [ctypes.POINTER(_RasterParams), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     if lib.nt_raster_params_size() != ctypes.sizeof(_RasterParams):
         raise RuntimeError("csrc/raster.cu RasterParams does not match "
                            "raster_kernel._RasterParams")
     return lib
 
 
-def deposit_segments_kernel(tally: torch.Tensor, segs: torch.Tensor,
-                            nseg: torch.Tensor, nx: int, ny: int) -> None:
-    """Add the first min(nseg, len(segs)) rows of `segs` into `tally`.
+class SegmentDeposit:
+    """The kernel's buffers for one (nx, ny) tally on one device, kept
+    between calls: the int32 piece buffer (row indices grouped by tile,
+    grown on overflow), the per-tile workspace of `csrc/raster.cu`'s
+    `Work` (4 * ntiles + 4 int64, the counts zero between calls) and, for
+    callers that pass no counters of their own, the [pieces, overflow]
+    counters."""
 
-    `tally` is the flat (ny*nx,) float32 tally, `segs` a contiguous
-    (cap, 5) float32 buffer and `nseg` a one-element int64 tensor, all on
-    one CUDA device.  Launches on the current stream and does not wait.
-    """
+    def __init__(self, nx: int, ny: int, device,
+                 pieces: int = INITIAL_PIECES):
+        self.nx, self.ny = nx, ny
+        self.ntiles = -(-nx // TILE) * -(-ny // TILE)
+        self.work = torch.zeros(4 * self.ntiles + 4, dtype=torch.int64,
+                                device=device)
+        self.device = self.work.device          # with its index
+        self.pieces = torch.empty(pieces, dtype=torch.int32,
+                                  device=self.device)
+        self.out = torch.zeros(2, dtype=torch.int64, device=self.device)
+
+    def grow(self, need: int) -> None:
+        """Room for GROWTH times `need` pieces (after an overflow), so that
+        rounds that grow a little do not overflow again."""
+        self.pieces = None                    # free it before the new one
+        self.pieces = torch.empty(int(need * GROWTH) + 1, dtype=torch.int32,
+                                  device=self.device)
+
+    def stats(self) -> dict:
+        """Of the last call's bins (a host read): T, its C, the pieces,
+        the pieces per tile (largest, and mean over the tiles with any), the
+        work items and the piece buffer's capacity."""
+        nt = self.ntiles
+        w = self.work.cpu()
+        per_tile = w[nt + 1:2 * nt + 1] - w[nt:2 * nt]
+        busy = per_tile[per_tile > 0]
+        return {"tile": TILE, "chunk": int(w[4 * nt + 3]),
+                "pieces": int(w[2 * nt]), "tiles_with_pieces": busy.numel(),
+                "pieces_per_tile_max": int(per_tile.max()),
+                "pieces_per_tile_mean": (float(busy.double().mean())
+                                         if busy.numel() else 0.0),
+                "work_items": int(w[4 * nt + 1]),
+                "piece_capacity": self.pieces.shape[0]}
+
+
+def _check(tally, segs, nseg, nx, ny):
     dev = tally.device
     if dev.type != "cuda":
         raise ValueError(f"segment-deposit kernel needs CUDA tensors, got "
@@ -63,23 +115,98 @@ def deposit_segments_kernel(tally: torch.Tensor, segs: torch.Tensor,
         raise ValueError("tally: expected a contiguous float32 "
                          f"({nx * ny},) tensor")
     if (segs.device != dev or segs.dtype != torch.float32 or segs.dim() != 2
-            or segs.shape[1] != 5 or not segs.is_contiguous()):
+            or segs.shape[1] != 5 or not segs.is_contiguous()
+            or segs.shape[0] >= 2**31):
         raise ValueError("segs: expected a contiguous (cap, 5) float32 "
-                         f"tensor on {dev}, got {tuple(segs.shape)} "
-                         f"{segs.dtype} on {segs.device}")
+                         f"tensor on {dev} with cap < 2**31, got "
+                         f"{tuple(segs.shape)} {segs.dtype} on {segs.device}")
     if (nseg.device != dev or nseg.dtype != torch.int64
             or nseg.numel() != 1):
         raise ValueError(f"nseg: expected a one-element int64 tensor on {dev}")
+
+
+def deposit_segments_kernel(tally: torch.Tensor, segs: torch.Tensor,
+                            nseg: torch.Tensor, nx: int, ny: int,
+                            deposit: SegmentDeposit | None = None,
+                            counts: torch.Tensor | None = None,
+                            stages: list | None = None) -> None:
+    """Add the first min(nseg, len(segs)) rows of `segs` into `tally`.
+
+    `tally` is the flat (ny*nx,) float32 tally, `segs` a contiguous
+    (cap, 5) float32 buffer and `nseg` a one-element int64 tensor, all on
+    one CUDA device.  `deposit` holds the buffers (a new SegmentDeposit
+    when None).  With `counts`, a (2,) int64 tensor on the device, the
+    call launches on the current stream, writes [pieces, overflow] there
+    and does not wait: on overflow the caller calls `redeposit_segments`
+    before the rows change.  Without it the call reads its own counters (a
+    host wait) and does so itself.  When
+    `stages` is a list, the CUDA events (start, bins done, deposit done)
+    of each launch are appended to it.
+    """
+    _check(tally, segs, nseg, nx, ny)
+    dev = tally.device
+    if deposit is None:
+        deposit = SegmentDeposit(nx, ny, dev)
+    elif (deposit.nx, deposit.ny, deposit.device) != (nx, ny, dev):
+        raise ValueError(f"deposit holds buffers of a ({deposit.nx}, "
+                         f"{deposit.ny}) tally on {deposit.device}, not "
+                         f"({nx}, {ny}) on {dev}")
+    own = counts is None
+    if own:
+        counts = deposit.out
+    elif (counts.device != dev or counts.dtype != torch.int64
+          or counts.shape != (2,) or not counts.is_contiguous()):
+        raise ValueError(f"counts: expected a contiguous (2,) int64 tensor "
+                         f"on {dev}")
     if segs.shape[0] == 0:
+        counts.zero_()
         return
+    _launch(deposit, tally, segs, nseg, counts, stages)
+    if own:
+        need, overflow = counts.tolist()
+        if overflow:
+            redeposit_segments(tally, segs, nseg, nx, ny, deposit, counts,
+                               need, stages)
+
+
+def redeposit_segments(tally: torch.Tensor, segs: torch.Tensor,
+                       nseg: torch.Tensor, nx: int, ny: int,
+                       deposit: SegmentDeposit, counts: torch.Tensor,
+                       need: int, stages: list | None = None) -> None:
+    """After a deposit whose overflow flag the caller has read (counts =
+    [need, 1]): grow `deposit`'s piece buffer and launch again on the same
+    rows, as deposit_segments_kernel with `counts`.  Counts one overflow."""
+    deposit.grow(need)
+    deposit_segments_kernel(tally, segs, nseg, nx, ny, deposit, counts, stages)
+    deposit_segments_kernel.overflows += 1
+
+
+def _launch(deposit, tally, segs, nseg, counts, stages) -> None:
+    """Both stages of one deposit on the current stream."""
     lib = load_library()
     p = _RasterParams(segs=segs.data_ptr(), nseg=nseg.data_ptr(),
-                      tally=tally.data_ptr(), cap=segs.shape[0], nx=nx, ny=ny)
-    with torch.cuda.device(dev):
+                      tally=tally.data_ptr(),
+                      pieces=deposit.pieces.data_ptr(),
+                      work=deposit.work.data_ptr(), out=counts.data_ptr(),
+                      cap=segs.shape[0], piece_cap=deposit.pieces.shape[0],
+                      nx=deposit.nx, ny=deposit.ny)
+    with torch.cuda.device(tally.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check_launch(lib, lib.nt_raster_launch(ctypes.byref(p), stream),
-                           "segment-deposit kernel")
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              if stages is not None else None)
+        if ev:
+            ev[0].record()
+        build.check_launch(lib, lib.nt_raster_bin(ctypes.byref(p), stream),
+                           "segment-deposit kernel (bins)")
+        if ev:
+            ev[1].record()
+        build.check_launch(lib, lib.nt_raster_tiles(ctypes.byref(p), stream),
+                           "segment-deposit kernel (tiles)")
+        if ev:
+            ev[2].record()
+            stages.append(ev)
     deposit_segments_kernel.launches += 1
 
 
 deposit_segments_kernel.launches = 0
+deposit_segments_kernel.overflows = 0

@@ -7,8 +7,9 @@ The segments include the shapes that stress the walk: axis-parallel ones
 start or end exactly on the grid's outer edges.  Per cell the deposit
 agrees with the oracle to 1e-12 in float64 and to a relative 1e-5 of the
 largest cell in float32.  The CUDA kernel against this plain version is
-checked in chip_smoke.py on the card (raster_kernel.py raises on the
-CPU, tested below).
+checked on the card below and in chip_smoke.py (raster_kernel.py raises
+on the CPU, tested below); its two stages' plain versions are tested in
+test_torch_tiles.py.
 """
 
 import numpy as np
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from neutral_tpu_torch import raster
-from neutral_tpu_torch.raster_kernel import deposit_segments_kernel
+from neutral_tpu_torch.raster_kernel import (TILE, SegmentDeposit,
+                                             deposit_segments_kernel)
 
 NX, NY = 300, 260          # more than two 128-cell tiles each way
 
@@ -118,19 +120,39 @@ def test_segment_kernel_wrapper_on_cpu_raises():
 def test_segment_kernel_matches_plain_on_card():
     """The CUDA segment deposit against the plain one on the card, float32:
     per cell to 1e-5 of the largest cell and sums to 1e-5 (atomics add
-    overlapping segments in another order).  Rows past `nseg` are
-    ignored."""
+    overlapping segments in another order).  Rows past `nseg` are ignored.
+    Besides make_segments' rows, rows on the kernel's tile grid: through
+    tile corners, along and from tile walls, with x/y ties.  Twice: with
+    a new SegmentDeposit, and with one whose piece buffer is too small, so
+    that the first launch overflows and deposits nothing and the re-run
+    gives the same tally."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    segs = torch.tensor(make_segments(0), dtype=torch.float32, device="cuda")
+    t = TILE
+    seams = np.array([[0.0, 0.0, 3 * t, 3 * t, 1.0],
+                      [3 * t, 3 * t, 0.0, 0.0, 1.25],
+                      [t, 1.5, t, 3 * t + 0.5, 1.0],
+                      [0.5, t, NX - 0.5, t, 1.0],
+                      [t, t, 5.5, 9.75, 0.9],
+                      [40.0, 3.0, 2 * t, 2 * t, 0.8],
+                      [0.5, 0.5, 2 * t + 0.5, 2 * t + 0.5, 0.75]])
+    segs = torch.tensor(np.concatenate([seams, make_segments(0)]),
+                        dtype=torch.float32, device="cuda")
     nseg = segs.shape[0] - 3
-    kt = torch.zeros(NX * NY, dtype=torch.float32, device="cuda")
-    pt = torch.zeros_like(kt)
-    launches0 = deposit_segments_kernel.launches
-    deposit_segments_kernel(kt, segs, torch.tensor([nseg], device="cuda"),
-                            NX, NY)
+    pt = torch.zeros(NX * NY, dtype=torch.float32, device="cuda")
     raster.deposit_segments_plain(pt, segs[:nseg], NX, NY)
-    assert deposit_segments_kernel.launches == launches0 + 1
-    k, p = kt.double().cpu().numpy(), pt.double().cpu().numpy()
-    np.testing.assert_allclose(k, p, rtol=0, atol=1e-5 * np.abs(p).max())
-    np.testing.assert_allclose(k.sum(), p.sum(), rtol=1e-5)
+    p = pt.double().cpu().numpy()
+    for pieces, overflows in ((None, 0), (8, 1)):
+        dep = (None if pieces is None
+               else SegmentDeposit(NX, NY, "cuda", pieces=pieces))
+        kt = torch.zeros_like(pt)
+        launches0 = deposit_segments_kernel.launches
+        overflows0 = deposit_segments_kernel.overflows
+        deposit_segments_kernel(kt, segs, torch.tensor([nseg], device="cuda"),
+                                NX, NY, dep)
+        assert deposit_segments_kernel.overflows == overflows0 + overflows
+        assert deposit_segments_kernel.launches == (launches0 + 1
+                                                    + overflows)
+        k = kt.double().cpu().numpy()
+        np.testing.assert_allclose(k, p, rtol=0, atol=1e-5 * np.abs(p).max())
+        np.testing.assert_allclose(k.sum(), p.sum(), rtol=1e-5)
