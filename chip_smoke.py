@@ -28,7 +28,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    per-lane fields exactly equal, the segment rows equal as multisets
    (bitwise, after sorting: atomics append them in another order), tally
    sums to a relative 1e-5.  Again with one piece per launch (many launches
-   per census).  Both times are printed.
+   per census), and again under a forced-small segment buffer (SMALL_ROWS
+   rows, grown up to SMALL_MAX), which refuses rows in many rounds: both
+   equal to the plain version in the same way, printing their rounds and
+   refusals; the small buffer's tally also per cell to 1e-5 of the
+   largest cell.  Both times are printed.
 6. Segment-deposit kernel against its plain version (per-cell largest
    difference to 1e-5 of the largest cell, sums to 1e-5) on the segment
    rows of the step-1 censuses of phase 5 (stream, split, csp; 4000^2
@@ -42,8 +46,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    so it prints FAILED against it and is held here to omp3's converged
    tally, 1.1201464e7, within 1e-3).  The flight and segment-deposit
    kernels must have launched in every run, and no plain version may have
-   run.  Events/s per step, peak device memory and the deposit's overflow
-   re-runs (its piece buffer grows in a run's first round) are printed.
+   run.  Events/s per step, the flight launches per step with the lanes
+   each launch covered (first, median, last: the census tail), peak device
+   memory and the deposit's overflow re-runs (its piece buffer grows in a
+   run's first round) are printed.
 8. pcg64si: copies of the decks with `rng pcg64si` in a temporary
    directory (each keeps its basename, so that the golden is found in
    problems/neutral_pcg.tests).  The sweep kernel against its plain
@@ -87,7 +93,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 15. The unwindowed scatter census at 10,000,000 particles timed 5 times
    (the window parameters' cost; `neutral_tpu_torch/measure.py census`
    compares two checkouts in one run).
-16. Result: a JSON line on the kernels (each with its bound, and the times
+16. Split at BIG_N = 64,000,000 particles, one step through `Simulation`
+   (an n x 64-row segment buffer would have needed ~82 GB): its first
+   1,000,000 lanes must equal a 1,000,000-particle run's end state bitwise
+   in all 14 fields (injection and draws are keyed by pid), and its tally
+   sum lie within 1e-2 of split's golden (a sanity bound); prints events/s
+   and peak device memory.
+17. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
@@ -101,7 +113,9 @@ lanes x 1.98 GHz), the float work (about 60 operations an event or flight
 piece, 40 more a collision, 15 a cell visited by a segment deposit; pieces
 counted as at least one a collision and one a lane) over 67 TFLOP/s.  The
 flight kernel's `ms` is its own device time (CUDA events), without the
-segment deposits, whose time stands beside it.  No single PyTorch call
+segment deposits, whose time stands beside it; its entry also holds csp's
+own time and bound over all 10 steps of its main path and the launches of
+each flight main path.  No single PyTorch call
 computes any of the three kernels' functions, so `library_ms` is null.
 """
 
@@ -127,6 +141,8 @@ CSP_OMP3_TALLY = 1.1201464e7     # omp3's converged csp tally (BASELINE.md)
 MODE_N = 1_000_000               # particles of the phase 8-10 comparisons
 BLOCK = (2000, 2000, 2000, 2000)  # (x_off, y_off, nx, ny) of phases 12-13
 SHARDS = ["--shards", "4", "--decomposition"]
+SMALL_ROWS, SMALL_MAX = 1024, 16384   # phase 5's forced-small segment buffer
+BIG_N = 64_000_000               # phase 16's split particles
 
 # The card's peaks (NVIDIA's H100 SXM data sheet and Hopper white paper).
 PEAK_BYTES = 3.35e12
@@ -314,13 +330,15 @@ def cell_visits(torch, rows) -> int:
 
 
 def compare_flight(deck: str, torch, driver, transport, flight,
-                   flight_kernel, fields, label="flight", window=None):
+                   flight_kernel, fields, label="flight", window=None,
+                   small=False):
     """Phase 5 on one deck (and phases 8-9, phase 13 in `window`): returns
     a dict as compare's, with the kernel census's segment rows ("segs")
     and their count.  "ms" and "plain_ms" are the flight pieces' own time
     (the kernel's from CUDA events, the plain version's from the clock),
     "deposit_ms" and "plain_deposit_ms" the segment deposits' and
-    "census_ms" the kernel census's whole time."""
+    "census_ms" the kernel census's whole time.  With `small`, the kernel
+    census runs once more under a forced-small segment buffer."""
     cfg = driver.load_config(deck).with_(nparticles=MODE_N,
                                          expected_tally=None)
     sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
@@ -332,7 +350,7 @@ def compare_flight(deck: str, torch, driver, transport, flight,
                                              window)
     args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
     name = f"{label} {deck.split('/')[-1].split('.')[0]}"
-    dep = {"deposit": flight_kernel.SegmentDeposit(geom.nx, geom.ny, "cuda")}
+    dep = {"buffers": flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda")}
     times = {}
 
     def run(fn, segments=None, **kw):
@@ -386,6 +404,36 @@ def compare_flight(deck: str, torch, driver, transport, flight,
              "the plain version")
     print(f"[{name}] 1 piece per launch: {cl} launches in "
           f"{one_ms:.3f} ms, counts, per-lane state and segment rows equal")
+    if small:
+        ssegs, refusals0 = [], flight_kernel.flight_chunk_kernel.refusals
+        buf = flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda",
+                                          rows=SMALL_ROWS, max_rows=SMALL_MAX)
+        ss, snf, snc, sl, st = run(flight_kernel.flight_chunk_kernel, ssegs,
+                                   buffers=buf)
+        refusals = flight_kernel.flight_chunk_kernel.refusals - refusals0
+        if ((snf, snc) != (pnf, pnc)
+                or differing_field(ss, ps, torch, fields) is not None
+                or not torch.equal(sorted_rows(torch, ssegs), prows)):
+            fail(f"{name}: the census under a {SMALL_ROWS}-row segment "
+                 "buffer differs from the plain version")
+        if refusals == 0 and prows.shape[0] > SMALL_ROWS:
+            fail(f"{name}: {prows.shape[0]} rows through a {SMALL_ROWS}-row "
+                 "buffer without a refusal")
+        # the tally holds what the refused rounds deposited
+        ssum = float(st.double().sum())
+        srel = abs(ssum - psum) / abs(psum)
+        serr = float((st.double() - pt.double()).abs().max())
+        peak = float(pt.double().abs().max())
+        if not (srel <= 1e-5 and serr <= 1e-5 * peak):
+            fail(f"{name}: the tally under a {SMALL_ROWS}-row segment buffer "
+                 f"differs from the plain version's: sums by {srel:.3e}, a "
+                 f"cell by {serr:.3e} of the largest {peak:.3e} (> 1e-5)")
+        print(f"[{name}] segment buffer of {SMALL_ROWS} rows grown up to "
+              f"{SMALL_MAX}: {sl} rounds, {refusals} with refused rows, in "
+              f"{times['flight_chunk_kernel'][0]:.3f} ms; counts, per-lane "
+              f"state and segment rows equal; tally sums {ssum:.9e} (rel "
+              f"{srel:.3e}), max abs err per cell {serr:.3e} (largest cell "
+              f"{peak:.3e})")
     return {"ms": k_ms, "plain_ms": p_ms, "deposit_ms": kd_ms,
             "plain_deposit_ms": pd_ms, "census_ms": c_ms,
             "max_abs_err": max_abs_err, "n": MODE_N,
@@ -457,6 +505,19 @@ def step_counts(out: str) -> list:
         r"Facets\s+(\d+)\nCollisions\s+(\d+)", out)]
 
 
+def flight_steps(out: str) -> list:
+    """Per step of a driver.main output with the flight kernel: its live
+    lanes, launches, pieces granted, lanes of its first, median and last
+    launch, segment rows and counts."""
+    keys = ("n", "pieces", "launches", "first", "median", "last", "rows",
+            "facets", "collisions")
+    return [dict(zip(keys, map(int, g))) for g in re.findall(
+        r"Handled (\d+) particles, with (\d+) event sweeps \((\d+) flight "
+        r"kernel launches.*\nFlight launch lanes: first (\d+), median "
+        r"(\d+), last (\d+); segment rows (\d+)\n(?:.*\n)*?Facets\s+(\d+)"
+        r"\nCollisions\s+(\d+)", out)]
+
+
 def reset_counts(wrappers):
     for fn, attr in wrappers:
         setattr(fn, attr, 0)
@@ -486,11 +547,16 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     steps = re.findall(r"Step time\s+(\S+)s\nWallclock.*\nFacets\s+(\d+)\n"
                        r"Collisions\s+(\d+)", out)
     migrated = re.findall(r"Migrated (\d+) particles between shards", out)
+    flights = flight_steps(out)
     for i, (st, nf, nc) in enumerate(steps, 1):
         st, ev = float(st), int(nf) + int(nc)
         moved = (f", {migrated[i - 1]} lanes migrated" if migrated else "")
+        fl = (f"; {flights[i - 1]['launches']} flight launches granting "
+              f"{flights[i - 1]['pieces']} pieces, lanes first "
+              f"{flights[i - 1]['first']} / median {flights[i - 1]['median']}"
+              f" / last {flights[i - 1]['last']}" if flights else "")
         print(f"[main {name}] step {i}: {ev} events in {st:.4f} s = "
-              f"{ev / st:.4e} events/s{moved}")
+              f"{ev / st:.4e} events/s{moved}{fl}")
     print(f"[main {name}] counts {counts}, tally {total:.12e}, wall "
           f"{wall:.1f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -689,6 +755,73 @@ def decomposed_paths(tmp, torch, driver, flight, wrappers,
     return res
 
 
+def csp_entry(out: str, driver, launches: int) -> dict:
+    """csp's flight kernel over the 10 steps of its main path: its own
+    device time (the "flight" phase, CUDA events), the bound of the work
+    those steps gave it, and its launches."""
+    cfg = driver.load_config(FLIGHT_DECKS[2])
+    steps = flight_steps(out)
+    ms = float(re.search(r"PHASE BREAKDOWN.*flight=([0-9.]+)s", out)[1]) * 1e3
+    bounds = [work_bound({"n": st["n"], "ncells": cfg.nx * cfg.ny,
+                          "rows": st["rows"], "facets": st["facets"],
+                          "collisions": st["collisions"], "rng": cfg.rng})
+              for st in steps]
+    r = {"ms": ms, "bound_ms": sum(b["bound_ms"] for b in bounds),
+         "bound_by": max(bounds, key=lambda b: b["bound_ms"])["bound_by"],
+         "launches": launches, "steps": len(steps),
+         "lanes_first_median_last": [[st["first"], st["median"], st["last"]]
+                                     for st in steps]}
+    print(f"[main csp] flight kernel over {len(steps)} steps: {ms:.1f} ms "
+          f"(bound {r['bound_ms']:.3f} ms, {r['bound_by']}) in {launches} "
+          "launches")
+    return r
+
+
+def big_split(torch, driver, wrappers, fields) -> dict:
+    """Phase 16: split at BIG_N particles, one step through Simulation,
+    against a 1,000,000-particle run of the same step."""
+    cfg = driver.load_config(FLIGHT_DECKS[1])
+    small = driver.Simulation(cfg, quiet=True)
+    small.step(1)
+    ref = small.state
+    del small
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    sim = driver.Simulation(cfg.with_(nparticles=BIG_N), quiet=True)
+    setup = time.perf_counter() - t0
+    m = sim.step(1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {fn.__name__: getattr(fn, attr) for fn, attr in wrappers
+              if attr in ("launches", "calls")}
+    launches = counts["flight_chunk_kernel"]
+    if launches == 0 or counts["flight_chunk_plain"] != 0:
+        fail(f"split at {BIG_N}: counts {counts} (want flight launches "
+             "and no plain run)")
+    bad = [f for f in fields
+           if not torch.equal(getattr(sim.state, f)[:ref.n], getattr(ref, f))]
+    if bad:
+        fail(f"split at {BIG_N}: its first {ref.n} lanes differ from the "
+             f"{ref.n}-particle run in {bad}")
+    total = float(sim.host_tally().sum())
+    rel = abs(total - cfg.expected_tally) / cfg.expected_tally
+    events = m.nfacets + m.ncollisions
+    print(f"[split {BIG_N}] set-up {setup:.1f} s, step {m.step_time:.4f} s: "
+          f"{events} events = {events / m.step_time:.4e} events/s; "
+          f"{launches} flight launches (lanes "
+          f"{[r['lanes'] for r in m.rounds]}); first {ref.n} lanes equal to "
+          f"the {ref.n}-particle run in all {len(fields)} fields; tally "
+          f"{total:.9e}, {rel:.3e} from the golden {cfg.expected_tally:.9e}; "
+          f"peak device memory {peak:.2f} GiB; phases {m.phases}", flush=True)
+    if not (math.isfinite(total) and rel <= 1e-2):
+        fail(f"split at {BIG_N}: tally {total:.9e} is {rel:.3e} from the "
+             "golden (> 1e-2)")
+    return {"nparticles": BIG_N, "step_s": m.step_time,
+            "events_per_s": events / m.step_time, "launches": launches,
+            "peak_gib": peak, "tally": total}
+
+
 def census_repeats(torch) -> dict:
     """Phase 15: the unwindowed 10M scatter census, 5 times."""
     from neutral_tpu_torch.measure import census
@@ -755,7 +888,7 @@ def main() -> int:
     for deck in FLIGHT_DECKS:
         flight_results[deck] = compare_flight(
             deck, torch, driver, transport, flight, flight_kernel,
-            STATE_FIELDS)
+            STATE_FIELDS, small=True)
 
     # ---- 6. segment-deposit kernel against plain version ----------------
     geom = driver.make_geometry(driver.load_config(FLIGHT_DECKS[0]))
@@ -768,9 +901,11 @@ def main() -> int:
 
     # ---- 7. main path, flight decks -------------------------------------
     flight_launches = raster_launches = overflows = 0
+    path_launches = {}
     for deck in FLIGHT_DECKS:
         name = deck.split("/")[-1].split(".")[0]
         out, total, c = main_path(deck, torch, driver, wrappers)
+        path_launches[name] = c["flight_chunk_kernel"]
         if "Transport: flight." not in out or "Engine: kernel." not in out:
             fail(f"{name}: the main path did not run the flight kernels")
         if (c["flight_chunk_kernel"] <= 0
@@ -783,6 +918,7 @@ def main() -> int:
         raster_launches += c["deposit_segments_kernel"]
         overflows += c["deposit_segments_kernel.overflows"]
         if name == "csp":
+            csp_steps = csp_entry(out, driver, c["flight_chunk_kernel"])
             rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
             print(f"[main csp] tally {total:.9e} against omp3's "
                   f"{CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
@@ -832,7 +968,10 @@ def main() -> int:
     # ---- 15. the window parameters' cost --------------------------------
     census = census_repeats(torch)
 
-    # ---- 16. result -----------------------------------------------------
+    # ---- 16. split at 64M particles -------------------------------------
+    big = big_split(torch, driver, wrappers, STATE_FIELDS)
+
+    # ---- 17. result -----------------------------------------------------
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {
@@ -877,13 +1016,18 @@ def main() -> int:
          "library_ms": None,
          "deposit_ms": flight_modes["analytic"]["deposit_ms"],
          "per_deck": per_deck,
+         "csp_10_steps": csp_steps,
+         "launches_per_main_path": path_launches,
+         "split_64m": big,
          "modes": flight_modes,
          "shape": "stream, split and csp decks, 1,000,000 particles each, "
                   "4000x4000 mesh, one step-1 census each; ms is the flight "
                   "kernel's own device time (CUDA events), the segment "
                   "deposits' beside it as deposit_ms; ms, plain_ms and "
                   "bound_ms are the sums of the three; max_abs_err is the "
-                  "largest per-cell tally difference"},
+                  "largest per-cell tally difference; csp_10_steps is the "
+                  "kernel over the 10 steps of csp's main path; launches "
+                  "sum every main path's"},
         {"name": "segment_deposit_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/raster.cu",

@@ -1,4 +1,4 @@
-// Free-flight kernel for NVIDIA Hopper (sm_90a): one thread per particle lane.
+// Free-flight kernel for NVIDIA Hopper (sm_90a): one thread per working lane.
 //
 // Replaces the TPU kernel neutral_tpu/pallas_flight.py::_kernel and
 // ::_kernel_body (:59, :129; its pl.pallas_call is at :322).  That kernel
@@ -11,13 +11,20 @@
 // (neutral_tpu_torch/flight.py flight_core) operations in the same order and
 // the same float32 constants.  Per piece:
 //
+//   * a piece that crosses at least 2 cell boundaries first reserves one
+//     row of the global segment buffer with an atomic counter (counts[3]).
+//     When the buffer is full the reservation fails and the lane stops
+//     *before* the piece, with nothing of it done: no flush, no count, no
+//     state change.  It is still working, so the next launch runs the piece
+//     again; the counter, which goes on counting failed reservations, tells
+//     the host how many rows the launch wanted (flight_kernel.py grows the
+//     buffer).  No row is ever dropped, and the buffer's size bounds
+//     nothing but the rows of one launch.  raster.cu deposits the first
+//     min(counts[3], seg_cap) rows after the launch.
 //   * the first cell's flush and the final cell's death/census flush go
 //     straight into the tally with atomicAdd(float*), skipping zero values
 //     (a vacuum piece deposits exactly 0), as pallas_flight.py:156-161 does;
-//   * a piece that crosses at least 2 cell boundaries appends one row
-//     [gx0, gy0, gx1, gy1, kk] to a global segment buffer at a slot taken
-//     with an atomic counter.  The buffer holds n * max_pieces rows, so a
-//     launch cannot overflow it; raster.cu deposits it after the launch.
+//   * the reserved row [gx0, gy0, gx1, gy1, kk] is written;
 //   * facet and collision counts go into 64-bit totals (a piece can cross
 //     nx + ny cells), reduced per warp.
 //
@@ -40,12 +47,26 @@
 // (flight_kernel.py) rejects everything else.  The build passes -fmad=false
 // (build.py), so no a*b+c is fused.
 //
+// The census tail.  A warp runs as long as its longest lane, and lanes sit
+// in pid order, so one warp mixes histories of one piece (vacuum) with
+// histories of a thousand (dense rects), and late launches found a few
+// working lanes scattered over every warp of the state.  So a launch runs
+// over a list of working lanes: thread t takes lane active[t] (lane t when
+// the launch has no list, as the first of a census does), and each lane
+// still working after its pieces appends its index to the next list, at a
+// slot from one warp-aggregated atomicAdd on counts[2] (whose value is then
+// the next list's length, which the host reads each round anyway).  Lanes
+// are read and written at their own index; no field is permuted.  After
+// the first launch every warp is full of working lanes, and the host sizes
+// each grid from the list's length and picks the pieces of each launch
+// from it (flight_kernel.pieces_for).
+//
 // What bounds it on the H100: in dense rects, the draws' integer work (two
 // draws per collision), as in sweep.cu, and in table mode the dependent L2
 // loads of the table searches; in vacuum, nothing much — a piece crosses a
-// whole rect in ~150 float operations.  Warps diverge in the census tail,
-// where a warp runs as long as its longest history.  This version does
-// nothing about either yet.
+// whole rect in ~150 float operations.  Lanes of a list are gathered (their
+// indices are increasing within a warp, not contiguous); a short list is
+// latency-bound: its launch lasts as long as its longest history.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,8 +93,11 @@ struct FlightParams {
   float* tally;                 // (ny * nx,) flat, row-major, window-local
   float* segs;                  // (seg_cap, 5) rows [gx0, gy0, gx1, gy1, kk]
                                 // in window-local cell units
-  // [facets, collisions, lanes still working, segment rows written]
+  // [facets, collisions, lanes still working (the next list's length),
+  //  segment rows reserved (those past seg_cap were refused)]
   unsigned long long* counts;
+  const int32_t* active;        // (n_active,) lanes to run; null: lane t
+  int32_t* next;                // (n,) the lanes still working after it
   const float* scatter_keys;    // table mode: (scatter_entries,) ascending
   const float* scatter_values;
   const float* absorb_keys;     // table mode: (absorb_entries,)
@@ -82,6 +106,7 @@ struct FlightParams {
   const float* rect_density;    // (nrects,)
   unsigned long long master_key;
   long long n;
+  long long n_active;           // threads of the launch
   long long seg_cap;
   int max_pieces;
   int nx;                       // the window's extent (the whole mesh
@@ -112,11 +137,15 @@ constexpr int kThreads = 128;
 template <XsMode X, RngScheme R>
 __global__ void __launch_bounds__(kThreads)
 flight_kernel(const FlightParams p) {
-  const long long i =
+  const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  unsigned long long n_facets = 0, n_colls = 0, n_working = 0;
+  const long long i =
+      t >= p.n_active ? -1 : (p.active ? static_cast<long long>(p.active[t])
+                                       : t);
+  unsigned long long n_facets = 0, n_colls = 0;
+  bool working = false;
 
-  if (i < p.n && !p.dead[i] && p.dt_to_census[i] > 0.0f &&
+  if (i >= 0 && !p.dead[i] && p.dt_to_census[i] > 0.0f &&
       in_window(p.cellx[i], p.celly[i], p.x_off, p.y_off, p.nx, p.ny)) {
     float x = p.x[i], y = p.y[i];
     float omega_x = p.omega_x[i], omega_y = p.omega_y[i];
@@ -226,8 +255,17 @@ flight_kernel(const FlightParams p) {
                            : (pos_y ? riy1 : riy0 - 1))
                  : in_cy;
 
-      // ---- facet events: boundary crossings (+1 for the reflection) ----
+      // ---- the interior segment's row, reserved before any side effect
+      // of the piece; without one the lane stops here, still working ----
       const int ncross = abs(cx1 - cellx) + abs(cy1 - celly);
+      const bool emit = ncross >= 2;
+      unsigned long long row = 0;
+      if (emit) {
+        row = atomicAdd(&p.counts[3], 1ULL);
+        if (row >= static_cast<unsigned long long>(p.seg_cap)) break;
+      }
+
+      // ---- facet events: boundary crossings (+1 for the reflection) ----
       n_facets += static_cast<unsigned long long>(ncross) +
                   ((refl_x || refl_y) ? 1ULL : 0ULL);
 
@@ -262,7 +300,6 @@ flight_kernel(const FlightParams p) {
           tmax(tmin(tmax(tmax(d_inx, d_iny) * speed, 0.0f), d), d_head);
 
       const bool crossed = ncross > 0;
-      const bool emit = ncross >= 2;
       // One crossing: no interior cells; the head takes the gap.
       const float d_head_eff = emit ? d_head : d_in;
 
@@ -282,15 +319,12 @@ flight_kernel(const FlightParams p) {
       // cell units (an exact shift; 0 when unwindowed) ----
       if (emit) {
         const float seg_len = tmax(d_in - d_head_eff, 0.0f);
-        const unsigned long long row = atomicAdd(&p.counts[3], 1ULL);
-        if (row < static_cast<unsigned long long>(p.seg_cap)) {
-          float* out = p.segs + 5 * row;
-          out[0] = (x + d_head_eff * omega_x) * p.inv_dx - xo;
-          out[1] = (y + d_head_eff * omega_y) * p.inv_dy - yo;
-          out[2] = (x + d_in * omega_x) * p.inv_dx - xo;
-          out[3] = (y + d_in * omega_y) * p.inv_dy - yo;
-          out[4] = (K * seg_len) * p.inv_ntotal;
-        }
+        float* out = p.segs + 5 * row;
+        out[0] = (x + d_head_eff * omega_x) * p.inv_dx - xo;
+        out[1] = (y + d_head_eff * omega_y) * p.inv_dy - yo;
+        out[2] = (x + d_in * omega_x) * p.inv_dx - xo;
+        out[3] = (y + d_in * omega_y) * p.inv_dy - yo;
+        out[4] = (K * seg_len) * p.inv_ntotal;
       }
 
       // ---- collision (omega after the collision, then the reflection) ----
@@ -328,7 +362,7 @@ flight_kernel(const FlightParams p) {
       inwin = in_window(cellx, celly, p.x_off, p.y_off, p.nx, p.ny);
     }
 
-    n_working = (!dead && dt > 0.0f && inwin) ? 1 : 0;
+    working = !dead && dt > 0.0f && inwin;
     p.x[i] = x;
     p.y[i] = y;
     p.omega_x[i] = omega_x;
@@ -344,14 +378,30 @@ flight_kernel(const FlightParams p) {
     p.counter[i] = static_cast<int64_t>(counter);
   }
 
+  // The next list: one atomic per warp takes the slots of its working
+  // lanes, which keep their order within the warp.
+  const unsigned int lane = threadIdx.x & 31u;
+  const unsigned int mask = __ballot_sync(0xffffffffu, working);
+  if (mask) {
+    const int leader = __ffs(mask) - 1;
+    unsigned long long base = 0;
+    if (lane == static_cast<unsigned int>(leader)) {
+      base = atomicAdd(&p.counts[2],
+                       static_cast<unsigned long long>(__popc(mask)));
+    }
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (working) {
+      p.next[base + __popc(mask & ((1u << lane) - 1u))] =
+          static_cast<int32_t>(i);
+    }
+  }
+
   // Counts: reduce per warp, one atomic per warp and count.
   n_facets = warp_sum_u64(n_facets);
   n_colls = warp_sum_u64(n_colls);
-  n_working = warp_sum_u64(n_working);
-  if ((threadIdx.x & 31u) == 0) {
+  if (lane == 0) {
     if (n_facets) atomicAdd(&p.counts[0], n_facets);
     if (n_colls) atomicAdd(&p.counts[1], n_colls);
-    if (n_working) atomicAdd(&p.counts[2], n_working);
   }
 }
 
@@ -363,14 +413,14 @@ extern "C" int nt_flight_params_size() {
   return static_cast<int>(sizeof(FlightParams));
 }
 
-// Launches one round of up to p->max_pieces pieces over all p->n lanes on
-// `stream`, with the instantiation of p's modes, and returns
-// cudaGetLastError() (0 when the launch was accepted; cudaErrorInvalidValue
-// for an unknown mode).
+// Launches one round of up to p->max_pieces pieces over the p->n_active
+// lanes of p->active (lanes 0 .. n_active - 1 when it is null) on `stream`,
+// with the instantiation of p's modes, and returns cudaGetLastError() (0
+// when the launch was accepted; cudaErrorInvalidValue for an unknown mode).
 extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
-  if (p->n <= 0) return 0;
+  if (p->n_active <= 0) return 0;
   const unsigned int blocks =
-      static_cast<unsigned int>((p->n + kThreads - 1) / kThreads);
+      static_cast<unsigned int>((p->n_active + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using X = XsMode;
   using R = RngScheme;

@@ -41,10 +41,12 @@ may share one card; with one it runs `Simulation`.  Both share
 `SimulationBase`: set-up, the step print, validation and the phase
 breakdown.
 
-The JAX driver's power-of-4 compaction ladder is not ported: it exists
-because masked sweeps pay for dead lanes, and a thread-per-lane kernel
-whose finished lanes exit at once does not pay that way (ROADMAP keeps the
-question open for the H100).
+The JAX driver's power-of-4 compaction ladder is not ported.  On the
+flight transport its work is done in the card's own form: each flight
+launch writes the lanes still working into a list, and the next launch
+runs over that list alone, with pieces per lane that grow as it shrinks
+(flight_kernel.py).  The sweep transport still launches over every lane
+(ROADMAP keeps the question open there).
 """
 
 from __future__ import annotations
@@ -61,11 +63,10 @@ import torch
 from .config import SimConfig, load_config
 from .constants import VALIDATE_TOLERANCE
 from .flight import disjoint_rects, flight_chunk_plain
-from .flight_kernel import MAX_PIECES, flight_chunk_kernel
+from .flight_kernel import FlightBuffers, flight_chunk_kernel, launch_records
 from .mesh import build_mesh, density_grid, region_cell_bounds
 from .particles import inject_particles
 from .profiler import Profile
-from .raster_kernel import SegmentDeposit
 from .sweep_kernel import MAX_EVENTS, sweep_chunk_kernel, sweep_chunk_plain
 from .transport import Geometry, begin_timestep, use_local_coords
 from .xs import CrossSection, find_cs_files
@@ -172,7 +173,10 @@ class StepMetrics:
     nfacets: int
     ncollisions: int
     nprocessed: int
-    nsweeps: int          # plain engine: sweeps run (events or pieces)
+    # plain engine: sweeps run (events or pieces); flight kernel: flight
+    # pieces granted per lane over the step's launches (a decomposed run:
+    # the most any shard granted in each round, summed)
+    nsweeps: int
     nlaunches: int        # kernel engine: sweep or flight kernel launches
     # Split of the step, in seconds: "begin" (begin_timestep, up to the host
     # read of the live count; wall clock), then for the sweep transport
@@ -183,6 +187,10 @@ class StepMetrics:
     # spatial decomposition adds "migrate" (wall clock).
     phases: dict
     nmigrated: int = 0    # lanes moved between shards (spatial runs)
+    # flight kernel: one record per launch (flight_kernel.launch_records):
+    # its shard, lanes launched, pieces per lane, lanes still working after
+    # it, segment rows written, whether rows were refused, device ms
+    rounds: list = dataclasses.field(default_factory=list)
 
 
 def within_tolerance(expected: float, actual: float, tol: float) -> bool:
@@ -265,11 +273,16 @@ class SimulationBase:
             self.wallclock += m.step_time
             if self.engine == "kernel" and self.transport == "flight":
                 # As below, with flight pieces: a piece is one collision,
-                # rect exit or census, crossing any number of cells.
-                out(f"Handled {m.nprocessed} particles, with "
-                    f"{m.nlaunches * MAX_PIECES} event sweeps "
-                    f"({m.nlaunches} flight kernel launches x {MAX_PIECES} "
-                    "flight pieces)")
+                # rect exit or census, crossing any number of cells; the
+                # count is the pieces the launches granted each lane.
+                lanes = sorted(r["lanes"] for r in m.rounds)
+                out(f"Handled {m.nprocessed} particles, with {m.nsweeps} "
+                    f"event sweeps ({m.nlaunches} flight kernel launches "
+                    "granting that many flight pieces per lane)")
+                out(f"Flight launch lanes: first {m.rounds[0]['lanes']}, "
+                    f"median {lanes[len(lanes) // 2]}, last "
+                    f"{m.rounds[-1]['lanes']}; segment rows "
+                    f"{sum(r['rows'] for r in m.rounds)}")
             elif self.engine == "kernel":
                 # No sweeps exist here: each lane runs its events in one
                 # thread.  The count printed in their place is kernel
@@ -345,10 +358,10 @@ class Simulation(SimulationBase):
         self.tally = torch.zeros(cfg.nx * cfg.ny,
                                  dtype=getattr(torch, cfg.tally_dtype),
                                  device=self.device)
-        # The segment deposit's buffers, kept from census to census.
-        self.deposit = (SegmentDeposit(cfg.nx, cfg.ny, self.device)
-                        if self.engine == "kernel"
-                        and self.transport == "flight" else None)
+        # The flight loop's buffers, kept from census to census.
+        self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device)
+                       if self.engine == "kernel"
+                       and self.transport == "flight" else None)
         # Injection belongs to set-up, not to step 1's time.
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -365,11 +378,12 @@ class Simulation(SimulationBase):
         args = (state, self.tally, self.geom, self.cs_scatter,
                 self.cs_absorb, tt, inv_ntotal)
         nsweeps = nlaunches = 0
-        parts = {}
+        parts, rounds = {}, []
         if self.transport == "flight":
             if self.engine == "kernel":
                 state, nf, nc, nlaunches, parts = flight_chunk_kernel(
-                    *args, deposit=self.deposit)
+                    *args, buffers=self.flight, rounds=rounds)
+                nsweeps = sum(r["pieces"] for r in rounds)
             else:
                 state, nf, nc, nsweeps, parts = flight_chunk_plain(*args)
         elif self.engine == "kernel":
@@ -387,7 +401,9 @@ class Simulation(SimulationBase):
             phases["sweep"] = census
         m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
                         ncollisions=nc, nprocessed=nprocessed,
-                        nsweeps=nsweeps, nlaunches=nlaunches, phases=phases)
+                        nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
+                        rounds=[{"shard": 0} | r
+                                for r in launch_records(rounds)])
         self.step_metrics.append(m)
         return m
 

@@ -20,10 +20,11 @@ Collision physics is transport.collision_physics, unchanged, so each
 history draws the same numbers as on the facet-stepping engine.
 
 `flight_chunk_plain` is the plain version of the CUDA flight kernel
-(flight_kernel.py, csrc/flight.cu).  It keeps `neutral_tpu`'s operation
-order, so float64 runs reproduce the JAX flight engine's event counts
-exactly and float32 runs on one device reproduce the kernel's per-lane
-state bitwise.  Under a spatial decomposition (parallel/) `x_off`/`y_off`
+(flight_kernel.py, csrc/flight.cu), and `flight_round_plain` that of one
+of its launches: a list of lanes, pieces per lane and a segment buffer of
+bounded rows.  Both keep `neutral_tpu`'s operation order, so float64 runs
+reproduce the JAX flight engine's event counts exactly and float32 runs on
+one device reproduce the kernel's per-lane state bitwise.  Under a spatial decomposition (parallel/) `x_off`/`y_off`
 place the shard's window on the mesh, as in `neutral_tpu`: rect walls
 clamp to the window, lanes outside it freeze bitwise until migrated, and
 flush cells and segment rows are window-local.  A decomposed run therefore
@@ -34,6 +35,7 @@ TPU driver's buffer budgets and vetoes, which only delay a lane.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import NamedTuple
 
@@ -41,7 +43,7 @@ import torch
 
 from . import raster
 from .constants import BARNS, OPEN_BOUND_CORRECTION
-from .particles import ParticleState
+from .particles import STATE_FIELDS, ParticleState
 from .transport import (Geometry, _INV_MOLAR, _heating_response, _speed_of,
                         collision_physics, working_mask)
 from .xs import CrossSection, const
@@ -399,3 +401,72 @@ def flight_chunk_plain(state: ParticleState, tally: torch.Tensor,
 
 
 flight_chunk_plain.calls = 0
+
+
+def flight_round_plain(state: ParticleState, tally: torch.Tensor,
+                       geom: Geometry, scatter_tab: CrossSection,
+                       absorb_tab: CrossSection, master_key: int,
+                       inv_ntotal: float, active: torch.Tensor | None,
+                       pieces: int, rows: int | None = None,
+                       segments: list | None = None, x_off=None, y_off=None):
+    """Plain version of one flight-kernel launch: up to `pieces` flight
+    pieces on the lanes `active` only (a 1-d int64 tensor of lane indices;
+    None: every lane), each stopping early when it dies, reaches census or
+    leaves the window `x_off`/`y_off`.
+
+    `rows` is the segment buffer's capacity (None: no limit).  A piece
+    that would emit a row past it is refused as the kernel refuses it: the
+    lane stops before that piece, still working (the plain version serves
+    lanes in index order, the kernel in the order of its atomics).  Every
+    piece is flight_core on the whole state, the lanes not running masked
+    out and left bitwise as they were, so each lane takes the same
+    arithmetic as in flight_chunk_plain.  Flushes go into `tally` with
+    `index_add_` after every piece; the round's rows are deposited at its
+    end (raster.deposit_segments_plain) and appended to `segments` when it
+    is a list.  Returns (state, next, nfacets, ncollisions, reserved):
+    `next` the lanes of `active` still working, in increasing order, and
+    `reserved` the rows the round asked for, refused ones included.
+    """
+    gate = working_mask(state, geom, x_off, y_off)
+    if active is not None:
+        listed = torch.zeros_like(gate)
+        listed[active] = True
+        gate &= listed
+    run = gate.clone()
+    nf = nc = 0
+    reserved = 0
+    out = []
+    for _ in range(pieces):
+        if not bool(run.any()):
+            break
+        # flight_core leaves lanes without work bitwise as they are, so
+        # only working lanes that do not run need masking and restoring.
+        gated = not torch.equal(run, working_mask(state, geom, x_off, y_off))
+        masked = (dataclasses.replace(state, dt_to_census=torch.where(
+            run, state.dt_to_census, 0.0)) if gated else state)
+        p = flight_core(masked, geom, scatter_tab, absorb_tab, master_key,
+                        inv_ntotal, tally.dtype, x_off=x_off, y_off=y_off)
+        left = rows - reserved if rows is not None else p.emit.shape[0]
+        refused = p.emit & (torch.cumsum(p.emit, 0) > left)
+        reserved += int(p.emit.sum())
+        apply = run & ~refused
+        state = (ParticleState(**{
+            f: torch.where(apply, getattr(p.state, f), getattr(state, f))
+            for f in STATE_FIELDS}) if gated or bool(refused.any())
+            else p.state)
+        flush1, flush2 = p.flush1 & apply, p.flush2 & apply
+        cells = torch.cat([p.cell1[flush1], p.cell2[flush2]])
+        vals = torch.cat([p.val1[flush1], p.val2[flush2]])
+        tally.index_add_(0, cells.to(torch.int64), vals)
+        out.append(torch.stack([p.p0x, p.p0y, p.p1x, p.p1y,
+                                p.kk.to(state.dtype)], dim=1)[p.emit & apply])
+        nf += int(p.nf_lane[apply].sum())
+        nc += int(p.is_coll[apply].sum())
+        run = apply & working_mask(state, geom, x_off, y_off)
+    segs = (torch.cat(out) if out
+            else torch.zeros((0, 5), dtype=state.dtype, device=tally.device))
+    raster.deposit_segments_plain(tally, segs, geom.nx, geom.ny)
+    if segments is not None:
+        segments.append(segs)
+    nxt = torch.nonzero(gate & working_mask(state, geom, x_off, y_off))[:, 0]
+    return state, nxt, nf, nc, reserved

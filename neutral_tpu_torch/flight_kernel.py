@@ -1,34 +1,49 @@
 """The flight kernel (csrc/flight.cu) and its host loop.
 
 Counterpart of `neutral_tpu/pallas_flight.py`.  `flight_chunk_kernel` runs
-every lane to census or death with the hand-written CUDA flight kernel:
-one thread per lane, each running up to `max_pieces` flight pieces per
-launch (`max_pieces` means exactly that: pieces per lane per launch).
-Flushes go into the tally by atomicAdd; segment rows go to a buffer of
-n * max_pieces rows through an atomic counter, so no launch can overflow
-it.  Per round the host resets the row counter, launches the flight
-kernel, launches the segment-deposit kernel (raster_kernel.py) on the
-buffer, whose row count it reads on the device, and reads back one slice
-of the counters: how many lanes still have work, and the deposit's piece
-count and overflow flag.  After an overflow it grows the deposit's piece
-buffer (a `SegmentDeposit`, kept between censuses by the caller) and
-deposits the same rows again (`redeposit`) before the next round.  All
-per-history state lives in the state tensors between launches, so the
-number of launches changes nothing in the result.
+every lane to census or death with the hand-written CUDA flight kernel,
+one thread per working lane, in rounds.  Each round is one flight launch
+and one segment deposit (raster_kernel.py) of the launch's rows, then one
+host read of the counters.
+
+- *Lanes.*  A census's first launch covers every lane.  Each launch
+  writes the lanes still working after it into a list, whose length is
+  the counter the host reads; the next launch runs over that list alone,
+  with a grid sized from that length.  The two lists swap between rounds.
+- *Pieces.*  `max_pieces` means exactly that: pieces per lane per launch.
+  By default they follow the census tail (`pieces_for`): few in the first
+  launch, where short and long histories share every warp, then growing
+  while the list shrinks, and in the end as many as the lanes need.
+- *Segment rows.*  A piece that emits a row reserves it first; when the
+  buffer is full the lane stops before that piece and goes on next round
+  (csrc/flight.cu), so no row is dropped and the buffer bounds only the
+  rows of one launch.  After a round that refused rows the host grows the
+  buffer to GROWTH times the rows wanted, up to a byte budget
+  (`grown_rows`); the deposit reads min(rows reserved, capacity)
+  (`rows_written`).
+- *Deposit.*  After an overflow of the deposit's piece buffer the host
+  grows it and deposits the same rows again (`redeposit`) before the next
+  round.
+
+All per-history state lives in the state tensors between launches, each
+lane at its own index, so the rounds, the lists and the refusals change
+nothing in the result.  The buffers of all this (`FlightBuffers`) are kept
+between censuses by the caller.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, threefry or pcg64si draws (csrc/flight.cu); the rects are device
 arrays of any length.  The spatial window of a decomposed run
-(`x_off`/`y_off`, flight.py's) is a runtime parameter.  `flight_params`
-and `flight_round` are one round (flight launch and segment deposit);
-`flight_chunk_kernel` loops them for one state, and the decomposed runs
-(parallel/) run a round on every shard before they read the counters of
-all shards at once.  The plain version is `flight.flight_chunk_plain`.
-`flight_chunk_kernel` launches the kernel or raises: on a state that does
-not lie on a CUDA device, and on any configuration the kernel does not
-implement.
+(`x_off`/`y_off`, flight.py's) is a runtime parameter.  `flight_params`,
+`flight_round` and `after_round` are one round; `flight_chunk_kernel`
+loops them for one state, and the decomposed runs (parallel/) run a round
+on every shard before they read the counters of all shards at once.  The
+plain version is `flight.flight_chunk_plain`, and that of one launch
+`flight.flight_round_plain`.  `flight_chunk_kernel` launches the kernel or
+raises: on a state that does not lie on a CUDA device, and on any
+configuration the kernel does not implement.
 `flight_chunk_kernel.launches` counts flight-kernel launches (made by
-`flight_round`, from either loop); callers may reset it.
+`flight_round`, from either loop) and `.refusals` the rounds that refused
+segment rows; callers may reset both.
 """
 
 from __future__ import annotations
@@ -40,14 +55,17 @@ import torch
 
 from . import build
 from .particles import ParticleState
-from .raster_kernel import (SegmentDeposit, deposit_segments_kernel,
+from .raster_kernel import (GROWTH, SegmentDeposit, deposit_segments_kernel,
                             redeposit_segments)
 from .sweep_kernel import (check_inputs, rect_arrays, state_pointers,
                            table_fields, window_fields)
 from .transport import Geometry
 from .xs import CrossSection
 
-MAX_PIECES = 64            # flight pieces per lane per launch
+SEG_ROWS = 1 << 22         # rows of a new segment buffer (80 MiB)
+SEG_ROWS_MAX = 1 << 26     # rows it may grow to (1.25 GiB)
+FIRST_PIECES = 16          # pieces per lane of a census's first launch
+RUN_OUT = 1 << 14          # pieces of a launch that runs its lanes out
 
 
 class _FlightParams(ctypes.Structure):
@@ -57,10 +75,10 @@ class _FlightParams(ctypes.Structure):
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
             "celly", "dead", "pid", "counter", "tally", "segs", "counts",
-            "scatter_keys", "scatter_values", "absorb_keys", "absorb_values",
-            "rect_bounds", "rect_density")]
+            "active", "next", "scatter_keys", "scatter_values",
+            "absorb_keys", "absorb_values", "rect_bounds", "rect_density")]
         + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64),
-           ("seg_cap", ctypes.c_int64)]
+           ("n_active", ctypes.c_int64), ("seg_cap", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "max_pieces", "nx", "ny", "scatter_entries", "absorb_entries",
             "same_xs", "nrects", "xs_mode", "rng", "x_off", "y_off",
@@ -84,36 +102,100 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def flight_params(state: ParticleState, tally: torch.Tensor,
-                  segbuf: torch.Tensor, counts: torch.Tensor, rects: tuple,
+def pieces_for(round_: int, n_active: int, resident: int) -> int:
+    """Pieces per lane of a census's launch number `round_` (0: the first)
+    over `n_active` lanes, on a card that holds `resident` lanes at once.
+
+    The first launch runs FIRST_PIECES: it finds the histories that end in
+    a piece or two (vacuum), which share every warp with long ones, and
+    drops them from the list.  Later ones double it, so that a long
+    history takes a few launches and a warp idles at most as long as it
+    worked.  Once the list fits on the card at once, compacting it further
+    saves nothing, and the launch runs its lanes out (RUN_OUT)."""
+    if round_ > 0 and n_active <= resident:
+        return RUN_OUT
+    return min(FIRST_PIECES << round_, RUN_OUT)
+
+
+def rows_written(reserved: int, cap: int) -> int:
+    """Rows a launch wrote into a `cap`-row segment buffer when it reserved
+    `reserved` (the reservations past the buffer were refused)."""
+    return min(reserved, cap)
+
+
+def grown_rows(cap: int, reserved: int, max_rows: int) -> int:
+    """Rows of the segment buffer for the next round, after a round that
+    reserved `reserved` rows of `cap`: `cap` when none was refused, else
+    GROWTH times the rows wanted, at most `max_rows` (never fewer than
+    `cap`)."""
+    if reserved <= cap:
+        return cap
+    return max(cap, min(int(GROWTH * reserved), max_rows))
+
+
+class FlightBuffers:
+    """The flight loop's device buffers for one state and (nx, ny) tally on
+    one device, kept by the caller between censuses: the six counters
+    [facets, collisions, lanes still working, segment rows reserved, the
+    deposit's pieces, its overflow flag]; the two lane lists of a round
+    (the launch's and the next, swapped after each launch); the segment
+    buffer of `rows` (rows, 5) float32 rows, grown after a round that
+    refused rows, up to `max_rows`; and the segment deposit's buffers.
+    `n_active` is the length of the next launch's list, None when the next
+    launch covers every lane (the first of a census, or of a shard that
+    received migrants); `round` counts the census's launches."""
+
+    def __init__(self, nx: int, ny: int, device, rows: int = SEG_ROWS,
+                 max_rows: int = SEG_ROWS_MAX):
+        if rows < 1:
+            raise ValueError(f"segment buffer needs at least 1 row, got "
+                             f"{rows}")
+        self.deposit = SegmentDeposit(nx, ny, device)
+        self.device = self.deposit.device          # with its index
+        self.counts = torch.zeros(6, dtype=torch.int64, device=self.device)
+        self.segs = torch.empty((rows, 5), dtype=torch.float32,
+                                device=self.device)
+        self.max_rows = max(max_rows, rows)
+        self.lists = [torch.empty(0, dtype=torch.int32, device=self.device)
+                      for _ in range(2)]
+        self.resident = 0
+        if self.device.type == "cuda":
+            props = torch.cuda.get_device_properties(self.device)
+            self.resident = (props.multi_processor_count
+                             * props.max_threads_per_multi_processor)
+        self.start_census()
+
+    def start_census(self) -> None:
+        """The next launch is a census's first: it covers every lane."""
+        self.n_active = None
+        self.round = 0
+
+
+def flight_params(state: ParticleState, tally: torch.Tensor, rects: tuple,
                   geom: Geometry, scatter_tab: CrossSection,
                   absorb_tab: CrossSection, master_key: int,
-                  inv_ntotal: float, max_pieces: int, x_off=None,
+                  inv_ntotal: float, x_off=None,
                   y_off=None) -> _FlightParams:
-    """The parameters of one launch, after check_inputs: `segbuf` holds
-    state.n * max_pieces rows, `counts` is the (6,) int64 [facets,
-    collisions, lanes still working, segment rows written, the deposit's
-    pieces, its overflow flag], `rects` is
-    rect_arrays(geom.rects) and `x_off`/`y_off` the window (None: none)."""
+    """The parameters of a census's launches, after check_inputs: `rects`
+    is rect_arrays(geom.rects) and `x_off`/`y_off` the window (None:
+    none).  flight_round sets the fields of each launch (lists, pieces,
+    segment buffer, counters)."""
     if geom.rects is None:
         raise ValueError("flight kernel needs geom.rects")
     check_inputs(state, tally, geom, scatter_tab, absorb_tab,
                  "flight kernel")
-    if max_pieces < 1:
-        raise ValueError(f"max_pieces must be >= 1, got {max_pieces}")
+    if state.n >= 2**31:
+        raise ValueError(f"flight kernel: lane lists are int32, so at most "
+                         f"2**31 - 1 lanes, got {state.n}")
     p = _FlightParams()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
-    p.segs = segbuf.data_ptr()
-    p.counts = counts.data_ptr()
     table_fields(p, geom, scatter_tab, absorb_tab)
     p.nrects = rects[0].shape[0]
     p.rect_bounds = rects[0].data_ptr()
     p.rect_density = rects[1].data_ptr()
     p.master_key = int(master_key)
     p.n = state.n
-    p.seg_cap = segbuf.shape[0]
-    p.max_pieces = int(max_pieces)
     window_fields(p, geom, x_off, y_off)
     # ctypes rounds each Python float to float32 as np.float32 does, as
     # xs.const does for the plain version.
@@ -122,24 +204,41 @@ def flight_params(state: ParticleState, tally: torch.Tensor,
     return p
 
 
-def flight_round(params: _FlightParams, tally: torch.Tensor,
-                 segbuf: torch.Tensor, counts: torch.Tensor, geom: Geometry,
-                 device: torch.device, deposit: SegmentDeposit,
-                 segments: list | None = None) -> list:
-    """One round on `device`'s current stream: the reset of the row
-    counter, a flight launch and the segment deposit of its rows into
-    `tally` (geom.nx x geom.ny, the window's block under a window) with
-    the buffers of `deposit`, which writes [pieces, overflow] to
-    counts[4:6].  The rows and their count stay until the next round, so
-    that `redeposit` can run the deposit again after an overflow.  When
+def flight_round(params: _FlightParams, buffers: FlightBuffers,
+                 tally: torch.Tensor, geom: Geometry,
+                 max_pieces: int | None = None,
+                 segments: list | None = None) -> dict:
+    """One round on the buffers' device and its current stream: a flight
+    launch over the next list of `buffers` (every lane when it has none),
+    of `max_pieces` pieces per lane (None: pieces_for), and the segment
+    deposit of its rows into `tally` (geom.nx x geom.ny, the window's block
+    under a window).  The rows and their count stay until the next round,
+    so that `redeposit` can run the deposit again after an overflow.  When
     `segments` is a list, the round's rows are appended to it as an
     (nseg, 5) copy (a host read; for checks).  Does not wait otherwise.
-    Returns the round's three CUDA events (start, flight done, deposit
-    done)."""
+    Returns the round's record: the lanes launched, the pieces per lane and
+    its three CUDA events (start, flight done, deposit done) as "marks"."""
+    b = buffers
+    lanes = params.n if b.n_active is None else b.n_active
+    if max_pieces is None:
+        max_pieces = pieces_for(b.round, lanes, b.resident)
+    if max_pieces < 1:
+        raise ValueError(f"max_pieces must be >= 1, got {max_pieces}")
+    if b.n_active is None and b.lists[1].shape[0] < params.n:
+        # Room for every lane (a state grows only before a list-less launch)
+        b.lists = [torch.empty(params.n, dtype=torch.int32,
+                               device=b.device) for _ in range(2)]
+    params.active = None if b.n_active is None else b.lists[0].data_ptr()
+    params.next = b.lists[1].data_ptr()
+    params.n_active = lanes
+    params.counts = b.counts.data_ptr()
+    params.segs = b.segs.data_ptr()
+    params.seg_cap = b.segs.shape[0]
+    params.max_pieces = int(max_pieces)
     lib = load_library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        counts[3].zero_()
+        b.counts[2:4].zero_()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         build.check_launch(
@@ -147,26 +246,55 @@ def flight_round(params: _FlightParams, tally: torch.Tensor,
             "flight kernel")
         flight_chunk_kernel.launches += 1
         ev[1].record()
-        deposit_segments_kernel(tally, segbuf, counts[3:4], geom.nx, geom.ny,
-                                deposit, counts[4:6])
+        deposit_segments_kernel(tally, b.segs, b.counts[3:4], geom.nx,
+                                geom.ny, b.deposit, b.counts[4:6])
         ev[2].record()
         if segments is not None:
-            segments.append(segbuf[:int(counts[3])].clone())
-    return ev
+            n = rows_written(int(b.counts[3]), b.segs.shape[0])
+            segments.append(b.segs[:n].clone())
+    b.lists.reverse()               # the next list is the next launch's
+    b.round += 1
+    return {"lanes": lanes, "pieces": int(max_pieces), "marks": ev}
 
 
-def redeposit(tally: torch.Tensor, segbuf: torch.Tensor,
-              counts: torch.Tensor, geom: Geometry, device: torch.device,
-              deposit: SegmentDeposit, need: int) -> list:
+def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
+                record: dict, ctrl, marks: list) -> None:
+    """The host's part of a round after its one read of the counters
+    (`ctrl` = counts[2:6] as read: lanes still working, segment rows
+    reserved, the deposit's pieces, its overflow flag): deposit the rows
+    again after an overflow (its events go to `marks`), grow the segment
+    buffer after a refusal, and take the next list's length.  Adds to
+    `record` the lanes still working, the rows written and whether rows
+    were refused."""
+    working, reserved, need, overflow = (int(v) for v in ctrl)
+    b = buffers
+    if overflow:
+        marks.append(redeposit(tally, b, geom, need))
+    cap = b.segs.shape[0]
+    if reserved > cap:
+        flight_chunk_kernel.refusals += 1
+        rows = grown_rows(cap, reserved, b.max_rows)
+        if rows != cap:
+            b.segs = None                     # free it before the new one
+            b.segs = torch.empty((rows, 5), dtype=torch.float32,
+                                 device=b.device)
+    b.n_active = working
+    record.update(working=working, rows=rows_written(reserved, cap),
+                  refused=reserved > cap)
+
+
+def redeposit(tally: torch.Tensor, buffers: FlightBuffers, geom: Geometry,
+              need: int) -> list:
     """After a round whose deposit overflowed (counts[5], read by the
     caller with need = counts[4]): grow the piece buffer and deposit the
     round's rows again, before the next flight launch.  Returns events as
     flight_round's, with no flight time."""
-    with torch.cuda.device(device):
+    b = buffers
+    with torch.cuda.device(b.device):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        redeposit_segments(tally, segbuf, counts[3:4], geom.nx, geom.ny,
-                           deposit, counts[4:6], need)
+        redeposit_segments(tally, b.segs, b.counts[3:4], geom.nx, geom.ny,
+                           b.deposit, b.counts[4:6], need)
         ev[1].record()
     return [ev[0], ev[0], ev[1]]
 
@@ -178,50 +306,62 @@ def event_phases(marks: list) -> dict:
             "raster": sum(e[1].elapsed_time(e[2]) for e in marks) / 1e3}
 
 
+def launch_records(rounds: list) -> list:
+    """The records of completed rounds without their events, each with its
+    flight launch's device milliseconds ("flight_ms")."""
+    out = []
+    for r in rounds:
+        e = r["marks"]
+        out.append({k: v for k, v in r.items() if k != "marks"}
+                   | {"flight_ms": e[0].elapsed_time(e[1])})
+    return out
+
+
 def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
                         geom: Geometry, scatter_tab: CrossSection,
                         absorb_tab: CrossSection, master_key: int,
-                        inv_ntotal: float, max_pieces: int = MAX_PIECES,
+                        inv_ntotal: float, max_pieces: int | None = None,
                         segments: list | None = None, x_off=None,
-                        y_off=None, deposit: SegmentDeposit | None = None):
+                        y_off=None, buffers: FlightBuffers | None = None,
+                        rounds: list | None = None):
     """Run every lane to census or death (or, under the window `x_off`/
     `y_off`, until it leaves the window) with the CUDA flight kernel.
 
-    Updates `state`'s tensors and `tally` in place.  When `segments` is a
-    list, each round's segment rows are appended to it (flight_round).
-    `deposit` holds the segment deposit's buffers between calls (a new
-    one when None).  Returns (state, nfacets, ncollisions, nlaunches,
-    phases) with `phases` the device seconds of the flight launches
-    ("flight") and of the segment deposits ("raster"), from CUDA events.
+    Updates `state`'s tensors and `tally` in place.  `max_pieces` fixes
+    the pieces per lane of every launch (None: pieces_for).  When
+    `segments` is a list, each round's segment rows are appended to it
+    (flight_round); when `rounds` is, each round's record (flight_round's,
+    with after_round's additions).  `buffers` holds the loop's buffers
+    between calls (new ones when None).  Returns (state, nfacets,
+    ncollisions, nlaunches, phases) with `phases` the device seconds of the
+    flight launches ("flight") and of the segment deposits ("raster"), from
+    CUDA events.
     """
     dev = state.device
-    # [facets, collisions, lanes still working, segment rows written,
-    #  pieces of the round's deposit, its overflow flag]
-    counts = torch.zeros(6, dtype=torch.int64, device=dev)
-    segbuf = torch.empty((state.n * max_pieces, 5), dtype=torch.float32,
-                         device=dev)
     rects = (None if geom.rects is None else rect_arrays(geom.rects, dev))
-    params = flight_params(state, tally, segbuf, counts, rects, geom,
-                           scatter_tab, absorb_tab, master_key, inv_ntotal,
-                           max_pieces, x_off, y_off)
-    if deposit is None:
-        deposit = SegmentDeposit(geom.nx, geom.ny, dev)
+    params = flight_params(state, tally, rects, geom, scatter_tab,
+                           absorb_tab, master_key, inv_ntotal, x_off, y_off)
+    if buffers is None:
+        buffers = FlightBuffers(geom.nx, geom.ny, dev)
+    buffers.start_census()
+    counts = buffers.counts
+    counts.zero_()
     marks = []
     nlaunches = 0
     while True:
-        marks.append(flight_round(params, tally, segbuf, counts, geom, dev,
-                                  deposit, segments))
+        rec = flight_round(params, buffers, tally, geom, max_pieces,
+                           segments)
+        marks.append(rec["marks"])
         nlaunches += 1
         # One read per round; it waits for the flight launch and deposit.
-        working, _, need, overflow = counts[2:].tolist()
-        if overflow:
-            marks.append(redeposit(tally, segbuf, counts, geom, dev, deposit,
-                                   need))
-        if working == 0:
+        after_round(buffers, tally, geom, rec, counts[2:].tolist(), marks)
+        if rounds is not None:
+            rounds.append(rec)
+        if rec["working"] == 0:
             break
-        counts[2].zero_()
     nf, nc = (int(v) for v in counts[:2].tolist())
     return state, nf, nc, nlaunches, event_phases(marks)
 
 
 flight_chunk_kernel.launches = 0
+flight_chunk_kernel.refusals = 0

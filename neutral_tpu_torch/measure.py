@@ -8,6 +8,8 @@
     python neutral_tpu_torch/measure.py compare FILE [--key total_s]
     python neutral_tpu_torch/measure.py scaled [--nparticles N]
     python neutral_tpu_torch/measure.py profile DECK [--decomposition D]
+    python neutral_tpu_torch/measure.py tail DECK [--root DIR]
+        [--decomposition D] [--steps]
 
 `census` times one step-1 census of the scatter deck (10,000,000 particles)
 through the sweep kernel, `--reps` times after a warm-up, with the package
@@ -48,6 +50,14 @@ counts, tally and peak device memory.
 on the one card, and prints the 25 operations with the most CUDA time and
 the 25 with the most host time, then the step's metrics.
 
+`tail` runs step 1 of DECK (full size; every step with `--steps`), after
+a warm-up step, on one device or under decomposition D with four shards
+on the one card, with the package under `--root`, and prints per step the
+record of every flight-kernel launch: the lanes it covers, the lanes with
+work at its start and still working after it, and its device time (CUDA
+events), with the count and device time of the launches in the census
+tail (under 10% of the shard's first launch's lanes with work).
+
 Each prints one JSON line per measurement, with the card's name and
 power limit.  All need a card.
 """
@@ -55,6 +65,7 @@ power limit.  All need a card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -181,6 +192,50 @@ def run(deck: str, shards: int, decomposition: str, reps: int) -> list:
                     "tally": float(sim.host_tally().sum()),
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         del sim
+    return out
+
+
+def tail(deck: str, decomposition: str | None, steps: bool) -> list:
+    """Per flight-kernel launch of step 1 (every step with `steps`) of the
+    full `deck`, on one device or on four shards of the one card under
+    `decomposition`: the lanes the launch covers, the lanes with work at
+    its start and still working after it, and its device milliseconds."""
+    import torch
+    from neutral_tpu_torch import driver
+
+    cfg = driver.load_config(deck)
+    devices = [torch.device("cuda", 0)] * (4 if decomposition else 1)
+    make = functools.partial(driver.make_simulation, cfg,
+                             decomposition or "replicated", devices,
+                             quiet=True)
+    make().step(1)                   # warm-up: builds, caches, allocates
+    sim = make()
+    out = []
+    for tt in range(1, (cfg.niters if steps else 1) + 1):
+        m = sim.step(tt)
+        recs = [dict(r) for r in m.rounds]
+        # Lanes with work at a launch's start: what the shard's previous
+        # launch left, or for its first launch of the step the live lanes
+        # (one device) or the lanes it covers (a shard).  A launch is in
+        # the tail when that is below 10% of its shard's first launch's.
+        last, start = {}, {}
+        for r in recs:
+            s = r["shard"]
+            r["active"] = last.get(s, m.nprocessed if len(devices) == 1
+                                   else r["lanes"])
+            start.setdefault(s, r["active"])
+            r["tail"] = r["active"] < 0.1 * start[s]
+            last[s] = r["working"]
+            r["shard"] = list(start).index(s)
+        tail_recs = [r for r in recs if r.pop("tail")]
+        out.append({"deck": deck, "decomposition": decomposition,
+                    "step": tt, "nprocessed": m.nprocessed,
+                    "launches": len(recs),
+                    "flight_ms": sum(r["flight_ms"] for r in recs),
+                    "launches_below_10pct": len(tail_recs),
+                    "ms_below_10pct": sum(r["flight_ms"] for r in tail_recs),
+                    "step_s": m.step_time, "phases": m.phases,
+                    "per_launch": recs})
     return out
 
 
@@ -314,13 +369,21 @@ def main(argv: list[str] | None = None) -> int:
     f.add_argument("deck")
     f.add_argument("--decomposition", default=None,
                    choices=["replicated", "spatial", "spatial2d"])
+    t = sub.add_parser("tail", help="per-launch lanes of the flight kernel")
+    t.add_argument("deck")
+    t.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package to run")
+    t.add_argument("--decomposition", default=None,
+                   choices=["replicated", "spatial", "spatial2d"])
+    t.add_argument("--steps", action="store_true",
+                   help="every step of the deck, not step 1 alone")
     args = p.parse_args(argv)
 
     if args.what == "compare":
         for r in compare(args.file, args.key):
             print(json.dumps(r), flush=True)
         return 0
-    if args.what in ("census", "deposit", "run"):
+    if args.what in ("census", "deposit", "run", "tail"):
         # This file's own directory would shadow nothing useful: the
         # package comes from the root asked for.
         rows = args.what == "deposit" and args.rows
@@ -331,6 +394,8 @@ def main(argv: list[str] | None = None) -> int:
             rec = [census(args.reps)]
         elif args.what == "deposit":
             rec = [deposit(args.reps, args.deck, rows)]
+        elif args.what == "tail":
+            rec = tail(args.deck, args.decomposition, args.steps)
         else:
             rec = run(args.deck, args.shards, args.decomposition, args.reps)
         for r in rec:

@@ -7,19 +7,23 @@ built each decomposition from `shard_map` programs with collectives; here
 one Python loop drives every shard (`DecomposedSimulation.step`):
 
 1. every shard with work runs one chunk: one kernel launch (the sweep
-   kernel, or a flight round: flight kernel and segment deposit), bounded
-   by `MAX_EVENTS` or `MAX_PIECES` per lane; with the plain engine, the
-   plain version until no lane in its window has work;
+   kernel, bounded by `MAX_EVENTS` per lane, or a flight round: flight
+   kernel and segment deposit, over the shard's list of working lanes
+   with its own pieces per lane, `flight_kernel.pieces_for`); with the
+   plain engine, the plain version until no lane in its window has work;
 2. one host read of every shard's counters at once (`read_counters`):
-   facets, collisions, lanes still working, the segment deposit's piece
-   count and overflow flag and, in the spatial modes, how many lanes leave
-   for each other shard and how many slots are free; a shard whose
-   deposit overflowed grows its piece buffer and deposits the round's
-   rows again (`redeposit`), which needs no read;
+   facets, collisions, lanes still working, the segment rows reserved,
+   the segment deposit's piece count and overflow flag and, in the
+   spatial modes, how many lanes leave for each other shard and how many
+   slots are free; then each flight shard's host part of the round
+   (`flight_kernel.after_round`: a re-run of an overflowed deposit, the
+   growth of a segment buffer that refused rows, the next list's length),
+   which needs no read;
 3. migration (spatial modes): each lane that left its shard's window goes
    straight to its owner shard, into a dead slot, and the owner's tensors
    grow when dead slots run out.  The counts of step 2 size every gather,
-   so migration itself waits for nothing.
+   so migration itself waits for nothing.  A shard that received lanes
+   covers all of its lanes in its next launch, which rebuilds its list.
 
 No shard is waited for on its own.  Histories are keyed by pid, so the
 decomposition changes nothing physical: a replicated run equals the
@@ -30,11 +34,12 @@ is lost or duplicated, and every live lane sits on its owner shard when a
 step ends.
 
 JAX's flight_sharded.py has no module of its own here: its decomposed
-flight step is the flight branch of the same loop.  Not ported, as TPU
+flight step is the flight branch of the same loop, whose lists of working
+lanes do the work of JAX's flight compaction.  Not ported, as TPU
 mechanisms: the u32-pair control vector (one int64 read replaces it), the
-pending-flush rings, the compaction ladder, and the fixed `cap_xfer`
-budgets of the neighbour-only `ppermute` exchange with its overflow,
-repartition and abort path (growth replaces them).
+pending-flush rings, the sweep transport's compaction ladder, and the
+fixed `cap_xfer` budgets of the neighbour-only `ppermute` exchange with
+its overflow, repartition and abort path (growth replaces them).
 """
 
 from __future__ import annotations
@@ -48,10 +53,9 @@ import torch
 
 from ..driver import SimulationBase, StepMetrics, check_device
 from ..flight import flight_chunk_plain
-from ..flight_kernel import (MAX_PIECES, event_phases, flight_params,
-                             flight_round, redeposit)
+from ..flight_kernel import (FlightBuffers, after_round, event_phases,
+                             flight_params, flight_round, launch_records)
 from ..particles import STATE_FIELDS, ParticleState
-from ..raster_kernel import SegmentDeposit
 from ..sweep_kernel import (MAX_EVENTS, launch_sweep, rect_arrays,
                             sweep_chunk_plain, sweep_params)
 from ..transport import Geometry, begin_timestep, window_cells
@@ -118,9 +122,9 @@ class Shard:
     the window's block in the spatial ones, with a grid deck's density
     block) and `x_off`/`y_off` place the window (None: no window on that
     axis).  `tables` are the cross-sections on `device`.  The kernel
-    engine keeps its counters, region or rect arrays, segment buffer and
-    segment deposit's buffers here; the spatial modes keep each lane's
-    destination shard."""
+    engine keeps its counters and region or rect arrays here, and with the
+    flight transport the flight loop's buffers (whose counters `counts`
+    is); the spatial modes keep each lane's destination shard."""
     device: torch.device
     geom: Geometry
     state: ParticleState
@@ -130,8 +134,7 @@ class Shard:
     y_off: int | None = None
     counts: torch.Tensor | None = None
     rects: tuple | None = None
-    segbuf: torch.Tensor | None = None
-    deposit: SegmentDeposit | None = None
+    flight: FlightBuffers | None = None
     dest: torch.Tensor | None = None
 
 
@@ -158,7 +161,7 @@ class DecomposedSimulation(SimulationBase):
         self.devices = devices
         self.nshards = len(devices)
         # A chunk's counters: [facets, collisions, lanes still working], and
-        # with the flight kernel its three more (segment rows, the
+        # with the flight kernel its three more (segment rows reserved, the
         # deposit's pieces, its overflow flag); the spatial modes append
         # departures per shard and dead lanes when they read them.
         self.deposits = self.engine == "kernel" and self.transport == "flight"
@@ -200,12 +203,14 @@ class DecomposedSimulation(SimulationBase):
                   to_device(self.cs_absorb, device))
         sh = Shard(device, geom, state, tally, tables, x_off, y_off)
         if self.engine == "kernel":
-            sh.counts = torch.zeros(self.nctrl, dtype=torch.int64,
-                                    device=device)
             rects = geom.rects if self.deposits else geom.regions
             sh.rects = None if rects is None else rect_arrays(rects, device)
             if self.deposits:
-                sh.deposit = SegmentDeposit(geom.nx, geom.ny, device)
+                sh.flight = FlightBuffers(geom.nx, geom.ny, device)
+                sh.counts = sh.flight.counts
+            else:
+                sh.counts = torch.zeros(self.nctrl, dtype=torch.int64,
+                                        device=device)
         return sh
 
     # -- the step -----------------------------------------------------------
@@ -219,30 +224,35 @@ class DecomposedSimulation(SimulationBase):
             sh.state = begin_timestep(sh.state, sh.geom, sh.tables[0],
                                       cfg.dt, tt, sh.x_off, sh.y_off)
             rows.append((~sh.state.dead).sum().reshape(1))
+            if sh.flight is not None:
+                sh.flight.start_census()
         nprocessed = int(read_counters(rows).sum())
         t_begin = time.perf_counter()
         n = self.nshards
         work = [sh.state.n > 0 for sh in self.shards]
         nf = nc = nsweeps = nlaunches = nmigrated = 0
         marks, parts, t_migrate = [], {"flight": 0.0, "raster": 0.0}, 0.0
+        rounds = []
         while any(work):
-            rows, chunk_sweeps = [], 0
-            for sh, w in zip(self.shards, work):
+            rows, chunk_sweeps, chunk = [], 0, {}
+            for s, (sh, w) in enumerate(zip(self.shards, work)):
                 counts, sweeps = (self._chunk(sh, tt, marks, parts) if w
                                   else (torch.zeros(self.nctrl,
                                                     dtype=torch.int64,
                                                     device=sh.device), 0))
+                if w and self.deposits:
+                    chunk[s] = {"shard": s} | sweeps
+                    sweeps = sweeps["pieces"]
                 chunk_sweeps = max(chunk_sweeps, sweeps)
                 nlaunches += int(w and self.engine == "kernel")
                 rows.append(torch.cat([counts, self._departures(sh)])
                             if self.migrates else counts)
             ctrl = read_counters(rows)
-            if self.deposits:
-                for s in np.flatnonzero(ctrl[:, 5]):
-                    sh = self.shards[s]
-                    marks.append(redeposit(sh.tally, sh.segbuf, sh.counts,
-                                           sh.geom, sh.device, sh.deposit,
-                                           int(ctrl[s, 4])))
+            for s, rec in chunk.items():
+                sh = self.shards[s]
+                after_round(sh.flight, sh.tally, sh.geom, rec, ctrl[s, 2:6],
+                            marks)
+                rounds.append(rec)
             nf += int(ctrl[:, 0].sum())
             nc += int(ctrl[:, 1].sum())
             nsweeps += chunk_sweeps
@@ -254,6 +264,9 @@ class DecomposedSimulation(SimulationBase):
                 received = sends.sum(axis=0)
                 nmigrated += int(sends.sum())
                 t_migrate += time.perf_counter() - t1
+                for r in np.flatnonzero(received):
+                    if self.shards[r].flight is not None:
+                        self.shards[r].flight.n_active = None
             work = list((ctrl[:, 2] > 0) | (received > 0))
         step_time = self.profile.stop(f"step{tt}")
         census = time.perf_counter() - t_begin
@@ -271,13 +284,14 @@ class DecomposedSimulation(SimulationBase):
         m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
                         ncollisions=nc, nprocessed=nprocessed,
                         nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
-                        nmigrated=nmigrated)
+                        nmigrated=nmigrated, rounds=launch_records(rounds))
         self.step_metrics.append(m)
         return m
 
     def _chunk(self, sh: Shard, tt: int, marks: list, parts: dict):
         """One chunk on shard `sh`: (its nctrl counters as an int64
-        tensor on its device, sweeps run)."""
+        tensor on its device, sweeps run), or with the flight kernel
+        (the counters, the round's record; flight_round's)."""
         scatter, absorb = sh.tables
         args = (sh.state, sh.tally, sh.geom, scatter, absorb, tt,
                 1.0 / self.cfg.nparticles)
@@ -292,18 +306,14 @@ class DecomposedSimulation(SimulationBase):
             return torch.tensor([f, c, 0], device=sh.device), sweeps
         sh.counts.zero_()
         if self.transport == "flight":
-            rows = sh.state.n * MAX_PIECES
-            if sh.segbuf is None or sh.segbuf.shape[0] != rows:
-                sh.segbuf = torch.empty((rows, 5), dtype=torch.float32,
-                                        device=sh.device)
-            params = flight_params(sh.state, sh.tally, sh.segbuf, sh.counts,
-                                   sh.rects, *args[2:], MAX_PIECES, **win)
-            marks.append(flight_round(params, sh.tally, sh.segbuf, sh.counts,
-                                      sh.geom, sh.device, sh.deposit))
-        else:
-            params = sweep_params(sh.state, sh.tally, sh.counts, sh.rects,
-                                  *args[2:], MAX_EVENTS, **win)
-            launch_sweep(params, sh.device)
+            params = flight_params(sh.state, sh.tally, sh.rects, *args[2:],
+                                   **win)
+            rec = flight_round(params, sh.flight, sh.tally, sh.geom)
+            marks.append(rec["marks"])
+            return sh.counts, rec
+        params = sweep_params(sh.state, sh.tally, sh.counts, sh.rects,
+                              *args[2:], MAX_EVENTS, **win)
+        launch_sweep(params, sh.device)
         return sh.counts, 0
 
     # -- migration (spatial modes) -----------------------------------------

@@ -28,7 +28,7 @@ import torch
 
 import neutral_tpu_torch as tt
 from neutral_tpu_torch import driver, flight, transport
-from neutral_tpu_torch.flight_kernel import flight_chunk_kernel
+from neutral_tpu_torch.flight_kernel import FlightBuffers, flight_chunk_kernel
 from neutral_tpu_torch.particles import STATE_FIELDS
 
 FAMILIES = ["stream", "csp", "split", "scatter"]
@@ -276,13 +276,17 @@ def _sorted_rows(segs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_pieces", [64, 1])
+@pytest.mark.parametrize("max_pieces,rows", [(64, None), (1, None),
+                                             (None, 1000)],
+                         ids=["64", "1", "1000_rows"])
 @pytest.mark.parametrize("deck", DECKS)
-def test_flight_kernel_matches_plain_on_card(deck, max_pieces):
+def test_flight_kernel_matches_plain_on_card(deck, max_pieces, rows):
     """Kernel and plain version from one begin_timestep state of the full
     deck's geometry at 65,536 particles: equal counts, all 14 per-lane
     fields and sorted segment rows; tally sums to 1e-5 (atomics add in
-    another order).  max_pieces=1 splits the census over many launches."""
+    another order).  max_pieces=1 splits the census over many launches;
+    a segment buffer of 1000 rows (grown up to 4000) refuses rows in many
+    rounds, under the default pieces per launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = tt.load_config(f"problems/{deck}.params").with_(
@@ -293,8 +297,13 @@ def test_flight_kernel_matches_plain_on_card(deck, max_pieces):
     args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
     kt, pt = torch.zeros_like(sim.tally), torch.zeros_like(sim.tally)
     ksegs, psegs = [], []
+    buffers = (None if rows is None else
+               FlightBuffers(sim.geom.nx, sim.geom.ny, "cuda", rows=rows,
+                             max_rows=4 * rows))
+    refusals0 = flight_chunk_kernel.refusals
     ks, knf, knc, launches, _ = flight_chunk_kernel(
-        start.clone(), kt, *args, max_pieces=max_pieces, segments=ksegs)
+        start.clone(), kt, *args, max_pieces=max_pieces, segments=ksegs,
+        buffers=buffers)
     ps, pnf, pnc, _, _ = flight.flight_chunk_plain(start.clone(), pt, *args,
                                                    segments=psegs)
     assert (knf, knc) == (pnf, pnc) and knf > 0
@@ -304,5 +313,7 @@ def test_flight_kernel_matches_plain_on_card(deck, max_pieces):
         np.testing.assert_array_equal(getattr(ks, f).cpu().numpy(),
                                       getattr(ps, f).cpu().numpy(), f)
     np.testing.assert_array_equal(_sorted_rows(ksegs), _sorted_rows(psegs))
+    if rows is not None and len(torch.cat(psegs)) > 4 * rows:
+        assert flight_chunk_kernel.refusals - refusals0 > 1
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     assert abs(ksum - psum) <= 1e-5 * abs(psum)
