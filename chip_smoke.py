@@ -17,7 +17,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    per-lane state fields must be exactly equal; the tally sums agree to a
    relative 1e-5 (atomics add in another order).  Both times are printed.
    A third kernel run with 64 events per launch must match too (many
-   launches per census).
+   launches per census).  Each size prints the kernel's persistent grid
+   and the share of its thread slots that ran events (its counters),
+   beside the share that one thread per lane in pid order would fill (the
+   kernel's layout before its work list; from each lane's draws, its
+   counter's delta); phase 3 prints the main instantiation's registers.
 4. Main path, scatter: `driver.main(["problems/scatter.params"])` in-process
    at full size (10M particles, 4000^2, 2 steps).  It must print `PASSED
    validation.`, the sweep kernel must have launched, and no plain version
@@ -91,15 +95,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Each with its launch counts (kernels launched, no plain version),
    events/s and lanes migrated per step and peak device memory.
 15. The unwindowed scatter census at 10,000,000 particles timed 5 times
-   (the window parameters' cost; `neutral_tpu_torch/measure.py census`
-   compares two checkouts in one run).
+   (`neutral_tpu_torch/measure.py census` compares two checkouts in one
+   run, in every mode).
 16. Split at BIG_N = 64,000,000 particles, one step through `Simulation`
    (an n x 64-row segment buffer would have needed ~82 GB): its first
    1,000,000 lanes must equal a 1,000,000-particle run's end state bitwise
    in all 14 fields (injection and draws are keyed by pid), and its tally
    sum lie within 1e-2 of split's golden (a sanity bound); prints events/s
    and peak device memory.
-17. Result: a JSON line on the kernels (each with its bound, and the times
+17. The analytic grid: the (key, value) pairs that the kernels' analytic
+   lookup reads (CrossSection.analytic_grid of the scatter deck's table,
+   made on the card) must equal CrossSection._key_at/_val_at evaluated on
+   the CPU at every index, bitwise: the CPU tests prove the lookup through
+   that grid bitwise equal to the plain lookup.
+18. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
@@ -273,12 +282,24 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
                                        **win, **kw)
         return ms, state, nf, nc, tally
 
-    run(sweep_kernel.sweep_chunk_kernel)            # warm-up
-    k_ms, ks, knf, knc, kt = run(sweep_kernel.sweep_chunk_kernel)
+    buffers = sweep_kernel.SweepBuffers("cuda")
+    run(sweep_kernel.sweep_chunk_kernel, buffers=buffers)         # warm-up
+    k_ms, ks, knf, knc, kt = run(sweep_kernel.sweep_chunk_kernel,
+                                 buffers=buffers)
+    slot_use = buffers.slot_use()
+    slot_pid = sweep_kernel.thread_slot_use(ks.counter - start.counter)
+    sms, per_sm = sweep_kernel.resident_blocks(
+        int(not sim.cs_scatter.analytic), int(geom.regions is None),
+        sweep_kernel.RNG_SCHEMES[cfg.rng], buffers.device)
+    blocks = sweep_kernel.grid_blocks(nparticles, sms, per_sm)
     p_ms, ps, pnf, pnc, pt = run(sweep_kernel.sweep_chunk_plain)
     print(f"[{label} n={nparticles}] kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms; facets {knf} / {pnf}, collisions {knc} / {pnc}",
           flush=True)
+    print(f"[{label} n={nparticles}] grid {blocks} blocks x "
+          f"{sweep_kernel.THREADS} threads ({per_sm} per SM, {sms} SMs); "
+          f"thread slots that ran events {slot_use:.4f}, against "
+          f"{slot_pid:.4f} for one thread per lane in pid order", flush=True)
     if (knf, knc) != (pnf, pnc):
         fail(f"{label} n={nparticles}: event counts differ: kernel {(knf, knc)} "
              f"plain {(pnf, pnc)}")
@@ -310,7 +331,8 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
           "counts and per-lane state equal")
     return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
             "n": nparticles, "ncells": geom.nx * geom.ny, "facets": knf,
-            "collisions": knc, "rng": cfg.rng}
+            "collisions": knc, "rng": cfg.rng, "grid_blocks": blocks,
+            "slot_use": slot_use, "slot_use_pid_order": slot_pid}
 
 
 def sorted_rows(torch, segs):
@@ -822,10 +844,40 @@ def big_split(torch, driver, wrappers, fields) -> dict:
             "peak_gib": peak, "tally": total}
 
 
-def census_repeats(torch) -> dict:
+def sweep_registers(log: str) -> int:
+    """ptxas's register count of the sweep kernel's analytic, region,
+    threefry instantiation, from the build's log."""
+    for name, regs in re.findall(r"Compiling entry function '([^']*)'"
+                                 r".*?Used (\d+) registers", log, re.S):
+        if ("sweep_kernel" in name and "XsModeE0E" in name
+                and "DensityModeE0E" in name and "RngSchemeE0E" in name):
+            return int(regs)
+    fail("the build log has no register count of the sweep kernel")
+
+
+def analytic_grid_check(torch, driver) -> None:
+    """Phase 17: the grid the kernels' analytic lookup reads, made on the
+    card, against _key_at/_val_at evaluated on the CPU, where the tests
+    prove the lookup through the grid bitwise equal to the plain one."""
+    sim = driver.Simulation(driver.load_config(SCATTER).with_(
+        nparticles=1, expected_tally=None), quiet=True)
+    tab = sim.cs_scatter
+    grid = tab.analytic_grid
+    i = torch.arange(tab.nentries, dtype=torch.int32)
+    keys, values = tab._key_at(i, torch.float32), tab._val_at(i, torch.float32)
+    if not (grid.is_cuda and torch.equal(grid[:, 0].cpu(), keys)
+            and torch.equal(grid[:, 1].cpu(), values)):
+        fail("the analytic grid made on the card differs from _key_at/"
+             "_val_at on the CPU")
+    print(f"[analytic grid] {tab.nentries} (key, value) pairs made on "
+          f"{grid.device}, {grid.numel() * 4} bytes, bitwise equal to "
+          "_key_at/_val_at on the CPU at every index", flush=True)
+
+
+def census_repeats(tmp: str) -> dict:
     """Phase 15: the unwindowed 10M scatter census, 5 times."""
     from neutral_tpu_torch.measure import census
-    r = census(5)
+    r = census(5, "analytic", tmp)
     print(f"[census 10M] unwindowed sweep kernel: "
           + ", ".join(f"{t:.3f}" for t in r["census_ms"])
           + f" ms (min {r['min_ms']:.3f}, median {r['median_ms']:.3f})",
@@ -870,6 +922,9 @@ def main() -> int:
                 (raster_kernel.deposit_segments_kernel, "overflows")]
 
     # ---- 3. sweep kernel against plain version --------------------------
+    registers = sweep_registers(log)
+    print(f"[compare] the sweep kernel's main instantiation (analytic, "
+          f"regions, threefry) uses {registers} registers", flush=True)
     results = {n: compare(n, torch, driver, transport, sweep_kernel,
                           STATE_FIELDS)
                for n in COMPARE_SIZES}
@@ -957,7 +1012,6 @@ def main() -> int:
     # ---- 14. decomposed main paths ---------------------------------------
     decomposed = decomposed_paths(tmp.name, torch, driver, flight, wrappers,
                                   step_counts(out_scatter))
-    tmp.cleanup()
     sweep_launches += decomposed["sweep_launches"]
     flight_launches += decomposed["flight_launches"]
     raster_launches += decomposed["raster_launches"]
@@ -966,12 +1020,16 @@ def main() -> int:
         modes[k]["window"]["launches"] = decomposed[f"{k}_launches"]
 
     # ---- 15. the window parameters' cost --------------------------------
-    census = census_repeats(torch)
+    census = census_repeats(tmp.name)
+    tmp.cleanup()
 
     # ---- 16. split at 64M particles -------------------------------------
     big = big_split(torch, driver, wrappers, STATE_FIELDS)
 
-    # ---- 17. result -----------------------------------------------------
+    # ---- 17. the analytic grid -----------------------------------------
+    analytic_grid_check(torch, driver)
+
+    # ---- 18. result -----------------------------------------------------
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {
@@ -997,6 +1055,10 @@ def main() -> int:
          "plain_ms": top["plain_ms"],
          **work_bound(top),
          "library_ms": None,
+         "grid_blocks": top["grid_blocks"],
+         "registers": registers,
+         "slot_use": top["slot_use"],
+         "slot_use_pid_order": top["slot_use_pid_order"],
          "modes": sweep_modes,
          "shape": f"scatter deck, {COMPARE_SIZES[-1]} particles, 4000x4000 "
                   "mesh, one census; ms and plain_ms are whole-census times "

@@ -7,9 +7,10 @@
 //
 // The deck's modes are template parameters, so that each combination is
 // its own instantiation and the analytic/threefry one is the code without
-// the others: XsMode (analytic resonance formula, or a stored table
-// searched in global memory), RngScheme (threefry or pcg64si) and, in the
-// sweep kernel, DensityMode (region rectangles, or a per-cell grid).
+// the others: XsMode (analytic resonance formula read from its grid, or a
+// stored table searched in global memory), RngScheme (threefry or pcg64si)
+// and, in the sweep kernel, DensityMode (region rectangles, or a per-cell
+// grid).
 
 #pragma once
 
@@ -56,15 +57,24 @@ __device__ __forceinline__ uint64_t rotl64(uint64_t v, int r) {
   return (v << r) | (v >> (64 - r));
 }
 
+// A lane's draw key: the words of its draws that do not change with the
+// counter, computed once when the lane is loaded.  threefry: the key words
+// (pid, master_key) and their parity word 0x1BD11BDAA9FC1A22 ^ pid ^
+// master_key (Random123's ks[2]); pcg64si: k0 = 1e15*master_key + 1e4*pid
+// (mod 2^64), the part of the seed that is not 2*counter.
+struct DrawKey {
+  uint64_t k0, k1, k2;
+};
+
 // Threefry-2x64, 20 rounds (Salmon et al., SC'11), with the key schedule of
-// Random123's threefry2x64 as the reference uses it.
-__device__ __forceinline__ void threefry2x64(uint64_t c0, uint64_t c1,
-                                             uint64_t k0, uint64_t k1,
+// Random123's threefry2x64 as the reference uses it, of the counter
+// (c0, 0): its word 1 is 0, so the first x1 is the key word k1.
+__device__ __forceinline__ void threefry2x64(uint64_t c0, const DrawKey& k,
                                              uint64_t& o0, uint64_t& o1) {
-  const uint64_t ks[3] = {k0, k1, 0x1BD11BDAA9FC1A22ULL ^ k0 ^ k1};
+  const uint64_t ks[3] = {k.k0, k.k1, k.k2};
   constexpr int kRot[8] = {16, 42, 12, 31, 16, 32, 24, 21};
-  uint64_t x0 = c0 + k0;
-  uint64_t x1 = c1 + k1;
+  uint64_t x0 = c0 + ks[0];
+  uint64_t x1 = ks[1];
 #pragma unroll
   for (int r = 0; r < 20; ++r) {
     x0 += x1;
@@ -97,20 +107,29 @@ __device__ __forceinline__ float hi_to_f32(uint64_t v) {
   return __uint2float_rn(static_cast<uint32_t>(v >> 32)) * kTwoM32 + kTwoM33;
 }
 
+template <RngScheme R>
+__device__ __forceinline__ DrawKey draw_key(uint64_t pid,
+                                            uint64_t master_key) {
+  if constexpr (R == RngScheme::kThreefry) {
+    return {pid, master_key, 0x1BD11BDAA9FC1A22ULL ^ pid ^ master_key};
+  } else {
+    return {1000000000000000ULL * master_key + 10000ULL * pid, 0, 0};
+  }
+}
+
 // Pair draw mapped to float32 from the high words (rng.uniform2_scheme).
 // threefry: ctr = (counter, 0), key = (pid, master_key).  pcg64si: the
 // generators seeded seed and seed + 1, seed = 1e15*master_key + 1e4*pid +
 // 2*counter (mod 2^64).
 template <RngScheme R>
-__device__ __forceinline__ void uniform2_f32(uint64_t pid, uint64_t master_key,
+__device__ __forceinline__ void uniform2_f32(const DrawKey& key,
                                              uint64_t counter, float& u0,
                                              float& u1) {
   uint64_t v0, v1;
   if constexpr (R == RngScheme::kThreefry) {
-    threefry2x64(counter, 0, pid, master_key, v0, v1);
+    threefry2x64(counter, key, v0, v1);
   } else {
-    const uint64_t seed =
-        1000000000000000ULL * master_key + 10000ULL * pid + 2ULL * counter;
+    const uint64_t seed = key.k0 + 2ULL * counter;
     v0 = pcg64si_first(seed);
     v1 = pcg64si_first(seed + 1ULL);
   }
@@ -118,31 +137,35 @@ __device__ __forceinline__ void uniform2_f32(uint64_t pid, uint64_t master_key,
   u1 = hi_to_f32(v1);
 }
 
-// Analytic resonance table (xs.CrossSection analytic mode): keys and
-// values of the generated grid in closed form.
-__device__ __forceinline__ float key_at(int i, float m) {
-  const float t = (static_cast<float>(i) + 1.0f) / m;
-  const float t2 = t * t;
-  return kE8 * (t2 * t2) + kEm2;
-}
-
-__device__ __forceinline__ float val_at(int i, float m) {
-  return kE3 * ((m - static_cast<float>(i)) / m) + 1.0f;
-}
-
-__device__ __forceinline__ float xs_lookup(float e, int n) {
+// Analytic resonance table (xs.CrossSection analytic mode).  Its keys and
+// values depend only on the index i and the entry count n: key(i) =
+// 1e8 * ((i + 1) / n)^4 + 1e-2, value(i) = 1e3 * ((n - i) / n) + 1, each
+// with one IEEE division.  The wrapper builds them once per run, for every
+// index, with the plain version's own arithmetic (CrossSection.analytic_grid
+// on the card) into `grid`, (key, value) pairs; the lookup reads them
+// instead of dividing.  The closed-form index lands at most one bin off,
+// which the two nudges correct, so the keys and values it can read are
+// those at i0 - 1 .. i0 + 2 of its first guess i0: all four are loaded at
+// once (the grid, 240 KB for 29,999 entries, stays in L1 and L2), and the
+// nudges and the interpolation pick from them, as the plain version's
+// gathers do.
+__device__ __forceinline__ float xs_lookup(float e, const float2* grid,
+                                           int n) {
   const float m = static_cast<float>(n);
   const float u = sqrtf(sqrtf((e - kEm2) * kEm8));
-  int idx = static_cast<int>(floorf(u * m)) - 1;
-  idx = min(max(idx, 0), n - 2);
-  if (e < key_at(idx, m)) idx -= 1;
-  if (e >= key_at(min(max(idx + 1, 0), n - 1), m)) idx += 1;
-  idx = min(max(idx, 0), n - 2);
-  const float k0 = key_at(idx, m);
-  const float k1 = key_at(idx + 1, m);
-  const float v0 = val_at(idx, m);
-  const float v1 = val_at(idx + 1, m);
-  return v0 + ((e - k0) / (k1 - k0)) * (v1 - v0);
+  const int i0 = min(max(static_cast<int>(floorf(u * m)) - 1, 0), n - 2);
+  const float2 gm = __ldg(grid + max(i0 - 1, 0));
+  const float2 g0 = __ldg(grid + i0);
+  const float2 g1 = __ldg(grid + i0 + 1);
+  const float2 g2 = __ldg(grid + min(i0 + 2, n - 1));
+  // idx -= e < key(i0); idx += e >= key(clip(idx + 1)); clip to [0, n-2]
+  const bool down = e < g0.x;
+  const int up = e >= (down ? g0.x : g1.x) ? 1 : 0;
+  const int idx = min(max(i0 - (down ? 1 : 0) + up, 0), n - 2);
+  const int d = idx - i0;       // -1, 0 or 1
+  const float2 lo = d < 0 ? gm : (d == 0 ? g0 : g1);
+  const float2 hi = d < 0 ? g0 : (d == 0 ? g1 : g2);
+  return lo.y + ((e - lo.x) / (hi.x - lo.x)) * (hi.y - lo.y);
 }
 
 // Stored table (xs.CrossSection searchsorted mode): the bracketing index
@@ -169,18 +192,20 @@ __device__ __forceinline__ float table_lookup(float e, const float* keys,
   return v0 + ((e - k0) / (k1 - k0)) * (v1 - v0);
 }
 
-// One cross-section table as the kernels see it: its entry count, and in
-// table mode its keys and values (float32, contiguous, on the device).
+// One cross-section table as the kernels see it: its entry count, in
+// table mode its keys and values (float32, contiguous, on the device), and
+// in analytic mode its grid of (key, value) pairs (xs_lookup).
 struct XsTable {
   const float* keys;
   const float* values;
+  const float2* grid;
   int n;
 };
 
 template <XsMode X>
 __device__ __forceinline__ float xs_value(float e, const XsTable& t) {
   if constexpr (X == XsMode::kAnalytic) {
-    return xs_lookup(e, t.n);
+    return xs_lookup(e, t.grid, t.n);
   } else {
     return table_lookup(e, t.keys, t.values, t.n);
   }
@@ -200,19 +225,28 @@ __device__ __forceinline__ float tmax(float a, float b) {
 // absorption (weight reduction, death below kMinEnergy) or elastic
 // scatter, then a fresh mean free path at the new energy for a survivor.
 // Counter c is consumed by the collision, c+1 by the new mean free path.
-// Returns whether the particle died.
+// Both draws are computed up front, before the event knows whether the
+// particle dies: they are independent chains, which the compiler can
+// interleave; a particle that dies discards the second, and its counter
+// advances as before (by 1, not 2).  `sig_s` becomes the scatter
+// cross-section at the energy the collision leaves, looked up whether or
+// not the particle died: it is the one lookup of the collision, which
+// serves the new mean free path here and the caller's next event, since
+// the energy changes only in a collision (the same function of the same
+// float gives the same bits).  Returns whether the particle died.
 template <XsMode X, RngScheme R>
-__device__ __forceinline__ bool collide(uint64_t pid, uint64_t master_key,
+__device__ __forceinline__ bool collide(const DrawKey& key,
                                         uint64_t& counter, float& energy,
                                         float& weight, float& omega_x,
                                         float& omega_y, float& mfp,
-                                        float mac_a, float mac_t,
-                                        float number_density,
+                                        float& sig_s, float mac_a,
+                                        float mac_t, float number_density,
                                         const XsTable& scatter) {
   bool died = false;
   const float p_absorb = mac_a / mac_t;
-  float rn1a, rn1b;
-  uniform2_f32<R>(pid, master_key, counter, rn1a, rn1b);
+  float rn1a, rn1b, rn2a, rn2b;
+  uniform2_f32<R>(key, counter, rn1a, rn1b);
+  uniform2_f32<R>(key, counter + 1, rn2a, rn2b);
   if (rn1a < p_absorb) {
     weight = weight * (1.0f - p_absorb);
     died = energy < kMinEnergy;
@@ -230,11 +264,9 @@ __device__ __forceinline__ bool collide(uint64_t pid, uint64_t master_key,
     energy = e_new;
   }
   counter += 1;
+  sig_s = xs_value<X>(energy, scatter);
   if (!died) {
-    const float mac_s2 =
-        number_density * xs_value<X>(energy, scatter) * kBarns;
-    float rn2a, rn2b;
-    uniform2_f32<R>(pid, master_key, counter, rn2a, rn2b);
+    const float mac_s2 = number_density * sig_s * kBarns;
     counter += 1;
     mfp = -logf(rn2a) / mac_s2;
   }

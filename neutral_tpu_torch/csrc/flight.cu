@@ -102,6 +102,8 @@ struct FlightParams {
   const float* scatter_values;
   const float* absorb_keys;     // table mode: (absorb_entries,)
   const float* absorb_values;
+  const float2* scatter_grid;   // analytic mode: (scatter_entries,) pairs
+  const float2* absorb_grid;    // analytic mode: (absorb_entries,) pairs
   const int32_t* rect_bounds;   // (nrects, 4) ix0 ix1 iy0 iy1, disjoint
   const float* rect_density;    // (nrects,)
   unsigned long long master_key;
@@ -153,13 +155,15 @@ flight_kernel(const FlightParams p) {
     float dt = p.dt_to_census[i], mfp = p.mfp_to_collision[i];
     float deposit = p.deposit[i];
     int cellx = p.cellx[i], celly = p.celly[i];
-    const uint64_t pid = static_cast<uint64_t>(p.pid[i]);
+    const DrawKey key =
+        draw_key<R>(static_cast<uint64_t>(p.pid[i]), p.master_key);
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
     bool inwin = true;
-    const XsTable scatter{p.scatter_keys, p.scatter_values,
+    const XsTable scatter{p.scatter_keys, p.scatter_values, p.scatter_grid,
                           p.scatter_entries};
-    const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_entries};
+    const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_grid,
+                         p.absorb_entries};
     const int4* bounds = reinterpret_cast<const int4*>(p.rect_bounds);
     const float xo = static_cast<float>(p.x_off);
     const float yo = static_cast<float>(p.y_off);
@@ -169,6 +173,12 @@ flight_kernel(const FlightParams p) {
     // would find the same rect.  The empty rect forces the first search.
     float rho = 0.0f;
     int rix0 = 0, rix1 = 0, riy0 = 0, riy1 = 0;
+    // The cross-sections and speed at the lane's energy, looked up here and
+    // again only after a collision (collide's one lookup): the energy
+    // changes nowhere else.
+    float sig_s = xs_value<X>(energy, scatter);
+    float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+    float speed = sqrtf(kSpeedCoef * energy);
 
     for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f && inwin;
          ++piece) {
@@ -197,15 +207,12 @@ flight_kernel(const FlightParams p) {
       }
 
       // ---- material state ----
-      const float sig_s = xs_value<X>(energy, scatter);
-      const float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
       const float sig_t = sig_s + sig_a;
       const float number_density = rho * kInvMolar;
       const float mac_s = number_density * sig_s * kBarns;
       const float mac_a = number_density * sig_a * kBarns;
       const float mac_t = mac_s + mac_a;
       const float cell_mfp = 1.0f / mac_t;
-      const float speed = sqrtf(kSpeedCoef * energy);
 
       // ---- distances to the rect walls (the open left/bottom wall
       // overshoots by kObc) ----
@@ -330,8 +337,8 @@ flight_kernel(const FlightParams p) {
       // ---- collision (omega after the collision, then the reflection) ----
       bool died = false;
       if (is_coll) {
-        died = collide<X, R>(pid, p.master_key, counter, energy, weight,
-                             omega_x, omega_y, mfp, mac_a, mac_t,
+        died = collide<X, R>(key, counter, energy, weight, omega_x,
+                             omega_y, mfp, sig_s, mac_a, mac_t,
                              number_density, scatter);
         n_colls += 1;
       }
@@ -353,6 +360,10 @@ flight_kernel(const FlightParams p) {
       if (is_exit || is_census) mfp = mfp - d / cell_mfp;
       dt = dt - d / speed;
       if (is_census) dt = 0.0f;
+      if (is_coll) {
+        sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+        speed = sqrtf(kSpeedCoef * energy);
+      }
 
       x = x1;
       y = y1;

@@ -1,13 +1,15 @@
-// Fused event sweep for NVIDIA Hopper (sm_90a): one thread per particle lane.
+// Fused event sweep for NVIDIA Hopper (sm_90a): persistent threads that
+// run one particle lane at a time and refill from a work list.
 //
 // Replaces the TPU kernel neutral_tpu/pallas_sweep.py::_kernel (:59; its
 // pl.pallas_call is at :293, launched by pallas_multi_sweep and looped by
 // pallas_sweep_chunk).  That kernel advanced a VMEM-resident block of lanes
 // through K masked events of transport.sweep_core and pushed tally flushes
 // into per-lane rings, because the TPU has no fast scatter or atomics.  Here
-// each thread owns one lane: it loads the lane's state into registers, runs
-// events until the particle dies, reaches census (dt_to_census <= 0) or has
-// run `max_events` events in this launch, and writes the state back.  Tally
+// a thread owns one lane at a time: it loads the lane's state into
+// registers, runs events until the particle dies, reaches census
+// (dt_to_census <= 0), leaves the window or has run `max_events` events in
+// this launch, writes the state back and takes the next lane.  Tally
 // flushes (facet, census, death) go straight into the tally with
 // atomicAdd(float*); zero contributions skip the atomic.  Rings, pause
 // gating, ring drains and the all-dead block early-out have no counterpart.
@@ -42,15 +44,46 @@
 // that leaves the window stops after the facet event that took it out (its
 // flush lands in the cell it left), and the host migrates it to its owner.
 //
+// The work list.  Histories differ in length, and a warp runs as long as
+// its longest lane, so one thread per lane in pid order idles the slots of
+// the lanes that end early (and, under a window, of every lane outside
+// it).  So the grid is persistent: the host sizes it to fill the card once
+// (nt_sweep_blocks_per_sm x SMs, capped by the list), thread t starts at
+// list position t, and a thread whose lane is done takes the next position
+// from a cursor (counts[3]) by one warp-aggregated atomicAdd for the
+// threads of its warp that need work.  A fetched lane that is dead, at
+// census or outside the window is skipped at load.  The list is `active`
+// (lane t itself when it is null, as in a census's first launch); a lane
+// that used up `max_events` and still works appends its index to `next`
+// (one warp-aggregated atomicAdd on counts[2], whose value is then the next
+// list's length, which the host reads each launch anyway).  Lanes are read
+// and written at their own index; no field is permuted.  An event costs the
+// warp one ballot (did a lane finish?); the refill runs only after one did.
+// counts[4] and counts[5] count the lanes' events and the warps' event
+// steps, so that counts[4] / (32 counts[5]) is the share of the thread
+// slots that ran events.
+//
+// Per collision, the lane's cross-sections and speed are looked up once, at
+// the energy the collision leaves (collide, common.cuh), and kept in
+// registers; the analytic lookup reads its keys and values from a grid
+// instead of dividing; and the two draws of a collision are computed side
+// by side from key words hoisted out of the event loop.
+//
 // The wrapper (sweep_kernel.py) rejects everything else.
 //
-// What bounds it on the H100: integer throughput of Threefry-2x64-20 (about
-// 20 rounds of 64-bit add, rotate and xor per draw, two draws per
-// collision; a pcg64si draw is two 64-bit multiply chains instead), the
-// dependent L2 loads of a table search in table mode (about 15 per lookup,
-// two or three lookups per collision), and warp divergence in the census
-// tail, where a warp runs as long as its longest history.  This version
-// does nothing about any of them yet.
+// What bounds it on the H100 (an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+// §6, measure.py census): ptxas gives the main instantiation (analytic,
+// regions, threefry) 56 registers and 8 bytes of spill, so an SM holds 9
+// blocks of 128 threads and the grid is 1,188 blocks.  At 10M lanes its
+// threads ran events in 99.3% of their slots (one thread per lane in pid
+// order: 90.5%), at 1M in 93-94% (the last lanes start when the list is
+// used up and end one history later), in the window mode 88% (pid order:
+// 23%).  The 10M census takes ~177 ms against the 133.7 ms that
+// Threefry-2x64-20's integer work alone needs (two draws a collision):
+// what is left is each collision's float work (about ten IEEE divisions,
+// six square roots and a logarithm under -fmad=false) and its lookup.  In
+// table mode the binary search's dependent loads (about 15 a lookup) stay;
+// under pcg64si the float work is the larger part.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,16 +109,24 @@ struct SweepParams {
   const int64_t* pid;
   int64_t* counter;
   float* tally;                 // (ny * nx,) flat, row-major, window-local
-  unsigned long long* counts;   // [facets, collisions, lanes still working]
+  // [facets, collisions, lanes still working (the next list's length),
+  //  the list cursor, lane events run, warp event steps]
+  unsigned long long* counts;
+  const int32_t* active;        // (n_active,) lanes to run; null: lane t
+  int32_t* next;                // (n,) the lanes still working after it
   const float* scatter_keys;    // table mode: (scatter_entries,) ascending
   const float* scatter_values;
   const float* absorb_keys;     // table mode: (absorb_entries,)
   const float* absorb_values;
+  const float2* scatter_grid;   // analytic mode: (scatter_entries,) pairs
+  const float2* absorb_grid;    // analytic mode: (absorb_entries,) pairs
   const int32_t* region_bounds; // region mode: (nregions, 4) ix0 ix1 iy0 iy1
   const float* region_density;  // region mode: (nregions,)
   const float* density;         // grid mode: (ny * nx,) window-local
   unsigned long long master_key;
   long long n;
+  long long n_active;           // the list's length
+  int blocks;                   // the grid (sweep_kernel.grid_blocks)
   int max_events;
   int nx;                       // the window's extent (the whole mesh
   int ny;                       // when unwindowed)
@@ -110,40 +151,118 @@ namespace {
 using namespace nt;
 
 constexpr int kThreads = 128;
+constexpr unsigned int kFull = 0xffffffffu;
+constexpr unsigned int kNeed = 0xffffffffu;
+
+__device__ __forceinline__ unsigned int lane_id() { return threadIdx.x & 31u; }
+
+// The bits of the warp's lanes below this one.
+__device__ __forceinline__ unsigned int lanes_below() {
+  return (1u << lane_id()) - 1u;
+}
 
 template <XsMode X, DensityMode D, RngScheme R>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const SweepParams p) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  unsigned int n_facets = 0, n_colls = 0, n_working = 0;
+  const XsTable scatter{p.scatter_keys, p.scatter_values, p.scatter_grid,
+                        p.scatter_entries};
+  const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_grid,
+                       p.absorb_entries};
 
-  if (i < p.n && !p.dead[i] && p.dt_to_census[i] > 0.0f &&
-      in_window(p.cellx[i], p.celly[i], p.x_off, p.y_off, p.nx, p.ny)) {
-    float x = p.x[i], y = p.y[i];
-    float omega_x = p.omega_x[i], omega_y = p.omega_y[i];
-    float energy = p.energy[i], weight = p.weight[i];
-    float dt = p.dt_to_census[i], mfp = p.mfp_to_collision[i];
-    float deposit = p.deposit[i];
-    int cellx = p.cellx[i], celly = p.celly[i];
-    const uint64_t pid = static_cast<uint64_t>(p.pid[i]);
-    uint64_t counter = static_cast<uint64_t>(p.counter[i]);
-    bool dead = false;
-    bool inwin = true;
-    const XsTable scatter{p.scatter_keys, p.scatter_values,
-                          p.scatter_entries};
-    const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_entries};
+  // The list position this thread loads next: pending while below
+  // n_active, kNeed when the thread needs a new one, n_active when the
+  // list is used up for it (lists hold fewer than 2^31 lanes).
+  unsigned int pos = blockIdx.x * blockDim.x + threadIdx.x;
+  bool have = false;            // the thread holds a lane
+  int i = 0;                    // that lane
+  int ev = 0;                   // its events in this launch
 
-    // The density is a function of the cell alone, so it is looked up
-    // again only when the lane has entered another cell (in a dense deck
-    // nearly every event is a collision in the same cell).
-    int density_cell = -1;
-    float density = 0.0f;
+  float x = 0.0f, y = 0.0f, omega_x = 0.0f, omega_y = 0.0f;
+  float energy = 0.0f, weight = 0.0f, dt = 0.0f, mfp = 0.0f, deposit = 0.0f;
+  int cellx = 0, celly = 0;
+  uint64_t counter = 0;
+  DrawKey key{0, 0, 0};
+  // The density is a function of the cell alone, so it is looked up again
+  // only when the lane has entered another cell (in a dense deck nearly
+  // every event is a collision in the same cell).
+  int density_cell = -1;
+  float density = 0.0f;
+  // The cross-sections and speed at the lane's energy, looked up at load
+  // and again only after a collision (collide's one lookup): the energy
+  // changes nowhere else.
+  float sig_s = 0.0f, sig_a = 0.0f, speed = 0.0f;
 
-    for (int ev = 0; ev < p.max_events && !dead && dt > 0.0f && inwin;
-         ++ev) {
-      // ---- local material state: the grid's cell, or the regions (later
-      // regions override earlier ones) ----
+  // Counts of this thread's events (a thread runs about a launch's events
+  // over its threads, far below 2^32) and of its warp's event steps.
+  unsigned int n_facets = 0, n_colls = 0, n_events = 0, n_steps = 0;
+
+  // Whether the warp refills before its next event: at the start, and
+  // after any of its lanes finished (the same on every thread of the warp).
+  bool refill = true;
+
+  for (;;) {
+    // ---- refill: a thread without a lane loads the one at `pos`, unless
+    // it has no work, and the threads that need a position take the next
+    // ones from the cursor, one atomic for the warp; until every thread
+    // has a lane or the list is used up for it ----
+    if (refill) {
+      for (;;) {
+        if (!have && pos < p.n_active) {
+          i = p.active ? p.active[pos] : static_cast<int>(pos);
+          pos = kNeed;
+          if (!p.dead[i] && p.dt_to_census[i] > 0.0f &&
+              in_window(p.cellx[i], p.celly[i], p.x_off, p.y_off, p.nx,
+                        p.ny)) {
+            x = p.x[i];
+            y = p.y[i];
+            omega_x = p.omega_x[i];
+            omega_y = p.omega_y[i];
+            energy = p.energy[i];
+            weight = p.weight[i];
+            dt = p.dt_to_census[i];
+            mfp = p.mfp_to_collision[i];
+            deposit = p.deposit[i];
+            cellx = p.cellx[i];
+            celly = p.celly[i];
+            key = draw_key<R>(static_cast<uint64_t>(p.pid[i]),
+                              p.master_key);
+            counter = static_cast<uint64_t>(p.counter[i]);
+            density_cell = -1;
+            sig_s = xs_value<X>(energy, scatter);
+            sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+            speed = sqrtf(kSpeedCoef * energy);
+            ev = 0;
+            have = true;
+          }
+        }
+        const bool need = !have && pos == kNeed;
+        const unsigned int need_mask = __ballot_sync(kFull, need);
+        if (!need_mask) break;
+        const int leader = __ffs(need_mask) - 1;
+        unsigned long long base = 0;
+        if (lane_id() == static_cast<unsigned int>(leader)) {
+          base = atomicAdd(&p.counts[3],
+                           static_cast<unsigned long long>(__popc(need_mask)));
+        }
+        base = __shfl_sync(kFull, base, leader);
+        if (need) {
+          const long long next = static_cast<long long>(gridDim.x) *
+                                     blockDim.x +
+                                 static_cast<long long>(base) +
+                                 __popc(need_mask & lanes_below());
+          pos = static_cast<unsigned int>(min(next, p.n_active));
+        }
+      }
+      if (!__any_sync(kFull, have)) break;   // the list is used up
+      refill = false;
+    }
+    n_steps += 1;
+
+    // ---- one event of the lane ----
+    bool finish = false, working = false, dead = false;
+    if (have) {
+      // local material state: the grid's cell, or the regions (later
+      // regions override earlier ones)
       const int flat_cell = min(
           max((celly - p.y_off) * p.nx + (cellx - p.x_off), 0),
           p.nx * p.ny - 1);
@@ -163,18 +282,15 @@ sweep_kernel(const SweepParams p) {
           }
         }
       }
-      const float sig_s = xs_value<X>(energy, scatter);
-      const float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
       const float sig_t = sig_s + sig_a;
       const float number_density = density * kInvMolar;
       const float mac_s = number_density * sig_s * kBarns;
       const float mac_a = number_density * sig_a * kBarns;
       const float mac_t = mac_s + mac_a;
       const float cell_mfp = 1.0f / mac_t;
-      const float speed = sqrtf(kSpeedCoef * energy);
 
-      // ---- three candidate distances, in the cell-local frame (edges 0
-      // and dx; the open left/bottom facet overshoots by kObc) ----
+      // three candidate distances, in the cell-local frame (edges 0 and
+      // dx; the open left/bottom facet overshoots by kObc)
       const float u_x_inv = 1.0f / (omega_x * speed);
       const float u_y_inv = 1.0f / (omega_y * speed);
       const float dt_x = omega_x >= 0.0f ? (p.dx - x) * u_x_inv
@@ -191,25 +307,27 @@ sweep_kernel(const SweepParams p) {
       const bool is_census = !is_coll && !is_facet;
       const float dist = is_coll ? d_coll : (is_facet ? d_facet : d_census);
 
-      // ---- segment energy deposition (pre-event state) ----
+      // segment energy deposition (pre-event state)
       const float heating =
           energy - (1.0f - sig_a / sig_t) * (energy * kAvgScatterFrac);
       const float ed =
           weight * dist * (sig_t * kBarns) * heating * number_density;
       deposit = deposit + ed;
 
-      // ---- move to the event site ----
+      // move to the event site
       x = x + dist * omega_x;
       y = y + dist * omega_y;
 
-      // ---- collision: counter c for the event, c+1 for a survivor's new
-      // mean free path ----
+      // collision: counter c for the event, c+1 for a survivor's new mean
+      // free path; the cross-sections and speed follow the new energy
       bool died = false;
       if (is_coll) {
-        died = collide<X, R>(pid, p.master_key, counter, energy, weight,
-                             omega_x, omega_y, mfp, mac_a, mac_t,
+        died = collide<X, R>(key, counter, energy, weight, omega_x,
+                             omega_y, mfp, sig_s, mac_a, mac_t,
                              number_density, scatter);
         dt = dt - d_coll / speed;
+        sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+        speed = sqrtf(kSpeedCoef * energy);
       }
       if (is_facet) {
         mfp = mfp - d_facet / cell_mfp;
@@ -220,16 +338,17 @@ sweep_kernel(const SweepParams p) {
         dt = 0.0f;
       }
 
-      // ---- tally flush: leaving a cell, dying, or reaching census ----
+      // tally flush: leaving a cell, dying, or reaching census
       if (is_facet || is_census || died) {
         const float contrib = deposit * p.inv_ntotal;
         deposit = 0.0f;
         if (contrib != 0.0f) atomicAdd(&p.tally[flat_cell], contrib);
       }
 
-      // ---- facet: step into the next cell (re-basing the local
-      // position) or reflect at the domain boundary; a lane that steps
-      // out of the window stops here ----
+      // facet: step into the next cell (re-basing the local position) or
+      // reflect at the domain boundary; a lane that steps out of the
+      // window stops here
+      bool inwin = true;
       if (is_facet) {
         if (x_facet) {
           if (omega_x > 0.0f) {
@@ -267,35 +386,62 @@ sweep_kernel(const SweepParams p) {
         inwin = in_window(cellx, celly, p.x_off, p.y_off, p.nx, p.ny);
       }
 
-      dead = died;
       n_facets += is_facet;
       n_colls += is_coll;
+      n_events += 1;
+      ev += 1;
+      dead = died;
+      working = !died && dt > 0.0f && inwin;
+      finish = !working || ev >= p.max_events;
     }
 
-    n_working = !dead && dt > 0.0f && inwin;
-    p.x[i] = x;
-    p.y[i] = y;
-    p.omega_x[i] = omega_x;
-    p.omega_y[i] = omega_y;
-    p.energy[i] = energy;
-    p.weight[i] = weight;
-    p.dt_to_census[i] = dt;
-    p.mfp_to_collision[i] = mfp;
-    p.deposit[i] = deposit;
-    p.cellx[i] = cellx;
-    p.celly[i] = celly;
-    p.dead[i] = dead;
-    p.counter[i] = static_cast<int64_t>(counter);
+    // ---- finished lanes: one still working joins the next list (one
+    // atomic for the warp); each goes back to its own index, and the warp
+    // refills ----
+    if (__ballot_sync(kFull, finish)) {
+      const bool append = finish && working;
+      const unsigned int append_mask = __ballot_sync(kFull, append);
+      if (append_mask) {
+        const int leader = __ffs(append_mask) - 1;
+        unsigned long long base = 0;
+        if (lane_id() == static_cast<unsigned int>(leader)) {
+          base = atomicAdd(&p.counts[2], static_cast<unsigned long long>(
+                                             __popc(append_mask)));
+        }
+        base = __shfl_sync(kFull, base, leader);
+        if (append) {
+          p.next[base + __popc(append_mask & lanes_below())] = i;
+        }
+      }
+      if (finish) {
+        p.x[i] = x;
+        p.y[i] = y;
+        p.omega_x[i] = omega_x;
+        p.omega_y[i] = omega_y;
+        p.energy[i] = energy;
+        p.weight[i] = weight;
+        p.dt_to_census[i] = dt;
+        p.mfp_to_collision[i] = mfp;
+        p.deposit[i] = deposit;
+        p.cellx[i] = cellx;
+        p.celly[i] = celly;
+        p.dead[i] = dead;
+        p.counter[i] = static_cast<int64_t>(counter);
+        have = false;
+      }
+      refill = true;
+    }
   }
 
-  // Event and working-lane counts: reduce per warp, one atomic per warp.
-  n_facets = __reduce_add_sync(0xffffffffu, n_facets);
-  n_colls = __reduce_add_sync(0xffffffffu, n_colls);
-  n_working = __reduce_add_sync(0xffffffffu, n_working);
-  if ((threadIdx.x & 31u) == 0) {
-    if (n_facets) atomicAdd(&p.counts[0], static_cast<unsigned long long>(n_facets));
-    if (n_colls) atomicAdd(&p.counts[1], static_cast<unsigned long long>(n_colls));
-    if (n_working) atomicAdd(&p.counts[2], static_cast<unsigned long long>(n_working));
+  // Counts: reduce per warp, one atomic per warp and count.
+  const unsigned long long facets = warp_sum_u64(n_facets);
+  const unsigned long long colls = warp_sum_u64(n_colls);
+  const unsigned long long events = warp_sum_u64(n_events);
+  if (lane_id() == 0) {
+    if (facets) atomicAdd(&p.counts[0], facets);
+    if (colls) atomicAdd(&p.counts[1], colls);
+    atomicAdd(&p.counts[4], events);
+    atomicAdd(&p.counts[5], static_cast<unsigned long long>(n_steps));
   }
 }
 
@@ -305,32 +451,54 @@ sweep_kernel(const SweepParams p) {
 
 extern "C" int nt_params_size() { return static_cast<int>(sizeof(SweepParams)); }
 
-// Launches one sweep over all p->n lanes on `stream`, with the
-// instantiation of p's modes, and returns cudaGetLastError() (0 when the
-// launch was accepted; cudaErrorInvalidValue for an unknown mode).
-extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
-  if (p->n <= 0) return 0;
-  const unsigned int blocks =
-      static_cast<unsigned int>((p->n + kThreads - 1) / kThreads);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int mode = (p->xs_mode << 2) | (p->density_mode << 1) | p->rng;
-  using X = XsMode;
-  using D = DensityMode;
-  using R = RngScheme;
-  switch (mode) {
+extern "C" int nt_sweep_threads() { return kThreads; }
+
+#define NT_SWEEP_MODES(CASE)                                              \
+  CASE(XsMode::kAnalytic, DensityMode::kRegions, RngScheme::kThreefry)    \
+  CASE(XsMode::kAnalytic, DensityMode::kRegions, RngScheme::kPcg64si)     \
+  CASE(XsMode::kAnalytic, DensityMode::kGrid, RngScheme::kThreefry)       \
+  CASE(XsMode::kAnalytic, DensityMode::kGrid, RngScheme::kPcg64si)        \
+  CASE(XsMode::kTable, DensityMode::kRegions, RngScheme::kThreefry)       \
+  CASE(XsMode::kTable, DensityMode::kRegions, RngScheme::kPcg64si)        \
+  CASE(XsMode::kTable, DensityMode::kGrid, RngScheme::kThreefry)          \
+  CASE(XsMode::kTable, DensityMode::kGrid, RngScheme::kPcg64si)
+
+#define NT_SWEEP_MODE(x, d, r)                                            \
+  ((static_cast<int>(x) << 2) | (static_cast<int>(d) << 1) |              \
+   static_cast<int>(r))
+
+// Blocks of the instantiation of (xs_mode, density_mode, rng) that one SM
+// holds at once, into *blocks; returns the CUDA error code (0 on success,
+// cudaErrorInvalidValue for an unknown mode).
+extern "C" int nt_sweep_blocks_per_sm(int xs_mode, int density_mode,
+                                      int rng, int* blocks) {
+  switch ((xs_mode << 2) | (density_mode << 1) | rng) {
 #define NT_SWEEP_CASE(x, d, r)                                            \
-  case ((static_cast<int>(x) << 2) | (static_cast<int>(d) << 1) |       \
-        static_cast<int>(r)):                                             \
-    sweep_kernel<x, d, r><<<blocks, kThreads, 0, s>>>(*p);                \
+  case NT_SWEEP_MODE(x, d, r):                                            \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
+        blocks, sweep_kernel<x, d, r>, kThreads, 0));
+    NT_SWEEP_MODES(NT_SWEEP_CASE)
+#undef NT_SWEEP_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launches one sweep of p->blocks persistent blocks over the p->n_active
+// lanes of p->active (lanes 0 .. n_active - 1 when it is null) on `stream`,
+// with the instantiation of p's modes, and returns cudaGetLastError() (0
+// when the launch was accepted; cudaErrorInvalidValue for an unknown mode
+// or an empty grid).
+extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
+  if (p->n_active <= 0) return 0;
+  if (p->blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((p->xs_mode << 2) | (p->density_mode << 1) | p->rng) {
+#define NT_SWEEP_CASE(x, d, r)                                            \
+  case NT_SWEEP_MODE(x, d, r):                                            \
+    sweep_kernel<x, d, r><<<p->blocks, kThreads, 0, s>>>(*p);             \
     break;
-    NT_SWEEP_CASE(X::kAnalytic, D::kRegions, R::kThreefry)
-    NT_SWEEP_CASE(X::kAnalytic, D::kRegions, R::kPcg64si)
-    NT_SWEEP_CASE(X::kAnalytic, D::kGrid, R::kThreefry)
-    NT_SWEEP_CASE(X::kAnalytic, D::kGrid, R::kPcg64si)
-    NT_SWEEP_CASE(X::kTable, D::kRegions, R::kThreefry)
-    NT_SWEEP_CASE(X::kTable, D::kRegions, R::kPcg64si)
-    NT_SWEEP_CASE(X::kTable, D::kGrid, R::kThreefry)
-    NT_SWEEP_CASE(X::kTable, D::kGrid, R::kPcg64si)
+    NT_SWEEP_MODES(NT_SWEEP_CASE)
 #undef NT_SWEEP_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -67,7 +67,8 @@ from .flight_kernel import FlightBuffers, flight_chunk_kernel, launch_records
 from .mesh import build_mesh, density_grid, region_cell_bounds
 from .particles import inject_particles
 from .profiler import Profile
-from .sweep_kernel import MAX_EVENTS, sweep_chunk_kernel, sweep_chunk_plain
+from .sweep_kernel import (MAX_EVENTS, SweepBuffers, sweep_chunk_kernel,
+                           sweep_chunk_plain)
 from .transport import Geometry, begin_timestep, use_local_coords
 from .xs import CrossSection, find_cs_files
 
@@ -358,10 +359,12 @@ class Simulation(SimulationBase):
         self.tally = torch.zeros(cfg.nx * cfg.ny,
                                  dtype=getattr(torch, cfg.tally_dtype),
                                  device=self.device)
-        # The flight loop's buffers, kept from census to census.
+        # The kernel loop's buffers, kept from census to census.
+        kernel = self.engine == "kernel"
         self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device)
-                       if self.engine == "kernel"
-                       and self.transport == "flight" else None)
+                       if kernel and self.transport == "flight" else None)
+        self.sweep = (SweepBuffers(self.device)
+                      if kernel and self.transport == "sweep" else None)
         # Injection belongs to set-up, not to step 1's time.
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -387,7 +390,8 @@ class Simulation(SimulationBase):
             else:
                 state, nf, nc, nsweeps, parts = flight_chunk_plain(*args)
         elif self.engine == "kernel":
-            state, nf, nc, nlaunches = sweep_chunk_kernel(*args)
+            state, nf, nc, nlaunches = sweep_chunk_kernel(
+                *args, buffers=self.sweep)
         else:
             state, nf, nc, nsweeps = sweep_chunk_plain(*args)
         self.state = state

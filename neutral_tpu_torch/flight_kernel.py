@@ -76,7 +76,8 @@ class _FlightParams(ctypes.Structure):
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
             "celly", "dead", "pid", "counter", "tally", "segs", "counts",
             "active", "next", "scatter_keys", "scatter_values",
-            "absorb_keys", "absorb_values", "rect_bounds", "rect_density")]
+            "absorb_keys", "absorb_values", "scatter_grid", "absorb_grid",
+            "rect_bounds", "rect_density")]
         + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64),
            ("n_active", ctypes.c_int64), ("seg_cap", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (

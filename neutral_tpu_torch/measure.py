@@ -11,11 +11,21 @@
     python neutral_tpu_torch/measure.py tail DECK [--root DIR]
         [--decomposition D] [--steps]
 
-`census` times one step-1 census of the scatter deck (10,000,000 particles)
-through the sweep kernel, `--reps` times after a warm-up, with the package
-found under `--root` (default: this checkout).  Given the root of another
-checkout, it times that checkout's kernel, so that two versions compare
-within one run on one card (run them in turns: A, B, B, A).
+`census` times one step-1 census of the scatter deck through the sweep
+kernel in each of its modes, `--reps` times after a warm-up, with the
+package found under `--root` (default: this checkout): analytic (the deck
+itself, 10,000,000 particles), and at 1,000,000 particles pcg64si (the
+deck with `rng pcg64si`), table (beside 30,000-entry `.cs` tables,
+xs.resonance_log_table), grid (a random 4000^2 density grid with 25%
+vacuum cells, from default_rng(7)) and window (the 2x2 block [2000,
+4000)^2), the copies chip_smoke.py's phases 8-10 and 12 make.  Given the
+root of another checkout, it times that checkout's kernel, so that two
+versions compare within one run on one card (run them in turns: A, B, B,
+A).  Each mode's record holds the census's facets and collisions, a
+digest of the end state's 14 fields (two checkouts whose kernels compute
+the same lanes print the same digest), the share of thread slots that
+one thread per lane in pid order would fill (from each lane's draws, its
+counter's delta), the share the kernel's launches filled and its grid.
 
 `deposit` times the segment deposit of the step-1 segment rows of DECK
 (default: the stream deck, 1,000,000 particles, 4000^2 mesh) into a fresh
@@ -36,7 +46,8 @@ one call (A, B, B, A, ...) to compare whole steps.  `compare` reads the
 JSON lines of such runs (with other lines between them) and prints, per
 deck and decomposition and per checkout, the runs' count, median, minimum
 and quartiles of `--key` (a dotted key such as phases.raster reads a
-nested one), and the second checkout's medians and minima over the
+nested one; a list, such as census's census_ms, adds each of its
+values), and the second checkout's medians and minima over the
 first's.
 
 `scaled` runs the scaled dense configuration of `__graft_entry__.py` (a
@@ -70,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -81,30 +93,92 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def census(reps: int, nparticles: int = 10_000_000) -> dict:
-    """Milliseconds of `reps` scatter censuses through the sweep kernel."""
+CENSUS_MODES = ("analytic", "pcg64si", "table", "grid", "window")
+BLOCK = (2000, 2000, 2000, 2000)   # (x_off, y_off, nx, ny) of "window"
+
+
+def census_deck(mode: str, tmp: str) -> tuple[str, int, tuple | None]:
+    """(deck, particles, window) of a census mode; copies of the scatter
+    deck go to `tmp` under their own basename."""
+    import shutil
+    import numpy as np
+    from neutral_tpu_torch import driver, xs
+
+    scatter = "problems/scatter.params"
+    if mode in ("analytic", "window"):
+        return (scatter, 10_000_000 if mode == "analytic" else 1_000_000,
+                BLOCK if mode == "window" else None)
+    d = os.path.join(tmp, mode)
+    os.makedirs(d, exist_ok=True)
+    deck = os.path.join(d, os.path.basename(scatter))
+    shutil.copy(scatter, deck)
+    with open(deck, "a") as f:
+        if mode == "pcg64si":
+            f.write("rng pcg64si\n")
+        elif mode == "grid":
+            f.write("density_file dens.npy\n")
+    if mode == "table":
+        keys, values = xs.resonance_log_table()
+        for name in ("elastic_scatter.cs", "capture.cs"):
+            xs.write_cs_file(os.path.join(d, name), keys, values)
+    elif mode == "grid":
+        cfg = driver.load_config(scatter)
+        rng = np.random.default_rng(7)
+        dens = rng.uniform(1.0e3, 2.0e4, size=(cfg.ny, cfg.nx))
+        dens[rng.random((cfg.ny, cfg.nx)) < 0.25] = 0.0
+        np.save(os.path.join(d, "dens.npy"), dens)
+    return deck, 1_000_000, None
+
+
+def census(reps: int, mode: str, tmp: str) -> dict:
+    """Milliseconds of `reps` scatter censuses of `mode` through the sweep
+    kernel, with the census's counts, end-state digest and slot use."""
+    import dataclasses
+    import hashlib
     import torch
     from neutral_tpu_torch import driver, sweep_kernel, transport
+    from neutral_tpu_torch.particles import STATE_FIELDS
 
-    cfg = driver.load_config("problems/scatter.params").with_(
-        nparticles=nparticles, expected_tally=None)
+    deck, nparticles, window = census_deck(mode, tmp)
+    cfg = driver.load_config(deck).with_(nparticles=nparticles,
+                                         expected_tally=None)
     sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
+    geom, win = sim.geom, {}
+    if window is not None:
+        geom = dataclasses.replace(geom, nx=window[2], ny=window[3])
+        win = {"x_off": window[0], "y_off": window[1]}
+    buffers = sweep_kernel.SweepBuffers("cuda")
     times = []
     for rep in range(reps + 1):
-        state, tally = start.clone(), torch.zeros_like(sim.tally)
+        state = start.clone()
+        tally = torch.zeros(geom.nx * geom.ny, dtype=torch.float32,
+                            device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, nf, nc, _ = sweep_kernel.sweep_chunk_kernel(
-            state, tally, sim.geom, sim.cs_scatter, sim.cs_absorb, 1,
-            1.0 / cfg.nparticles)
+        _, nf, nc, launches = sweep_kernel.sweep_chunk_kernel(
+            state, tally, geom, sim.cs_scatter, sim.cs_absorb, 1,
+            1.0 / cfg.nparticles, **win, buffers=buffers)
         torch.cuda.synchronize()
         if rep:                                   # the first is a warm-up
             times.append((time.perf_counter() - t0) * 1e3)
-    return {"census_ms": times, "min_ms": min(times),
+    digest = hashlib.sha256()
+    for f in STATE_FIELDS:
+        digest.update(getattr(state, f).cpu().numpy().tobytes())
+    return {"deck": f"census {mode}", "shards": 1, "decomposition": None,
+            "census_ms": times, "min_ms": min(times),
             "median_ms": sorted(times)[len(times) // 2], "facets": nf,
-            "collisions": nc, "nparticles": nparticles}
+            "collisions": nc, "launches": launches, "nparticles": nparticles,
+            "state_sha256": digest.hexdigest(),
+            "slot_use_pid_order": sweep_kernel.thread_slot_use(
+                state.counter - start.counter),
+            "slot_use": buffers.slot_use(),
+            "grid_blocks": sweep_kernel.grid_blocks(
+                nparticles, *sweep_kernel.resident_blocks(
+                    int(not sim.cs_scatter.analytic),
+                    int(geom.regions is None),
+                    sweep_kernel.RNG_SCHEMES[cfg.rng], buffers.device))}
 
 
 def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
@@ -258,7 +332,8 @@ def compare(path: str, key: str) -> list:
                 continue
             g = groups.setdefault((r["deck"], r.get("shards"),
                                    r.get("decomposition")), {})
-            g.setdefault(r["root"], []).append(v)
+            g.setdefault(r["root"], []).extend(
+                v if isinstance(v, list) else [v])
     out = []
     for (deck, shards, dec), by_root in groups.items():
         rec = {"deck": deck, "shards": shards, "decomposition": dec,
@@ -341,7 +416,7 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="measure", description=__doc__.split(
         "\n\n")[0])
     sub = p.add_subparsers(dest="what", required=True)
-    c = sub.add_parser("census", help="time the 10M scatter census")
+    c = sub.add_parser("census", help="time the scatter census per mode")
     c.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
     c.add_argument("--reps", type=int, default=5)
@@ -391,7 +466,8 @@ def main(argv: list[str] | None = None) -> int:
         sys.path[0] = os.path.abspath(args.root)
         os.chdir(args.root)
         if args.what == "census":
-            rec = [census(args.reps)]
+            with tempfile.TemporaryDirectory() as tmp:
+                rec = [census(args.reps, m, tmp) for m in CENSUS_MODES]
         elif args.what == "deposit":
             rec = [deposit(args.reps, args.deck, rows)]
         elif args.what == "tail":

@@ -6,19 +6,20 @@ share one card), its own particles and its own tally.  The JAX package
 built each decomposition from `shard_map` programs with collectives; here
 one Python loop drives every shard (`DecomposedSimulation.step`):
 
-1. every shard with work runs one chunk: one kernel launch (the sweep
-   kernel, bounded by `MAX_EVENTS` per lane, or a flight round: flight
-   kernel and segment deposit, over the shard's list of working lanes
-   with its own pieces per lane, `flight_kernel.pieces_for`); with the
-   plain engine, the plain version until no lane in its window has work;
+1. every shard with work runs one chunk: one kernel launch over the
+   shard's list of working lanes (the sweep kernel, bounded by
+   `MAX_EVENTS` per lane, or a flight round: flight kernel and segment
+   deposit, with its own pieces per lane, `flight_kernel.pieces_for`);
+   with the plain engine, the plain version until no lane in its window
+   has work;
 2. one host read of every shard's counters at once (`read_counters`):
    facets, collisions, lanes still working, the segment rows reserved,
    the segment deposit's piece count and overflow flag and, in the
    spatial modes, how many lanes leave for each other shard and how many
    slots are free; then each flight shard's host part of the round
    (`flight_kernel.after_round`: a re-run of an overflowed deposit, the
-   growth of a segment buffer that refused rows, the next list's length),
-   which needs no read;
+   growth of a segment buffer that refused rows, the next list's length)
+   and each sweep shard's next list length, which need no read;
 3. migration (spatial modes): each lane that left its shard's window goes
    straight to its owner shard, into a dead slot, and the owner's tensors
    grow when dead slots run out.  The counts of step 2 size every gather,
@@ -56,8 +57,8 @@ from ..flight import flight_chunk_plain
 from ..flight_kernel import (FlightBuffers, after_round, event_phases,
                              flight_params, flight_round, launch_records)
 from ..particles import STATE_FIELDS, ParticleState
-from ..sweep_kernel import (MAX_EVENTS, launch_sweep, rect_arrays,
-                            sweep_chunk_plain, sweep_params)
+from ..sweep_kernel import (MAX_EVENTS, SweepBuffers, rect_arrays,
+                            sweep_chunk_plain, sweep_params, sweep_round)
 from ..transport import Geometry, begin_timestep, window_cells
 
 
@@ -122,9 +123,9 @@ class Shard:
     the window's block in the spatial ones, with a grid deck's density
     block) and `x_off`/`y_off` place the window (None: no window on that
     axis).  `tables` are the cross-sections on `device`.  The kernel
-    engine keeps its counters and region or rect arrays here, and with the
-    flight transport the flight loop's buffers (whose counters `counts`
-    is); the spatial modes keep each lane's destination shard."""
+    engine keeps its counters and region or rect arrays here, and the
+    sweep or flight loop's buffers (whose counters `counts` is); the
+    spatial modes keep each lane's destination shard."""
     device: torch.device
     geom: Geometry
     state: ParticleState
@@ -135,6 +136,7 @@ class Shard:
     counts: torch.Tensor | None = None
     rects: tuple | None = None
     flight: FlightBuffers | None = None
+    sweep: SweepBuffers | None = None
     dest: torch.Tensor | None = None
 
 
@@ -209,8 +211,8 @@ class DecomposedSimulation(SimulationBase):
                 sh.flight = FlightBuffers(geom.nx, geom.ny, device)
                 sh.counts = sh.flight.counts
             else:
-                sh.counts = torch.zeros(self.nctrl, dtype=torch.int64,
-                                        device=device)
+                sh.sweep = SweepBuffers(device)
+                sh.counts = sh.sweep.counts
         return sh
 
     # -- the step -----------------------------------------------------------
@@ -226,6 +228,8 @@ class DecomposedSimulation(SimulationBase):
             rows.append((~sh.state.dead).sum().reshape(1))
             if sh.flight is not None:
                 sh.flight.start_census()
+            if sh.sweep is not None:
+                sh.sweep.start_census()
         nprocessed = int(read_counters(rows).sum())
         t_begin = time.perf_counter()
         n = self.nshards
@@ -253,6 +257,9 @@ class DecomposedSimulation(SimulationBase):
                 after_round(sh.flight, sh.tally, sh.geom, rec, ctrl[s, 2:6],
                             marks)
                 rounds.append(rec)
+            for s, (sh, w) in enumerate(zip(self.shards, work)):
+                if w and sh.sweep is not None:
+                    sh.sweep.n_active = int(ctrl[s, 2])
             nf += int(ctrl[:, 0].sum())
             nc += int(ctrl[:, 1].sum())
             nsweeps += chunk_sweeps
@@ -265,8 +272,9 @@ class DecomposedSimulation(SimulationBase):
                 nmigrated += int(sends.sum())
                 t_migrate += time.perf_counter() - t1
                 for r in np.flatnonzero(received):
-                    if self.shards[r].flight is not None:
-                        self.shards[r].flight.n_active = None
+                    for b in (self.shards[r].flight, self.shards[r].sweep):
+                        if b is not None:
+                            b.n_active = None
             work = list((ctrl[:, 2] > 0) | (received > 0))
         step_time = self.profile.stop(f"step{tt}")
         census = time.perf_counter() - t_begin
@@ -311,10 +319,9 @@ class DecomposedSimulation(SimulationBase):
             rec = flight_round(params, sh.flight, sh.tally, sh.geom)
             marks.append(rec["marks"])
             return sh.counts, rec
-        params = sweep_params(sh.state, sh.tally, sh.counts, sh.rects,
-                              *args[2:], MAX_EVENTS, **win)
-        launch_sweep(params, sh.device)
-        return sh.counts, 0
+        params = sweep_params(sh.state, sh.tally, sh.rects, *args[2:], **win)
+        sweep_round(params, sh.sweep, MAX_EVENTS)
+        return sh.counts[:3], 0
 
     # -- migration (spatial modes) -----------------------------------------
     def _departures(self, sh: Shard) -> torch.Tensor:

@@ -1,31 +1,42 @@
 """The fused sweep kernel (csrc/sweep.cu) and its plain version.
 
 Counterpart of `neutral_tpu/pallas_sweep.py`.  `sweep_chunk_kernel` runs
-every lane to census or death through the hand-written CUDA kernel: one
-thread per lane, tally flushes by atomicAdd, event counts reduced in the
+every lane to census or death through the hand-written CUDA kernel:
+persistent threads, each running one lane at a time and taking the next
+from a work list, tally flushes by atomicAdd, event counts reduced in the
 kernel.  It loops on the host: each launch runs at most `max_events`
-events per lane, then the host reads back how many lanes still have work
-and launches again until none has.  All per-history state, `deposit`
-included, lives in the state tensors between launches, so the number of
-launches changes nothing in the result.
+events per lane, and writes the lanes still working after it into the
+next launch's list, whose length the host reads back; it launches again
+over that list until it is empty.  A census's first launch runs over
+every lane, with no list.  All per-history state, `deposit` included,
+lives in the state tensors between launches, each lane at its own index,
+so the number of launches and the order of the lanes change nothing in
+the result.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, region rectangles or a density grid, threefry or pcg64si draws;
 each combination is its own instantiation (csrc/sweep.cu).  The spatial
 window of a decomposed run (`x_off`/`y_off`, transport.py's) is a runtime
-parameter of every instantiation.  `sweep_params` and `launch_sweep` are
-one launch; `sweep_chunk_kernel` loops them for one state, and the
-decomposed runs (parallel/) launch every shard before they read the
-counters of all shards at once.
+parameter of every instantiation.  `sweep_params` is a census's launch
+parameters and `sweep_round` one launch over the lists of `SweepBuffers`;
+`sweep_chunk_kernel` loops them for one state, and the decomposed runs
+(parallel/) launch every shard before they read the counters of all
+shards at once.  The grid fills the card once (`grid_blocks`, from the
+occupancy that `resident_blocks` reads from the library once per process
+and instantiation).
 
 `sweep_chunk_plain` is the plain PyTorch version (transport.sweep_chunk run
 to completion).  `sweep_chunk_kernel` launches the kernel or raises: on a
 state that does not lie on a CUDA device, and on any configuration the
 kernel does not implement.  Choosing the plain version is the caller's
-(the driver's `engine`).
+(`driver.pick_engine`).  `SweepBuffers.slot_use` is the share of the
+launches' thread slots that ran events, from the kernel's counters, and
+`thread_slot_use` the share that one thread per lane in pid order would
+fill, from per-lane event counts (the kernel's layout before it had a
+work list).
 
 `sweep_chunk_kernel.launches` counts kernel launches (made by
-`launch_sweep`, from either loop) and `sweep_chunk_plain.calls` counts
+`sweep_round`, from either loop) and `sweep_chunk_plain.calls` counts
 plain runs; callers may reset both.
 """
 
@@ -43,6 +54,7 @@ from .transport import Geometry
 from .xs import CrossSection
 
 MAX_EVENTS = 4096          # events per lane per launch
+THREADS = 128              # threads per block (csrc/sweep.cu kThreads)
 
 # RngScheme codes of csrc/common.cuh (its XsMode and DensityMode codes are
 # 0 for analytic/regions and 1 for table/grid).
@@ -55,14 +67,17 @@ class _SweepParams(ctypes.Structure):
         [(f, ctypes.c_void_p) for f in (
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
-            "celly", "dead", "pid", "counter", "tally", "counts",
-            "scatter_keys", "scatter_values", "absorb_keys", "absorb_values",
-            "region_bounds", "region_density", "density")]
-        + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64)]
+            "celly", "dead", "pid", "counter", "tally", "counts", "active",
+            "next", "scatter_keys", "scatter_values", "absorb_keys",
+            "absorb_values", "scatter_grid", "absorb_grid", "region_bounds",
+            "region_density", "density")]
+        + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64),
+           ("n_active", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
-            "max_events", "nx", "ny", "scatter_entries", "absorb_entries",
-            "same_xs", "nregions", "xs_mode", "density_mode", "rng",
-            "x_off", "y_off", "global_nx", "global_ny")]
+            "blocks", "max_events", "nx", "ny", "scatter_entries",
+            "absorb_entries", "same_xs", "nregions", "xs_mode",
+            "density_mode", "rng", "x_off", "y_off", "global_nx",
+            "global_ny")]
         + [(f, ctypes.c_float) for f in ("dx", "dy", "inv_ntotal")])
 
 
@@ -72,13 +87,85 @@ def load_library() -> ctypes.CDLL:
     lib = build.load()
     lib.nt_params_size.argtypes = []
     lib.nt_params_size.restype = ctypes.c_int
+    lib.nt_sweep_threads.argtypes = []
+    lib.nt_sweep_threads.restype = ctypes.c_int
+    lib.nt_sweep_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.nt_sweep_blocks_per_sm.restype = ctypes.c_int
     lib.nt_sweep_launch.argtypes = [ctypes.POINTER(_SweepParams),
                                     ctypes.c_void_p]
     lib.nt_sweep_launch.restype = ctypes.c_int
     if lib.nt_params_size() != ctypes.sizeof(_SweepParams):
         raise RuntimeError("csrc/sweep.cu SweepParams does not match "
                            "sweep_kernel._SweepParams")
+    if lib.nt_sweep_threads() != THREADS:
+        raise RuntimeError("csrc/sweep.cu kThreads does not match "
+                           "sweep_kernel.THREADS")
     return lib
+
+
+@functools.cache
+def resident_blocks(xs_mode: int, density_mode: int, rng: int,
+                    device: torch.device) -> tuple[int, int]:
+    """(SMs, blocks per SM) of the sweep kernel's instantiation for the
+    mode codes on `device` (an indexed CUDA device), from the CUDA
+    occupancy calculator; read once per process and instantiation."""
+    lib = load_library()
+    blocks = ctypes.c_int()
+    with torch.cuda.device(device):
+        build.check_launch(lib, lib.nt_sweep_blocks_per_sm(
+            xs_mode, density_mode, rng, ctypes.byref(blocks)),
+            "sweep kernel occupancy query")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, blocks.value
+
+
+def grid_blocks(n_active: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of a persistent launch over a list of `n_active` lanes: as
+    many as the card holds at once (`sms` x `blocks_per_sm`), but no more
+    than the list needs at one lane a thread, and at least one."""
+    need = -(-n_active // THREADS)
+    return max(1, min(sms * max(blocks_per_sm, 1), need))
+
+
+def thread_slot_use(events: torch.Tensor) -> float:
+    """Share of the thread slots that run events when each thread runs the
+    lane at its own index for `events[i]` events (one thread per lane in
+    pid order): sum(n_i) over the sum over warps of 32 * max(n_i), a last
+    partial warp padded with idle slots."""
+    n = events.shape[0]
+    pad = torch.zeros((-n) % 32, dtype=events.dtype, device=events.device)
+    per_warp = torch.cat([events, pad]).reshape(-1, 32)
+    slots = 32 * per_warp.max(dim=1).values.sum()
+    return float(events.sum()) / float(slots) if float(slots) else 1.0
+
+
+class SweepBuffers:
+    """The sweep loop's device buffers for one state on one device, kept
+    by the caller between censuses: the six counters [facets, collisions,
+    lanes still working (the next list's length), the list cursor, lane
+    events run, warp event steps] and the two lane lists of a launch (its
+    own and the next, swapped after each launch).  `n_active` is the
+    length of the next launch's list, None when the next launch covers
+    every lane (the first of a census, or of a shard that received
+    migrants).  counts[4] / (32 * counts[5]) is the share of the thread
+    slots of the launches so far that ran events."""
+
+    def __init__(self, device):
+        self.counts = torch.zeros(6, dtype=torch.int64, device=device)
+        self.device = self.counts.device            # with its index
+        self.lists = [torch.empty(0, dtype=torch.int32, device=self.device)
+                      for _ in range(2)]
+        self.start_census()
+
+    def start_census(self) -> None:
+        """The next launch is a census's first: it covers every lane."""
+        self.n_active = None
+
+    def slot_use(self) -> float:
+        """counts[4] / (32 * counts[5]) (a host read)."""
+        events, steps = (int(v) for v in self.counts[4:6].tolist())
+        return events / (32 * steps) if steps else 1.0
 
 
 _DTYPES = {"x": torch.float32, "y": torch.float32,
@@ -169,13 +256,17 @@ def state_pointers(p: ctypes.Structure, state: ParticleState) -> None:
 def table_fields(p: ctypes.Structure, geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection) -> None:
     """Set a kernel's cross-section and RNG fields: entry counts, same_xs,
-    the mode codes, and in table mode the tables' device pointers."""
+    the mode codes, and the device pointers of the analytic grids or, in
+    table mode, of the tables."""
     p.scatter_entries = scatter_tab.nentries
     p.absorb_entries = absorb_tab.nentries
     p.same_xs = int(geom.same_xs)
     p.rng = RNG_SCHEMES[geom.rng_scheme]
     p.xs_mode = int(not scatter_tab.analytic)
-    if not scatter_tab.analytic:
+    if scatter_tab.analytic:
+        p.scatter_grid = scatter_tab.analytic_grid.data_ptr()
+        p.absorb_grid = absorb_tab.analytic_grid.data_ptr()
+    else:
         p.scatter_keys = scatter_tab.keys.data_ptr()
         p.scatter_values = scatter_tab.values.data_ptr()
         p.absorb_keys = absorb_tab.keys.data_ptr()
@@ -183,25 +274,24 @@ def table_fields(p: ctypes.Structure, geom: Geometry,
 
 
 def sweep_params(state: ParticleState, tally: torch.Tensor,
-                 counts: torch.Tensor, regions: tuple | None, geom: Geometry,
+                 regions: tuple | None, geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection,
-                 master_key: int, inv_ntotal: float, max_events: int,
-                 x_off=None, y_off=None) -> _SweepParams:
-    """The parameters of one launch, after check_inputs: `counts` is the
-    (3,) int64 [facets, collisions, lanes still working] the kernel adds
-    to, `regions` is rect_arrays(geom.regions), or None for a grid deck,
-    and `x_off`/`y_off` the window (None: none)."""
+                 master_key: int, inv_ntotal: float, x_off=None,
+                 y_off=None) -> _SweepParams:
+    """The parameters of a census's launches, after check_inputs: `regions`
+    is rect_arrays(geom.regions), or None for a grid deck, and `x_off`/
+    `y_off` the window (None: none).  sweep_round sets the fields of each
+    launch (lists, grid, events, counters)."""
     check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel")
-    if max_events < 1:
-        raise ValueError(f"max_events must be >= 1, got {max_events}")
+    if state.n >= 2**31:
+        raise ValueError(f"sweep kernel: lane lists are int32, so at most "
+                         f"2**31 - 1 lanes, got {state.n}")
     p = _SweepParams()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
-    p.counts = counts.data_ptr()
     table_fields(p, geom, scatter_tab, absorb_tab)
     p.master_key = int(master_key)
     p.n = state.n
-    p.max_events = int(max_events)
     window_fields(p, geom, x_off, y_off)
     # ctypes rounds each Python float to float32 as np.float32 does.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
@@ -236,44 +326,70 @@ def sweep_chunk_plain(state: ParticleState, tally: torch.Tensor,
 sweep_chunk_plain.calls = 0
 
 
-def launch_sweep(params: _SweepParams, device: torch.device) -> None:
-    """One launch of the sweep kernel on `device`'s current stream; does
-    not wait for it."""
+def sweep_round(params: _SweepParams, buffers: SweepBuffers,
+                max_events: int = MAX_EVENTS) -> None:
+    """One launch on the buffers' device and its current stream, over the
+    next list of `buffers` (every lane when it has none), of at most
+    `max_events` events per lane; the lanes still working after it make
+    the next list, whose length counts[2] holds once the launch is done.
+    Does not wait for it."""
+    if max_events < 1:
+        raise ValueError(f"max_events must be >= 1, got {max_events}")
+    b = buffers
+    lanes = params.n if b.n_active is None else b.n_active
+    if b.n_active is None and b.lists[1].shape[0] < params.n:
+        # Room for every lane (a state grows only before a list-less launch)
+        b.lists = [torch.empty(params.n, dtype=torch.int32,
+                               device=b.device) for _ in range(2)]
+    params.active = None if b.n_active is None else b.lists[0].data_ptr()
+    params.next = b.lists[1].data_ptr()
+    params.n_active = lanes
+    params.counts = b.counts.data_ptr()
+    params.max_events = int(max_events)
+    params.blocks = grid_blocks(lanes, *resident_blocks(
+        params.xs_mode, params.density_mode, params.rng, b.device))
     lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check_launch(
-            lib, lib.nt_sweep_launch(ctypes.byref(params), stream),
-            "sweep kernel")
-    sweep_chunk_kernel.launches += 1
+    with torch.cuda.device(b.device):
+        b.counts[2:4].zero_()
+        if lanes > 0:
+            stream = torch.cuda.current_stream().cuda_stream
+            build.check_launch(
+                lib, lib.nt_sweep_launch(ctypes.byref(params), stream),
+                "sweep kernel")
+            sweep_chunk_kernel.launches += 1
+    b.lists.reverse()               # the next list is the next launch's
 
 
 def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
                        geom: Geometry, scatter_tab: CrossSection,
                        absorb_tab: CrossSection, master_key: int,
                        inv_ntotal: float, max_events: int = MAX_EVENTS,
-                       x_off=None, y_off=None):
+                       x_off=None, y_off=None,
+                       buffers: SweepBuffers | None = None):
     """Run every lane to census or death (or, under the window `x_off`/
     `y_off`, until it leaves the window) with the CUDA sweep kernel.
 
     Updates `state`'s tensors and `tally` in place (no copy of the 14
-    state arrays).  Returns (state, nfacets, ncollisions, nlaunches).
+    state arrays).  `buffers` holds the loop's buffers between calls (new
+    ones when None).  Returns (state, nfacets, ncollisions, nlaunches).
     """
-    # [facets, collisions, lanes still working after the launch]
-    counts = torch.zeros(3, dtype=torch.int64, device=state.device)
     regions = (None if geom.regions is None
                else rect_arrays(geom.regions, state.device))
-    params = sweep_params(state, tally, counts, regions, geom, scatter_tab,
-                          absorb_tab, master_key, inv_ntotal, max_events,
-                          x_off, y_off)
+    params = sweep_params(state, tally, regions, geom, scatter_tab,
+                          absorb_tab, master_key, inv_ntotal, x_off, y_off)
+    if buffers is None:
+        buffers = SweepBuffers(state.device)
+    buffers.start_census()
+    buffers.counts.zero_()
     launches = 0
     while True:
-        launch_sweep(params, state.device)
+        sweep_round(params, buffers, max_events)
         launches += 1
-        if int(counts[2]) == 0:      # waits for the launch
+        working = int(buffers.counts[2])          # waits for the launch
+        if working == 0:
             break
-        counts[2].zero_()
-    nf, nc = (int(v) for v in counts[:2].tolist())
+        buffers.n_active = working
+    nf, nc = (int(v) for v in buffers.counts[:2].tolist())
     return state, nf, nc, launches
 
 

@@ -12,16 +12,18 @@ files in the reference's text format.  `CrossSection.lookup` has three
 modes: analytic (keys and values in closed form, no memory reads),
 quartic (O(1) bracketing index into a stored table) and searchsorted (any
 ascending table: max{i : keys[i] <= E}, clipped to [0, n-2]).  The CUDA
-kernels implement the analytic mode and, for any stored table, a binary
+kernels implement the analytic mode, reading its keys and values from
+`analytic_grid` instead of dividing, and, for any stored table, a binary
 search with the searchsorted index over the `keys`/`values` tensors
-(csrc/common.cuh `table_lookup`).  On the generated grid the quartic
-index equals the searchsorted one for every energy from 1e-2 eV up (below
-it the quartic formula takes the root of a negative number), which
-tests/test_torch_table.py checks.
+(csrc/common.cuh `xs_lookup`, `table_lookup`).  On the generated grid the
+quartic index equals the searchsorted one for every energy from 1e-2 eV
+up (below it the quartic formula takes the root of a negative number),
+which tests/test_torch_table.py checks.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -178,6 +180,19 @@ class CrossSection:
         """values[i] from the formula: 1e3*(M - i)/M + 1."""
         m = const(float(self.nentries), dtype)
         return const(1.0e3, dtype) * div(m - i.to(dtype), m) + 1.0
+
+    @functools.cached_property
+    def analytic_grid(self) -> torch.Tensor:
+        """The analytic mode's keys and values at every index 0..n-1, as
+        one (n, 2) float32 tensor of (key, value) rows on the table's
+        device, made at first use: the grid that the CUDA kernels'
+        analytic lookup reads (csrc/common.cuh xs_lookup).  _key_at and
+        _val_at make it, so its entries are bitwise those the plain
+        version computes."""
+        i = torch.arange(self.nentries, dtype=torch.int32,
+                         device=self.keys.device)
+        return torch.stack([self._key_at(i, torch.float32),
+                            self._val_at(i, torch.float32)], dim=1)
 
     def _analytic_index(self, energy: torch.Tensor) -> torch.Tensor:
         """lookup_index without the one-off nudge gathers."""
