@@ -108,7 +108,35 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    made on the card) must equal CrossSection._key_at/_val_at evaluated on
    the CPU at every index, bitwise: the CPU tests prove the lookup through
    that grid bitwise equal to the plain lookup.
-18. Result: a JSON line on the kernels (each with its bound, and the times
+18. Non-uniform mesh at full width: a copy of the scatter deck with
+   `mesh_stretch_x 1.0002` and `mesh_stretch_y 0.9998` (4000^2, cell
+   widths from 0.45x to 2.2x of the uniform pitch) at PLAIN_N = 1,000,000
+   particles through `driver.main` in float64: it must print `Engine:
+   plain.` and `Transport: sweep.` (no kernel takes a deck without a
+   pitch), and a re-run with `--engine plain` must give the same per-step
+   counts and the tally to 1e-12.  The same deck in float32 (global
+   coordinates) prints its facet count beside float64's.  Then `tools
+   compare` on the card (the plain engine in float64 against the native
+   C++ engine) at 20,000 particles on the deck cut to 400^2 must print
+   AGREE.
+19. fast_math 0: the scatter deck with `fast_math 0` (edges and density
+   gathered per cell, table cross-sections) at PLAIN_N particles in
+   float64 and float32, plain engine and sweep transport; its float64
+   tally within 1e-3 of the kernel engine's float32 tally of the fast_math
+   1 deck at PLAIN_N.
+20. Checkpoint and restore on the kernel path: csp through `driver.main
+   --iterations 5 --checkpoint`, then `--restore` on one device and on
+   2x2 blocks (`--shards 4 --decomposition spatial2d`).  Steps 1-5 and the
+   one-device steps 6-10 must have phase 7's per-step counts, the blocks'
+   steps 6-10 those of a one-device run restored from the same checkpoint
+   over rects split at the blocks' grid lines; both tallies within 1e-3 of
+   omp3's.  Prints the npz write and restore times and its size.
+21. Dumps and traces: stream with `visit_dump 1` in a temporary directory
+   (energy1.dat must sum to the tally, density1.dat to the live count of
+   step 1) and split with `--trace-dir` (the Chrome trace must name the
+   flight kernel's and the segment deposit's CUDA kernels), each beside
+   the same run without, for their cost.
+22. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
@@ -152,6 +180,9 @@ BLOCK = (2000, 2000, 2000, 2000)  # (x_off, y_off, nx, ny) of phases 12-13
 SHARDS = ["--shards", "4", "--decomposition"]
 SMALL_ROWS, SMALL_MAX = 1024, 16384   # phase 5's forced-small segment buffer
 BIG_N = 64_000_000               # phase 16's split particles
+PLAIN_N = 1_000_000              # phases 18-19's particles (plain engine)
+STRETCH = "mesh_stretch_x 1.0002\nmesh_stretch_y 0.9998\n"
+TRACE_KERNELS = ("flight_kernel", "tile_kernel")   # phase 21's symbols
 
 # The card's peaks (NVIDIA's H100 SXM data sheet and Hopper white paper).
 PEAK_BYTES = 3.35e12
@@ -561,6 +592,7 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
               for fn, attr in wrappers}
     out = tee.buf.getvalue()
     name = label or deck.split("/")[-1].split(".")[0]
+    main_path.walls[name] = wall
     if rc != 0:
         fail(f"{name}: driver.main returned {rc}")
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
@@ -570,6 +602,7 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
                        r"Collisions\s+(\d+)", out)
     migrated = re.findall(r"Migrated (\d+) particles between shards", out)
     flights = flight_steps(out)
+    iterations = re.findall(r"Iteration  (\d+)", out)
     for i, (st, nf, nc) in enumerate(steps, 1):
         st, ev = float(st), int(nf) + int(nc)
         moved = (f", {migrated[i - 1]} lanes migrated" if migrated else "")
@@ -577,12 +610,15 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
               f"{flights[i - 1]['pieces']} pieces, lanes first "
               f"{flights[i - 1]['first']} / median {flights[i - 1]['median']}"
               f" / last {flights[i - 1]['last']}" if flights else "")
-        print(f"[main {name}] step {i}: {ev} events in {st:.4f} s = "
-              f"{ev / st:.4e} events/s{moved}{fl}")
+        print(f"[main {name}] step {iterations[i - 1]}: {ev} events in "
+              f"{st:.4f} s = {ev / st:.4e} events/s{moved}{fl}")
     print(f"[main {name}] counts {counts}, tally {total:.12e}, wall "
           f"{wall:.1f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return out, total, counts
+
+
+main_path.walls = {}     # wall seconds of each main path, by label
 
 
 def check_kernel_path(name: str, out: str, c: dict,
@@ -885,6 +921,209 @@ def census_repeats(tmp: str) -> dict:
     return r
 
 
+def check_plain_path(name: str, out: str, c: dict) -> None:
+    """Fail unless a main path of phases 18-19 ran the plain sweep (a deck
+    without a pitch: no kernel takes it) and launched no kernel."""
+    if "Engine: plain." not in out or "Transport: sweep." not in out:
+        fail(f"{name}: want 'Engine: plain.' and 'Transport: sweep.'")
+    if c["sweep_chunk_plain"] == 0 or any(
+            c[k] for k in ("sweep_chunk_kernel", "flight_chunk_kernel",
+                           "deposit_segments_kernel")):
+        fail(f"{name}: counts {c} (want the plain sweep and no kernel)")
+
+
+def step_seconds(out: str) -> list:
+    return [float(t) for t in re.findall(r"Step time\s+(\S+)s", out)]
+
+
+def captured(fn, *args) -> tuple:
+    """(return value, stdout) of fn(*args), the output also shown."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = fn(*args)
+    return rc, tee.buf.getvalue()
+
+
+def plain_decks(tmp: str, torch, driver, wrappers) -> dict:
+    """Phases 18-19: the decks without a pitch on the plain engine.
+    Returns their step times and counts, and the launches of phase 19's
+    kernel run."""
+    from neutral_tpu_torch import tools
+
+    res = {}
+    n = ["--nparticles", str(PLAIN_N)]
+    f64 = ["--dtype", "float64"]
+
+    def plain(deck, argv, label):
+        out, total, c = main_path(deck, torch, driver, wrappers, argv=argv,
+                                  label=label)
+        check_plain_path(label, out, c)
+        res[label] = {"step_s": step_seconds(out), "counts": step_counts(out),
+                      "tally": total}
+        return out, total
+
+    # ---- 18. non-uniform mesh -----------------------------------------
+    os.mkdir(os.path.join(tmp, "stretched"))
+    deck = deck_copy(SCATTER, os.path.join(tmp, "stretched"), STRETCH)
+    _, total = plain(deck, [*n, *f64], "stretched f64")
+    _, again = plain(deck, [*n, *f64, "--engine", "plain"],
+                     "stretched f64 re-run")
+    counts = res["stretched f64"]["counts"]
+    if (res["stretched f64 re-run"]["counts"] != counts or counts[0][1] == 0
+            or not abs(again - total) <= 1e-12 * abs(total)):
+        fail(f"stretched f64: the re-run gave {res['stretched f64 re-run']}"
+             f" against {res['stretched f64']}")
+    _, total32 = plain(deck, n, "stretched f32")
+    f32, f64_ = res["stretched f32"]["counts"][0], counts[0]
+    print(f"[stretched] float32 (global coordinates) step 1: {f32[0]} facets,"
+          f" {f32[1]} collisions; float64: {f64_[0]} facets, {f64_[1]} "
+          f"collisions; facets x{f32[0] / max(f64_[0], 1):.2f}; tally "
+          f"{total32:.9e} against {total:.9e} (rel "
+          f"{abs(total32 - total) / abs(total):.3e})", flush=True)
+    t0 = time.perf_counter()
+    rc, out = captured(tools.main, ["compare", deck, "--nparticles", "20000",
+                                    "--mesh-scale", "10"])
+    print(f"[stretched] tools compare on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0 or "AGREE (port sweep transport on cuda" not in out:
+        fail("tools compare on the card did not print AGREE")
+
+    # ---- 19. fast_math 0 ------------------------------------------------
+    os.mkdir(os.path.join(tmp, "fast_math0"))
+    deck0 = deck_copy(SCATTER, os.path.join(tmp, "fast_math0"),
+                      "fast_math 0\n")
+    _, total0 = plain(deck0, [*n, *f64], "fast_math 0 f64")
+    plain(deck0, n, "fast_math 0 f32")
+    out, totalk, c = main_path(SCATTER, torch, driver, wrappers, argv=n,
+                               label="scatter kernel 1M")
+    res["launches"] = check_kernel_path("scatter kernel 1M", out, c,
+                                        passed=False)
+    rel = abs(total0 - totalk) / abs(totalk)
+    print(f"[fast_math 0] float64 plain tally {total0:.9e} against the "
+          f"fast_math 1 kernel's float32 {totalk:.9e}: rel {rel:.3e}",
+          flush=True)
+    if not rel <= 1e-3:
+        fail(f"fast_math 0: tally {rel:.3e} from the kernel engine's (> 1e-3)")
+    return res
+
+
+def restored_split_counts(ck: str, torch, driver, flight) -> list:
+    """Per-step counts of steps 6-10 of a one-device kernel run of csp
+    restored from `ck` over its rects split at the 2x2 blocks' grid lines
+    (the geometry of spatial2d's windows)."""
+    import dataclasses
+    sim = driver.Simulation(driver.load_config(FLIGHT_DECKS[2]), quiet=True)
+    sim.geom = dataclasses.replace(sim.geom, rects=flight.split_rects(
+        sim.geom.rects, [2000], [2000]))
+    start = sim.restore(ck) + 1
+    return [(m.nfacets, m.ncollisions)
+            for m in (sim.step(t) for t in range(start, sim.cfg.niters + 1))]
+
+
+def checkpoint_restore(tmp: str, torch, driver, flight, wrappers,
+                       csp_counts: list) -> dict:
+    """Phase 20.  Returns the npz's size, write and restore times and the
+    launches of its main paths."""
+    ck = os.path.join(tmp, "csp5.npz")
+    csp = FLIGHT_DECKS[2]
+    res = {"launches": [0, 0, 0, 0]}
+
+    def run(argv, label):
+        out, total, c = main_path(csp, torch, driver, wrappers, argv=argv,
+                                  label=label)
+        res["launches"] = [a + b for a, b in zip(
+            res["launches"], check_kernel_path(label, out, c, passed=False))]
+        return out, total
+
+    out, _ = run(["--iterations", "5", "--checkpoint", ck], "csp 1-5")
+    res["write_s"] = float(re.search(r"Wrote checkpoint .* in (\S+) s",
+                                     out)[1])
+    res["bytes"] = os.path.getsize(ck)
+    if step_counts(out) != csp_counts[:5]:
+        fail(f"csp 1-5: counts {step_counts(out)} differ from phase 7's")
+    for argv, label in (([], "csp 6-10 restored"),
+                        ([*SHARDS, "spatial2d"], "spatial2d csp 6-10 "
+                                                 "restored")):
+        out, total = run(["--restore", ck, *argv], label)
+        got = re.search(r"Restored checkpoint at step 5 in (\S+) s", out)
+        if got is None or "Iteration  1\n" in out:
+            fail(f"{label}: did not resume at step 6")
+        res[f"{label} restore_s"] = float(got[1])
+        want = (csp_counts[5:] if not argv
+                else restored_split_counts(ck, torch, driver, flight))
+        rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
+        print(f"[{label}] steps 6-10 counts equal to "
+              f"{'phase 7' if not argv else 'a split-rect restored run'}: "
+              f"{step_counts(out) == want}; tally {total:.9e}, rel {rel:.3e} "
+              f"from omp3's", flush=True)
+        if step_counts(out) != want or not rel <= 1e-3:
+            fail(f"{label}: counts {step_counts(out)} (want {want}), tally "
+                 f"rel {rel:.3e} from omp3's")
+    print(f"[checkpoint] csp at step 5: {res['bytes']} bytes of npz, "
+          f"written in {res['write_s']:.3f} s, restored in "
+          f"{res['csp 6-10 restored restore_s']:.3f} s (one device) and "
+          f"{res['spatial2d csp 6-10 restored restore_s']:.3f} s (2x2 "
+          "blocks)", flush=True)
+    return res
+
+
+def dumps_and_trace(tmp: str, torch, driver, wrappers) -> dict:
+    """Phase 21.  Returns the dump's and the trace's wall times beside the
+    same runs without, and the launches of its main paths."""
+    import numpy as np
+    res = {"launches": [0, 0, 0, 0]}
+
+    def run(deck, argv, label, passed=True):
+        out, total, c = main_path(deck, torch, driver, wrappers, argv=argv,
+                                  label=label)
+        res["launches"] = [a + b for a, b in zip(
+            res["launches"], check_kernel_path(label, out, c, passed))]
+        return out, total
+
+    dump = os.path.join(tmp, "dump")
+    os.mkdir(dump)
+    deck = deck_copy(FLIGHT_DECKS[0], dump, "visit_dump 1\n")
+    shutil.copy("problems/neutral.tests", dump)
+    run(FLIGHT_DECKS[0], [], "stream again")
+    cwd = os.getcwd()
+    os.chdir(dump)
+    try:
+        out, total = run(deck, [], "stream visit_dump")
+    finally:
+        os.chdir(cwd)
+    energy = np.fromfile(os.path.join(dump, "energy1.dat"))
+    density = np.fromfile(os.path.join(dump, "density1.dat"))
+    live = int(re.search(r"Handled (\d+) particles", out)[1])
+    files = sorted(f for f in os.listdir(dump) if f[-4:] in (".bov", ".dat"))
+    print(f"[visit_dump] {files}: energy1.dat sums to {energy.sum():.12e} "
+          f"(tally {total:.12e}), density1.dat to {density.sum():.0f} "
+          f"(live {live}); wall {main_path.walls['stream visit_dump']:.2f} s "
+          f"against {main_path.walls['stream again']:.2f} s without",
+          flush=True)
+    if (abs(energy.sum() - total) > 1e-12 * abs(total)
+            or density.sum() != live or len(files) != 6):
+        fail("the visit dumps do not hold the tally and the live count")
+
+    trace = os.path.join(tmp, "trace")
+    run(FLIGHT_DECKS[1], [], "split again", passed=False)
+    run(FLIGHT_DECKS[1], ["--trace-dir", trace], "split traced",
+        passed=False)
+    path = os.path.join(trace, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels) for k in TRACE_KERNELS}
+    print(f"[trace] {os.path.getsize(path)} bytes, {len(events)} events, "
+          f"{len(kernels)} CUDA kernels, of them {found}; wall "
+          f"{main_path.walls['split traced']:.2f} s against "
+          f"{main_path.walls['split again']:.2f} s without", flush=True)
+    if not all(found.values()):
+        fail(f"the trace names no {[k for k, v in found.items() if not v]}")
+    res.update({k: main_path.walls[k] for k in (
+        "stream again", "stream visit_dump", "split again", "split traced")})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -973,6 +1212,7 @@ def main() -> int:
         raster_launches += c["deposit_segments_kernel"]
         overflows += c["deposit_segments_kernel.overflows"]
         if name == "csp":
+            csp_counts = step_counts(out)
             csp_steps = csp_entry(out, driver, c["flight_chunk_kernel"])
             rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
             print(f"[main csp] tally {total:.9e} against omp3's "
@@ -1029,7 +1269,21 @@ def main() -> int:
     # ---- 17. the analytic grid -----------------------------------------
     analytic_grid_check(torch, driver)
 
-    # ---- 18. result -----------------------------------------------------
+    # ---- 18-21. decks without a pitch, checkpoints, dumps, traces ---------
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    plain = plain_decks(tmp.name, torch, driver, wrappers)
+    restored = checkpoint_restore(tmp.name, torch, driver, flight, wrappers,
+                                  csp_counts)
+    io_runs = dumps_and_trace(tmp.name, torch, driver, wrappers)
+    tmp.cleanup()
+    for launches in (plain["launches"], restored["launches"],
+                     io_runs["launches"]):
+        sweep_launches += launches[0]
+        flight_launches += launches[1]
+        raster_launches += launches[2]
+        overflows += launches[3]
+
+    # ---- 22. result -----------------------------------------------------
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {

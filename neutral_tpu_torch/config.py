@@ -55,8 +55,8 @@ class SimConfig:
     problems: tuple[ProblemRegion, ...] = ()
     # Deck grammar beyond the reference (a (ny, nx) density grid, and
     # non-uniform edges from files or a geometric stretch).  Parsed here
-    # exactly as in neutral_tpu; the port runs density grids and rejects
-    # non-uniform meshes until they are ported (ROADMAP).
+    # exactly as in neutral_tpu.  Non-uniform decks run the plain engine's
+    # edge-array sweep, as they run JAX's XLA sweep.
     density_file: str = ""
     edgex_file: str = ""
     edgey_file: str = ""
@@ -76,6 +76,13 @@ class SimConfig:
 
     def with_(self, **kw) -> "SimConfig":
         return replace(self, **kw)
+
+    @property
+    def uses_density_grid(self) -> bool:
+        """Material density comes from a (ny, nx) grid, not analytic regions:
+        grid decks (density_file) and the fast_math 0 verification mode,
+        whose transport gathers each cell's density."""
+        return bool(self.density_file) or not self.fast_math
 
     @property
     def uniform_mesh(self) -> bool:
@@ -144,6 +151,9 @@ def load_config(problem_path: str) -> SimConfig:
         source=source,
         problems=tuple(problems),
         visit_dump=bool(pf.get_int("visit_dump", 0)),
+        # A deck key of the port's alone: neutral_tpu sets fast_math only
+        # from code (SimConfig(fast_math=False)).
+        fast_math=bool(pf.get_int("fast_math", 1)),
         rng=rng_scheme,
         expected_tally=expected,
         params_path=problem_path,

@@ -30,7 +30,10 @@ flight_kernel.py with raster_kernel.py) and needs a CUDA device; `plain`
 runs the plain PyTorch version on any device, and on CUDA only when asked
 for by name; `auto` is `kernel` on CUDA in float32 and `plain` otherwise
 (`pick_engine`: the kernels are float32 only, as `neutral_tpu`'s are).
-Grid decks (`density_file`) run on the sweep transport only.
+Grid decks (`density_file`) run on the sweep transport only.  Decks
+without a uniform pitch, non-uniform meshes and `fast_math 0`, run the
+plain engine's edge-array sweep (`auto` picks `plain` and `sweep` for
+them; `kernel` and `flight` raise), as JAX runs them on its XLA sweep.
 
 Runs go to the card unless the caller asks for the CPU (`device="cpu"`,
 `--device cpu`); without a card a CUDA run raises or exits non-zero, and
@@ -40,6 +43,12 @@ parallel/ (`--decomposition replicated|spatial|spatial2d`), several shards
 may share one card; with one it runs `Simulation`.  Both share
 `SimulationBase`: set-up, the step print, validation and the phase
 breakdown.
+
+Around the loop: VisIt dumps (`visit_dump 1`), npz checkpoints that any
+layout restores (`--checkpoint`, `--restore`: the run resumes at the step
+after the checkpoint), a torch.profiler trace (`--trace-dir`), and
+`--backend native`, the history-based C++ engine on the host
+(native/), which prints the same per-step contract.
 
 The JAX driver's power-of-4 compaction ladder is not ported.  On the
 flight transport its work is done in the card's own form: each flight
@@ -60,13 +69,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import io_utils
 from .config import SimConfig, load_config
 from .constants import VALIDATE_TOLERANCE
 from .flight import disjoint_rects, flight_chunk_plain
 from .flight_kernel import FlightBuffers, flight_chunk_kernel, launch_records
 from .mesh import build_mesh, density_grid, region_cell_bounds
-from .particles import inject_particles
-from .profiler import Profile
+from .particles import (ParticleState, inject_particles, merge_states,
+                        state_from_numpy)
+from .profiler import Profile, maybe_trace
 from .sweep_kernel import (MAX_EVENTS, SweepBuffers, sweep_chunk_kernel,
                            sweep_chunk_plain)
 from .transport import Geometry, begin_timestep, use_local_coords
@@ -109,52 +120,96 @@ def load_cross_sections(cfg: SimConfig, dtype: torch.dtype, device
 
 def make_geometry(cfg: SimConfig, dtype: torch.dtype = torch.float32,
                   device=None) -> Geometry:
-    """Geometry of the whole domain, with the uniform pitch.
+    """Geometry of the whole domain, in `neutral_tpu`'s three cases
+    (neutral_tpu/driver.py:183-222):
 
-    A region deck carries the problem regions as cell rectangles
-    (mesh.region_cell_bounds) and their disjoint partition for the flight
-    transport (flight.disjoint_rects).  A grid deck (`density_file`)
-    carries its density field in `dtype` on `device` instead, with no
-    regions and no rects, as `neutral_tpu`'s grid geometry does.
+    * a region deck (fast_math) carries the problem regions as cell
+      rectangles (mesh.region_cell_bounds) and, on a uniform mesh, the
+      pitch and the regions' disjoint partition for the flight transport
+      (flight.disjoint_rects);
+    * a grid deck (`density_file`) carries its density field in `dtype` on
+      `device`, with no regions and no rects, and the pitch on a uniform
+      mesh;
+    * fast_math 0 carries no pitch and no regions: the density of the
+      region-built grid (mesh.density_grid), gathered per cell.
+
+    Every geometry carries the edge arrays; one without a pitch (dx = dy =
+    0: a non-uniform mesh, or fast_math 0) gathers its facet edges there.
     """
-    if not cfg.uniform_mesh:
-        raise NotImplementedError(
-            "non-uniform meshes are not ported yet (ROADMAP: deck variants)")
-    if not (cfg.fast_math or cfg.density_file):
-        raise NotImplementedError(
-            "fast_math 0 without a density_file (neutral_tpu's verification "
-            "mode, edge-array facets) is not ported yet (ROADMAP: deck "
-            "variants)")
     if cfg.rng not in ("threefry", "pcg64si"):
         raise ValueError(f"unknown rng scheme {cfg.rng!r}")
-    pitch = dict(nx=cfg.nx, ny=cfg.ny, dx=cfg.width / cfg.nx,
-                 dy=cfg.height / cfg.ny, rng_scheme=cfg.rng)
-    if cfg.density_file:
+    pitched = cfg.uniform_mesh and (cfg.fast_math or bool(cfg.density_file))
+    mesh = build_mesh(cfg, dtype, device)
+    base = dict(nx=cfg.nx, ny=cfg.ny,
+                dx=cfg.width / cfg.nx if pitched else 0.0,
+                dy=cfg.height / cfg.ny if pitched else 0.0,
+                rng_scheme=cfg.rng, edgex=mesh.edgex, edgey=mesh.edgey)
+    if cfg.uses_density_grid:
         return Geometry(regions=None, rects=None,
-                        density=density_grid(cfg, dtype, device), **pitch)
+                        density=density_grid(cfg, dtype, device), **base)
     regions = region_cell_bounds(cfg)
     return Geometry(regions=regions,
-                    rects=disjoint_rects(regions, cfg.nx, cfg.ny), **pitch)
+                    rects=(disjoint_rects(regions, cfg.nx, cfg.ny)
+                           if cfg.uniform_mesh else None), **base)
 
 
-def pick_engine(engine: str, device: torch.device,
-                dtype: torch.dtype) -> str:
+def pitch_refusal(cfg: SimConfig) -> str | None:
+    """Why the deck's geometry has no uniform pitch, which the CUDA kernels
+    and the flight transport need (neutral_tpu's reasons for its Pallas
+    kernels, neutral_tpu/driver.py:312-327); None when it has one."""
+    if not cfg.uniform_mesh:
+        return ("requires a uniform mesh; this deck declares non-uniform "
+                "edges (edgex_file/edgey_file/mesh_stretch_*)")
+    if not (cfg.fast_math or cfg.density_file):
+        return ("requires fast_math (a fast_math 0 deck gathers its edges "
+                "and density per cell)")
+    return None
+
+
+def pick_engine(engine: str, device: torch.device, dtype: torch.dtype,
+                cfg: SimConfig | None = None) -> str:
     """The engine that runs a deck, by `neutral_tpu`'s rule for its kernels
-    (they take only float32): `auto` is `kernel` on a CUDA device in
-    float32 and `plain` everywhere else; `kernel` raises on the CPU and in
-    float64, which the kernels do not implement."""
+    (they take only float32 and a uniform pitch): `auto` is `kernel` on a
+    CUDA device in float32 and `plain` everywhere else, and for a deck
+    without a pitch (`cfg`: pitch_refusal); `kernel` raises on the CPU, in
+    float64 and for such a deck, which the kernels do not implement."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine}")
+    refusal = None if cfg is None else pitch_refusal(cfg)
     if engine == "auto":
         return ("kernel" if device.type == "cuda" and dtype == torch.float32
-                else "plain")
+                and refusal is None else "plain")
     if engine == "kernel" and device.type != "cuda":
         raise ValueError(f"engine='kernel' needs a CUDA device, got {device}")
     if engine == "kernel" and dtype != torch.float32:
         raise ValueError("engine='kernel' needs dtype float32 (the kernels "
                          f"are float32 only), got {dtype}; use --engine "
                          "plain or auto")
+    if engine == "kernel" and refusal is not None:
+        raise ValueError(f"engine='kernel' {refusal}; use --engine auto or "
+                         "plain (the edge-array sweep)")
     return engine
+
+
+def pick_transport(cfg: SimConfig, transport: str) -> str:
+    """The transport that runs a deck: `auto` by auto_transport; `flight`
+    raises for a deck that has no uniform pitch or no constant-density
+    regions (a grid deck), which closed-form flight needs."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport must be one of {TRANSPORTS}, got "
+                         f"{transport}")
+    if transport == "auto":
+        return auto_transport(cfg)
+    if transport == "flight":
+        if not cfg.uniform_mesh:
+            raise ValueError(f"transport='flight' {pitch_refusal(cfg)}; use "
+                             "--transport auto or sweep")
+        if cfg.uses_density_grid:
+            raise ValueError("transport='flight' requires fast_math and "
+                             "constant-density region rectangles; a "
+                             "density_file or fast_math 0 deck runs on the "
+                             "sweep transport")
+    return transport
 
 
 def auto_transport(cfg: SimConfig) -> str:
@@ -201,6 +256,15 @@ def within_tolerance(expected: float, actual: float, tol: float) -> bool:
     return abs(actual - expected) / abs(expected) <= tol
 
 
+def validation_line(expected: float | None, total: float) -> str:
+    """The reference's verdict on a tally sum against its golden."""
+    if expected is None:
+        return "WARNING: could not find a golden result to validate against"
+    if within_tolerance(expected, total, VALIDATE_TOLERANCE):
+        return "PASSED validation."
+    return f"FAILED validation: expected {expected:.12e}, got {total:.12e}"
+
+
 class SimulationBase:
     """What every simulation shares: the deck's geometry, mesh and
     cross-sections on a device, the engine and transport, the timestep
@@ -210,24 +274,13 @@ class SimulationBase:
 
     def __init__(self, cfg: SimConfig, *, device="cuda", engine: str = "auto",
                  transport: str = "auto", quiet: bool = False):
-        if cfg.visit_dump:
-            raise NotImplementedError("visit_dump output is not ported yet "
-                                      "(ROADMAP: io_utils)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.quiet = quiet
-        self.engine = pick_engine(engine, self.device, self.dtype)
+        self.engine = pick_engine(engine, self.device, self.dtype, cfg)
+        self.transport = pick_transport(cfg, transport)
         check_device(self.device)
-        if transport not in TRANSPORTS:
-            raise ValueError(f"transport must be one of {TRANSPORTS}, got "
-                             f"{transport}")
-        self.transport = (auto_transport(cfg) if transport == "auto"
-                          else transport)
-        if self.transport == "flight" and cfg.density_file:
-            raise ValueError("transport='flight' needs constant-density "
-                             "rectangles; a density_file deck runs on the "
-                             "sweep transport")
 
         self.geom = make_geometry(cfg, self.dtype, self.device)
         self.mesh = build_mesh(cfg, dtype=self.dtype, device=self.device)
@@ -241,16 +294,21 @@ class SimulationBase:
             self.geom = dataclasses.replace(self.geom, same_xs=True)
         self.elapsed_sim_time = 0.0
         self.wallclock = 0.0
+        self.last_step = 0          # the last step run (or restored)
         self.profile = Profile(self.device)
         self.step_metrics: list[StepMetrics] = []
 
+    def coords(self) -> str:
+        """Where x/y are measured from: "cell-local" on the sweep transport
+        in float32 with a pitch (use_local_coords), "global" otherwise (the
+        flight transport, float64, and decks without a pitch)."""
+        return ("cell-local" if self.transport == "sweep"
+                and use_local_coords(self.geom, self.dtype) else "global")
+
     def source(self) -> dict:
-        """inject_particles' source box and cell-local frame: the sweep
-        transport in float32 keeps cell-local positions, the flight
-        transport global ones in every dtype (flight pieces span cells)."""
+        """inject_particles' source box and cell-local frame (coords)."""
         cfg = self.cfg
-        local = (self.transport == "sweep"
-                 and use_local_coords(self.geom, self.dtype))
+        local = self.coords() == "cell-local"
         return dict(source_x0=cfg.source.xpos * cfg.width,
                     source_y0=cfg.source.ypos * cfg.height,
                     source_width=cfg.source.width * cfg.width,
@@ -259,18 +317,61 @@ class SimulationBase:
                     local_coords=(self.geom.dx, self.geom.dy) if local
                     else None)
 
+    # -- what subclasses provide -------------------------------------------
     def step(self, tt: int) -> StepMetrics:
         raise NotImplementedError
 
     def host_tally(self) -> np.ndarray:
         raise NotImplementedError
 
-    def run(self) -> float:
-        """Full timestep loop.  Returns the global tally sum."""
+    def states(self) -> list[ParticleState]:
+        """The particle states that hold every live lane once."""
+        raise NotImplementedError
+
+    def set_state(self, fields: dict, tally: np.ndarray) -> None:
+        """Put a checkpoint's lanes and global tally in place."""
+        raise NotImplementedError
+
+    # -- checkpoints and dumps ------------------------------------------------
+    def checkpoint(self, path: str, step: int) -> None:
+        """Write an npz checkpoint (io_utils.save_checkpoint) after `step`:
+        one lane per particle in pid order (particles.merge_states)."""
+        io_utils.save_checkpoint(path, merge_states(self.states()),
+                                 self.host_tally(), step,
+                                 self.elapsed_sim_time, coords=self.coords())
+
+    def restore(self, path: str) -> int:
+        """Load an npz checkpoint written by any layout (or by neutral_tpu)
+        whose coordinates match this run's; returns its step.  The run
+        goes on with `run(start=step + 1)`."""
+        fields, tally, step, t = io_utils.load_checkpoint(
+            path, expect_coords=self.coords())
+        self.set_state(fields, tally)
+        self.elapsed_sim_time = t
+        self.last_step = step
+        return step
+
+    def dump_density(self, tt: int) -> None:
+        """density<tt>.bov/.dat: live particles per cell."""
+        dens = sum(io_utils.particle_density(s, self.cfg.nx, self.cfg.ny)
+                   for s in self.states())
+        io_utils.write_bov(f"density{tt}", dens, variable="density",
+                           time=self.elapsed_sim_time)
+
+    def run(self, start: int = 1) -> float:
+        """The timestep loop from step `start` to the deck's last.  Returns
+        the global tally sum.  With `visit_dump`, it writes neutral_tpu's
+        files into the working directory: density<tt> before step tt,
+        energy<tt> (the tally) after it, and density<niters + 1> at the
+        end."""
         out = self._print
-        for tt in range(1, self.cfg.niters + 1):
+        dump = self.cfg.visit_dump
+        for tt in range(start, self.cfg.niters + 1):
             out(f"\nIteration  {tt}")
+            if dump:
+                self.dump_density(tt)
             m = self.step(tt)
+            self.last_step = tt
             self.wallclock += m.step_time
             if self.engine == "kernel" and self.transport == "flight":
                 # As below, with flight pieces: a piece is one collision,
@@ -309,9 +410,16 @@ class SimulationBase:
             out(f"Facet Events / s {m.nfacets / m.step_time:.2e}")
             out(f"Collision Events / s {m.ncollisions / m.step_time:.2e}")
             self.elapsed_sim_time += self.cfg.dt
+            if dump:
+                io_utils.write_bov(
+                    f"energy{tt}",
+                    self.host_tally().reshape(self.cfg.ny, self.cfg.nx),
+                    variable="energy", time=self.elapsed_sim_time)
             if self.elapsed_sim_time >= self.cfg.sim_end:
                 out("Reached end of simulation time")
                 break
+        if dump:
+            self.dump_density(self.cfg.niters + 1)
         result = self.validate()
         out(f"Final Wallclock {self.wallclock:.9f}s")
         out(f"Elapsed Simulation Time {self.elapsed_sim_time:.6f}s")
@@ -329,14 +437,7 @@ class SimulationBase:
         total = float(self.host_tally().sum())
         out = self._print
         out(f"Final global_energy_tally {total:.15e}")
-        expected = self.cfg.expected_tally
-        if expected is None:
-            out("WARNING: could not find a golden result to validate against")
-        elif within_tolerance(expected, total, VALIDATE_TOLERANCE):
-            out("PASSED validation.")
-        else:
-            out(f"FAILED validation: expected {expected:.12e}, "
-                f"got {total:.12e}")
+        out(validation_line(self.cfg.expected_tally, total))
         return total
 
     def _print(self, msg: str) -> None:
@@ -415,6 +516,14 @@ class Simulation(SimulationBase):
         """Flat (ny*nx,) tally as float64 on the host."""
         return self.tally.cpu().numpy().astype(np.float64)
 
+    def states(self) -> list[ParticleState]:
+        return [self.state]
+
+    def set_state(self, fields: dict, tally: np.ndarray) -> None:
+        self.state = state_from_numpy(fields, self.device, self.dtype)
+        self.tally = torch.as_tensor(np.asarray(tally),
+                                     device=self.device).to(self.tally.dtype)
+
 
 def make_simulation(cfg: SimConfig, decomposition: str, devices: list,
                     **kw) -> SimulationBase:
@@ -464,6 +573,18 @@ def main(argv: list[str] | None = None) -> int:
                         "visible card, torch.cuda.device_count(); 1 on the "
                         "CPU); shards take the cards in turn, so several "
                         "may share one")
+    p.add_argument("--checkpoint", default=None, metavar="PATH.npz",
+                   help="write an npz checkpoint after the final step")
+    p.add_argument("--restore", default=None, metavar="PATH.npz",
+                   help="resume from an npz checkpoint (of any layout, or "
+                        "of neutral_tpu): the run starts at the step after "
+                        "it")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace (CPU and CUDA "
+                        "activity, Chrome format) of the run here")
+    p.add_argument("--backend", default="torch", choices=["torch", "native"],
+                   help="torch = this package (default); native = the "
+                        "history-based C++/OpenMP engine on the host")
     args = p.parse_args(argv)
 
     cfg = load_config(args.params)
@@ -476,9 +597,23 @@ def main(argv: list[str] | None = None) -> int:
                         ny=cfg.ny // args.mesh_scale, expected_tally=None)
     if args.dtype:
         cfg = cfg.with_(dtype=args.dtype, tally_dtype=args.dtype)
+    if args.backend == "native":
+        # The host engine has no checkpoint, trace or decomposition; reject
+        # rather than ignore them.
+        unsupported = {"--checkpoint": args.checkpoint,
+                       "--restore": args.restore,
+                       "--trace-dir": args.trace_dir,
+                       "--shards": args.shards not in (None, 1),
+                       "--decomposition": args.decomposition != "replicated"}
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            p.error(f"--backend native does not support: {', '.join(bad)}")
+        return run_native(cfg)
     device = torch.device(args.device)
-    # Refuse an engine the deck cannot take before touching the device.
-    pick_engine(args.engine, device, getattr(torch, cfg.dtype))
+    # Refuse an engine or transport the deck cannot take before touching
+    # the device.
+    pick_engine(args.engine, device, getattr(torch, cfg.dtype), cfg)
+    pick_transport(cfg, args.transport)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"neutral_tpu_torch: --device {args.device}, but "
               "torch.cuda.is_available() is False; pass --device cpu to "
@@ -496,7 +631,52 @@ def main(argv: list[str] | None = None) -> int:
     print(f"Engine: {sim.engine}.")
     print(f"Transport: {sim.transport}.")
     print(f"Decomposition: {getattr(sim, 'layout', 'none (1 device)')}.")
-    sim.run()
+    start = 1
+    if args.restore:
+        t0 = time.perf_counter()
+        start = sim.restore(args.restore) + 1
+        print(f"Restored checkpoint at step {start - 1} in "
+              f"{time.perf_counter() - t0:.3f} s")
+    with maybe_trace(args.trace_dir):
+        sim.run(start)
+    if args.checkpoint:
+        t0 = time.perf_counter()
+        sim.checkpoint(args.checkpoint, sim.last_step)
+        print(f"Wrote checkpoint {args.checkpoint} at step {sim.last_step} "
+              f"in {time.perf_counter() - t0:.3f} s")
+    return 0
+
+
+def run_native(cfg: SimConfig) -> int:
+    """Run the deck on the native engine (native/) with the same per-step
+    print and validation."""
+    from . import native
+
+    sim = native.NativeSimulation(cfg)
+    print(f"Native engine with {native.load().nt_num_threads()} threads.")
+    wallclock = elapsed = 0.0
+    for tt in range(1, cfg.niters + 1):
+        print(f"\nIteration  {tt}")
+        t0 = time.perf_counter()
+        nf, nc, nproc = sim.step(tt)
+        step_time = time.perf_counter() - t0
+        wallclock += step_time
+        print(f"Handled {nproc} particles")
+        print(f"Step time  {step_time:.4f}s")
+        print(f"Wallclock  {wallclock:.4f}s")
+        print(f"Facets     {nf}")
+        print(f"Collisions {nc}")
+        print(f"Facet Events / s {nf / step_time:.2e}")
+        print(f"Collision Events / s {nc / step_time:.2e}")
+        elapsed += cfg.dt
+        if elapsed >= cfg.sim_end:
+            print("Reached end of simulation time")
+            break
+    total = float(sim.tally.sum())
+    print(f"Final global_energy_tally {total:.15e}")
+    print(validation_line(cfg.expected_tally, total))
+    print(f"Final Wallclock {wallclock:.9f}s")
+    print(f"Elapsed Simulation Time {elapsed:.6f}s")
     return 0
 
 

@@ -34,6 +34,12 @@ spatial flight run equals a single-device run over
 is lost or duplicated, and every live lane sits on its owner shard when a
 step ends.
 
+A checkpoint holds one lane per particle in pid order whatever the layout
+(particles.merge_states), and a restore puts each live lane of any
+checkpoint on its owner shard (`restore_owner`, the counterpart of JAX's
+`_partition_by_owner`) and each shard's part of the tally in place: a
+checkpoint of one layout restores into any other.
+
 JAX's flight_sharded.py has no module of its own here: its decomposed
 flight step is the flight branch of the same loop, whose lists of working
 lanes do the work of JAX's flight compaction.  Not ported, as TPU
@@ -56,7 +62,7 @@ from ..driver import SimulationBase, StepMetrics, check_device
 from ..flight import flight_chunk_plain
 from ..flight_kernel import (FlightBuffers, after_round, event_phases,
                              flight_params, flight_round, launch_records)
-from ..particles import STATE_FIELDS, ParticleState
+from ..particles import STATE_FIELDS, ParticleState, state_from_numpy
 from ..sweep_kernel import (MAX_EVENTS, SweepBuffers, rect_arrays,
                             sweep_chunk_plain, sweep_params, sweep_round)
 from ..transport import Geometry, begin_timestep, window_cells
@@ -185,6 +191,32 @@ class DecomposedSimulation(SimulationBase):
     def owner(self, cellx: torch.Tensor, celly: torch.Tensor) -> torch.Tensor:
         """The int64 owner shard of each cell (spatial modes)."""
         raise NotImplementedError
+
+    def restore_owner(self, fields: dict) -> np.ndarray:
+        """The shard that takes each lane of a checkpoint's field dict."""
+        return self.owner(torch.from_numpy(fields["cellx"]),
+                          torch.from_numpy(fields["celly"])).numpy()
+
+    def tally_part(self, tally: np.ndarray, s: int) -> np.ndarray:
+        """Shard s's part of a flat global tally."""
+        raise NotImplementedError
+
+    # -- checkpoints ----------------------------------------------------------
+    def states(self) -> list[ParticleState]:
+        return [sh.state for sh in self.shards]
+
+    def set_state(self, fields: dict, tally: np.ndarray) -> None:
+        """Each live lane of `fields` onto its owner shard (restore_owner),
+        each shard's part of `tally` onto its tally."""
+        owner = self.restore_owner(fields)
+        live = ~np.asarray(fields["dead"], dtype=bool)
+        for s, sh in enumerate(self.shards):
+            sel = np.flatnonzero((owner == s) & live)
+            sh.state = state_from_numpy({f: np.asarray(fields[f])[sel]
+                                         for f in STATE_FIELDS},
+                                        sh.device, self.dtype)
+            sh.tally = torch.as_tensor(self.tally_part(tally, s),
+                                       device=sh.device).to(sh.tally.dtype)
 
     # -- set-up helpers ---------------------------------------------------
     def new_shard(self, device, geom: Geometry, pid: torch.Tensor,

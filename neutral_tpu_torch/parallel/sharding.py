@@ -9,6 +9,8 @@ private full-domain partial tally; `host_tally` sums the partials once, as
 omp3's final reduction does.  No lane ever leaves its shard, so the loop
 of common.py runs with no window and no migration, and a shard whose
 lanes have all finished stops launching without waiting for the others.
+A restore gives each shard the lanes of its pid range, and shard 0 the
+whole restored tally.
 """
 
 from __future__ import annotations
@@ -24,12 +26,21 @@ class ShardedSimulation(DecomposedSimulation):
 
     decomposition = "replicated"
 
+    def pids_per_shard(self) -> int:
+        return -(-self.cfg.nparticles // self.nshards)
+
     def make_shards(self) -> list:
-        n = self.cfg.nparticles
-        per = -(-n // self.nshards)
+        n, per = self.cfg.nparticles, self.pids_per_shard()
         return [self.new_shard(dev, self.geom, torch.arange(
                     min(i * per, n), min((i + 1) * per, n), device=dev))
                 for i, dev in enumerate(self.devices)]
+
+    def restore_owner(self, fields: dict) -> np.ndarray:
+        return np.minimum(np.asarray(fields["pid"], dtype=np.int64)
+                          // self.pids_per_shard(), self.nshards - 1)
+
+    def tally_part(self, tally: np.ndarray, s: int) -> np.ndarray:
+        return np.asarray(tally) if s == 0 else np.zeros_like(tally)
 
     def host_tally(self) -> np.ndarray:
         """Flat (ny*nx,) global tally: the sum of the shards' partials, in

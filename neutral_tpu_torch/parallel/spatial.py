@@ -96,6 +96,14 @@ class SpatialSimulation(DecomposedSimulation):
                 y_off=y0 if self.py > 1 else None))
         return shards
 
+    def tally_part(self, tally: np.ndarray, s: int) -> np.ndarray:
+        """Shard s's block of the flat global tally, row-major."""
+        iy, ix = divmod(s, self.px)
+        return np.ascontiguousarray(
+            np.asarray(tally).reshape(self.cfg.ny, self.cfg.nx)[
+                iy * self.rows:(iy + 1) * self.rows,
+                ix * self.cols:(ix + 1) * self.cols]).reshape(-1)
+
     def host_tally(self) -> np.ndarray:
         """Flat (ny*nx,) global tally assembled from the shards' blocks, in
         float64 on the host."""

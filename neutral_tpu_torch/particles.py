@@ -12,9 +12,9 @@ values stay below 2^32).  PyTorch's uint32 support is partial, and the
 RNG (rng.py) works on int64 anyway.
 
 `state_from_numpy` / `state_to_numpy` convert to and from the field dict
-that `neutral_tpu.io_utils.save_checkpoint` writes (uint32 pid/counter,
-bool dead, int32 cells), so a JAX state or a JAX npz checkpoint feeds the
-port directly.
+of an npz checkpoint (io_utils; uint32 pid/counter, bool dead, int32
+cells, as `neutral_tpu.io_utils.save_checkpoint` writes it), so a JAX
+state or a JAX npz checkpoint feeds the port directly, and back.
 """
 
 from __future__ import annotations
@@ -67,9 +67,10 @@ class ParticleState:
                                 for f in fields(self)})
 
 
-def state_from_numpy(d, device=None) -> ParticleState:
+def state_from_numpy(d, device=None, dtype=None) -> ParticleState:
     """ParticleState from a field dict of numpy arrays (a JAX state's
-    fields, or the arrays of a JAX npz checkpoint).
+    fields, or the arrays of an npz checkpoint), its float fields in
+    `dtype` (default: as stored).
 
     All lanes are kept, including the dead padding lanes the JAX driver
     adds: they are inert in every sweep.
@@ -79,8 +80,26 @@ def state_from_numpy(d, device=None) -> ParticleState:
         a = np.asarray(d[f])
         if f in ("pid", "counter"):
             a = a.astype(np.int64)
-        out[f] = torch.tensor(a, device=device)     # a copy
+        t = torch.tensor(a, device=device)     # a copy
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out[f] = t
     return ParticleState(**out)
+
+
+def merge_states(states: list[ParticleState]) -> dict[str, np.ndarray]:
+    """One field dict, in pid order, of states that hold every particle
+    between them (one device's state, or a decomposed run's shards): one
+    lane per pid, its live lane where it has one.  The dead lanes that
+    migration leaves behind and the padding of grown shards are dropped; a
+    state with one lane per pid in pid order comes back as it is."""
+    parts = [state_to_numpy(s) for s in states]
+    d = {f: np.concatenate([p[f] for p in parts]) for f in STATE_FIELDS}
+    order = np.lexsort((d["dead"], d["pid"]))     # by pid, live first
+    pid = d["pid"][order]
+    first = np.ones(pid.shape, dtype=bool)
+    first[1:] = pid[1:] != pid[:-1]
+    return {f: a[order[first]] for f, a in d.items()}
 
 
 def state_to_numpy(state: ParticleState) -> dict[str, np.ndarray]:

@@ -1,13 +1,19 @@
-"""Step-level wall-clock timers (port of `neutral_tpu/profiler.py`).
+"""Step-level wall-clock timers and an opt-in trace (port of
+`neutral_tpu/profiler.py`).
 
 The counterpart of the reference harness's profiler entries (main.c:54-59,
 82, 99, 115-116).  PyTorch returns before the device finishes, so on a
 CUDA device every stop first waits for the device with
 `torch.cuda.synchronize()`: a step's time covers its device work.
+`maybe_trace` records a torch.profiler trace (CPU, and CUDA when a card is
+there: the kernels of csrc/ show under their own names) in place of
+neutral_tpu's jax.profiler trace.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -50,3 +56,21 @@ class Profile:
             lines.append(f"  {e.name:<24s} {e.time:.6f}s")
         lines.append(f"  {'TOTAL':<24s} {self.total():.6f}s")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: str | None):
+    """Trace the region with torch.profiler into `trace_dir`/trace.json (a
+    Chrome trace); nothing when `trace_dir` is None."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

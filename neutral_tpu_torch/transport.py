@@ -16,10 +16,12 @@ float32 runs on one device reproduce the kernel's per-lane state bitwise.
 Division by a constant goes through `xs.div` (a true division on every
 backend).
 
-Covered: analytic density regions or a density grid, uniform pitch,
-analytic or table cross-sections, threefry or pcg64si draws, float32 or
-float64, and the spatial window of a decomposed run (`x_off`/`y_off`, the
-counterparts of `neutral_tpu`'s `x_off_dyn`/`y_off_dyn`; parallel/spatial.py).
+Covered: analytic density regions or a density grid, a uniform pitch or
+per-cell edge arrays (non-uniform meshes and fast_math 0 decks, whose
+geometry has no pitch), analytic or table cross-sections, threefry or
+pcg64si draws, float32 or float64, and the spatial window of a decomposed
+run (`x_off`/`y_off`, the counterparts of `neutral_tpu`'s
+`x_off_dyn`/`y_off_dyn`; parallel/spatial.py).
 The TPU engine's `gate` and carried `density` arguments belong to its
 rings and its grid-mode stale freeze, and are not ported.
 
@@ -60,7 +62,11 @@ class Geometry:
 
     * ``dx``/``dy`` — uniform cell pitches; facet distances use
       ``edge = cell * pitch`` (or the cell-local frame, see
-      use_local_coords).
+      use_local_coords).  0 on a non-uniform mesh and under fast_math 0:
+      facet distances then gather ``edgex``/``edgey``.
+    * ``edgex``/``edgey`` — the whole mesh's (nx+1,) and (ny+1,) edge
+      coordinates in the state dtype, on the state's device, indexed by
+      global cell (mesh.build_edges).
     * ``regions`` — ``((ix0, ix1, iy0, iy1, density), ...)`` global
       cell-index rectangles, later entries overriding earlier ones over a
       background of 0 (mesh.region_cell_bounds); None for a grid deck.
@@ -85,6 +91,8 @@ class Geometry:
     same_xs: bool = False
     rects: tuple | None = None
     density: torch.Tensor | None = field(default=None, compare=False)
+    edgex: torch.Tensor | None = field(default=None, compare=False)
+    edgey: torch.Tensor | None = field(default=None, compare=False)
     global_nx: int | None = None
     global_ny: int | None = None
 
@@ -103,8 +111,9 @@ def use_local_coords(geom: Geometry, dtype: torch.dtype) -> bool:
     mesh to only ~1e-3 of a cell near the far edge; near-facet collisions
     then turn into spurious facet crossings (~100x on the scatter deck).
     Offsets from the particle's own cell keep ~1e-7 of a cell everywhere.
-    float64 keeps global coordinates, and so does the flight transport in
-    every dtype (flight.flight_core).
+    float64 keeps global coordinates, and so do the flight transport in
+    every dtype (flight.flight_core) and a geometry without a pitch
+    (non-uniform meshes, fast_math 0), as in neutral_tpu.
     """
     return bool(geom.dx) and dtype == torch.float32
 
@@ -142,7 +151,15 @@ def _density_of(cellx: torch.Tensor, celly: torch.Tensor,
 
 
 def _facet_edges(state: ParticleState, geom: Geometry):
-    """(ex_lo, ex_hi, ey_lo, ey_hi) bounding edges of each particle's cell."""
+    """(ex_lo, ex_hi, ey_lo, ey_hi) bounding edges of each particle's cell:
+    from the pitch, or gathered from the edge arrays by global cell when
+    the geometry has none (neutral_tpu's gather branch)."""
+    if not geom.dx:
+        gnx, gny = geom.global_nx, geom.global_ny
+        return (geom.edgex[state.cellx.clamp(0, gnx - 1)],
+                geom.edgex[(state.cellx + 1).clamp(0, gnx)],
+                geom.edgey[state.celly.clamp(0, gny - 1)],
+                geom.edgey[(state.celly + 1).clamp(0, gny)])
     dtype = state.dtype
     dx = const(geom.dx, dtype)
     dy = const(geom.dy, dtype)

@@ -295,11 +295,13 @@ def test_port_imports_no_jax():
         "'neutral_tpu_torch.') if m.name != 'neutral_tpu_torch.__main__']\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'neutral_tpu_torch.parallel.spatial' in names\n"
+        "for n in ('parallel.spatial', 'io_utils', 'tools', 'native',\n"
+        "          'profiler'):\n"
+        "    assert 'neutral_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120).stdout
-    assert int(out) >= 20
+    assert int(out) >= 23
 
 
 @pytest.mark.cuda
