@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --process <CLI arguments>` is one process of
+phase 23: `python -m neutral_tpu_torch <CLI arguments>`, its kernels'
+launch counts printed after the run.)
+
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. Device: needs `torch.cuda.is_available()` (no CPU run); prints the
@@ -136,7 +140,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    step 1) and split with `--trace-dir` (the Chrome trace must name the
    flight kernel's and the segment deposit's CUDA kernels), each beside
    the same run without, for their cost.
-22. Result: a JSON line on the kernels (each with its bound, and the times
+22. The oracle on the card: the port's plain engine in float64 on the card,
+   on both transports, against the port's sequential oracle
+   (neutral_tpu_torch/oracle.py, float64 on the host, no JAX) on the four
+   deck families of tests/test_transport.py (48^2, 25-40 particles, 1-4
+   steps): per-step facet, collision and processed counts equal, dead
+   flags equal, the tally per cell to 1e-9 on the sweep transport (on the
+   flight transport, which deposits whole segments, its sum to 1e-11 and
+   each cell to 1e-7, as tests/test_flight.py holds JAX's).
+23. Two processes sharing the card: for each run of MP_RUNS, two
+   processes of `python -m neutral_tpu_torch <deck> --shards 4
+   --decomposition D --coordinator 127.0.0.1:<free port> --num-processes
+   2 --process-id r` (through `--process`), 2 shards each on cuda:0,
+   at full size on the kernel engine: scatter replicated and on 2x2
+   blocks, stream and csp on 2x2 blocks.  Each must print `Distributed:
+   2 processes, 4 shards.`, `PASSED validation.` (csp: within 1e-3 of
+   omp3's tally) and phase 14's per-step counts of the same deck and
+   layout; both processes must have launched the kernels and no plain
+   version.  Prints each run's step times beside phase 14's, its
+   exchange time and the lanes sent between the processes per step.
+   Every process has a timeout (MP_TIMEOUT), after which all are killed.
+24. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
@@ -183,6 +207,26 @@ BIG_N = 64_000_000               # phase 16's split particles
 PLAIN_N = 1_000_000              # phases 18-19's particles (plain engine)
 STRETCH = "mesh_stretch_x 1.0002\nmesh_stretch_y 0.9998\n"
 TRACE_KERNELS = ("flight_kernel", "tile_kernel")   # phase 21's symbols
+# Phase 22: tests/test_transport.py's families (density, x, y, w, h) regions
+ORACLE_DECKS = {
+    "scatter": dict(problems=((1.0e4, 0, 0, 1, 1),), initial_energy=1.0e3,
+                    nparticles=30, niters=2, source=(0.2, 0.2, 0.6, 0.6)),
+    "stream": dict(problems=((1.0e-30, 0, 0, 1, 1),), initial_energy=1.0e6,
+                   nparticles=40, niters=1, source=(0.45, 0.45, 0.1, 0.1)),
+    "csp": dict(problems=((1.0e-30, 0, 0, 1, 1), (1.0e4, 0.4, 0.4, 0.2, 0.2)),
+                initial_energy=1.0e4, nparticles=25, niters=4,
+                source=(0.1, 0.1, 0.2, 0.2)),
+    "split": dict(problems=((1.0e-30, 0.0, 0.0, 1.0, 0.5),
+                            (1.0e3, 0.0, 0.5, 1.0, 0.5)),
+                  initial_energy=2.5e4, nparticles=25, niters=1,
+                  source=(0.4, 0.4, 0.2, 0.2)),
+}
+# Phase 23: (name, deck, decomposition) over two processes, 4 shards.
+MP_RUNS = (("scatter", SCATTER, "replicated"),
+           ("scatter", SCATTER, "spatial2d"),
+           ("stream", FLIGHT_DECKS[0], "spatial2d"),
+           ("csp", FLIGHT_DECKS[2], "spatial2d"))
+MP_TIMEOUT = 300                 # seconds a phase 23 process may take
 
 # The card's peaks (NVIDIA's H100 SXM data sheet and Hopper white paper).
 PEAK_BYTES = 3.35e12
@@ -571,9 +615,28 @@ def flight_steps(out: str) -> list:
         r"\nCollisions\s+(\d+)", out)]
 
 
+def kernel_wrappers():
+    """(wrapper, count attribute) of every kernel and plain version of
+    the main paths."""
+    from neutral_tpu_torch import (flight, flight_kernel, raster_kernel,
+                                   sweep_kernel)
+    return [(sweep_kernel.sweep_chunk_kernel, "launches"),
+            (sweep_kernel.sweep_chunk_plain, "calls"),
+            (flight_kernel.flight_chunk_kernel, "launches"),
+            (flight.flight_chunk_plain, "calls"),
+            (raster_kernel.deposit_segments_kernel, "launches"),
+            (raster_kernel.deposit_segments_kernel, "overflows")]
+
+
 def reset_counts(wrappers):
     for fn, attr in wrappers:
         setattr(fn, attr, 0)
+
+
+def read_counts(wrappers) -> dict:
+    return {fn.__name__ if attr in ("launches", "calls")
+            else f"{fn.__name__}.{attr}": getattr(fn, attr)
+            for fn, attr in wrappers}
 
 
 def main_path(deck, torch, driver, wrappers, argv=(), label=None):
@@ -587,9 +650,7 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     with contextlib.redirect_stdout(tee):
         rc = driver.main([deck, *argv])
     wall = time.perf_counter() - t0
-    counts = {fn.__name__ if attr in ("launches", "calls")
-              else f"{fn.__name__}.{attr}": getattr(fn, attr)
-              for fn, attr in wrappers}
+    counts = read_counts(wrappers)
     out = tee.buf.getvalue()
     name = label or deck.split("/")[-1].split(".")[0]
     main_path.walls[name] = wall
@@ -766,7 +827,7 @@ def decomposed_paths(tmp, torch, driver, flight, wrappers,
     from neutral_tpu_torch.mesh import build_density
 
     res = {"sweep_launches": 0, "flight_launches": 0, "raster_launches": 0,
-           "overflows": 0}
+           "overflows": 0, "runs": {}}
 
     def run(deck, decomposition, name, want_counts):
         out, total, c = main_path(deck, torch, driver, wrappers,
@@ -787,6 +848,8 @@ def decomposed_paths(tmp, torch, driver, flight, wrappers,
         res["raster_launches"] += launches[2]
         res["overflows"] += launches[3]
         counts = step_counts(out)
+        res["runs"][f"{decomposition} {name}"] = {
+            "counts": counts, "step_s": step_seconds(out)}
         if want_counts is not None and counts != want_counts:
             fail(f"{decomposition} {name}: per-step counts {counts} differ "
                  f"from the single-device run's {want_counts}")
@@ -1124,6 +1187,144 @@ def dumps_and_trace(tmp: str, torch, driver, wrappers) -> dict:
     return res
 
 
+def oracle_on_card(torch, driver) -> None:
+    """Phase 22."""
+    import numpy as np
+    from neutral_tpu_torch import ProblemRegion, SimConfig, SourceBox, oracle
+
+    for kind, d in ORACLE_DECKS.items():
+        cfg = SimConfig(
+            nx=48, ny=48, width=1.0, height=1.0, dt=1e-7, niters=d["niters"],
+            nparticles=d["nparticles"], initial_energy=d["initial_energy"],
+            source=SourceBox(*d["source"]),
+            problems=tuple(ProblemRegion(*r) for r in d["problems"]),
+            dtype="float64", tally_dtype="float64")
+        t0 = time.perf_counter()
+        tally, want, parts = oracle.run_config(cfg)
+        t_oracle = time.perf_counter() - t0
+        dead = np.array([p.dead for p in parts])
+        for transport in ("sweep", "flight"):
+            t0 = time.perf_counter()
+            sim = driver.Simulation(cfg, transport=transport, quiet=True)
+            if sim.engine != "plain" or sim.device.type != "cuda":
+                fail(f"oracle {kind}: {sim.engine} engine on {sim.device}")
+            got = [dict(nf=m.nfacets, nc=m.ncollisions, nproc=m.nprocessed)
+                   for m in (sim.step(t) for t in range(1, cfg.niters + 1))]
+            card = sim.host_tally().reshape(tally.shape)
+            wall = time.perf_counter() - t0
+            err = float(np.abs(card - tally).max() / np.abs(tally).max())
+            if transport == "sweep":
+                close = np.allclose(card, tally, rtol=1e-9, atol=1e-300)
+            else:
+                close = (abs(card.sum() - tally.sum())
+                         <= 1e-11 * abs(tally.sum())
+                         and np.allclose(card, tally, rtol=1e-7, atol=1e-30))
+            print(f"[oracle {kind} {transport}] counts {got} (oracle's "
+                  f"equal: {got == want}); tally {card.sum():.15e} against "
+                  f"{tally.sum():.15e}, largest cell difference {err:.3e} "
+                  f"of the largest cell; card {wall:.2f} s, oracle "
+                  f"{t_oracle:.2f} s", flush=True)
+            if (got != want or tally.sum() == 0.0 or not close
+                    or not np.array_equal(sim.state.dead.cpu().numpy(),
+                                          dead)):
+                fail(f"oracle {kind} {transport}: the plain engine on the "
+                     "card differs from the oracle")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_processes(decomposed: dict) -> list:
+    """Phase 23.  Returns the launches of both processes of every run,
+    summed as check_kernel_path returns them."""
+    launches = [0, 0, 0, 0]
+    for name, deck, decomposition in MP_RUNS:
+        label = f"{decomposition} {name}"
+        argv = [deck, *SHARDS, decomposition, "--coordinator",
+                f"127.0.0.1:{free_port()}", "--num-processes", "2"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--process", *argv,
+             "--process-id", str(r)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            fail(f"two processes, {label}: a process took over "
+                 f"{MP_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-6000:])
+                fail(f"two processes, {label}: process {r} exited "
+                     f"{p.returncode}")
+        out = outs[0]
+        counts = [json.loads(re.search(r"^COUNTS (.*)$", o, re.M)[1])
+                  for o in outs]
+        if ("Distributed: 2 processes, 4 shards." not in out
+                or f"Decomposition: {decomposition}, 4 shards on cuda:0"
+                not in out or "Engine: kernel." not in out):
+            fail(f"two processes, {label}: not a 2-process kernel run")
+        total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
+        if name == "csp":
+            rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
+            print(f"[two processes {label}] tally {total:.9e} against "
+                  f"omp3's {CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
+            if not rel <= 1e-3:
+                fail(f"two processes, {label}: tally {rel:.3e} from omp3's")
+        elif "PASSED validation." not in out:
+            fail(f"two processes, {label}: no 'PASSED validation.'")
+        flight = "Transport: flight." in out
+        for r, c in enumerate(counts):
+            ran = (c["flight_chunk_kernel"] > 0
+                   and c["deposit_segments_kernel"] > 0 if flight
+                   else c["sweep_chunk_kernel"] > 0)
+            if (not ran or c["sweep_chunk_plain"] != 0
+                    or c["flight_chunk_plain"] != 0):
+                fail(f"two processes, {label}: process {r} counts {c}")
+            launches = [a + c[k] for a, k in zip(launches, (
+                "sweep_chunk_kernel", "flight_chunk_kernel",
+                "deposit_segments_kernel",
+                "deposit_segments_kernel.overflows"))]
+        ref = decomposed["runs"][label]
+        if step_counts(out) != ref["counts"]:
+            fail(f"two processes, {label}: per-step counts "
+                 f"{step_counts(out)} differ from phase 14's {ref['counts']}")
+        exchange = re.search(r"PHASE BREAKDOWN.*exchange=([0-9.]+)s", out)
+        across = [int(k) for k in re.findall(
+            r"Migrated \d+ particles between shards, (\d+) of them", out)]
+        print(f"[two processes {label}] per-step counts equal to phase "
+              f"14's; step times {step_seconds(out)} s against phase 14's "
+              f"{ref['step_s']} s; exchange "
+              f"{float(exchange[1]) if exchange else 0.0:.4f} s in all; "
+              f"lanes between the processes per step {across}; launches "
+              f"per process {counts}; wall {wall:.1f} s", flush=True)
+    return launches
+
+
+def process_main(argv: list) -> int:
+    """`chip_smoke.py --process <CLI arguments>`: one process of phase 23,
+    driver.main(argv) with every count set to 0 just before it; its
+    counts are printed just after, on a line of their own."""
+    from neutral_tpu_torch import driver
+    wrappers = kernel_wrappers()
+    reset_counts(wrappers)
+    rc = driver.main(argv)
+    print(f"COUNTS {json.dumps(read_counts(wrappers))}", flush=True)
+    return rc
+
+
 def main() -> int:
     import torch
 
@@ -1153,12 +1354,7 @@ def main() -> int:
         if re.search(r"Compiling entry|registers|spill|bytes stack", line):
             print(f"[build] {line.strip()}")
 
-    wrappers = [(sweep_kernel.sweep_chunk_kernel, "launches"),
-                (sweep_kernel.sweep_chunk_plain, "calls"),
-                (flight_kernel.flight_chunk_kernel, "launches"),
-                (flight.flight_chunk_plain, "calls"),
-                (raster_kernel.deposit_segments_kernel, "launches"),
-                (raster_kernel.deposit_segments_kernel, "overflows")]
+    wrappers = kernel_wrappers()
 
     # ---- 3. sweep kernel against plain version --------------------------
     registers = sweep_registers(log)
@@ -1276,14 +1472,19 @@ def main() -> int:
                                   csp_counts)
     io_runs = dumps_and_trace(tmp.name, torch, driver, wrappers)
     tmp.cleanup()
+
+    # ---- 22. the oracle on the card ---------------------------------------
+    oracle_on_card(torch, driver)
+
+    # ---- 23. two processes sharing the card ---------------------------------
     for launches in (plain["launches"], restored["launches"],
-                     io_runs["launches"]):
+                     io_runs["launches"], two_processes(decomposed)):
         sweep_launches += launches[0]
         flight_launches += launches[1]
         raster_launches += launches[2]
         overflows += launches[3]
 
-    # ---- 22. result -----------------------------------------------------
+    # ---- 24. result -----------------------------------------------------
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {
@@ -1317,8 +1518,9 @@ def main() -> int:
          "shape": f"scatter deck, {COMPARE_SIZES[-1]} particles, 4000x4000 "
                   "mesh, one census; ms and plain_ms are whole-census times "
                   "(analytic, region, threefry); launches are summed over "
-                  "every main path, the decomposed ones included; the "
-                  "window mode's launches are the decomposed paths'"},
+                  "every main path, the decomposed ones and both processes "
+                  "of phase 23's runs included; the window mode's launches "
+                  "are phase 14's decomposed paths'"},
         {"name": "flight_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/flight.cu",
@@ -1343,7 +1545,8 @@ def main() -> int:
                   "bound_ms are the sums of the three; max_abs_err is the "
                   "largest per-cell tally difference; csp_10_steps is the "
                   "kernel over the 10 steps of csp's main path; launches "
-                  "sum every main path's"},
+                  "sum every main path's, both processes of phase 23's "
+                  "runs included"},
         {"name": "segment_deposit_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/raster.cu",
@@ -1367,8 +1570,8 @@ def main() -> int:
                   "split's and csp's step-1 rows and for the window-local "
                   "rows of split and stream in the 2000x2000 block; "
                   "launches and overflows (piece-buffer re-runs) are summed "
-                  "over every flight main path, the decomposed ones "
-                  "included"},
+                  "over every flight main path, the decomposed ones and "
+                  "both processes of phase 23's runs included"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1377,4 +1580,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(process_main(sys.argv[2:]) if sys.argv[1:2] == ["--process"]
+             else main())

@@ -50,6 +50,16 @@ after the checkpoint), a torch.profiler trace (`--trace-dir`), and
 `--backend native`, the history-based C++ engine on the host
 (native/), which prints the same per-step contract.
 
+A run may span processes, the counterpart of the reference's MPI launch
+(main.c:62-64): `--coordinator HOST:PORT --num-processes W --process-id
+r` in each of W processes, or `--distributed` under `torchrun`
+(parallel/distributed.py, gloo).  `--shards N` is then the global shard
+count, which W must divide; each process drives its N/W shards, on
+`cuda:(r % cards)` with `--device cuda`, always through a decomposition
+class (even with one shard each), and process 0 alone prints and writes
+files.  The printed counts are global; the step time and the phases are
+process 0's.
+
 The JAX driver's power-of-4 compaction ladder is not ported.  On the
 flight transport its work is done in the card's own form: each flight
 launch writes the lanes still working into a list, and the next launch
@@ -62,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -240,9 +251,12 @@ class StepMetrics:
     # and "raster" (the pieces and the segment deposits: device time from
     # CUDA events with the kernel engine, wall clock with the plain one)
     # and "loop" (the rest of the census's wall time: the host loop); a
-    # spatial decomposition adds "migrate" (wall clock).
+    # spatial decomposition adds "migrate" (wall clock), and over several
+    # processes "exchange", its part from packing the lanes bound for
+    # other processes to unpacking theirs (wall clock, waits included).
     phases: dict
     nmigrated: int = 0    # lanes moved between shards (spatial runs)
+    nexchanged: int = 0   # of those, lanes moved between processes
     # flight kernel: one record per launch (flight_kernel.launch_records):
     # its shard, lanes launched, pieces per lane, lanes still working after
     # it, segment rows written, whether rows were refused, device ms
@@ -296,6 +310,10 @@ class SimulationBase:
         self.wallclock = 0.0
         self.last_step = 0          # the last step run (or restored)
         self.profile = Profile(self.device)
+        from .parallel.distributed import rank, world
+        # process 0 of a run over several processes alone writes files
+        self.writes = rank() == 0
+        self.scope = f", process 0 of {world()}" if world() > 1 else ""
         self.step_metrics: list[StepMetrics] = []
 
     def coords(self) -> str:
@@ -335,10 +353,13 @@ class SimulationBase:
     # -- checkpoints and dumps ------------------------------------------------
     def checkpoint(self, path: str, step: int) -> None:
         """Write an npz checkpoint (io_utils.save_checkpoint) after `step`:
-        one lane per particle in pid order (particles.merge_states)."""
-        io_utils.save_checkpoint(path, merge_states(self.states()),
-                                 self.host_tally(), step,
-                                 self.elapsed_sim_time, coords=self.coords())
+        one lane per particle in pid order (particles.merge_states).  Every
+        process of a run calls it; process 0 writes."""
+        fields, tally = merge_states(self.states()), self.host_tally()
+        if self.writes:
+            io_utils.save_checkpoint(path, fields, tally, step,
+                                     self.elapsed_sim_time,
+                                     coords=self.coords())
 
     def restore(self, path: str) -> int:
         """Load an npz checkpoint written by any layout (or by neutral_tpu)
@@ -355,8 +376,9 @@ class SimulationBase:
         """density<tt>.bov/.dat: live particles per cell."""
         dens = sum(io_utils.particle_density(s, self.cfg.nx, self.cfg.ny)
                    for s in self.states())
-        io_utils.write_bov(f"density{tt}", dens, variable="density",
-                           time=self.elapsed_sim_time)
+        if self.writes:
+            io_utils.write_bov(f"density{tt}", dens, variable="density",
+                               time=self.elapsed_sim_time)
 
     def run(self, start: int = 1) -> float:
         """The timestep loop from step `start` to the deck's last.  Returns
@@ -381,10 +403,11 @@ class SimulationBase:
                 out(f"Handled {m.nprocessed} particles, with {m.nsweeps} "
                     f"event sweeps ({m.nlaunches} flight kernel launches "
                     "granting that many flight pieces per lane)")
-                out(f"Flight launch lanes: first {m.rounds[0]['lanes']}, "
-                    f"median {lanes[len(lanes) // 2]}, last "
-                    f"{m.rounds[-1]['lanes']}; segment rows "
-                    f"{sum(r['rows'] for r in m.rounds)}")
+                if m.rounds:
+                    out(f"Flight launch lanes: first {m.rounds[0]['lanes']}, "
+                        f"median {lanes[len(lanes) // 2]}, last "
+                        f"{m.rounds[-1]['lanes']}; segment rows "
+                        f"{sum(r['rows'] for r in m.rounds)}{self.scope}")
             elif self.engine == "kernel":
                 # No sweeps exist here: each lane runs its events in one
                 # thread.  The count printed in their place is kernel
@@ -401,7 +424,10 @@ class SimulationBase:
             else:
                 out(f"Handled {m.nprocessed} particles, "
                     f"with {m.nsweeps} event sweeps")
-            if "migrate" in m.phases:
+            if "exchange" in m.phases:
+                out(f"Migrated {m.nmigrated} particles between shards, "
+                    f"{m.nexchanged} of them between processes")
+            elif "migrate" in m.phases:
                 out(f"Migrated {m.nmigrated} particles between shards")
             out(f"Step time  {m.step_time:.4f}s")
             out(f"Wallclock  {self.wallclock:.4f}s")
@@ -411,10 +437,11 @@ class SimulationBase:
             out(f"Collision Events / s {m.ncollisions / m.step_time:.2e}")
             self.elapsed_sim_time += self.cfg.dt
             if dump:
-                io_utils.write_bov(
-                    f"energy{tt}",
-                    self.host_tally().reshape(self.cfg.ny, self.cfg.nx),
-                    variable="energy", time=self.elapsed_sim_time)
+                tally = self.host_tally().reshape(self.cfg.ny, self.cfg.nx)
+                if self.writes:
+                    io_utils.write_bov(f"energy{tt}", tally,
+                                       variable="energy",
+                                       time=self.elapsed_sim_time)
             if self.elapsed_sim_time >= self.cfg.sim_end:
                 out("Reached end of simulation time")
                 break
@@ -428,7 +455,7 @@ class SimulationBase:
         for sm in self.step_metrics:
             for k, v in sm.phases.items():
                 agg[k] = agg.get(k, 0.0) + v
-        out("PHASE BREAKDOWN (cumulative): "
+        out(f"PHASE BREAKDOWN (cumulative{self.scope}): "
             + "  ".join(f"{k}={v:.4f}s" for k, v in agg.items()))
         return result
 
@@ -528,10 +555,11 @@ class Simulation(SimulationBase):
 def make_simulation(cfg: SimConfig, decomposition: str, devices: list,
                     **kw) -> SimulationBase:
     """`Simulation` on one device, or the decomposition's class over
-    `devices` (parallel/) when there are several."""
-    if len(devices) == 1:
-        return Simulation(cfg, device=devices[0], **kw)
+    `devices` (parallel/) when there are several or the run spans
+    processes."""
     from . import parallel
+    if len(devices) == 1 and parallel.distributed.world() == 1:
+        return Simulation(cfg, device=devices[0], **kw)
     cls = {"replicated": parallel.ShardedSimulation,
            "spatial": parallel.SpatialSimulation,
            "spatial2d": parallel.Spatial2DSimulation}[decomposition]
@@ -585,7 +613,21 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--backend", default="torch", choices=["torch", "native"],
                    help="torch = this package (default); native = the "
                         "history-based C++/OpenMP engine on the host")
+    p.add_argument("--distributed", action="store_true",
+                   help="a run over several processes, its rendezvous from "
+                        "the environment that torchrun sets (MASTER_ADDR, "
+                        "MASTER_PORT, RANK, WORLD_SIZE); the counterpart of "
+                        "the reference's MPI launch (main.c:62-64)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="explicit rendezvous address, where process 0 "
+                        "listens (implies --distributed; requires "
+                        "--num-processes and --process-id)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        p.error("--coordinator requires --num-processes and --process-id")
 
     cfg = load_config(args.params)
     if args.nparticles:
@@ -604,7 +646,11 @@ def main(argv: list[str] | None = None) -> int:
                        "--restore": args.restore,
                        "--trace-dir": args.trace_dir,
                        "--shards": args.shards not in (None, 1),
-                       "--decomposition": args.decomposition != "replicated"}
+                       "--decomposition": args.decomposition != "replicated",
+                       "--distributed": args.distributed,
+                       "--coordinator": args.coordinator,
+                       "--num-processes": args.num_processes is not None,
+                       "--process-id": args.process_id is not None}
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             p.error(f"--backend native does not support: {', '.join(bad)}")
@@ -620,30 +666,50 @@ def main(argv: list[str] | None = None) -> int:
               "run on the CPU", file=sys.stderr)
         return 2
 
-    from .parallel import shard_devices
-    devices = shard_devices(args.shards, device)
-    name = (torch.cuda.get_device_name(devices[0]) if device.type == "cuda"
-            else "cpu")
-    print(f"Starting up on device {devices[0]} ({name}).")
-    print(f"Loading problem from {args.params}.")
+    from .parallel import distributed, shard_devices
+    if args.distributed or args.coordinator:
+        distributed.initialise_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+    nprocs, main_process = distributed.world(), distributed.rank() == 0
+    out = print if main_process else (lambda *a, **k: None)
+    trace_dir = args.trace_dir
+    if nprocs > 1:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device(
+                "cuda", distributed.rank() % torch.cuda.device_count())
+        # every global shard, as this process sees it: its own on `device`
+        devices = shard_devices(args.shards or nprocs, device)
+        if trace_dir:
+            trace_dir = os.path.join(trace_dir,
+                                     f"process{distributed.rank()}")
+    else:
+        devices = shard_devices(args.shards, device)
+    name = (torch.cuda.get_device_name(devices[0])
+            if device.type == "cuda" else "cpu")
+    if nprocs > 1:
+        out(f"Distributed: {nprocs} processes, {len(devices)} shards.")
+        out(f"Process group: {distributed.BACKEND}, host-staged exchange.")
+    out(f"Starting up on device {devices[0]} ({name}).")
+    out(f"Loading problem from {args.params}.")
     sim = make_simulation(cfg, args.decomposition, devices,
-                          engine=args.engine, transport=args.transport)
-    print(f"Engine: {sim.engine}.")
-    print(f"Transport: {sim.transport}.")
-    print(f"Decomposition: {getattr(sim, 'layout', 'none (1 device)')}.")
+                          engine=args.engine, transport=args.transport,
+                          quiet=not main_process)
+    out(f"Engine: {sim.engine}.")
+    out(f"Transport: {sim.transport}.")
+    out(f"Decomposition: {getattr(sim, 'layout', 'none (1 device)')}.")
     start = 1
     if args.restore:
         t0 = time.perf_counter()
         start = sim.restore(args.restore) + 1
-        print(f"Restored checkpoint at step {start - 1} in "
-              f"{time.perf_counter() - t0:.3f} s")
-    with maybe_trace(args.trace_dir):
+        out(f"Restored checkpoint at step {start - 1} in "
+            f"{time.perf_counter() - t0:.3f} s")
+    with maybe_trace(trace_dir):
         sim.run(start)
     if args.checkpoint:
         t0 = time.perf_counter()
         sim.checkpoint(args.checkpoint, sim.last_step)
-        print(f"Wrote checkpoint {args.checkpoint} at step {sim.last_step} "
-              f"in {time.perf_counter() - t0:.3f} s")
+        out(f"Wrote checkpoint {args.checkpoint} at step {sim.last_step} "
+            f"in {time.perf_counter() - t0:.3f} s")
     return 0
 
 

@@ -1,10 +1,12 @@
 """The decomposed runs' shared machinery: shards, one loop, one read.
 
-Port of `neutral_tpu/parallel/` for one controller that sees every shard.
-A run is split into shards, each with its own device (several shards may
-share one card), its own particles and its own tally.  The JAX package
-built each decomposition from `shard_map` programs with collectives; here
-one Python loop drives every shard (`DecomposedSimulation.step`):
+Port of `neutral_tpu/parallel/`.  A run is split into shards, each with
+its own device (several shards may share one card), its own particles and
+its own tally.  The JAX package built each decomposition from `shard_map`
+programs with collectives; here one Python loop drives every shard of a
+process (`DecomposedSimulation.step`), and a run over several processes
+(distributed.py) splits the global shards into contiguous blocks, one per
+process, each driven by the same loop:
 
 1. every shard with work runs one chunk: one kernel launch over the
    shard's list of working lanes (the sweep kernel, bounded by
@@ -16,7 +18,11 @@ one Python loop drives every shard (`DecomposedSimulation.step`):
    facets, collisions, lanes still working, the segment rows reserved,
    the segment deposit's piece count and overflow flag and, in the
    spatial modes, how many lanes leave for each other shard and how many
-   slots are free; then each flight shard's host part of the round
+   slots are free; with several processes one gather of those rows
+   (`distributed.all_gather_rows`) gives every process the same global
+   counters, from which all of them take the same decisions (which shard
+   works next, what moves where), and so make the same collective calls;
+   then each flight shard's host part of the round
    (`flight_kernel.after_round`: a re-run of an overflowed deposit, the
    growth of a segment buffer that refused rows, the next list's length)
    and each sweep shard's next list length, which need no read;
@@ -25,6 +31,11 @@ one Python loop drives every shard (`DecomposedSimulation.step`):
    grow when dead slots run out.  The counts of step 2 size every gather,
    so migration itself waits for nothing.  A shard that received lanes
    covers all of its lanes in its next launch, which rebuilds its list.
+   Lanes bound for another process's shard go through the host: packed
+   into one buffer per pair of processes and swapped by one all-to-all
+   (`exchange`), sized from the gathered counters; arrivals land in
+   source-shard order, so every shard holds bitwise the lanes of the
+   single-process run with the same shards.
 
 No shard is waited for on its own.  Histories are keyed by pid, so the
 decomposition changes nothing physical: a replicated run equals the
@@ -38,7 +49,9 @@ A checkpoint holds one lane per particle in pid order whatever the layout
 (particles.merge_states), and a restore puts each live lane of any
 checkpoint on its owner shard (`restore_owner`, the counterpart of JAX's
 `_partition_by_owner`) and each shard's part of the tally in place: a
-checkpoint of one layout restores into any other.
+checkpoint of one layout restores into any other.  With several processes
+the states and tallies are gathered to every process (as JAX's
+`process_allgather` does), and process 0 alone writes files.
 
 JAX's flight_sharded.py has no module of its own here: its decomposed
 flight step is the flight branch of the same loop, whose lists of working
@@ -66,6 +79,8 @@ from ..particles import STATE_FIELDS, ParticleState, state_from_numpy
 from ..sweep_kernel import (MAX_EVENTS, SweepBuffers, rect_arrays,
                             sweep_chunk_plain, sweep_params, sweep_round)
 from ..transport import Geometry, begin_timestep, window_cells
+from .distributed import (all_gather_arrays, all_gather_rows, exchange,
+                          local_shards, process_of, rank, world)
 
 
 def shard_devices(n: int | None = None, device="cuda") -> list:
@@ -121,6 +136,38 @@ def grow(state: ParticleState, n: int) -> ParticleState:
     return ParticleState(**out)
 
 
+def packed_bytes(like: ParticleState, k: int) -> int:
+    """The bytes of `k` lanes in pack_lanes' buffer (fields as in `like`)."""
+    return sum(-(-k * getattr(like, f).dtype.itemsize // 8) * 8
+               for f in STATE_FIELDS)
+
+
+def pack_lanes(blocks: list) -> torch.Tensor:
+    """Blocks of lanes (each the STATE_FIELDS tensors of some lanes) as one
+    uint8 host buffer: each field's values over all the blocks in turn, as
+    bytes, padded to 8 bytes so that every field starts aligned."""
+    device = blocks[0][0].device
+    parts = []
+    for i in range(len(STATE_FIELDS)):
+        b = torch.cat([blk[i].to(device) for blk in blocks]).view(torch.uint8)
+        parts += [b, b.new_zeros(-b.numel() % 8)]
+    return torch.cat(parts).cpu()
+
+
+def unpack_lanes(buf: torch.Tensor, counts: list, like: ParticleState
+                 ) -> list:
+    """The blocks of counts[i] lanes that pack_lanes packed into `buf` (on
+    any device), each a list of STATE_FIELDS tensors with `like`'s
+    dtypes."""
+    k, off, fields = sum(counts), 0, []
+    for f in STATE_FIELDS:
+        dtype = getattr(like, f).dtype
+        nbytes = k * dtype.itemsize
+        fields.append(torch.split(buf[off:off + nbytes].view(dtype), counts))
+        off += nbytes + (-nbytes % 8)
+    return [list(blk) for blk in zip(*fields)]
+
+
 @dataclass
 class Shard:
     """One shard: its device, particles, tally and geometry.
@@ -149,9 +196,13 @@ class Shard:
 class DecomposedSimulation(SimulationBase):
     """A run over shards on `devices` (default: one per visible card).
 
-    Subclasses build the shards (`make_shards`) and assemble the tally
-    (`host_tally`); the spatial ones set `migrates` and name each cell's
-    owner shard (`owner`)."""
+    `devices` has one entry per global shard.  In a run over several
+    processes (distributed.initialise_distributed) each process builds and
+    drives only its own block of shards (`local`, global indices), on its
+    entries of `devices`; the shard count must split evenly over the
+    processes.  Subclasses build those shards (`make_shards`) and assemble
+    the tally (`host_tally`, from `shard_tallies`); the spatial ones set
+    `migrates` and name each cell's owner shard (`owner`)."""
 
     decomposition = ""
     migrates = False
@@ -162,12 +213,19 @@ class DecomposedSimulation(SimulationBase):
                    else [torch.device(d) for d in devices])
         if len({d.type for d in devices}) != 1:
             raise ValueError(f"shards on devices of one type only: {devices}")
-        super().__init__(cfg, device=devices[0], engine=engine,
+        self.local = local_shards(len(devices))
+        self.world = world()
+        super().__init__(cfg, device=devices[self.local.start], engine=engine,
                          transport=transport, quiet=quiet)
-        for d in devices:
+        for d in devices[self.local.start:self.local.stop]:
             check_device(d)
         self.devices = devices
         self.nshards = len(devices)
+        # the rank of the process that owns each global shard, and the
+        # pairs of shards that lie in different processes
+        self.process = np.array([process_of(s, self.nshards)
+                                 for s in range(self.nshards)])
+        self.crossing = self.process[:, None] != self.process[None, :]
         # A chunk's counters: [facets, collisions, lanes still working], and
         # with the flight kernel its three more (segment rows reserved, the
         # deposit's pieces, its overflow flag); the spatial modes append
@@ -178,7 +236,7 @@ class DecomposedSimulation(SimulationBase):
         names = sorted({str(d) for d in devices})
         self.layout = (f"{self.decomposition}, {self.nshards} shards on "
                        f"{', '.join(names)}{self.grid_note()}")
-        for d in {d for d in devices if d.type == "cuda"}:
+        for d in {sh.device for sh in self.shards if sh.device.type == "cuda"}:
             torch.cuda.synchronize(d)     # set-up, not step 1's time
 
     # -- hooks ------------------------------------------------------------
@@ -201,16 +259,33 @@ class DecomposedSimulation(SimulationBase):
         """Shard s's part of a flat global tally."""
         raise NotImplementedError
 
-    # -- checkpoints ----------------------------------------------------------
+    # -- gathers and checkpoints -----------------------------------------------
+    def shard_tallies(self) -> list[np.ndarray]:
+        """Every global shard's tally as a host array, in shard order
+        (gathered from every process: a collective)."""
+        return all_gather_arrays([sh.tally.cpu().numpy()
+                                  for sh in self.shards])
+
     def states(self) -> list[ParticleState]:
-        return [sh.state for sh in self.shards]
+        """Every global shard's particles: with several processes gathered
+        to the host of every process (a collective)."""
+        if self.world == 1:
+            return [sh.state for sh in self.shards]
+        arrays = all_gather_arrays([getattr(sh.state, f).cpu().numpy()
+                                    for sh in self.shards
+                                    for f in STATE_FIELDS])
+        k = len(STATE_FIELDS)
+        return [ParticleState(**{f: torch.from_numpy(a) for f, a in
+                                 zip(STATE_FIELDS, arrays[i:i + k])})
+                for i in range(0, len(arrays), k)]
 
     def set_state(self, fields: dict, tally: np.ndarray) -> None:
         """Each live lane of `fields` onto its owner shard (restore_owner),
-        each shard's part of `tally` onto its tally."""
+        each shard's part of `tally` onto its tally (this process's shards
+        only)."""
         owner = self.restore_owner(fields)
         live = ~np.asarray(fields["dead"], dtype=bool)
-        for s, sh in enumerate(self.shards):
+        for s, sh in zip(self.local, self.shards):
             sel = np.flatnonzero((owner == s) & live)
             sh.state = state_from_numpy({f: np.asarray(fields[f])[sel]
                                          for f in STATE_FIELDS},
@@ -249,7 +324,8 @@ class DecomposedSimulation(SimulationBase):
 
     # -- the step -----------------------------------------------------------
     def step(self, tt: int) -> StepMetrics:
-        """Advance one census timestep on every shard (master_key = tt)."""
+        """Advance one census timestep on every shard (master_key = tt).
+        Every count it returns is global: over every process's shards."""
         cfg = self.cfg
         self.profile.start()
         t0 = time.perf_counter()
@@ -262,16 +338,21 @@ class DecomposedSimulation(SimulationBase):
                 sh.flight.start_census()
             if sh.sweep is not None:
                 sh.sweep.start_census()
-        nprocessed = int(read_counters(rows).sum())
+        # Every global shard's [live lanes, lanes]: one read, one gather.
+        begun = all_gather_rows(np.concatenate(
+            [read_counters(rows), [[sh.state.n] for sh in self.shards]], 1))
+        nprocessed = int(begun[:, 0].sum())
         t_begin = time.perf_counter()
         n = self.nshards
-        work = [sh.state.n > 0 for sh in self.shards]
-        nf = nc = nsweeps = nlaunches = nmigrated = 0
-        marks, parts, t_migrate = [], {"flight": 0.0, "raster": 0.0}, 0.0
+        work = begun[:, 1] > 0
+        nf = nc = nsweeps = nlaunches = nmigrated = nexchanged = 0
+        marks, parts = [], {"flight": 0.0, "raster": 0.0}
+        t_migrate = t_exchange = 0.0
         rounds = []
-        while any(work):
-            rows, chunk_sweeps, chunk = [], 0, {}
-            for s, (sh, w) in enumerate(zip(self.shards, work)):
+        while work.any():
+            rows, host, chunk = [], [], {}
+            for s, sh in zip(self.local, self.shards):
+                w = bool(work[s])
                 counts, sweeps = (self._chunk(sh, tt, marks, parts) if w
                                   else (torch.zeros(self.nctrl,
                                                     dtype=torch.int64,
@@ -279,35 +360,39 @@ class DecomposedSimulation(SimulationBase):
                 if w and self.deposits:
                     chunk[s] = {"shard": s} | sweeps
                     sweeps = sweeps["pieces"]
-                chunk_sweeps = max(chunk_sweeps, sweeps)
-                nlaunches += int(w and self.engine == "kernel")
+                host.append([int(w and self.engine == "kernel"), sweeps])
                 rows.append(torch.cat([counts, self._departures(sh)])
                             if self.migrates else counts)
-            ctrl = read_counters(rows)
+            # Every global shard's counters, then [launched, sweeps]: one
+            # read and one gather for the chunk.
+            ctrl = all_gather_rows(np.concatenate(
+                [read_counters(rows), np.array(host, dtype=np.int64)], 1))
             for s, rec in chunk.items():
-                sh = self.shards[s]
+                sh = self.shards[s - self.local.start]
                 after_round(sh.flight, sh.tally, sh.geom, rec, ctrl[s, 2:6],
                             marks)
                 rounds.append(rec)
-            for s, (sh, w) in enumerate(zip(self.shards, work)):
-                if w and sh.sweep is not None:
+            for s, sh in zip(self.local, self.shards):
+                if work[s] and sh.sweep is not None:
                     sh.sweep.n_active = int(ctrl[s, 2])
             nf += int(ctrl[:, 0].sum())
             nc += int(ctrl[:, 1].sum())
-            nsweeps += chunk_sweeps
+            nlaunches += int(ctrl[:, -2].sum())
+            nsweeps += int(ctrl[:, -1].max())
             received = np.zeros(n, dtype=np.int64)
             if self.migrates:
                 t1 = time.perf_counter()
                 sends = ctrl[:, self.nctrl:self.nctrl + n]
-                self._migrate(sends, ctrl[:, self.nctrl + n])
+                t_exchange += self._migrate(sends, ctrl[:, self.nctrl + n])
                 received = sends.sum(axis=0)
                 nmigrated += int(sends.sum())
+                nexchanged += int(sends[self.crossing].sum())
                 t_migrate += time.perf_counter() - t1
-                for r in np.flatnonzero(received):
-                    for b in (self.shards[r].flight, self.shards[r].sweep):
-                        if b is not None:
+                for s, sh in zip(self.local, self.shards):
+                    for b in (sh.flight, sh.sweep):
+                        if received[s] and b is not None:
                             b.n_active = None
-            work = list((ctrl[:, 2] > 0) | (received > 0))
+            work = (ctrl[:, 2] > 0) | (received > 0)
         step_time = self.profile.stop(f"step{tt}")
         census = time.perf_counter() - t_begin
         phases = {"begin": t_begin - t0}
@@ -321,10 +406,13 @@ class DecomposedSimulation(SimulationBase):
             phases["sweep"] = census - t_migrate
         if self.migrates:
             phases["migrate"] = t_migrate
+            if self.world > 1:
+                phases["exchange"] = t_exchange
         m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
                         ncollisions=nc, nprocessed=nprocessed,
                         nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
-                        nmigrated=nmigrated, rounds=launch_records(rounds))
+                        nmigrated=nmigrated, nexchanged=nexchanged,
+                        rounds=launch_records(rounds))
         self.step_metrics.append(m)
         return m
 
@@ -372,11 +460,13 @@ class DecomposedSimulation(SimulationBase):
         return torch.cat([(sh.dest[None] == shards).sum(1),
                           state.dead.sum().reshape(1)])
 
-    def _migrate(self, sends: np.ndarray, free: np.ndarray) -> None:
+    def _migrate(self, sends: np.ndarray, free: np.ndarray) -> float:
         """Move every departing lane to its owner shard: sends[s, d] lanes
-        from s to d (read with the counters), free[s] dead slots on s."""
+        from s to d (read with the counters), free[s] dead slots on s.
+        Returns the seconds of the exchange between processes (0.0 when
+        no lane crosses one)."""
         out = {}
-        for s, sh in enumerate(self.shards):
+        for s, sh in zip(self.local, self.shards):
             gone = []
             for d in np.flatnonzero(sends[s]):
                 idx = first_true(sh.dest == int(d), int(sends[s, d]))
@@ -385,7 +475,12 @@ class DecomposedSimulation(SimulationBase):
                 gone.append(idx)
             if gone:
                 sh.state.dead[torch.cat(gone)] = True
-        for r, sh in enumerate(self.shards):
+        t_exchange = 0.0
+        if sends[self.crossing].any():
+            t0 = time.perf_counter()
+            out.update(self._exchange(sends, out))
+            t_exchange = time.perf_counter() - t0
+        for r, sh in zip(self.local, self.shards):
             k = int(sends[:, r].sum())
             if k == 0:
                 continue
@@ -399,3 +494,34 @@ class DecomposedSimulation(SimulationBase):
             for i, f in enumerate(STATE_FIELDS):
                 getattr(sh.state, f)[slots] = torch.cat(
                     [a[i].to(sh.device) for a in arrivals])
+        return t_exchange
+
+    def _exchange(self, sends: np.ndarray, out: dict) -> dict:
+        """Swap the lanes that cross between processes: this process packs
+        the lanes of `out` (keyed (source, destination)) bound for each
+        other process into one host buffer (pack_lanes), one all-to-all
+        swaps the buffers, whose sizes both sides know from `sends`, and
+        the arrivals come back keyed as in `out`.  Pairs go in (source,
+        destination) order on both sides."""
+        me, like = rank(), self.shards[0].state
+        mine = self.process == me
+        send, recv_bytes = [], []
+        for p in range(self.world):
+            theirs = self.process == p
+            pairs = ([] if p == me else
+                     [(s, int(d)) for s in self.local
+                      for d in np.flatnonzero(sends[s] * theirs)])
+            send.append(pack_lanes([out[pair] for pair in pairs]) if pairs
+                        else torch.empty(0, dtype=torch.uint8))
+            recv_bytes.append(0 if p == me else packed_bytes(
+                like, int(sends[np.ix_(theirs, mine)].sum())))
+        got = {}
+        for p, buf in enumerate(exchange(send, recv_bytes)):
+            if buf.numel() == 0:
+                continue
+            pairs = [(int(s), r) for s in np.flatnonzero(self.process == p)
+                     for r in self.local if sends[s, r]]
+            blocks = unpack_lanes(buf.to(self.device),
+                                  [int(sends[pair]) for pair in pairs], like)
+            got.update(zip(pairs, blocks))
+        return got

@@ -31,9 +31,10 @@ class ShardedSimulation(DecomposedSimulation):
 
     def make_shards(self) -> list:
         n, per = self.cfg.nparticles, self.pids_per_shard()
-        return [self.new_shard(dev, self.geom, torch.arange(
-                    min(i * per, n), min((i + 1) * per, n), device=dev))
-                for i, dev in enumerate(self.devices)]
+        return [self.new_shard(self.devices[i], self.geom, torch.arange(
+                    min(i * per, n), min((i + 1) * per, n),
+                    device=self.devices[i]))
+                for i in self.local]
 
     def restore_owner(self, fields: dict) -> np.ndarray:
         return np.minimum(np.asarray(fields["pid"], dtype=np.int64)
@@ -43,7 +44,6 @@ class ShardedSimulation(DecomposedSimulation):
         return np.asarray(tally) if s == 0 else np.zeros_like(tally)
 
     def host_tally(self) -> np.ndarray:
-        """Flat (ny*nx,) global tally: the sum of the shards' partials, in
-        float64 on the host."""
-        return sum(sh.tally.cpu().numpy().astype(np.float64)
-                   for sh in self.shards)
+        """Flat (ny*nx,) global tally: the sum of the shards' partials in
+        shard order, in float64 on the host."""
+        return sum(t.astype(np.float64) for t in self.shard_tallies())

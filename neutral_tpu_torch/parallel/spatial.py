@@ -81,7 +81,8 @@ class SpatialSimulation(DecomposedSimulation):
             rng_scheme=cfg.rng)
         owner = self.owner(cellx, celly)
         shards = []
-        for s, dev in enumerate(self.devices):
+        for s in self.local:
+            dev = self.devices[s]
             iy, ix = divmod(s, self.px)
             y0, x0 = iy * self.rows, ix * self.cols
             density = self.geom.density
@@ -108,11 +109,11 @@ class SpatialSimulation(DecomposedSimulation):
         """Flat (ny*nx,) global tally assembled from the shards' blocks, in
         float64 on the host."""
         grid = np.zeros((self.cfg.ny, self.cfg.nx))
-        for s, sh in enumerate(self.shards):
+        for s, tally in enumerate(self.shard_tallies()):
             iy, ix = divmod(s, self.px)
             grid[iy * self.rows:(iy + 1) * self.rows,
                  ix * self.cols:(ix + 1) * self.cols] = (
-                sh.tally.cpu().numpy().reshape(self.rows, self.cols))
+                tally.reshape(self.rows, self.cols))
         return grid.reshape(-1)
 
 

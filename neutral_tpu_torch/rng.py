@@ -293,3 +293,70 @@ def uniform2_scheme(pkey, master_key, counter, dtype: torch.dtype,
     if dtype == torch.float64:
         return uniform2_pcg_f64(pkey, master_key, counter)
     raise ValueError(f"unsupported dtype {dtype}")
+
+
+# ----------------------------------------------------------------------------
+# The same draws on Python ints, for the sequential oracle (oracle.py) and
+# the tests: a copy of `neutral_tpu/rng.py`'s pure-Python draws, which that
+# module cannot lend without importing JAX.
+# ----------------------------------------------------------------------------
+
+_MASK64 = (1 << 64) - 1
+_PARITY64 = (_PARITY_HI << 32) | _PARITY_LO
+
+
+def threefry2x64_py(ctr: tuple[int, int], key: tuple[int, int],
+                    rounds: int = N_ROUNDS) -> tuple[int, int]:
+    """Threefry-2x64 on Python ints (arbitrary precision, masked to 64
+    bits)."""
+    ks = [key[0] & _MASK64, key[1] & _MASK64, 0]
+    ks[2] = (_PARITY64 ^ ks[0] ^ ks[1]) & _MASK64
+    x0 = (ctr[0] + ks[0]) & _MASK64
+    x1 = (ctr[1] + ks[1]) & _MASK64
+    for r in range(rounds):
+        x0 = (x0 + x1) & _MASK64
+        rot = _ROTATIONS[r % 8]
+        x1 = ((x1 << rot) | (x1 >> (64 - rot))) & _MASK64
+        x1 ^= x0
+        if (r + 1) % 4 == 0:
+            j = (r + 1) // 4
+            x0 = (x0 + ks[j % 3]) & _MASK64
+            x1 = (x1 + ks[(j + 1) % 3] + j) & _MASK64
+    return x0, x1
+
+
+def uniform2_py(pkey: int, master_key: int, counter: int
+                ) -> tuple[float, float]:
+    """The threefry pair draw mapped to (0, 1) doubles, on Python floats."""
+    v0, v1 = threefry2x64_py((counter, 0), (pkey, master_key))
+    return (v0 * _FACTOR64 + _HALF_FACTOR64, v1 * _FACTOR64 + _HALF_FACTOR64)
+
+
+def _pcg_out_py(state: int) -> int:
+    word = (((state >> ((state >> 59) + 5)) ^ state) * _PCG_OUT_MULT) \
+        & _MASK64
+    return ((word >> 43) ^ word) & _MASK64
+
+
+def pcg64si_py(seed: int) -> int:
+    """First output of a freshly seeded PCG64si stream (Python ints)."""
+    return _pcg_out_py(((_PCG_INC + seed) * _PCG_MULT + _PCG_INC) & _MASK64)
+
+
+def pcg64si_pair_py(seed: int) -> tuple[int, int]:
+    """First two outputs of a freshly seeded PCG64si stream."""
+    s0 = ((_PCG_INC + seed) * _PCG_MULT + _PCG_INC) & _MASK64
+    s1 = (s0 * _PCG_MULT + _PCG_INC) & _MASK64
+    return _pcg_out_py(s0), _pcg_out_py(s1)
+
+
+def uniform2_pcg_py(pkey: int, master_key: int, counter: int
+                    ) -> tuple[float, float]:
+    """The pcg64si pair draw on Python floats: pair p of a history seeds
+    the per-draw counters 2p and 2p + 1 (see `uniform2_pcg_f64`)."""
+    base = (_MASTER_KEY_OFF * master_key + _PARTICLE_KEY_OFF * pkey
+            + 2 * counter) & _MASK64
+    v0 = pcg64si_py(base)
+    v1 = pcg64si_py((base + 1) & _MASK64)
+    return (v0 * _FACTOR64 + _HALF_FACTOR64,
+            v1 * _FACTOR64 + _HALF_FACTOR64)

@@ -296,12 +296,12 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for n in ('parallel.spatial', 'io_utils', 'tools', 'native',\n"
-        "          'profiler'):\n"
+        "          'profiler', 'oracle', 'parallel.distributed'):\n"
         "    assert 'neutral_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120).stdout
-    assert int(out) >= 23
+    assert int(out) >= 25
 
 
 @pytest.mark.cuda
