@@ -71,7 +71,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    energies (xs.resonance_log_table: not on the quartic grid, 4.3e-8 from
    the generated table over 1 eV - 1 MeV).  Sweep kernel on scatter and
    flight kernel on split against their plain versions at 1M; both decks
-   at full size through `driver.main`, `PASSED validation.`
+   at full size through `driver.main`, `PASSED validation.`, with their
+   sweep and flight launches (which run the table lookup inside) and
+   lookups counted.  The same two comparisons with a second, 3,001-entry
+   capture table (same_xs false: the absorb lookup and both coarse
+   indexes).  Then the lookup kernel alone (csrc/table.cu, the device
+   function of both kernels' table mode): on the 30,000-entry table at
+   the 1M end-state energies of the scatter comparison (and those ten
+   times over, 10M) and at 1M and 10M log-uniform ones, and on
+   table_kernel's probe tables (the 30,000-entry one; 2, 3, 2,047-2,049,
+   4,097, 32,768 and 131,069 entries; runs of equal keys across the
+   coarse index's entries) at every key, one ulp either side, both ends,
+   0, +-inf and NaN besides 1M log-uniform ones: its indices bitwise the
+   plain two-level search's (xs.TableLayout.index) and
+   torch.searchsorted's, its values bitwise TableLayout.lookup's and
+   CrossSection.lookup's; its device time (LOOKUP_REPS calls in one CUDA
+   graph) beside the plain version's, the library's (CrossSection.lookup:
+   torch.searchsorted, the gathers and the interpolation, timed alike)
+   and its bound.
 10. Grid mode: the sweep kernel against its plain version at 1M on the
    scatter deck with a random 4000^2 density grid with 25% vacuum cells;
    then the scatter deck with its own density as `density_file` at full
@@ -177,7 +194,21 @@ flight kernel's `ms` is its own device time (CUDA events), without the
 segment deposits, whose time stands beside it; its entry also holds csp's
 own time and bound over all 10 steps of its main path and the launches of
 each flight main path.  No single PyTorch call
-computes any of the three kernels' functions, so `library_ms` is null.
+computes any of the three kernels' functions, so their `library_ms` is
+null.  The table lookup's entry is the lookup kernel alone (phase 9) at
+the main path's shape (1M census energies, the 30,000-entry table); its
+`ms` and `library_ms` (CrossSection.lookup: torch.searchsorted, the
+gathers and the interpolation) are device times, LOOKUP_REPS calls
+captured in one CUDA graph, so that no host work between launches is
+timed; its bound is what the function must move, its energies read and
+values written once and the table's keys and values read once, beside
+the interpolation's float operations: no search steps, since a bucketed
+index could find an interval in O(1).  Its `launches` are those of the
+sweep and flight kernels on the table main paths, which run the lookup
+inside (`fused_launches` splits them); the lookup kernel alone never runs
+on a main path.  In table mode the sweep and flight kernels' bounds add
+their tables' keys and values, read once, and nothing for the searches.
+No roofline sees the lookup's chain of dependent loads.
 """
 
 from __future__ import annotations
@@ -235,6 +266,8 @@ PEAK_I32 = 132 * 64 * 1.98e9
 LANE_BYTES = 61 + 53             # 14 fields read, 13 written (not pid)
 DRAW_OPS = {"threefry": 160, "pcg64si": 30}
 FLOPS_EVENT, FLOPS_COLLISION, FLOPS_VISIT = 60, 40, 15
+FLOPS_INTERPOLATE = 6            # one interpolation of a table lookup
+LOOKUP_REPS = 20                 # timed calls of a standalone lookup
 
 
 def bound(nbytes: float, int_ops: float, float_ops: float) -> dict:
@@ -246,11 +279,31 @@ def bound(nbytes: float, int_ops: float, float_ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def table_bytes(lay) -> int:
+    """Bytes of a stored table's keys and values (float32): what a lookup
+    function must read of it, once."""
+    return 8 * lay.nentries
+
+
+def table_work(sim, loads: int, collisions: int) -> dict:
+    """The table-mode part of a census's work (work_bound) on `sim`'s
+    tables: each table's keys and values read once, and the lookups,
+    (loads + collisions) a table, counted but bounded by nothing more;
+    nothing in analytic mode."""
+    if sim.cs_scatter.analytic:
+        return {}
+    tabs = [sim.cs_scatter] + ([] if sim.geom.same_xs else [sim.cs_absorb])
+    return {"lookups": len(tabs) * (loads + collisions),
+            "table_bytes": sum(table_bytes(t.table_layout) for t in tabs)}
+
+
 def work_bound(r: dict) -> dict:
     """The bound of one comparison's census (compare / compare_flight): its
-    lanes, collisions, events or pieces, segment rows and cell visits."""
+    lanes, collisions, events or pieces, segment rows and cell visits, and
+    in table mode its tables."""
     rows = r.get("rows", 0)
-    nbytes = r["n"] * LANE_BYTES + r["ncells"] * 4 + rows * 20
+    nbytes = (r["n"] * LANE_BYTES + r["ncells"] * 4 + rows * 20
+              + r.get("table_bytes", 0))
     int_ops = r["collisions"] * 2 * DRAW_OPS[r["rng"]]
     events = (r["collisions"] + r["n"] if "rows" in r
               else r["facets"] + r["collisions"])
@@ -357,16 +410,14 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
                                        **win, **kw)
         return ms, state, nf, nc, tally
 
+    loads = int((~start.dead).sum())    # every lane of step 1 is live
     buffers = sweep_kernel.SweepBuffers("cuda")
     run(sweep_kernel.sweep_chunk_kernel, buffers=buffers)         # warm-up
     k_ms, ks, knf, knc, kt = run(sweep_kernel.sweep_chunk_kernel,
                                  buffers=buffers)
     slot_use = buffers.slot_use()
     slot_pid = sweep_kernel.thread_slot_use(ks.counter - start.counter)
-    sms, per_sm = sweep_kernel.resident_blocks(
-        int(not sim.cs_scatter.analytic), int(geom.regions is None),
-        sweep_kernel.RNG_SCHEMES[cfg.rng], buffers.device)
-    blocks = sweep_kernel.grid_blocks(nparticles, sms, per_sm)
+    blocks, sms, per_sm = buffers.grid
     p_ms, ps, pnf, pnc, pt = run(sweep_kernel.sweep_chunk_plain)
     print(f"[{label} n={nparticles}] kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms; facets {knf} / {pnf}, collisions {knc} / {pnc}",
@@ -407,7 +458,9 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
             "n": nparticles, "ncells": geom.nx * geom.ny, "facets": knf,
             "collisions": knc, "rng": cfg.rng, "grid_blocks": blocks,
-            "slot_use": slot_use, "slot_use_pid_order": slot_pid}
+            "slot_use": slot_use, "slot_use_pid_order": slot_pid,
+            **({} if sim.cs_scatter.analytic else {"energy": ks.energy}),
+            **table_work(sim, loads, knc)}
 
 
 def sorted_rows(torch, segs):
@@ -457,10 +510,13 @@ def compare_flight(deck: str, torch, driver, transport, flight,
         times[fn.__name__] = (ms, ph["flight"] * 1e3, ph["raster"] * 1e3)
         return state, nf, nc, n, tally
 
-    ksegs, psegs, csegs = [], [], []
+    ksegs, psegs, csegs, rounds = [], [], [], []
     # warm-up (it grows the deposit's piece buffer), collects the rows
     run(flight_kernel.flight_chunk_kernel, ksegs, **dep)
-    ks, knf, knc, kl, kt = run(flight_kernel.flight_chunk_kernel, **dep)
+    ks, knf, knc, kl, kt = run(flight_kernel.flight_chunk_kernel,
+                               rounds=rounds, **dep)
+    # a launch loads each lane of its list; every lane of step 1 is live
+    loads = sum(r["lanes"] for r in rounds[1:]) + int((~start.dead).sum())
     ps, pnf, pnc, pn, pt = run(flight.flight_chunk_plain, psegs)
     c_ms, k_ms, kd_ms = times["flight_chunk_kernel"]
     _, p_ms, pd_ms = times["flight_chunk_plain"]
@@ -536,7 +592,8 @@ def compare_flight(deck: str, torch, driver, transport, flight,
             "max_abs_err": max_abs_err, "n": MODE_N,
             "ncells": geom.nx * geom.ny, "facets": knf, "collisions": knc,
             "rng": cfg.rng, "segs": ksegs,
-            "rows": sum(r.shape[0] for r in ksegs)}
+            "rows": sum(r.shape[0] for r in ksegs),
+            **table_work(sim, loads, knc)}
 
 
 def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label):
@@ -715,7 +772,71 @@ def mode_entry(runs: list, shape: str) -> dict:
            "bound_by": top["bound_by"], "shape": shape}
     if "deposit_ms" in runs[0]:
         out["deposit_ms"] = sum(r["deposit_ms"] for r in runs)
+    if "lookups" in runs[0]:
+        out["lookups"] = sum(r["lookups"] for r in runs)
     return out
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over `reps` calls captured in one
+    CUDA graph, so that no host work stands between them (CUDA events
+    around one replay, after a warm-up call and a warm-up replay)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def compare_lookup(torch, keys, values, energy, label: str) -> dict:
+    """Phase 9's lookup kernel alone on one table (host float arrays) and
+    energies (float32 on the card): indices bitwise the plain two-level
+    search's and torch.searchsorted's, values bitwise TableLayout.lookup's
+    and CrossSection.lookup's.  Returns its time (graph_ms), the plain
+    version's (TableLayout.lookup, on the clock), the library's
+    (CrossSection.lookup, graph_ms) and its bound."""
+    from neutral_tpu_torch.table_kernel import table_lookup_kernel
+    from neutral_tpu_torch.xs import CrossSection
+
+    tab = CrossSection(
+        torch.as_tensor(keys, dtype=torch.float32, device="cuda"),
+        torch.as_tensor(values, dtype=torch.float32, device="cuda"))
+    lay = tab.table_layout
+    n = lay.nentries
+    got, idx = table_lookup_kernel(lay, energy, index=True)
+    want = (torch.searchsorted(tab.keys, energy, right=True) - 1).clamp(
+        0, n - 2)
+    if not (torch.equal(idx.long(), want)
+            and torch.equal(idx.long(), lay.index(energy))):
+        bad = int((idx.long() != want).sum())
+        fail(f"lookup {label}: {bad} indices differ from searchsorted's")
+    p_ms, plain = timed(torch, lay.lookup, energy)
+    for name, ref in (("TableLayout.lookup", plain),
+                      ("CrossSection.lookup", tab.lookup(energy))):
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+            fail(f"lookup {label}: {bad} values differ from {name}'s")
+    ms = graph_ms(torch, lambda: table_lookup_kernel(lay, energy),
+                  LOOKUP_REPS)
+    library_ms = graph_ms(torch, lambda: tab.lookup(energy), LOOKUP_REPS)
+    count = energy.numel()
+    b = bound(count * 8 + table_bytes(lay), 0, count * FLOPS_INTERPOLATE)
+    print(f"[lookup {label}] {count} energies, {n} entries (S = "
+          f"{1 << lay.shift}, {lay.coarse.shape[0]} coarse keys): kernel "
+          f"{ms:.4f} ms, library {library_ms:.4f} ms, plain {p_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); indices and "
+          "values bitwise equal", flush=True)
+    return {"ms": ms, "plain_ms": p_ms, "library_ms": library_ms,
+            "max_abs_err": 0.0, "energies": count, "entries": n,
+            "stride": 1 << lay.shift, **b}
 
 
 def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
@@ -724,10 +845,14 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
     and flight kernels and the launches of the main paths."""
     import numpy as np
     from neutral_tpu_torch.mesh import build_density
+    from neutral_tpu_torch.table_kernel import (PROBE_TABLES, probe_energies,
+                                                probe_table)
     from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
 
     res = {"sweep": {}, "flight": {}, "sweep_launches": 0,
-           "flight_launches": 0, "raster_launches": 0, "overflows": 0}
+           "flight_launches": 0, "raster_launches": 0, "overflows": 0,
+           "fused_launches": {"sweep": 0, "flight": 0}, "lookups": {},
+           "lookup": {}}
 
     def add_launches(counts):
         res["sweep_launches"] += counts[0]
@@ -739,6 +864,7 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
         r = compare(MODE_N, torch, driver, transport, sweep_kernel, fields,
                     deck=deck, label=f"compare {mode}")
         res["sweep"][mode] = mode_entry([r], shape)
+        return r
 
     def flight_mode(mode, decks, shape):
         runs = [compare_flight(d, torch, driver, transport, flight,
@@ -769,9 +895,9 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
         write_cs_file(os.path.join(table, fname), keys, values)
     split = FLIGHT_DECKS[1]
     decks = {d: deck_copy(d, table) for d in (SCATTER, split)}
-    sweep_mode("table", decks[SCATTER],
-               f"scatter with 30,000-entry .cs tables, {MODE_N} particles, "
-               "one census")
+    census = sweep_mode("table", decks[SCATTER],
+                        f"scatter with 30,000-entry .cs tables, {MODE_N} "
+                        "particles, one census")
     flight_mode("table", [decks[split]],
                 f"split with 30,000-entry .cs tables, {MODE_N} particles, "
                 "one step-1 census")
@@ -779,6 +905,46 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
         name = f"table {os.path.basename(src).split('.')[0]}"
         out, _, c = main_path(deck, torch, driver, wrappers, label=name)
         add_launches(check_kernel_path(name, out, c))
+        # the sweep and flight kernels run the table lookup inside
+        res["fused_launches"]["sweep"] += c["sweep_chunk_kernel"]
+        res["fused_launches"]["flight"] += c["flight_chunk_kernel"]
+        # one table (same_xs): a lookup at each lane's load and collision
+        handled = sum(map(int, re.findall(r"Handled (\d+) particles", out)))
+        res["lookups"][name] = handled + sum(
+            nc for _, nc in step_counts(out))
+    print(f"[table] lookups on the main paths, (lanes handled + collisions) "
+          f"per step, summed: {res['lookups']}", flush=True)
+    # a second, 3,001-entry capture table: the absorb lookup
+    distinct = os.path.join(tmp, "table_distinct")
+    os.mkdir(distinct)
+    write_cs_file(os.path.join(distinct, "elastic_scatter.cs"), keys, values)
+    k2, v2 = resonance_log_table(3001)
+    write_cs_file(os.path.join(distinct, "capture.cs"), k2, 0.5 * v2)
+    decks = {d: deck_copy(d, distinct) for d in (SCATTER, split)}
+    sweep_mode("table distinct", decks[SCATTER],
+               f"scatter with a 30,000-entry scatter and a 3,001-entry "
+               f"capture table, {MODE_N} particles, one census")
+    flight_mode("table distinct", [decks[split]],
+                f"split with a 30,000-entry scatter and a 3,001-entry "
+                f"capture table, {MODE_N} particles, one step-1 census")
+    # the lookup kernel alone: census energies (the table census's end
+    # state; ten times over at 10M) and log-uniform ones, at 1M and 10M
+    e_census = census.pop("energy")
+    for count in (MODE_N, 10 * MODE_N):
+        e_log = torch.from_numpy(
+            probe_energies(keys, count)[-count:]).cuda()
+        for dist, e in (("census energies",
+                         e_census.repeat(count // MODE_N)),
+                        ("log-uniform", e_log)):
+            label = dist + ("" if count == MODE_N else " 10M")
+            res["lookup"][label] = compare_lookup(
+                torch, keys, values, e, f"30,000 entries, {label}")
+        del e_log, e
+    for name in PROBE_TABLES:
+        k, v = probe_table(name)
+        res["lookup"][name] = compare_lookup(
+            torch, k, v, torch.from_numpy(probe_energies(k, MODE_N)).cuda(),
+            name)
 
     # ---- 10. grid mode --------------------------------------------------
     rgrid = os.path.join(tmp, "random_grid")
@@ -1340,7 +1506,7 @@ def main() -> int:
 
     from neutral_tpu_torch import (build, driver, flight, flight_kernel,
                                    raster, raster_kernel, sweep_kernel,
-                                   transport)
+                                   table_kernel, transport)
     from neutral_tpu_torch.particles import STATE_FIELDS
 
     # ---- 2. build -------------------------------------------------------
@@ -1349,6 +1515,7 @@ def main() -> int:
     sweep_kernel.load_library()
     flight_kernel.load_library()
     raster_kernel.load_library()
+    table_kernel.load_library()
     print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
         if re.search(r"Compiling entry|registers|spill|bytes stack", line):
@@ -1498,6 +1665,7 @@ def main() -> int:
     flight_modes = {"analytic": mode_entry(
         flights, "stream + split + csp, 1,000,000 particles each")}
     flight_modes.update(modes["flight"])
+    lookup = modes["lookup"]["census energies"]
     print(f"[device] nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": [
         {"name": "sweep_kernel",
@@ -1572,6 +1740,33 @@ def main() -> int:
                   "launches and overflows (piece-buffer re-runs) are summed "
                   "over every flight main path, the decomposed ones and "
                   "both processes of phase 23's runs included"},
+        {"name": "table_lookup",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/common.cuh",
+         "replaces": "neutral_tpu/pallas_table.py:151",
+         "launches": sum(modes["fused_launches"].values()),
+         "fused_launches": modes["fused_launches"],
+         "max_abs_err": lookup["max_abs_err"],
+         "ms": lookup["ms"],
+         "plain_ms": lookup["plain_ms"],
+         "bound_ms": lookup["bound_ms"],
+         "bound_by": lookup["bound_by"],
+         "library_ms": lookup["library_ms"],
+         "standalone": "neutral_tpu_torch/csrc/table.cu",
+         "lookups_per_main_path": modes["lookups"],
+         "modes": modes["lookup"],
+         "shape": "the lookup kernel alone (csrc/table.cu) on the "
+                  "30,000-entry table at the 1,000,000 end-state energies "
+                  "of phase 9's table scatter census; ms is the device "
+                  f"time of one of {LOOKUP_REPS} calls captured in one CUDA "
+                  "graph, library_ms the same of CrossSection.lookup "
+                  "(torch.searchsorted, the gathers and the "
+                  "interpolation), plain_ms TableLayout.lookup's on the "
+                  "host clock; bound: energies, values and the table's "
+                  "keys and values moved once; launches are the sweep and "
+                  "flight kernels' launches on the table main paths, which "
+                  "run the lookup inside (fused_launches); modes hold 10M "
+                  "and log-uniform energies and the probe tables"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

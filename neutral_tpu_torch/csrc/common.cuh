@@ -8,7 +8,7 @@
 // The deck's modes are template parameters, so that each combination is
 // its own instantiation and the analytic/threefry one is the code without
 // the others: XsMode (analytic resonance formula read from its grid, or a
-// stored table searched in global memory), RngScheme (threefry or pcg64si)
+// stored table searched through a coarse index in shared memory), RngScheme (threefry or pcg64si)
 // and, in the sweep kernel, DensityMode (region rectangles, or a per-cell
 // grid).
 
@@ -168,47 +168,177 @@ __device__ __forceinline__ float xs_lookup(float e, const float2* grid,
   return lo.y + ((e - lo.x) / (hi.x - lo.x)) * (hi.y - lo.y);
 }
 
-// Stored table (xs.CrossSection searchsorted mode): the bracketing index
-// max{i : keys[i] <= e}, clipped to [0, n-2], by binary search over the
-// ascending keys in global memory (a 30,000-entry table is 120 KB and stays
-// in L2), then the same interpolation.  The test !(k > e) is
-// torch.searchsorted(right=True)'s, so a NaN energy lands where it does.
-__device__ __forceinline__ float table_lookup(float e, const float* keys,
-                                              const float* values, int n) {
-  int lo = 0, hi = n;
+// Stored table (xs.CrossSection searchsorted mode, xs.TableLayout).  The
+// lookup is the bracketing index max{i : keys[i] <= e}, clipped to
+// [0, n-2], then the interpolation of the interval (k0, k1, v0, v1) =
+// (keys[i], keys[i+1], values[i], values[i+1]): the same floats as
+// CrossSection.lookup's four gathers, so the same bits (-fmad=false).
+//
+// What bounds it: latency, not bytes.  A plain binary search over the keys
+// in global memory makes ceil(log2 n) dependent loads (15 for 30,000
+// entries), of which the lower levels each wait a full L2 round trip, and
+// the interpolation four more from two arrays.  So the search runs at two
+// levels.  The coarse index coarse[j] = keys[j * S] (S = 2^shift, the
+// smallest power of two that keeps it within xs.COARSE_KEYS entries: S =
+// 16 and 1,875 entries, 7.3 KiB, for 30,000) is copied once per block into
+// shared memory (stage_coarse), where the first level bisects it; that
+// leaves the S keys of one group, 64 contiguous bytes at S = 16, which the
+// second level bisects in global memory (one L2 round trip, then L1 hits);
+// and the interval is one aligned 16-byte load.  Every table size takes
+// this one path: S grows with n.  The test !(key > e) is
+// torch.searchsorted(right=True)'s at both levels, so a NaN energy (a
+// masked lane) lands at n and clips in bounds, and runs of equal keys, also
+// across a group's first key, resolve as searchsorted resolves them.
+//
+// A collision never raises the energy (a scatter keeps at least
+// ((A-1)/(A+1))^2 of it), so a lane's next first-level count is at most
+// its last.  The kernels keep that count in a register per table (`hint`,
+// within one launch: no state field) and gallop down from it, a few steps
+// instead of ceil(log2(coarse_count + 1)): the card's form of
+// neutral_tpu's live energy band (pallas_table.py energy_band).
+struct XsTable {
+  const float* keys;         // table mode: (n,) ascending, global memory
+  const float4* intervals;   // table mode: (n - 1,) (k0, k1, v0, v1)
+  const float* coarse;       // table mode: (coarse_count,), shared memory
+  const float2* grid;        // analytic mode: (n,) (key, value) pairs
+  int n;
+  int shift;                 // table mode: log2 of the coarse stride S
+};
+
+// Entries of a table's coarse index: ceil(n / 2^shift).
+__host__ __device__ __forceinline__ int coarse_count(int n, int shift) {
+  return ((n - 1) >> shift) + 1;
+}
+
+// Copies a table's coarse index from global memory into `smem` with every
+// thread of the block; the caller synchronises the block before a lookup.
+__device__ __forceinline__ const float* stage_coarse(const float* coarse,
+                                                     int n, int shift,
+                                                     float* smem) {
+  const int m = coarse_count(n, shift);
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    smem[j] = __ldg(coarse + j);
+  }
+  return smem;
+}
+
+// No level-1 hint: the whole coarse index is searched.
+constexpr int kNoHint = 0x7fffffff;
+
+// The bracketing index of energy e in stored table t (xs.TableLayout.index).
+// `hint` is the level-1 count of the lane's previous lookup in t (kNoHint
+// for none), and becomes this one's: an energy that has not risen since
+// then has a count of at most that, which a gallop down from it brackets
+// in a few steps; if coarse[hint] <= e the hint tells nothing and the
+// whole index is searched, so the result never depends on it.
+__device__ __forceinline__ int table_index(float e, const XsTable& t,
+                                           int& hint) {
+  // Level 1, shared memory: c = #{j : coarse[j] <= e}.  The count of all
+  // keys <= e then lies in [(c - 1) S + 1, min(c S, n)] (0 when c = 0).
+  int lo = 0, hi = coarse_count(t.n, t.shift);
+  if (hint < hi && t.coarse[hint] > e) {
+    hi = hint;
+    for (int step = 1; hi > 0; step <<= 1) {
+      const int probe = max(hi - step, 0);
+      if (!(t.coarse[probe] > e)) {
+        lo = probe + 1;
+        break;
+      }
+      hi = probe;
+    }
+  }
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (!(__ldg(keys + mid) > e)) {
+    if (!(t.coarse[mid] > e)) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  const int idx = min(max(lo - 1, 0), n - 2);
-  const float k0 = __ldg(keys + idx);
-  const float k1 = __ldg(keys + idx + 1);
-  const float v0 = __ldg(values + idx);
-  const float v1 = __ldg(values + idx + 1);
-  return v0 + ((e - k0) / (k1 - k0)) * (v1 - v0);
+  hint = lo;
+  // Level 2, global memory: the keys of that one group.  c S is at most
+  // 2,048 x 2^20 = 2^31 (n < 2^31 keeps the shift at or below 20), which
+  // overflows an int: the group's end is taken in unsigned arithmetic.
+  hi = static_cast<int>(min(static_cast<unsigned int>(lo) << t.shift,
+                            static_cast<unsigned int>(t.n)));
+  lo = max((lo - 1) * (1 << t.shift) + 1, 0);
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);   // lo + hi may pass 2^31 - 1
+    if (!(__ldg(t.keys + mid) > e)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return min(max(lo - 1, 0), t.n - 2);
 }
 
-// One cross-section table as the kernels see it: its entry count, in
-// table mode its keys and values (float32, contiguous, on the device), and
-// in analytic mode its grid of (key, value) pairs (xs_lookup).
-struct XsTable {
-  const float* keys;
-  const float* values;
-  const float2* grid;
-  int n;
-};
+// The interpolation at e over interval idx of stored table t: one aligned
+// 16-byte load.
+__device__ __forceinline__ float table_interpolate(float e, const XsTable& t,
+                                                   int idx) {
+  const float4 iv = __ldg(t.intervals + idx);
+  return iv.z + ((e - iv.x) / (iv.y - iv.x)) * (iv.w - iv.z);
+}
+
+__device__ __forceinline__ float table_lookup(float e, const XsTable& t,
+                                              int& hint) {
+  return table_interpolate(e, t, table_index(e, t, hint));
+}
 
 template <XsMode X>
-__device__ __forceinline__ float xs_value(float e, const XsTable& t) {
+__device__ __forceinline__ float xs_value(float e, const XsTable& t,
+                                          int& hint) {
   if constexpr (X == XsMode::kAnalytic) {
     return xs_lookup(e, t.grid, t.n);
   } else {
-    return table_lookup(e, t.keys, t.values, t.n);
+    return table_lookup(e, t, hint);
   }
+}
+
+// Table mode: copies the coarse indexes of a launch's tables into the
+// block's dynamic shared memory, scatter's and then, unless same_xs,
+// absorb's (the launch sized it with table_smem_bytes), and synchronises
+// the block; nothing in analytic mode.  Every thread of the block calls it
+// before any lookup.
+template <XsMode X, typename Params>
+__device__ __forceinline__ void stage_tables(const Params& p, float* smem) {
+  if constexpr (X == XsMode::kTable) {
+    stage_coarse(p.scatter_coarse, p.scatter_entries, p.scatter_shift, smem);
+    if (!p.same_xs) {
+      stage_coarse(p.absorb_coarse, p.absorb_entries, p.absorb_shift,
+                   smem + coarse_count(p.scatter_entries, p.scatter_shift));
+    }
+    __syncthreads();
+  }
+}
+
+// The scatter and absorb tables of a launch, their coarse indexes where
+// stage_tables put them (absorb reads scatter's when same_xs).
+template <typename Params>
+__device__ __forceinline__ XsTable scatter_table(const Params& p,
+                                                 const float* smem) {
+  return {p.scatter_keys, p.scatter_intervals, smem, p.scatter_grid,
+          p.scatter_entries, p.scatter_shift};
+}
+
+template <typename Params>
+__device__ __forceinline__ XsTable absorb_table(const Params& p,
+                                                const float* smem) {
+  return {p.absorb_keys, p.absorb_intervals,
+          p.same_xs ? smem
+                    : smem + coarse_count(p.scatter_entries, p.scatter_shift),
+          p.absorb_grid, p.absorb_entries, p.absorb_shift};
+}
+
+// Dynamic shared memory of a launch with these parameters: the coarse
+// indexes of its tables in table mode, none in analytic mode.
+template <typename Params>
+inline size_t table_smem_bytes(const Params& p) {
+  if (p.xs_mode != static_cast<int>(XsMode::kTable)) return 0;
+  int m = coarse_count(p.scatter_entries, p.scatter_shift);
+  if (!p.same_xs) m += coarse_count(p.absorb_entries, p.absorb_shift);
+  return sizeof(float) * static_cast<size_t>(m);
 }
 
 // torch.minimum / torch.maximum / clamp_min on float32: NaN propagates,
@@ -233,7 +363,8 @@ __device__ __forceinline__ float tmax(float a, float b) {
 // not the particle died: it is the one lookup of the collision, which
 // serves the new mean free path here and the caller's next event, since
 // the energy changes only in a collision (the same function of the same
-// float gives the same bits).  Returns whether the particle died.
+// float gives the same bits); `hint` is the lane's first-level hint in the
+// scatter table (table mode).  Returns whether the particle died.
 template <XsMode X, RngScheme R>
 __device__ __forceinline__ bool collide(const DrawKey& key,
                                         uint64_t& counter, float& energy,
@@ -241,7 +372,8 @@ __device__ __forceinline__ bool collide(const DrawKey& key,
                                         float& omega_y, float& mfp,
                                         float& sig_s, float mac_a,
                                         float mac_t, float number_density,
-                                        const XsTable& scatter) {
+                                        const XsTable& scatter,
+                                        int& hint) {
   bool died = false;
   const float p_absorb = mac_a / mac_t;
   float rn1a, rn1b, rn2a, rn2b;
@@ -264,7 +396,7 @@ __device__ __forceinline__ bool collide(const DrawKey& key,
     energy = e_new;
   }
   counter += 1;
-  sig_s = xs_value<X>(energy, scatter);
+  sig_s = xs_value<X>(energy, scatter, hint);
   if (!died) {
     const float mac_s2 = number_density * sig_s * kBarns;
     counter += 1;

@@ -41,7 +41,8 @@
 // Rings, pause gating, the segment-plane layout and ring extraction have no
 // counterpart.  float32 on a uniform mesh with constant-density rects only
 // (an (R, 4) int32 bounds array and an (R,) float32 density array on the
-// device, any R); the cross-section mode (analytic or a stored table) and
+// device, any R); the cross-section mode (analytic, or a stored table
+// searched through its coarse index in shared memory) and
 // the RNG scheme (threefry or pcg64si) are template parameters (common.cuh),
 // one instantiation per combination, chosen at launch.  The wrapper
 // (flight_kernel.py) rejects everything else.  The build passes -fmad=false
@@ -62,9 +63,12 @@
 // from it (flight_kernel.pieces_for).
 //
 // What bounds it on the H100: in dense rects, the draws' integer work (two
-// draws per collision), as in sweep.cu, and in table mode the dependent L2
-// loads of the table searches; in vacuum, nothing much — a piece crosses a
-// whole rect in ~150 float operations.  Lanes of a list are gathered (their
+// draws per collision), as in sweep.cu, and in table mode the latency of
+// the table lookups (common.cuh: a gallop down a shared-memory coarse
+// index, whose copy each block makes at its start, then two L2 round
+// trips; the table entry point caps the registers at 64, 8 blocks an SM);
+// in vacuum, nothing much — a piece crosses a whole rect in ~150 float
+// operations.  Lanes of a list are gathered (their
 // indices are increasing within a warp, not contiguous); a short list is
 // latency-bound: its launch lasts as long as its longest history.
 
@@ -99,9 +103,11 @@ struct FlightParams {
   const int32_t* active;        // (n_active,) lanes to run; null: lane t
   int32_t* next;                // (n,) the lanes still working after it
   const float* scatter_keys;    // table mode: (scatter_entries,) ascending
-  const float* scatter_values;
+  const float4* scatter_intervals;  // table mode: (scatter_entries - 1,)
+  const float* scatter_coarse;  // table mode: its coarse index
   const float* absorb_keys;     // table mode: (absorb_entries,)
-  const float* absorb_values;
+  const float4* absorb_intervals;
+  const float* absorb_coarse;
   const float2* scatter_grid;   // analytic mode: (scatter_entries,) pairs
   const float2* absorb_grid;    // analytic mode: (absorb_entries,) pairs
   const int32_t* rect_bounds;   // (nrects, 4) ix0 ix1 iy0 iy1, disjoint
@@ -115,6 +121,8 @@ struct FlightParams {
   int ny;                       // when unwindowed)
   int scatter_entries;
   int absorb_entries;
+  int scatter_shift;            // table mode: log2 of the coarse strides
+  int absorb_shift;
   int same_xs;
   int nrects;
   int xs_mode;                  // nt::XsMode
@@ -136,9 +144,15 @@ using namespace nt;
 
 constexpr int kThreads = 128;
 
+// The kernel's body in every mode (the entry points below run it).  It
+// takes the parameters by value, as a kernel does: the analytic entry then
+// compiles to the code of the single kernel it replaces.
 template <XsMode X, RngScheme R>
-__global__ void __launch_bounds__(kThreads)
-flight_kernel(const FlightParams p) {
+__device__ __forceinline__ void flight_pieces(const FlightParams p) {
+  // Table mode stages the coarse indexes at the block's start, with every
+  // thread, before any lane is loaded.
+  extern __shared__ float coarse_smem[];
+  stage_tables<X>(p, coarse_smem);
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long i =
@@ -160,10 +174,8 @@ flight_kernel(const FlightParams p) {
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
     bool inwin = true;
-    const XsTable scatter{p.scatter_keys, p.scatter_values, p.scatter_grid,
-                          p.scatter_entries};
-    const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_grid,
-                         p.absorb_entries};
+    const XsTable scatter = scatter_table(p, coarse_smem);
+    const XsTable absorb = absorb_table(p, coarse_smem);
     const int4* bounds = reinterpret_cast<const int4*>(p.rect_bounds);
     const float xo = static_cast<float>(p.x_off);
     const float yo = static_cast<float>(p.y_off);
@@ -176,8 +188,9 @@ flight_kernel(const FlightParams p) {
     // The cross-sections and speed at the lane's energy, looked up here and
     // again only after a collision (collide's one lookup): the energy
     // changes nowhere else.
-    float sig_s = xs_value<X>(energy, scatter);
-    float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+    int hint_s = kNoHint, hint_a = kNoHint;   // table mode: level-1 hints
+    float sig_s = xs_value<X>(energy, scatter, hint_s);
+    float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
     float speed = sqrtf(kSpeedCoef * energy);
 
     for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f && inwin;
@@ -339,7 +352,7 @@ flight_kernel(const FlightParams p) {
       if (is_coll) {
         died = collide<X, R>(key, counter, energy, weight, omega_x,
                              omega_y, mfp, sig_s, mac_a, mac_t,
-                             number_density, scatter);
+                             number_density, scatter, hint_s);
         n_colls += 1;
       }
       if (refl_x) omega_x = -omega_x;
@@ -361,7 +374,7 @@ flight_kernel(const FlightParams p) {
       dt = dt - d / speed;
       if (is_census) dt = 0.0f;
       if (is_coll) {
-        sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+        sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
         speed = sqrtf(kSpeedCoef * energy);
       }
 
@@ -416,6 +429,33 @@ flight_kernel(const FlightParams p) {
   }
 }
 
+// The entry points.  Table mode caps the registers at kTableBlocks blocks
+// an SM (64 registers) beside the blocks' coarse indexes in shared memory;
+// the analytic mode keeps the compiler's own allocation.
+constexpr int kTableBlocks = 8;
+
+template <RngScheme R>
+__global__ void __launch_bounds__(kThreads)
+flight_kernel_analytic(const FlightParams p) {
+  flight_pieces<XsMode::kAnalytic, R>(p);
+}
+
+template <RngScheme R>
+__global__ void __launch_bounds__(kThreads, kTableBlocks)
+flight_kernel_table(const FlightParams p) {
+  flight_pieces<XsMode::kTable, R>(p);
+}
+
+template <XsMode X, RngScheme R>
+void launch(const FlightParams& p, unsigned int blocks, size_t smem,
+            cudaStream_t s) {
+  if constexpr (X == XsMode::kAnalytic) {
+    flight_kernel_analytic<R><<<blocks, kThreads, smem, s>>>(p);
+  } else {
+    flight_kernel_table<R><<<blocks, kThreads, smem, s>>>(p);
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes by flight_kernel.py.
@@ -433,12 +473,13 @@ extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
   const unsigned int blocks =
       static_cast<unsigned int>((p->n_active + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = table_smem_bytes(*p);
   using X = XsMode;
   using R = RngScheme;
   switch ((p->xs_mode << 1) | p->rng) {
 #define NT_FLIGHT_CASE(x, r)                                              \
   case ((static_cast<int>(x) << 1) | static_cast<int>(r)):               \
-    flight_kernel<x, r><<<blocks, kThreads, 0, s>>>(*p);                  \
+    launch<x, r>(*p, blocks, smem, s);                                    \
     break;
     NT_FLIGHT_CASE(X::kAnalytic, R::kThreefry)
     NT_FLIGHT_CASE(X::kAnalytic, R::kPcg64si)

@@ -23,7 +23,9 @@
 // (common.cuh), one instantiation per combination, chosen at launch:
 //
 //   * cross-sections: the analytic resonance formula, or a stored table
-//     searched in global memory (table mode, for user .cs files);
+//     (table mode, for user .cs files) searched through its coarse index,
+//     which each persistent block copies into shared memory once per
+//     launch (common.cuh table_lookup);
 //   * density: the region rectangles, an (R, 4) int32 bounds array and an
 //     (R,) float32 density array on the device, scanned in order (later
 //     regions override earlier ones; any R), or a per-cell grid (grid mode,
@@ -82,8 +84,12 @@
 // Threefry-2x64-20's integer work alone needs (two draws a collision):
 // what is left is each collision's float work (about ten IEEE divisions,
 // six square roots and a logarithm under -fmad=false) and its lookup.  In
-// table mode the binary search's dependent loads (about 15 a lookup) stay;
-// under pcg64si the float work is the larger part.
+// table mode a lookup's latency chain is a gallop down the coarse index in
+// shared memory from the lane's last position, one L2 round trip for the
+// keys of its group and one for its packed interval (common.cuh); the
+// table instantiations take up to 64 registers, 8 blocks an SM (capped at
+// the analytic mode's 56 they spill and run slower).  Under pcg64si the
+// float work is the larger part.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -115,9 +121,11 @@ struct SweepParams {
   const int32_t* active;        // (n_active,) lanes to run; null: lane t
   int32_t* next;                // (n,) the lanes still working after it
   const float* scatter_keys;    // table mode: (scatter_entries,) ascending
-  const float* scatter_values;
+  const float4* scatter_intervals;  // table mode: (scatter_entries - 1,)
+  const float* scatter_coarse;  // table mode: its coarse index
   const float* absorb_keys;     // table mode: (absorb_entries,)
-  const float* absorb_values;
+  const float4* absorb_intervals;
+  const float* absorb_coarse;
   const float2* scatter_grid;   // analytic mode: (scatter_entries,) pairs
   const float2* absorb_grid;    // analytic mode: (absorb_entries,) pairs
   const int32_t* region_bounds; // region mode: (nregions, 4) ix0 ix1 iy0 iy1
@@ -132,6 +140,8 @@ struct SweepParams {
   int ny;                       // when unwindowed)
   int scatter_entries;
   int absorb_entries;
+  int scatter_shift;            // table mode: log2 of the coarse strides
+  int absorb_shift;
   int same_xs;
   int nregions;
   int xs_mode;                  // nt::XsMode
@@ -164,10 +174,12 @@ __device__ __forceinline__ unsigned int lanes_below() {
 template <XsMode X, DensityMode D, RngScheme R>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const SweepParams p) {
-  const XsTable scatter{p.scatter_keys, p.scatter_values, p.scatter_grid,
-                        p.scatter_entries};
-  const XsTable absorb{p.absorb_keys, p.absorb_values, p.absorb_grid,
-                       p.absorb_entries};
+  // Table mode stages the coarse indexes once per launch: the blocks are
+  // persistent.
+  extern __shared__ float coarse_smem[];
+  stage_tables<X>(p, coarse_smem);
+  const XsTable scatter = scatter_table(p, coarse_smem);
+  const XsTable absorb = absorb_table(p, coarse_smem);
 
   // The list position this thread loads next: pending while below
   // n_active, kNeed when the thread needs a new one, n_active when the
@@ -191,6 +203,7 @@ sweep_kernel(const SweepParams p) {
   // and again only after a collision (collide's one lookup): the energy
   // changes nowhere else.
   float sig_s = 0.0f, sig_a = 0.0f, speed = 0.0f;
+  int hint_s = kNoHint, hint_a = kNoHint;   // table mode: level-1 hints
 
   // Counts of this thread's events (a thread runs about a launch's events
   // over its threads, far below 2^32) and of its warp's event steps.
@@ -228,8 +241,9 @@ sweep_kernel(const SweepParams p) {
                               p.master_key);
             counter = static_cast<uint64_t>(p.counter[i]);
             density_cell = -1;
-            sig_s = xs_value<X>(energy, scatter);
-            sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+            hint_s = hint_a = kNoHint;
+            sig_s = xs_value<X>(energy, scatter, hint_s);
+            sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
             speed = sqrtf(kSpeedCoef * energy);
             ev = 0;
             have = true;
@@ -324,9 +338,9 @@ sweep_kernel(const SweepParams p) {
       if (is_coll) {
         died = collide<X, R>(key, counter, energy, weight, omega_x,
                              omega_y, mfp, sig_s, mac_a, mac_t,
-                             number_density, scatter);
+                             number_density, scatter, hint_s);
         dt = dt - d_coll / speed;
-        sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb);
+        sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
         speed = sqrtf(kSpeedCoef * energy);
       }
       if (is_facet) {
@@ -467,16 +481,18 @@ extern "C" int nt_sweep_threads() { return kThreads; }
   ((static_cast<int>(x) << 2) | (static_cast<int>(d) << 1) |              \
    static_cast<int>(r))
 
-// Blocks of the instantiation of (xs_mode, density_mode, rng) that one SM
-// holds at once, into *blocks; returns the CUDA error code (0 on success,
-// cudaErrorInvalidValue for an unknown mode).
-extern "C" int nt_sweep_blocks_per_sm(int xs_mode, int density_mode,
-                                      int rng, int* blocks) {
-  switch ((xs_mode << 2) | (density_mode << 1) | rng) {
+// Blocks of the instantiation that a launch with parameters *p runs (its
+// xs_mode, density_mode and rng) that one SM holds at once beside the
+// launch's dynamic shared memory (table_smem_bytes), into *blocks; returns
+// the CUDA error code (0 on success, cudaErrorInvalidValue for an unknown
+// mode).
+extern "C" int nt_sweep_blocks_per_sm(const SweepParams* p, int* blocks) {
+  const size_t smem = table_smem_bytes(*p);
+  switch ((p->xs_mode << 2) | (p->density_mode << 1) | p->rng) {
 #define NT_SWEEP_CASE(x, d, r)                                            \
   case NT_SWEEP_MODE(x, d, r):                                            \
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
-        blocks, sweep_kernel<x, d, r>, kThreads, 0));
+        blocks, sweep_kernel<x, d, r>, kThreads, smem));
     NT_SWEEP_MODES(NT_SWEEP_CASE)
 #undef NT_SWEEP_CASE
     default:
@@ -493,10 +509,11 @@ extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
   if (p->n_active <= 0) return 0;
   if (p->blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = table_smem_bytes(*p);
   switch ((p->xs_mode << 2) | (p->density_mode << 1) | p->rng) {
 #define NT_SWEEP_CASE(x, d, r)                                            \
   case NT_SWEEP_MODE(x, d, r):                                            \
-    sweep_kernel<x, d, r><<<p->blocks, kThreads, 0, s>>>(*p);             \
+    sweep_kernel<x, d, r><<<p->blocks, kThreads, smem, s>>>(*p);          \
     break;
     NT_SWEEP_MODES(NT_SWEEP_CASE)
 #undef NT_SWEEP_CASE

@@ -57,8 +57,8 @@ from . import build
 from .particles import ParticleState
 from .raster_kernel import (GROWTH, SegmentDeposit, deposit_segments_kernel,
                             redeposit_segments)
-from .sweep_kernel import (check_inputs, rect_arrays, state_pointers,
-                           table_fields, window_fields)
+from .sweep_kernel import (TABLE_POINTERS, check_inputs, rect_arrays,
+                           state_pointers, table_fields, window_fields)
 from .transport import Geometry
 from .xs import CrossSection
 
@@ -75,15 +75,14 @@ class _FlightParams(ctypes.Structure):
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
             "celly", "dead", "pid", "counter", "tally", "segs", "counts",
-            "active", "next", "scatter_keys", "scatter_values",
-            "absorb_keys", "absorb_values", "scatter_grid", "absorb_grid",
+            "active", "next", *TABLE_POINTERS, "scatter_grid", "absorb_grid",
             "rect_bounds", "rect_density")]
         + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64),
            ("n_active", ctypes.c_int64), ("seg_cap", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "max_pieces", "nx", "ny", "scatter_entries", "absorb_entries",
-            "same_xs", "nrects", "xs_mode", "rng", "x_off", "y_off",
-            "global_nx", "global_ny")]
+            "scatter_shift", "absorb_shift", "same_xs", "nrects", "xs_mode",
+            "rng", "x_off", "y_off", "global_nx", "global_ny")]
         + [(f, ctypes.c_float) for f in (
             "dx", "dy", "inv_dx", "inv_dy", "inv_ntotal")])
 

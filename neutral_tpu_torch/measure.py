@@ -1,6 +1,7 @@
 """Measurements of the port on a card, beside chip_smoke.py.
 
     python neutral_tpu_torch/measure.py census [--root DIR] [--reps 5]
+    python neutral_tpu_torch/measure.py flight [--root DIR] [--reps 5]
     python neutral_tpu_torch/measure.py deposit [--root DIR] [--reps 5]
         [--rows FILE] [--deck DECK]
     python neutral_tpu_torch/measure.py run DECK [--root DIR] [--reps 1]
@@ -14,11 +15,12 @@
 `census` times one step-1 census of the scatter deck through the sweep
 kernel in each of its modes, `--reps` times after a warm-up, with the
 package found under `--root` (default: this checkout): analytic (the deck
-itself, 10,000,000 particles), and at 1,000,000 particles pcg64si (the
-deck with `rng pcg64si`), table (beside 30,000-entry `.cs` tables,
-xs.resonance_log_table), grid (a random 4000^2 density grid with 25%
-vacuum cells, from default_rng(7)) and window (the 2x2 block [2000,
-4000)^2), the copies chip_smoke.py's phases 8-10 and 12 make.  Given the
+itself, 10,000,000 particles), and at 1,000,000 particles analytic_1m
+(the deck itself), pcg64si (the deck with `rng pcg64si`), table (beside
+30,000-entry `.cs` tables, xs.resonance_log_table), grid (a random 4000^2
+density grid with 25% vacuum cells, from default_rng(7)) and window (the
+2x2 block [2000, 4000)^2), the copies chip_smoke.py's phases 8-10 and 12
+make.  Given the
 root of another checkout, it times that checkout's kernel, so that two
 versions compare within one run on one card (run them in turns: A, B, B,
 A).  Each mode's record holds the census's facets and collisions, a
@@ -26,6 +28,12 @@ digest of the end state's 14 fields (two checkouts whose kernels compute
 the same lanes print the same digest), the share of thread slots that
 one thread per lane in pid order would fill (from each lane's draws, its
 counter's delta), the share the kernel's launches filled and its grid.
+
+`flight` times the flight kernel's own device time (CUDA events, without
+the segment deposits) over one step-1 census of the split deck at
+1,000,000 particles, analytic and beside the 30,000-entry `.cs` tables,
+`--reps` times after a warm-up, with the package under `--root` as
+`census` does, and prints each mode's end-state digest.
 
 `deposit` times the segment deposit of the step-1 segment rows of DECK
 (default: the stream deck, 1,000,000 particles, 4000^2 mesh) into a fresh
@@ -93,7 +101,8 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-CENSUS_MODES = ("analytic", "pcg64si", "table", "grid", "window")
+CENSUS_MODES = ("analytic", "analytic_1m", "pcg64si", "table", "grid",
+                "window")
 BLOCK = (2000, 2000, 2000, 2000)   # (x_off, y_off, nx, ny) of "window"
 
 
@@ -105,7 +114,7 @@ def census_deck(mode: str, tmp: str) -> tuple[str, int, tuple | None]:
     from neutral_tpu_torch import driver, xs
 
     scatter = "problems/scatter.params"
-    if mode in ("analytic", "window"):
+    if mode in ("analytic", "analytic_1m", "window"):
         return (scatter, 10_000_000 if mode == "analytic" else 1_000_000,
                 BLOCK if mode == "window" else None)
     d = os.path.join(tmp, mode)
@@ -174,11 +183,61 @@ def census(reps: int, mode: str, tmp: str) -> dict:
             "slot_use_pid_order": sweep_kernel.thread_slot_use(
                 state.counter - start.counter),
             "slot_use": buffers.slot_use(),
-            "grid_blocks": sweep_kernel.grid_blocks(
-                nparticles, *sweep_kernel.resident_blocks(
-                    int(not sim.cs_scatter.analytic),
-                    int(geom.regions is None),
-                    sweep_kernel.RNG_SCHEMES[cfg.rng], buffers.device))}
+            "grid_blocks": buffers.grid[0]}
+
+
+def table_deck(deck: str, tmp: str) -> str:
+    """A copy of `deck` in `tmp` beside 30,000-entry `.cs` tables
+    (xs.resonance_log_table), under its own basename."""
+    import shutil
+    from neutral_tpu_torch import xs
+
+    d = os.path.join(tmp, "table")
+    os.makedirs(d, exist_ok=True)
+    keys, values = xs.resonance_log_table()
+    for name in ("elastic_scatter.cs", "capture.cs"):
+        xs.write_cs_file(os.path.join(d, name), keys, values)
+    shutil.copy(deck, d)
+    return os.path.join(d, os.path.basename(deck))
+
+
+def flight(reps: int, tmp: str) -> list:
+    """The flight kernel's own milliseconds over `reps` split censuses at
+    1,000,000 particles, analytic and in table mode."""
+    import hashlib
+    import torch
+    from neutral_tpu_torch import driver, flight_kernel, transport
+    from neutral_tpu_torch.particles import STATE_FIELDS
+
+    split = "problems/split.params"
+    out = []
+    for mode, deck in (("analytic", split), ("table", table_deck(split, tmp))):
+        cfg = driver.load_config(deck).with_(expected_tally=None)
+        sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                                quiet=True)
+        start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
+                                         cfg.dt, 1)
+        buffers = flight_kernel.FlightBuffers(cfg.nx, cfg.ny, "cuda")
+        times, launches = [], 0
+        for rep in range(reps + 1):
+            state = start.clone()
+            _, nf, nc, launches, ph = flight_kernel.flight_chunk_kernel(
+                state, torch.zeros_like(sim.tally), sim.geom, sim.cs_scatter,
+                sim.cs_absorb, 1, 1.0 / cfg.nparticles, buffers=buffers)
+            if rep:                               # the first is a warm-up
+                times.append(ph["flight"] * 1e3)
+        digest = hashlib.sha256()
+        for f in STATE_FIELDS:
+            digest.update(getattr(state, f).cpu().numpy().tobytes())
+        out.append({"deck": f"flight {mode}", "shards": 1,
+                    "decomposition": None, "flight_ms": times,
+                    "min_ms": min(times),
+                    "median_ms": sorted(times)[len(times) // 2],
+                    "facets": nf, "collisions": nc, "launches": launches,
+                    "nparticles": cfg.nparticles,
+                    "state_sha256": digest.hexdigest()})
+        del sim, start, state, buffers
+    return out
 
 
 def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
@@ -420,6 +479,10 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
     c.add_argument("--reps", type=int, default=5)
+    g = sub.add_parser("flight", help="time split's flight kernel per mode")
+    g.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package to time")
+    g.add_argument("--reps", type=int, default=5)
     d = sub.add_parser("deposit", help="time the segment deposit")
     d.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
@@ -458,7 +521,7 @@ def main(argv: list[str] | None = None) -> int:
         for r in compare(args.file, args.key):
             print(json.dumps(r), flush=True)
         return 0
-    if args.what in ("census", "deposit", "run", "tail"):
+    if args.what in ("census", "flight", "deposit", "run", "tail"):
         # This file's own directory would shadow nothing useful: the
         # package comes from the root asked for.
         rows = args.what == "deposit" and args.rows
@@ -468,6 +531,9 @@ def main(argv: list[str] | None = None) -> int:
         if args.what == "census":
             with tempfile.TemporaryDirectory() as tmp:
                 rec = [census(args.reps, m, tmp) for m in CENSUS_MODES]
+        elif args.what == "flight":
+            with tempfile.TemporaryDirectory() as tmp:
+                rec = flight(args.reps, tmp)
         elif args.what == "deposit":
             rec = [deposit(args.reps, args.deck, rows)]
         elif args.what == "tail":

@@ -22,8 +22,8 @@ parameters and `sweep_round` one launch over the lists of `SweepBuffers`;
 `sweep_chunk_kernel` loops them for one state, and the decomposed runs
 (parallel/) launch every shard before they read the counters of all
 shards at once.  The grid fills the card once (`grid_blocks`, from the
-occupancy that `resident_blocks` reads from the library once per process
-and instantiation).
+occupancy that `resident_blocks` reads from the library for each launch's
+instantiation and shared memory).
 
 `sweep_chunk_plain` is the plain PyTorch version (transport.sweep_chunk run
 to completion).  `sweep_chunk_kernel` launches the kernel or raises: on a
@@ -60,6 +60,11 @@ THREADS = 128              # threads per block (csrc/sweep.cu kThreads)
 # 0 for analytic/regions and 1 for table/grid).
 RNG_SCHEMES = {"threefry": 0, "pcg64si": 1}
 
+# The table-mode pointer fields of both kernels' parameters, in order: each
+# table's keys, packed intervals and coarse index (xs.TableLayout).
+TABLE_POINTERS = tuple(f"{t}_{part}" for t in ("scatter", "absorb")
+                       for part in ("keys", "intervals", "coarse"))
+
 
 class _SweepParams(ctypes.Structure):
     """Mirror of `SweepParams` in csrc/sweep.cu."""
@@ -68,14 +73,14 @@ class _SweepParams(ctypes.Structure):
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
             "celly", "dead", "pid", "counter", "tally", "counts", "active",
-            "next", "scatter_keys", "scatter_values", "absorb_keys",
-            "absorb_values", "scatter_grid", "absorb_grid", "region_bounds",
-            "region_density", "density")]
+            "next", *TABLE_POINTERS, "scatter_grid", "absorb_grid",
+            "region_bounds", "region_density", "density")]
         + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64),
            ("n_active", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "blocks", "max_events", "nx", "ny", "scatter_entries",
-            "absorb_entries", "same_xs", "nregions", "xs_mode",
+            "absorb_entries", "scatter_shift", "absorb_shift", "same_xs",
+            "nregions", "xs_mode",
             "density_mode", "rng", "x_off", "y_off", "global_nx",
             "global_ny")]
         + [(f, ctypes.c_float) for f in ("dx", "dy", "inv_ntotal")])
@@ -89,8 +94,8 @@ def load_library() -> ctypes.CDLL:
     lib.nt_params_size.restype = ctypes.c_int
     lib.nt_sweep_threads.argtypes = []
     lib.nt_sweep_threads.restype = ctypes.c_int
-    lib.nt_sweep_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int)]
+    lib.nt_sweep_blocks_per_sm.argtypes = [ctypes.POINTER(_SweepParams),
+                                           ctypes.POINTER(ctypes.c_int)]
     lib.nt_sweep_blocks_per_sm.restype = ctypes.c_int
     lib.nt_sweep_launch.argtypes = [ctypes.POINTER(_SweepParams),
                                     ctypes.c_void_p]
@@ -104,17 +109,17 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def resident_blocks(xs_mode: int, density_mode: int, rng: int,
+def resident_blocks(params: _SweepParams,
                     device: torch.device) -> tuple[int, int]:
-    """(SMs, blocks per SM) of the sweep kernel's instantiation for the
-    mode codes on `device` (an indexed CUDA device), from the CUDA
-    occupancy calculator; read once per process and instantiation."""
+    """(SMs, blocks per SM) of the sweep kernel's instantiation for a
+    launch with `params` on `device` (an indexed CUDA device), beside the
+    launch's dynamic shared memory (its tables' coarse indexes), from the
+    CUDA occupancy calculator."""
     lib = load_library()
     blocks = ctypes.c_int()
     with torch.cuda.device(device):
         build.check_launch(lib, lib.nt_sweep_blocks_per_sm(
-            xs_mode, density_mode, rng, ctypes.byref(blocks)),
+            ctypes.byref(params), ctypes.byref(blocks)),
             "sweep kernel occupancy query")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms, blocks.value
@@ -149,13 +154,15 @@ class SweepBuffers:
     length of the next launch's list, None when the next launch covers
     every lane (the first of a census, or of a shard that received
     migrants).  counts[4] / (32 * counts[5]) is the share of the thread
-    slots of the launches so far that ran events."""
+    slots of the launches so far that ran events.  `grid` is (blocks, SMs,
+    blocks an SM holds) of the latest launch over every lane."""
 
     def __init__(self, device):
         self.counts = torch.zeros(6, dtype=torch.int64, device=device)
         self.device = self.counts.device            # with its index
         self.lists = [torch.empty(0, dtype=torch.int32, device=self.device)
                       for _ in range(2)]
+        self.grid = (0, 0, 0)
         self.start_census()
 
     def start_census(self) -> None:
@@ -216,6 +223,7 @@ def check_inputs(state: ParticleState, tally: torch.Tensor, geom: Geometry,
             for part in ("keys", "values"):
                 _check_tensor(f"{name} table {part}", getattr(tab, part),
                               (tab.nentries,), torch.float32, dev)
+            tab.table_layout       # made once per table; raises if it cannot
     if geom.regions is None:
         _check_tensor("geom.density", geom.density, (ncells,),
                       torch.float32, dev)
@@ -257,7 +265,8 @@ def table_fields(p: ctypes.Structure, geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection) -> None:
     """Set a kernel's cross-section and RNG fields: entry counts, same_xs,
     the mode codes, and the device pointers of the analytic grids or, in
-    table mode, of the tables."""
+    table mode, of the tables' layouts (keys, intervals, coarse index) and
+    their coarse strides."""
     p.scatter_entries = scatter_tab.nentries
     p.absorb_entries = absorb_tab.nentries
     p.same_xs = int(geom.same_xs)
@@ -267,10 +276,11 @@ def table_fields(p: ctypes.Structure, geom: Geometry,
         p.scatter_grid = scatter_tab.analytic_grid.data_ptr()
         p.absorb_grid = absorb_tab.analytic_grid.data_ptr()
     else:
-        p.scatter_keys = scatter_tab.keys.data_ptr()
-        p.scatter_values = scatter_tab.values.data_ptr()
-        p.absorb_keys = absorb_tab.keys.data_ptr()
-        p.absorb_values = absorb_tab.values.data_ptr()
+        for name, tab in (("scatter", scatter_tab), ("absorb", absorb_tab)):
+            lay = tab.table_layout
+            for part in ("keys", "intervals", "coarse"):
+                setattr(p, f"{name}_{part}", getattr(lay, part).data_ptr())
+            setattr(p, f"{name}_shift", lay.shift)
 
 
 def sweep_params(state: ParticleState, tally: torch.Tensor,
@@ -346,8 +356,10 @@ def sweep_round(params: _SweepParams, buffers: SweepBuffers,
     params.n_active = lanes
     params.counts = b.counts.data_ptr()
     params.max_events = int(max_events)
-    params.blocks = grid_blocks(lanes, *resident_blocks(
-        params.xs_mode, params.density_mode, params.rng, b.device))
+    sms, per_sm = resident_blocks(params, b.device)
+    params.blocks = grid_blocks(lanes, sms, per_sm)
+    if b.n_active is None:
+        b.grid = (params.blocks, sms, per_sm)
     lib = load_library()
     with torch.cuda.device(b.device):
         b.counts[2:4].zero_()

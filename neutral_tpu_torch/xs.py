@@ -13,12 +13,16 @@ modes: analytic (keys and values in closed form, no memory reads),
 quartic (O(1) bracketing index into a stored table) and searchsorted (any
 ascending table: max{i : keys[i] <= E}, clipped to [0, n-2]).  The CUDA
 kernels implement the analytic mode, reading its keys and values from
-`analytic_grid` instead of dividing, and, for any stored table, a binary
-search with the searchsorted index over the `keys`/`values` tensors
-(csrc/common.cuh `xs_lookup`, `table_lookup`).  On the generated grid the
-quartic index equals the searchsorted one for every energy from 1e-2 eV
-up (below it the quartic formula takes the root of a negative number),
-which tests/test_torch_table.py checks.
+`analytic_grid` instead of dividing, and, for any stored table, the
+searchsorted index by a two-level search over the table's `TableLayout`
+(csrc/common.cuh `xs_lookup`, `table_lookup`): a coarse index of every
+S-th key, which each block keeps in shared memory, then the S keys of one
+group, then one packed interval (keys[i], keys[i+1], values[i],
+values[i+1]).  `TableLayout.index`/`.lookup` are that search in plain
+PyTorch; `CrossSection.lookup` stays the plain version of the function.
+On the generated grid the quartic index equals the searchsorted one for
+every energy from 1e-2 eV up (below it the quartic formula takes the root
+of a negative number), which tests/test_torch_table.py checks.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ import torch
 from .constants import CS_CAPTURE_FILENAME, CS_SCATTER_FILENAME
 
 _N_DEFAULT = 30000
+
+# Entries of a stored table's coarse index at most: 8 KiB of float32 in
+# shared memory, 16 KiB for two tables, so that the sweep kernel's 9 blocks
+# a streaming multiprocessor (csrc/sweep.cu) fit beside each other.
+COARSE_KEYS = 2048
 
 
 def make_resonance_table(n: int = _N_DEFAULT) -> tuple[np.ndarray, np.ndarray]:
@@ -118,6 +127,99 @@ def div(a: torch.Tensor, s: float) -> torch.Tensor:
     return a / torch.tensor(s, dtype=a.dtype, device=a.device)
 
 
+def coarse_shift(n: int) -> int:
+    """log2 of the coarse index's stride S for an n-entry table: the
+    smallest power of two for which ceil(n / S) <= COARSE_KEYS (S = 16 for
+    30,000 entries)."""
+    shift = 0
+    while (n - 1) >> shift >= COARSE_KEYS:
+        shift += 1
+    return shift
+
+
+def _bisect(arr: torch.Tensor, energy: torch.Tensor, lo: torch.Tensor,
+            hi: torch.Tensor) -> torch.Tensor:
+    """Per energy, the end of the run of arr[lo:hi] with !(arr[i] > energy)
+    (arr ascending), by the kernel's bisection: the test of
+    torch.searchsorted(right=True), so a NaN energy runs to `hi`."""
+    last = arr.shape[0] - 1
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            return lo
+        mid = (lo + hi) >> 1
+        up = ~(arr[mid.clamp(max=last)] > energy)
+        lo = torch.where(active & up, mid + 1, lo)
+        hi = torch.where(active & ~up, mid, hi)
+
+
+@dataclass(frozen=True)
+class TableLayout:
+    """A stored table as the CUDA kernels search it (csrc/common.cuh
+    `table_lookup`), made once per table (CrossSection.table_layout):
+
+    * `keys`: the (n,) ascending keys;
+    * `intervals`: (n - 1, 4) rows (keys[i], keys[i+1], values[i],
+      values[i+1]), so that one interpolation is one aligned 16-byte load;
+    * `coarse`: keys[0], keys[S], keys[2S], ... with S = 2**shift
+      (coarse_shift), at most COARSE_KEYS entries, which each block of a
+      kernel copies into shared memory.
+
+    `index` and `lookup` are the kernels' two-level search in plain
+    PyTorch: they give CrossSection.lookup_index's and lookup's results,
+    bit for bit.  (The kernels start a lane's first level from its last
+    lookup's position, since a collision never raises the energy; that
+    changes the steps, not the result.)"""
+    keys: torch.Tensor
+    intervals: torch.Tensor
+    coarse: torch.Tensor
+    shift: int
+
+    @property
+    def nentries(self) -> int:
+        return self.keys.shape[0]
+
+    @classmethod
+    def build(cls, keys: torch.Tensor, values: torch.Tensor
+              ) -> "TableLayout":
+        """The layout of (keys, values) on their device and in their dtype;
+        raises ValueError unless both are (n,) with 2 <= n < 2**31 and the
+        keys ascend (equal neighbours allowed) with no NaN."""
+        n = keys.shape[0]
+        if keys.ndim != 1 or tuple(values.shape) != (n,):
+            raise ValueError(f"table keys {tuple(keys.shape)} and values "
+                             f"{tuple(values.shape)}: want two (n,) arrays")
+        if not 2 <= n < 2**31:
+            raise ValueError(f"table of {n} entries: want 2 <= n < 2**31")
+        if bool(torch.isnan(keys).any()) or bool((keys[1:] < keys[:-1]).any()):
+            raise ValueError("table keys must ascend (equal neighbours "
+                             "allowed) and hold no NaN")
+        shift = coarse_shift(n)
+        intervals = torch.stack([keys[:-1], keys[1:], values[:-1],
+                                 values[1:]], dim=1).contiguous()
+        return cls(keys.contiguous(), intervals,
+                   keys[::1 << shift].contiguous(), shift)
+
+    def index(self, energy: torch.Tensor) -> torch.Tensor:
+        """max{i : keys[i] <= energy} clipped to [0, n-2] (int64), by the
+        kernels' two levels: c = #{j : coarse[j] <= energy}, then the keys
+        [(c - 1) S + 1, min(c S, n)) of that group."""
+        n, s = self.nentries, 1 << self.shift
+        zero = torch.zeros(energy.shape, dtype=torch.int64,
+                           device=energy.device)
+        c = _bisect(self.coarse, energy, zero, zero + self.coarse.shape[0])
+        c = _bisect(self.keys, energy, ((c - 1) * s + 1).clamp(min=0),
+                    (c * s).clamp(max=n))
+        return (c - 1).clamp(0, n - 2)
+
+    def lookup(self, energy: torch.Tensor) -> torch.Tensor:
+        """The interpolation over interval index(energy), as the kernels
+        compute it."""
+        iv = self.intervals[self.index(energy)]
+        k0, k1, v0, v1 = iv.unbind(-1)
+        return v0 + ((energy - k0) / (k1 - k0)) * (v1 - v0)
+
+
 @dataclass
 class CrossSection:
     """Cross-section table with optional closed-form modes.
@@ -193,6 +295,13 @@ class CrossSection:
                          device=self.keys.device)
         return torch.stack([self._key_at(i, torch.float32),
                             self._val_at(i, torch.float32)], dim=1)
+
+    @functools.cached_property
+    def table_layout(self) -> TableLayout:
+        """The stored table's TableLayout on its device, made at first use:
+        what the CUDA kernels' table mode reads.  Raises ValueError for a
+        table they cannot search (TableLayout.build)."""
+        return TableLayout.build(self.keys, self.values)
 
     def _analytic_index(self, energy: torch.Tensor) -> torch.Tensor:
         """lookup_index without the one-off nudge gathers."""

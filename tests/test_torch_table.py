@@ -1,16 +1,21 @@
 """Stored (non-quartic) cross-section tables in the port, against
 neutral_tpu.
 
-The kernels' table mode is a binary search for max{i : keys[i] <= E},
-clipped to [0, n-2], then the interpolation of xs.py; its plain version is
-the port's searchsorted lookup (`CrossSection.lookup`).  That lookup is
+The kernels' table mode finds max{i : keys[i] <= E}, clipped to [0, n-2],
+by a two-level search over the table's `xs.TableLayout`, then the
+interpolation of xs.py; its plain version is the port's searchsorted
+lookup (`CrossSection.lookup`; tests/test_torch_table_layout.py holds the
+layout's search to it).  That lookup is
 held here to `neutral_tpu.pallas_table.lookup_banded`, the TPU kernels'
 table lookup, run in interpret mode as tests/test_pallas_table.py runs it
 (index bitwise, value within an ulp), and table decks through the port's float64
 plain sweep and flight transports to JAX's float64 XLA sweep and flight
 engines.  The `cuda` tests hold both kernels' table mode to their plain
-versions on the card and skip without one; JAX is imported only inside
-the tests that compare with it:
+versions on the card, on the resampled resonance table and on
+table_kernel's probe tables, with one table or a
+second one for capture, and the lookup kernel alone against its plain
+versions; they skip without one.  JAX is imported only inside the tests
+that compare with it:
 
     python -m pytest tests/test_torch_table.py -q -m cuda --noconftest
 """
@@ -23,6 +28,8 @@ import torch
 
 import neutral_tpu_torch as tt
 from neutral_tpu_torch import driver
+from neutral_tpu_torch.table_kernel import (PROBE_TABLES, probe_energies,
+                                            probe_table)
 from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
 
 from test_torch_driver import kernel_matches_plain_on_card
@@ -177,15 +184,23 @@ def test_table_deck_matches_jax_f64(tmp_path, same_xs, transport_name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("table", ["resonance", "n3", "n2049", "runs",
+                                   "n131069"])
 @pytest.mark.parametrize("same_xs", [True, False])
 @pytest.mark.parametrize("deck", ["scatter", "split"])
-def test_table_kernel_matches_plain_on_card(deck, same_xs, tmp_path):
+def test_table_kernel_matches_plain_on_card(deck, same_xs, table, tmp_path):
     """The sweep kernel (scatter) and the flight kernel (split) in table
     mode against their plain versions at 65,536 particles, with the
-    resampled resonance table, and a second table for capture."""
+    resampled resonance table or an adversarial one (3 entries; 2,049, S =
+    2; runs of equal keys across the coarse entries; 131,069, S = 64), and
+    a second table for capture (same_xs false: the absorb lookup, and both
+    coarse indexes in shared memory)."""
     def log_table(n=30000, seed=None):
-        keys, values = resonance_log_table(n)
-        return keys, values
+        if n != 30000:                          # the capture table
+            keys, values = resonance_log_table(n)
+            return keys, values
+        keys, values = probe_table(table)
+        return keys.astype(np.float64), values.astype(np.float64)
 
     write_tables(tmp_path, same_xs, log_table)
     shutil.copy(f"problems/{deck}.params", tmp_path / f"{deck}.params")
@@ -193,3 +208,32 @@ def test_table_kernel_matches_plain_on_card(deck, same_xs, tmp_path):
         nparticles=65536, expected_tally=None)
     sim, _ = kernel_matches_plain_on_card(cfg)
     assert not sim.cs_scatter.analytic and sim.geom.same_xs == same_xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROBE_TABLES)
+def test_table_lookup_kernel_matches_plain_on_card(name):
+    """The lookup kernel alone (csrc/table.cu, the device function of both
+    kernels' table mode) on every probe table of table_kernel and its
+    probe energies: indices bitwise the plain two-level search's
+    and torch.searchsorted's, values bitwise TableLayout.lookup's and
+    CrossSection.lookup's on the card."""
+    from neutral_tpu_torch.table_kernel import table_lookup_kernel
+    from neutral_tpu_torch.xs import CrossSection
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys, values = probe_table(name)
+    tab = CrossSection(torch.from_numpy(keys).cuda(),
+                       torch.from_numpy(values).cuda())
+    lay = tab.table_layout
+    e = torch.from_numpy(probe_energies(keys, 20_000)).cuda()
+    launches = table_lookup_kernel.launches
+    got, idx = table_lookup_kernel(lay, e, index=True)
+    assert table_lookup_kernel.launches == launches + 1
+    n = keys.shape[0]
+    want = (torch.searchsorted(tab.keys, e, right=True) - 1).clamp(0, n - 2)
+    assert torch.equal(idx.long(), want)
+    assert torch.equal(idx.long(), lay.index(e))
+    for plain in (lay.lookup(e), tab.lookup(e)):
+        assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
