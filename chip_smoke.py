@@ -177,7 +177,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    version.  Prints each run's step times beside phase 14's, its
    exchange time and the lanes sent between the processes per step.
    Every process has a timeout (MP_TIMEOUT), after which all are killed.
-24. Result: a JSON line on the kernels (each with its bound, and the times
+24. Lanes below 1e-2 eV, the resonance table's lowest key, where the
+   closed-form index's root is NaN and converts to index 0: phase 22's
+   scatter family born at 5e-3 eV (every lane below) and at 1.01e-2 eV
+   (lanes cross in their first scatters), each in a deck file at
+   MODE_N = 1,000,000 particles.  The sweep kernel against its plain
+   version on the card in float32, as in phase 3 (counts and all 14
+   fields bitwise, again at 1 event per launch: a lane here ends within a
+   few events, so 64 would take the census in one launch), printing the lanes
+   that ended below 1e-2 eV; the deck through `driver.main` (the sweep
+   kernel launched, no plain version, step 1's counts equal to the
+   comparison's); and, at the family's 30 particles, the plain engine in
+   float64 on the card against the oracle as in phase 22, on both
+   transports.  Each must show lanes below 1e-2 eV.
+25. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
@@ -258,6 +271,9 @@ MP_RUNS = (("scatter", SCATTER, "replicated"),
            ("stream", FLIGHT_DECKS[0], "spatial2d"),
            ("csp", FLIGHT_DECKS[2], "spatial2d"))
 MP_TIMEOUT = 300                 # seconds a phase 23 process may take
+# Phase 24: phase 22's scatter family born below and just above 1e-2 eV.
+THRESHOLD = 1.0e-2               # the resonance table's lowest key, eV
+LOW_ENERGY = {"born 5e-3": 5.0e-3, "crossing 1.01e-2": 1.01e-2}
 
 # The card's peaks (NVIDIA's H100 SXM data sheet and Hopper white paper).
 PEAK_BYTES = 3.35e12
@@ -384,14 +400,14 @@ def check_outside(torch, name, start, state, outside, fields):
 
 
 def compare(nparticles: int, torch, driver, transport, sweep_kernel,
-            fields, deck=SCATTER, label="compare", window=None):
-    """Phase 3 at one size (and phases 8-10 on `deck`, phase 12 in
+            fields, deck=SCATTER, label="compare", window=None, events=64):
+    """Phase 3 at one size (and phases 8-10 and 24 on `deck`, phase 12 in
     `window`): returns a dict of the kernel's and the plain version's
     times (ms, plain_ms), max_abs_err and the work (lanes, cells, counts)
     for the bound.
 
-    Besides the timed runs, the kernel runs once more with 64 events per
-    launch, so that one census takes many launches; its state must be
+    Besides the timed runs, the kernel runs once more with `events` events
+    per launch, so that one census takes many launches; its state must be
     equal too (the main path's census fits in one launch)."""
     cfg = driver.load_config(deck).with_(nparticles=nparticles,
                                          expected_tally=None)
@@ -447,18 +463,20 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     if not rel <= 1e-5:
         fail(f"{label} n={nparticles}: tally sums differ by {rel:.3e} (> 1e-5)")
     launches0 = sweep_kernel.sweep_chunk_kernel.launches
-    _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel, max_events=64)
+    _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel,
+                             max_events=events)
     nl = sweep_kernel.sweep_chunk_kernel.launches - launches0
     if nl < 2 or (cnf, cnc) != (pnf, pnc) or differing_field(
             cs, ps, torch, fields) is not None:
-        fail(f"{label} n={nparticles}: the census in {nl} launches of 64 events "
-             "differs from the plain version")
-    print(f"[{label} n={nparticles}] 64 events per launch: {nl} launches, "
-          "counts and per-lane state equal")
+        fail(f"{label} n={nparticles}: the census in {nl} launches of "
+             f"{events} events differs from the plain version")
+    print(f"[{label} n={nparticles}] {events} events per launch: {nl} "
+          "launches, counts and per-lane state equal")
     return {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
             "n": nparticles, "ncells": geom.nx * geom.ny, "facets": knf,
             "collisions": knc, "rng": cfg.rng, "grid_blocks": blocks,
             "slot_use": slot_use, "slot_use_pid_order": slot_pid,
+            "below_threshold": int((ks.energy < THRESHOLD).sum()),
             **({} if sim.cs_scatter.analytic else {"energy": ks.energy}),
             **table_work(sim, loads, knc)}
 
@@ -1353,12 +1371,28 @@ def dumps_and_trace(tmp: str, torch, driver, wrappers) -> dict:
     return res
 
 
-def oracle_on_card(torch, driver) -> None:
-    """Phase 22."""
+def family_deck(path: str, d: dict, nparticles: int) -> str:
+    """Phase 22's deck family `d` as a deck file at `path`."""
+    problems = "".join(
+        f"problem_{i} density={r[0]!r} energy=0.0 xpos={r[1]!r} "
+        f"ypos={r[2]!r} width={r[3]!r} height={r[4]!r}\n"
+        for i, r in enumerate(d["problems"]))
+    with open(path, "w") as f:
+        f.write(f"nparticles {nparticles}\ninitial_energy "
+                f"{d['initial_energy']!r}\ndt 1.0e-7\nnx 48\nny 48\n"
+                f"iterations {d['niters']}\nsource xpos={d['source'][0]!r} "
+                f"ypos={d['source'][1]!r} width={d['source'][2]!r} "
+                f"height={d['source'][3]!r}\n{problems}")
+    return path
+
+
+def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False) -> None:
+    """Phase 22 (and phase 24's oracle runs: `low` fails a run in which no
+    lane ended below THRESHOLD)."""
     import numpy as np
     from neutral_tpu_torch import ProblemRegion, SimConfig, SourceBox, oracle
 
-    for kind, d in ORACLE_DECKS.items():
+    for kind, d in decks.items():
         cfg = SimConfig(
             nx=48, ny=48, width=1.0, height=1.0, dt=1e-7, niters=d["niters"],
             nparticles=d["nparticles"], initial_energy=d["initial_energy"],
@@ -1385,16 +1419,60 @@ def oracle_on_card(torch, driver) -> None:
                 close = (abs(card.sum() - tally.sum())
                          <= 1e-11 * abs(tally.sum())
                          and np.allclose(card, tally, rtol=1e-7, atol=1e-30))
+            below = int((sim.state.energy < THRESHOLD).sum())
             print(f"[oracle {kind} {transport}] counts {got} (oracle's "
                   f"equal: {got == want}); tally {card.sum():.15e} against "
                   f"{tally.sum():.15e}, largest cell difference {err:.3e} "
-                  f"of the largest cell; card {wall:.2f} s, oracle "
+                  f"of the largest cell; {below} lanes ended below "
+                  f"{THRESHOLD} eV; card {wall:.2f} s, oracle "
                   f"{t_oracle:.2f} s", flush=True)
+            if low and below == 0:
+                fail(f"oracle {kind} {transport}: no lane went below "
+                     f"{THRESHOLD} eV")
             if (got != want or tally.sum() == 0.0 or not close
                     or not np.array_equal(sim.state.dead.cpu().numpy(),
                                           dead)):
                 fail(f"oracle {kind} {transport}: the plain engine on the "
                      "card differs from the oracle")
+
+
+def low_energy(tmp: str, torch, driver, transport, sweep_kernel, fields,
+               wrappers) -> dict:
+    """Phase 24.  Returns the sweep kernel's comparisons and the launches
+    of the main paths."""
+    runs, launches = [], 0
+    for label, energy in LOW_ENERGY.items():
+        d = dict(ORACLE_DECKS["scatter"], initial_energy=energy)
+        deck = family_deck(os.path.join(tmp, f"lowenergy_{energy!r}.params"),
+                           d, MODE_N)
+        # A lane here ends within a few events: one event per launch
+        # still takes the census through several launches.
+        r = compare(MODE_N, torch, driver, transport, sweep_kernel, fields,
+                    deck=deck, label=f"low energy {label}", events=1)
+        out, _, c = main_path(deck, torch, driver, wrappers,
+                              label=f"low energy {label}")
+        if ("Engine: kernel." not in out or "Transport: sweep." not in out
+                or c["sweep_chunk_kernel"] <= 0 or c["sweep_chunk_plain"]):
+            fail(f"low energy {label} main path: counts {c} (want sweep "
+                 "kernel launches and no plain run)")
+        step1 = step_counts(out)[0]
+        if step1 != (r["facets"], r["collisions"]):
+            fail(f"low energy {label}: step 1 counts {step1} differ from "
+                 f"the comparison's {(r['facets'], r['collisions'])}")
+        print(f"[low energy {label}] kernel equal to plain at {MODE_N} "
+              f"lanes, {r['below_threshold']} of them ended below "
+              f"{THRESHOLD} eV; main path step 1 {step1}, equal to the "
+              f"comparison's; {c['sweep_chunk_kernel']} sweep launches",
+              flush=True)
+        if r["below_threshold"] == 0:
+            fail(f"low energy {label}: no lane went below {THRESHOLD} eV")
+        runs.append(r)
+        launches += c["sweep_chunk_kernel"]
+    oracle_on_card(torch, driver, low=True, decks={
+        f"low energy {label}": dict(ORACLE_DECKS["scatter"],
+                                    initial_energy=energy)
+        for label, energy in LOW_ENERGY.items()})
+    return {"runs": runs, "launches": launches}
 
 
 def free_port() -> int:
@@ -1651,7 +1729,14 @@ def main() -> int:
         raster_launches += launches[2]
         overflows += launches[3]
 
-    # ---- 24. result -----------------------------------------------------
+    # ---- 24. lanes below 1e-2 eV ---------------------------------------
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    low = low_energy(tmp.name, torch, driver, transport, sweep_kernel,
+                     STATE_FIELDS, wrappers)
+    tmp.cleanup()
+    sweep_launches += low["launches"]
+
+    # ---- 25. result -----------------------------------------------------
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {
@@ -1662,6 +1747,12 @@ def main() -> int:
         [top], f"scatter, {COMPARE_SIZES[-1]} particles")}
     sweep_modes["analytic"]["census_repeats_ms"] = census["census_ms"]
     sweep_modes.update(modes["sweep"])
+    sweep_modes["low energy"] = mode_entry(
+        low["runs"], f"phase 22's scatter family (48x48) born at 5e-3 and "
+        f"1.01e-2 eV, {MODE_N} particles each, one census each")
+    sweep_modes["low energy"]["launches"] = low["launches"]
+    sweep_modes["low energy"]["below_threshold"] = [
+        r["below_threshold"] for r in low["runs"]]
     flight_modes = {"analytic": mode_entry(
         flights, "stream + split + csp, 1,000,000 particles each")}
     flight_modes.update(modes["flight"])

@@ -153,7 +153,9 @@ __device__ __forceinline__ float xs_lookup(float e, const float2* grid,
                                            int n) {
   const float m = static_cast<float>(n);
   const float u = sqrtf(sqrtf((e - kEm2) * kEm8));
-  const int i0 = min(max(static_cast<int>(floorf(u * m)) - 1, 0), n - 2);
+  // Below 1e-2 eV u is NaN: cvt.rmi sends it to 0 (and saturates), as
+  // XLA's conversion and xs.to_int do.
+  const int i0 = min(max(__float2int_rd(u * m) - 1, 0), n - 2);
   const float2 gm = __ldg(grid + max(i0 - 1, 0));
   const float2 g0 = __ldg(grid + i0);
   const float2 g1 = __ldg(grid + i0 + 1);

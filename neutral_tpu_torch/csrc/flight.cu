@@ -262,8 +262,8 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
       const bool refl_y =
           exit_y && ((pos_y && riy1 == p.global_ny) || (!pos_y && riy0 == 0));
 
-      const int fcx = static_cast<int>(floorf(x1 * p.inv_dx));
-      const int fcy = static_cast<int>(floorf(y1 * p.inv_dy));
+      const int fcx = __float2int_rd(x1 * p.inv_dx);
+      const int fcy = __float2int_rd(y1 * p.inv_dy);
       const int in_cx = min(max(fcx, rix0), rix1 - 1);
       const int in_cy = min(max(fcy, riy0), riy1 - 1);
       const int cx1 =

@@ -142,8 +142,8 @@ __device__ __forceinline__ bool load_row(const float* segs,
           (fabsf(r.dgy) < kTiny ? (r.dgy < 0.0f ? -kTiny : kTiny) : r.dgy);
   r.sx = (r.dgx > 0.0f) - (r.dgx < 0.0f);
   r.sy = (r.dgy > 0.0f) - (r.dgy < 0.0f);
-  r.cx0 = min(max(static_cast<int>(floorf(r.gx0)), 0), nx - 1);
-  r.cy0 = min(max(static_cast<int>(floorf(r.gy0)), 0), ny - 1);
+  r.cx0 = min(max(__float2int_rd(r.gx0), 0), nx - 1);
+  r.cy0 = min(max(__float2int_rd(r.gy0), 0), ny - 1);
   return true;
 }
 
@@ -182,8 +182,8 @@ __device__ __forceinline__ int cross_cell(float g0, float iv, float dg, int s,
   } else {
     hi = min(hi, c0);
   }
-  int c = static_cast<int>(floorf(fminf(
-      fmaxf(g0 + t * dg, static_cast<float>(lo)), static_cast<float>(hi))));
+  int c = __float2int_rd(fminf(fmaxf(g0 + t * dg, static_cast<float>(lo)),
+                               static_cast<float>(hi)));
   if (s > 0) {
     while (c < hi && wall_t(c + 1, g0, iv) < t) ++c;
     while (c > lo && !(wall_t(c, g0, iv) < t)) --c;

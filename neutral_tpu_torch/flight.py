@@ -46,7 +46,7 @@ from .constants import BARNS, OPEN_BOUND_CORRECTION
 from .particles import STATE_FIELDS, ParticleState
 from .transport import (Geometry, _INV_MOLAR, _heating_response, _speed_of,
                         collision_physics, working_mask)
-from .xs import CrossSection, const
+from .xs import CrossSection, const, to_int
 
 
 def disjoint_rects(regions: tuple, nx: int, ny: int) -> tuple:
@@ -242,8 +242,8 @@ def flight_core(state: ParticleState, geom: Geometry,
                        | ((~pos_y) & (riy0 == 0)))
     is_refl = refl_x | refl_y
 
-    fcx = torch.floor(x1 * inv_dx).to(i32)
-    fcy = torch.floor(y1 * inv_dy).to(i32)
+    fcx = to_int(torch.floor(x1 * inv_dx), i32)
+    fcy = to_int(torch.floor(y1 * inv_dy), i32)
     in_cx = torch.minimum(torch.maximum(fcx, rix0), rix1 - 1)
     in_cy = torch.minimum(torch.maximum(fcy, riy0), riy1 - 1)
     # x-exit: step across the wall (or stay in the boundary cell when

@@ -26,7 +26,7 @@ import torch
 
 from . import rng
 from .mesh import Mesh2D
-from .xs import const
+from .xs import const, to_int
 
 STATE_FIELDS = ("x", "y", "omega_x", "omega_y", "energy", "weight",
                 "dt_to_census", "mfp_to_collision", "deposit",
@@ -125,7 +125,7 @@ def _find_cell(edges: torch.Tensor, pos: torch.Tensor, ncells: int,
         idx = torch.searchsorted(edges, pos, right=True) - 1
         return idx.clamp(0, ncells - 1).to(torch.int32)
     inv = const(float(ncells) / float(extent), pos.dtype)
-    cand = torch.floor(pos * inv).to(torch.int32).clamp(0, ncells - 1)
+    cand = to_int(torch.floor(pos * inv), torch.int32).clamp(0, ncells - 1)
     lo = edges[cand]
     hi = edges[cand + 1]
     cand = cand + (pos >= hi).to(torch.int32) - (pos < lo).to(torch.int32)

@@ -36,14 +36,14 @@ from __future__ import annotations
 
 import torch
 
-from .xs import const
+from .xs import const, to_int
 
 _BIG = 1.0e30
 _TINY = 1.0e-12
 
 
 def _clipfloor(u: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.floor(u).to(torch.int32).clamp(0, n - 1)
+    return to_int(torch.floor(u), torch.int32).clamp(0, n - 1)
 
 
 def _walk_setup(segs: torch.Tensor, nx: int, ny: int) -> dict:
@@ -198,6 +198,7 @@ def _cross_cell(g0: torch.Tensor, iv: torch.Tensor, dg: torch.Tensor,
     lo = torch.where(s > 0, torch.maximum(lo, c0), lo)
     hi = torch.where(s < 0, torch.minimum(hi, c0), hi)
     dtype = g0.dtype
+    # fmin/fmax drop a NaN, so est lies in [lo, hi] and converts in range.
     est = torch.fmin(torch.fmax(g0 + t * dg, lo.to(dtype)), hi.to(dtype))
     c = torch.floor(est).to(torch.int32)
     pos = s > 0

@@ -21,8 +21,10 @@ group, then one packed interval (keys[i], keys[i+1], values[i],
 values[i+1]).  `TableLayout.index`/`.lookup` are that search in plain
 PyTorch; `CrossSection.lookup` stays the plain version of the function.
 On the generated grid the quartic index equals the searchsorted one for
-every energy from 1e-2 eV up (below it the quartic formula takes the root
-of a negative number), which tests/test_torch_table.py checks.
+every energy from 1e-2 eV up, which tests/test_torch_table.py checks.
+Below 1e-2 eV the quartic formula takes the root of a negative number;
+`to_int` sends that NaN to index 0, as XLA and the card's conversion do,
+which again is searchsorted's index (tests/test_torch_lowenergy.py).
 """
 
 from __future__ import annotations
@@ -35,6 +37,14 @@ import numpy as np
 import torch
 
 from .constants import CS_CAPTURE_FILENAME, CS_SCATTER_FILENAME
+
+# PyTorch's CPU build computes sqrt, log and their kin with MKL's vector
+# math library, which sets itself up at its first call in a process.  When
+# that first call runs on several threads at once, one thread's share can
+# come back wrong in its low digits (square roots of a 100,000-lane lookup,
+# in some fresh processes).  One call on a tensor small enough to run on
+# this thread alone sets the library up before any parallel call.
+torch.sqrt(torch.ones(16))
 
 _N_DEFAULT = 30000
 
@@ -115,6 +125,20 @@ def const(v: float, dtype: torch.dtype) -> float:
     `np.dtype(dtype).type(v)`), so that every constant enters the
     arithmetic already in the working precision, as in the CUDA kernel."""
     return float(np.float32(v)) if dtype == torch.float32 else float(v)
+
+
+def to_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x converted to the integer `dtype` as XLA converts, and as the
+    kernels' cvt instructions do (csrc `__float2int_rd`): toward zero, NaN
+    to 0, values beyond the type's range saturated to its ends.  PyTorch
+    on an x86 CPU gives the type's minimum for all three, so every floor
+    that a NaN, an infinity or a huge value can reach converts here."""
+    info = torch.iinfo(dtype)
+    lo, hi = float(info.min), -float(info.min)   # both exact in any float
+    inside = (x >= lo) & (x < hi)                 # False for NaN
+    out = torch.where(inside, x, torch.zeros_like(x)).to(dtype)
+    out = torch.where(x >= hi, info.max, out)
+    return torch.where(x < lo, info.min, out)
 
 
 def div(a: torch.Tensor, s: float) -> torch.Tensor:
@@ -261,7 +285,8 @@ class CrossSection:
         n = self.nentries
         if self.quartic:
             u = ((energy - 1.0e-2) * 1.0e-8) ** 0.25
-            idx = torch.floor(u * float(n)).to(torch.int64) - 1
+            # Below 1e-2 eV the root is NaN, which converts to 0 (XLA's).
+            idx = to_int(torch.floor(u * float(n)), torch.int64) - 1
             idx = idx.clamp(0, n - 2)
             # Float rounding can land one bin off; nudge once each way.
             idx = torch.where(energy < self.keys[idx], idx - 1, idx)
@@ -309,7 +334,7 @@ class CrossSection:
         dtype = energy.dtype
         u = torch.sqrt(torch.sqrt((energy - const(1.0e-2, dtype))
                                   * const(1.0e-8, dtype)))
-        idx = torch.floor(u * const(float(n), dtype)).to(torch.int32) - 1
+        idx = to_int(torch.floor(u * const(float(n), dtype)), torch.int32) - 1
         idx = idx.clamp(0, n - 2)
         idx = torch.where(energy < self._key_at(idx, dtype), idx - 1, idx)
         idx = torch.where(

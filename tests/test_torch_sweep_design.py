@@ -34,20 +34,22 @@ from neutral_tpu_torch.sweep_kernel import (THREADS, SweepBuffers,
                                             grid_blocks, rect_arrays,
                                             sweep_chunk_plain, sweep_params,
                                             sweep_round, thread_slot_use)
-from neutral_tpu_torch.xs import CrossSection, make_resonance_table
+from neutral_tpu_torch.xs import CrossSection, make_resonance_table, to_int
 
 DECK = "problems/scatter.params"
 
 
 def grid_lookup(energy: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """csrc/common.cuh xs_lookup in plain PyTorch: the closed-form first
-    guess i0, the grid's entries i0 - 1 .. i0 + 2, the two nudges picking
-    from them, and the interpolation."""
+    guess i0 (converted as the kernel's __float2int_rd converts: a NaN
+    root below 1e-2 eV to 0), the grid's entries i0 - 1 .. i0 + 2, the two
+    nudges picking from them, and the interpolation."""
     n = grid.shape[0]
     f32 = np.float32
     u = torch.sqrt(torch.sqrt((energy - float(f32(1.0e-2)))
                               * float(f32(1.0e-8))))
-    i0 = (torch.floor(u * float(f32(n))).to(torch.int32) - 1).clamp(0, n - 2)
+    i0 = (to_int(torch.floor(u * float(f32(n))), torch.int32) - 1).clamp(
+        0, n - 2)
     gm = grid[(i0 - 1).clamp(min=0)]
     g0 = grid[i0]
     g1 = grid[i0 + 1]

@@ -9,6 +9,7 @@ processed counts are exactly equal and the tally agrees to summation-order
 rounding.  This module holds the plain version of the CUDA sweep kernel.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -27,8 +28,13 @@ FAMILIES = ["scatter", "stream", "csp", "split"]
 
 
 @functools.cache
-def run_both(kind: str, dtype: str):
+def run_both(kind: str, dtype: str, initial_energy: float | None = None):
+    """Both engines on family `kind` (born at `initial_energy` eV when it
+    is given): per step the counts, dead masks and the port's energies,
+    then JAX's and the port's tallies."""
     cfg = make_problem(kind)
+    if initial_energy is not None:
+        cfg = dataclasses.replace(cfg, initial_energy=initial_energy)
     jdt = getattr(jnp, dtype)
     regions = jmesh.region_cell_bounds(cfg)
     dx, dy = cfg.width / cfg.nx, cfg.height / cfg.ny
@@ -68,7 +74,8 @@ def run_both(kind: str, dtype: str):
             1.0 / cfg.nparticles)
         steps.append(dict(jax=(jnf, jnc, int(nproc)), torch=(tnf, tnc, tnproc),
                           jdead=np.asarray(jstate.dead),
-                          tdead=tstate.dead.numpy()))
+                          tdead=tstate.dead.numpy(),
+                          tenergy=tstate.energy.numpy()))
     return steps, np.asarray(jtally), ttally.numpy()
 
 
