@@ -190,7 +190,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    comparison's); and, at the family's 30 particles, the plain engine in
    float64 on the card against the oracle as in phase 22, on both
    transports.  Each must show lanes below 1e-2 eV.
-25. Result: a JSON line on the kernels (each with its bound, and the times
+25. The begin kernel (csrc/begin.cu, begin_kernel.begin_timestep_kernel)
+   against transport.begin_timestep on the card: scatter at its
+   10,000,000 particles; stream, split and csp, the four decks under
+   pcg64si, scatter and split with the 30,000-entry tables, scatter on
+   phase 10's random grid (25% vacuum cells, where the mean free path is
+   inf), the scatter and split windows of phases 12-13 and phase 24's two
+   low-energy decks, each at 1,000,000.  On step 1's state and on a copy
+   with a seeded quarter of its lanes dead and its clocks, mean free paths
+   and counters scrambled, all 14 fields bitwise and the live count equal
+   to (~dead).sum(), the caller's state unchanged.  Prints each mode's
+   device time (BEGIN_REPS calls in one CUDA graph), one call on the
+   clock, the plain version's time and the bound.
+   Every main path (phases 4, 7-10, 14 and 18-24, and each process of
+   phase 23) must have started each census of each shard once: the begin
+   kernel on the kernel engine and never transport.begin_timestep (which
+   counts its calls), the plain version on the plain engine and never the
+   kernel.
+26. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
@@ -221,7 +238,13 @@ sweep and flight kernels on the table main paths, which run the lookup
 inside (`fused_launches` splits them); the lookup kernel alone never runs
 on a main path.  In table mode the sweep and flight kernels' bounds add
 their tables' keys and values, read once, and nothing for the searches.
-No roofline sees the lookup's chain of dependent loads.
+No roofline sees the lookup's chain of dependent loads.  The begin
+kernel's bound: 37 bytes a lane (dead, cells, energy and pid read;
+clock, mean free path and counter written), 4 more a dead lane (its old
+mean free path, which a live lane's draw replaces), the scatter
+table's keys and values in table mode, and a live lane's pair draw and
+12 float operations; its `ms` is device time as the lookup's is, and no
+PyTorch call computes its function (`library_ms` null).
 """
 
 from __future__ import annotations
@@ -284,6 +307,16 @@ DRAW_OPS = {"threefry": 160, "pcg64si": 30}
 FLOPS_EVENT, FLOPS_COLLISION, FLOPS_VISIT = 60, 40, 15
 FLOPS_INTERPOLATE = 6            # one interpolation of a table lookup
 LOOKUP_REPS = 20                 # timed calls of a standalone lookup
+# The begin kernel: a lane reads dead 1, cellx 4, celly 4, energy 4 and
+# pid 8 bytes (read whole: a dead lane's entries share their sectors with
+# live lanes') and writes dt_to_census 4, mfp 4 and counter 8; a dead lane
+# also reads its old mfp (4), which a live lane's draw replaces.  A live
+# lane draws one pair and does the interpolation (6), mac_s's three
+# products, the logarithm, its negation and the division.
+BEGIN_LANE_BYTES = 21 + 16
+BEGIN_DEAD_BYTES = 4
+FLOPS_BEGIN = FLOPS_INTERPOLATE + 6
+BEGIN_REPS = 20                  # timed calls of the begin kernel
 
 
 def bound(nbytes: float, int_ops: float, float_ops: float) -> dict:
@@ -693,14 +726,33 @@ def flight_steps(out: str) -> list:
 def kernel_wrappers():
     """(wrapper, count attribute) of every kernel and plain version of
     the main paths."""
-    from neutral_tpu_torch import (flight, flight_kernel, raster_kernel,
-                                   sweep_kernel)
+    from neutral_tpu_torch import (begin_kernel, flight, flight_kernel,
+                                   raster_kernel, sweep_kernel, transport)
     return [(sweep_kernel.sweep_chunk_kernel, "launches"),
             (sweep_kernel.sweep_chunk_plain, "calls"),
             (flight_kernel.flight_chunk_kernel, "launches"),
             (flight.flight_chunk_plain, "calls"),
             (raster_kernel.deposit_segments_kernel, "launches"),
-            (raster_kernel.deposit_segments_kernel, "overflows")]
+            (raster_kernel.deposit_segments_kernel, "overflows"),
+            (begin_kernel.begin_timestep_kernel, "launches"),
+            (transport.begin_timestep, "calls")]
+
+
+def check_begin(name: str, out: str, c: dict, shards: int) -> int:
+    """Fail unless a main path started each census of each of its `shards`
+    shards once, with the begin kernel on the kernel engine and the plain
+    begin_timestep on the plain one, and never the other; returns the
+    begin kernel's launches."""
+    censuses = len(re.findall(r"^Iteration  \d+$", out, re.M))
+    kernel = "Engine: kernel." in out
+    want = censuses * shards
+    got = (c["begin_timestep_kernel"], c["begin_timestep"])
+    if censuses == 0 or got != ((want, 0) if kernel else (0, want)):
+        fail(f"{name}: begin kernel launches and plain begin calls {got}; "
+             f"want {want} ({censuses} censuses x {shards} shards) of the "
+             f"{'kernel' if kernel else 'plain version'} and none of the "
+             "other")
+    return c["begin_timestep_kernel"]
 
 
 def reset_counts(wrappers):
@@ -731,6 +783,9 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     main_path.walls[name] = wall
     if rc != 0:
         fail(f"{name}: driver.main returned {rc}")
+    shards = re.search(r"^Decomposition: \w+, (\d+) shards", out, re.M)
+    main_path.begin_launches[name] = check_begin(
+        name, out, counts, int(shards[1]) if shards else 1)
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
     if not math.isfinite(total):
         fail(f"{name}: tally sum {total} is not finite")
@@ -755,6 +810,7 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
 
 
 main_path.walls = {}     # wall seconds of each main path, by label
+main_path.begin_launches = {}    # begin kernel launches, by label
 
 
 def check_kernel_path(name: str, out: str, c: dict,
@@ -1475,6 +1531,116 @@ def low_energy(tmp: str, torch, driver, transport, sweep_kernel, fields,
     return {"runs": runs, "launches": launches}
 
 
+def begin_compare(torch, driver, transport, begin_kernel, deck: str,
+                  n: int, label: str, window=None) -> dict:
+    """Phase 25 on one deck at n particles: the begin kernel against
+    transport.begin_timestep on step 1's injected state (every lane live)
+    and on a copy with a seeded quarter of its lanes dead and its clocks,
+    mean free paths and counters scrambled: all 14 fields bitwise and the
+    live count equal, the caller's state unchanged.  Returns the kernel's
+    device time on step 1's state (BEGIN_REPS calls in one CUDA graph), its
+    time on the clock, the plain version's and the bound."""
+    import dataclasses
+    from neutral_tpu_torch.particles import STATE_FIELDS
+
+    cfg = driver.load_config(deck).with_(nparticles=n, expected_tally=None)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+    geom, win = sim.geom, {}
+    if window is not None:
+        x_off, y_off, nx, ny = window
+        geom = dataclasses.replace(geom, nx=nx, ny=ny)
+        win = {"x_off": x_off, "y_off": y_off}
+    tab = sim.cs_scatter
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    scrambled = sim.state.clone()
+    scrambled.dead = torch.rand(n, device="cuda", generator=gen) < 0.25
+    scrambled.dt_to_census.uniform_(0.0, cfg.dt, generator=gen)
+    scrambled.mfp_to_collision.uniform_(0.0, 5.0, generator=gen)
+    scrambled.counter.random_(0, 1000, generator=gen)
+    bits = lambda t: (t.view(torch.int32)  # noqa: E731
+                      if t.dtype == torch.float32 else t)
+    for key, state in ((1, sim.state), (2, scrambled)):
+        before = state.clone()
+        got, live = begin_kernel.begin_timestep_kernel(
+            state, geom, tab, cfg.dt, key, **win)
+        want = transport.begin_timestep(state, geom, tab, cfg.dt, key, **win)
+        torch.cuda.synchronize()
+        bad = [f for f in STATE_FIELDS
+               if not torch.equal(bits(getattr(got, f)),
+                                  bits(getattr(want, f)))]
+        changed = differing_field(state, before, torch, STATE_FIELDS)
+        nlive = int((~state.dead).sum())
+        if bad or changed or int(live) != nlive:
+            fail(f"begin {label} (master key {key}): fields {bad} differ "
+                 f"from the plain version's, caller's {changed} changed, "
+                 f"live {int(live)} against {nlive}")
+    args = (sim.state, geom, tab, cfg.dt, 1)
+    ms = graph_ms(torch, lambda: begin_kernel.begin_timestep_kernel(
+        *args, **win), BEGIN_REPS)
+    wall_ms = min(timed(torch, begin_kernel.begin_timestep_kernel, *args,
+                        **win)[0] for _ in range(3))
+    plain_ms = sorted(timed(torch, transport.begin_timestep, *args, **win)[0]
+                      for _ in range(3))[1]
+    live = int((~sim.state.dead).sum())
+    extra = 0 if tab.analytic else table_bytes(tab.table_layout)
+    b = bound(n * BEGIN_LANE_BYTES + (n - live) * BEGIN_DEAD_BYTES + extra,
+              live * DRAW_OPS[cfg.rng],
+              live * FLOPS_BEGIN)
+    print(f"[begin {label}] {n} lanes: kernel {ms:.4f} ms (device, "
+          f"{BEGIN_REPS} calls in one CUDA graph; {wall_ms:.3f} ms on the "
+          f"clock), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); all {len(STATE_FIELDS)} fields and the live "
+          "count equal on step 1's state and on a scrambled one with dead "
+          "lanes", flush=True)
+    return {"ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+            "max_abs_err": 0.0, "n": n, "live": live, **b}
+
+
+def begin_phase(tmp: str, torch, driver, transport) -> dict:
+    """Phase 25: the begin kernel against its plain version in every mode
+    of the main paths.  Returns each mode's comparison."""
+    import numpy as np
+    from neutral_tpu_torch import begin_kernel
+    from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
+
+    dirs = {}
+    for d in ("pcg", "table", "grid"):
+        dirs[d] = os.path.join(tmp, d)
+        os.mkdir(dirs[d])
+    keys, values = resonance_log_table()
+    for fname in ("elastic_scatter.cs", "capture.cs"):
+        write_cs_file(os.path.join(dirs["table"], fname), keys, values)
+    cfg = driver.load_config(SCATTER)
+    rng = np.random.default_rng(7)           # phase 10's random grid
+    dens = rng.uniform(1.0e3, 2.0e4, size=(cfg.ny, cfg.nx))
+    dens[rng.random((cfg.ny, cfg.nx)) < 0.25] = 0.0
+    np.save(os.path.join(dirs["grid"], "dens.npy"), dens)
+    del dens
+    name = lambda d: d.split("/")[-1].split(".")[0]  # noqa: E731
+    modes = [("scatter", SCATTER, COMPARE_SIZES[-1], None)]
+    modes += [(name(d), d, MODE_N, None) for d in FLIGHT_DECKS]
+    modes += [(f"pcg64si {name(d)}", deck_copy(d, dirs["pcg"],
+                                               "rng pcg64si\n"), MODE_N, None)
+              for d in (SCATTER, *FLIGHT_DECKS)]
+    modes += [(f"table {name(d)}", deck_copy(d, dirs["table"]), MODE_N, None)
+              for d in (SCATTER, FLIGHT_DECKS[1])]
+    modes.append(("grid scatter", deck_copy(
+        SCATTER, dirs["grid"], "density_file dens.npy\n"), MODE_N, None))
+    modes += [(f"window {name(d)}", d, MODE_N, BLOCK)
+              for d in (SCATTER, FLIGHT_DECKS[1])]
+    for label, energy in LOW_ENERGY.items():
+        d = dict(ORACLE_DECKS["scatter"], initial_energy=energy)
+        modes.append((f"low energy {label}", family_deck(
+            os.path.join(tmp, f"lowenergy_{energy!r}.params"), d, MODE_N),
+            MODE_N, None))
+    res = {}
+    for label, deck, n, window in modes:
+        res[label] = begin_compare(torch, driver, transport, begin_kernel,
+                                   deck, n, label, window)
+        torch.cuda.empty_cache()
+    return res
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1541,6 +1707,9 @@ def two_processes(decomposed: dict) -> list:
                 "sweep_chunk_kernel", "flight_chunk_kernel",
                 "deposit_segments_kernel",
                 "deposit_segments_kernel.overflows"))]
+            main_path.begin_launches[f"two processes {label} {r}"] = (
+                check_begin(f"two processes, {label}: process {r}", out, c,
+                            2))
         ref = decomposed["runs"][label]
         if step_counts(out) != ref["counts"]:
             fail(f"two processes, {label}: per-step counts "
@@ -1736,7 +1905,12 @@ def main() -> int:
     tmp.cleanup()
     sweep_launches += low["launches"]
 
-    # ---- 25. result -----------------------------------------------------
+    # ---- 25. the begin kernel -------------------------------------------
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    begin = begin_phase(tmp.name, torch, driver, transport)
+    tmp.cleanup()
+
+    # ---- 26. result -----------------------------------------------------
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {
@@ -1757,6 +1931,7 @@ def main() -> int:
         flights, "stream + split + csp, 1,000,000 particles each")}
     flight_modes.update(modes["flight"])
     lookup = modes["lookup"]["census energies"]
+    begin_top = begin["scatter"]
     print(f"[device] nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": [
         {"name": "sweep_kernel",
@@ -1858,6 +2033,31 @@ def main() -> int:
                   "flight kernels' launches on the table main paths, which "
                   "run the lookup inside (fused_launches); modes hold 10M "
                   "and log-uniform energies and the probe tables"},
+        {"name": "begin_kernel",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/begin.cu",
+         "replaces": "neutral_tpu/transport.py:221",
+         "launches": sum(main_path.begin_launches.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in begin.values()),
+         "ms": begin_top["ms"],
+         "plain_ms": begin_top["plain_ms"],
+         "bound_ms": begin_top["bound_ms"],
+         "bound_by": begin_top["bound_by"],
+         "library_ms": None,
+         "wall_ms": begin_top["wall_ms"],
+         "launches_per_main_path": main_path.begin_launches,
+         "modes": begin,
+         "shape": f"step 1's state of the scatter deck, "
+                  f"{COMPARE_SIZES[-1]} particles, 4000x4000 mesh; ms is "
+                  f"the device time of one of {BEGIN_REPS} calls captured "
+                  "in one CUDA graph, wall_ms one call on the host clock, "
+                  "plain_ms transport.begin_timestep's on the host clock "
+                  "(median of 3); bound: 37 bytes a lane moved once (41 "
+                  "a dead lane, which keeps its old mean free path) and "
+                  "one pair draw a live lane; modes hold every deck mode "
+                  "at 1,000,000 particles; launches: one a census and "
+                  "shard, summed over every main path, both processes of "
+                  "phase 23's runs included"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,8 +4,9 @@ Monte Carlo neutral-particle transport for one NVIDIA H100: the same
 decks, RNG streams and physics as the JAX package, with its Pallas kernels
 rewritten as hand-written CUDA kernels: the fused event sweep
 (csrc/sweep.cu), the free-flight pieces (csrc/flight.cu) and the segment
-deposit (csrc/raster.cu).  The package imports torch and never JAX or
-`neutral_tpu`.
+deposit (csrc/raster.cu), and each census started by one more
+(csrc/begin.cu, JAX's jitted begin_timestep).  The package imports torch
+and never JAX or `neutral_tpu`.
 """
 
 __version__ = "0.1.0"

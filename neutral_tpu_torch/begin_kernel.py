@@ -1,0 +1,185 @@
+"""The census-start kernel (csrc/begin.cu) and the choice of begin by
+engine.
+
+Counterpart of `neutral_tpu/transport.py::begin_timestep`, a `jax.jit`
+function that XLA fuses into one program a census.  Its plain PyTorch
+version, `transport.begin_timestep`, runs as a chain of eager operations;
+`begin_timestep_kernel` computes the same state in one launch of the
+hand-written CUDA kernel, bit for bit: each live lane's census clock reset
+to dt and its fresh mean free path from the draw at counter 0, every
+lane's counter set to 1, and the count of live lanes.
+
+`begin_timestep_kernel` launches the kernel or raises: on a state that
+does not lie on a CUDA device, on float64, on a geometry without a pitch
+and on any configuration the kernel does not implement.  It never runs
+the plain version.  `begin_census` is the steps' choice between the two:
+the kernel engine takes the kernel, the plain engine
+`transport.begin_timestep`.  `begin_timestep_kernel.launches` counts
+kernel launches; callers may reset it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build, transport
+from .particles import STATE_FIELDS, ParticleState
+from .sweep_kernel import (TABLE_POINTERS, check_inputs, rect_arrays,
+                           state_pointers, table_fields, window_fields)
+from .transport import Geometry
+from .xs import CrossSection
+
+THREADS = 256              # threads per block (csrc/begin.cu kThreads)
+
+# The fields that begin_timestep changes, each written to a fresh tensor.
+CHANGED = ("dt_to_census", "mfp_to_collision", "counter")
+
+
+class _BeginParams(ctypes.Structure):
+    """Mirror of `BeginParams` in csrc/begin.cu."""
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in (
+            *STATE_FIELDS, *(f"out_{f}" for f in CHANGED), "live",
+            *TABLE_POINTERS, "scatter_grid", "absorb_grid", "region_bounds",
+            "region_density", "density")]
+        + [("master_key", ctypes.c_uint64), ("n", ctypes.c_int64)]
+        + [(f, ctypes.c_int) for f in (
+            "blocks", "nx", "ny", "scatter_entries", "absorb_entries",
+            "scatter_shift", "absorb_shift", "same_xs", "nregions",
+            "xs_mode", "density_mode", "rng", "x_off", "y_off", "global_nx",
+            "global_ny")]
+        + [("dt", ctypes.c_float)])
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    lib = build.load()
+    lib.nt_begin_params_size.argtypes = []
+    lib.nt_begin_params_size.restype = ctypes.c_int
+    lib.nt_begin_threads.argtypes = []
+    lib.nt_begin_threads.restype = ctypes.c_int
+    lib.nt_begin_blocks_per_sm.argtypes = [ctypes.POINTER(_BeginParams),
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.nt_begin_blocks_per_sm.restype = ctypes.c_int
+    lib.nt_begin_launch.argtypes = [ctypes.POINTER(_BeginParams),
+                                    ctypes.c_void_p]
+    lib.nt_begin_launch.restype = ctypes.c_int
+    if lib.nt_begin_params_size() != ctypes.sizeof(_BeginParams):
+        raise RuntimeError("csrc/begin.cu BeginParams does not match "
+                           "begin_kernel._BeginParams")
+    if lib.nt_begin_threads() != THREADS:
+        raise RuntimeError("csrc/begin.cu kThreads does not match "
+                           "begin_kernel.THREADS")
+    return lib
+
+
+@functools.cache
+def _card_blocks(device: torch.device, modes: tuple, entries: int,
+                 shift: int) -> int:
+    """Blocks that `device` holds at once of the instantiation `modes`
+    (xs_mode, density_mode, rng) beside the coarse index of a table of
+    `entries` entries and coarse shift `shift` in table mode, from the
+    CUDA occupancy calculator; read once per process and key."""
+    lib = load_library()
+    p = _BeginParams()
+    p.xs_mode, p.density_mode, p.rng = modes
+    p.scatter_entries, p.scatter_shift = entries, shift
+    blocks = ctypes.c_int()
+    with torch.cuda.device(device):
+        build.check_launch(lib, lib.nt_begin_blocks_per_sm(
+            ctypes.byref(p), ctypes.byref(blocks)),
+            "begin kernel occupancy query")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(blocks.value, 1)
+
+
+@functools.cache
+def region_arrays(regions: tuple, device: torch.device):
+    """rect_arrays(regions) on `device`, made once per process, deck and
+    device (so that a launch copies nothing from the host)."""
+    return rect_arrays(regions, device)
+
+
+def check_begin_inputs(state: ParticleState, geom: Geometry,
+                       scatter_tab: CrossSection) -> None:
+    """Raise ValueError unless the kernel implements this configuration:
+    float32 state, and what sweep_kernel.check_inputs asks of the sweep
+    kernel's (a uniform pitch, threefry or pcg64si draws, CUDA tensors of
+    the state's dtypes, the table and a grid deck's density float32 on the
+    state's device)."""
+    if state.dtype != torch.float32:
+        raise ValueError(f"begin kernel takes float32 state, got "
+                         f"{state.dtype}")
+    check_inputs(state, None, geom, scatter_tab, scatter_tab, "begin kernel")
+
+
+def begin_timestep_kernel(state: ParticleState, geom: Geometry,
+                          scatter_tab: CrossSection, dt: float,
+                          master_key: int, x_off=None, y_off=None):
+    """transport.begin_timestep in one launch of the CUDA kernel, on the
+    state's device and its current stream (no wait).
+
+    Returns (the new state, a one-element int64 tensor on the device
+    holding the count of live lanes).  The new state's dt_to_census,
+    mfp_to_collision and counter are fresh tensors; its other fields are
+    the caller's, which the launch does not change.  `x_off`/`y_off` is
+    the window of a decomposed run's shard (a grid deck's density is
+    window-local), None for none.
+    """
+    check_begin_inputs(state, geom, scatter_tab)
+    dev = state.device
+    out = {f: torch.empty_like(getattr(state, f)) for f in CHANGED}
+    live = torch.zeros(1, dtype=torch.int64, device=dev)
+    p = _BeginParams()
+    state_pointers(p, state)
+    for f, t in out.items():
+        setattr(p, f"out_{f}", t.data_ptr())
+    p.live = live.data_ptr()
+    # The absorb table is not read: its fields repeat the scatter table's.
+    table_fields(p, geom, scatter_tab, scatter_tab)
+    window_fields(p, geom, x_off, y_off)
+    p.master_key = int(master_key)
+    p.n = state.n
+    # ctypes rounds the Python float to float32 as xs.const does.
+    p.dt = dt
+    if geom.regions is None:
+        p.density_mode = 1
+        p.density = geom.density.data_ptr()
+    else:
+        bounds, density = region_arrays(geom.regions, dev)
+        p.nregions = bounds.shape[0]
+        p.region_bounds = bounds.data_ptr()
+        p.region_density = density.data_ptr()
+    card = _card_blocks(dev, (p.xs_mode, p.density_mode, p.rng),
+                        p.scatter_entries, p.scatter_shift)
+    p.blocks = max(1, min(card, -(-state.n // THREADS)))
+    lib = load_library()
+    with torch.cuda.device(dev):
+        build.check_launch(lib, lib.nt_begin_launch(
+            ctypes.byref(p), torch.cuda.current_stream().cuda_stream),
+            "begin kernel")
+    begin_timestep_kernel.launches += 1
+    fields = {f: getattr(state, f) for f in STATE_FIELDS} | out
+    return ParticleState(**fields), live
+
+
+begin_timestep_kernel.launches = 0
+
+
+def begin_census(engine: str, state: ParticleState, geom: Geometry,
+                 scatter_tab: CrossSection, dt: float, master_key: int,
+                 x_off=None, y_off=None):
+    """The start of a census on `engine`'s path: (state, live lanes as a
+    one-element int64 tensor on the state's device), from
+    begin_timestep_kernel on the kernel engine and from
+    transport.begin_timestep on the plain one."""
+    if engine == "kernel":
+        return begin_timestep_kernel(state, geom, scatter_tab, dt,
+                                     master_key, x_off, y_off)
+    state = transport.begin_timestep(state, geom, scatter_tab, dt,
+                                     master_key, x_off, y_off)
+    return state, (~state.dead).sum().reshape(1)

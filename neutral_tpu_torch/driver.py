@@ -26,7 +26,8 @@ raster.py).  `auto` takes flight when the deck has a region of density
 below 1.0 (a near-vacuum region, where facet events dominate: stream, csp,
 split) and sweep otherwise (scatter).  The engine: `kernel` runs the
 census through the transport's CUDA kernels (sweep_kernel.py, or
-flight_kernel.py with raster_kernel.py) and needs a CUDA device; `plain`
+flight_kernel.py with raster_kernel.py), each census started by the begin
+kernel (begin_kernel.py), and needs a CUDA device; `plain`
 runs the plain PyTorch version on any device, and on CUDA only when asked
 for by name; `auto` is `kernel` on CUDA in float32 and `plain` otherwise
 (`pick_engine`: the kernels are float32 only, as `neutral_tpu`'s are).
@@ -81,6 +82,7 @@ import numpy as np
 import torch
 
 from . import io_utils
+from .begin_kernel import begin_census
 from .config import SimConfig, load_config
 from .constants import VALIDATE_TOLERANCE
 from .flight import disjoint_rects, flight_chunk_plain
@@ -91,7 +93,7 @@ from .particles import (ParticleState, inject_particles, merge_states,
 from .profiler import Profile, maybe_trace
 from .sweep_kernel import (MAX_EVENTS, SweepBuffers, sweep_chunk_kernel,
                            sweep_chunk_plain)
-from .transport import Geometry, begin_timestep, use_local_coords
+from .transport import Geometry, use_local_coords
 from .xs import CrossSection, find_cs_files
 
 ENGINES = ("auto", "plain", "kernel")
@@ -245,8 +247,10 @@ class StepMetrics:
     # the most any shard granted in each round, summed)
     nsweeps: int
     nlaunches: int        # kernel engine: sweep or flight kernel launches
-    # Split of the step, in seconds: "begin" (begin_timestep, up to the host
-    # read of the live count; wall clock), then for the sweep transport
+    # Split of the step, in seconds: "begin" (the census start,
+    # begin_kernel.begin_census: the begin kernel or, on the plain engine,
+    # transport.begin_timestep; up to the host read of the live count;
+    # wall clock), then for the sweep transport
     # "sweep" (the census; wall clock), for the flight transport "flight"
     # and "raster" (the pieces and the segment deposits: device time from
     # CUDA events with the kernel engine, wall clock with the plain one)
@@ -501,9 +505,9 @@ class Simulation(SimulationBase):
         """Advance one census timestep (master_key = tt, as main.c:101)."""
         self.profile.start()
         t0 = time.perf_counter()
-        state = begin_timestep(self.state, self.geom, self.cs_scatter,
-                               self.cfg.dt, tt)
-        nprocessed = int((~state.dead).sum())     # waits for the device
+        state, live = begin_census(self.engine, self.state, self.geom,
+                                   self.cs_scatter, self.cfg.dt, tt)
+        nprocessed = int(live)                    # waits for the device
         t_begin = time.perf_counter()
         inv_ntotal = 1.0 / self.cfg.nparticles
         args = (state, self.tally, self.geom, self.cs_scatter,

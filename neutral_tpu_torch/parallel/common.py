@@ -6,7 +6,9 @@ its own tally.  The JAX package built each decomposition from `shard_map`
 programs with collectives; here one Python loop drives every shard of a
 process (`DecomposedSimulation.step`), and a run over several processes
 (distributed.py) splits the global shards into contiguous blocks, one per
-process, each driven by the same loop:
+process, each driven by the same loop.  A step starts every shard's
+census (`begin_kernel.begin_census`: one begin kernel launch a shard with
+the kernel engine) and reads all shards' live counts at once; then:
 
 1. every shard with work runs one chunk: one kernel launch over the
    shard's list of working lanes (the sweep kernel, bounded by
@@ -71,6 +73,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..begin_kernel import begin_census
 from ..driver import SimulationBase, StepMetrics, check_device
 from ..flight import flight_chunk_plain
 from ..flight_kernel import (FlightBuffers, after_round, event_phases,
@@ -78,7 +81,7 @@ from ..flight_kernel import (FlightBuffers, after_round, event_phases,
 from ..particles import STATE_FIELDS, ParticleState, state_from_numpy
 from ..sweep_kernel import (MAX_EVENTS, SweepBuffers, rect_arrays,
                             sweep_chunk_plain, sweep_params, sweep_round)
-from ..transport import Geometry, begin_timestep, window_cells
+from ..transport import Geometry, window_cells
 from .distributed import (all_gather_arrays, all_gather_rows, exchange,
                           local_shards, process_of, rank, world)
 
@@ -331,9 +334,10 @@ class DecomposedSimulation(SimulationBase):
         t0 = time.perf_counter()
         rows = []
         for sh in self.shards:
-            sh.state = begin_timestep(sh.state, sh.geom, sh.tables[0],
-                                      cfg.dt, tt, sh.x_off, sh.y_off)
-            rows.append((~sh.state.dead).sum().reshape(1))
+            sh.state, live = begin_census(self.engine, sh.state, sh.geom,
+                                          sh.tables[0], cfg.dt, tt,
+                                          sh.x_off, sh.y_off)
+            rows.append(live)
             if sh.flight is not None:
                 sh.flight.start_census()
             if sh.sweep is not None:

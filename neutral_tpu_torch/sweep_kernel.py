@@ -193,13 +193,15 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple,
                          f"on {t.device}")
 
 
-def check_inputs(state: ParticleState, tally: torch.Tensor, geom: Geometry,
+def check_inputs(state: ParticleState, tally: torch.Tensor | None,
+                 geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection,
                  what: str) -> None:
     """Raise unless the kernel `what` implements this configuration: CUDA
     tensors of the kernel's dtypes, a uniform pitch, threefry or pcg64si
     draws, both cross-sections analytic or both stored tables (float32 on
-    the device), and region rectangles or a float32 density grid."""
+    the device), and region rectangles or a float32 density grid.  A
+    kernel without a tally passes None."""
     if not geom.dx:
         raise ValueError(f"{what} needs a uniform-pitch mesh (geom.dx)")
     if geom.rng_scheme not in RNG_SCHEMES:
@@ -215,7 +217,8 @@ def check_inputs(state: ParticleState, tally: torch.Tensor, geom: Geometry,
     for f, dt in _DTYPES.items():
         _check_tensor(f"state.{f}", getattr(state, f), (state.n,), dt, dev)
     ncells = geom.nx * geom.ny
-    _check_tensor("tally", tally, (ncells,), torch.float32, dev)
+    if tally is not None:
+        _check_tensor("tally", tally, (ncells,), torch.float32, dev)
     if not scatter_tab.analytic:
         for name, tab in (("scatter", scatter_tab), ("absorb", absorb_tab)):
             if tab.nentries < 2:

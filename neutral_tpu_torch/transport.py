@@ -189,7 +189,9 @@ def begin_timestep(state: ParticleState, geom: Geometry,
     fresh mean free paths with draw counter 0 (omp3/neutral.c:127-131);
     every lane's counter becomes 1.  `x_off`/`y_off` localise a grid deck's
     density gather to the window (every live lane sits on its owner shard
-    when a step starts)."""
+    when a step starts).  `begin_timestep.calls` counts its calls; callers
+    may reset it."""
+    begin_timestep.calls += 1
     dtype = state.dtype
     live = ~state.dead
     lx, ly, _ = window_cells(state, geom, x_off, y_off)
@@ -212,6 +214,9 @@ def begin_timestep(state: ParticleState, geom: Geometry,
         pid=state.pid,
         counter=torch.ones_like(state.counter),
     )
+
+
+begin_timestep.calls = 0
 
 
 def collision_physics(state: ParticleState, geom: Geometry,
