@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --process <CLI arguments>` is one process of
-phase 23: `python -m neutral_tpu_torch <CLI arguments>`, its kernels'
-launch counts printed after the run.)
+(`python3 chip_smoke.py --process <CLI arguments> [--then <CLI
+arguments> ...]` is one process of phase 23: `python -m
+neutral_tpu_torch <CLI arguments>` for each run in turn, its kernels'
+launch counts printed after each.)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -125,7 +126,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    sum lie within 1e-2 of split's golden (a sanity bound); prints events/s
    and peak device memory.
 17. The analytic grid: the (key, value) pairs that the kernels' analytic
-   lookup reads (CrossSection.analytic_grid of the scatter deck's table,
+   lookup reads (CrossSection.analytic_grid_in of the scatter deck's table,
    made on the card) must equal CrossSection._key_at/_val_at evaluated on
    the CPU at every index, bitwise: the CPU tests prove the lookup through
    that grid bitwise equal to the plain lookup.
@@ -157,26 +158,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    step 1) and split with `--trace-dir` (the Chrome trace must name the
    flight kernel's and the segment deposit's CUDA kernels), each beside
    the same run without, for their cost.
-22. The oracle on the card: the port's plain engine in float64 on the card,
+22. The oracle on the card: the port's plain engine (asked for by name:
+   `auto` takes the float64 kernel on the sweep transport) in float64 on
+   the card,
    on both transports, against the port's sequential oracle
    (neutral_tpu_torch/oracle.py, float64 on the host, no JAX) on the four
-   deck families of tests/test_transport.py (48^2, 25-40 particles, 1-4
-   steps): per-step facet, collision and processed counts equal, dead
+   deck families of tests/test_transport.py (48^2, 25-40 particles, 1-3
+   steps; csp cut from 4 to 3, the first two of which have no collision,
+   to bound the plain engine's time): per-step facet, collision and processed counts equal, dead
    flags equal, the tally per cell to 1e-9 on the sweep transport (on the
    flight transport, which deposits whole segments, its sum to 1e-11 and
    each cell to 1e-7, as tests/test_flight.py holds JAX's).
-23. Two processes sharing the card: for each run of MP_RUNS, two
-   processes of `python -m neutral_tpu_torch <deck> --shards 4
+23. Two processes sharing the card, which run every run of MP_RUNS in
+   turn, each as `python -m neutral_tpu_torch <deck> --shards 4
    --decomposition D --coordinator 127.0.0.1:<free port> --num-processes
-   2 --process-id r` (through `--process`), 2 shards each on cuda:0,
-   at full size on the kernel engine: scatter replicated and on 2x2
+   2 --process-id r` (through `--process`; the process group of the first
+   run serves the others), 2 shards each on cuda:0, at full size on the
+   kernel engine: scatter replicated and on 2x2
    blocks, stream and csp on 2x2 blocks.  Each must print `Distributed:
    2 processes, 4 shards.`, `PASSED validation.` (csp: within 1e-3 of
    omp3's tally) and phase 14's per-step counts of the same deck and
    layout; both processes must have launched the kernels and no plain
    version.  Prints each run's step times beside phase 14's, its
    exchange time and the lanes sent between the processes per step.
-   Every process has a timeout (MP_TIMEOUT), after which all are killed.
+   Both processes have a timeout (MP_TIMEOUT), after which both are
+   killed.
 24. Lanes below 1e-2 eV, the resonance table's lowest key, where the
    closed-form index's root is NaN and converts to index 0: phase 22's
    scatter family born at 5e-3 eV (every lane below) and at 1.01e-2 eV
@@ -207,8 +213,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    kernel on the kernel engine and never transport.begin_timestep (which
    counts its calls), the plain version on the plain engine and never the
    kernel.
-26. Result: a JSON line on the kernels (each with its bound, and the times
-   of every mode it ran), then the JSON result line.
+26. float64 on the card's kernels (the float64 instantiations of the sweep,
+   begin and lookup kernels, global coordinates; `auto` routes float64
+   decks there, JAX's is_f32 rule sending them to the sweep transport):
+   the sweep kernel against its plain float64 version on step 1's census
+   in each of its 8 instantiations, the window and phase 24's crossing
+   deck (F64_MAIN_N = 1M for analytic/threefry, F64_MODE_N = 2^18 for the
+   rest): counts and all 14 fields bitwise, tally sums to 1e-12; the
+   lookup kernel alone in float64 on the table census's energies and
+   log-uniform ones; the begin kernel in float64 in every mode of phase
+   25, bitwise; then through `driver.main --dtype float64`: scatter at 10M
+   (`PASSED validation.`), stream and split (`PASSED`) and csp (within
+   1e-3 of omp3's tally) under auto on the sweep kernel (stream's facets
+   and step time printed), the table scatter (`PASSED`), scatter on 4
+   y-slabs (per-step counts equal to the single device's); each with
+   sweep and begin kernel launches and no plain sweep or begin.  One
+   float64 step of stream, split and csp at F64_CUT_N particles on the
+   plain flight engine beside the sweep kernel (why auto takes the sweep
+   kernel), and phase 22's families on the float64 kernel against the
+   oracle, each with its counts set to 0 just before its steps and read
+   after: sweep kernel launches, one begin launch a step, no plain
+   version (reported apart from the main paths' launches, as
+   oracle_family_launches).  Prints its seconds.
+27. Result: a JSON line on the kernels (each with its bound, and the times
+   of every mode it ran; the float64 instantiations as sweep_kernel_f64,
+   table_lookup_f64 and begin_kernel_f64 beside the float32 entries), then
+   the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 work this run gave it: the larger of the bytes it must move (each lane's
@@ -219,7 +249,13 @@ integer operations (threefry-2x64/20 about 160 a draw, pcg64si about 30,
 two draws a collision) over the H100's int32 issue rate (132 SMs x 64
 lanes x 1.98 GHz), the float work (about 60 operations an event or flight
 piece, 40 more a collision, 15 a cell visited by a segment deposit; pieces
-counted as at least one a collision and one a lane) over 67 TFLOP/s.  The
+counted as at least one a collision and one a lane) over 67 TFLOP/s.  In
+float64 (phase 26) a lane moves 186 bytes and a tally cell 8, and the
+float work is counted in FP64 instructions (F64_EVENT_OPS and
+F64_COLLISION_OPS, each IEEE division, square root and logarithm weighed
+by its SASS sequence, F64_SEQUENCES) over the card's FP64 issue rate
+(132 SMs x 64 lanes x 1.98 GHz, the data sheet's 34 TFLOP/s with an FMA
+counted once).  The
 flight kernel's `ms` is its own device time (CUDA events), without the
 segment deposits, whose time stands beside it; its entry also holds csp's
 own time and bound over all 10 steps of its main path and the launches of
@@ -280,8 +316,9 @@ ORACLE_DECKS = {
                     nparticles=30, niters=2, source=(0.2, 0.2, 0.6, 0.6)),
     "stream": dict(problems=((1.0e-30, 0, 0, 1, 1),), initial_energy=1.0e6,
                    nparticles=40, niters=1, source=(0.45, 0.45, 0.1, 0.1)),
+    # csp's family runs 3 of its 4 steps: collisions start in step 3.
     "csp": dict(problems=((1.0e-30, 0, 0, 1, 1), (1.0e4, 0.4, 0.4, 0.2, 0.2)),
-                initial_energy=1.0e4, nparticles=25, niters=4,
+                initial_energy=1.0e4, nparticles=25, niters=3,
                 source=(0.1, 0.1, 0.2, 0.2)),
     "split": dict(problems=((1.0e-30, 0.0, 0.0, 1.0, 0.5),
                             (1.0e3, 0.0, 0.5, 1.0, 0.5)),
@@ -293,7 +330,7 @@ MP_RUNS = (("scatter", SCATTER, "replicated"),
            ("scatter", SCATTER, "spatial2d"),
            ("stream", FLIGHT_DECKS[0], "spatial2d"),
            ("csp", FLIGHT_DECKS[2], "spatial2d"))
-MP_TIMEOUT = 300                 # seconds a phase 23 process may take
+MP_TIMEOUT = 300                 # seconds phase 23's processes may take
 # Phase 24: phase 22's scatter family born below and just above 1e-2 eV.
 THRESHOLD = 1.0e-2               # the resonance table's lowest key, eV
 LOW_ENERGY = {"born 5e-3": 5.0e-3, "crossing 1.01e-2": 1.01e-2}
@@ -302,7 +339,11 @@ LOW_ENERGY = {"born 5e-3": 5.0e-3, "crossing 1.01e-2": 1.01e-2}
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_I32 = 132 * 64 * 1.98e9
+# float64 outside the tensor cores: 34 TFLOP/s on the data sheet, 64 FP64
+# lanes an SM a clock: as instructions (an FMA one), 132 x 64 x 1.98 GHz.
+PEAK_F64_INSTR = 132 * 64 * 1.98e9
 LANE_BYTES = 61 + 53             # 14 fields read, 13 written (not pid)
+LANE_BYTES_F64 = 97 + 89         # the same in float64 (9 floats of 8)
 DRAW_OPS = {"threefry": 160, "pcg64si": 30}
 FLOPS_EVENT, FLOPS_COLLISION, FLOPS_VISIT = 60, 40, 15
 FLOPS_INTERPOLATE = 6            # one interpolation of a table lookup
@@ -317,21 +358,37 @@ BEGIN_LANE_BYTES = 21 + 16
 BEGIN_DEAD_BYTES = 4
 FLOPS_BEGIN = FLOPS_INTERPOLATE + 6
 BEGIN_REPS = 20                  # timed calls of the begin kernel
+# Phase 26: float64 on the card's kernels.
+F64_MAIN_N = 1_000_000           # the analytic, threefry comparison
+F64_MODE_N = 1 << 18             # the other modes' comparisons
+F64_CUT_N = 16_384               # the plain flight engine's cut decks
+# float64 work of an event and of a collision, in FP64 instructions (an
+# FMA one), from the plain version's operations (transport.sweep_core,
+# collision_physics) with each IEEE reciprocal, division, square root and
+# logarithm counted as the instructions of its sequence in the float64
+# sweep kernel's SASS (F64_SEQUENCES): an event's three reciprocals
+# (1/mac_t, 1/(omega speed) twice), two divisions and ~30 products and
+# sums; a collision's seven divisions, six square roots (two in the
+# analytic lookup), one logarithm and ~40 products and sums.
+F64_EVENT_OPS = {"rcp": 3, "div": 2, "plain": 30}
+F64_COLLISION_OPS = {"div": 7, "sqrt": 6, "log": 1, "plain": 40}
 
 
-def bound(nbytes: float, int_ops: float, float_ops: float) -> dict:
+def bound(nbytes: float, int_ops: float, float_ops: float,
+          peak_float: float = PEAK_F32) -> dict:
     """bound_ms and bound_by of work that moves `nbytes` and does the given
-    integer and float operations."""
+    integer and float operations (float32 operations over PEAK_F32, or
+    FP64 instructions over PEAK_F64_INSTR)."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(int_ops / PEAK_I32, float_ops / PEAK_F32)
+    t_ops = max(int_ops / PEAK_I32, float_ops / peak_float)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def table_bytes(lay) -> int:
-    """Bytes of a stored table's keys and values (float32): what a lookup
-    function must read of it, once."""
-    return 8 * lay.nentries
+    """Bytes of a stored table's keys and values (float32 or float64):
+    what a lookup function must read of it, once."""
+    return 2 * lay.keys.element_size() * lay.nentries
 
 
 def table_work(sim, loads: int, collisions: int) -> dict:
@@ -346,16 +403,39 @@ def table_work(sim, loads: int, collisions: int) -> dict:
             "table_bytes": sum(table_bytes(t.table_layout) for t in tabs)}
 
 
+def f64_ops(counts: dict) -> float:
+    """FP64 instructions of an operation count (F64_EVENT_OPS,
+    F64_COLLISION_OPS) with each division, square root and logarithm
+    weighted by its SASS sequence (F64_SEQUENCES)."""
+    return sum(n * F64_SEQUENCES.get(op, 1) for op, n in counts.items())
+
+
+# FP64 instructions (DFMA, DMUL, DADD, MUFU.RCP64H/RSQ64H) of one IEEE
+# reciprocal (MUFU.RCP64H and five DFMA), division (three more), square
+# root (MUFU.RSQ64H, four DMUL and four DFMA) and logarithm (libdevice's
+# polynomial, about 25) on their fast paths, as the float64 sweep
+# kernel's SASS has them (`measure.py kernels --sass FILE`).
+F64_SEQUENCES = {"rcp": 6, "div": 9, "sqrt": 9, "log": 25}
+
+
 def work_bound(r: dict) -> dict:
     """The bound of one comparison's census (compare / compare_flight): its
     lanes, collisions, events or pieces, segment rows and cell visits, and
-    in table mode its tables."""
+    in table mode its tables; in float64 ("f64" in r) its doubles and its
+    FP64 instructions."""
     rows = r.get("rows", 0)
-    nbytes = (r["n"] * LANE_BYTES + r["ncells"] * 4 + rows * 20
+    f64 = r.get("f64", False)
+    nbytes = (r["n"] * (LANE_BYTES_F64 if f64 else LANE_BYTES)
+              + r["ncells"] * (8 if f64 else 4) + rows * 20
               + r.get("table_bytes", 0))
     int_ops = r["collisions"] * 2 * DRAW_OPS[r["rng"]]
     events = (r["collisions"] + r["n"] if "rows" in r
               else r["facets"] + r["collisions"])
+    if f64:
+        return bound(nbytes, int_ops,
+                     events * f64_ops(F64_EVENT_OPS)
+                     + r["collisions"] * f64_ops(F64_COLLISION_OPS),
+                     PEAK_F64_INSTR)
     float_ops = events * FLOPS_EVENT + r["collisions"] * FLOPS_COLLISION
     return bound(nbytes, int_ops, float_ops)
 
@@ -387,10 +467,23 @@ def nvidia_smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def bits(torch, t):
+    """A float64 tensor's bit patterns (-0.0 differs from 0.0, NaN equals
+    itself); a float32 one's likewise; others as they are."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def differing_field(a, b, torch, fields):
-    """The first of `fields` in which states a and b differ, or None."""
+    """The first of `fields` in which states a and b differ (bitwise in
+    float64, by value in float32 as the earlier phases hold them), or
+    None."""
     for f in fields:
-        if not torch.equal(getattr(a, f), getattr(b, f)):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype == torch.float64:
+            x, y = bits(torch, x), bits(torch, y)
+        if not torch.equal(x, y):
             return f
     return None
 
@@ -433,20 +526,23 @@ def check_outside(torch, name, start, state, outside, fields):
 
 
 def compare(nparticles: int, torch, driver, transport, sweep_kernel,
-            fields, deck=SCATTER, label="compare", window=None, events=64):
+            fields, deck=SCATTER, label="compare", window=None, events=64,
+            dtype="float32"):
     """Phase 3 at one size (and phases 8-10 and 24 on `deck`, phase 12 in
-    `window`): returns a dict of the kernel's and the plain version's
-    times (ms, plain_ms), max_abs_err and the work (lanes, cells, counts)
-    for the bound.
+    `window`, phase 26 in float64): returns a dict of the kernel's and the
+    plain version's times (ms, plain_ms), max_abs_err and the work (lanes,
+    cells, counts) for the bound.
 
     Besides the timed runs, the kernel runs once more with `events` events
     per launch, so that one census takes many launches; its state must be
-    equal too (the main path's census fits in one launch)."""
+    equal too (the main path's census fits in one launch).  In float64 the
+    14 fields compare bitwise and the tally sums to 1e-12."""
     cfg = driver.load_config(deck).with_(nparticles=nparticles,
                                          expected_tally=None)
-    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
-    if sim.transport != "sweep":
-        fail(f"{label}: auto picked the {sim.transport} transport")
+    if dtype != cfg.dtype:
+        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                            transport="sweep", quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     geom, tally0, win, outside = window_args(torch, transport, sim, start,
@@ -493,8 +589,10 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
           "equal; tally sums "
           f"{ksum:.9e} / {psum:.9e} (rel {rel:.3e}), max abs err per cell "
           f"{max_abs_err:.3e}")
-    if not rel <= 1e-5:
-        fail(f"{label} n={nparticles}: tally sums differ by {rel:.3e} (> 1e-5)")
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    if not rel <= tol:
+        fail(f"{label} n={nparticles}: tally sums differ by {rel:.3e} "
+             f"(> {tol})")
     launches0 = sweep_kernel.sweep_chunk_kernel.launches
     _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel,
                              max_events=events)
@@ -510,6 +608,7 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
             "collisions": knc, "rng": cfg.rng, "grid_blocks": blocks,
             "slot_use": slot_use, "slot_use_pid_order": slot_pid,
             "below_threshold": int((ks.energy < THRESHOLD).sum()),
+            "f64": dtype == "float64",
             **({} if sim.cs_scatter.analytic else {"energy": ks.energy}),
             **table_work(sim, loads, knc)}
 
@@ -872,17 +971,18 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 def compare_lookup(torch, keys, values, energy, label: str) -> dict:
     """Phase 9's lookup kernel alone on one table (host float arrays) and
-    energies (float32 on the card): indices bitwise the plain two-level
-    search's and torch.searchsorted's, values bitwise TableLayout.lookup's
-    and CrossSection.lookup's.  Returns its time (graph_ms), the plain
+    energies (float32 on the card; float64 in phase 26, the table made in
+    the energies' dtype): indices bitwise the plain two-level search's and
+    torch.searchsorted's, values bitwise TableLayout.lookup's and
+    CrossSection.lookup's.  Returns its time (graph_ms), the plain
     version's (TableLayout.lookup, on the clock), the library's
     (CrossSection.lookup, graph_ms) and its bound."""
     from neutral_tpu_torch.table_kernel import table_lookup_kernel
     from neutral_tpu_torch.xs import CrossSection
 
     tab = CrossSection(
-        torch.as_tensor(keys, dtype=torch.float32, device="cuda"),
-        torch.as_tensor(values, dtype=torch.float32, device="cuda"))
+        torch.as_tensor(keys, dtype=energy.dtype, device="cuda"),
+        torch.as_tensor(values, dtype=energy.dtype, device="cuda"))
     lay = tab.table_layout
     n = lay.nentries
     got, idx = table_lookup_kernel(lay, energy, index=True)
@@ -895,14 +995,19 @@ def compare_lookup(torch, keys, values, energy, label: str) -> dict:
     p_ms, plain = timed(torch, lay.lookup, energy)
     for name, ref in (("TableLayout.lookup", plain),
                       ("CrossSection.lookup", tab.lookup(energy))):
-        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-            bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        if not torch.equal(bits(torch, got), bits(torch, ref)):
+            bad = int((bits(torch, got) != bits(torch, ref)).sum())
             fail(f"lookup {label}: {bad} values differ from {name}'s")
     ms = graph_ms(torch, lambda: table_lookup_kernel(lay, energy),
                   LOOKUP_REPS)
     library_ms = graph_ms(torch, lambda: tab.lookup(energy), LOOKUP_REPS)
     count = energy.numel()
-    b = bound(count * 8 + table_bytes(lay), 0, count * FLOPS_INTERPOLATE)
+    size = energy.element_size()
+    b = (bound(count * 2 * size + table_bytes(lay), 0,
+               count * FLOPS_INTERPOLATE) if size == 4
+         else bound(count * 2 * size + table_bytes(lay), 0,
+                    count * (5 + F64_SEQUENCES.get("div", 1)),
+                    PEAK_F64_INSTR))
     print(f"[lookup {label}] {count} energies, {n} entries (S = "
           f"{1 << lay.shift}, {lay.coarse.shape[0]} coarse keys): kernel "
           f"{ms:.4f} ms, library {library_ms:.4f} ms, plain {p_ms:.3f} ms, "
@@ -1183,15 +1288,17 @@ def big_split(torch, driver, wrappers, fields) -> dict:
             "peak_gib": peak, "tally": total}
 
 
-def sweep_registers(log: str) -> int:
+def sweep_registers(log: str, real: str = "float") -> int:
     """ptxas's register count of the sweep kernel's analytic, region,
-    threefry instantiation, from the build's log."""
+    threefry instantiation in the working type `real` (float or double),
+    from the build's log: its mangled name ends the template arguments
+    with the working type's code, f or d."""
+    tag = f"XsModeE0ELNS1_11DensityModeE0ELNS1_9RngSchemeE0E{real[0]}E"
     for name, regs in re.findall(r"Compiling entry function '([^']*)'"
                                  r".*?Used (\d+) registers", log, re.S):
-        if ("sweep_kernel" in name and "XsModeE0E" in name
-                and "DensityModeE0E" in name and "RngSchemeE0E" in name):
+        if "sweep_kernel" in name and tag in name:
             return int(regs)
-    fail("the build log has no register count of the sweep kernel")
+    fail(f"the build log has no register count of the sweep kernel in {real}")
 
 
 def analytic_grid_check(torch, driver) -> None:
@@ -1201,7 +1308,7 @@ def analytic_grid_check(torch, driver) -> None:
     sim = driver.Simulation(driver.load_config(SCATTER).with_(
         nparticles=1, expected_tally=None), quiet=True)
     tab = sim.cs_scatter
-    grid = tab.analytic_grid
+    grid = tab.analytic_grid_in(torch.float32)
     i = torch.arange(tab.nentries, dtype=torch.int32)
     keys, values = tab._key_at(i, torch.float32), tab._val_at(i, torch.float32)
     if not (grid.is_cuda and torch.equal(grid[:, 0].cpu(), keys)
@@ -1442,12 +1549,19 @@ def family_deck(path: str, d: dict, nparticles: int) -> str:
     return path
 
 
-def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False) -> None:
+def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False,
+                   engine="plain", transports=("sweep", "flight"),
+                   wrappers=None) -> dict:
     """Phase 22 (and phase 24's oracle runs: `low` fails a run in which no
-    lane ended below THRESHOLD)."""
+    lane ended below THRESHOLD; phase 26's on the float64 kernels, with
+    `engine` "kernel" on the sweep transport).  Given `wrappers`, every
+    count is set to 0 just before a run's steps and read just after, and a
+    kernel run must have launched the sweep and begin kernels (one begin a
+    step) and no plain version; returns those counts by family."""
     import numpy as np
     from neutral_tpu_torch import ProblemRegion, SimConfig, SourceBox, oracle
 
+    counts = {}
     for kind, d in decks.items():
         cfg = SimConfig(
             nx=48, ny=48, width=1.0, height=1.0, dt=1e-7, niters=d["niters"],
@@ -1459,15 +1573,28 @@ def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False) -> None:
         tally, want, parts = oracle.run_config(cfg)
         t_oracle = time.perf_counter() - t0
         dead = np.array([p.dead for p in parts])
-        for transport in ("sweep", "flight"):
+        for transport in transports:
             t0 = time.perf_counter()
-            sim = driver.Simulation(cfg, transport=transport, quiet=True)
-            if sim.engine != "plain" or sim.device.type != "cuda":
+            sim = driver.Simulation(cfg, transport=transport, engine=engine,
+                                    quiet=True)
+            if sim.engine != engine or sim.device.type != "cuda":
                 fail(f"oracle {kind}: {sim.engine} engine on {sim.device}")
+            if wrappers:
+                reset_counts(wrappers)
             got = [dict(nf=m.nfacets, nc=m.ncollisions, nproc=m.nprocessed)
                    for m in (sim.step(t) for t in range(1, cfg.niters + 1))]
             card = sim.host_tally().reshape(tally.shape)
             wall = time.perf_counter() - t0
+            if wrappers:
+                c = counts[f"{kind} {transport}"] = read_counts(wrappers)
+                begins = (c["begin_timestep_kernel"], c["begin_timestep"])
+                if (engine == "kernel" and (
+                        c["sweep_chunk_kernel"] <= 0 or c["sweep_chunk_plain"]
+                        or c["flight_chunk_kernel"] or c["flight_chunk_plain"]
+                        or begins != (cfg.niters, 0))):
+                    fail(f"oracle {kind} {transport}: counts {c} (want the "
+                         f"sweep kernel, {cfg.niters} begin launches and no "
+                         "plain version)")
             err = float(np.abs(card - tally).max() / np.abs(tally).max())
             if transport == "sweep":
                 close = np.allclose(card, tally, rtol=1e-9, atol=1e-300)
@@ -1476,8 +1603,9 @@ def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False) -> None:
                          <= 1e-11 * abs(tally.sum())
                          and np.allclose(card, tally, rtol=1e-7, atol=1e-30))
             below = int((sim.state.energy < THRESHOLD).sum())
-            print(f"[oracle {kind} {transport}] counts {got} (oracle's "
-                  f"equal: {got == want}); tally {card.sum():.15e} against "
+            print(f"[oracle {kind} {transport} {engine}] counts {got} "
+                  f"(oracle's equal: {got == want}); tally "
+                  f"{card.sum():.15e} against "
                   f"{tally.sum():.15e}, largest cell difference {err:.3e} "
                   f"of the largest cell; {below} lanes ended below "
                   f"{THRESHOLD} eV; card {wall:.2f} s, oracle "
@@ -1488,8 +1616,9 @@ def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False) -> None:
             if (got != want or tally.sum() == 0.0 or not close
                     or not np.array_equal(sim.state.dead.cpu().numpy(),
                                           dead)):
-                fail(f"oracle {kind} {transport}: the plain engine on the "
-                     "card differs from the oracle")
+                fail(f"oracle {kind} {transport}: the {engine} engine on "
+                     "the card differs from the oracle")
+    return counts
 
 
 def low_energy(tmp: str, torch, driver, transport, sweep_kernel, fields,
@@ -1532,7 +1661,8 @@ def low_energy(tmp: str, torch, driver, transport, sweep_kernel, fields,
 
 
 def begin_compare(torch, driver, transport, begin_kernel, deck: str,
-                  n: int, label: str, window=None) -> dict:
+                  n: int, label: str, window=None,
+                  dtype: str = "float32") -> dict:
     """Phase 25 on one deck at n particles: the begin kernel against
     transport.begin_timestep on step 1's injected state (every lane live)
     and on a copy with a seeded quarter of its lanes dead and its clocks,
@@ -1544,7 +1674,10 @@ def begin_compare(torch, driver, transport, begin_kernel, deck: str,
     from neutral_tpu_torch.particles import STATE_FIELDS
 
     cfg = driver.load_config(deck).with_(nparticles=n, expected_tally=None)
-    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+    if dtype != cfg.dtype:
+        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                            transport="sweep", quiet=True)
     geom, win = sim.geom, {}
     if window is not None:
         x_off, y_off, nx, ny = window
@@ -1557,8 +1690,6 @@ def begin_compare(torch, driver, transport, begin_kernel, deck: str,
     scrambled.dt_to_census.uniform_(0.0, cfg.dt, generator=gen)
     scrambled.mfp_to_collision.uniform_(0.0, 5.0, generator=gen)
     scrambled.counter.random_(0, 1000, generator=gen)
-    bits = lambda t: (t.view(torch.int32)  # noqa: E731
-                      if t.dtype == torch.float32 else t)
     for key, state in ((1, sim.state), (2, scrambled)):
         before = state.clone()
         got, live = begin_kernel.begin_timestep_kernel(
@@ -1566,8 +1697,8 @@ def begin_compare(torch, driver, transport, begin_kernel, deck: str,
         want = transport.begin_timestep(state, geom, tab, cfg.dt, key, **win)
         torch.cuda.synchronize()
         bad = [f for f in STATE_FIELDS
-               if not torch.equal(bits(getattr(got, f)),
-                                  bits(getattr(want, f)))]
+               if not torch.equal(bits(torch, getattr(got, f)),
+                                  bits(torch, getattr(want, f)))]
         changed = differing_field(state, before, torch, STATE_FIELDS)
         nlive = int((~state.dead).sum())
         if bad or changed or int(live) != nlive:
@@ -1583,9 +1714,18 @@ def begin_compare(torch, driver, transport, begin_kernel, deck: str,
                       for _ in range(3))[1]
     live = int((~sim.state.dead).sum())
     extra = 0 if tab.analytic else table_bytes(tab.table_layout)
-    b = bound(n * BEGIN_LANE_BYTES + (n - live) * BEGIN_DEAD_BYTES + extra,
-              live * DRAW_OPS[cfg.rng],
-              live * FLOPS_BEGIN)
+    if dtype == "float64":
+        # the energy and both written floats 4 bytes more, a dead lane's old
+        # mean free path 8; the interpolation's and mfp's divisions, the
+        # lookup's two square roots and the logarithm in FP64 instructions
+        b = bound(n * (BEGIN_LANE_BYTES + 12)
+                  + (n - live) * 2 * BEGIN_DEAD_BYTES + extra,
+                  live * DRAW_OPS[cfg.rng],
+                  live * f64_ops({"div": 2, "sqrt": 2, "log": 1,
+                                  "plain": 8}), PEAK_F64_INSTR)
+    else:
+        b = bound(n * BEGIN_LANE_BYTES + (n - live) * BEGIN_DEAD_BYTES
+                  + extra, live * DRAW_OPS[cfg.rng], live * FLOPS_BEGIN)
     print(f"[begin {label}] {n} lanes: kernel {ms:.4f} ms (device, "
           f"{BEGIN_REPS} calls in one CUDA graph; {wall_ms:.3f} ms on the "
           f"clock), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
@@ -1596,9 +1736,11 @@ def begin_compare(torch, driver, transport, begin_kernel, deck: str,
             "max_abs_err": 0.0, "n": n, "live": live, **b}
 
 
-def begin_phase(tmp: str, torch, driver, transport) -> dict:
-    """Phase 25: the begin kernel against its plain version in every mode
-    of the main paths.  Returns each mode's comparison."""
+def begin_phase(tmp: str, torch, driver, transport,
+                dtype: str = "float32") -> dict:
+    """Phase 25 (and phase 26 in float64): the begin kernel against its
+    plain version in every mode of the main paths.  Returns each mode's
+    comparison."""
     import numpy as np
     from neutral_tpu_torch import begin_kernel
     from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
@@ -1636,9 +1778,172 @@ def begin_phase(tmp: str, torch, driver, transport) -> dict:
     res = {}
     for label, deck, n, window in modes:
         res[label] = begin_compare(torch, driver, transport, begin_kernel,
-                                   deck, n, label, window)
+                                   deck, n, label, window, dtype)
         torch.cuda.empty_cache()
     return res
+
+
+def float64_phase(tmp: str, torch, driver, transport, sweep_kernel,
+                  fields, wrappers, log: str) -> dict:
+    """Phase 26: float64 on the card's kernels.  Returns the float64 sweep
+    kernel's comparisons, the lookup's, the begin kernel's and the
+    launches of its main paths."""
+    import numpy as np
+    from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
+
+    t_phase = time.perf_counter()
+    res = {"sweep": {}, "launches": {"sweep": 0, "table": 0}, "lookup": {},
+           "registers": sweep_registers(log, "double")}
+    print(f"[f64] the sweep kernel's float64 main instantiation (analytic, "
+          f"regions, threefry) uses {res['registers']} registers", flush=True)
+
+    # -- the sweep kernel against its plain version, every instantiation --
+    keys, values = resonance_log_table()
+    k2, v2 = resonance_log_table(3001)
+    cfg = driver.load_config(SCATTER)
+    rng = np.random.default_rng(7)           # phase 10's random grid
+    dens = rng.uniform(1.0e3, 2.0e4, size=(cfg.ny, cfg.nx))
+    dens[rng.random((cfg.ny, cfg.nx)) < 0.25] = 0.0
+    grid_file = os.path.join(tmp, "dens.npy")
+    np.save(grid_file, dens)
+    del dens
+
+    def deck_dir(name, table=False, capture=False, grid=False, pcg=False):
+        d = os.path.join(tmp, name)
+        os.mkdir(d)
+        if table or capture:
+            write_cs_file(os.path.join(d, "elastic_scatter.cs"), keys, values)
+            k, v = (k2, 0.5 * v2) if capture else (keys, values)
+            write_cs_file(os.path.join(d, "capture.cs"), k, v)
+        if grid:
+            os.symlink(grid_file, os.path.join(d, "dens.npy"))
+        return deck_copy(SCATTER, d, ("rng pcg64si\n" if pcg else "")
+                         + ("density_file dens.npy\n" if grid else ""))
+
+    low = dict(ORACLE_DECKS["scatter"], initial_energy=LOW_ENERGY[
+        "crossing 1.01e-2"])
+    modes = [
+        ("analytic", SCATTER, F64_MAIN_N, None),
+        ("pcg64si", deck_dir("pcg", pcg=True), F64_MODE_N, None),
+        ("table", deck_dir("table", table=True), F64_MODE_N, None),
+        ("table pcg64si", deck_dir("table_pcg", table=True, pcg=True),
+         F64_MODE_N, None),
+        ("table distinct", deck_dir("capture", capture=True), F64_MODE_N,
+         None),
+        ("grid", deck_dir("grid", grid=True), F64_MODE_N, None),
+        ("grid pcg64si", deck_dir("grid_pcg", grid=True, pcg=True),
+         F64_MODE_N, None),
+        ("grid table", deck_dir("grid_table", grid=True, table=True),
+         F64_MODE_N, None),
+        ("grid table pcg64si", deck_dir("grid_table_pcg", grid=True,
+                                        table=True, pcg=True),
+         F64_MODE_N, None),
+        ("window", SCATTER, F64_MODE_N, BLOCK),
+        ("low energy", family_deck(os.path.join(tmp, "low.params"), low,
+                                   F64_MODE_N), F64_MODE_N, None),
+    ]
+    for mode, deck, n, window in modes:
+        r = compare(n, torch, driver, transport, sweep_kernel, fields,
+                    deck=deck, label=f"f64 {mode}", window=window,
+                    events=1 if mode == "low energy" else 64,
+                    dtype="float64")
+        energy = r.pop("energy", None)
+        res["sweep"][mode] = mode_entry([r], f"{deck}, {n} particles, "
+                                        "one census, float64")
+        if mode == "table":
+            e = energy.repeat(-(-F64_MAIN_N // n))[:F64_MAIN_N]
+            res["lookup"]["census energies"] = compare_lookup(
+                torch, keys, values, e, "f64 30,000 entries, census energies")
+            e_log = torch.from_numpy(log_uniform_f64(F64_MAIN_N)).cuda()
+            res["lookup"]["log-uniform"] = compare_lookup(
+                torch, keys, values, e_log, "f64 30,000 entries, log-uniform")
+        torch.cuda.empty_cache()
+
+    # -- the begin kernel against its plain version, every mode ----------
+    begin_dir = os.path.join(tmp, "begin")
+    os.mkdir(begin_dir)
+    res["begin"] = begin_phase(begin_dir, torch, driver, transport,
+                               "float64")
+
+    # -- the main paths through the CLI ----------------------------------
+    def f64_path(deck, label, argv=()):
+        out, total, c = main_path(deck, torch, driver, wrappers,
+                                  argv=["--dtype", "float64", *argv],
+                                  label=label)
+        if ("Engine: kernel." not in out or "Transport: sweep." not in out
+                or c["sweep_chunk_kernel"] <= 0 or c["sweep_chunk_plain"]
+                or c["flight_chunk_kernel"] or c["flight_chunk_plain"]):
+            fail(f"{label}: counts {c} (want the float64 sweep kernel and "
+                 "no plain sweep)")
+        res["launches"]["sweep"] += c["sweep_chunk_kernel"]
+        return out, total, c
+
+    out, _, _ = f64_path(SCATTER, "f64 scatter")
+    if "PASSED validation." not in out:
+        fail("float64 scatter did not print 'PASSED validation.'")
+    scatter_counts = step_counts(out)
+    for deck in FLIGHT_DECKS:
+        name = deck.split("/")[-1].split(".")[0]
+        out, total, _ = f64_path(deck, f"f64 {name}")
+        if name == "csp":
+            rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
+            print(f"[main f64 csp] tally {total:.9e} against omp3's "
+                  f"{CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
+            if not rel <= 1e-3:
+                fail(f"float64 csp tally is {rel:.3e} from omp3's (> 1e-3)")
+        elif "PASSED validation." not in out:
+            fail(f"float64 {name} did not print 'PASSED validation.'")
+        if name == "stream":
+            nf, _ = step_counts(out)[0]
+            print(f"[main f64 stream] {nf} facets in step 1, "
+                  f"{step_seconds(out)[0]:.4f} s", flush=True)
+    out, _, c = f64_path(deck_dir("table_main", table=True), "f64 table "
+                         "scatter")
+    if "PASSED validation." not in out:
+        fail("float64 table scatter did not print 'PASSED validation.'")
+    res["launches"]["table"] = c["sweep_chunk_kernel"]
+    out, _, _ = f64_path(SCATTER, "f64 scatter spatial", [*SHARDS, "spatial"])
+    if step_counts(out) != scatter_counts:
+        fail(f"float64 scatter on 4 y-slabs: counts {step_counts(out)} "
+             f"differ from the single device's {scatter_counts}")
+    print(f"[main f64 scatter spatial] per-step counts equal to the single "
+          f"device's {scatter_counts}", flush=True)
+
+    # -- why auto sends float64 to the sweep kernel: one step of each deck
+    # on the plain flight engine and on the float64 sweep kernel, cut ----
+    for deck in FLIGHT_DECKS:
+        name = deck.split("/")[-1].split(".")[0]
+        cut = driver.load_config(deck).with_(
+            nparticles=F64_CUT_N, niters=1, expected_tally=None,
+            dtype="float64", tally_dtype="float64")
+        times = {}
+        for transport_name in ("flight", "sweep"):
+            sim = driver.Simulation(cut, transport=transport_name,
+                                    quiet=True)
+            m = sim.step(1)
+            times[f"{sim.engine} {transport_name}"] = (
+                m.step_time, m.nfacets, m.ncollisions)
+            del sim
+        print(f"[f64 cut {name}] {F64_CUT_N} particles, one step: "
+              + "; ".join(f"{k} {t:.4f} s ({nf} facets, {nc} collisions)"
+                          for k, (t, nf, nc) in times.items()), flush=True)
+        res.setdefault("cut", {})[name] = times
+
+    # -- the oracle's families on the float64 kernel, counted apart from
+    # the main paths ----------------------------------------------------
+    res["oracle_launches"] = oracle_on_card(
+        torch, driver, engine="kernel", transports=("sweep",),
+        wrappers=wrappers)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[f64] phase 26 took {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def log_uniform_f64(count: int):
+    """`count` float64 energies log-uniform over [1e-3, 1e9] eV, as
+    table_kernel.probe_energies draws its float32 ones."""
+    import numpy as np
+    return 10.0 ** np.random.default_rng(0).uniform(-3.0, 9.0, count)
 
 
 def free_port() -> int:
@@ -1652,36 +1957,45 @@ def two_processes(decomposed: dict) -> list:
     """Phase 23.  Returns the launches of both processes of every run,
     summed as check_kernel_path returns them."""
     launches = [0, 0, 0, 0]
-    for name, deck, decomposition in MP_RUNS:
+    coordinator = ["--coordinator", f"127.0.0.1:{free_port()}",
+                   "--num-processes", "2"]
+    runs = [[deck, *SHARDS, decomposition, *coordinator]
+            for _, deck, decomposition in MP_RUNS]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--process",
+         *[a for i, run in enumerate(runs)
+           for a in ([] if i == 0 else ["--then"]) + run
+           + ["--process-id", str(r)]]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"two processes: a process took over {MP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:])
+            fail(f"two processes: process {r} exited {p.returncode}")
+    # Each process's output, one piece a run (re.split keeps the
+    # process's start-up lines before the first marker in piece 0).
+    pieces = [re.split(r"^RUN \d+$", o, flags=re.M)[1:] for o in outs]
+    if any(len(ps) != len(MP_RUNS) for ps in pieces):
+        fail("two processes: a process did not report every run")
+    for i, (name, deck, decomposition) in enumerate(MP_RUNS):
         label = f"{decomposition} {name}"
-        argv = [deck, *SHARDS, decomposition, "--coordinator",
-                f"127.0.0.1:{free_port()}", "--num-processes", "2"]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--process", *argv,
-             "--process-id", str(r)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
-        except subprocess.TimeoutExpired:
-            fail(f"two processes, {label}: a process took over "
-                 f"{MP_TIMEOUT} s")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                print(out[-6000:])
-                fail(f"two processes, {label}: process {r} exited "
-                     f"{p.returncode}")
-        out = outs[0]
-        counts = [json.loads(re.search(r"^COUNTS (.*)$", o, re.M)[1])
-                  for o in outs]
+        out = pieces[0][i]
+        counts = [json.loads(re.search(r"^COUNTS (.*)$", ps[i], re.M)[1])
+                  for ps in pieces]
+        run_wall = float(re.search(r"^WALL (\S+)$", out, re.M)[1])
         if ("Distributed: 2 processes, 4 shards." not in out
                 or f"Decomposition: {decomposition}, 4 shards on cuda:0"
                 not in out or "Engine: kernel." not in out):
@@ -1722,20 +2036,44 @@ def two_processes(decomposed: dict) -> list:
               f"{ref['step_s']} s; exchange "
               f"{float(exchange[1]) if exchange else 0.0:.4f} s in all; "
               f"lanes between the processes per step {across}; launches "
-              f"per process {counts}; wall {wall:.1f} s", flush=True)
+              f"per process {counts}; wall {run_wall:.1f} s", flush=True)
+    print(f"[two processes] {len(MP_RUNS)} runs in one pair of processes: "
+          f"wall {wall:.1f} s, start-up included", flush=True)
     return launches
 
 
+def stamp(phase: int) -> None:
+    """Print the seconds since the script reached the card as `phase`
+    starts (where the script's time goes)."""
+    print(f"[clock] phase {phase} starts at "
+          f"{time.perf_counter() - stamp.t0:.1f} s", flush=True)
+
+
 def process_main(argv: list) -> int:
-    """`chip_smoke.py --process <CLI arguments>`: one process of phase 23,
-    driver.main(argv) with every count set to 0 just before it; its
-    counts are printed just after, on a line of their own."""
+    """`chip_smoke.py --process <CLI arguments> [--then <CLI arguments>
+    ...]`: one process of phase 23, driver.main on each run's arguments in
+    turn, with every count set to 0 just before it; each run's output
+    follows a line `RUN i`, and its counts and wall seconds are printed
+    just after, on lines of their own."""
     from neutral_tpu_torch import driver
     wrappers = kernel_wrappers()
-    reset_counts(wrappers)
-    rc = driver.main(argv)
-    print(f"COUNTS {json.dumps(read_counts(wrappers))}", flush=True)
-    return rc
+    runs, run = [], []
+    for a in argv + ["--then"]:
+        if a == "--then":
+            runs.append(run)
+            run = []
+        else:
+            run.append(a)
+    for i, run in enumerate(runs):
+        print(f"RUN {i}", flush=True)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        rc = driver.main(run)
+        print(f"COUNTS {json.dumps(read_counts(wrappers))}", flush=True)
+        print(f"WALL {time.perf_counter() - t0:.3f}", flush=True)
+        if rc != 0:
+            return rc
+    return 0
 
 
 def main() -> int:
@@ -1746,6 +2084,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test runs only on a CUDA device", file=sys.stderr)
         return 1
+    stamp.t0 = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     print(f"[device] {kind}; torch {torch.__version__}, CUDA "
@@ -1757,6 +2096,7 @@ def main() -> int:
     from neutral_tpu_torch.particles import STATE_FIELDS
 
     # ---- 2. build -------------------------------------------------------
+    stamp(2)
     t0 = time.perf_counter()
     path, log = build.build()
     sweep_kernel.load_library()
@@ -1771,6 +2111,7 @@ def main() -> int:
     wrappers = kernel_wrappers()
 
     # ---- 3. sweep kernel against plain version --------------------------
+    stamp(3)
     registers = sweep_registers(log)
     print(f"[compare] the sweep kernel's main instantiation (analytic, "
           f"regions, threefry) uses {registers} registers", flush=True)
@@ -1779,6 +2120,7 @@ def main() -> int:
                for n in COMPARE_SIZES}
 
     # ---- 4. main path, scatter ------------------------------------------
+    stamp(4)
     out_scatter, _, c = main_path(SCATTER, torch, driver, wrappers)
     if "PASSED validation." not in out_scatter:
         fail("the full scatter deck did not print 'PASSED validation.'")
@@ -1788,6 +2130,7 @@ def main() -> int:
     sweep_launches = c["sweep_chunk_kernel"]
 
     # ---- 5. flight kernel against plain version -------------------------
+    stamp(5)
     flight_results = {}
     for deck in FLIGHT_DECKS:
         flight_results[deck] = compare_flight(
@@ -1795,6 +2138,7 @@ def main() -> int:
             STATE_FIELDS, small=True)
 
     # ---- 6. segment-deposit kernel against plain version ----------------
+    stamp(6)
     geom = driver.make_geometry(driver.load_config(FLIGHT_DECKS[0]))
     raster_results = {}
     for deck in FLIGHT_DECKS:
@@ -1804,6 +2148,7 @@ def main() -> int:
             raster, raster_kernel, name)
 
     # ---- 7. main path, flight decks -------------------------------------
+    stamp(7)
     flight_launches = raster_launches = overflows = 0
     path_launches = {}
     for deck in FLIGHT_DECKS:
@@ -1834,6 +2179,7 @@ def main() -> int:
             fail(f"the full {name} deck did not print 'PASSED validation.'")
 
     # ---- 8-10. pcg64si, table and grid modes ---------------------------
+    stamp(8)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     modes = run_modes(tmp.name, torch, driver, transport, flight,
                       sweep_kernel, flight_kernel, STATE_FIELDS, wrappers,
@@ -1844,6 +2190,7 @@ def main() -> int:
     overflows += modes["overflows"]
 
     # ---- 12-13. the window modes ----------------------------------------
+    stamp(12)
     window = compare(MODE_N, torch, driver, transport, sweep_kernel,
                      STATE_FIELDS, label="window sweep", window=BLOCK)
     window_flight = [compare_flight(d, torch, driver, transport, flight,
@@ -1860,6 +2207,7 @@ def main() -> int:
         window_flight, f"split + stream in {block}, one census each")
 
     # ---- 14. decomposed main paths ---------------------------------------
+    stamp(14)
     decomposed = decomposed_paths(tmp.name, torch, driver, flight, wrappers,
                                   step_counts(out_scatter))
     sweep_launches += decomposed["sweep_launches"]
@@ -1870,27 +2218,35 @@ def main() -> int:
         modes[k]["window"]["launches"] = decomposed[f"{k}_launches"]
 
     # ---- 15. the window parameters' cost --------------------------------
+    stamp(15)
     census = census_repeats(tmp.name)
     tmp.cleanup()
 
     # ---- 16. split at 64M particles -------------------------------------
+    stamp(16)
     big = big_split(torch, driver, wrappers, STATE_FIELDS)
 
     # ---- 17. the analytic grid -----------------------------------------
+    stamp(17)
     analytic_grid_check(torch, driver)
 
     # ---- 18-21. decks without a pitch, checkpoints, dumps, traces ---------
+    stamp(18)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     plain = plain_decks(tmp.name, torch, driver, wrappers)
+    stamp(20)
     restored = checkpoint_restore(tmp.name, torch, driver, flight, wrappers,
                                   csp_counts)
+    stamp(21)
     io_runs = dumps_and_trace(tmp.name, torch, driver, wrappers)
     tmp.cleanup()
 
     # ---- 22. the oracle on the card ---------------------------------------
+    stamp(22)
     oracle_on_card(torch, driver)
 
     # ---- 23. two processes sharing the card ---------------------------------
+    stamp(23)
     for launches in (plain["launches"], restored["launches"],
                      io_runs["launches"], two_processes(decomposed)):
         sweep_launches += launches[0]
@@ -1899,6 +2255,7 @@ def main() -> int:
         overflows += launches[3]
 
     # ---- 24. lanes below 1e-2 eV ---------------------------------------
+    stamp(24)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     low = low_energy(tmp.name, torch, driver, transport, sweep_kernel,
                      STATE_FIELDS, wrappers)
@@ -1906,11 +2263,20 @@ def main() -> int:
     sweep_launches += low["launches"]
 
     # ---- 25. the begin kernel -------------------------------------------
+    stamp(25)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     begin = begin_phase(tmp.name, torch, driver, transport)
     tmp.cleanup()
 
-    # ---- 26. result -----------------------------------------------------
+    # ---- 26. float64 on the card's kernels ------------------------------
+    stamp(26)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    f64 = float64_phase(tmp.name, torch, driver, transport, sweep_kernel,
+                        STATE_FIELDS, wrappers, log)
+    tmp.cleanup()
+
+    # ---- 27. result -----------------------------------------------------
+    stamp(27)
     top = results[COMPARE_SIZES[-1]]
     flights = list(flight_results.values())
     per_deck = {d.split("/")[-1].split(".")[0]: {
@@ -1932,6 +2298,13 @@ def main() -> int:
     flight_modes.update(modes["flight"])
     lookup = modes["lookup"]["census energies"]
     begin_top = begin["scatter"]
+    begin_f64 = {k: v for k, v in main_path.begin_launches.items()
+                 if k.startswith("f64 ")}
+    begin_f32 = {k: v for k, v in main_path.begin_launches.items()
+                 if k not in begin_f64}
+    f64_main, f64_lookup = f64["sweep"]["analytic"], f64["lookup"][
+        "census energies"]
+    f64_begin = f64["begin"]["scatter"]
     print(f"[device] nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": [
         {"name": "sweep_kernel",
@@ -2037,7 +2410,7 @@ def main() -> int:
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/begin.cu",
          "replaces": "neutral_tpu/transport.py:221",
-         "launches": sum(main_path.begin_launches.values()),
+         "launches": sum(begin_f32.values()),
          "max_abs_err": max(r["max_abs_err"] for r in begin.values()),
          "ms": begin_top["ms"],
          "plain_ms": begin_top["plain_ms"],
@@ -2045,7 +2418,7 @@ def main() -> int:
          "bound_by": begin_top["bound_by"],
          "library_ms": None,
          "wall_ms": begin_top["wall_ms"],
-         "launches_per_main_path": main_path.begin_launches,
+         "launches_per_main_path": begin_f32,
          "modes": begin,
          "shape": f"step 1's state of the scatter deck, "
                   f"{COMPARE_SIZES[-1]} particles, 4000x4000 mesh; ms is "
@@ -2058,6 +2431,66 @@ def main() -> int:
                   "at 1,000,000 particles; launches: one a census and "
                   "shard, summed over every main path, both processes of "
                   "phase 23's runs included"},
+        {"name": "sweep_kernel_f64",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/sweep.cu",
+         "replaces": "neutral_tpu/pallas_sweep.py:59",
+         "launches": f64["launches"]["sweep"],
+         "max_abs_err": f64_main["max_abs_err"],
+         "ms": f64_main["ms"],
+         "plain_ms": f64_main["plain_ms"],
+         "bound_ms": f64_main["bound_ms"],
+         "bound_by": f64_main["bound_by"],
+         "library_ms": None,
+         "registers": f64["registers"],
+         "oracle_family_launches": f64["oracle_launches"],
+         "modes": f64["sweep"],
+         "cut_decks": f64["cut"],
+         "seconds": f64["seconds"],
+         "shape": f"scatter deck in float64, {F64_MAIN_N} particles, "
+                  "4000x4000 mesh, one census (the float64 instantiations, "
+                  "global coordinates; what neutral_tpu's XLA float64 "
+                  "sweep_chunk computes, transport.py:506); modes at "
+                  f"{F64_MODE_N} particles; launches: phase 26's main "
+                  "paths (scatter, stream, split, csp, table scatter, "
+                  "scatter on 4 y-slabs); oracle_family_launches: the "
+                  "oracle's 48x48 families through Simulation, each "
+                  "counted from 0"},
+        {"name": "table_lookup_f64",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/common.cuh",
+         "replaces": "neutral_tpu/pallas_table.py:151",
+         "launches": f64["launches"]["table"],
+         "max_abs_err": f64_lookup["max_abs_err"],
+         "ms": f64_lookup["ms"],
+         "plain_ms": f64_lookup["plain_ms"],
+         "bound_ms": f64_lookup["bound_ms"],
+         "bound_by": f64_lookup["bound_by"],
+         "library_ms": f64_lookup["library_ms"],
+         "standalone": "neutral_tpu_torch/csrc/table.cu",
+         "modes": f64["lookup"],
+         "shape": f"the lookup kernel alone in float64 on the 30,000-entry "
+                  f"table at {F64_MAIN_N} census energies (the float64 "
+                  "table census's end state, repeated); timed as "
+                  "table_lookup's; launches: the float64 sweep kernel's "
+                  "on the float64 table scatter main path"},
+        {"name": "begin_kernel_f64",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/begin.cu",
+         "replaces": "neutral_tpu/transport.py:221",
+         "launches": sum(begin_f64.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in f64["begin"].values()),
+         "ms": f64_begin["ms"],
+         "plain_ms": f64_begin["plain_ms"],
+         "bound_ms": f64_begin["bound_ms"],
+         "bound_by": f64_begin["bound_by"],
+         "library_ms": None,
+         "wall_ms": f64_begin["wall_ms"],
+         "launches_per_main_path": begin_f64,
+         "modes": f64["begin"],
+         "shape": f"step 1's state of the scatter deck in float64, "
+                  f"{COMPARE_SIZES[-1]} particles; timed as begin_kernel's; "
+                  "modes hold every deck mode at 1,000,000 particles"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

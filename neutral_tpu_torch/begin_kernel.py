@@ -9,8 +9,10 @@ hand-written CUDA kernel, bit for bit: each live lane's census clock reset
 to dt and its fresh mean free path from the draw at counter 0, every
 lane's counter set to 1, and the count of live lanes.
 
-`begin_timestep_kernel` launches the kernel or raises: on a state that
-does not lie on a CUDA device, on float64, on a geometry without a pitch
+The kernel has float32 and float64 instantiations (the working type of
+the state, which its tally-free inputs share: a grid deck's density and
+the tables).  `begin_timestep_kernel` launches the kernel or raises: on a
+state that does not lie on a CUDA device, on a geometry without a pitch
 and on any configuration the kernel does not implement.  It never runs
 the plain version.  `begin_census` is the steps' choice between the two:
 the kernel engine takes the kernel, the plain engine
@@ -27,7 +29,7 @@ import torch
 
 from . import build, transport
 from .particles import STATE_FIELDS, ParticleState
-from .sweep_kernel import (TABLE_POINTERS, check_inputs, rect_arrays,
+from .sweep_kernel import (REALS, TABLE_POINTERS, check_inputs, rect_arrays,
                            state_pointers, table_fields, window_fields)
 from .transport import Geometry
 from .xs import CrossSection
@@ -38,9 +40,10 @@ THREADS = 256              # threads per block (csrc/begin.cu kThreads)
 CHANGED = ("dt_to_census", "mfp_to_collision", "counter")
 
 
-class _BeginParams(ctypes.Structure):
-    """Mirror of `BeginParams` in csrc/begin.cu."""
-    _fields_ = (
+def _begin_fields(real) -> list:
+    """`BeginParamsT<Real>`'s fields in csrc/begin.cu, its census clock of
+    the ctypes type `real`."""
+    return (
         [(f, ctypes.c_void_p) for f in (
             *STATE_FIELDS, *(f"out_{f}" for f in CHANGED), "live",
             *TABLE_POINTERS, "scatter_grid", "absorb_grid", "region_bounds",
@@ -51,26 +54,42 @@ class _BeginParams(ctypes.Structure):
             "scatter_shift", "absorb_shift", "same_xs", "nregions",
             "xs_mode", "density_mode", "rng", "x_off", "y_off", "global_nx",
             "global_ny")]
-        + [("dt", ctypes.c_float)])
+        + [("dt", real)])
+
+
+class _BeginParams(ctypes.Structure):
+    """Mirror of `BeginParams` (float32) in csrc/begin.cu."""
+    _fields_ = _begin_fields(ctypes.c_float)
+
+
+class _BeginParams64(ctypes.Structure):
+    """Mirror of `BeginParams64` (float64) in csrc/begin.cu."""
+    _fields_ = _begin_fields(ctypes.c_double)
+
+
+# The parameter layout and entry-point suffix of each working type.
+_LAYOUTS = {torch.float32: (_BeginParams, ""),
+            torch.float64: (_BeginParams64, "_f64")}
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     lib = build.load()
-    lib.nt_begin_params_size.argtypes = []
-    lib.nt_begin_params_size.restype = ctypes.c_int
     lib.nt_begin_threads.argtypes = []
     lib.nt_begin_threads.restype = ctypes.c_int
-    lib.nt_begin_blocks_per_sm.argtypes = [ctypes.POINTER(_BeginParams),
-                                           ctypes.POINTER(ctypes.c_int)]
-    lib.nt_begin_blocks_per_sm.restype = ctypes.c_int
-    lib.nt_begin_launch.argtypes = [ctypes.POINTER(_BeginParams),
-                                    ctypes.c_void_p]
-    lib.nt_begin_launch.restype = ctypes.c_int
-    if lib.nt_begin_params_size() != ctypes.sizeof(_BeginParams):
-        raise RuntimeError("csrc/begin.cu BeginParams does not match "
-                           "begin_kernel._BeginParams")
+    for cls, sfx in _LAYOUTS.values():
+        size = getattr(lib, f"nt_begin_params_size{sfx}")
+        size.argtypes, size.restype = [], ctypes.c_int
+        blocks = getattr(lib, f"nt_begin_blocks_per_sm{sfx}")
+        blocks.argtypes = [ctypes.POINTER(cls), ctypes.POINTER(ctypes.c_int)]
+        blocks.restype = ctypes.c_int
+        launch = getattr(lib, f"nt_begin_launch{sfx}")
+        launch.argtypes = [ctypes.POINTER(cls), ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        if size() != ctypes.sizeof(cls):
+            raise RuntimeError(f"csrc/begin.cu BeginParams{sfx} does not "
+                               f"match begin_kernel.{cls.__name__}")
     if lib.nt_begin_threads() != THREADS:
         raise RuntimeError("csrc/begin.cu kThreads does not match "
                            "begin_kernel.THREADS")
@@ -78,19 +97,21 @@ def load_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def _card_blocks(device: torch.device, modes: tuple, entries: int,
-                 shift: int) -> int:
+def _card_blocks(device: torch.device, real: torch.dtype, modes: tuple,
+                 entries: int, shift: int) -> int:
     """Blocks that `device` holds at once of the instantiation `modes`
-    (xs_mode, density_mode, rng) beside the coarse index of a table of
-    `entries` entries and coarse shift `shift` in table mode, from the
-    CUDA occupancy calculator; read once per process and key."""
+    (xs_mode, density_mode, rng) in working type `real` beside the coarse
+    index of a table of `entries` entries and coarse shift `shift` in
+    table mode, from the CUDA occupancy calculator; read once per process
+    and key."""
     lib = load_library()
-    p = _BeginParams()
+    cls, sfx = _LAYOUTS[real]
+    p = cls()
     p.xs_mode, p.density_mode, p.rng = modes
     p.scatter_entries, p.scatter_shift = entries, shift
     blocks = ctypes.c_int()
     with torch.cuda.device(device):
-        build.check_launch(lib, lib.nt_begin_blocks_per_sm(
+        build.check_launch(lib, getattr(lib, f"nt_begin_blocks_per_sm{sfx}")(
             ctypes.byref(p), ctypes.byref(blocks)),
             "begin kernel occupancy query")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -98,23 +119,22 @@ def _card_blocks(device: torch.device, modes: tuple, entries: int,
 
 
 @functools.cache
-def region_arrays(regions: tuple, device: torch.device):
-    """rect_arrays(regions) on `device`, made once per process, deck and
-    device (so that a launch copies nothing from the host)."""
-    return rect_arrays(regions, device)
+def region_arrays(regions: tuple, device: torch.device, dtype: torch.dtype):
+    """rect_arrays(regions) on `device` in `dtype`, made once per process,
+    deck, device and dtype (so that a launch copies nothing from the
+    host)."""
+    return rect_arrays(regions, device, dtype)
 
 
 def check_begin_inputs(state: ParticleState, geom: Geometry,
                        scatter_tab: CrossSection) -> None:
     """Raise ValueError unless the kernel implements this configuration:
-    float32 state, and what sweep_kernel.check_inputs asks of the sweep
-    kernel's (a uniform pitch, threefry or pcg64si draws, CUDA tensors of
-    the state's dtypes, the table and a grid deck's density float32 on the
-    state's device)."""
-    if state.dtype != torch.float32:
-        raise ValueError(f"begin kernel takes float32 state, got "
-                         f"{state.dtype}")
-    check_inputs(state, None, geom, scatter_tab, scatter_tab, "begin kernel")
+    what sweep_kernel.check_inputs asks of the sweep kernel's (a float32 or
+    float64 state, a uniform pitch, threefry or pcg64si draws, CUDA tensors
+    of the state's dtypes, the table and a grid deck's density in the
+    state's working type on its device)."""
+    check_inputs(state, None, geom, scatter_tab, scatter_tab, "begin kernel",
+                 REALS)
 
 
 def begin_timestep_kernel(state: ParticleState, geom: Geometry,
@@ -134,32 +154,35 @@ def begin_timestep_kernel(state: ParticleState, geom: Geometry,
     dev = state.device
     out = {f: torch.empty_like(getattr(state, f)) for f in CHANGED}
     live = torch.zeros(1, dtype=torch.int64, device=dev)
-    p = _BeginParams()
+    real = state.dtype
+    cls, sfx = _LAYOUTS[real]
+    p = cls()
     state_pointers(p, state)
     for f, t in out.items():
         setattr(p, f"out_{f}", t.data_ptr())
     p.live = live.data_ptr()
     # The absorb table is not read: its fields repeat the scatter table's.
-    table_fields(p, geom, scatter_tab, scatter_tab)
+    table_fields(p, geom, scatter_tab, scatter_tab, real)
     window_fields(p, geom, x_off, y_off)
     p.master_key = int(master_key)
     p.n = state.n
-    # ctypes rounds the Python float to float32 as xs.const does.
+    # ctypes rounds the Python float to float32 as xs.const does, or keeps
+    # it whole in float64.
     p.dt = dt
     if geom.regions is None:
         p.density_mode = 1
         p.density = geom.density.data_ptr()
     else:
-        bounds, density = region_arrays(geom.regions, dev)
+        bounds, density = region_arrays(geom.regions, dev, real)
         p.nregions = bounds.shape[0]
         p.region_bounds = bounds.data_ptr()
         p.region_density = density.data_ptr()
-    card = _card_blocks(dev, (p.xs_mode, p.density_mode, p.rng),
+    card = _card_blocks(dev, real, (p.xs_mode, p.density_mode, p.rng),
                         p.scatter_entries, p.scatter_shift)
     p.blocks = max(1, min(card, -(-state.n // THREADS)))
     lib = load_library()
     with torch.cuda.device(dev):
-        build.check_launch(lib, lib.nt_begin_launch(
+        build.check_launch(lib, getattr(lib, f"nt_begin_launch{sfx}")(
             ctypes.byref(p), torch.cuda.current_stream().cuda_stream),
             "begin kernel")
     begin_timestep_kernel.launches += 1

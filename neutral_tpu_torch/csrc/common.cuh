@@ -1,9 +1,15 @@
-// Device code shared by the sweep kernel (sweep.cu) and the flight kernel
-// (flight.cu): constants, Threefry-2x64 and PCG64si draws, the analytic and
-// table cross-section lookups and the collision event.  Every function here
+// Device code shared by the sweep kernel (sweep.cu), the flight kernel
+// (flight.cu), the begin kernel (begin.cu) and the lookup alone (table.cu):
+// constants, Threefry-2x64 and PCG64si draws, the analytic and table
+// cross-section lookups and the collision event.  Every function here
 // follows the plain PyTorch version (neutral_tpu_torch/transport.py, xs.py,
-// rng.py) operation by operation, with the same float32 constants; the
-// build passes -fmad=false so that no a*b+c is fused (see build.py).
+// rng.py) operation by operation, with the same constants; the build passes
+// -fmad=false so that no a*b+c is fused (see build.py).
+//
+// The working type is a template parameter `Real`: float (every kernel) or
+// double (the sweep, begin and lookup kernels' float64 instantiations).  In
+// float32 a constant enters the arithmetic as the plain version rounds it
+// (np.float32 of the float64 value), in float64 unrounded (xs.const).
 //
 // The deck's modes are template parameters, so that each combination is
 // its own instantiation and the analytic/threefry one is the code without
@@ -16,6 +22,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace nt {
 
@@ -24,27 +31,112 @@ enum class RngScheme : int { kThreefry = 0, kPcg64si = 1 };
 enum class DensityMode : int { kRegions = 0, kGrid = 1 };
 
 // Constants as the plain version rounds them: the float64 value, then one
-// rounding to float32 (neutral_tpu's np.float32(v)).
+// rounding to the working type (neutral_tpu's np.dtype(dtype).type(v)):
+// none in float64.
 constexpr double kAvogadros = 6.02214085774e23;
 constexpr double kMolarMass = 1.0e-2;
 constexpr double kEvToJ = 1.60217646e-19;
 constexpr double kParticleMass = 1.674927471213e-27;
 constexpr double kMassNo = 1.0e2;
 
-constexpr float kInvMolar = static_cast<float>(kAvogadros / kMolarMass);
-constexpr float kBarns = static_cast<float>(1.0e-28);
-constexpr float kAvgScatterFrac = static_cast<float>(
-    (kMassNo * kMassNo + kMassNo + 1.0) / ((kMassNo + 1.0) * (kMassNo + 1.0)));
-constexpr float kSpeedCoef = static_cast<float>(2.0 * kEvToJ / kParticleMass);
-constexpr float kMinEnergy = static_cast<float>(1.0);
-constexpr float kObc = static_cast<float>(1.0e-13);
-constexpr float kA = static_cast<float>(kMassNo);
-constexpr float kE8 = static_cast<float>(1.0e8);
-constexpr float kEm2 = static_cast<float>(1.0e-2);
-constexpr float kEm8 = static_cast<float>(1.0e-8);
-constexpr float kE3 = static_cast<float>(1.0e3);
+template <typename Real>
+struct Const {
+  static constexpr Real kInvMolar = static_cast<Real>(kAvogadros / kMolarMass);
+  static constexpr Real kBarns = static_cast<Real>(1.0e-28);
+  static constexpr Real kAvgScatterFrac = static_cast<Real>(
+      (kMassNo * kMassNo + kMassNo + 1.0) /
+      ((kMassNo + 1.0) * (kMassNo + 1.0)));
+  static constexpr Real kSpeedCoef =
+      static_cast<Real>(2.0 * kEvToJ / kParticleMass);
+  static constexpr Real kMinEnergy = static_cast<Real>(1.0);
+  static constexpr Real kObc = static_cast<Real>(1.0e-13);
+  static constexpr Real kA = static_cast<Real>(kMassNo);
+  static constexpr Real kE8 = static_cast<Real>(1.0e8);
+  static constexpr Real kEm2 = static_cast<Real>(1.0e-2);
+  static constexpr Real kEm8 = static_cast<Real>(1.0e-8);
+  static constexpr Real kE3 = static_cast<Real>(1.0e3);
+};
+
 constexpr float kTwoM32 = 0x1p-32f;
 constexpr float kTwoM33 = 0x1p-33f;
+
+// The math of the working type: IEEE square root (whatever -prec-sqrt
+// says for double), libdevice's logarithm (the one PyTorch's torch.log
+// calls), fmax, and the floor to int32 as XLA and xs.to_int convert: NaN
+// to 0, out of range saturated (cvt.rmi does so from float32; from
+// float64 both are explicit).
+__device__ __forceinline__ float nt_sqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double nt_sqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float nt_log(float v) { return logf(v); }
+__device__ __forceinline__ double nt_log(double v) { return log(v); }
+__device__ __forceinline__ float nt_fmax(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double nt_fmax(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ int floor_int(float v) {
+  return __float2int_rd(v);
+}
+__device__ __forceinline__ int floor_int(double v) {
+  if (!(v >= -2147483648.0)) return isnan(v) ? 0 : INT32_MIN;
+  return v >= 2147483648.0 ? INT32_MAX : __double2int_rd(v);
+}
+
+// A stored table's packed interval (keys[i], keys[i+1], values[i],
+// values[i+1]) as (x, y, z, w): one aligned 16-byte load in float32 (a
+// float4), two in float64.
+struct alignas(16) Interval64 {
+  double x, y, z, w;
+};
+
+template <typename Real>
+struct Vec;
+template <>
+struct Vec<float> {
+  using Pair = float2;          // an analytic grid's (key, value)
+  using Interval = float4;
+};
+template <>
+struct Vec<double> {
+  using Pair = double2;
+  using Interval = Interval64;
+};
+template <typename Real>
+using Pair = typename Vec<Real>::Pair;
+template <typename Real>
+using Interval = typename Vec<Real>::Interval;
+
+__device__ __forceinline__ float4 load_interval(const float4* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ Interval64 load_interval(const Interval64* p) {
+  const double2* q = reinterpret_cast<const double2*>(p);
+  const double2 a = __ldg(q);
+  const double2 b = __ldg(q + 1);
+  return {a.x, a.y, b.x, b.y};
+}
+
+// The block's dynamic shared memory as an array of the working type (one
+// extern array per type: extern __shared__ arrays of one name must agree),
+// for the begin and lookup kernels.  The sweep kernel declares one float
+// array and hands it to stage_tables/scatter_table/absorb_table, whose
+// float64 overloads below read it as doubles: its float32 instantiations
+// then compile to the instructions they had before the working type was a
+// template parameter (a pointer held in a local of the kernel, or cast in
+// it, changed their register allocation).
+template <typename Real>
+__device__ __forceinline__ Real* dynamic_smem();
+template <>
+__device__ __forceinline__ float* dynamic_smem<float>() {
+  extern __shared__ float nt_smem_f32[];
+  return nt_smem_f32;
+}
+template <>
+__device__ __forceinline__ double* dynamic_smem<double>() {
+  extern __shared__ double nt_smem_f64[];
+  return nt_smem_f64;
+}
 
 // Whether global cell (cx, cy) lies in the window [x_off, x_off + nx) x
 // [y_off, y_off + ny) of a decomposed run's shard (always, unwindowed).
@@ -107,6 +199,20 @@ __device__ __forceinline__ float hi_to_f32(uint64_t v) {
   return __uint2float_rn(static_cast<uint32_t>(v >> 32)) * kTwoM32 + kTwoM33;
 }
 
+// The reference's (double)u64 * 2^-64 + 2^-65, strictly inside (0, 1):
+// one round-to-nearest conversion of the whole word (rng._to_f64's
+// hi * 2^32 + lo), an exact scaling and one rounded add.
+__device__ __forceinline__ double word_to_f64(uint64_t v) {
+  return __ull2double_rn(v) * 0x1p-64 + 0x1p-65;
+}
+
+__device__ __forceinline__ void word_to_real(uint64_t v, float& u) {
+  u = hi_to_f32(v);
+}
+__device__ __forceinline__ void word_to_real(uint64_t v, double& u) {
+  u = word_to_f64(v);
+}
+
 template <RngScheme R>
 __device__ __forceinline__ DrawKey draw_key(uint64_t pid,
                                             uint64_t master_key) {
@@ -117,14 +223,14 @@ __device__ __forceinline__ DrawKey draw_key(uint64_t pid,
   }
 }
 
-// Pair draw mapped to float32 from the high words (rng.uniform2_scheme).
-// threefry: ctr = (counter, 0), key = (pid, master_key).  pcg64si: the
-// generators seeded seed and seed + 1, seed = 1e15*master_key + 1e4*pid +
-// 2*counter (mod 2^64).
-template <RngScheme R>
-__device__ __forceinline__ void uniform2_f32(const DrawKey& key,
-                                             uint64_t counter, float& u0,
-                                             float& u1) {
+// Pair draw mapped to the working type (rng.uniform2_scheme): float32 from
+// the high words, float64 from the whole words.  threefry: ctr = (counter,
+// 0), key = (pid, master_key).  pcg64si: the generators seeded seed and
+// seed + 1, seed = 1e15*master_key + 1e4*pid + 2*counter (mod 2^64).
+template <RngScheme R, typename Real>
+__device__ __forceinline__ void uniform2(const DrawKey& key,
+                                         uint64_t counter, Real& u0,
+                                         Real& u1) {
   uint64_t v0, v1;
   if constexpr (R == RngScheme::kThreefry) {
     threefry2x64(counter, key, v0, v1);
@@ -133,40 +239,42 @@ __device__ __forceinline__ void uniform2_f32(const DrawKey& key,
     v0 = pcg64si_first(seed);
     v1 = pcg64si_first(seed + 1ULL);
   }
-  u0 = hi_to_f32(v0);
-  u1 = hi_to_f32(v1);
+  word_to_real(v0, u0);
+  word_to_real(v1, u1);
 }
 
 // Analytic resonance table (xs.CrossSection analytic mode).  Its keys and
 // values depend only on the index i and the entry count n: key(i) =
 // 1e8 * ((i + 1) / n)^4 + 1e-2, value(i) = 1e3 * ((n - i) / n) + 1, each
-// with one IEEE division.  The wrapper builds them once per run, for every
-// index, with the plain version's own arithmetic (CrossSection.analytic_grid
-// on the card) into `grid`, (key, value) pairs; the lookup reads them
-// instead of dividing.  The closed-form index lands at most one bin off,
-// which the two nudges correct, so the keys and values it can read are
-// those at i0 - 1 .. i0 + 2 of its first guess i0: all four are loaded at
-// once (the grid, 240 KB for 29,999 entries, stays in L1 and L2), and the
-// nudges and the interpolation pick from them, as the plain version's
-// gathers do.
-__device__ __forceinline__ float xs_lookup(float e, const float2* grid,
-                                           int n) {
-  const float m = static_cast<float>(n);
-  const float u = sqrtf(sqrtf((e - kEm2) * kEm8));
+// with one IEEE division.  The wrapper builds them once per run and working
+// type, for every index, with the plain version's own arithmetic
+// (CrossSection.analytic_grid_in on the card) into `grid`, (key, value)
+// pairs; the lookup reads them instead of dividing.  The closed-form index lands
+// at most one bin off, which the two nudges correct, so the keys and values
+// it can read are those at i0 - 1 .. i0 + 2 of its first guess i0: all four
+// are loaded at once (the grid, 240 KB for 29,999 entries in float32, 480
+// KB in float64, stays in L1 and L2), and the nudges and the interpolation
+// pick from them, as the plain version's gathers do.
+template <typename Real>
+__device__ __forceinline__ Real xs_lookup(Real e, const Pair<Real>* grid,
+                                          int n) {
+  using C = Const<Real>;
+  const Real m = static_cast<Real>(n);
+  const Real u = nt_sqrt(nt_sqrt((e - C::kEm2) * C::kEm8));
   // Below 1e-2 eV u is NaN: cvt.rmi sends it to 0 (and saturates), as
   // XLA's conversion and xs.to_int do.
-  const int i0 = min(max(__float2int_rd(u * m) - 1, 0), n - 2);
-  const float2 gm = __ldg(grid + max(i0 - 1, 0));
-  const float2 g0 = __ldg(grid + i0);
-  const float2 g1 = __ldg(grid + i0 + 1);
-  const float2 g2 = __ldg(grid + min(i0 + 2, n - 1));
+  const int i0 = min(max(floor_int(u * m) - 1, 0), n - 2);
+  const Pair<Real> gm = __ldg(grid + max(i0 - 1, 0));
+  const Pair<Real> g0 = __ldg(grid + i0);
+  const Pair<Real> g1 = __ldg(grid + i0 + 1);
+  const Pair<Real> g2 = __ldg(grid + min(i0 + 2, n - 1));
   // idx -= e < key(i0); idx += e >= key(clip(idx + 1)); clip to [0, n-2]
   const bool down = e < g0.x;
   const int up = e >= (down ? g0.x : g1.x) ? 1 : 0;
   const int idx = min(max(i0 - (down ? 1 : 0) + up, 0), n - 2);
   const int d = idx - i0;       // -1, 0 or 1
-  const float2 lo = d < 0 ? gm : (d == 0 ? g0 : g1);
-  const float2 hi = d < 0 ? g0 : (d == 0 ? g1 : g2);
+  const Pair<Real> lo = d < 0 ? gm : (d == 0 ? g0 : g1);
+  const Pair<Real> hi = d < 0 ? g0 : (d == 0 ? g1 : g2);
   return lo.y + ((e - lo.x) / (hi.x - lo.x)) * (hi.y - lo.y);
 }
 
@@ -182,15 +290,17 @@ __device__ __forceinline__ float xs_lookup(float e, const float2* grid,
 // the interpolation four more from two arrays.  So the search runs at two
 // levels.  The coarse index coarse[j] = keys[j * S] (S = 2^shift, the
 // smallest power of two that keeps it within xs.COARSE_KEYS entries: S =
-// 16 and 1,875 entries, 7.3 KiB, for 30,000) is copied once per block into
-// shared memory (stage_coarse), where the first level bisects it; that
-// leaves the S keys of one group, 64 contiguous bytes at S = 16, which the
+// 16 and 1,875 entries, 7.3 KiB in float32 and 14.6 KiB in float64, for
+// 30,000) is copied once per block into shared memory (stage_coarse),
+// where the first level bisects it; that leaves the S keys of one group,
+// 64 contiguous bytes at S = 16 in float32 (128 in float64), which the
 // second level bisects in global memory (one L2 round trip, then L1 hits);
-// and the interval is one aligned 16-byte load.  Every table size takes
-// this one path: S grows with n.  The test !(key > e) is
-// torch.searchsorted(right=True)'s at both levels, so a NaN energy (a
-// masked lane) lands at n and clips in bounds, and runs of equal keys, also
-// across a group's first key, resolve as searchsorted resolves them.
+// and the interval is one aligned 16-byte load in float32, two in float64
+// (32 bytes on one line).  Every table size takes this one path: S grows
+// with n.  The test !(key > e) is torch.searchsorted(right=True)'s at both
+// levels, so a NaN energy (a masked lane) lands at n and clips in bounds,
+// and runs of equal keys, also across a group's first key, resolve as
+// searchsorted resolves them.
 //
 // A collision never raises the energy (a scatter keeps at least
 // ((A-1)/(A+1))^2 of it), so a lane's next first-level count is at most
@@ -198,13 +308,14 @@ __device__ __forceinline__ float xs_lookup(float e, const float2* grid,
 // within one launch: no state field) and gallop down from it, a few steps
 // instead of ceil(log2(coarse_count + 1)): the card's form of
 // neutral_tpu's live energy band (pallas_table.py energy_band).
-struct XsTable {
-  const float* keys;         // table mode: (n,) ascending, global memory
-  const float4* intervals;   // table mode: (n - 1,) (k0, k1, v0, v1)
-  const float* coarse;       // table mode: (coarse_count,), shared memory
-  const float2* grid;        // analytic mode: (n,) (key, value) pairs
+template <typename Real>
+struct XsTableT {
+  const Real* keys;                 // table mode: (n,) ascending, global
+  const Interval<Real>* intervals;  // table mode: (n - 1,) (k0, k1, v0, v1)
+  const Real* coarse;               // table mode: (coarse_count,), shared
+  const Pair<Real>* grid;           // analytic mode: (n,) (key, value) pairs
   int n;
-  int shift;                 // table mode: log2 of the coarse stride S
+  int shift;                        // table mode: log2 of the coarse stride
 };
 
 // Entries of a table's coarse index: ceil(n / 2^shift).
@@ -214,9 +325,10 @@ __host__ __device__ __forceinline__ int coarse_count(int n, int shift) {
 
 // Copies a table's coarse index from global memory into `smem` with every
 // thread of the block; the caller synchronises the block before a lookup.
-__device__ __forceinline__ const float* stage_coarse(const float* coarse,
-                                                     int n, int shift,
-                                                     float* smem) {
+template <typename Real>
+__device__ __forceinline__ const Real* stage_coarse(const Real* coarse,
+                                                    int n, int shift,
+                                                    Real* smem) {
   const int m = coarse_count(n, shift);
   for (int j = threadIdx.x; j < m; j += blockDim.x) {
     smem[j] = __ldg(coarse + j);
@@ -233,7 +345,8 @@ constexpr int kNoHint = 0x7fffffff;
 // then has a count of at most that, which a gallop down from it brackets
 // in a few steps; if coarse[hint] <= e the hint tells nothing and the
 // whole index is searched, so the result never depends on it.
-__device__ __forceinline__ int table_index(float e, const XsTable& t,
+template <typename Real>
+__device__ __forceinline__ int table_index(Real e, const XsTableT<Real>& t,
                                            int& hint) {
   // Level 1, shared memory: c = #{j : coarse[j] <= e}.  The count of all
   // keys <= e then lies in [(c - 1) S + 1, min(c S, n)] (0 when c = 0).
@@ -276,21 +389,24 @@ __device__ __forceinline__ int table_index(float e, const XsTable& t,
 }
 
 // The interpolation at e over interval idx of stored table t: one aligned
-// 16-byte load.
-__device__ __forceinline__ float table_interpolate(float e, const XsTable& t,
-                                                   int idx) {
-  const float4 iv = __ldg(t.intervals + idx);
+// 16-byte load in float32, two in float64.
+template <typename Real>
+__device__ __forceinline__ Real table_interpolate(Real e,
+                                                  const XsTableT<Real>& t,
+                                                  int idx) {
+  const Interval<Real> iv = load_interval(t.intervals + idx);
   return iv.z + ((e - iv.x) / (iv.y - iv.x)) * (iv.w - iv.z);
 }
 
-__device__ __forceinline__ float table_lookup(float e, const XsTable& t,
-                                              int& hint) {
+template <typename Real>
+__device__ __forceinline__ Real table_lookup(Real e, const XsTableT<Real>& t,
+                                             int& hint) {
   return table_interpolate(e, t, table_index(e, t, hint));
 }
 
-template <XsMode X>
-__device__ __forceinline__ float xs_value(float e, const XsTable& t,
-                                          int& hint) {
+template <XsMode X, typename Real>
+__device__ __forceinline__ Real xs_value(Real e, const XsTableT<Real>& t,
+                                         int& hint) {
   if constexpr (X == XsMode::kAnalytic) {
     return xs_lookup(e, t.grid, t.n);
   } else {
@@ -303,8 +419,8 @@ __device__ __forceinline__ float xs_value(float e, const XsTable& t,
 // absorb's (the launch sized it with table_smem_bytes), and synchronises
 // the block; nothing in analytic mode.  Every thread of the block calls it
 // before any lookup.
-template <XsMode X, typename Params>
-__device__ __forceinline__ void stage_tables(const Params& p, float* smem) {
+template <XsMode X, typename Params, typename Real>
+__device__ __forceinline__ void stage_tables(const Params& p, Real* smem) {
   if constexpr (X == XsMode::kTable) {
     stage_coarse(p.scatter_coarse, p.scatter_entries, p.scatter_shift, smem);
     if (!p.same_xs) {
@@ -317,30 +433,54 @@ __device__ __forceinline__ void stage_tables(const Params& p, float* smem) {
 
 // The scatter and absorb tables of a launch, their coarse indexes where
 // stage_tables put them (absorb reads scatter's when same_xs).
-template <typename Params>
-__device__ __forceinline__ XsTable scatter_table(const Params& p,
-                                                 const float* smem) {
+template <typename Params, typename Real>
+__device__ __forceinline__ XsTableT<Real> scatter_table(const Params& p,
+                                                        const Real* smem) {
   return {p.scatter_keys, p.scatter_intervals, smem, p.scatter_grid,
           p.scatter_entries, p.scatter_shift};
 }
 
-template <typename Params>
-__device__ __forceinline__ XsTable absorb_table(const Params& p,
-                                                const float* smem) {
+template <typename Params, typename Real>
+__device__ __forceinline__ XsTableT<Real> absorb_table(const Params& p,
+                                                       const Real* smem) {
   return {p.absorb_keys, p.absorb_intervals,
           p.same_xs ? smem
                     : smem + coarse_count(p.scatter_entries, p.scatter_shift),
           p.absorb_grid, p.absorb_entries, p.absorb_shift};
 }
 
+// A float64 launch's tables with the block's dynamic shared memory given
+// as floats (a kernel's one extern array): the same, read as doubles.
+template <typename Params>
+using Float64Params = std::enable_if_t<
+    std::is_same_v<decltype(Params::scatter_coarse), const double*>, int>;
+
+template <XsMode X, typename Params, Float64Params<Params> = 0>
+__device__ __forceinline__ void stage_tables(const Params& p, float* smem) {
+  stage_tables<X>(p, reinterpret_cast<double*>(smem));
+}
+
+template <typename Params, Float64Params<Params> = 0>
+__device__ __forceinline__ XsTableT<double> scatter_table(const Params& p,
+                                                          const float* smem) {
+  return scatter_table(p, reinterpret_cast<const double*>(smem));
+}
+
+template <typename Params, Float64Params<Params> = 0>
+__device__ __forceinline__ XsTableT<double> absorb_table(const Params& p,
+                                                         const float* smem) {
+  return absorb_table(p, reinterpret_cast<const double*>(smem));
+}
+
 // Dynamic shared memory of a launch with these parameters: the coarse
-// indexes of its tables in table mode, none in analytic mode.
+// indexes of its tables in table mode (in the working type), none in
+// analytic mode.
 template <typename Params>
 inline size_t table_smem_bytes(const Params& p) {
   if (p.xs_mode != static_cast<int>(XsMode::kTable)) return 0;
   int m = coarse_count(p.scatter_entries, p.scatter_shift);
   if (!p.same_xs) m += coarse_count(p.absorb_entries, p.absorb_shift);
-  return sizeof(float) * static_cast<size_t>(m);
+  return sizeof(*p.scatter_coarse) * static_cast<size_t>(m);
 }
 
 // torch.minimum / torch.maximum / clamp_min on float32: NaN propagates,
@@ -367,32 +507,35 @@ __device__ __forceinline__ float tmax(float a, float b) {
 // the energy changes only in a collision (the same function of the same
 // float gives the same bits); `hint` is the lane's first-level hint in the
 // scatter table (table mode).  Returns whether the particle died.
-template <XsMode X, RngScheme R>
+template <XsMode X, RngScheme R, typename Real>
 __device__ __forceinline__ bool collide(const DrawKey& key,
-                                        uint64_t& counter, float& energy,
-                                        float& weight, float& omega_x,
-                                        float& omega_y, float& mfp,
-                                        float& sig_s, float mac_a,
-                                        float mac_t, float number_density,
-                                        const XsTable& scatter,
+                                        uint64_t& counter, Real& energy,
+                                        Real& weight, Real& omega_x,
+                                        Real& omega_y, Real& mfp,
+                                        Real& sig_s, Real mac_a,
+                                        Real mac_t, Real number_density,
+                                        const XsTableT<Real>& scatter,
                                         int& hint) {
+  using C = Const<Real>;
+  constexpr Real kOne = 1, kTwo = 2, kHalf = 0.5;
   bool died = false;
-  const float p_absorb = mac_a / mac_t;
-  float rn1a, rn1b, rn2a, rn2b;
-  uniform2_f32<R>(key, counter, rn1a, rn1b);
-  uniform2_f32<R>(key, counter + 1, rn2a, rn2b);
+  const Real p_absorb = mac_a / mac_t;
+  Real rn1a, rn1b, rn2a, rn2b;
+  uniform2<R>(key, counter, rn1a, rn1b);
+  uniform2<R>(key, counter + 1, rn2a, rn2b);
   if (rn1a < p_absorb) {
-    weight = weight * (1.0f - p_absorb);
-    died = energy < kMinEnergy;
+    weight = weight * (kOne - p_absorb);
+    died = energy < C::kMinEnergy;
   } else {
-    const float mu_cm = 1.0f - 2.0f * rn1b;
-    const float e_new = energy * ((kA * kA + (2.0f * kA) * mu_cm) + 1.0f) /
-                        ((kA + 1.0f) * (kA + 1.0f));
-    const float cos_t = 0.5f * ((kA + 1.0f) * sqrtf(e_new / energy) -
-                                (kA - 1.0f) * sqrtf(energy / e_new));
-    const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-    const float ox = omega_x * cos_t - omega_y * sin_t;
-    const float oy = omega_x * sin_t + omega_y * cos_t;
+    const Real mu_cm = kOne - kTwo * rn1b;
+    const Real e_new = energy * ((C::kA * C::kA + (kTwo * C::kA) * mu_cm) +
+                                 kOne) /
+                       ((C::kA + kOne) * (C::kA + kOne));
+    const Real cos_t = kHalf * ((C::kA + kOne) * nt_sqrt(e_new / energy) -
+                                (C::kA - kOne) * nt_sqrt(energy / e_new));
+    const Real sin_t = nt_sqrt(nt_fmax(kOne - cos_t * cos_t, Real(0)));
+    const Real ox = omega_x * cos_t - omega_y * sin_t;
+    const Real oy = omega_x * sin_t + omega_y * cos_t;
     omega_x = ox;
     omega_y = oy;
     energy = e_new;
@@ -400,9 +543,9 @@ __device__ __forceinline__ bool collide(const DrawKey& key,
   counter += 1;
   sig_s = xs_value<X>(energy, scatter, hint);
   if (!died) {
-    const float mac_s2 = number_density * sig_s * kBarns;
+    const Real mac_s2 = number_density * sig_s * C::kBarns;
     counter += 1;
-    mfp = -logf(rn2a) / mac_s2;
+    mfp = -nt_log(rn2a) / mac_s2;
   }
   return died;
 }

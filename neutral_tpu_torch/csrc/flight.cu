@@ -141,6 +141,7 @@ struct FlightParams {
 namespace {
 
 using namespace nt;
+using C = Const<float>;
 
 constexpr int kThreads = 128;
 
@@ -174,8 +175,8 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
     bool inwin = true;
-    const XsTable scatter = scatter_table(p, coarse_smem);
-    const XsTable absorb = absorb_table(p, coarse_smem);
+    const XsTableT<float> scatter = scatter_table(p, coarse_smem);
+    const XsTableT<float> absorb = absorb_table(p, coarse_smem);
     const int4* bounds = reinterpret_cast<const int4*>(p.rect_bounds);
     const float xo = static_cast<float>(p.x_off);
     const float yo = static_cast<float>(p.y_off);
@@ -191,7 +192,7 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
     int hint_s = kNoHint, hint_a = kNoHint;   // table mode: level-1 hints
     float sig_s = xs_value<X>(energy, scatter, hint_s);
     float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
-    float speed = sqrtf(kSpeedCoef * energy);
+    float speed = sqrtf(C::kSpeedCoef * energy);
 
     for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f && inwin;
          ++piece) {
@@ -221,9 +222,9 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
 
       // ---- material state ----
       const float sig_t = sig_s + sig_a;
-      const float number_density = rho * kInvMolar;
-      const float mac_s = number_density * sig_s * kBarns;
-      const float mac_a = number_density * sig_a * kBarns;
+      const float number_density = rho * C::kInvMolar;
+      const float mac_s = number_density * sig_s * C::kBarns;
+      const float mac_a = number_density * sig_a * C::kBarns;
       const float mac_t = mac_s + mac_a;
       const float cell_mfp = 1.0f / mac_t;
 
@@ -232,9 +233,9 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
       const float u_x_inv = 1.0f / (omega_x * speed);
       const float u_y_inv = 1.0f / (omega_y * speed);
       const float wx_pos = static_cast<float>(rix1) * p.dx;
-      const float wx_neg = static_cast<float>(rix0) * p.dx - kObc;
+      const float wx_neg = static_cast<float>(rix0) * p.dx - C::kObc;
       const float wy_pos = static_cast<float>(riy1) * p.dy;
-      const float wy_neg = static_cast<float>(riy0) * p.dy - kObc;
+      const float wy_neg = static_cast<float>(riy0) * p.dy - C::kObc;
       const float dt_x = omega_x >= 0.0f ? (wx_pos - x) * u_x_inv
                                          : (wx_neg - x) * u_x_inv;
       const float dt_y = omega_y >= 0.0f ? (wy_pos - y) * u_y_inv
@@ -291,14 +292,14 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
 
       // ---- deposit bookkeeping: K = deposit per unit path ----
       const float heating =
-          energy - (1.0f - sig_a / sig_t) * (energy * kAvgScatterFrac);
-      const float K = weight * (sig_t * kBarns) * heating * number_density;
+          energy - (1.0f - sig_a / sig_t) * (energy * C::kAvgScatterFrac);
+      const float K = weight * (sig_t * C::kBarns) * heating * number_density;
 
       // Exit distance of the first cell.
       const float ex_pos = static_cast<float>(cellx + 1) * p.dx;
-      const float ex_neg = static_cast<float>(cellx) * p.dx - kObc;
+      const float ex_neg = static_cast<float>(cellx) * p.dx - C::kObc;
       const float ey_pos = static_cast<float>(celly + 1) * p.dy;
-      const float ey_neg = static_cast<float>(celly) * p.dy - kObc;
+      const float ey_neg = static_cast<float>(celly) * p.dy - C::kObc;
       const float cdt_x = omega_x >= 0.0f ? (ex_pos - x) * u_x_inv
                                           : (ex_neg - x) * u_x_inv;
       const float cdt_y = omega_y >= 0.0f ? (ey_pos - y) * u_y_inv
@@ -375,7 +376,7 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
       if (is_census) dt = 0.0f;
       if (is_coll) {
         sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
-        speed = sqrtf(kSpeedCoef * energy);
+        speed = sqrtf(C::kSpeedCoef * energy);
       }
 
       x = x1;

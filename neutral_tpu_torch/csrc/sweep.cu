@@ -11,29 +11,37 @@
 // (dt_to_census <= 0), leaves the window or has run `max_events` events in
 // this launch, writes the state back and takes the next lane.  Tally
 // flushes (facet, census, death) go straight into the tally with
-// atomicAdd(float*); zero contributions skip the atomic.  Rings, pause
-// gating, ring drains and the all-dead block early-out have no counterpart.
+// atomicAdd(float*) or atomicAdd(double*); zero contributions skip the
+// atomic.  Rings, pause gating, ring drains and the all-dead block
+// early-out have no counterpart.
 //
 // Each event is the plain version's (neutral_tpu_torch/transport.py
-// sweep_core) operations in the same order, with the same float32 constants.
+// sweep_core) operations in the same order, with the same constants.
 // The build passes -fmad=false: nvcc would otherwise contract a*b+c into
 // fused multiply-adds, which PyTorch's one-operation-per-kernel arithmetic
 // does not do, and branch decisions would drift from the plain version.
-// float32 on a uniform mesh only; the deck's modes are template parameters
-// (common.cuh), one instantiation per combination, chosen at launch:
+// A uniform mesh only.  The working type is a template parameter: float32,
+// where positions are cell-local (transport.use_local_coords: a facet
+// crossing re-bases them onto the new cell), or float64, where they are
+// global, as in neutral_tpu's XLA float64 engine (transport.py sweep_chunk,
+// :506): a cell's facet edges are cx * dx and (cx + 1) * dx, computed per
+// event from its global cell, and a crossing changes only the cell.  The
+// deck's modes are template parameters too (common.cuh), one instantiation
+// per combination and working type, chosen at launch:
 //
 //   * cross-sections: the analytic resonance formula, or a stored table
 //     (table mode, for user .cs files) searched through its coarse index,
 //     which each persistent block copies into shared memory once per
 //     launch (common.cuh table_lookup);
 //   * density: the region rectangles, an (R, 4) int32 bounds array and an
-//     (R,) float32 density array on the device, scanned in order (later
-//     regions override earlier ones; any R), or a per-cell grid (grid mode,
-//     density_file decks).  Grid mode reads density[flat_cell] of the cell
-//     the event starts in, so the whole event uses that cell's material, as
-//     in the reference; neutral_tpu's carried density, stale freeze and
-//     refresh gather (pallas_sweep.py:120-145) are TPU mechanisms with no
-//     counterpart here;
+//     (R,) density array in the working type on the device, scanned in
+//     order (later regions override earlier ones; any R), or a per-cell
+//     grid (grid mode, density_file decks).  Grid mode reads
+//     density[flat_cell] of the cell the event starts in, so the whole
+//     event uses that cell's material, as in the reference; neutral_tpu's
+//     carried density, stale freeze and refresh gather
+//     (pallas_sweep.py:120-145) are TPU mechanisms with no counterpart
+//     here;
 //   * draws: threefry or pcg64si.
 //
 // The spatial window of a decomposed run (pallas_sweep.py's has_slab and
@@ -73,6 +81,18 @@
 //
 // The wrapper (sweep_kernel.py) rejects everything else.
 //
+// The float64 instantiations are the float32 design with doubles: the
+// carried state, cross-sections and speed take 80-96 registers against
+// float32's 56-64 (ptxas's report is in the build log; 5 or 6 blocks an
+// SM), and the wrapper sizes their grid by the occupancy the library
+// reports for them (nt_sweep_blocks_per_sm_f64).  Their tables' coarse
+// indexes take 8 bytes an entry in shared memory.  The kernel's text keeps
+// the float32 instantiations' code as it was: what differs by type goes
+// through functions (edge_hi/edge_lo, the tables' float64 overloads in
+// common.cuh) and `if constexpr`, not through locals of the kernel, which
+// changed ptxas's register allocation (`measure.py kernels` compares the
+// SASS of two checkouts).
+//
 // What bounds it on the H100 (an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
 // §6, measure.py census): ptxas gives the main instantiation (analytic,
 // regions, threefry) 56 registers and 8 bytes of spill, so an SM holds 9
@@ -96,41 +116,43 @@
 
 #include "common.cuh"
 
-// Layout shared with sweep_kernel._SweepParams (ctypes); nt_params_size()
-// lets the wrapper check that the two agree.  It has external linkage, so
-// the extern "C" entry points that take it are exported.
-struct SweepParams {
-  float* x;
-  float* y;
-  float* omega_x;
-  float* omega_y;
-  float* energy;
-  float* weight;
-  float* dt_to_census;
-  float* mfp_to_collision;
-  float* deposit;
+// Layout shared with sweep_kernel._SweepParams (ctypes; Real = float) and
+// _SweepParams64 (Real = double); nt_params_size() and nt_params_size_f64()
+// let the wrapper check that they agree.  It has external linkage, so the
+// extern "C" entry points that take it are exported.
+template <typename Real>
+struct SweepParamsT {
+  Real* x;
+  Real* y;
+  Real* omega_x;
+  Real* omega_y;
+  Real* energy;
+  Real* weight;
+  Real* dt_to_census;
+  Real* mfp_to_collision;
+  Real* deposit;
   int32_t* cellx;
   int32_t* celly;
   uint8_t* dead;
   const int64_t* pid;
   int64_t* counter;
-  float* tally;                 // (ny * nx,) flat, row-major, window-local
+  Real* tally;                  // (ny * nx,) flat, row-major, window-local
   // [facets, collisions, lanes still working (the next list's length),
   //  the list cursor, lane events run, warp event steps]
   unsigned long long* counts;
   const int32_t* active;        // (n_active,) lanes to run; null: lane t
   int32_t* next;                // (n,) the lanes still working after it
-  const float* scatter_keys;    // table mode: (scatter_entries,) ascending
-  const float4* scatter_intervals;  // table mode: (scatter_entries - 1,)
-  const float* scatter_coarse;  // table mode: its coarse index
-  const float* absorb_keys;     // table mode: (absorb_entries,)
-  const float4* absorb_intervals;
-  const float* absorb_coarse;
-  const float2* scatter_grid;   // analytic mode: (scatter_entries,) pairs
-  const float2* absorb_grid;    // analytic mode: (absorb_entries,) pairs
+  const Real* scatter_keys;     // table mode: (scatter_entries,) ascending
+  const nt::Interval<Real>* scatter_intervals;  // table mode: (entries - 1,)
+  const Real* scatter_coarse;   // table mode: its coarse index
+  const Real* absorb_keys;      // table mode: (absorb_entries,)
+  const nt::Interval<Real>* absorb_intervals;
+  const Real* absorb_coarse;
+  const nt::Pair<Real>* scatter_grid;  // analytic mode: (entries,) pairs
+  const nt::Pair<Real>* absorb_grid;   // analytic mode: (entries,) pairs
   const int32_t* region_bounds; // region mode: (nregions, 4) ix0 ix1 iy0 iy1
-  const float* region_density;  // region mode: (nregions,)
-  const float* density;         // grid mode: (ny * nx,) window-local
+  const Real* region_density;   // region mode: (nregions,)
+  const Real* density;          // grid mode: (ny * nx,) window-local
   unsigned long long master_key;
   long long n;
   long long n_active;           // the list's length
@@ -151,10 +173,13 @@ struct SweepParams {
   int y_off;
   int global_nx;                // the whole mesh
   int global_ny;
-  float dx;
-  float dy;
-  float inv_ntotal;
+  Real dx;
+  Real dy;
+  Real inv_ntotal;
 };
+
+using SweepParams = SweepParamsT<float>;
+using SweepParams64 = SweepParamsT<double>;
 
 namespace {
 
@@ -166,20 +191,44 @@ constexpr unsigned int kNeed = 0xffffffffu;
 
 __device__ __forceinline__ unsigned int lane_id() { return threadIdx.x & 31u; }
 
+// Whether the working type keeps positions in the cell-local frame
+// (float32) or global (float64), as transport.use_local_coords decides.
+template <typename Real>
+constexpr bool kCellLocal = std::is_same_v<Real, float>;
+
+// The facets of cell c of pitch d that bound a lane moving up (edge_hi)
+// and down (edge_lo, the open left/bottom facet overshot by kObc), as
+// transport._facet_edges gives them: in float32 those of the cell-local
+// frame, d and -kObc; in float64 the global (c + 1) * d and c * d - kObc,
+// computed per event from the lane's global cell.  Each is an expression,
+// not a local of the kernel: a float32 instantiation keeps its code.
+__device__ __forceinline__ float edge_hi(float d, int) { return d; }
+__device__ __forceinline__ float edge_lo(float, int) {
+  return -Const<float>::kObc;
+}
+__device__ __forceinline__ double edge_hi(double d, int c) {
+  return (static_cast<double>(c) + 1.0) * d;
+}
+__device__ __forceinline__ double edge_lo(double d, int c) {
+  return static_cast<double>(c) * d - Const<double>::kObc;
+}
+
 // The bits of the warp's lanes below this one.
 __device__ __forceinline__ unsigned int lanes_below() {
   return (1u << lane_id()) - 1u;
 }
 
-template <XsMode X, DensityMode D, RngScheme R>
+template <XsMode X, DensityMode D, RngScheme R, typename Real>
 __global__ void __launch_bounds__(kThreads)
-sweep_kernel(const SweepParams p) {
+sweep_kernel(const SweepParamsT<Real> p) {
+  using C = Const<Real>;
   // Table mode stages the coarse indexes once per launch: the blocks are
-  // persistent.
+  // persistent.  The dynamic shared memory starts aligned (the kernel has
+  // no static shared memory), so it holds doubles as well as floats.
   extern __shared__ float coarse_smem[];
   stage_tables<X>(p, coarse_smem);
-  const XsTable scatter = scatter_table(p, coarse_smem);
-  const XsTable absorb = absorb_table(p, coarse_smem);
+  const XsTableT<Real> scatter = scatter_table(p, coarse_smem);
+  const XsTableT<Real> absorb = absorb_table(p, coarse_smem);
 
   // The list position this thread loads next: pending while below
   // n_active, kNeed when the thread needs a new one, n_active when the
@@ -189,8 +238,8 @@ sweep_kernel(const SweepParams p) {
   int i = 0;                    // that lane
   int ev = 0;                   // its events in this launch
 
-  float x = 0.0f, y = 0.0f, omega_x = 0.0f, omega_y = 0.0f;
-  float energy = 0.0f, weight = 0.0f, dt = 0.0f, mfp = 0.0f, deposit = 0.0f;
+  Real x = 0.0f, y = 0.0f, omega_x = 0.0f, omega_y = 0.0f;
+  Real energy = 0.0f, weight = 0.0f, dt = 0.0f, mfp = 0.0f, deposit = 0.0f;
   int cellx = 0, celly = 0;
   uint64_t counter = 0;
   DrawKey key{0, 0, 0};
@@ -198,11 +247,11 @@ sweep_kernel(const SweepParams p) {
   // only when the lane has entered another cell (in a dense deck nearly
   // every event is a collision in the same cell).
   int density_cell = -1;
-  float density = 0.0f;
+  Real density = 0.0f;
   // The cross-sections and speed at the lane's energy, looked up at load
   // and again only after a collision (collide's one lookup): the energy
   // changes nowhere else.
-  float sig_s = 0.0f, sig_a = 0.0f, speed = 0.0f;
+  Real sig_s = 0.0f, sig_a = 0.0f, speed = 0.0f;
   int hint_s = kNoHint, hint_a = kNoHint;   // table mode: level-1 hints
 
   // Counts of this thread's events (a thread runs about a launch's events
@@ -244,7 +293,7 @@ sweep_kernel(const SweepParams p) {
             hint_s = hint_a = kNoHint;
             sig_s = xs_value<X>(energy, scatter, hint_s);
             sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
-            speed = sqrtf(kSpeedCoef * energy);
+            speed = nt_sqrt(C::kSpeedCoef * energy);
             ev = 0;
             have = true;
           }
@@ -296,36 +345,36 @@ sweep_kernel(const SweepParams p) {
           }
         }
       }
-      const float sig_t = sig_s + sig_a;
-      const float number_density = density * kInvMolar;
-      const float mac_s = number_density * sig_s * kBarns;
-      const float mac_a = number_density * sig_a * kBarns;
-      const float mac_t = mac_s + mac_a;
-      const float cell_mfp = 1.0f / mac_t;
+      const Real sig_t = sig_s + sig_a;
+      const Real number_density = density * C::kInvMolar;
+      const Real mac_s = number_density * sig_s * C::kBarns;
+      const Real mac_a = number_density * sig_a * C::kBarns;
+      const Real mac_t = mac_s + mac_a;
+      const Real cell_mfp = 1.0f / mac_t;
 
-      // three candidate distances, in the cell-local frame (edges 0 and
-      // dx; the open left/bottom facet overshoots by kObc)
-      const float u_x_inv = 1.0f / (omega_x * speed);
-      const float u_y_inv = 1.0f / (omega_y * speed);
-      const float dt_x = omega_x >= 0.0f ? (p.dx - x) * u_x_inv
-                                         : (-kObc - x) * u_x_inv;
-      const float dt_y = omega_y >= 0.0f ? (p.dy - y) * u_y_inv
-                                         : (-kObc - y) * u_y_inv;
+      // three candidate distances, from the cell's facet edges (edge_hi,
+      // edge_lo: cell-local in float32, global in float64)
+      const Real u_x_inv = 1.0f / (omega_x * speed);
+      const Real u_y_inv = 1.0f / (omega_y * speed);
+      const Real dt_x = omega_x >= 0.0f ? (edge_hi(p.dx, cellx) - x) * u_x_inv
+                                        : (edge_lo(p.dx, cellx) - x) * u_x_inv;
+      const Real dt_y = omega_y >= 0.0f ? (edge_hi(p.dy, celly) - y) * u_y_inv
+                                        : (edge_lo(p.dy, celly) - y) * u_y_inv;
       const bool x_facet = dt_x < dt_y;
-      const float d_facet = (x_facet ? dt_x : dt_y) * speed;
-      const float d_coll = mfp * cell_mfp;
-      const float d_census = speed * dt;
+      const Real d_facet = (x_facet ? dt_x : dt_y) * speed;
+      const Real d_coll = mfp * cell_mfp;
+      const Real d_census = speed * dt;
 
       const bool is_coll = (d_coll < d_facet) && (d_coll < d_census);
       const bool is_facet = !is_coll && (d_facet < d_census);
       const bool is_census = !is_coll && !is_facet;
-      const float dist = is_coll ? d_coll : (is_facet ? d_facet : d_census);
+      const Real dist = is_coll ? d_coll : (is_facet ? d_facet : d_census);
 
       // segment energy deposition (pre-event state)
-      const float heating =
-          energy - (1.0f - sig_a / sig_t) * (energy * kAvgScatterFrac);
-      const float ed =
-          weight * dist * (sig_t * kBarns) * heating * number_density;
+      const Real heating =
+          energy - (1.0f - sig_a / sig_t) * (energy * C::kAvgScatterFrac);
+      const Real ed =
+          weight * dist * (sig_t * C::kBarns) * heating * number_density;
       deposit = deposit + ed;
 
       // move to the event site
@@ -341,7 +390,7 @@ sweep_kernel(const SweepParams p) {
                              number_density, scatter, hint_s);
         dt = dt - d_coll / speed;
         sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
-        speed = sqrtf(kSpeedCoef * energy);
+        speed = nt_sqrt(C::kSpeedCoef * energy);
       }
       if (is_facet) {
         mfp = mfp - d_facet / cell_mfp;
@@ -354,14 +403,14 @@ sweep_kernel(const SweepParams p) {
 
       // tally flush: leaving a cell, dying, or reaching census
       if (is_facet || is_census || died) {
-        const float contrib = deposit * p.inv_ntotal;
+        const Real contrib = deposit * p.inv_ntotal;
         deposit = 0.0f;
         if (contrib != 0.0f) atomicAdd(&p.tally[flat_cell], contrib);
       }
 
-      // facet: step into the next cell (re-basing the local position) or
-      // reflect at the domain boundary; a lane that steps out of the
-      // window stops here
+      // facet: step into the next cell (in float32 re-basing the local
+      // position) or reflect at the domain boundary; a lane that steps out
+      // of the window stops here
       bool inwin = true;
       if (is_facet) {
         if (x_facet) {
@@ -370,14 +419,14 @@ sweep_kernel(const SweepParams p) {
               omega_x = -omega_x;
             } else {
               cellx += 1;
-              x = x - p.dx;
+              if constexpr (kCellLocal<Real>) x = x - p.dx;
             }
           } else if (omega_x < 0.0f) {
             if (cellx <= 0) {
               omega_x = -omega_x;
             } else {
               cellx -= 1;
-              x = x + p.dx;
+              if constexpr (kCellLocal<Real>) x = x + p.dx;
             }
           }
         } else {
@@ -386,14 +435,14 @@ sweep_kernel(const SweepParams p) {
               omega_y = -omega_y;
             } else {
               celly += 1;
-              y = y - p.dy;
+              if constexpr (kCellLocal<Real>) y = y - p.dy;
             }
           } else if (omega_y < 0.0f) {
             if (celly <= 0) {
               omega_y = -omega_y;
             } else {
               celly -= 1;
-              y = y + p.dy;
+              if constexpr (kCellLocal<Real>) y = y + p.dy;
             }
           }
         }
@@ -465,6 +514,10 @@ sweep_kernel(const SweepParams p) {
 
 extern "C" int nt_params_size() { return static_cast<int>(sizeof(SweepParams)); }
 
+extern "C" int nt_params_size_f64() {
+  return static_cast<int>(sizeof(SweepParams64));
+}
+
 extern "C" int nt_sweep_threads() { return kThreads; }
 
 #define NT_SWEEP_MODES(CASE)                                              \
@@ -481,18 +534,21 @@ extern "C" int nt_sweep_threads() { return kThreads; }
   ((static_cast<int>(x) << 2) | (static_cast<int>(d) << 1) |              \
    static_cast<int>(r))
 
+namespace {
+
 // Blocks of the instantiation that a launch with parameters *p runs (its
-// xs_mode, density_mode and rng) that one SM holds at once beside the
-// launch's dynamic shared memory (table_smem_bytes), into *blocks; returns
-// the CUDA error code (0 on success, cudaErrorInvalidValue for an unknown
-// mode).
-extern "C" int nt_sweep_blocks_per_sm(const SweepParams* p, int* blocks) {
+// xs_mode, density_mode and rng, in p's working type) that one SM holds at
+// once beside the launch's dynamic shared memory (table_smem_bytes), into
+// *blocks; returns the CUDA error code (0 on success,
+// cudaErrorInvalidValue for an unknown mode).
+template <typename Real>
+int blocks_per_sm(const SweepParamsT<Real>* p, int* blocks) {
   const size_t smem = table_smem_bytes(*p);
   switch ((p->xs_mode << 2) | (p->density_mode << 1) | p->rng) {
 #define NT_SWEEP_CASE(x, d, r)                                            \
   case NT_SWEEP_MODE(x, d, r):                                            \
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
-        blocks, sweep_kernel<x, d, r>, kThreads, smem));
+        blocks, sweep_kernel<x, d, r, Real>, kThreads, smem));
     NT_SWEEP_MODES(NT_SWEEP_CASE)
 #undef NT_SWEEP_CASE
     default:
@@ -502,10 +558,11 @@ extern "C" int nt_sweep_blocks_per_sm(const SweepParams* p, int* blocks) {
 
 // Launches one sweep of p->blocks persistent blocks over the p->n_active
 // lanes of p->active (lanes 0 .. n_active - 1 when it is null) on `stream`,
-// with the instantiation of p's modes, and returns cudaGetLastError() (0
-// when the launch was accepted; cudaErrorInvalidValue for an unknown mode
-// or an empty grid).
-extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
+// with the instantiation of p's modes and working type, and returns
+// cudaGetLastError() (0 when the launch was accepted; cudaErrorInvalidValue
+// for an unknown mode or an empty grid).
+template <typename Real>
+int launch(const SweepParamsT<Real>* p, void* stream) {
   if (p->n_active <= 0) return 0;
   if (p->blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -513,7 +570,7 @@ extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
   switch ((p->xs_mode << 2) | (p->density_mode << 1) | p->rng) {
 #define NT_SWEEP_CASE(x, d, r)                                            \
   case NT_SWEEP_MODE(x, d, r):                                            \
-    sweep_kernel<x, d, r><<<p->blocks, kThreads, smem, s>>>(*p);          \
+    sweep_kernel<x, d, r, Real><<<p->blocks, kThreads, smem, s>>>(*p);    \
     break;
     NT_SWEEP_MODES(NT_SWEEP_CASE)
 #undef NT_SWEEP_CASE
@@ -521,6 +578,25 @@ extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int nt_sweep_blocks_per_sm(const SweepParams* p, int* blocks) {
+  return blocks_per_sm(p, blocks);
+}
+
+extern "C" int nt_sweep_blocks_per_sm_f64(const SweepParams64* p,
+                                          int* blocks) {
+  return blocks_per_sm(p, blocks);
+}
+
+extern "C" int nt_sweep_launch(const SweepParams* p, void* stream) {
+  return launch(p, stream);
+}
+
+extern "C" int nt_sweep_launch_f64(const SweepParams64* p, void* stream) {
+  return launch(p, stream);
 }
 
 extern "C" const char* nt_error_string(int code) {

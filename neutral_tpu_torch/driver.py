@@ -29,8 +29,12 @@ census through the transport's CUDA kernels (sweep_kernel.py, or
 flight_kernel.py with raster_kernel.py), each census started by the begin
 kernel (begin_kernel.py), and needs a CUDA device; `plain`
 runs the plain PyTorch version on any device, and on CUDA only when asked
-for by name; `auto` is `kernel` on CUDA in float32 and `plain` otherwise
-(`pick_engine`: the kernels are float32 only, as `neutral_tpu`'s are).
+for by name; `auto` is `kernel` on CUDA and `plain` otherwise
+(`pick_engine`).  The sweep and begin kernels run float32 and float64
+(float64 in global coordinates, as `neutral_tpu`'s XLA float64 engine);
+the flight and deposit kernels float32 only, and `auto` never gives a
+float64 deck the flight transport (`neutral_tpu`'s `is_f32` rule), so an
+explicit `--transport flight --dtype float64` runs the plain engine.
 Grid decks (`density_file`) run on the sweep transport only.  Decks
 without a uniform pitch, non-uniform meshes and `fast_math 0`, run the
 plain engine's edge-array sweep (`auto` picks `plain` and `sweep` for
@@ -179,28 +183,47 @@ def pitch_refusal(cfg: SimConfig) -> str | None:
     return None
 
 
+def kernel_refusal(dtype: torch.dtype, cfg: SimConfig | None = None,
+                   transport: str | None = None) -> str | None:
+    """Why no kernel runs this deck in `dtype` on `transport` (None: the
+    kernels run it): a deck without a pitch (pitch_refusal), a tally whose
+    dtype is not the state's, or float64 on the flight transport, whose
+    float64 kernels are a later slice than the sweep's."""
+    if dtype not in (torch.float32, torch.float64):
+        return f"needs float32 or float64, got {dtype}"
+    if cfg is not None:
+        refusal = pitch_refusal(cfg)
+        if refusal is not None:
+            return refusal
+        if getattr(torch, cfg.tally_dtype) != dtype:
+            return (f"needs the tally in the state's dtype, got a "
+                    f"{cfg.tally_dtype} tally for {dtype} particles")
+    if dtype == torch.float64 and transport == "flight":
+        return ("on the flight transport needs float32: the flight and "
+                "segment-deposit kernels have no float64 instantiation yet "
+                "(a later slice; the sweep transport runs float64 on its "
+                "kernels)")
+    return None
+
+
 def pick_engine(engine: str, device: torch.device, dtype: torch.dtype,
-                cfg: SimConfig | None = None) -> str:
-    """The engine that runs a deck, by `neutral_tpu`'s rule for its kernels
-    (they take only float32 and a uniform pitch): `auto` is `kernel` on a
-    CUDA device in float32 and `plain` everywhere else, and for a deck
-    without a pitch (`cfg`: pitch_refusal); `kernel` raises on the CPU, in
-    float64 and for such a deck, which the kernels do not implement."""
+                cfg: SimConfig | None = None,
+                transport: str | None = None) -> str:
+    """The engine that runs a deck: `auto` is `kernel` on a CUDA device
+    where a kernel exists for the deck (`cfg`), its dtype and its
+    `transport` (kernel_refusal), and `plain` everywhere else; `kernel`
+    raises on the CPU and where kernel_refusal gives a reason."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine}")
-    refusal = None if cfg is None else pitch_refusal(cfg)
+    refusal = kernel_refusal(dtype, cfg, transport)
     if engine == "auto":
-        return ("kernel" if device.type == "cuda" and dtype == torch.float32
-                and refusal is None else "plain")
+        return ("kernel" if device.type == "cuda" and refusal is None
+                else "plain")
     if engine == "kernel" and device.type != "cuda":
         raise ValueError(f"engine='kernel' needs a CUDA device, got {device}")
-    if engine == "kernel" and dtype != torch.float32:
-        raise ValueError("engine='kernel' needs dtype float32 (the kernels "
-                         f"are float32 only), got {dtype}; use --engine "
-                         "plain or auto")
     if engine == "kernel" and refusal is not None:
         raise ValueError(f"engine='kernel' {refusal}; use --engine auto or "
-                         "plain (the edge-array sweep)")
+                         "plain")
     return engine
 
 
@@ -226,10 +249,13 @@ def pick_transport(cfg: SimConfig, transport: str) -> str:
 
 
 def auto_transport(cfg: SimConfig) -> str:
-    """`neutral_tpu`'s rule for its free-flight engine, on every device:
-    flight for a uniform analytic deck with a region of density below 1.0
-    (near-vacuum regions, where facet events dominate), else sweep."""
+    """`neutral_tpu`'s rule for its free-flight engine
+    (neutral_tpu/driver.py:303) without its TPU term, on every device:
+    flight for a float32, uniform analytic deck with a region of density
+    below 1.0 (near-vacuum regions, where facet events dominate), else
+    sweep (a float64 deck always)."""
     if (cfg.fast_math and cfg.uniform_mesh and not cfg.density_file
+            and cfg.dtype == "float32"
             and any(r.density < 1.0 for r in cfg.problems)):
         return "flight"
     return "sweep"
@@ -296,8 +322,9 @@ class SimulationBase:
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.quiet = quiet
-        self.engine = pick_engine(engine, self.device, self.dtype, cfg)
         self.transport = pick_transport(cfg, transport)
+        self.engine = pick_engine(engine, self.device, self.dtype, cfg,
+                                  self.transport)
         check_device(self.device)
 
         self.geom = make_geometry(cfg, self.dtype, self.device)
@@ -585,13 +612,16 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--mesh-scale", type=int, default=None,
                    help="divide nx/ny by this factor (quick runs)")
     p.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="kernel = the transport's CUDA kernels (float32); "
-                        "plain = their plain PyTorch versions; auto = "
-                        "kernel on CUDA in float32, else plain")
+                   help="kernel = the transport's CUDA kernels (the sweep "
+                        "transport's in float32 and float64, the flight "
+                        "transport's in float32); plain = their plain "
+                        "PyTorch versions; auto = kernel on CUDA where one "
+                        "exists, else plain")
     p.add_argument("--transport", default="auto", choices=TRANSPORTS,
                    help="sweep = one event per step; flight = closed-form "
                         "flight pieces and segment deposits; auto = flight "
-                        "when a region has density below 1.0, else sweep")
+                        "when a float32 deck has a region of density below "
+                        "1.0, else sweep")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda; --device cpu runs "
                         "the plain versions on the CPU)")
@@ -662,8 +692,8 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device(args.device)
     # Refuse an engine or transport the deck cannot take before touching
     # the device.
-    pick_engine(args.engine, device, getattr(torch, cfg.dtype), cfg)
-    pick_transport(cfg, args.transport)
+    pick_engine(args.engine, device, getattr(torch, cfg.dtype), cfg,
+                pick_transport(cfg, args.transport))
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"neutral_tpu_torch: --device {args.device}, but "
               "torch.cuda.is_available() is False; pass --device cpu to "

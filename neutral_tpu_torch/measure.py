@@ -1,16 +1,18 @@
 """Measurements of the port on a card, beside chip_smoke.py.
 
     python neutral_tpu_torch/measure.py census [--root DIR] [--reps 5]
+        [--dtype float64]
     python neutral_tpu_torch/measure.py flight [--root DIR] [--reps 5]
     python neutral_tpu_torch/measure.py deposit [--root DIR] [--reps 5]
         [--rows FILE] [--deck DECK]
     python neutral_tpu_torch/measure.py run DECK [--root DIR] [--reps 1]
-        [--shards N --decomposition D]
+        [--shards N --decomposition D] [--dtype float64]
     python neutral_tpu_torch/measure.py compare FILE [--key total_s]
     python neutral_tpu_torch/measure.py scaled [--nparticles N]
     python neutral_tpu_torch/measure.py profile DECK [--decomposition D]
     python neutral_tpu_torch/measure.py tail DECK [--root DIR]
         [--decomposition D] [--steps]
+    python neutral_tpu_torch/measure.py kernels [--root DIR] [--sass FILE]
 
 `census` times one step-1 census of the scatter deck through the sweep
 kernel in each of its modes, `--reps` times after a warm-up, with the
@@ -28,6 +30,8 @@ digest of the end state's 14 fields (two checkouts whose kernels compute
 the same lanes print the same digest), the share of thread slots that
 one thread per lane in pid order would fill (from each lane's draws, its
 counter's delta), the share the kernel's launches filled and its grid.
+`--dtype float64` runs the census in float64 (the sweep kernel's float64
+instantiations, global coordinates).
 
 `flight` times the flight kernel's own device time (CUDA events, without
 the segment deposits) over one step-1 census of the split deck at
@@ -50,7 +54,9 @@ or N shards on the one card under decomposition D) with the package under
 `--root`, once as a warm-up and `--reps` times timed, and prints for each
 timed run its steps' times, the cumulative phases, the launches,
 migrations and peak device memory: run it for two checkouts in turns in
-one call (A, B, B, A, ...) to compare whole steps.  `compare` reads the
+one call (A, B, B, A, ...) to compare whole steps.  `--dtype float64`
+runs the deck in float64 (state and tally; `auto` then takes the sweep
+transport and its float64 kernels).  `compare` reads the
 JSON lines of such runs (with other lines between them) and prints, per
 deck and decomposition and per checkout, the runs' count, median, minimum
 and quartiles of `--key` (a dotted key such as phases.raster reads a
@@ -77,8 +83,20 @@ work at its start and still working after it, and its device time (CUDA
 events), with the count and device time of the launches in the census
 tail (under 10% of the shard's first launch's lanes with work).
 
+`kernels` builds the kernel library of the checkout under `--root` (its
+build.py, its csrc/) and prints one record per compiled kernel: its name
+as cu++filt demangles it, with the float32 instantiations named as before
+the working type became a template parameter (", float>" and "<float>"
+dropped, "SweepParamsT"/"BeginParamsT" read as "SweepParams"/
+"BeginParams"), ptxas's registers, spill stores and loads and stack frame
+from the build log, and a digest of its SASS (cuobjdump -sass, addresses
+and encodings stripped): two checkouts whose kernels of one name print
+the same digest compiled to the same instructions.  `--sass FILE` also
+writes the whole SASS listing there.
+
 Each prints one JSON line per measurement, with the card's name and
-power limit.  All need a card.
+power limit.  All need a card but `kernels`, which needs nvcc and
+cuobjdump.
 """
 
 from __future__ import annotations
@@ -87,6 +105,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,9 +158,10 @@ def census_deck(mode: str, tmp: str) -> tuple[str, int, tuple | None]:
     return deck, 1_000_000, None
 
 
-def census(reps: int, mode: str, tmp: str) -> dict:
+def census(reps: int, mode: str, tmp: str, dtype: str = "float32") -> dict:
     """Milliseconds of `reps` scatter censuses of `mode` through the sweep
-    kernel, with the census's counts, end-state digest and slot use."""
+    kernel in `dtype`, with the census's counts, end-state digest and slot
+    use."""
     import dataclasses
     import hashlib
     import torch
@@ -151,7 +171,10 @@ def census(reps: int, mode: str, tmp: str) -> dict:
     deck, nparticles, window = census_deck(mode, tmp)
     cfg = driver.load_config(deck).with_(nparticles=nparticles,
                                          expected_tally=None)
-    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+    if dtype != cfg.dtype:
+        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                            transport="sweep", quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     geom, win = sim.geom, {}
@@ -162,7 +185,7 @@ def census(reps: int, mode: str, tmp: str) -> dict:
     times = []
     for rep in range(reps + 1):
         state = start.clone()
-        tally = torch.zeros(geom.nx * geom.ny, dtype=torch.float32,
+        tally = torch.zeros(geom.nx * geom.ny, dtype=sim.tally.dtype,
                             device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -175,7 +198,8 @@ def census(reps: int, mode: str, tmp: str) -> dict:
     digest = hashlib.sha256()
     for f in STATE_FIELDS:
         digest.update(getattr(state, f).cpu().numpy().tobytes())
-    return {"deck": f"census {mode}", "shards": 1, "decomposition": None,
+    name = f"census {mode}" + ("" if dtype == "float32" else f" {dtype}")
+    return {"deck": name, "shards": 1, "decomposition": None,
             "census_ms": times, "min_ms": min(times),
             "median_ms": sorted(times)[len(times) // 2], "facets": nf,
             "collisions": nc, "launches": launches, "nparticles": nparticles,
@@ -293,13 +317,17 @@ def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
     return out
 
 
-def run(deck: str, shards: int, decomposition: str, reps: int) -> list:
+def run(deck: str, shards: int, decomposition: str, reps: int,
+        dtype: str | None = None) -> list:
     """Every step of `deck` at full size, on one device or `shards`
-    shards on the one card, `reps` times after a warm-up run."""
+    shards on the one card, `reps` times after a warm-up run, in `dtype`
+    (state and tally; None: the deck's)."""
     import torch
     from neutral_tpu_torch import driver
 
     cfg = driver.load_config(deck)
+    if dtype:
+        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
     devices = [torch.device("cuda", 0)] * shards
     # warm-up run: builds the kernels, fills PyTorch's caches
     driver.make_simulation(cfg, decomposition, devices, quiet=True).run()
@@ -313,7 +341,8 @@ def run(deck: str, shards: int, decomposition: str, reps: int) -> list:
             for k, v in m.phases.items():
                 phases[k] = phases.get(k, 0.0) + v
         ms = sim.step_metrics
-        out.append({"deck": deck, "shards": shards,
+        out.append({"deck": deck if not dtype else f"{deck} {dtype}",
+                    "shards": shards,
                     "decomposition": decomposition if shards > 1 else None,
                     "steps_s": [m.step_time for m in ms],
                     "total_s": sum(m.step_time for m in ms),
@@ -471,6 +500,75 @@ def profile(deck: str, decomposition: str | None) -> list:
              "launches": m.nlaunches, "phases": m.phases}]
 
 
+def _demangle(names: list[str]) -> dict:
+    """Mangled -> demangled names, by the CUDA toolkit's cu++filt (or
+    c++filt)."""
+    import shutil
+    from neutral_tpu_torch import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cu++filt")
+    if not os.path.isfile(tool):
+        tool = shutil.which("c++filt")
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True, check=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+def _kernel_name(demangled: str) -> str:
+    """A kernel's name with its float32 instantiation named as before the
+    working type was a template parameter."""
+    name = demangled.replace(", float>", ">").replace("<float>", "")
+    return re.sub(r"\b(Sweep|Begin)ParamsT\b", r"\1Params", name)
+
+
+def kernels(sass_file: str | None = None) -> list:
+    """Per kernel of the library that build.py makes from this package's
+    csrc/: ptxas's registers, spills and stack, and a digest of its
+    SASS."""
+    import hashlib
+    from neutral_tpu_torch import build
+
+    path, log = build.build()
+    props, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m[1]
+            props[entry] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            props[entry].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            props[entry]["registers"] = int(m[1])
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], text=True,
+                          capture_output=True, check=True).stdout
+    if sass_file:
+        with open(sass_file, "w") as f:
+            f.write(sass)
+    code, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\w+)", line)
+        if m:
+            fn = m[1]
+            code[fn] = []
+            continue
+        if fn and "/*" in line and ";" in line:
+            text = re.sub(r"/\*[^*]*\*/", "", line).strip()
+            if text:
+                code[fn].append(text)
+    names = _demangle(sorted(set(props) | set(code)))
+    return [{"kernel": _kernel_name(names[k]),
+             "sass_sha256": hashlib.sha256(
+                 "\n".join(code.get(k, [])).encode()).hexdigest()[:16],
+             "sass_lines": len(code.get(k, [])), **props.get(k, {})}
+            for k in sorted(names, key=lambda k: _kernel_name(names[k]))]
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="measure", description=__doc__.split(
         "\n\n")[0])
@@ -479,6 +577,8 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
     c.add_argument("--reps", type=int, default=5)
+    c.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
     g = sub.add_parser("flight", help="time split's flight kernel per mode")
     g.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
@@ -498,6 +598,7 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--shards", type=int, default=1)
     r.add_argument("--decomposition", default="replicated",
                    choices=["replicated", "spatial", "spatial2d"])
+    r.add_argument("--dtype", default=None, choices=["float32", "float64"])
     m = sub.add_parser("compare", help="compare the records of `run`")
     m.add_argument("file")
     m.add_argument("--key", default="total_s")
@@ -515,22 +616,30 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["replicated", "spatial", "spatial2d"])
     t.add_argument("--steps", action="store_true",
                    help="every step of the deck, not step 1 alone")
+    k = sub.add_parser("kernels", help="registers, spills and SASS digests")
+    k.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose kernels to build")
+    k.add_argument("--sass", default=None, help="write the SASS listing here")
     args = p.parse_args(argv)
 
     if args.what == "compare":
         for r in compare(args.file, args.key):
             print(json.dumps(r), flush=True)
         return 0
-    if args.what in ("census", "flight", "deposit", "run", "tail"):
+    if args.what in ("census", "flight", "deposit", "run", "tail",
+                     "kernels"):
         # This file's own directory would shadow nothing useful: the
         # package comes from the root asked for.
         rows = args.what == "deposit" and args.rows
         rows = os.path.abspath(rows) if rows else None
+        sass = (os.path.abspath(args.sass)
+                if args.what == "kernels" and args.sass else None)
         sys.path[0] = os.path.abspath(args.root)
         os.chdir(args.root)
         if args.what == "census":
             with tempfile.TemporaryDirectory() as tmp:
-                rec = [census(args.reps, m, tmp) for m in CENSUS_MODES]
+                rec = [census(args.reps, m, tmp, args.dtype)
+                       for m in CENSUS_MODES]
         elif args.what == "flight":
             with tempfile.TemporaryDirectory() as tmp:
                 rec = flight(args.reps, tmp)
@@ -538,8 +647,11 @@ def main(argv: list[str] | None = None) -> int:
             rec = [deposit(args.reps, args.deck, rows)]
         elif args.what == "tail":
             rec = tail(args.deck, args.decomposition, args.steps)
+        elif args.what == "kernels":
+            rec = kernels(sass)
         else:
-            rec = run(args.deck, args.shards, args.decomposition, args.reps)
+            rec = run(args.deck, args.shards, args.decomposition, args.reps,
+                      args.dtype)
         for r in rec:
             r["root"] = args.root
     else:

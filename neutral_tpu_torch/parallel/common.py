@@ -316,7 +316,8 @@ class DecomposedSimulation(SimulationBase):
         sh = Shard(device, geom, state, tally, tables, x_off, y_off)
         if self.engine == "kernel":
             rects = geom.rects if self.deposits else geom.regions
-            sh.rects = None if rects is None else rect_arrays(rects, device)
+            sh.rects = (None if rects is None
+                        else rect_arrays(rects, device, self.dtype))
             if self.deposits:
                 sh.flight = FlightBuffers(geom.nx, geom.ny, device)
                 sh.counts = sh.flight.counts

@@ -15,7 +15,10 @@ the result.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, region rectangles or a density grid, threefry or pcg64si draws;
-each combination is its own instantiation (csrc/sweep.cu).  The spatial
+each combination is its own instantiation (csrc/sweep.cu), in float32
+(cell-local positions) and in float64 (global positions, the working type
+of neutral_tpu's XLA float64 engine): `_SweepParams` and `_SweepParams64`
+are the two parameter layouts.  The spatial
 window of a decomposed run (`x_off`/`y_off`, transport.py's) is a runtime
 parameter of every instantiation.  `sweep_params` is a census's launch
 parameters and `sweep_round` one launch over the lists of `SweepBuffers`;
@@ -66,9 +69,14 @@ TABLE_POINTERS = tuple(f"{t}_{part}" for t in ("scatter", "absorb")
                        for part in ("keys", "intervals", "coarse"))
 
 
-class _SweepParams(ctypes.Structure):
-    """Mirror of `SweepParams` in csrc/sweep.cu."""
-    _fields_ = (
+# The working types of the sweep and begin kernels' instantiations.
+REALS = (torch.float32, torch.float64)
+
+
+def _sweep_fields(real) -> list:
+    """`SweepParamsT<Real>`'s fields in csrc/sweep.cu, its scalars of the
+    ctypes type `real`."""
+    return (
         [(f, ctypes.c_void_p) for f in (
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
@@ -83,42 +91,64 @@ class _SweepParams(ctypes.Structure):
             "nregions", "xs_mode",
             "density_mode", "rng", "x_off", "y_off", "global_nx",
             "global_ny")]
-        + [(f, ctypes.c_float) for f in ("dx", "dy", "inv_ntotal")])
+        + [(f, real) for f in ("dx", "dy", "inv_ntotal")])
+
+
+class _SweepParams(ctypes.Structure):
+    """Mirror of `SweepParams` (float32) in csrc/sweep.cu."""
+    _fields_ = _sweep_fields(ctypes.c_float)
+
+
+class _SweepParams64(ctypes.Structure):
+    """Mirror of `SweepParams64` (float64) in csrc/sweep.cu."""
+    _fields_ = _sweep_fields(ctypes.c_double)
+
+
+# The parameter layout and entry-point suffix of each working type.
+_LAYOUTS = {torch.float32: (_SweepParams, ""),
+            torch.float64: (_SweepParams64, "_f64")}
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     lib = build.load()
-    lib.nt_params_size.argtypes = []
-    lib.nt_params_size.restype = ctypes.c_int
     lib.nt_sweep_threads.argtypes = []
     lib.nt_sweep_threads.restype = ctypes.c_int
-    lib.nt_sweep_blocks_per_sm.argtypes = [ctypes.POINTER(_SweepParams),
-                                           ctypes.POINTER(ctypes.c_int)]
-    lib.nt_sweep_blocks_per_sm.restype = ctypes.c_int
-    lib.nt_sweep_launch.argtypes = [ctypes.POINTER(_SweepParams),
-                                    ctypes.c_void_p]
-    lib.nt_sweep_launch.restype = ctypes.c_int
-    if lib.nt_params_size() != ctypes.sizeof(_SweepParams):
-        raise RuntimeError("csrc/sweep.cu SweepParams does not match "
-                           "sweep_kernel._SweepParams")
+    for cls, sfx in _LAYOUTS.values():
+        size = getattr(lib, f"nt_params_size{sfx}")
+        size.argtypes, size.restype = [], ctypes.c_int
+        blocks = getattr(lib, f"nt_sweep_blocks_per_sm{sfx}")
+        blocks.argtypes = [ctypes.POINTER(cls), ctypes.POINTER(ctypes.c_int)]
+        blocks.restype = ctypes.c_int
+        launch = getattr(lib, f"nt_sweep_launch{sfx}")
+        launch.argtypes = [ctypes.POINTER(cls), ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        if size() != ctypes.sizeof(cls):
+            raise RuntimeError(f"csrc/sweep.cu SweepParams{sfx} does not "
+                               f"match sweep_kernel.{cls.__name__}")
     if lib.nt_sweep_threads() != THREADS:
         raise RuntimeError("csrc/sweep.cu kThreads does not match "
                            "sweep_kernel.THREADS")
     return lib
 
 
-def resident_blocks(params: _SweepParams,
+def _suffix(params: ctypes.Structure) -> str:
+    """The entry-point suffix of a parameter layout ("" or "_f64")."""
+    return "_f64" if isinstance(params, _SweepParams64) else ""
+
+
+def resident_blocks(params: _SweepParams | _SweepParams64,
                     device: torch.device) -> tuple[int, int]:
-    """(SMs, blocks per SM) of the sweep kernel's instantiation for a
-    launch with `params` on `device` (an indexed CUDA device), beside the
-    launch's dynamic shared memory (its tables' coarse indexes), from the
-    CUDA occupancy calculator."""
+    """(SMs, blocks per SM) of the sweep kernel's instantiation (modes and
+    working type) for a launch with `params` on `device` (an indexed CUDA
+    device), beside the launch's dynamic shared memory (its tables' coarse
+    indexes), from the CUDA occupancy calculator."""
     lib = load_library()
     blocks = ctypes.c_int()
+    query = getattr(lib, f"nt_sweep_blocks_per_sm{_suffix(params)}")
     with torch.cuda.device(device):
-        build.check_launch(lib, lib.nt_sweep_blocks_per_sm(
+        build.check_launch(lib, query(
             ctypes.byref(params), ctypes.byref(blocks)),
             "sweep kernel occupancy query")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -175,13 +205,17 @@ class SweepBuffers:
         return events / (32 * steps) if steps else 1.0
 
 
-_DTYPES = {"x": torch.float32, "y": torch.float32,
-           "omega_x": torch.float32, "omega_y": torch.float32,
-           "energy": torch.float32, "weight": torch.float32,
-           "dt_to_census": torch.float32, "mfp_to_collision": torch.float32,
-           "deposit": torch.float32, "cellx": torch.int32,
-           "celly": torch.int32, "dead": torch.bool, "pid": torch.int64,
-           "counter": torch.int64}
+_FLOATS = ("x", "y", "omega_x", "omega_y", "energy", "weight",
+           "dt_to_census", "mfp_to_collision", "deposit")
+
+
+def state_dtypes(real: torch.dtype = torch.float32) -> dict:
+    """The dtype of each of the 14 state fields that the kernels take, with
+    working type `real`."""
+    return ({f: real for f in _FLOATS}
+            | {"cellx": torch.int32, "celly": torch.int32,
+               "dead": torch.bool, "pid": torch.int64,
+               "counter": torch.int64})
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape: tuple,
@@ -196,12 +230,30 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple,
 def check_inputs(state: ParticleState, tally: torch.Tensor | None,
                  geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection,
-                 what: str) -> None:
+                 what: str, reals: tuple = (torch.float32,)) -> None:
     """Raise unless the kernel `what` implements this configuration: CUDA
-    tensors of the kernel's dtypes, a uniform pitch, threefry or pcg64si
-    draws, both cross-sections analytic or both stored tables (float32 on
-    the device), and region rectangles or a float32 density grid.  A
-    kernel without a tally passes None."""
+    tensors of the kernel's dtypes in one working type of `reals` (the
+    state's floats, the tally, the tables and a density grid alike: a
+    float64 state with a float32 tally raises), a uniform pitch, threefry
+    or pcg64si draws, both cross-sections analytic or both stored tables,
+    and region rectangles or a density grid.  A kernel without a tally
+    passes None."""
+    real = state.dtype
+    if real not in reals:
+        raise ValueError(f"{what} takes a state of "
+                         f"{' or '.join(map(str, reals))}, got {real}")
+    others = {"tally": tally,
+              "geom.density": geom.density if geom.regions is None else None}
+    if not scatter_tab.analytic:
+        others |= {f"{name} table {part}": getattr(tab, part)
+                   for name, tab in (("scatter", scatter_tab),
+                                     ("absorb", absorb_tab))
+                   for part in ("keys", "values")}
+    mixed = {k: str(t.dtype) for k, t in others.items()
+             if t is not None and t.dtype != real}
+    if mixed:
+        raise ValueError(f"{what}: a {real} state beside {mixed}: the "
+                         "kernels take one working type")
     if not geom.dx:
         raise ValueError(f"{what} needs a uniform-pitch mesh (geom.dx)")
     if geom.rng_scheme not in RNG_SCHEMES:
@@ -214,30 +266,34 @@ def check_inputs(state: ParticleState, tally: torch.Tensor | None,
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {dev}")
-    for f, dt in _DTYPES.items():
+    for f, dt in state_dtypes(real).items():
         _check_tensor(f"state.{f}", getattr(state, f), (state.n,), dt, dev)
     ncells = geom.nx * geom.ny
     if tally is not None:
-        _check_tensor("tally", tally, (ncells,), torch.float32, dev)
+        _check_tensor("tally", tally, (ncells,), real, dev)
     if not scatter_tab.analytic:
         for name, tab in (("scatter", scatter_tab), ("absorb", absorb_tab)):
             if tab.nentries < 2:
                 raise ValueError(f"{name} table: needs at least 2 entries")
             for part in ("keys", "values"):
                 _check_tensor(f"{name} table {part}", getattr(tab, part),
-                              (tab.nentries,), torch.float32, dev)
+                              (tab.nentries,), real, dev)
             tab.table_layout       # made once per table; raises if it cannot
+    elif scatter_tab.keys.device != dev or absorb_tab.keys.device != dev:
+        raise ValueError(f"{what}: the analytic tables lie on "
+                         f"{scatter_tab.keys.device}, the state on {dev}")
     if geom.regions is None:
-        _check_tensor("geom.density", geom.density, (ncells,),
-                      torch.float32, dev)
+        _check_tensor("geom.density", geom.density, (ncells,), real, dev)
 
 
-def rect_arrays(rects: tuple, device: torch.device):
+def rect_arrays(rects: tuple, device: torch.device,
+                dtype: torch.dtype = torch.float32):
     """Region or rect tables as the kernels take them: (R, 4) int32 bounds
-    (ix0, ix1, iy0, iy1) and (R,) float32 densities on `device`; any R."""
+    (ix0, ix1, iy0, iy1) and (R,) densities in the working type `dtype`
+    (each rounded once, as xs.const rounds it) on `device`; any R."""
     bounds = torch.tensor([r[:4] for r in rects], dtype=torch.int32,
                           device=device).reshape(len(rects), 4)
-    density = torch.tensor([r[4] for r in rects], dtype=torch.float32,
+    density = torch.tensor([r[4] for r in rects], dtype=dtype,
                            device=device)
     return bounds, density
 
@@ -260,24 +316,25 @@ def window_fields(p: ctypes.Structure, geom: Geometry, x_off=None,
 
 def state_pointers(p: ctypes.Structure, state: ParticleState) -> None:
     """Set the 14 state pointer fields of a kernel's parameter struct."""
-    for f in _DTYPES:
+    for f in state_dtypes():
         setattr(p, f, getattr(state, f).data_ptr())
 
 
 def table_fields(p: ctypes.Structure, geom: Geometry,
-                 scatter_tab: CrossSection, absorb_tab: CrossSection) -> None:
+                 scatter_tab: CrossSection, absorb_tab: CrossSection,
+                 real: torch.dtype = torch.float32) -> None:
     """Set a kernel's cross-section and RNG fields: entry counts, same_xs,
-    the mode codes, and the device pointers of the analytic grids or, in
-    table mode, of the tables' layouts (keys, intervals, coarse index) and
-    their coarse strides."""
+    the mode codes, and the device pointers of the analytic grids in the
+    working type `real` or, in table mode, of the tables' layouts (keys,
+    intervals, coarse index) and their coarse strides."""
     p.scatter_entries = scatter_tab.nentries
     p.absorb_entries = absorb_tab.nentries
     p.same_xs = int(geom.same_xs)
     p.rng = RNG_SCHEMES[geom.rng_scheme]
     p.xs_mode = int(not scatter_tab.analytic)
     if scatter_tab.analytic:
-        p.scatter_grid = scatter_tab.analytic_grid.data_ptr()
-        p.absorb_grid = absorb_tab.analytic_grid.data_ptr()
+        p.scatter_grid = scatter_tab.analytic_grid_in(real).data_ptr()
+        p.absorb_grid = absorb_tab.analytic_grid_in(real).data_ptr()
     else:
         for name, tab in (("scatter", scatter_tab), ("absorb", absorb_tab)):
             lay = tab.table_layout
@@ -290,23 +347,29 @@ def sweep_params(state: ParticleState, tally: torch.Tensor,
                  regions: tuple | None, geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection,
                  master_key: int, inv_ntotal: float, x_off=None,
-                 y_off=None) -> _SweepParams:
-    """The parameters of a census's launches, after check_inputs: `regions`
-    is rect_arrays(geom.regions), or None for a grid deck, and `x_off`/
-    `y_off` the window (None: none).  sweep_round sets the fields of each
-    launch (lists, grid, events, counters)."""
-    check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel")
+                 y_off=None) -> _SweepParams | _SweepParams64:
+    """The parameters of a census's launches in the state's working type,
+    after check_inputs: `regions` is rect_arrays(geom.regions, dtype=the
+    working type), or None for a grid deck, and `x_off`/`y_off` the window
+    (None: none).  sweep_round sets the fields of each launch (lists,
+    grid, events, counters)."""
+    check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel",
+                 REALS)
     if state.n >= 2**31:
         raise ValueError(f"sweep kernel: lane lists are int32, so at most "
                          f"2**31 - 1 lanes, got {state.n}")
-    p = _SweepParams()
+    if regions is not None and regions[1].dtype != state.dtype:
+        raise ValueError(f"sweep kernel: region densities in "
+                         f"{regions[1].dtype}, state in {state.dtype}")
+    p = _LAYOUTS[state.dtype][0]()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
-    table_fields(p, geom, scatter_tab, absorb_tab)
+    table_fields(p, geom, scatter_tab, absorb_tab, state.dtype)
     p.master_key = int(master_key)
     p.n = state.n
     window_fields(p, geom, x_off, y_off)
-    # ctypes rounds each Python float to float32 as np.float32 does.
+    # ctypes rounds each Python float to float32 as np.float32 does, or
+    # keeps it whole in float64, as xs.const does.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
     if regions is None:
         p.density_mode = 1
@@ -339,7 +402,7 @@ def sweep_chunk_plain(state: ParticleState, tally: torch.Tensor,
 sweep_chunk_plain.calls = 0
 
 
-def sweep_round(params: _SweepParams, buffers: SweepBuffers,
+def sweep_round(params: _SweepParams | _SweepParams64, buffers: SweepBuffers,
                 max_events: int = MAX_EVENTS) -> None:
     """One launch on the buffers' device and its current stream, over the
     next list of `buffers` (every lane when it has none), of at most
@@ -368,9 +431,9 @@ def sweep_round(params: _SweepParams, buffers: SweepBuffers,
         b.counts[2:4].zero_()
         if lanes > 0:
             stream = torch.cuda.current_stream().cuda_stream
-            build.check_launch(
-                lib, lib.nt_sweep_launch(ctypes.byref(params), stream),
-                "sweep kernel")
+            launch = getattr(lib, f"nt_sweep_launch{_suffix(params)}")
+            build.check_launch(lib, launch(ctypes.byref(params), stream),
+                               "sweep kernel")
             sweep_chunk_kernel.launches += 1
     b.lists.reverse()               # the next list is the next launch's
 
@@ -389,7 +452,7 @@ def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     ones when None).  Returns (state, nfacets, ncollisions, nlaunches).
     """
     regions = (None if geom.regions is None
-               else rect_arrays(geom.regions, state.device))
+               else rect_arrays(geom.regions, state.device, state.dtype))
     params = sweep_params(state, tally, regions, geom, scatter_tab,
                           absorb_tab, master_key, inv_ntotal, x_off, y_off)
     if buffers is None:

@@ -7,7 +7,9 @@ energies, so that the lookup can be held alone to its plain versions and
 timed: `xs.TableLayout.lookup` (the same two-level search in plain
 PyTorch) and `xs.CrossSection.lookup` (torch.searchsorted, the gathers and
 the interpolation).  It launches the kernel or raises: on energies that do
-not lie on the layout's CUDA device, and on anything but float32.
+not lie on the layout's CUDA device, and on anything but float32 or
+float64 energies and a table of one dtype (the kernel's two
+instantiations).
 `table_lookup_kernel.launches` counts its own launches; callers may reset
 it.
 
@@ -41,42 +43,52 @@ PROBE_TABLES = ("resonance", "runs", *(f"n{n}" for n in PROBE_SIZES))
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     lib = build.load()
-    lib.nt_table_lookup_blocks.argtypes = [ctypes.c_int] * 2 + [
-        ctypes.POINTER(ctypes.c_int)]
-    lib.nt_table_lookup_blocks.restype = ctypes.c_int
-    lib.nt_table_lookup_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.nt_table_lookup_launch.restype = ctypes.c_int
+    for sfx in _SUFFIX.values():
+        blocks = getattr(lib, f"nt_table_lookup_blocks{sfx}")
+        blocks.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+        blocks.restype = ctypes.c_int
+        launch = getattr(lib, f"nt_table_lookup_launch{sfx}")
+        launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        launch.restype = ctypes.c_int
     return lib
 
 
+# The entry-point suffix of each working type of the kernel.
+_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
+
+
 @functools.cache
-def max_blocks(n: int, shift: int, device: torch.device) -> int:
-    """Blocks of the lookup kernel that `device` (an indexed CUDA device)
-    holds at once for an n-entry table of coarse shift `shift`, from the
-    CUDA occupancy calculator; read once per process, device and size."""
+def max_blocks(n: int, shift: int, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Blocks of the lookup kernel in `dtype` that `device` (an indexed
+    CUDA device) holds at once for an n-entry table of coarse shift
+    `shift`, from the CUDA occupancy calculator; read once per process,
+    device, size and dtype."""
     lib = load_library()
     blocks = ctypes.c_int()
+    query = getattr(lib, f"nt_table_lookup_blocks{_SUFFIX[dtype]}")
     with torch.cuda.device(device):
-        build.check_launch(lib, lib.nt_table_lookup_blocks(
-            n, shift, ctypes.byref(blocks)), "table lookup occupancy query")
+        build.check_launch(lib, query(n, shift, ctypes.byref(blocks)),
+                           "table lookup occupancy query")
     return blocks.value
 
 
 def table_lookup_kernel(layout: TableLayout, energy: torch.Tensor,
                         index: bool = False):
-    """The interpolated cross-section at each of `energy` (float32, on the
-    layout's CUDA device), as the kernels' table mode computes it, on the
-    current stream; with `index`, also the bracketing indices (int32).
-    Returns values, or (values, indices)."""
+    """The interpolated cross-section at each of `energy` (float32 or
+    float64, the layout's dtype, on its CUDA device), as the kernels'
+    table mode computes it, on the current stream; with `index`, also the
+    bracketing indices (int32).  Returns values, or (values, indices)."""
     dev = layout.keys.device
     if dev.type != "cuda" or energy.device != dev:
         raise ValueError(f"table lookup kernel needs the energies and the "
                          f"table on one CUDA device, got {energy.device} "
                          f"and {dev}")
-    if energy.dtype != torch.float32 or layout.keys.dtype != torch.float32:
-        raise ValueError(f"table lookup kernel takes float32, got "
+    if energy.dtype not in _SUFFIX or layout.keys.dtype != energy.dtype:
+        raise ValueError(f"table lookup kernel takes float32 or float64 "
+                         f"energies and a table of their dtype, got "
                          f"{energy.dtype} energies, {layout.keys.dtype} table")
     energy = energy.contiguous()
     value = torch.empty_like(energy)
@@ -84,9 +96,11 @@ def table_lookup_kernel(layout: TableLayout, energy: torch.Tensor,
            if index else None)
     if energy.numel() > 0:
         lib = load_library()
-        grid = max_blocks(layout.nentries, layout.shift, dev)
+        grid = max_blocks(layout.nentries, layout.shift, dev, energy.dtype)
+        launch = getattr(lib,
+                         f"nt_table_lookup_launch{_SUFFIX[energy.dtype]}")
         with torch.cuda.device(dev):
-            build.check_launch(lib, lib.nt_table_lookup_launch(
+            build.check_launch(lib, launch(
                 energy.data_ptr(), value.data_ptr(),
                 None if idx is None else idx.data_ptr(), energy.numel(),
                 layout.keys.data_ptr(), layout.intervals.data_ptr(),

@@ -13,7 +13,7 @@ modes: analytic (keys and values in closed form, no memory reads),
 quartic (O(1) bracketing index into a stored table) and searchsorted (any
 ascending table: max{i : keys[i] <= E}, clipped to [0, n-2]).  The CUDA
 kernels implement the analytic mode, reading its keys and values from
-`analytic_grid` instead of dividing, and, for any stored table, the
+`analytic_grid_in(dtype)` instead of dividing, and, for any stored table, the
 searchsorted index by a two-level search over the table's `TableLayout`
 (csrc/common.cuh `xs_lookup`, `table_lookup`): a coarse index of every
 S-th key, which each block keeps in shared memory, then the S keys of one
@@ -50,7 +50,9 @@ _N_DEFAULT = 30000
 
 # Entries of a stored table's coarse index at most: 8 KiB of float32 in
 # shared memory, 16 KiB for two tables, so that the sweep kernel's 9 blocks
-# a streaming multiprocessor (csrc/sweep.cu) fit beside each other.
+# a streaming multiprocessor (csrc/sweep.cu) fit beside each other; in
+# float64 16 KiB and 32 KiB, within a block's default 48 KiB, beside the
+# fewer blocks an SM that the float64 instantiations' registers allow.
 COARSE_KEYS = 2048
 
 
@@ -308,18 +310,20 @@ class CrossSection:
         m = const(float(self.nentries), dtype)
         return const(1.0e3, dtype) * div(m - i.to(dtype), m) + 1.0
 
-    @functools.cached_property
-    def analytic_grid(self) -> torch.Tensor:
-        """The analytic mode's keys and values at every index 0..n-1, as
-        one (n, 2) float32 tensor of (key, value) rows on the table's
-        device, made at first use: the grid that the CUDA kernels'
-        analytic lookup reads (csrc/common.cuh xs_lookup).  _key_at and
-        _val_at make it, so its entries are bitwise those the plain
-        version computes."""
-        i = torch.arange(self.nentries, dtype=torch.int32,
-                         device=self.keys.device)
-        return torch.stack([self._key_at(i, torch.float32),
-                            self._val_at(i, torch.float32)], dim=1)
+    def analytic_grid_in(self, dtype: torch.dtype) -> torch.Tensor:
+        """The analytic mode's keys and values at every index 0..n-1 in
+        `dtype`, as one contiguous (n, 2) tensor of (key, value) rows on
+        the table's device, made at first use per dtype: the grid that the
+        CUDA kernels' analytic lookup reads in that working type
+        (csrc/common.cuh xs_lookup).  _key_at and _val_at make it, so its
+        entries are bitwise those the plain version computes in `dtype`."""
+        grids = self.__dict__.setdefault("_analytic_grids", {})
+        if dtype not in grids:
+            i = torch.arange(self.nentries, dtype=torch.int32,
+                             device=self.keys.device)
+            grids[dtype] = torch.stack([self._key_at(i, dtype),
+                                        self._val_at(i, dtype)], dim=1)
+        return grids[dtype]
 
     @functools.cached_property
     def table_layout(self) -> TableLayout:

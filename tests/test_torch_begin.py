@@ -312,14 +312,19 @@ def test_jax_begin_rounds_its_lookup_as_jit_does(xs):
 
 @pytest.mark.parametrize("what", ["cpu", "float64", "no_pitch"])
 def test_begin_kernel_refuses(what):
-    """The wrapper raises ValueError on CPU tensors, on float64 state and
-    on a geometry without a pitch, and never runs the plain version."""
+    """The wrapper raises ValueError on CPU tensors, on a float64 state
+    beside a float32 density grid (the kernel has float64 instantiations,
+    but takes one working type) and on a geometry without a pitch, and
+    never runs the plain version."""
     dtype = "float64" if what == "float64" else "float32"
-    state, geom, tab, win = port_args("mixed", "threefry", "regions",
-                                      "analytic", None, dtype)
+    state, geom, tab, win = port_args(
+        "mixed", "threefry", "grid" if what == "float64" else "regions",
+        "analytic", None, dtype)
     if what == "no_pitch":
         geom = dataclasses.replace(geom, dx=0.0, dy=0.0)
-    message = {"cpu": "needs CUDA tensors", "float64": "takes float32",
+    if what == "float64":
+        geom = dataclasses.replace(geom, density=geom.density.float())
+    message = {"cpu": "needs CUDA tensors", "float64": "one working type",
                "no_pitch": "uniform-pitch"}[what]
     launches = begin_kernel.begin_timestep_kernel.launches
     with pytest.raises(ValueError, match=message):

@@ -133,29 +133,32 @@ def test_pcg64si_deck_raises(tmp_path):
 
 @pytest.mark.parametrize("engine,device,dtype,want", [
     ("auto", "cuda", torch.float32, "kernel"),
-    ("auto", "cuda", torch.float64, "plain"),
+    ("auto", "cuda", torch.float64, "kernel"),
     ("auto", "cpu", torch.float32, "plain"),
     ("auto", "cpu", torch.float64, "plain"),
     ("plain", "cuda", torch.float32, "plain"),
     ("kernel", "cuda", torch.float32, "kernel"),
 ])
 def test_pick_engine_routes_by_device_and_dtype(engine, device, dtype, want):
-    """`auto` takes the kernels only on CUDA in float32 (neutral_tpu's
-    is_f32 rule); float64 decks run the plain engine there."""
+    """`auto` takes the kernels on CUDA, in float32 and in float64 (the
+    sweep and begin kernels' float64 instantiations); the CPU runs the
+    plain engine."""
     assert driver.pick_engine(engine, torch.device(device), dtype) == want
 
 
 @pytest.mark.parametrize("device,match", [("cuda", "float32"),
                                           ("cpu", "CUDA")])
 def test_engine_kernel_float64_raises_before_state(device, match):
-    """--engine kernel with float64 (or on the CPU) raises in
-    Simulation.__init__, before any tensor is made on the device."""
+    """--engine kernel with float64 on the flight transport, whose kernels
+    are float32 only (or on the CPU), raises in Simulation.__init__,
+    before any tensor is made on the device."""
     cfg = tt.load_config(DECK).with_(dtype="float64", tally_dtype="float64")
     with pytest.raises(ValueError, match=match):
-        driver.Simulation(cfg, device=device, engine="kernel")
+        driver.Simulation(cfg, device=device, engine="kernel",
+                          transport="flight")
     with pytest.raises(ValueError, match=match):
         driver.main([DECK, "--dtype", "float64", "--engine", "kernel",
-                     "--device", device])
+                     "--transport", "flight", "--device", device])
 
 
 def test_kernel_wrapper_on_cpu_runs_plain_version():
@@ -207,14 +210,24 @@ def test_kernel_matches_plain_on_card(max_events):
 
 @pytest.mark.cuda
 def test_float64_deck_auto_runs_plain_on_card(capsys):
-    """A float64 deck under --engine auto on a CUDA device runs the plain
-    engine (the kernels are float32 only) and prints a finite tally."""
+    """A float64 deck under --engine auto on a CUDA device runs the float64
+    sweep and begin kernels (no plain sweep or begin) and prints a finite
+    tally."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from neutral_tpu_torch.begin_kernel import begin_timestep_kernel
+
+    sweep0, plain0 = sweep_chunk_kernel.launches, sweep_chunk_plain.calls
+    begin0 = begin_timestep_kernel.launches
+    calls0 = transport.begin_timestep.calls
     assert driver.main([DECK, "--dtype", "float64", "--nparticles",
                         "65536"]) == 0
     out = capsys.readouterr().out
-    assert "Engine: plain." in out
+    assert "Engine: kernel." in out and "Transport: sweep." in out
+    assert sweep_chunk_kernel.launches > sweep0
+    assert begin_timestep_kernel.launches == begin0 + 2
+    assert (sweep_chunk_plain.calls, transport.begin_timestep.calls) == (
+        plain0, calls0)
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
     assert np.isfinite(total) and total > 0.0
 

@@ -100,13 +100,19 @@ def test_disjoint_rects_match_jax(deck):
     assert (cover == 1).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("deck,want", [("stream", "flight"),
                                        ("csp", "flight"),
                                        ("split", "flight"),
                                        ("scatter", "sweep")])
-def test_auto_transport_follows_the_jax_rule(deck, want):
-    assert driver.auto_transport(
-        tt.load_config(f"problems/{deck}.params")) == want
+def test_auto_transport_follows_the_jax_rule(deck, want, dtype):
+    """JAX's rule (neutral_tpu/driver.py:303) without its TPU term: flight
+    for float32 decks with a near-vacuum region, the sweep transport for
+    every float64 deck (its is_f32 term)."""
+    cfg = tt.load_config(f"problems/{deck}.params").with_(
+        dtype=dtype, tally_dtype=dtype)
+    assert driver.auto_transport(cfg) == (want if dtype == "float32"
+                                          else "sweep")
 
 
 def test_flight_keeps_global_coordinates_in_float32():

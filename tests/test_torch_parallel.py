@@ -127,15 +127,18 @@ def assert_owned(sim):
 @pytest.mark.parametrize("decomposition", list(CLASSES))
 def test_decomposition_matches_single_device(decomposition, kind):
     """Four shards against the port's and JAX's single-device runs: counts
-    exact per step, the tally to 1e-12, every surviving pid once."""
+    exact per step, the tally to 1e-12, every surviving pid once.  csp runs
+    on the flight transport, asked for by name (`auto` gives float64 decks
+    the sweep transport, as JAX's is_f32 rule does)."""
+    want = {"scatter": "sweep", "csp": "flight"}[kind]
     sim = CLASSES[decomposition](make_cfg(tt, kind), devices=CPU4,
-                                 quiet=True)
+                                 transport=want, quiet=True)
     assert sim.engine == "plain" and sim.nshards == 4
-    assert sim.transport == {"scatter": "sweep", "csp": "flight"}[kind]
+    assert sim.transport == want
     stats = stats_of(sim)
     split = (cuts(sim) if decomposition != "replicated"
              and sim.transport == "flight" else ((), ()))
-    tally, single_stats, pids = run_single(kind, *split)
+    tally, single_stats, pids = run_single(kind, *split, transport_name=want)
     assert stats == single_stats
     assert stats[1][1] > 0 and stats[1][0] > 0
     np.testing.assert_allclose(sim.host_tally(), tally, rtol=1e-12,
@@ -152,10 +155,11 @@ def test_migration_into_empty_shards_grows_them():
     no lanes at all and must grow to take their arrivals.  No particle is
     lost or duplicated and the result is the single-device run's."""
     cfg = make_cfg(tt, "stream")
-    sim = SpatialSimulation(cfg, devices=CPU4, quiet=True)
+    sim = SpatialSimulation(cfg, devices=CPU4, transport="flight", quiet=True)
     assert [sh.state.n for sh in sim.shards][1:] == [0, 0, 0]
     stats = stats_of(sim)
-    tally, single_stats, pids = run_single("stream", *cuts(sim))
+    tally, single_stats, pids = run_single("stream", *cuts(sim),
+                                           transport_name="flight")
     assert stats == single_stats
     np.testing.assert_allclose(sim.host_tally(), tally, rtol=1e-12,
                                atol=1e-300)

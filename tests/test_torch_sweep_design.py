@@ -10,7 +10,7 @@ rules are held to the plain versions:
   entries loaded at once, the nudges picking from them), against
   `CrossSection.lookup` (analytic) bitwise in float32, and against
   neutral_tpu's analytic lookup in float64;
-- `CrossSection.analytic_grid` against `_key_at`/`_val_at` and the
+- `CrossSection.analytic_grid_in` against `_key_at`/`_val_at` and the
   generated table;
 - `sweep_kernel.grid_blocks` (the persistent grid) and
   `sweep_kernel.thread_slot_use` (the share of thread slots that run
@@ -71,7 +71,8 @@ def energies() -> np.ndarray:
     below 1e-2 eV."""
     rng = np.random.default_rng(7)
     grid = CrossSection.resonance(dtype=torch.float32,
-                                  analytic=True).analytic_grid.numpy()
+                                  analytic=True).analytic_grid_in(
+                                      torch.float32).numpy()
     keys = grid[rng.choice(grid.shape[0], 64, replace=False), 0]
     return np.concatenate([
         np.exp(rng.uniform(np.log(1e-2), np.log(1e8), 100_000)),
@@ -84,7 +85,7 @@ def energies() -> np.ndarray:
 def test_grid_lookup_equals_analytic_lookup_bitwise():
     tab = CrossSection.resonance(dtype=torch.float32, analytic=True)
     e = torch.from_numpy(energies())
-    got = grid_lookup(e, tab.analytic_grid)
+    got = grid_lookup(e, tab.analytic_grid_in(torch.float32))
     want = tab.lookup(e)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.isfinite(got[e >= 1.0]).all()
@@ -105,7 +106,8 @@ def test_grid_lookup_agrees_with_jax_float64():
     tab = CrossSection.resonance(dtype=torch.float32, analytic=True)
     e = energies()
     e = e[e >= np.float32(1e-2)]
-    got = grid_lookup(torch.from_numpy(e), tab.analytic_grid).double()
+    got = grid_lookup(torch.from_numpy(e),
+                      tab.analytic_grid_in(torch.float32)).double()
     ref = nt.CrossSection.resonance(dtype=jnp.float64, analytic=True)
     want = np.asarray(ref.lookup(jnp.asarray(e.astype(np.float64))))
     mid = (e >= 0.1) & (e <= 1e7)
@@ -117,11 +119,11 @@ def test_grid_lookup_agrees_with_jax_float64():
 
 def test_analytic_grid_equals_key_at_val_at():
     tab = CrossSection.resonance(dtype=torch.float32, analytic=True)
-    grid = tab.analytic_grid
+    grid = tab.analytic_grid_in(torch.float32)
     n = tab.nentries
     assert grid.shape == (n, 2) and grid.dtype == torch.float32
     assert grid.is_contiguous()
-    assert tab.analytic_grid is grid                 # made once per table
+    assert tab.analytic_grid_in(torch.float32) is grid   # made once
     for itype in (torch.int32, torch.int64):
         i = torch.arange(n, dtype=itype)
         assert torch.equal(grid[:, 0], tab._key_at(i, torch.float32))
