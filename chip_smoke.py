@@ -130,22 +130,35 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    made on the card) must equal CrossSection._key_at/_val_at evaluated on
    the CPU at every index, bitwise: the CPU tests prove the lookup through
    that grid bitwise equal to the plain lookup.
-18. Non-uniform mesh at full width: a copy of the scatter deck with
-   `mesh_stretch_x 1.0002` and `mesh_stretch_y 0.9998` (4000^2, cell
-   widths from 0.45x to 2.2x of the uniform pitch) at PLAIN_N = 1,000,000
-   particles through `driver.main` in float64: it must print `Engine:
-   plain.` and `Transport: sweep.` (no kernel takes a deck without a
-   pitch), and a re-run with `--engine plain` must give the same per-step
-   counts and the tally to 1e-12.  The same deck in float32 (global
-   coordinates) prints its facet count beside float64's.  Then `tools
-   compare` on the card (the plain engine in float64 against the native
-   C++ engine) at 20,000 particles on the deck cut to 400^2 must print
-   AGREE.
-19. fast_math 0: the scatter deck with `fast_math 0` (edges and density
-   gathered per cell, table cross-sections) at PLAIN_N particles in
-   float64 and float32, plain engine and sweep transport; its float64
-   tally within 1e-3 of the kernel engine's float32 tally of the fast_math
-   1 deck at PLAIN_N.
+18. Decks without a pitch on the kernels: the sweep kernel's edge-array
+   mode (facet edges read from the mesh's edge arrays by global cell,
+   positions global) and the begin kernel.  Copies of the scatter deck
+   (4000^2) in every edge-array instantiation, in float32 and float64:
+   with `mesh_stretch_x 1.0002` and `mesh_stretch_y 0.9998` (STRETCH:
+   cell widths from 0.45x to 2.2x of the uniform pitch) over its regions,
+   the same beside the 30,000-entry `.cs` tables and over phase 10's random
+   density grid, and with `fast_math 0` (the region-built grid and the
+   stored resonance table), each also under pcg64si.  The sweep kernel
+   against its plain version on step 1's census (NO_PITCH_MAIN_N =
+   1,000,000 particles for the stretched deck, F64_MODE_N = 2^18 for the
+   rest): counts and all 14 fields bitwise in both working types, again at
+   64 events per launch; the begin kernel against transport.begin_timestep
+   in every one of them at 2^18 and on the stretched deck at 10,000,000, as
+   in phase 25.  Then the stretched deck at its own NO_PITCH_N =
+   10,000,000 particles and 2 steps through `driver.main` under `--engine
+   auto`, in float64 (and again: the same per-step counts, the tally to
+   1e-12) and in float32 (its facets printed beside float64's): each must
+   print `Engine: kernel.` and `Transport: sweep.`, launch the sweep and
+   begin kernels and never a plain version.  Then `tools compare` on the
+   card (the plain engine in float64 against the native C++ engine) at
+   20,000 particles on the deck cut to 400^2 must print AGREE.
+19. fast_math 0 the same way at 10,000,000 particles, float64 and float32;
+   its float64 tally within 1e-3 of phase 4's fast_math 1 kernel tally at
+   the same particles.  Both decks in float64 on 4 y-slabs and on 2x2
+   blocks (`--shards 4 --decomposition spatial|spatial2d`) give the single
+   device's per-step counts; so does the stream deck with STRETCH (its own
+   1,000,000 particles, float64) on 2x2 blocks, whose lanes migrate (no
+   scatter lane crosses a seam).
 20. Checkpoint and restore on the kernel path: csp through `driver.main
    --iterations 5 --checkpoint`, then `--restore` on one device and on
    2x2 blocks (`--shards 4 --decomposition spatial2d`).  Steps 1-5 and the
@@ -237,8 +250,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    oracle_family_launches).  Prints its seconds.
 27. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran; the float64 instantiations as sweep_kernel_f64,
-   table_lookup_f64 and begin_kernel_f64 beside the float32 entries), then
-   the JSON result line.
+   table_lookup_f64 and begin_kernel_f64 beside the float32 entries, the
+   sweep kernel's edge-array mode as sweep_kernel_edge_array and
+   sweep_kernel_edge_array_f64, the begin kernel's no-pitch comparisons in
+   its entries' no_pitch_modes), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 work this run gave it: the larger of the bytes it must move (each lane's
@@ -255,7 +270,8 @@ float work is counted in FP64 instructions (F64_EVENT_OPS and
 F64_COLLISION_OPS, each IEEE division, square root and logarithm weighed
 by its SASS sequence, F64_SEQUENCES) over the card's FP64 issue rate
 (132 SMs x 64 lanes x 1.98 GHz, the data sheet's 34 TFLOP/s with an FMA
-counted once).  The
+counted once).  A deck without a pitch adds its two edge arrays, read
+once.  The
 flight kernel's `ms` is its own device time (CUDA events), without the
 segment deposits, whose time stands beside it; its entry also holds csp's
 own time and bound over all 10 steps of its main path and the launches of
@@ -307,7 +323,8 @@ BLOCK = (2000, 2000, 2000, 2000)  # (x_off, y_off, nx, ny) of phases 12-13
 SHARDS = ["--shards", "4", "--decomposition"]
 SMALL_ROWS, SMALL_MAX = 1024, 16384   # phase 5's forced-small segment buffer
 BIG_N = 64_000_000               # phase 16's split particles
-PLAIN_N = 1_000_000              # phases 18-19's particles (plain engine)
+NO_PITCH_N = 10_000_000          # phases 18-19's main paths (the deck's)
+NO_PITCH_MAIN_N = 1_000_000      # phases 18-19's stretched comparison
 STRETCH = "mesh_stretch_x 1.0002\nmesh_stretch_y 0.9998\n"
 TRACE_KERNELS = ("flight_kernel", "tile_kernel")   # phase 21's symbols
 # Phase 22: tests/test_transport.py's families (density, x, y, w, h) regions
@@ -420,14 +437,15 @@ F64_SEQUENCES = {"rcp": 6, "div": 9, "sqrt": 9, "log": 25}
 
 def work_bound(r: dict) -> dict:
     """The bound of one comparison's census (compare / compare_flight): its
-    lanes, collisions, events or pieces, segment rows and cell visits, and
-    in table mode its tables; in float64 ("f64" in r) its doubles and its
-    FP64 instructions."""
+    lanes, collisions, events or pieces, segment rows and cell visits, in
+    table mode its tables and without a pitch its edge arrays (each read
+    once); in float64 ("f64" in r) its doubles and its FP64
+    instructions."""
     rows = r.get("rows", 0)
     f64 = r.get("f64", False)
     nbytes = (r["n"] * (LANE_BYTES_F64 if f64 else LANE_BYTES)
               + r["ncells"] * (8 if f64 else 4) + rows * 20
-              + r.get("table_bytes", 0))
+              + r.get("table_bytes", 0) + r.get("edge_bytes", 0))
     int_ops = r["collisions"] * 2 * DRAW_OPS[r["rng"]]
     events = (r["collisions"] + r["n"] if "rows" in r
               else r["facets"] + r["collisions"])
@@ -527,16 +545,18 @@ def check_outside(torch, name, start, state, outside, fields):
 
 def compare(nparticles: int, torch, driver, transport, sweep_kernel,
             fields, deck=SCATTER, label="compare", window=None, events=64,
-            dtype="float32"):
-    """Phase 3 at one size (and phases 8-10 and 24 on `deck`, phase 12 in
-    `window`, phase 26 in float64): returns a dict of the kernel's and the
-    plain version's times (ms, plain_ms), max_abs_err and the work (lanes,
-    cells, counts) for the bound.
+            dtype="float32", bitwise=False):
+    """Phase 3 at one size (and phases 8-10, 18-19 and 24 on `deck`, phase
+    12 in `window`, phase 26 in float64): returns a dict of the kernel's
+    and the plain version's times (ms, plain_ms), max_abs_err and the work
+    (lanes, cells, counts; a deck without a pitch, its edge arrays' bytes)
+    for the bound.
 
     Besides the timed runs, the kernel runs once more with `events` events
     per launch, so that one census takes many launches; its state must be
-    equal too (the main path's census fits in one launch).  In float64 the
-    14 fields compare bitwise and the tally sums to 1e-12."""
+    equal too (the main path's census fits in one launch).  In float64, and
+    in float32 with `bitwise`, the 14 fields compare bitwise; the tally
+    sums to 1e-12 in float64."""
     cfg = driver.load_config(deck).with_(nparticles=nparticles,
                                          expected_tally=None)
     if dtype != cfg.dtype:
@@ -548,6 +568,11 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     geom, tally0, win, outside = window_args(torch, transport, sim, start,
                                              window)
     args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
+    same = ((lambda a, b: differing_field(a, b, torch, fields)) if not bitwise
+            else lambda a, b: next(
+                (f for f in fields if not torch.equal(
+                    bits(torch, getattr(a, f)), bits(torch, getattr(b, f)))),
+                None))
 
     def run(fn, **kw):
         state, tally = start.clone(), torch.zeros_like(tally0)
@@ -576,9 +601,10 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
              f"plain {(pnf, pnc)}")
     if knc == 0:
         fail(f"{label} n={nparticles}: no collisions, the comparison is empty")
-    f = differing_field(ks, ps, torch, fields)
+    f = same(ks, ps)
     if f is not None:
-        n_bad = int((getattr(ks, f) != getattr(ps, f)).sum())
+        n_bad = int((bits(torch, getattr(ks, f))
+                     != bits(torch, getattr(ps, f))).sum())
         fail(f"{label} n={nparticles}: state.{f} differs on {n_bad} lanes")
     check_outside(torch, f"{label} n={nparticles}", start, ks, outside,
                   fields)
@@ -597,8 +623,7 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel,
                              max_events=events)
     nl = sweep_kernel.sweep_chunk_kernel.launches - launches0
-    if nl < 2 or (cnf, cnc) != (pnf, pnc) or differing_field(
-            cs, ps, torch, fields) is not None:
+    if nl < 2 or (cnf, cnc) != (pnf, pnc) or same(cs, ps) is not None:
         fail(f"{label} n={nparticles}: the census in {nl} launches of "
              f"{events} events differs from the plain version")
     print(f"[{label} n={nparticles}] {events} events per launch: {nl} "
@@ -609,6 +634,9 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
             "slot_use": slot_use, "slot_use_pid_order": slot_pid,
             "below_threshold": int((ks.energy < THRESHOLD).sum()),
             "f64": dtype == "float64",
+            **({} if geom.dx else {"edge_bytes": (
+                geom.edgex.numel() + geom.edgey.numel())
+                * geom.edgex.element_size()}),
             **({} if sim.cs_scatter.analytic else {"energy": ks.energy}),
             **table_work(sim, loads, knc)}
 
@@ -1288,17 +1316,20 @@ def big_split(torch, driver, wrappers, fields) -> dict:
             "peak_gib": peak, "tally": total}
 
 
-def sweep_registers(log: str, real: str = "float") -> int:
+def sweep_registers(log: str, real: str = "float", edge: int = 0) -> int:
     """ptxas's register count of the sweep kernel's analytic, region,
-    threefry instantiation in the working type `real` (float or double),
-    from the build's log: its mangled name ends the template arguments
-    with the working type's code, f or d."""
-    tag = f"XsModeE0ELNS1_11DensityModeE0ELNS1_9RngSchemeE0E{real[0]}E"
+    threefry instantiation in the working type `real` (float or double)
+    and edge mode `edge` (0 pitch, 1 edge arrays), from the build's log:
+    its mangled name ends the template arguments with the working type's
+    code, f or d, and the edge mode's."""
+    tag = (f"XsModeE0ELNS1_11DensityModeE0ELNS1_9RngSchemeE0E{real[0]}"
+           f"LNS1_8EdgeModeE{edge}E")
     for name, regs in re.findall(r"Compiling entry function '([^']*)'"
                                  r".*?Used (\d+) registers", log, re.S):
         if "sweep_kernel" in name and tag in name:
             return int(regs)
-    fail(f"the build log has no register count of the sweep kernel in {real}")
+    fail(f"the build log has no register count of the sweep kernel in {real}"
+         f", edge mode {edge}")
 
 
 def analytic_grid_check(torch, driver) -> None:
@@ -1331,17 +1362,6 @@ def census_repeats(tmp: str) -> dict:
     return r
 
 
-def check_plain_path(name: str, out: str, c: dict) -> None:
-    """Fail unless a main path of phases 18-19 ran the plain sweep (a deck
-    without a pitch: no kernel takes it) and launched no kernel."""
-    if "Engine: plain." not in out or "Transport: sweep." not in out:
-        fail(f"{name}: want 'Engine: plain.' and 'Transport: sweep.'")
-    if c["sweep_chunk_plain"] == 0 or any(
-            c[k] for k in ("sweep_chunk_kernel", "flight_chunk_kernel",
-                           "deposit_segments_kernel")):
-        fail(f"{name}: counts {c} (want the plain sweep and no kernel)")
-
-
 def step_seconds(out: str) -> list:
     return [float(t) for t in re.findall(r"Step time\s+(\S+)s", out)]
 
@@ -1354,66 +1374,162 @@ def captured(fn, *args) -> tuple:
     return rc, tee.buf.getvalue()
 
 
-def plain_decks(tmp: str, torch, driver, wrappers) -> dict:
-    """Phases 18-19: the decks without a pitch on the plain engine.
-    Returns their step times and counts, and the launches of phase 19's
-    kernel run."""
-    from neutral_tpu_torch import tools
+def no_pitch_decks(tmp: str, torch, driver, transport, sweep_kernel,
+                   fields, wrappers, scatter_total: float, log: str) -> dict:
+    """Phases 18-19: the decks without a pitch on the kernels.  Returns the
+    sweep kernel's edge-array comparisons and the begin kernel's, by
+    working type, the main instantiation's registers and the launches of
+    their main paths."""
+    import numpy as np
+    from neutral_tpu_torch import begin_kernel, tools
+    from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
 
-    res = {}
-    n = ["--nparticles", str(PLAIN_N)]
-    f64 = ["--dtype", "float64"]
+    res = {"sweep": {"float32": {}, "float64": {}},
+           "begin": {"float32": {}, "float64": {}},
+           "launches": {"float32": 0, "float64": 0}, "runs": {},
+           "registers": {r: sweep_registers(log, r, edge=1)
+                         for r in ("float", "double")}}
+    print(f"[no pitch] the sweep kernel's edge-array main instantiation "
+          f"(analytic, regions, threefry) uses {res['registers']} registers",
+          flush=True)
+    keys, values = resonance_log_table()
+    cfg = driver.load_config(SCATTER)
+    rng = np.random.default_rng(7)           # phase 10's random grid
+    dens = rng.uniform(1.0e3, 2.0e4, size=(cfg.ny, cfg.nx))
+    dens[rng.random((cfg.ny, cfg.nx)) < 0.25] = 0.0
+    grid_file = os.path.join(tmp, "dens.npy")
+    np.save(grid_file, dens)
+    del dens
 
-    def plain(deck, argv, label):
-        out, total, c = main_path(deck, torch, driver, wrappers, argv=argv,
-                                  label=label)
-        check_plain_path(label, out, c)
-        res[label] = {"step_s": step_seconds(out), "counts": step_counts(out),
-                      "tally": total}
-        return out, total
+    def deck_dir(name, extra, table=False, grid=False):
+        d = os.path.join(tmp, name.replace(" ", "_"))
+        os.mkdir(d)
+        if table:
+            for fname in ("elastic_scatter.cs", "capture.cs"):
+                write_cs_file(os.path.join(d, fname), keys, values)
+        if grid:
+            os.symlink(grid_file, os.path.join(d, "dens.npy"))
+        return deck_copy(SCATTER, d, extra
+                         + ("density_file dens.npy\n" if grid else ""))
 
-    # ---- 18. non-uniform mesh -----------------------------------------
-    os.mkdir(os.path.join(tmp, "stretched"))
-    deck = deck_copy(SCATTER, os.path.join(tmp, "stretched"), STRETCH)
-    _, total = plain(deck, [*n, *f64], "stretched f64")
-    _, again = plain(deck, [*n, *f64, "--engine", "plain"],
-                     "stretched f64 re-run")
-    counts = res["stretched f64"]["counts"]
-    if (res["stretched f64 re-run"]["counts"] != counts or counts[0][1] == 0
-            or not abs(again - total) <= 1e-12 * abs(total)):
-        fail(f"stretched f64: the re-run gave {res['stretched f64 re-run']}"
-             f" against {res['stretched f64']}")
-    _, total32 = plain(deck, n, "stretched f32")
-    f32, f64_ = res["stretched f32"]["counts"][0], counts[0]
-    print(f"[stretched] float32 (global coordinates) step 1: {f32[0]} facets,"
-          f" {f32[1]} collisions; float64: {f64_[0]} facets, {f64_[1]} "
-          f"collisions; facets x{f32[0] / max(f64_[0], 1):.2f}; tally "
-          f"{total32:.9e} against {total:.9e} (rel "
-          f"{abs(total32 - total) / abs(total):.3e})", flush=True)
+    # Every edge-array instantiation, (cross-sections, density) x draws:
+    # the stretched mesh over regions (analytic, and beside .cs tables) and
+    # over a density grid (analytic), and fast_math 0 (table over a grid).
+    pcg = "rng pcg64si\n"
+    modes = {}
+    for r, extra in (("", ""), (" pcg64si", pcg)):
+        modes[f"stretched{r}"] = deck_dir(f"stretched{r}", STRETCH + extra)
+        modes[f"stretched table{r}"] = deck_dir(f"stretched table{r}",
+                                                STRETCH + extra, table=True)
+        modes[f"stretched grid{r}"] = deck_dir(f"stretched grid{r}",
+                                               STRETCH + extra, grid=True)
+        modes[f"fast_math 0{r}"] = deck_dir(f"fast_math 0{r}",
+                                            "fast_math 0\n" + extra)
+
+    # ---- the kernels against their plain versions, every instantiation --
+    for dtype in ("float32", "float64"):
+        for mode, deck in modes.items():
+            n = NO_PITCH_MAIN_N if mode == "stretched" else F64_MODE_N
+            r = compare(n, torch, driver, transport, sweep_kernel, fields,
+                        deck=deck, label=f"no pitch {dtype} {mode}",
+                        dtype=dtype, bitwise=True)
+            r.pop("energy", None)
+            res["sweep"][dtype][mode] = mode_entry(
+                [r], f"{mode}: the scatter deck (4000x4000) with "
+                f"{'fast_math 0' if 'fast' in mode else 'the stretch'}, "
+                f"{n} particles, one census, {dtype}, all 14 fields bitwise")
+            res["begin"][dtype][mode] = begin_compare(
+                torch, driver, transport, begin_kernel, deck, F64_MODE_N,
+                f"no pitch {dtype} {mode}", dtype=dtype)
+            torch.cuda.empty_cache()
+        res["begin"][dtype]["stretched 10M"] = begin_compare(
+            torch, driver, transport, begin_kernel, modes["stretched"],
+            NO_PITCH_N, f"no pitch {dtype} stretched", dtype=dtype)
+        torch.cuda.empty_cache()
+
+    # ---- the main paths through the CLI, under --engine auto -----------
+    def kernel_run(deck, label, dtype, argv=(), n=NO_PITCH_N):
+        out, total, c = main_path(
+            deck, torch, driver, wrappers, label=label,
+            argv=["--dtype", dtype, *argv,
+                  *(["--nparticles", str(n)] if n else [])])
+        if "Transport: sweep." not in out:
+            fail(f"{label}: want 'Transport: sweep.'")
+        launches = check_kernel_path(label, out, c, passed=False)
+        res["launches"][dtype] += launches[0]
+        counts = step_counts(out)
+        if not counts or sum(counts[0]) == 0:
+            fail(f"{label}: per-step counts {counts}")
+        migrated = sum(int(m) for m in re.findall(
+            r"Migrated (\d+) particles between shards", out))
+        res["runs"][label] = {"step_s": step_seconds(out), "counts": counts,
+                              "tally": total, "launches": launches[0],
+                              "migrated": migrated}
+        return counts, total
+
+    stretched, fast0 = modes["stretched"], modes["fast_math 0"]
+    # ---- 18. non-uniform mesh ----
+    counts, total = kernel_run(stretched, "f64 stretched", "float64")
+    again, total2 = kernel_run(stretched, "f64 stretched re-run", "float64")
+    if again != counts or not abs(total2 - total) <= 1e-12 * abs(total):
+        fail(f"f64 stretched: the re-run gave {again} {total2!r} against "
+             f"{counts} {total!r}")
+    counts32, total32 = kernel_run(stretched, "stretched", "float32")
+    (f32, c32), (f64_, c64) = counts32[0], counts[0]
+    print(f"[stretched] float32 (global coordinates) step 1: {f32} facets, "
+          f"{c32} collisions; float64: {f64_} facets, {c64} collisions; "
+          f"facets x{f32 / max(f64_, 1):.2f}; tally {total32:.9e} against "
+          f"{total:.9e} (rel {abs(total32 - total) / abs(total):.3e})",
+          flush=True)
     t0 = time.perf_counter()
-    rc, out = captured(tools.main, ["compare", deck, "--nparticles", "20000",
-                                    "--mesh-scale", "10"])
+    rc, out = captured(tools.main, ["compare", stretched, "--nparticles",
+                                    "20000", "--mesh-scale", "10"])
     print(f"[stretched] tools compare on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if rc != 0 or "AGREE (port sweep transport on cuda" not in out:
         fail("tools compare on the card did not print AGREE")
 
-    # ---- 19. fast_math 0 ------------------------------------------------
-    os.mkdir(os.path.join(tmp, "fast_math0"))
-    deck0 = deck_copy(SCATTER, os.path.join(tmp, "fast_math0"),
-                      "fast_math 0\n")
-    _, total0 = plain(deck0, [*n, *f64], "fast_math 0 f64")
-    plain(deck0, n, "fast_math 0 f32")
-    out, totalk, c = main_path(SCATTER, torch, driver, wrappers, argv=n,
-                               label="scatter kernel 1M")
-    res["launches"] = check_kernel_path("scatter kernel 1M", out, c,
-                                        passed=False)
-    rel = abs(total0 - totalk) / abs(totalk)
-    print(f"[fast_math 0] float64 plain tally {total0:.9e} against the "
-          f"fast_math 1 kernel's float32 {totalk:.9e}: rel {rel:.3e}",
+    # ---- 19. fast_math 0 ----
+    counts0, total0 = kernel_run(fast0, "f64 fast_math 0", "float64")
+    counts0_32, total0_32 = kernel_run(fast0, "fast_math 0", "float32")
+    print(f"[fast_math 0] float32 (global coordinates) step 1: "
+          f"{counts0_32[0][0]} facets; float64: {counts0[0][0]} facets; "
+          f"facets x{counts0_32[0][0] / max(counts0[0][0], 1):.2f}",
           flush=True)
+    rel = abs(total0 - scatter_total) / abs(scatter_total)
+    print(f"[fast_math 0] float64 kernel tally {total0:.9e} against the "
+          f"fast_math 1 kernel's float32 {scatter_total:.9e} (phase 4, same "
+          f"{NO_PITCH_N} particles): rel {rel:.3e}", flush=True)
     if not rel <= 1e-3:
         fail(f"fast_math 0: tally {rel:.3e} from the kernel engine's (> 1e-3)")
+
+    # ---- both decks decomposed on the card, float64 ----
+    for name, deck, want in (("stretched", stretched, counts),
+                             ("fast_math 0", fast0, counts0)):
+        for decomposition in ("spatial", "spatial2d"):
+            label = f"f64 {name} {decomposition}"
+            got, _ = kernel_run(deck, label, "float64",
+                                [*SHARDS, decomposition])
+            if got != want:
+                fail(f"{label}: per-step counts {got} differ from the "
+                     f"single device's {want}")
+            print(f"[main {label}] per-step counts equal to the single "
+                  f"device's {want}", flush=True)
+    # No scatter lane crosses a shard's seam (a dense deck); the stream deck
+    # on the stretched mesh (its own 1,000,000 particles, vacuum: the
+    # sweep transport's facet-heaviest case) sends lanes across them.
+    os.mkdir(os.path.join(tmp, "stretched_stream"))
+    stream = deck_copy(FLIGHT_DECKS[0], os.path.join(tmp, "stretched_stream"),
+                       STRETCH)
+    want, _ = kernel_run(stream, "f64 stretched stream", "float64", n=None)
+    got, _ = kernel_run(stream, "f64 stretched stream spatial2d", "float64",
+                        [*SHARDS, "spatial2d"], n=None)
+    moved = res["runs"]["f64 stretched stream spatial2d"]["migrated"]
+    if got != want or moved == 0:
+        fail(f"f64 stretched stream on 2x2 blocks: per-step counts {got} "
+             f"against the single device's {want}, {moved} lanes migrated")
+    print(f"[main f64 stretched stream spatial2d] per-step counts equal to "
+          f"the single device's {want}; {moved} lanes migrated", flush=True)
     return res
 
 
@@ -2121,7 +2237,8 @@ def main() -> int:
 
     # ---- 4. main path, scatter ------------------------------------------
     stamp(4)
-    out_scatter, _, c = main_path(SCATTER, torch, driver, wrappers)
+    out_scatter, scatter_total, c = main_path(SCATTER, torch, driver,
+                                              wrappers)
     if "PASSED validation." not in out_scatter:
         fail("the full scatter deck did not print 'PASSED validation.'")
     if c["sweep_chunk_kernel"] <= 0 or c["sweep_chunk_plain"] != 0:
@@ -2233,7 +2350,9 @@ def main() -> int:
     # ---- 18-21. decks without a pitch, checkpoints, dumps, traces ---------
     stamp(18)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    plain = plain_decks(tmp.name, torch, driver, wrappers)
+    no_pitch = no_pitch_decks(tmp.name, torch, driver, transport,
+                              sweep_kernel, STATE_FIELDS, wrappers,
+                              scatter_total, log)
     stamp(20)
     restored = checkpoint_restore(tmp.name, torch, driver, flight, wrappers,
                                   csp_counts)
@@ -2247,7 +2366,7 @@ def main() -> int:
 
     # ---- 23. two processes sharing the card ---------------------------------
     stamp(23)
-    for launches in (plain["launches"], restored["launches"],
+    for launches in (restored["launches"],
                      io_runs["launches"], two_processes(decomposed)):
         sweep_launches += launches[0]
         flight_launches += launches[1]
@@ -2305,6 +2424,42 @@ def main() -> int:
     f64_main, f64_lookup = f64["sweep"]["analytic"], f64["lookup"][
         "census energies"]
     f64_begin = f64["begin"]["scatter"]
+    edge = {}
+    for dtype, name in (("float32", "sweep_kernel_edge_array"),
+                        ("float64", "sweep_kernel_edge_array_f64")):
+        modes_e = no_pitch["sweep"][dtype]
+        main_e = modes_e["stretched"]
+        edge[dtype] = {
+            "name": name,
+            "route": "cuda",
+            "source": "neutral_tpu_torch/csrc/sweep.cu",
+            "replaces": "neutral_tpu/pallas_sweep.py:59",
+            "launches": no_pitch["launches"][dtype],
+            "max_abs_err": max(m["max_abs_err"] for m in modes_e.values()),
+            "ms": main_e["ms"],
+            "plain_ms": main_e["plain_ms"],
+            "bound_ms": main_e["bound_ms"],
+            "bound_by": main_e["bound_by"],
+            "library_ms": None,
+            "registers": no_pitch["registers"][
+                "float" if dtype == "float32" else "double"],
+            "modes": modes_e,
+            "main_paths": {k: v for k, v in no_pitch["runs"].items()
+                           if k.startswith("f64 ") == (dtype == "float64")},
+            "shape": f"the sweep kernel's edge-array mode in {dtype} (a "
+                     "geometry without a pitch: facet edges read from the "
+                     "mesh's edge arrays by global cell, positions global; "
+                     "JAX runs these decks on its XLA sweep, "
+                     "neutral_tpu/transport.py:187): the scatter deck "
+                     f"(4000x4000) with {STRETCH.strip().replace(chr(10), ', ')}, "
+                     f"{NO_PITCH_MAIN_N} particles, one census; modes: all 8 "
+                     f"instantiations at {F64_MODE_N} particles but that "
+                     "one, each bitwise its plain version; bound: the "
+                     "state's bytes (and the edge arrays, read once) or the "
+                     "draws' operations; launches: the main paths of "
+                     f"phases 18-19 in {dtype} ({NO_PITCH_N} particles, 2 "
+                     "steps each" + (", with y-slabs and 2x2 blocks"
+                                     if dtype == "float64" else "") + ")"}
     print(f"[device] nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": [
         {"name": "sweep_kernel",
@@ -2411,7 +2566,8 @@ def main() -> int:
          "source": "neutral_tpu_torch/csrc/begin.cu",
          "replaces": "neutral_tpu/transport.py:221",
          "launches": sum(begin_f32.values()),
-         "max_abs_err": max(r["max_abs_err"] for r in begin.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in [
+             *begin.values(), *no_pitch["begin"]["float32"].values()]),
          "ms": begin_top["ms"],
          "plain_ms": begin_top["plain_ms"],
          "bound_ms": begin_top["bound_ms"],
@@ -2420,6 +2576,7 @@ def main() -> int:
          "wall_ms": begin_top["wall_ms"],
          "launches_per_main_path": begin_f32,
          "modes": begin,
+         "no_pitch_modes": no_pitch["begin"]["float32"],
          "shape": f"step 1's state of the scatter deck, "
                   f"{COMPARE_SIZES[-1]} particles, 4000x4000 mesh; ms is "
                   f"the device time of one of {BEGIN_REPS} calls captured "
@@ -2479,7 +2636,8 @@ def main() -> int:
          "source": "neutral_tpu_torch/csrc/begin.cu",
          "replaces": "neutral_tpu/transport.py:221",
          "launches": sum(begin_f64.values()),
-         "max_abs_err": max(r["max_abs_err"] for r in f64["begin"].values()),
+         "max_abs_err": max(r["max_abs_err"] for r in [
+             *f64["begin"].values(), *no_pitch["begin"]["float64"].values()]),
          "ms": f64_begin["ms"],
          "plain_ms": f64_begin["plain_ms"],
          "bound_ms": f64_begin["bound_ms"],
@@ -2488,9 +2646,12 @@ def main() -> int:
          "wall_ms": f64_begin["wall_ms"],
          "launches_per_main_path": begin_f64,
          "modes": f64["begin"],
+         "no_pitch_modes": no_pitch["begin"]["float64"],
          "shape": f"step 1's state of the scatter deck in float64, "
                   f"{COMPARE_SIZES[-1]} particles; timed as begin_kernel's; "
                   "modes hold every deck mode at 1,000,000 particles"},
+        edge["float32"],
+        edge["float64"],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

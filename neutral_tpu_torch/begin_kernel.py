@@ -11,9 +11,11 @@ lane's counter set to 1, and the count of live lanes.
 
 The kernel has float32 and float64 instantiations (the working type of
 the state, which its tally-free inputs share: a grid deck's density and
-the tables).  `begin_timestep_kernel` launches the kernel or raises: on a
-state that does not lie on a CUDA device, on a geometry without a pitch
-and on any configuration the kernel does not implement.  It never runs
+the tables).  It reads no facet edge, so a geometry without a uniform
+pitch (a non-uniform mesh, a fast_math 0 deck) is one it takes as it
+takes any other.  `begin_timestep_kernel` launches the kernel or raises:
+on a state that does not lie on a CUDA device and on any configuration
+the kernel does not implement.  It never runs
 the plain version.  `begin_census` is the steps' choice between the two:
 the kernel engine takes the kernel, the plain engine
 `transport.begin_timestep`.  `begin_timestep_kernel.launches` counts
@@ -130,11 +132,11 @@ def check_begin_inputs(state: ParticleState, geom: Geometry,
                        scatter_tab: CrossSection) -> None:
     """Raise ValueError unless the kernel implements this configuration:
     what sweep_kernel.check_inputs asks of the sweep kernel's (a float32 or
-    float64 state, a uniform pitch, threefry or pcg64si draws, CUDA tensors
-    of the state's dtypes, the table and a grid deck's density in the
-    state's working type on its device)."""
+    float64 state, threefry or pcg64si draws, CUDA tensors of the state's
+    dtypes, the table and a grid deck's density in the state's working
+    type on its device), with or without a uniform pitch."""
     check_inputs(state, None, geom, scatter_tab, scatter_tab, "begin kernel",
-                 REALS)
+                 REALS, pitch=False)
 
 
 def begin_timestep_kernel(state: ParticleState, geom: Geometry,

@@ -30,7 +30,9 @@
 // are the caller's, unchanged, as the plain version shares them.  The modes
 // are the sweep kernel's template parameters (cross-sections, density,
 // draws), and so is the working type (float32, or float64 for float64
-// decks: 16 instantiations); the window is a runtime parameter.
+// decks: 16 instantiations); the window is a runtime parameter.  It reads
+// no facet edge, so a geometry without a uniform pitch (a non-uniform mesh,
+// a fast_math 0 deck) runs on the same instantiations.
 //
 // What bounds it: bytes.  A live lane reads 21 bytes (dead, cells, energy,
 // pid) and writes 16 (dt_to_census, mean free path, counter): 37 bytes,

@@ -16,7 +16,8 @@
 // the others: XsMode (analytic resonance formula read from its grid, or a
 // stored table searched through a coarse index in shared memory), RngScheme (threefry or pcg64si)
 // and, in the sweep kernel, DensityMode (region rectangles, or a per-cell
-// grid).
+// grid) and EdgeMode (a cell's facet edges from the uniform pitch, or read
+// from the mesh's edge arrays).
 
 #pragma once
 
@@ -29,6 +30,7 @@ namespace nt {
 enum class XsMode : int { kAnalytic = 0, kTable = 1 };
 enum class RngScheme : int { kThreefry = 0, kPcg64si = 1 };
 enum class DensityMode : int { kRegions = 0, kGrid = 1 };
+enum class EdgeMode : int { kPitch = 0, kArray = 1 };
 
 // Constants as the plain version rounds them: the float64 value, then one
 // rounding to the working type (neutral_tpu's np.dtype(dtype).type(v)):

@@ -20,15 +20,28 @@
 // The build passes -fmad=false: nvcc would otherwise contract a*b+c into
 // fused multiply-adds, which PyTorch's one-operation-per-kernel arithmetic
 // does not do, and branch decisions would drift from the plain version.
-// A uniform mesh only.  The working type is a template parameter: float32,
-// where positions are cell-local (transport.use_local_coords: a facet
-// crossing re-bases them onto the new cell), or float64, where they are
-// global, as in neutral_tpu's XLA float64 engine (transport.py sweep_chunk,
-// :506): a cell's facet edges are cx * dx and (cx + 1) * dx, computed per
-// event from its global cell, and a crossing changes only the cell.  The
-// deck's modes are template parameters too (common.cuh), one instantiation
-// per combination and working type, chosen at launch:
+// The working type is a template parameter: float32, where positions on a
+// uniform mesh are cell-local (transport.use_local_coords: a facet crossing
+// re-bases them onto the new cell), or float64, where they are global, as
+// in neutral_tpu's XLA float64 engine (transport.py sweep_chunk, :506): a
+// cell's facet edges are cx * dx and (cx + 1) * dx, computed per event from
+// its global cell, and a crossing changes only the cell.  The deck's modes
+// are template parameters too (common.cuh), one instantiation per
+// combination and working type, chosen at launch:
 //
+//   * facet edges (EdgeMode): from the uniform pitch as above, or, for a
+//     geometry without one (a non-uniform mesh, a fast_math 0 deck), read
+//     from the whole mesh's edge arrays edgex (global_nx + 1,) and edgey
+//     (global_ny + 1,) in the working type by global cell, with the plain
+//     version's clamps (transport._facet_edges, neutral_tpu's gather
+//     branch, transport.py:187-205): edgex[clamp(cx + 1, 0, gnx)] above,
+//     edgex[clamp(cx, 0, gnx - 1)] - kObc below.  Positions are then global
+//     in both working types, as transport.use_local_coords keeps them
+//     without a pitch.  Each event reads the two bounds its direction
+//     needs (edge_above/edge_below) with __ldg: a 4000^2 mesh's arrays are
+//     16 KiB each in float32 and 32 KiB in float64, resident in L1 and
+//     L2, and no register carries them between events (the float64
+//     instantiations already take 80-96);
 //   * cross-sections: the analytic resonance formula, or a stored table
 //     (table mode, for user .cs files) searched through its coarse index,
 //     which each persistent block copies into shared memory once per
@@ -43,6 +56,13 @@
 //     (pallas_sweep.py:120-145) are TPU mechanisms with no counterpart
 //     here;
 //   * draws: threefry or pcg64si.
+//
+// Every combination is instantiated: 32 in all, {analytic, table} x
+// {regions, grid} x {threefry, pcg64si} x {pitch, array} x {float32,
+// float64}.  Each array-mode combination is one a deck reaches: a
+// non-uniform mesh under fast_math takes either cross-section mode over
+// regions, and with a density_file either over a grid; a fast_math 0 deck,
+// on any mesh, takes the table mode over a grid.
 //
 // The spatial window of a decomposed run (pallas_sweep.py's has_slab and
 // has_col modes, :61 and :91-105) is a runtime parameter, not a template
@@ -176,6 +196,9 @@ struct SweepParamsT {
   Real dx;
   Real dy;
   Real inv_ntotal;
+  const Real* edgex;            // edge-array mode: (global_nx + 1,)
+  const Real* edgey;            // edge-array mode: (global_ny + 1,)
+  int edge_mode;                // nt::EdgeMode
 };
 
 using SweepParams = SweepParamsT<float>;
@@ -191,10 +214,12 @@ constexpr unsigned int kNeed = 0xffffffffu;
 
 __device__ __forceinline__ unsigned int lane_id() { return threadIdx.x & 31u; }
 
-// Whether the working type keeps positions in the cell-local frame
-// (float32) or global (float64), as transport.use_local_coords decides.
-template <typename Real>
-constexpr bool kCellLocal = std::is_same_v<Real, float>;
+// Whether positions are in the cell-local frame (float32 with a pitch) or
+// global (float64, and every working type without a pitch), as
+// transport.use_local_coords decides.
+template <typename Real, EdgeMode E>
+constexpr bool kCellLocal =
+    std::is_same_v<Real, float> && E == EdgeMode::kPitch;
 
 // The facets of cell c of pitch d that bound a lane moving up (edge_hi)
 // and down (edge_lo, the open left/bottom facet overshot by kObc), as
@@ -213,12 +238,38 @@ __device__ __forceinline__ double edge_lo(double d, int c) {
   return static_cast<double>(c) * d - Const<double>::kObc;
 }
 
+// The facet edge that bounds a lane moving up (edge_above) or down
+// (edge_below) in its global cell c along one axis: in pitch mode
+// edge_hi/edge_lo of the pitch d; in edge-array mode read from `edges`, the
+// axis's (n + 1,) edge array, with transport._facet_edges' clamps, the
+// lower one overshot by kObc.  Functions, not locals of the kernel: a
+// pitch-mode instantiation reads neither argument it does not use.
+template <EdgeMode E, typename Real>
+__device__ __forceinline__ Real edge_above(Real d, const Real* edges, int c,
+                                           int n) {
+  if constexpr (E == EdgeMode::kArray) {
+    return __ldg(edges + min(max(c + 1, 0), n));
+  } else {
+    return edge_hi(d, c);
+  }
+}
+
+template <EdgeMode E, typename Real>
+__device__ __forceinline__ Real edge_below(Real d, const Real* edges, int c,
+                                           int n) {
+  if constexpr (E == EdgeMode::kArray) {
+    return __ldg(edges + min(max(c, 0), n - 1)) - Const<Real>::kObc;
+  } else {
+    return edge_lo(d, c);
+  }
+}
+
 // The bits of the warp's lanes below this one.
 __device__ __forceinline__ unsigned int lanes_below() {
   return (1u << lane_id()) - 1u;
 }
 
-template <XsMode X, DensityMode D, RngScheme R, typename Real>
+template <XsMode X, DensityMode D, RngScheme R, typename Real, EdgeMode E>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const SweepParamsT<Real> p) {
   using C = Const<Real>;
@@ -352,14 +403,23 @@ sweep_kernel(const SweepParamsT<Real> p) {
       const Real mac_t = mac_s + mac_a;
       const Real cell_mfp = 1.0f / mac_t;
 
-      // three candidate distances, from the cell's facet edges (edge_hi,
-      // edge_lo: cell-local in float32, global in float64)
+      // three candidate distances, from the cell's facet edges
+      // (edge_above, edge_below: of the pitch, cell-local in float32 and
+      // global in float64, or read from the edge arrays, global)
       const Real u_x_inv = 1.0f / (omega_x * speed);
       const Real u_y_inv = 1.0f / (omega_y * speed);
-      const Real dt_x = omega_x >= 0.0f ? (edge_hi(p.dx, cellx) - x) * u_x_inv
-                                        : (edge_lo(p.dx, cellx) - x) * u_x_inv;
-      const Real dt_y = omega_y >= 0.0f ? (edge_hi(p.dy, celly) - y) * u_y_inv
-                                        : (edge_lo(p.dy, celly) - y) * u_y_inv;
+      const Real dt_x =
+          omega_x >= 0.0f
+              ? (edge_above<E>(p.dx, p.edgex, cellx, p.global_nx) - x) *
+                    u_x_inv
+              : (edge_below<E>(p.dx, p.edgex, cellx, p.global_nx) - x) *
+                    u_x_inv;
+      const Real dt_y =
+          omega_y >= 0.0f
+              ? (edge_above<E>(p.dy, p.edgey, celly, p.global_ny) - y) *
+                    u_y_inv
+              : (edge_below<E>(p.dy, p.edgey, celly, p.global_ny) - y) *
+                    u_y_inv;
       const bool x_facet = dt_x < dt_y;
       const Real d_facet = (x_facet ? dt_x : dt_y) * speed;
       const Real d_coll = mfp * cell_mfp;
@@ -408,8 +468,8 @@ sweep_kernel(const SweepParamsT<Real> p) {
         if (contrib != 0.0f) atomicAdd(&p.tally[flat_cell], contrib);
       }
 
-      // facet: step into the next cell (in float32 re-basing the local
-      // position) or reflect at the domain boundary; a lane that steps out
+      // facet: step into the next cell (re-basing a cell-local position)
+      // or reflect at the domain boundary; a lane that steps out
       // of the window stops here
       bool inwin = true;
       if (is_facet) {
@@ -419,14 +479,14 @@ sweep_kernel(const SweepParamsT<Real> p) {
               omega_x = -omega_x;
             } else {
               cellx += 1;
-              if constexpr (kCellLocal<Real>) x = x - p.dx;
+              if constexpr (kCellLocal<Real, E>) x = x - p.dx;
             }
           } else if (omega_x < 0.0f) {
             if (cellx <= 0) {
               omega_x = -omega_x;
             } else {
               cellx -= 1;
-              if constexpr (kCellLocal<Real>) x = x + p.dx;
+              if constexpr (kCellLocal<Real, E>) x = x + p.dx;
             }
           }
         } else {
@@ -435,14 +495,14 @@ sweep_kernel(const SweepParamsT<Real> p) {
               omega_y = -omega_y;
             } else {
               celly += 1;
-              if constexpr (kCellLocal<Real>) y = y - p.dy;
+              if constexpr (kCellLocal<Real, E>) y = y - p.dy;
             }
           } else if (omega_y < 0.0f) {
             if (celly <= 0) {
               omega_y = -omega_y;
             } else {
               celly -= 1;
-              if constexpr (kCellLocal<Real>) y = y + p.dy;
+              if constexpr (kCellLocal<Real, E>) y = y + p.dy;
             }
           }
         }
@@ -520,35 +580,46 @@ extern "C" int nt_params_size_f64() {
 
 extern "C" int nt_sweep_threads() { return kThreads; }
 
-#define NT_SWEEP_MODES(CASE)                                              \
-  CASE(XsMode::kAnalytic, DensityMode::kRegions, RngScheme::kThreefry)    \
-  CASE(XsMode::kAnalytic, DensityMode::kRegions, RngScheme::kPcg64si)     \
-  CASE(XsMode::kAnalytic, DensityMode::kGrid, RngScheme::kThreefry)       \
-  CASE(XsMode::kAnalytic, DensityMode::kGrid, RngScheme::kPcg64si)        \
-  CASE(XsMode::kTable, DensityMode::kRegions, RngScheme::kThreefry)       \
-  CASE(XsMode::kTable, DensityMode::kRegions, RngScheme::kPcg64si)        \
-  CASE(XsMode::kTable, DensityMode::kGrid, RngScheme::kThreefry)          \
-  CASE(XsMode::kTable, DensityMode::kGrid, RngScheme::kPcg64si)
+#define NT_SWEEP_EDGE_MODES(CASE, e)                                      \
+  CASE(XsMode::kAnalytic, DensityMode::kRegions, RngScheme::kThreefry, e) \
+  CASE(XsMode::kAnalytic, DensityMode::kRegions, RngScheme::kPcg64si, e)  \
+  CASE(XsMode::kAnalytic, DensityMode::kGrid, RngScheme::kThreefry, e)    \
+  CASE(XsMode::kAnalytic, DensityMode::kGrid, RngScheme::kPcg64si, e)     \
+  CASE(XsMode::kTable, DensityMode::kRegions, RngScheme::kThreefry, e)    \
+  CASE(XsMode::kTable, DensityMode::kRegions, RngScheme::kPcg64si, e)     \
+  CASE(XsMode::kTable, DensityMode::kGrid, RngScheme::kThreefry, e)       \
+  CASE(XsMode::kTable, DensityMode::kGrid, RngScheme::kPcg64si, e)
 
-#define NT_SWEEP_MODE(x, d, r)                                            \
-  ((static_cast<int>(x) << 2) | (static_cast<int>(d) << 1) |              \
-   static_cast<int>(r))
+#define NT_SWEEP_MODES(CASE)                                              \
+  NT_SWEEP_EDGE_MODES(CASE, EdgeMode::kPitch)                             \
+  NT_SWEEP_EDGE_MODES(CASE, EdgeMode::kArray)
+
+#define NT_SWEEP_MODE(x, d, r, e)                                         \
+  ((static_cast<int>(e) << 3) | (static_cast<int>(x) << 2) |              \
+   (static_cast<int>(d) << 1) | static_cast<int>(r))
+
+// The mode of a launch's parameters, as NT_SWEEP_MODE numbers it.
+template <typename Real>
+int mode_of(const SweepParamsT<Real>* p) {
+  return (p->edge_mode << 3) | (p->xs_mode << 2) | (p->density_mode << 1) |
+         p->rng;
+}
 
 namespace {
 
 // Blocks of the instantiation that a launch with parameters *p runs (its
-// xs_mode, density_mode and rng, in p's working type) that one SM holds at
+// edge_mode, xs_mode, density_mode and rng, in p's working type) that one SM holds at
 // once beside the launch's dynamic shared memory (table_smem_bytes), into
 // *blocks; returns the CUDA error code (0 on success,
 // cudaErrorInvalidValue for an unknown mode).
 template <typename Real>
 int blocks_per_sm(const SweepParamsT<Real>* p, int* blocks) {
   const size_t smem = table_smem_bytes(*p);
-  switch ((p->xs_mode << 2) | (p->density_mode << 1) | p->rng) {
-#define NT_SWEEP_CASE(x, d, r)                                            \
-  case NT_SWEEP_MODE(x, d, r):                                            \
+  switch (mode_of(p)) {
+#define NT_SWEEP_CASE(x, d, r, e)                                         \
+  case NT_SWEEP_MODE(x, d, r, e):                                         \
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
-        blocks, sweep_kernel<x, d, r, Real>, kThreads, smem));
+        blocks, sweep_kernel<x, d, r, Real, e>, kThreads, smem));
     NT_SWEEP_MODES(NT_SWEEP_CASE)
 #undef NT_SWEEP_CASE
     default:
@@ -567,10 +638,10 @@ int launch(const SweepParamsT<Real>* p, void* stream) {
   if (p->blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = table_smem_bytes(*p);
-  switch ((p->xs_mode << 2) | (p->density_mode << 1) | p->rng) {
-#define NT_SWEEP_CASE(x, d, r)                                            \
-  case NT_SWEEP_MODE(x, d, r):                                            \
-    sweep_kernel<x, d, r, Real><<<p->blocks, kThreads, smem, s>>>(*p);    \
+  switch (mode_of(p)) {
+#define NT_SWEEP_CASE(x, d, r, e)                                         \
+  case NT_SWEEP_MODE(x, d, r, e):                                         \
+    sweep_kernel<x, d, r, Real, e><<<p->blocks, kThreads, smem, s>>>(*p); \
     break;
     NT_SWEEP_MODES(NT_SWEEP_CASE)
 #undef NT_SWEEP_CASE

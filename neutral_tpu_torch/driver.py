@@ -36,9 +36,11 @@ the flight and deposit kernels float32 only, and `auto` never gives a
 float64 deck the flight transport (`neutral_tpu`'s `is_f32` rule), so an
 explicit `--transport flight --dtype float64` runs the plain engine.
 Grid decks (`density_file`) run on the sweep transport only.  Decks
-without a uniform pitch, non-uniform meshes and `fast_math 0`, run the
-plain engine's edge-array sweep (`auto` picks `plain` and `sweep` for
-them; `kernel` and `flight` raise), as JAX runs them on its XLA sweep.
+without a uniform pitch, non-uniform meshes and `fast_math 0`, run on the
+sweep transport, as JAX runs them on its XLA edge-array sweep: on a card
+through the sweep kernel's edge-array mode and the begin kernel, in
+float32 and float64 (`auto` picks `kernel` and `sweep` for them), and
+`--transport flight` raises for them (closed-form flight needs a pitch).
 
 Runs go to the card unless the caller asks for the CPU (`device="cpu"`,
 `--device cpu`); without a card a CUDA run raises or exits non-zero, and
@@ -171,9 +173,9 @@ def make_geometry(cfg: SimConfig, dtype: torch.dtype = torch.float32,
 
 
 def pitch_refusal(cfg: SimConfig) -> str | None:
-    """Why the deck's geometry has no uniform pitch, which the CUDA kernels
-    and the flight transport need (neutral_tpu's reasons for its Pallas
-    kernels, neutral_tpu/driver.py:312-327); None when it has one."""
+    """Why the deck's geometry has no uniform pitch, which the flight
+    transport needs (neutral_tpu's reasons for its Pallas kernels,
+    neutral_tpu/driver.py:312-327); None when it has one."""
     if not cfg.uniform_mesh:
         return ("requires a uniform mesh; this deck declares non-uniform "
                 "edges (edgex_file/edgey_file/mesh_stretch_*)")
@@ -186,18 +188,16 @@ def pitch_refusal(cfg: SimConfig) -> str | None:
 def kernel_refusal(dtype: torch.dtype, cfg: SimConfig | None = None,
                    transport: str | None = None) -> str | None:
     """Why no kernel runs this deck in `dtype` on `transport` (None: the
-    kernels run it): a deck without a pitch (pitch_refusal), a tally whose
-    dtype is not the state's, or float64 on the flight transport, whose
-    float64 kernels are a later slice than the sweep's."""
+    kernels run it): a tally whose dtype is not the state's, or float64 on
+    the flight transport, whose float64 kernels are a later slice than the
+    sweep's.  A deck without a pitch is no reason: the sweep kernel takes
+    it in edge-array mode, and the flight transport refuses it itself
+    (pick_transport)."""
     if dtype not in (torch.float32, torch.float64):
         return f"needs float32 or float64, got {dtype}"
-    if cfg is not None:
-        refusal = pitch_refusal(cfg)
-        if refusal is not None:
-            return refusal
-        if getattr(torch, cfg.tally_dtype) != dtype:
-            return (f"needs the tally in the state's dtype, got a "
-                    f"{cfg.tally_dtype} tally for {dtype} particles")
+    if cfg is not None and getattr(torch, cfg.tally_dtype) != dtype:
+        return (f"needs the tally in the state's dtype, got a "
+                f"{cfg.tally_dtype} tally for {dtype} particles")
     if dtype == torch.float64 and transport == "flight":
         return ("on the flight transport needs float32: the flight and "
                 "segment-deposit kernels have no float64 instantiation yet "
@@ -350,7 +350,8 @@ class SimulationBase:
     def coords(self) -> str:
         """Where x/y are measured from: "cell-local" on the sweep transport
         in float32 with a pitch (use_local_coords), "global" otherwise (the
-        flight transport, float64, and decks without a pitch)."""
+        flight transport, float64, and decks without a pitch, on either
+        engine: the sweep kernel's edge-array mode keeps them global)."""
         return ("cell-local" if self.transport == "sweep"
                 and use_local_coords(self.geom, self.dtype) else "global")
 

@@ -1,7 +1,7 @@
 """Measurements of the port on a card, beside chip_smoke.py.
 
     python neutral_tpu_torch/measure.py census [--root DIR] [--reps 5]
-        [--dtype float64]
+        [--dtype float64] [--modes MODE ...]
     python neutral_tpu_torch/measure.py flight [--root DIR] [--reps 5]
     python neutral_tpu_torch/measure.py deposit [--root DIR] [--reps 5]
         [--rows FILE] [--deck DECK]
@@ -31,7 +31,14 @@ the same lanes print the same digest), the share of thread slots that
 one thread per lane in pid order would fill (from each lane's draws, its
 counter's delta), the share the kernel's launches filled and its grid.
 `--dtype float64` runs the census in float64 (the sweep kernel's float64
-instantiations, global coordinates).
+instantiations, global coordinates).  `--modes` picks the modes to run
+(default: those six); besides them it takes the decks without a pitch,
+which run the kernel's edge-array mode: stretched (the scatter deck with
+`mesh_stretch_x 1.0002` and `mesh_stretch_y 0.9998`, cell widths 0.45x
+to 2.2x of the uniform pitch) and fast_math0 (with `fast_math 0`: the
+region-built density grid and the stored resonance table), each at the
+deck's 10,000,000 particles, and stretched_1m and fast_math0_1m at
+1,000,000.
 
 `flight` times the flight kernel's own device time (CUDA events, without
 the segment deposits) over one step-1 census of the split deck at
@@ -88,9 +95,11 @@ build.py, its csrc/) and prints one record per compiled kernel: its name
 as cu++filt demangles it, with the float32 instantiations named as before
 the working type became a template parameter (", float>" and "<float>"
 dropped, "SweepParamsT"/"BeginParamsT" read as "SweepParams"/
-"BeginParams"), ptxas's registers, spill stores and loads and stack frame
-from the build log, and a digest of its SASS (cuobjdump -sass, addresses
-and encodings stripped): two checkouts whose kernels of one name print
+"BeginParams") and the sweep kernel's pitch-mode instantiations as
+before the edge mode became one (", (nt::EdgeMode)0" dropped), ptxas's
+registers, spill stores and loads and stack frame from the build log,
+and a digest of its SASS (cuobjdump -sass, addresses and encodings
+stripped): two checkouts whose kernels of one name print
 the same digest compiled to the same instructions.  `--sass FILE` also
 writes the whole SASS listing there.
 
@@ -122,6 +131,9 @@ def card() -> str:
 
 CENSUS_MODES = ("analytic", "analytic_1m", "pcg64si", "table", "grid",
                 "window")
+# Decks without a pitch: the sweep kernel's edge-array mode.
+NO_PITCH_MODES = ("stretched", "stretched_1m", "fast_math0", "fast_math0_1m")
+STRETCH = "mesh_stretch_x 1.0002\nmesh_stretch_y 0.9998\n"
 BLOCK = (2000, 2000, 2000, 2000)   # (x_off, y_off, nx, ny) of "window"
 
 
@@ -145,6 +157,12 @@ def census_deck(mode: str, tmp: str) -> tuple[str, int, tuple | None]:
             f.write("rng pcg64si\n")
         elif mode == "grid":
             f.write("density_file dens.npy\n")
+        elif mode.startswith("stretched"):
+            f.write(STRETCH)
+        elif mode.startswith("fast_math0"):
+            f.write("fast_math 0\n")
+    if mode in NO_PITCH_MODES:
+        return deck, 1_000_000 if mode.endswith("_1m") else 10_000_000, None
     if mode == "table":
         keys, values = xs.resonance_log_table()
         for name in ("elastic_scatter.cs", "capture.cs"):
@@ -516,8 +534,10 @@ def _demangle(names: list[str]) -> dict:
 
 def _kernel_name(demangled: str) -> str:
     """A kernel's name with its float32 instantiation named as before the
-    working type was a template parameter."""
-    name = demangled.replace(", float>", ">").replace("<float>", "")
+    working type was a template parameter, and a pitch-mode sweep kernel as
+    before the edge mode was one."""
+    name = re.sub(r", \([\w:]*EdgeMode\)0>", ">", demangled)
+    name = name.replace(", float>", ">").replace("<float>", "")
     return re.sub(r"\b(Sweep|Begin)ParamsT\b", r"\1Params", name)
 
 
@@ -579,6 +599,8 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--reps", type=int, default=5)
     c.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
+    c.add_argument("--modes", nargs="+", default=list(CENSUS_MODES),
+                   choices=[*CENSUS_MODES, *NO_PITCH_MODES])
     g = sub.add_parser("flight", help="time split's flight kernel per mode")
     g.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
@@ -639,7 +661,7 @@ def main(argv: list[str] | None = None) -> int:
         if args.what == "census":
             with tempfile.TemporaryDirectory() as tmp:
                 rec = [census(args.reps, m, tmp, args.dtype)
-                       for m in CENSUS_MODES]
+                       for m in args.modes]
         elif args.what == "flight":
             with tempfile.TemporaryDirectory() as tmp:
                 rec = flight(args.reps, tmp)

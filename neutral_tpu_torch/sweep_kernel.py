@@ -14,9 +14,12 @@ so the number of launches and the order of the lanes change nothing in
 the result.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
-tables, region rectangles or a density grid, threefry or pcg64si draws;
-each combination is its own instantiation (csrc/sweep.cu), in float32
-(cell-local positions) and in float64 (global positions, the working type
+tables, region rectangles or a density grid, threefry or pcg64si draws,
+and facet edges from the uniform pitch or, for a geometry without one (a
+non-uniform mesh, a fast_math 0 deck), from the mesh's edge arrays
+(`edge_mode`, `check_edges`, `edge_fields`); each combination is its own
+instantiation (csrc/sweep.cu), in float32 (cell-local positions on a
+pitch, global without) and in float64 (global positions, the working type
 of neutral_tpu's XLA float64 engine): `_SweepParams` and `_SweepParams64`
 are the two parameter layouts.  The spatial
 window of a decomposed run (`x_off`/`y_off`, transport.py's) is a runtime
@@ -59,8 +62,8 @@ from .xs import CrossSection
 MAX_EVENTS = 4096          # events per lane per launch
 THREADS = 128              # threads per block (csrc/sweep.cu kThreads)
 
-# RngScheme codes of csrc/common.cuh (its XsMode and DensityMode codes are
-# 0 for analytic/regions and 1 for table/grid).
+# RngScheme codes of csrc/common.cuh (its XsMode, DensityMode and EdgeMode
+# codes are 0 for analytic/regions/pitch and 1 for table/grid/array).
 RNG_SCHEMES = {"threefry": 0, "pcg64si": 1}
 
 # The table-mode pointer fields of both kernels' parameters, in order: each
@@ -91,7 +94,9 @@ def _sweep_fields(real) -> list:
             "nregions", "xs_mode",
             "density_mode", "rng", "x_off", "y_off", "global_nx",
             "global_ny")]
-        + [(f, real) for f in ("dx", "dy", "inv_ntotal")])
+        + [(f, real) for f in ("dx", "dy", "inv_ntotal")]
+        + [(f, ctypes.c_void_p) for f in ("edgex", "edgey")]
+        + [("edge_mode", ctypes.c_int)])
 
 
 class _SweepParams(ctypes.Structure):
@@ -227,17 +232,52 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple,
                          f"on {t.device}")
 
 
+def edge_mode(geom: Geometry) -> int:
+    """The EdgeMode of csrc/common.cuh that a geometry takes: 0 (pitch)
+    with a uniform pitch, 1 (array) without one (dx = 0: a non-uniform
+    mesh or a fast_math 0 deck), whose facets read the edge arrays by
+    global cell, as transport._facet_edges gathers them."""
+    return int(not geom.dx)
+
+
+def check_edges(geom: Geometry, real: torch.dtype, dev: torch.device,
+                what: str) -> None:
+    """Raise unless a geometry without a pitch carries the whole mesh's
+    edge arrays as the kernels read them: geom.edgex of global_nx + 1 and
+    geom.edgey of global_ny + 1 entries, contiguous, in the working type
+    `real` on `dev` (nothing to check with a pitch)."""
+    if not edge_mode(geom):
+        return
+    for name, t, n in (("geom.edgex", geom.edgex, geom.global_nx + 1),
+                       ("geom.edgey", geom.edgey, geom.global_ny + 1)):
+        if t is None:
+            raise ValueError(f"{what}: a geometry without a pitch (dx = 0) "
+                             f"needs {name}, the mesh's edge array")
+        _check_tensor(name, t, (n,), real, dev)
+
+
+def edge_fields(p: ctypes.Structure, geom: Geometry) -> None:
+    """Set the sweep kernel's edge mode and, in edge-array mode, the
+    device pointers of the edge arrays (after check_edges)."""
+    p.edge_mode = edge_mode(geom)
+    if p.edge_mode:
+        p.edgex, p.edgey = geom.edgex.data_ptr(), geom.edgey.data_ptr()
+
+
 def check_inputs(state: ParticleState, tally: torch.Tensor | None,
                  geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection,
-                 what: str, reals: tuple = (torch.float32,)) -> None:
+                 what: str, reals: tuple = (torch.float32,),
+                 pitch: bool = True) -> None:
     """Raise unless the kernel `what` implements this configuration: CUDA
     tensors of the kernel's dtypes in one working type of `reals` (the
     state's floats, the tally, the tables and a density grid alike: a
-    float64 state with a float32 tally raises), a uniform pitch, threefry
-    or pcg64si draws, both cross-sections analytic or both stored tables,
-    and region rectangles or a density grid.  A kernel without a tally
-    passes None."""
+    float64 state with a float32 tally raises), a uniform pitch where
+    `pitch` (the flight kernel; the sweep kernel checks a geometry without
+    one with check_edges, and the begin kernel reads no facet edge),
+    threefry or pcg64si draws, both cross-sections analytic or both stored
+    tables, and region rectangles or a density grid.  A kernel without a
+    tally passes None."""
     real = state.dtype
     if real not in reals:
         raise ValueError(f"{what} takes a state of "
@@ -254,7 +294,7 @@ def check_inputs(state: ParticleState, tally: torch.Tensor | None,
     if mixed:
         raise ValueError(f"{what}: a {real} state beside {mixed}: the "
                          "kernels take one working type")
-    if not geom.dx:
+    if pitch and not geom.dx:
         raise ValueError(f"{what} needs a uniform-pitch mesh (geom.dx)")
     if geom.rng_scheme not in RNG_SCHEMES:
         raise ValueError(f"{what}: unknown rng scheme {geom.rng_scheme!r}")
@@ -354,7 +394,8 @@ def sweep_params(state: ParticleState, tally: torch.Tensor,
     (None: none).  sweep_round sets the fields of each launch (lists,
     grid, events, counters)."""
     check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel",
-                 REALS)
+                 REALS, pitch=False)
+    check_edges(geom, state.dtype, state.device, "sweep kernel")
     if state.n >= 2**31:
         raise ValueError(f"sweep kernel: lane lists are int32, so at most "
                          f"2**31 - 1 lanes, got {state.n}")
@@ -371,6 +412,7 @@ def sweep_params(state: ParticleState, tally: torch.Tensor,
     # ctypes rounds each Python float to float32 as np.float32 does, or
     # keeps it whole in float64, as xs.const does.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
+    edge_fields(p, geom)
     if regions is None:
         p.density_mode = 1
         p.density = geom.density.data_ptr()

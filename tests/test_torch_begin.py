@@ -312,10 +312,12 @@ def test_jax_begin_rounds_its_lookup_as_jit_does(xs):
 
 @pytest.mark.parametrize("what", ["cpu", "float64", "no_pitch"])
 def test_begin_kernel_refuses(what):
-    """The wrapper raises ValueError on CPU tensors, on a float64 state
+    """The wrapper raises ValueError on CPU tensors and on a float64 state
     beside a float32 density grid (the kernel has float64 instantiations,
-    but takes one working type) and on a geometry without a pitch, and
-    never runs the plain version."""
+    but takes one working type), and never runs the plain version.  A
+    geometry without a pitch (dx = dy = 0, no edge arrays: the kernel reads
+    no facet edge) passes every check of its configuration and is refused
+    only at the device check, as a CPU state with a pitch is."""
     dtype = "float64" if what == "float64" else "float32"
     state, geom, tab, win = port_args(
         "mixed", "threefry", "grid" if what == "float64" else "regions",
@@ -325,7 +327,7 @@ def test_begin_kernel_refuses(what):
     if what == "float64":
         geom = dataclasses.replace(geom, density=geom.density.float())
     message = {"cpu": "needs CUDA tensors", "float64": "one working type",
-               "no_pitch": "uniform-pitch"}[what]
+               "no_pitch": "needs CUDA tensors"}[what]
     launches = begin_kernel.begin_timestep_kernel.launches
     with pytest.raises(ValueError, match=message):
         begin_kernel.begin_timestep_kernel(state, geom, tab, DT, KEY, **win)

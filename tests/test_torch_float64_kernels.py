@@ -8,7 +8,8 @@ programs that XLA compiles (transport.py sweep_chunk and begin_timestep),
 in global coordinates, and its `auto` never gives a float64 deck the
 flight engine (the is_f32 term at neutral_tpu/driver.py:303).  The port
 now does the same on the card: `auto` takes the sweep transport and the
-kernel engine for float64 decks with a pitch and a float64 tally; an
+kernel engine for float64 decks with a float64 tally (with a pitch or,
+through the edge-array mode, without one); an
 explicit `--transport flight --dtype float64` keeps the plain engine, and
 `--engine kernel` refuses it before any state is made.
 
@@ -309,7 +310,10 @@ def c_layout(fields: list) -> tuple[dict, int]:
 def test_float64_param_layouts(cls32, cls64):
     """The float64 layouts repeat the float32 ones but for their floats,
     which are doubles on 8-byte boundaries; every offset and the size
-    follow the C layout rules (the library checks the size at load)."""
+    follow the C layout rules (the library checks the size at load), and
+    every field before the floats sits at its float32 offset (the sweep
+    kernel's edge-array fields come after them: appended, so that no field
+    of the pitch-mode kernels moved)."""
     names32 = [f for f, _ in cls32._fields_]
     assert names32 == [f for f, _ in cls64._fields_]
     offsets, size = c_layout(cls64._fields_)
@@ -319,10 +323,13 @@ def test_float64_param_layouts(cls32, cls64):
     reals = [f for f, ty in cls64._fields_ if ty is ctypes.c_double]
     assert reals == ([f for f, ty in cls32._fields_ if ty is ctypes.c_float])
     assert reals and all(getattr(cls64, f).size == 8 for f in reals)
-    for name in names32:
-        if name not in reals:
-            assert getattr(cls64, name).offset == getattr(cls32,
-                                                          name).offset, name
+    lead = names32[:names32.index(reals[0])]
+    assert names32[len(lead):len(lead) + len(reals)] == reals
+    assert set(names32[len(lead) + len(reals):]) <= {"edgex", "edgey",
+                                                     "edge_mode"}
+    for name in lead:
+        assert getattr(cls64, name).offset == getattr(cls32,
+                                                      name).offset, name
     assert sweep_kernel.REALS == (torch.float32, F64)
 
 

@@ -3,16 +3,25 @@
 
 Their geometry has dx = dy = 0: facet distances gather the edge arrays by
 global cell (`transport._facet_edges`), and a fast_math 0 deck gathers its
-density from the region-built grid.  They run the plain engine's sweep
-transport, as JAX runs them on its XLA sweep; the CUDA kernels and the
-flight transport refuse them before any state is built.  On the CPU, in
-float64, the per-step counts must equal JAX's XLA `Simulation` and
-`neutral_tpu.oracle` exactly and the tally agree to rtol 1e-9 (the port
-of tests/test_nonuniform.py:117-168); float32 lies within 1e-3 of JAX's
-float64; four CPU shards give the single-device run's counts.  JAX is
-imported only inside the tests that compare with it.
+density from the region-built grid.  They run on the sweep transport, as
+JAX runs them on its XLA edge-array sweep: on a card through the sweep
+kernel's edge-array mode and the begin kernel (`auto` picks the kernel
+engine), on the CPU through the plain engine; the flight transport
+refuses them before any state is built.  On the CPU, in float64, the
+per-step counts must equal JAX's XLA `Simulation` and `neutral_tpu.oracle`
+exactly and the tally agree to rtol 1e-9 (the port of
+tests/test_nonuniform.py:117-168); float32 lies within 1e-3 of JAX's
+float64; four CPU shards give the single-device run's counts.  One event
+of the plain `sweep_core`, from one state made with numpy, is held to
+`neutral_tpu`'s XLA `sweep_core` (float64 to 1e-12); the kernel is held to
+that plain version bitwise by the `cuda` cases, which skip without a card:
+
+    python -m pytest tests/test_torch_nonuniform.py -q -m cuda --noconftest
+
+JAX is imported only inside the tests that compare with it.
 """
 
+import dataclasses
 import functools
 import re
 
@@ -21,7 +30,9 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import driver
+from neutral_tpu_torch import (begin_kernel, driver, sweep_kernel,
+                               transport)
+from neutral_tpu_torch.particles import STATE_FIELDS
 from neutral_tpu_torch.parallel import Spatial2DSimulation, SpatialSimulation
 
 CPU4 = ["cpu"] * 4
@@ -159,33 +170,53 @@ def test_float32_within_1e3_of_jax_float64(deck):
     assert abs(tally.sum() - ref) <= 1e-3 * abs(ref)
 
 
-@pytest.mark.parametrize("deck", ["stretched_fast_math0"])
+@pytest.mark.parametrize("deck", list(DECKS))
 @pytest.mark.parametrize("cls", [SpatialSimulation, Spatial2DSimulation])
 def test_four_cpu_shards_match_one_device(cls, deck):
     """y-slabs and 2x2 blocks on four CPU shards: edges indexed by global
-    cell, each shard's density block gathered; per-step counts equal to
-    the single-device run's, the tally to 1e-12."""
+    cell (every shard carries the whole mesh's edge arrays), each shard's
+    density block gathered (fast_math 0) or the global regions tested
+    (fast_math); per-step counts equal to the single-device run's, the
+    tally to 1e-12; lanes migrate on the two light decks (the stretched
+    deck's lanes, dense and slow, end in the shard they were born in)."""
+    cfg = DECKS[deck](tt)
     stats, tally, _ = run_port(deck)
-    sim = cls(DECKS[deck](tt), devices=CPU4, quiet=True)
+    sim = cls(cfg, devices=CPU4, quiet=True)
     assert sim.engine == "plain" and sim.transport == "sweep"
-    assert sim.shards[-1].geom.density.shape == (sim.rows * sim.cols,)
+    geom = sim.shards[-1].geom
+    assert geom.edgex.shape == (cfg.nx + 1,)
+    assert geom.edgey.shape == (cfg.ny + 1,)
+    if cfg.fast_math:
+        assert geom.density is None and geom.regions
+    else:
+        assert geom.density.shape == (sim.rows * sim.cols,)
     assert stats_of(sim) == stats
-    assert sum(m.nmigrated for m in sim.step_metrics) > 0
+    if deck != "stretched":
+        assert sum(m.nmigrated for m in sim.step_metrics) > 0
     np.testing.assert_allclose(sim.host_tally(), tally, rtol=1e-12,
                                atol=1e-300)
 
 
 def test_auto_routes_to_plain_sweep():
-    """`auto` on a CUDA device in float32 gives the plain engine and the
-    sweep transport for decks without a pitch (no card needed to decide)."""
-    for deck in DECKS:
-        cfg = DECKS[deck](tt, dtype="float32", tally_dtype="float32")
-        assert driver.pick_engine("auto", torch.device("cuda"),
-                                  torch.float32, cfg) == "plain"
-        assert driver.pick_transport(cfg, "auto") == "sweep"
-    uniform = light_cfg(tt, dtype="float32", tally_dtype="float32")
-    assert driver.pick_engine("auto", torch.device("cuda"), torch.float32,
-                              uniform) == "kernel"
+    """`auto` on a CUDA device gives the kernel engine and the sweep
+    transport for decks without a pitch, in float32 and float64 (the sweep
+    kernel's edge-array mode and the begin kernel; no card needed to
+    decide), as for a uniform deck; on the CPU the plain engine."""
+    cuda = torch.device("cuda")
+    for dtype in ("float32", "float64"):
+        for deck in DECKS:
+            cfg = DECKS[deck](tt, dtype=dtype, tally_dtype=dtype)
+            assert driver.pick_transport(cfg, "auto") == "sweep"
+            for transport_name in (None, "sweep"):
+                assert driver.pick_engine(
+                    "auto", cuda, getattr(torch, dtype), cfg,
+                    transport_name) == "kernel"
+            assert driver.pick_engine("auto", torch.device("cpu"),
+                                      getattr(torch, dtype), cfg,
+                                      "sweep") == "plain"
+        uniform = light_cfg(tt, dtype=dtype, tally_dtype=dtype)
+        assert driver.pick_engine("auto", cuda, getattr(torch, dtype),
+                                  uniform) == "kernel"
 
 
 @pytest.mark.parametrize("deck,match", [
@@ -193,24 +224,301 @@ def test_auto_routes_to_plain_sweep():
     ("stretched_fast_math0", "uniform mesh")])
 @pytest.mark.parametrize("how", ["engine", "transport"])
 def test_kernel_and_flight_raise_before_state(deck, match, how, monkeypatch,
-                                              tmp_path):
-    """--engine kernel (on the card, in float32) and --transport flight
-    raise with neutral_tpu's reason in Simulation.__init__ and in the CLI,
-    before the geometry or any particle is made."""
+                                              tmp_path, capsys):
+    """--transport flight raises with neutral_tpu's reason (`match`) in
+    Simulation.__init__ and in the CLI, before the geometry or any particle
+    is made.  --engine kernel (in float32) passes the deck's checks and is
+    refused only for want of a card: on a host without one (as this test
+    makes every host look) Simulation raises at its device check and the
+    CLI exits 2, again before any state."""
     def no_state(*a, **k):
         raise AssertionError("state was built")
     monkeypatch.setattr(driver, "make_geometry", no_state)
     monkeypatch.setattr(driver, "inject_particles", no_state)
     cfg = DECKS[deck](tt, dtype="float32", tally_dtype="float32")
-    kw = ({"device": "cuda", "engine": "kernel"} if how == "engine"
-          else {"device": "cpu", "transport": "flight"})
-    with pytest.raises(ValueError, match=match):
-        driver.Simulation(cfg, quiet=True, **kw)
     deck = write_deck(cfg.with_(nparticles=10), tmp_path / "deck.params")
-    argv = ([deck, "--engine", "kernel"] if how == "engine"
-            else [deck, "--transport", "flight", "--device", "cpu"])
-    with pytest.raises(ValueError, match=match):
-        driver.main(argv)
+    if how == "transport":
+        with pytest.raises(ValueError, match=match):
+            driver.Simulation(cfg, device="cpu", transport="flight",
+                              quiet=True)
+        with pytest.raises(ValueError, match=match):
+            driver.main([deck, "--transport", "flight", "--device", "cpu"])
+        return
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert driver.pick_engine("kernel", torch.device("cuda"), torch.float32,
+                              cfg, "sweep") == "kernel"
+    with pytest.raises(RuntimeError, match="is_available"):
+        driver.Simulation(cfg, device="cuda", engine="kernel", quiet=True)
+    assert driver.main([deck, "--engine", "kernel"]) == 2
+    assert "is_available() is False" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# the sweep kernel's edge-array mode: its packing on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("deck", [*DECKS, "uniform"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sweep_kernel_packs_the_edge_array_mode(deck, dtype):
+    """sweep_kernel.edge_mode selects the edge-array mode (1) exactly for
+    the decks without a pitch and the pitch mode (0) for a uniform one;
+    check_edges accepts the geometry's own edge arrays (global_nx + 1 and
+    global_ny + 1 entries in the working type, also under a window) and
+    refuses missing, short, mistyped or misplaced ones by name;
+    edge_fields packs the mode and the arrays' pointers into both
+    parameter layouts."""
+    real = getattr(torch, dtype)
+    cfg = (light_cfg(tt) if deck == "uniform" else DECKS[deck](tt)).with_(
+        dtype=dtype, tally_dtype=dtype)
+    geom = driver.make_geometry(cfg, real, "cpu")
+    cpu = torch.device("cpu")
+    want = int(deck != "uniform")
+    assert sweep_kernel.edge_mode(geom) == want
+    assert geom.edgex.shape == (cfg.nx + 1,) and geom.edgey.dtype == real
+    sweep_kernel.check_edges(geom, real, cpu, "sweep kernel")
+    window = dataclasses.replace(geom, nx=cfg.nx // 2, ny=cfg.ny // 2)
+    sweep_kernel.check_edges(window, real, cpu, "sweep kernel")
+    layout = sweep_kernel._LAYOUTS[real][0]
+    p = layout()
+    sweep_kernel.edge_fields(p, geom)
+    assert p.edge_mode == want
+    assert (p.edgex, p.edgey) == ((geom.edgex.data_ptr(),
+                                   geom.edgey.data_ptr()) if want
+                                  else (None, None))
+    if not want:
+        return
+    other = torch.float64 if real == torch.float32 else torch.float32
+    bad = {"geom.edgex": dataclasses.replace(geom, edgex=None),
+           "geom.edgey": dataclasses.replace(geom, edgey=geom.edgey[:-1]),
+           "geom.edgex ": dataclasses.replace(
+               geom, edgex=geom.edgex.to(other))}
+    for name, g in bad.items():
+        with pytest.raises(ValueError, match=name.strip()):
+            sweep_kernel.check_edges(g, real, cpu, "sweep kernel")
+    with pytest.raises(ValueError, match="geom.edgex: expected"):
+        sweep_kernel.check_edges(geom, real, torch.device("meta"),
+                                 "sweep kernel")
+
+
+@pytest.mark.parametrize("deck", list(DECKS))
+def test_kernels_take_the_deck_up_to_the_device_check(deck):
+    """The sweep and begin kernels' wrappers take a deck without a pitch
+    through every check of its configuration and refuse its CPU state only
+    for the device (the flight kernel's wrapper still asks for a pitch);
+    neither runs a plain version."""
+    sim = driver.Simulation(DECKS[deck](tt), device="cpu", quiet=True)
+    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0)
+    calls = (transport.begin_timestep.calls, sweep_kernel.sweep_chunk_plain
+             .calls)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        sweep_kernel.sweep_chunk_kernel(sim.state, sim.tally, *args)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        begin_kernel.begin_timestep_kernel(sim.state, sim.geom,
+                                           sim.cs_scatter, 1e-7, 1)
+    with pytest.raises(ValueError, match="uniform-pitch"):
+        sweep_kernel.check_inputs(sim.state, sim.tally, sim.geom,
+                                  sim.cs_scatter, sim.cs_absorb,
+                                  "flight kernel", sweep_kernel.REALS)
+    assert calls == (transport.begin_timestep.calls,
+                     sweep_kernel.sweep_chunk_plain.calls)
+
+
+# ---------------------------------------------------------------------------
+# one event of the plain sweep against neutral_tpu's XLA sweep
+# ---------------------------------------------------------------------------
+
+EVENT_N = 2048
+EVENT_KEY = 3
+
+
+def event_state(edgex: np.ndarray, edgey: np.ndarray) -> dict:
+    """EVENT_N lanes from a numpy seed, in float64 (pid and counter as
+    uint32 values, which both packages hold): cells over the whole mesh,
+    each position inside its cell (some on its edges), log-uniform
+    energies, a quarter of the lanes dead, clocks, mean free paths and
+    deposits that give facets, collisions and censuses."""
+    rs = np.random.default_rng(14)
+    nx, ny = edgex.shape[0] - 1, edgey.shape[0] - 1
+    cx = rs.integers(0, nx, EVENT_N).astype(np.int32)
+    cy = rs.integers(0, ny, EVENT_N).astype(np.int32)
+    fx = np.where(rs.random(EVENT_N) < 0.05, 0.0, rs.random(EVENT_N))
+    fy = np.where(rs.random(EVENT_N) < 0.05, 1.0, rs.random(EVENT_N))
+    angle = rs.uniform(0.0, 2.0 * np.pi, EVENT_N)
+    return {
+        "x": edgex[cx] + fx * (edgex[cx + 1] - edgex[cx]),
+        "y": edgey[cy] + fy * (edgey[cy + 1] - edgey[cy]),
+        "omega_x": np.cos(angle), "omega_y": np.sin(angle),
+        "energy": 10.0 ** rs.uniform(-1.0, 6.0, EVENT_N),
+        "weight": rs.random(EVENT_N),
+        "dt_to_census": rs.uniform(0.0, 1e-7, EVENT_N),
+        "mfp_to_collision": rs.exponential(1.0, EVENT_N),
+        "deposit": rs.random(EVENT_N),
+        "cellx": cx, "celly": cy,
+        "dead": rs.random(EVENT_N) < 0.25,
+        "pid": rs.choice(2 ** 32, EVENT_N, replace=False).astype(np.int64),
+        "counter": rs.integers(1, 1000, EVENT_N).astype(np.int64),
+    }
+
+
+@functools.cache
+def jax_event(deck):
+    """(the numpy state, neutral_tpu's XLA sweep_core of it in float64 as
+    numpy arrays: the 14 fields, flush, flat_cell, contrib, is_facet,
+    is_coll)."""
+    import jax.numpy as jnp
+    import neutral_tpu as nt
+    import neutral_tpu.driver as jdriver
+    from neutral_tpu import transport as jtransport
+    from neutral_tpu.particles import ParticleState as JState
+
+    cfg = DECKS[deck](nt, engine="xla")
+    jsim = jdriver.Simulation(cfg, quiet=True)
+    assert jsim.geom.dx == 0.0
+    fields = event_state(np.asarray(jsim.mesh.edgex),
+                         np.asarray(jsim.mesh.edgey))
+    jstate = JState(**{
+        f: jnp.asarray(v.astype(np.uint32) if f in ("pid", "counter")
+                       else v) for f, v in fields.items()})
+    out = jtransport.sweep_core(jstate, jsim.mesh, jsim.geom,
+                                jsim.cs_scatter, jsim.cs_absorb,
+                                jnp.uint32(EVENT_KEY), 1.0 / EVENT_N,
+                                jnp.float64)
+    state, rest = out[0], out[1:]
+    got = {f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}
+    names = ("flush", "flat_cell", "contrib", "is_facet", "is_coll")
+    return fields, got | {k: np.asarray(v) for k, v in zip(names, rest)}
+
+
+def port_event(deck, dtype):
+    """The port's plain transport.sweep_core of jax_event's state in
+    `dtype`, as numpy arrays under the same names."""
+    fields, _ = jax_event(deck)
+    cfg = DECKS[deck](tt, dtype=dtype, tally_dtype=dtype)
+    sim = driver.Simulation(cfg, device="cpu", quiet=True)
+    state = tt.state_from_numpy(
+        {f: v.astype(dtype) if v.dtype == np.float64 else v
+         for f, v in fields.items()}, device="cpu")
+    out = transport.sweep_core(state, sim.geom, sim.cs_scatter,
+                               sim.cs_absorb, EVENT_KEY, 1.0 / EVENT_N,
+                               getattr(torch, dtype))
+    got = {f: getattr(out[0], f).numpy() for f in STATE_FIELDS}
+    names = ("flush", "flat_cell", "contrib", "is_facet", "is_coll")
+    return got | {k: v.numpy() for k, v in zip(names, out[1:])}
+
+
+@pytest.mark.parametrize("deck", list(DECKS))
+def test_one_event_matches_jax_float64(deck):
+    """float64: the event kinds, cells, dead flags, counters and flat cells
+    exactly JAX's; every float field and the tally contributions to rtol
+    1e-12 (JAX's lookups round inside XLA, ROADMAP's known differences).
+    The state has facets, collisions and censuses."""
+    _, want = jax_event(deck)
+    got = port_event(deck, "float64")
+    for k in ("is_facet", "is_coll", "flush", "flat_cell", "cellx", "celly",
+              "dead", "counter"):
+        np.testing.assert_array_equal(got[k], want[k].astype(got[k].dtype),
+                                      k)
+    assert want["is_facet"].sum() > 100 and want["is_coll"].sum() > 100
+    assert (want["flush"] & ~want["is_facet"] & ~want["dead"]).sum() > 0
+    for k in ("x", "y", "omega_x", "omega_y", "energy", "weight",
+              "dt_to_census", "mfp_to_collision", "deposit", "contrib"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=0,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("deck", list(DECKS))
+def test_one_event_tracks_jax_float64_in_float32(deck):
+    """float32 against JAX's float64 on the same state: the event kind of
+    all but at most 0.5% of the lanes (those whose two nearest distances
+    lie within float32's rounding of each other; XLA also rewrites a
+    division by a constant as a product, ROADMAP's known differences), and
+    on the lanes whose kind agrees: the cells and counters exactly;
+    positions to 1e-5 of the mesh's width; energies, weights and deposits
+    to rtol 1e-5; the clock to 1e-4 of dt and the mean free path to 1e-3
+    (each a difference that cancels digits); directions to 5e-4 (a forward
+    scatter's sine, sqrt(1 - cos^2) with cos near 1, turns one float32 ulp
+    of the cosine into ~1e-7 / sin)."""
+    _, want = jax_event(deck)
+    got = port_event(deck, "float32")
+    same = ((got["is_facet"] == want["is_facet"])
+            & (got["is_coll"] == want["is_coll"]))
+    assert same.mean() >= 0.995, same.mean()
+    for k in ("cellx", "celly", "counter", "dead"):
+        np.testing.assert_array_equal(
+            got[k][same], want[k][same].astype(got[k].dtype), k)
+    cfg = DECKS[deck](tt)
+    for k, atol in (("x", 1e-5 * cfg.width), ("y", 1e-5 * cfg.height),
+                    ("omega_x", 5e-4), ("omega_y", 5e-4),
+                    ("dt_to_census", 1e-4 * cfg.dt),
+                    ("mfp_to_collision", 1e-3)):
+        np.testing.assert_allclose(got[k][same], want[k][same], rtol=0,
+                                   atol=atol, err_msg=k)
+    for k in ("energy", "weight", "deposit"):
+        np.testing.assert_allclose(got[k][same], want[k][same], rtol=1e-5,
+                                   err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# cuda: the edge-array mode against its plain versions, bitwise
+# ---------------------------------------------------------------------------
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bit patterns; others as they are."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["threefry", "pcg64si"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("deck", list(DECKS))
+def test_edge_array_kernels_match_plain_on_card(deck, dtype, rng):
+    """On the card: the begin kernel against transport.begin_timestep (14
+    fields bitwise, the live count) and the sweep kernel's edge-array mode
+    against sweep_chunk_plain from that state (counts equal, 14 fields
+    bitwise, again at 1 event per launch; the tally to 1e-12 in float64,
+    1e-5 in float32: atomics add in another order); then the deck through
+    Simulation under auto takes both kernels and no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = DECKS[deck](tt, dtype=dtype, tally_dtype=dtype, rng=rng,
+                      nparticles=4096)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+    assert sweep_kernel.edge_mode(sim.geom) == 1
+    got, live = begin_kernel.begin_timestep_kernel(
+        sim.state, sim.geom, sim.cs_scatter, cfg.dt, 1)
+    start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
+                                     cfg.dt, 1)
+    for f in STATE_FIELDS:
+        assert torch.equal(bits(getattr(got, f)), bits(getattr(start, f))), f
+    assert int(live) == int((~start.dead).sum())
+    args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
+    pt = torch.zeros_like(sim.tally)
+    ps, pnf, pnc, _ = sweep_kernel.sweep_chunk_plain(start.clone(), pt, *args)
+    assert pnf > 0 and pnc > 0
+    for events in (sweep_kernel.MAX_EVENTS, 1):
+        kt = torch.zeros_like(pt)
+        ks, knf, knc, _ = sweep_kernel.sweep_chunk_kernel(
+            start.clone(), kt, *args, max_events=events)
+        assert (knf, knc) == (pnf, pnc), events
+        for f in STATE_FIELDS:
+            assert torch.equal(bits(getattr(ks, f)), bits(getattr(ps, f))), f
+        tol = 1e-12 if dtype == "float64" else 1e-5
+        torch.testing.assert_close(kt.double(), pt.double(), rtol=tol,
+                                   atol=tol * float(pt.abs().max()))
+    launches = (sweep_kernel.sweep_chunk_kernel.launches,
+                begin_kernel.begin_timestep_kernel.launches)
+    plain = (sweep_kernel.sweep_chunk_plain.calls,
+             transport.begin_timestep.calls)
+    run = driver.Simulation(cfg, device="cuda", quiet=True)
+    assert (run.engine, run.transport) == ("kernel", "sweep")
+    assert stats_of(run) and np.isfinite(run.host_tally()).all()
+    assert sweep_kernel.sweep_chunk_kernel.launches > launches[0]
+    assert (begin_kernel.begin_timestep_kernel.launches
+            == launches[1] + cfg.niters)
+    assert plain == (sweep_kernel.sweep_chunk_plain.calls,
+                     transport.begin_timestep.calls)
 
 
 @pytest.mark.parametrize("deck", ["fast_math0", "stretched_fast_math0"])
