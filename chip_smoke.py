@@ -241,17 +241,40 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and step time printed), the table scatter (`PASSED`), scatter on 4
    y-slabs (per-step counts equal to the single device's); each with
    sweep and begin kernel launches and no plain sweep or begin.  One
-   float64 step of stream, split and csp at F64_CUT_N particles on the
-   plain flight engine beside the sweep kernel (why auto takes the sweep
-   kernel), and phase 22's families on the float64 kernel against the
-   oracle, each with its counts set to 0 just before its steps and read
-   after: sweep kernel launches, one begin launch a step, no plain
-   version (reported apart from the main paths' launches, as
-   oracle_family_launches).  Prints its seconds.
+   full-size float64 step of stream, split and csp on the float64 flight
+   kernels (`--transport flight`) beside the float64 sweep kernel (auto's
+   choice, JAX's is_f32 rule), timed, and phase 22's families on the
+   float64 kernels of both transports against the oracle, each with its
+   counts set to 0 just before its steps and read after: its transport's
+   kernels, one begin launch a step, no plain version (reported apart
+   from the main paths' launches, as oracle_family_launches).  Prints its
+   seconds.
+28. float64 on the flight transport's kernels (the float64
+   instantiations of the flight and segment-deposit kernels, global
+   coordinates; float64 rows into a float64 tally at the float64 T):
+   ptxas's registers and spills of the float64 instantiations of both
+   kernels (and of the float32 flight ones); the flight kernel against
+   flight_chunk_plain in float64 on step 1's census at the full
+   F64_MAIN_N = 1,000,000 of stream, split and csp (analytic, threefry),
+   again at 1 piece a launch and under phase 5's forced-small segment
+   buffer, and at F64_MODE_N = 2^18 in pcg64si, table and table pcg64si
+   (split copies) and in the window (split and stream in the 2x2 block):
+   counts and all 14 fields bitwise, segment rows bitwise as sorted
+   multisets, tally sums to 1e-12 (the small buffer's tally per cell to
+   1e-12 of the largest cell); the deposit against its plain version on
+   the rows of the analytic and window comparisons, per cell to 1e-12 of
+   the largest cell, with its stage times, T, C and the tile kernel's
+   blocks an SM; then `driver.main --transport flight --dtype float64` on
+   stream and split (`PASSED validation.`), csp (within 1e-3 of omp3's
+   tally) and stream on 2x2 blocks (the single device's per-step counts),
+   each launching the float64 flight, deposit and begin kernels and no
+   plain version or sweep kernel.  Prints its seconds.  (Phase 28 runs
+   after phase 26; Result stays the last.)
 27. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran; the float64 instantiations as sweep_kernel_f64,
-   table_lookup_f64 and begin_kernel_f64 beside the float32 entries, the
-   sweep kernel's edge-array mode as sweep_kernel_edge_array and
+   table_lookup_f64, begin_kernel_f64, flight_kernel_f64 and
+   segment_deposit_kernel_f64 beside the float32 entries, the sweep
+   kernel's edge-array mode as sweep_kernel_edge_array and
    sweep_kernel_edge_array_f64, the begin kernel's no-pitch comparisons in
    its entries' no_pitch_modes), then the JSON result line.
 
@@ -270,8 +293,11 @@ float work is counted in FP64 instructions (F64_EVENT_OPS and
 F64_COLLISION_OPS, each IEEE division, square root and logarithm weighed
 by its SASS sequence, F64_SEQUENCES) over the card's FP64 issue rate
 (132 SMs x 64 lanes x 1.98 GHz, the data sheet's 34 TFLOP/s with an FMA
-counted once).  A deck without a pitch adds its two edge arrays, read
-once.  The
+counted once).  The float64 flight kernel's bound (phase 28) counts the
+same way, with 40 bytes a segment row; the float64 deposit's reads 40
+bytes a row, writes 8 a tally cell and does FLOPS_VISIT FP64 instructions a
+cell visited and a row's two reciprocals.  A deck without a
+pitch adds its two edge arrays, read once.  The
 flight kernel's `ms` is its own device time (CUDA events), without the
 segment deposits, whose time stands beside it; its entry also holds csp's
 own time and bound over all 10 steps of its main path and the launches of
@@ -378,7 +404,6 @@ BEGIN_REPS = 20                  # timed calls of the begin kernel
 # Phase 26: float64 on the card's kernels.
 F64_MAIN_N = 1_000_000           # the analytic, threefry comparison
 F64_MODE_N = 1 << 18             # the other modes' comparisons
-F64_CUT_N = 16_384               # the plain flight engine's cut decks
 # float64 work of an event and of a collision, in FP64 instructions (an
 # FMA one), from the plain version's operations (transport.sweep_core,
 # collision_physics) with each IEEE reciprocal, division, square root and
@@ -444,7 +469,7 @@ def work_bound(r: dict) -> dict:
     rows = r.get("rows", 0)
     f64 = r.get("f64", False)
     nbytes = (r["n"] * (LANE_BYTES_F64 if f64 else LANE_BYTES)
-              + r["ncells"] * (8 if f64 else 4) + rows * 20
+              + r["ncells"] * (8 if f64 else 4) + rows * (40 if f64 else 20)
               + r.get("table_bytes", 0) + r.get("edge_bytes", 0))
     int_ops = r["collisions"] * 2 * DRAW_OPS[r["rng"]]
     events = (r["collisions"] + r["n"] if "rows" in r
@@ -642,8 +667,11 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
 
 
 def sorted_rows(torch, segs):
-    """Segment rows as int32 bit patterns, sorted lexicographically."""
-    rows = torch.cat(segs).contiguous().view(torch.int32)
+    """Segment rows as bit patterns (int32 of float32 rows, int64 of
+    float64 ones), sorted lexicographically."""
+    rows = torch.cat(segs).contiguous()
+    rows = rows.view(torch.int64 if rows.dtype == torch.float64
+                     else torch.int32)
     idx = torch.arange(rows.shape[0], device=rows.device)
     for c in reversed(range(rows.shape[1])):
         idx = idx[torch.sort(rows[idx, c], stable=True)[1]]
@@ -659,26 +687,34 @@ def cell_visits(torch, rows) -> int:
 
 def compare_flight(deck: str, torch, driver, transport, flight,
                    flight_kernel, fields, label="flight", window=None,
-                   small=False):
-    """Phase 5 on one deck (and phases 8-9, phase 13 in `window`): returns
-    a dict as compare's, with the kernel census's segment rows ("segs")
-    and their count.  "ms" and "plain_ms" are the flight pieces' own time
-    (the kernel's from CUDA events, the plain version's from the clock),
-    "deposit_ms" and "plain_deposit_ms" the segment deposits' and
-    "census_ms" the kernel census's whole time.  With `small`, the kernel
-    census runs once more under a forced-small segment buffer."""
-    cfg = driver.load_config(deck).with_(nparticles=MODE_N,
-                                         expected_tally=None)
-    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
-    if sim.transport != "flight":
-        fail(f"{deck}: auto picked the {sim.transport} transport")
+                   small=False, dtype="float32", n=MODE_N):
+    """Phase 5 on one deck (and phases 8-9, phase 13 in `window`, phase 28
+    in float64 at `n` particles): returns a dict as compare's, with the
+    kernel census's segment rows ("segs") and their count.  "ms" and
+    "plain_ms" are the flight pieces' own time (the kernel's from CUDA
+    events, the plain version's from the clock), "deposit_ms" and
+    "plain_deposit_ms" the segment deposits' and "census_ms" the kernel
+    census's whole time.  With `small`, the kernel census runs once more
+    under a forced-small segment buffer.  In float64 the 14 fields compare
+    bitwise, the tally sums to 1e-12 and the small buffer's tally per cell
+    to 1e-12 of the largest cell."""
+    cfg = driver.load_config(deck).with_(nparticles=n, expected_tally=None)
+    if dtype != cfg.dtype:
+        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                            transport="flight", quiet=True)
+    if dtype == "float32" and driver.auto_transport(cfg) != "flight":
+        fail(f"{deck}: auto picks the {driver.auto_transport(cfg)} "
+             "transport")
+    tol = 1e-12 if dtype == "float64" else 1e-5
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     geom, tally0, win, outside = window_args(torch, transport, sim, start,
                                              window)
     args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
     name = f"{label} {deck.split('/')[-1].split('.')[0]}"
-    dep = {"buffers": flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda")}
+    dep = {"buffers": flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda",
+                                                  dtype=sim.dtype)}
     times = {}
 
     def run(fn, segments=None, **kw):
@@ -709,9 +745,12 @@ def compare_flight(deck: str, torch, driver, transport, flight,
         fail(f"{name}: no facet events, the comparison is empty")
     f = differing_field(ks, ps, torch, fields)
     if f is not None:
-        n_bad = int((getattr(ks, f) != getattr(ps, f)).sum())
+        n_bad = int((bits(torch, getattr(ks, f))
+                     != bits(torch, getattr(ps, f))).sum())
         fail(f"{name}: state.{f} differs on {n_bad} lanes")
     check_outside(torch, name, start, ks, outside, fields)
+    if torch.cat(ksegs).dtype != sim.dtype:
+        fail(f"{name}: the kernel wrote {torch.cat(ksegs).dtype} rows")
     krows, prows = sorted_rows(torch, ksegs), sorted_rows(torch, psegs)
     if not torch.equal(krows, prows):
         fail(f"{name}: segment rows differ ({krows.shape[0]} kernel, "
@@ -723,8 +762,8 @@ def compare_flight(deck: str, torch, driver, transport, flight,
           f"{krows.shape[0]} segment rows equal as multisets; tally sums "
           f"{ksum:.9e} / {psum:.9e} (rel {rel:.3e}), max abs err per cell "
           f"{max_abs_err:.3e}")
-    if not rel <= 1e-5:
-        fail(f"{name}: tally sums differ by {rel:.3e} (> 1e-5)")
+    if not rel <= tol:
+        fail(f"{name}: tally sums differ by {rel:.3e} (> {tol})")
     cs, cnf, cnc, cl, _ = run(flight_kernel.flight_chunk_kernel, csegs,
                               max_pieces=1, **dep)
     one_ms = times["flight_chunk_kernel"][0]
@@ -738,7 +777,8 @@ def compare_flight(deck: str, torch, driver, transport, flight,
     if small:
         ssegs, refusals0 = [], flight_kernel.flight_chunk_kernel.refusals
         buf = flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda",
-                                          rows=SMALL_ROWS, max_rows=SMALL_MAX)
+                                          rows=SMALL_ROWS, max_rows=SMALL_MAX,
+                                          dtype=sim.dtype)
         ss, snf, snc, sl, st = run(flight_kernel.flight_chunk_kernel, ssegs,
                                    buffers=buf)
         refusals = flight_kernel.flight_chunk_kernel.refusals - refusals0
@@ -755,10 +795,10 @@ def compare_flight(deck: str, torch, driver, transport, flight,
         srel = abs(ssum - psum) / abs(psum)
         serr = float((st.double() - pt.double()).abs().max())
         peak = float(pt.double().abs().max())
-        if not (srel <= 1e-5 and serr <= 1e-5 * peak):
+        if not (srel <= tol and serr <= tol * peak):
             fail(f"{name}: the tally under a {SMALL_ROWS}-row segment buffer "
                  f"differs from the plain version's: sums by {srel:.3e}, a "
-                 f"cell by {serr:.3e} of the largest {peak:.3e} (> 1e-5)")
+                 f"cell by {serr:.3e} of the largest {peak:.3e} (> {tol})")
         print(f"[{name}] segment buffer of {SMALL_ROWS} rows grown up to "
               f"{SMALL_MAX}: {sl} rounds, {refusals} with refused rows, in "
               f"{times['flight_chunk_kernel'][0]:.3f} ms; counts, per-lane "
@@ -767,23 +807,28 @@ def compare_flight(deck: str, torch, driver, transport, flight,
               f"{peak:.3e})")
     return {"ms": k_ms, "plain_ms": p_ms, "deposit_ms": kd_ms,
             "plain_deposit_ms": pd_ms, "census_ms": c_ms,
-            "max_abs_err": max_abs_err, "n": MODE_N,
+            "max_abs_err": max_abs_err, "n": n,
             "ncells": geom.nx * geom.ny, "facets": knf, "collisions": knc,
-            "rng": cfg.rng, "segs": ksegs,
+            "rng": cfg.rng, "segs": ksegs, "f64": dtype == "float64",
             "rows": sum(r.shape[0] for r in ksegs),
             **table_work(sim, loads, knc)}
 
 
 def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label):
-    """Phase 6 on one set of segment rows into an nx x ny tally: returns a
-    dict of the kernel's time (CUDA events) and its stages', the plain
-    version's time, max_abs_err, the bins' sizes and the bound."""
+    """Phase 6 on one set of segment rows into an nx x ny tally (and phase
+    28 on float64 rows, into a float64 tally): returns a dict of the
+    kernel's time (CUDA events) and its stages', the plain version's time,
+    max_abs_err, the bins' sizes, the tile kernel's blocks an SM and the
+    bound (in float64 40 bytes a row and 8 a cell, and FP64
+    instructions)."""
     rows = torch.cat(segs).contiguous()
+    f64 = rows.dtype == torch.float64
+    tol = 1e-12 if f64 else 1e-5
     nseg = torch.tensor([rows.shape[0]], dtype=torch.int64,
                         device=rows.device)
-    kt = torch.zeros(nx * ny, dtype=torch.float32, device=rows.device)
+    kt = torch.zeros(nx * ny, dtype=rows.dtype, device=rows.device)
     pt = torch.zeros_like(kt)
-    dep = raster_kernel.SegmentDeposit(nx, ny, "cuda")
+    dep = raster_kernel.SegmentDeposit(nx, ny, "cuda", dtype=rows.dtype)
     # warm-up: the first launch overflows the new piece buffer, which grows
     raster_kernel.deposit_segments_kernel(kt, rows, nseg, nx, ny, dep)
     kt.zero_()
@@ -796,29 +841,37 @@ def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label):
     ev = stages[0]
     bin_ms, tile_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     st = dep.stats()
+    st["tile_blocks_per_sm"] = raster_kernel.tile_blocks_per_sm(rows.dtype,
+                                                                rows.device)
     p_ms, _ = timed(torch, raster.deposit_segments_plain, pt, rows, nx, ny)
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
     peak = float(pt.double().abs().max())
     rel = abs(ksum - psum) / abs(psum)
-    print(f"[raster {label}] {rows.shape[0]} segment rows, {nx}x{ny} tally: "
+    print(f"[raster {label}] {rows.shape[0]} {rows.dtype} segment rows, "
+          f"{nx}x{ny} tally: "
           f"kernel {bin_ms + tile_ms:.3f} ms (bins {bin_ms:.3f} + tiles "
           f"{tile_ms:.3f}; {wall_ms:.3f} ms on the clock), plain "
-          f"{p_ms:.3f} ms; T {st['tile']}, C {st['chunk']}: "
+          f"{p_ms:.3f} ms; T {st['tile']}, C {st['chunk']}, tile kernel "
+          f"{st['tile_blocks_per_sm']} blocks an SM: "
           f"{st['pieces']} pieces in {st['work_items']} work items, "
           f"per tile max {st['pieces_per_tile_max']} / mean "
           f"{st['pieces_per_tile_mean']:.1f} over "
           f"{st['tiles_with_pieces']} tiles; sums {ksum:.9e} / {psum:.9e} "
           f"(rel {rel:.3e}); max abs err per cell {max_abs_err:.3e} "
           f"(largest cell {peak:.3e})", flush=True)
-    if not (rel <= 1e-5 and max_abs_err <= 1e-5 * peak):
+    if not (rel <= tol and max_abs_err <= tol * peak):
         fail(f"segment deposit {label}: kernel and plain version differ by "
-             "more than 1e-5")
+             f"more than {tol}")
+    visits = cell_visits(torch, rows)
+    work = (bound(rows.shape[0] * 40 + nx * ny * 8, 0,
+                  visits * FLOPS_VISIT
+                  + rows.shape[0] * f64_ops({"rcp": 2}), PEAK_F64_INSTR)
+            if f64 else bound(rows.shape[0] * 20 + nx * ny * 4, 0,
+                              visits * FLOPS_VISIT))
     return {"ms": bin_ms + tile_ms, "bin_ms": bin_ms, "tile_ms": tile_ms,
             "wall_ms": wall_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
-            "rows": rows.shape[0], **st,
-            **bound(rows.shape[0] * 20 + nx * ny * 4, 0,
-                    cell_visits(torch, rows) * FLOPS_VISIT)}
+            "rows": rows.shape[0], "cell_visits": visits, **st, **work}
 
 
 def deck_copy(src: str, dirpath: str, extra: str = "") -> str:
@@ -1670,10 +1723,12 @@ def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False,
                    wrappers=None) -> dict:
     """Phase 22 (and phase 24's oracle runs: `low` fails a run in which no
     lane ended below THRESHOLD; phase 26's on the float64 kernels, with
-    `engine` "kernel" on the sweep transport).  Given `wrappers`, every
-    count is set to 0 just before a run's steps and read just after, and a
-    kernel run must have launched the sweep and begin kernels (one begin a
-    step) and no plain version; returns those counts by family."""
+    `engine` "kernel" on both transports).  Given `wrappers`, every count
+    is set to 0 just before a run's steps and read just after, and a
+    kernel run must have launched its transport's kernels (the sweep
+    kernel, or the flight kernel and the segment deposit) and the begin
+    kernel (one a step), no other transport's kernel and no plain version;
+    returns those counts by family and transport."""
     import numpy as np
     from neutral_tpu_torch import ProblemRegion, SimConfig, SourceBox, oracle
 
@@ -1704,13 +1759,19 @@ def oracle_on_card(torch, driver, decks=ORACLE_DECKS, low=False,
             if wrappers:
                 c = counts[f"{kind} {transport}"] = read_counts(wrappers)
                 begins = (c["begin_timestep_kernel"], c["begin_timestep"])
+                ran = ((c["sweep_chunk_kernel"] > 0, c["flight_chunk_kernel"]
+                        > 0 and c["deposit_segments_kernel"] > 0)
+                       if transport == "sweep" else
+                       (c["flight_chunk_kernel"] > 0
+                        and c["deposit_segments_kernel"] > 0,
+                        c["sweep_chunk_kernel"] > 0))
                 if (engine == "kernel" and (
-                        c["sweep_chunk_kernel"] <= 0 or c["sweep_chunk_plain"]
-                        or c["flight_chunk_kernel"] or c["flight_chunk_plain"]
+                        not ran[0] or ran[1] or c["sweep_chunk_plain"]
+                        or c["flight_chunk_plain"]
                         or begins != (cfg.niters, 0))):
                     fail(f"oracle {kind} {transport}: counts {c} (want the "
-                         f"sweep kernel, {cfg.niters} begin launches and no "
-                         "plain version)")
+                         f"{transport} transport's kernels, {cfg.niters} "
+                         "begin launches and no plain version)")
             err = float(np.abs(card - tally).max() / np.abs(tally).max())
             if transport == "sweep":
                 close = np.allclose(card, tally, rtol=1e-9, atol=1e-300)
@@ -1899,6 +1960,36 @@ def begin_phase(tmp: str, torch, driver, transport,
     return res
 
 
+def f64_steps(torch, driver) -> dict:
+    """Phase 26: one full-size step of each flight deck in float64 on the
+    flight transport's kernels and on the sweep kernel (auto's choice),
+    timed; returns {deck: {"kernel flight"/"kernel sweep": (seconds,
+    facets, collisions)}}."""
+    res = {}
+    for deck in FLIGHT_DECKS:
+        name = deck.split("/")[-1].split(".")[0]
+        one = driver.load_config(deck).with_(
+            niters=1, expected_tally=None, dtype="float64",
+            tally_dtype="float64")
+        times = {}
+        for transport_name in ("flight", "sweep"):
+            sim = driver.Simulation(one, transport=transport_name,
+                                    quiet=True)
+            if sim.engine != "kernel":
+                fail(f"f64 step {name}: the {sim.engine} engine on the "
+                     f"{transport_name} transport")
+            m = sim.step(1)
+            times[f"{sim.engine} {transport_name}"] = (
+                m.step_time, m.nfacets, m.ncollisions)
+            del sim
+            torch.cuda.empty_cache()
+        print(f"[f64 step {name}] {one.nparticles} particles, step 1: "
+              + "; ".join(f"{k} {t:.4f} s ({nf} facets, {nc} collisions)"
+                          for k, (t, nf, nc) in times.items()), flush=True)
+        res[name] = times
+    return res
+
+
 def float64_phase(tmp: str, torch, driver, transport, sweep_kernel,
                   fields, wrappers, log: str) -> dict:
     """Phase 26: float64 on the card's kernels.  Returns the float64 sweep
@@ -2025,33 +2116,173 @@ def float64_phase(tmp: str, torch, driver, transport, sweep_kernel,
     print(f"[main f64 scatter spatial] per-step counts equal to the single "
           f"device's {scatter_counts}", flush=True)
 
-    # -- why auto sends float64 to the sweep kernel: one step of each deck
-    # on the plain flight engine and on the float64 sweep kernel, cut ----
-    for deck in FLIGHT_DECKS:
-        name = deck.split("/")[-1].split(".")[0]
-        cut = driver.load_config(deck).with_(
-            nparticles=F64_CUT_N, niters=1, expected_tally=None,
-            dtype="float64", tally_dtype="float64")
-        times = {}
-        for transport_name in ("flight", "sweep"):
-            sim = driver.Simulation(cut, transport=transport_name,
-                                    quiet=True)
-            m = sim.step(1)
-            times[f"{sim.engine} {transport_name}"] = (
-                m.step_time, m.nfacets, m.ncollisions)
-            del sim
-        print(f"[f64 cut {name}] {F64_CUT_N} particles, one step: "
-              + "; ".join(f"{k} {t:.4f} s ({nf} facets, {nc} collisions)"
-                          for k, (t, nf, nc) in times.items()), flush=True)
-        res.setdefault("cut", {})[name] = times
+    res["steps"] = f64_steps(torch, driver)
 
-    # -- the oracle's families on the float64 kernel, counted apart from
-    # the main paths ----------------------------------------------------
+    # -- the oracle's families on the float64 kernels of both transports,
+    # counted apart from the main paths ---------------------------------
     res["oracle_launches"] = oracle_on_card(
-        torch, driver, engine="kernel", transports=("sweep",),
+        torch, driver, engine="kernel", transports=("sweep", "flight"),
         wrappers=wrappers)
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[f64] phase 26 took {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def kernel_resources(log: str, names: tuple, real: str) -> dict:
+    """ptxas's registers and spill bytes, by demangled name, of the
+    kernels in the build's log whose names contain one of `names` and whose
+    template arguments end with the working type `real` (float or
+    double)."""
+    from neutral_tpu_torch import measure
+    found = {}
+    for name, body in re.findall(r"Compiling entry function '([^']*)'"
+                                 r"(.*?)(?=Compiling entry function|\Z)",
+                                 log, re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", body)
+        if regs and any(n in name for n in names):
+            found[name] = {"registers": int(regs[1]),
+                           "spill_stores": int(spill[1]) if spill else 0,
+                           "spill_loads": int(spill[2]) if spill else 0}
+    names_of = measure._demangle(sorted(found))
+    return {names_of[k].replace("(anonymous namespace)::", ""): v
+            for k, v in found.items()
+            if re.search(rf"\b{real}>\(", names_of[k])}
+
+
+def float64_flight_phase(tmp: str, torch, driver, transport, flight,
+                         flight_kernel, raster, raster_kernel, fields,
+                         wrappers, log) -> dict:
+    """Phase 28: float64 on the flight transport's kernels.  Returns the
+    float64 flight kernel's comparisons (per mode), the deposit's, the
+    main paths' launches and runs, and the registers of both kernels'
+    float64 instantiations."""
+    from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
+
+    t_phase = time.perf_counter()
+    res = {"flight": {}, "deposit": {}, "runs": {},
+           "launches": {"flight": 0, "deposit": 0, "overflows": 0},
+           "path_launches": {}}
+    res["registers"] = {
+        "flight": kernel_resources(log, ("flight_kernel",), "double"),
+        "deposit": kernel_resources(log, ("count_kernel", "scan_kernel",
+                                          "fill_kernel", "tile_kernel"),
+                                    "double"),
+        "flight_float32": kernel_resources(log, ("flight_kernel",),
+                                           "float")}
+    for group, kernels in res["registers"].items():
+        for name, r in kernels.items():
+            print(f"[f64 flight] {group}: {name}: {r['registers']} "
+                  f"registers, spill {r['spill_stores']} / "
+                  f"{r['spill_loads']} bytes", flush=True)
+    if len(res["registers"]["flight"]) != 4:
+        fail(f"the build log holds {len(res['registers']['flight'])} "
+             "float64 flight instantiations (want 4)")
+
+    # -- the flight kernel against its plain version in float64 ----------
+    keys, values = resonance_log_table()
+
+    def deck_dir(name, src, table=False, pcg=False):
+        d = os.path.join(tmp, name)
+        os.mkdir(d)
+        if table:
+            for f in ("elastic_scatter.cs", "capture.cs"):
+                write_cs_file(os.path.join(d, f), keys, values)
+        return deck_copy(src, d, "rng pcg64si\n" if pcg else "")
+
+    split = FLIGHT_DECKS[1]
+    modes = [
+        ("analytic", FLIGHT_DECKS, F64_MAIN_N, None, True),
+        ("pcg64si", [deck_dir("pcg", split, pcg=True)], F64_MODE_N, None,
+         False),
+        ("table", [deck_dir("table", split, table=True)], F64_MODE_N, None,
+         False),
+        ("table pcg64si", [deck_dir("table_pcg", split, table=True,
+                                    pcg=True)], F64_MODE_N, None, False),
+        ("window", [split, FLIGHT_DECKS[0]], F64_MODE_N, BLOCK, False),
+    ]
+    rows = {}
+    for mode, decks, n, window, small in modes:
+        runs = [compare_flight(d, torch, driver, transport, flight,
+                               flight_kernel, fields, label=f"f64 {mode}",
+                               window=window, small=small, dtype="float64",
+                               n=n)
+                for d in decks]
+        for d, r in zip(decks, runs):
+            name = d.split("/")[-1].split(".")[0]
+            segs = r.pop("segs")
+            if mode in ("analytic", "window"):
+                rows[f"{mode} {name}"] = segs
+            if mode == "analytic":
+                res.setdefault("per_deck", {})[name] = {
+                    k: r[k] for k in ("ms", "plain_ms", "deposit_ms",
+                                      "plain_deposit_ms", "census_ms",
+                                      "rows")} | work_bound(r)
+        res["flight"][mode] = mode_entry(
+            runs, f"{' + '.join(d.split('/')[-1] for d in decks)}, {n} "
+            "particles each, one step-1 census each, float64"
+            + (f", in the window {window}" if window else ""))
+        torch.cuda.empty_cache()
+
+    # -- the segment deposit against its plain version on those rows (the
+    # window's of split and stream in one tally: split's window, the dense
+    # half, may emit none) ----------------------------------------------
+    geom = driver.make_geometry(driver.load_config(split))
+    for label in ("analytic stream", "analytic split", "analytic csp"):
+        res["deposit"][label] = compare_raster(
+            rows[label], torch, geom.nx, geom.ny, raster, raster_kernel,
+            f"f64 {label}")
+    res["deposit"]["window split + stream"] = compare_raster(
+        rows["window split"] + rows["window stream"], torch, BLOCK[2],
+        BLOCK[3], raster, raster_kernel, "f64 window split + stream")
+    del rows
+    torch.cuda.empty_cache()
+
+    # -- the main paths: --transport flight --dtype float64 ---------------
+    f64_flight = ["--transport", "flight", "--dtype", "float64"]
+    single = {}
+    for deck, argv in [(d, []) for d in FLIGHT_DECKS] + [
+            (FLIGHT_DECKS[0], [*SHARDS, "spatial2d"])]:
+        name = deck.split("/")[-1].split(".")[0]
+        label = f"f64 flight {name}" + (" spatial2d" if argv else "")
+        out, total, c = main_path(deck, torch, driver, wrappers,
+                                  argv=[*f64_flight, *argv], label=label)
+        if ("Engine: kernel." not in out or "Transport: flight." not in out
+                or c["flight_chunk_kernel"] <= 0
+                or c["deposit_segments_kernel"] <= 0
+                or c["begin_timestep_kernel"] <= 0
+                or c["flight_chunk_plain"] or c["sweep_chunk_plain"]
+                or c["sweep_chunk_kernel"] or c["begin_timestep"]):
+            fail(f"{label}: counts {c} (want the float64 flight, deposit "
+                 "and begin kernels and no plain version)")
+        if name == "csp":
+            rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
+            print(f"[main {label}] tally {total:.9e} against omp3's "
+                  f"{CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
+            if not rel <= 1e-3:
+                fail(f"{label}: tally is {rel:.3e} from omp3's (> 1e-3)")
+        elif "PASSED validation." not in out:
+            fail(f"{label} did not print 'PASSED validation.'")
+        counts = step_counts(out)
+        if argv:
+            if counts != single[name]:
+                fail(f"{label}: per-step counts {counts} differ from the "
+                     f"single device's {single[name]}")
+            print(f"[main {label}] per-step counts equal to the single "
+                  f"device's {counts}", flush=True)
+        else:
+            single[name] = counts
+        res["launches"]["flight"] += c["flight_chunk_kernel"]
+        res["launches"]["deposit"] += c["deposit_segments_kernel"]
+        res["launches"]["overflows"] += c["deposit_segments_kernel.overflows"]
+        res["path_launches"][label] = {
+            k: c[k] for k in ("flight_chunk_kernel", "deposit_segments_kernel",
+                              "begin_timestep_kernel")}
+        res["runs"][label] = {"counts": counts, "step_s": step_seconds(out),
+                              "tally": total}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[f64 flight] phase 28 took {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -2394,6 +2625,14 @@ def main() -> int:
                         STATE_FIELDS, wrappers, log)
     tmp.cleanup()
 
+    # ---- 28. float64 on the flight transport's kernels -------------------
+    stamp(28)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    f64f = float64_flight_phase(tmp.name, torch, driver, transport, flight,
+                                flight_kernel, raster, raster_kernel,
+                                STATE_FIELDS, wrappers, log)
+    tmp.cleanup()
+
     # ---- 27. result -----------------------------------------------------
     stamp(27)
     top = results[COMPARE_SIZES[-1]]
@@ -2424,6 +2663,8 @@ def main() -> int:
     f64_main, f64_lookup = f64["sweep"]["analytic"], f64["lookup"][
         "census energies"]
     f64_begin = f64["begin"]["scatter"]
+    f64f_main = f64f["flight"]["analytic"]
+    f64d_main = f64f["deposit"]["analytic stream"]
     edge = {}
     for dtype, name in (("float32", "sweep_kernel_edge_array"),
                         ("float64", "sweep_kernel_edge_array_f64")):
@@ -2600,9 +2841,11 @@ def main() -> int:
          "bound_by": f64_main["bound_by"],
          "library_ms": None,
          "registers": f64["registers"],
-         "oracle_family_launches": f64["oracle_launches"],
+         "oracle_family_launches": {
+             k: v for k, v in f64["oracle_launches"].items()
+             if k.endswith(" sweep")},
          "modes": f64["sweep"],
-         "cut_decks": f64["cut"],
+         "full_steps": f64["steps"],
          "seconds": f64["seconds"],
          "shape": f"scatter deck in float64, {F64_MAIN_N} particles, "
                   "4000x4000 mesh, one census (the float64 instantiations, "
@@ -2652,6 +2895,64 @@ def main() -> int:
                   "modes hold every deck mode at 1,000,000 particles"},
         edge["float32"],
         edge["float64"],
+        {"name": "flight_kernel_f64",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/flight.cu",
+         "replaces": "neutral_tpu/pallas_flight.py:59",
+         "launches": f64f["launches"]["flight"],
+         "max_abs_err": f64f_main["max_abs_err"],
+         "ms": f64f_main["ms"],
+         "plain_ms": f64f_main["plain_ms"],
+         "bound_ms": f64f_main["bound_ms"],
+         "bound_by": f64f_main["bound_by"],
+         "library_ms": None,
+         "deposit_ms": f64f_main["deposit_ms"],
+         "registers": f64f["registers"]["flight"],
+         "registers_float32": f64f["registers"]["flight_float32"],
+         "per_deck": f64f["per_deck"],
+         "launches_per_main_path": f64f["path_launches"],
+         "main_paths": f64f["runs"],
+         "oracle_family_launches": {
+             k: v for k, v in f64["oracle_launches"].items()
+             if k.endswith(" flight")},
+         "modes": f64f["flight"],
+         "seconds": f64f["seconds"],
+         "shape": "stream, split and csp decks in float64, "
+                  f"{F64_MAIN_N} particles each, 4000x4000 mesh, one "
+                  "step-1 census each (the float64 instantiations, global "
+                  "coordinates; what neutral_tpu's XLA float64 flight "
+                  "engine computes, flight.py:159, :423); ms is the flight "
+                  "kernel's own device time (CUDA events), the segment "
+                  "deposits' beside it as deposit_ms; ms, plain_ms and "
+                  "bound_ms are the sums of the three; modes at "
+                  f"{F64_MODE_N} particles; launches: phase 28's main "
+                  "paths (--transport flight --dtype float64: stream, "
+                  "split, csp, stream on 2x2 blocks)"},
+        {"name": "segment_deposit_kernel_f64",
+         "route": "cuda",
+         "source": "neutral_tpu_torch/csrc/raster.cu",
+         "replaces": "neutral_tpu/raster.py:331 and neutral_tpu/raster.py:161",
+         "launches": f64f["launches"]["deposit"],
+         "max_abs_err": f64d_main["max_abs_err"],
+         "ms": f64d_main["ms"],
+         "plain_ms": f64d_main["plain_ms"],
+         "bound_ms": f64d_main["bound_ms"],
+         "bound_by": f64d_main["bound_by"],
+         "library_ms": None,
+         "bin_ms": f64d_main["bin_ms"],
+         "tile_ms": f64d_main["tile_ms"],
+         "tile": f64d_main["tile"],
+         "chunk": f64d_main["chunk"],
+         "tile_blocks_per_sm": f64d_main["tile_blocks_per_sm"],
+         "overflows": f64f["launches"]["overflows"],
+         "registers": f64f["registers"]["deposit"],
+         "modes": f64f["deposit"],
+         "shape": "the float64 segment rows of the stream deck's step-1 "
+                  f"census ({F64_MAIN_N} particles, 4000x4000 mesh) into a "
+                  "float64 tally in one deposit; ms is bins + tiles from "
+                  "CUDA events; modes hold split's and csp's rows and the "
+                  "window-local rows of split and stream in the 2000x2000 "
+                  "block; launches and overflows: phase 28's main paths"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,7 +7,7 @@
 // -fmad=false so that no a*b+c is fused (see build.py).
 //
 // The working type is a template parameter `Real`: float (every kernel) or
-// double (the sweep, begin and lookup kernels' float64 instantiations).  In
+// double (the float64 instantiations of every kernel).  In
 // float32 a constant enters the arithmetic as the plain version rounds it
 // (np.float32 of the float64 value), in float64 unrounded (xs.const).
 //
@@ -64,7 +64,7 @@ constexpr float kTwoM33 = 0x1p-33f;
 
 // The math of the working type: IEEE square root (whatever -prec-sqrt
 // says for double), libdevice's logarithm (the one PyTorch's torch.log
-// calls), fmax, and the floor to int32 as XLA and xs.to_int convert: NaN
+// calls), fmax, fmin, fabs, and the floor to int32 as XLA and xs.to_int convert: NaN
 // to 0, out of range saturated (cvt.rmi does so from float32; from
 // float64 both are explicit).
 __device__ __forceinline__ float nt_sqrt(float v) { return sqrtf(v); }
@@ -77,6 +77,14 @@ __device__ __forceinline__ float nt_fmax(float a, float b) {
 __device__ __forceinline__ double nt_fmax(double a, double b) {
   return fmax(a, b);
 }
+__device__ __forceinline__ float nt_fmin(float a, float b) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ double nt_fmin(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float nt_fabs(float v) { return fabsf(v); }
+__device__ __forceinline__ double nt_fabs(double v) { return fabs(v); }
 __device__ __forceinline__ int floor_int(float v) {
   return __float2int_rd(v);
 }
@@ -493,6 +501,15 @@ __device__ __forceinline__ float tmin(float a, float b) {
 
 __device__ __forceinline__ float tmax(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+// The same on float64 (the flight kernel's float64 instantiations).
+__device__ __forceinline__ double tmin(double a, double b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmin(a, b));
+}
+
+__device__ __forceinline__ double tmax(double a, double b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmax(a, b));
 }
 
 // Collision event (transport.collision_physics, omp3/neutral.c:209-300):

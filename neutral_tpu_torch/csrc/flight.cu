@@ -9,7 +9,7 @@
 // thread owns one lane: it runs up to `max_pieces` pieces (stopping early
 // when the particle dies or reaches census), with the plain version's
 // (neutral_tpu_torch/flight.py flight_core) operations in the same order and
-// the same float32 constants.  Per piece:
+// the same constants (common.cuh Const).  Per piece:
 //
 //   * a piece that crosses at least 2 cell boundaries first reserves one
 //     row of the global segment buffer with an atomic counter (counts[3]).
@@ -22,7 +22,7 @@
 //     nothing but the rows of one launch.  raster.cu deposits the first
 //     min(counts[3], seg_cap) rows after the launch.
 //   * the first cell's flush and the final cell's death/census flush go
-//     straight into the tally with atomicAdd(float*), skipping zero values
+//     straight into the tally with atomicAdd, skipping zero values
 //     (a vacuum piece deposits exactly 0), as pallas_flight.py:156-161 does;
 //   * the reserved row [gx0, gy0, gx1, gy1, kk] is written;
 //   * facet and collision counts go into 64-bit totals (a piece can cross
@@ -39,14 +39,23 @@
 // migrate.
 //
 // Rings, pause gating, the segment-plane layout and ring extraction have no
-// counterpart.  float32 on a uniform mesh with constant-density rects only
-// (an (R, 4) int32 bounds array and an (R,) float32 density array on the
+// counterpart.  A uniform mesh with constant-density rects only (an (R, 4)
+// int32 bounds array and an (R,) density array in the working type on the
 // device, any R); the cross-section mode (analytic, or a stored table
-// searched through its coarse index in shared memory) and
-// the RNG scheme (threefry or pcg64si) are template parameters (common.cuh),
-// one instantiation per combination, chosen at launch.  The wrapper
-// (flight_kernel.py) rejects everything else.  The build passes -fmad=false
-// (build.py), so no a*b+c is fused.
+// searched through its coarse index in shared memory), the RNG scheme
+// (threefry or pcg64si) and the working type (float32, or float64: what
+// neutral_tpu's XLA flight engine, flight.py flight_core and
+// flight_chunk_impl, computes on a GPU or CPU) are template parameters
+// (common.cuh), one instantiation per combination, chosen at launch.
+// Positions are global in both working types, as in flight_core; the
+// state, the tally and the segment rows are in the working type (the plain
+// version writes float64 rows in float64, flight.py's
+// p.kk.to(state.dtype)).  The wrapper (flight_kernel.py) rejects everything
+// else.  The build passes -fmad=false (build.py), so no a*b+c is fused.
+// The float32 instantiations keep the code they had before the working
+// type was a template parameter: what differs by type goes through
+// common.cuh's overloads (nt_sqrt, floor_int, tmin/tmax, the tables'
+// float64 views of the shared array), not through locals of the kernel.
 //
 // The census tail.  A warp runs as long as its longest lane, and lanes sit
 // in pid order, so one warp mixes histories of one piece (vacuum) with
@@ -77,41 +86,43 @@
 
 #include "common.cuh"
 
-// Layout shared with flight_kernel._FlightParams (ctypes); nt_flight_params
-// _size() lets the wrapper check that the two agree.
-struct FlightParams {
-  float* x;
-  float* y;
-  float* omega_x;
-  float* omega_y;
-  float* energy;
-  float* weight;
-  float* dt_to_census;
-  float* mfp_to_collision;
-  float* deposit;
+// Layout shared with flight_kernel._FlightParams (ctypes; Real = float) and
+// _FlightParams64 (Real = double); nt_flight_params_size() and
+// nt_flight_params_size_f64() let the wrapper check that they agree.
+template <typename Real>
+struct FlightParamsT {
+  Real* x;
+  Real* y;
+  Real* omega_x;
+  Real* omega_y;
+  Real* energy;
+  Real* weight;
+  Real* dt_to_census;
+  Real* mfp_to_collision;
+  Real* deposit;
   int32_t* cellx;
   int32_t* celly;
   uint8_t* dead;
   const int64_t* pid;
   int64_t* counter;
-  float* tally;                 // (ny * nx,) flat, row-major, window-local
-  float* segs;                  // (seg_cap, 5) rows [gx0, gy0, gx1, gy1, kk]
+  Real* tally;                  // (ny * nx,) flat, row-major, window-local
+  Real* segs;                   // (seg_cap, 5) rows [gx0, gy0, gx1, gy1, kk]
                                 // in window-local cell units
   // [facets, collisions, lanes still working (the next list's length),
   //  segment rows reserved (those past seg_cap were refused)]
   unsigned long long* counts;
   const int32_t* active;        // (n_active,) lanes to run; null: lane t
   int32_t* next;                // (n,) the lanes still working after it
-  const float* scatter_keys;    // table mode: (scatter_entries,) ascending
-  const float4* scatter_intervals;  // table mode: (scatter_entries - 1,)
-  const float* scatter_coarse;  // table mode: its coarse index
-  const float* absorb_keys;     // table mode: (absorb_entries,)
-  const float4* absorb_intervals;
-  const float* absorb_coarse;
-  const float2* scatter_grid;   // analytic mode: (scatter_entries,) pairs
-  const float2* absorb_grid;    // analytic mode: (absorb_entries,) pairs
+  const Real* scatter_keys;     // table mode: (scatter_entries,) ascending
+  const nt::Interval<Real>* scatter_intervals;  // table mode: (entries - 1,)
+  const Real* scatter_coarse;   // table mode: its coarse index
+  const Real* absorb_keys;      // table mode: (absorb_entries,)
+  const nt::Interval<Real>* absorb_intervals;
+  const Real* absorb_coarse;
+  const nt::Pair<Real>* scatter_grid;  // analytic mode: (entries,) pairs
+  const nt::Pair<Real>* absorb_grid;   // analytic mode: (entries,) pairs
   const int32_t* rect_bounds;   // (nrects, 4) ix0 ix1 iy0 iy1, disjoint
-  const float* rect_density;    // (nrects,)
+  const Real* rect_density;     // (nrects,)
   unsigned long long master_key;
   long long n;
   long long n_active;           // threads of the launch
@@ -131,27 +142,33 @@ struct FlightParams {
   int y_off;
   int global_nx;                // the whole mesh
   int global_ny;
-  float dx;
-  float dy;
-  float inv_dx;
-  float inv_dy;
-  float inv_ntotal;
+  Real dx;
+  Real dy;
+  Real inv_dx;
+  Real inv_dy;
+  Real inv_ntotal;
 };
+
+using FlightParams = FlightParamsT<float>;
+using FlightParams64 = FlightParamsT<double>;
 
 namespace {
 
 using namespace nt;
-using C = Const<float>;
 
 constexpr int kThreads = 128;
 
-// The kernel's body in every mode (the entry points below run it).  It
-// takes the parameters by value, as a kernel does: the analytic entry then
-// compiles to the code of the single kernel it replaces.
-template <XsMode X, RngScheme R>
-__device__ __forceinline__ void flight_pieces(const FlightParams p) {
+// The kernel's body in every mode and working type (the entry points below
+// run it).  It takes the parameters by value, as a kernel does: the
+// analytic entry then compiles to the code of the single kernel it
+// replaces.
+template <XsMode X, RngScheme R, typename Real>
+__device__ __forceinline__ void flight_pieces(const FlightParamsT<Real> p) {
+  using C = Const<Real>;
   // Table mode stages the coarse indexes at the block's start, with every
-  // thread, before any lane is loaded.
+  // thread, before any lane is loaded.  The dynamic shared memory starts
+  // aligned (no static shared memory), so it holds doubles as well: the
+  // tables' float64 overloads (common.cuh) read it as such.
   extern __shared__ float coarse_smem[];
   stage_tables<X>(p, coarse_smem);
   const long long t =
@@ -164,35 +181,35 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
 
   if (i >= 0 && !p.dead[i] && p.dt_to_census[i] > 0.0f &&
       in_window(p.cellx[i], p.celly[i], p.x_off, p.y_off, p.nx, p.ny)) {
-    float x = p.x[i], y = p.y[i];
-    float omega_x = p.omega_x[i], omega_y = p.omega_y[i];
-    float energy = p.energy[i], weight = p.weight[i];
-    float dt = p.dt_to_census[i], mfp = p.mfp_to_collision[i];
-    float deposit = p.deposit[i];
+    Real x = p.x[i], y = p.y[i];
+    Real omega_x = p.omega_x[i], omega_y = p.omega_y[i];
+    Real energy = p.energy[i], weight = p.weight[i];
+    Real dt = p.dt_to_census[i], mfp = p.mfp_to_collision[i];
+    Real deposit = p.deposit[i];
     int cellx = p.cellx[i], celly = p.celly[i];
     const DrawKey key =
         draw_key<R>(static_cast<uint64_t>(p.pid[i]), p.master_key);
     uint64_t counter = static_cast<uint64_t>(p.counter[i]);
     bool dead = false;
     bool inwin = true;
-    const XsTableT<float> scatter = scatter_table(p, coarse_smem);
-    const XsTableT<float> absorb = absorb_table(p, coarse_smem);
+    const XsTableT<Real> scatter = scatter_table(p, coarse_smem);
+    const XsTableT<Real> absorb = absorb_table(p, coarse_smem);
     const int4* bounds = reinterpret_cast<const int4*>(p.rect_bounds);
-    const float xo = static_cast<float>(p.x_off);
-    const float yo = static_cast<float>(p.y_off);
+    const Real xo = static_cast<Real>(p.x_off);
+    const Real yo = static_cast<Real>(p.y_off);
     // The lane's rect clamped to the window, searched again only when the
     // cell has left it: the rects are disjoint and cover the domain
     // (flight.disjoint_rects), so while the cell stays inside, the search
     // would find the same rect.  The empty rect forces the first search.
-    float rho = 0.0f;
+    Real rho = 0.0f;
     int rix0 = 0, rix1 = 0, riy0 = 0, riy1 = 0;
     // The cross-sections and speed at the lane's energy, looked up here and
     // again only after a collision (collide's one lookup): the energy
     // changes nowhere else.
     int hint_s = kNoHint, hint_a = kNoHint;   // table mode: level-1 hints
-    float sig_s = xs_value<X>(energy, scatter, hint_s);
-    float sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
-    float speed = sqrtf(C::kSpeedCoef * energy);
+    Real sig_s = xs_value<X>(energy, scatter, hint_s);
+    Real sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
+    Real speed = nt_sqrt(C::kSpeedCoef * energy);
 
     for (int piece = 0; piece < p.max_pieces && !dead && dt > 0.0f && inwin;
          ++piece) {
@@ -221,39 +238,39 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
       }
 
       // ---- material state ----
-      const float sig_t = sig_s + sig_a;
-      const float number_density = rho * C::kInvMolar;
-      const float mac_s = number_density * sig_s * C::kBarns;
-      const float mac_a = number_density * sig_a * C::kBarns;
-      const float mac_t = mac_s + mac_a;
-      const float cell_mfp = 1.0f / mac_t;
+      const Real sig_t = sig_s + sig_a;
+      const Real number_density = rho * C::kInvMolar;
+      const Real mac_s = number_density * sig_s * C::kBarns;
+      const Real mac_a = number_density * sig_a * C::kBarns;
+      const Real mac_t = mac_s + mac_a;
+      const Real cell_mfp = 1.0f / mac_t;
 
       // ---- distances to the rect walls (the open left/bottom wall
       // overshoots by kObc) ----
-      const float u_x_inv = 1.0f / (omega_x * speed);
-      const float u_y_inv = 1.0f / (omega_y * speed);
-      const float wx_pos = static_cast<float>(rix1) * p.dx;
-      const float wx_neg = static_cast<float>(rix0) * p.dx - C::kObc;
-      const float wy_pos = static_cast<float>(riy1) * p.dy;
-      const float wy_neg = static_cast<float>(riy0) * p.dy - C::kObc;
-      const float dt_x = omega_x >= 0.0f ? (wx_pos - x) * u_x_inv
-                                         : (wx_neg - x) * u_x_inv;
-      const float dt_y = omega_y >= 0.0f ? (wy_pos - y) * u_y_inv
-                                         : (wy_neg - y) * u_y_inv;
+      const Real u_x_inv = 1.0f / (omega_x * speed);
+      const Real u_y_inv = 1.0f / (omega_y * speed);
+      const Real wx_pos = static_cast<Real>(rix1) * p.dx;
+      const Real wx_neg = static_cast<Real>(rix0) * p.dx - C::kObc;
+      const Real wy_pos = static_cast<Real>(riy1) * p.dy;
+      const Real wy_neg = static_cast<Real>(riy0) * p.dy - C::kObc;
+      const Real dt_x = omega_x >= 0.0f ? (wx_pos - x) * u_x_inv
+                                        : (wx_neg - x) * u_x_inv;
+      const Real dt_y = omega_y >= 0.0f ? (wy_pos - y) * u_y_inv
+                                        : (wy_neg - y) * u_y_inv;
       const bool x_wall = dt_x < dt_y;
-      const float d_exit = (x_wall ? dt_x : dt_y) * speed;
-      const float d_coll = mfp * cell_mfp;
-      const float d_census = speed * dt;
+      const Real d_exit = (x_wall ? dt_x : dt_y) * speed;
+      const Real d_coll = mfp * cell_mfp;
+      const Real d_census = speed * dt;
 
       const bool is_coll = (d_coll < d_exit) && (d_coll < d_census);
       const bool is_exit = !is_coll && (d_exit < d_census);
       const bool is_census = !is_coll && !is_exit;
-      const float d =
-          tmax(is_coll ? d_coll : (is_exit ? d_exit : d_census), 0.0f);
+      const Real d =
+          tmax(is_coll ? d_coll : (is_exit ? d_exit : d_census), Real(0));
 
       // ---- endpoint and new cell ----
-      const float x1 = x + d * omega_x;
-      const float y1 = y + d * omega_y;
+      const Real x1 = x + d * omega_x;
+      const Real y1 = y + d * omega_y;
       const bool pos_x = omega_x > 0.0f;
       const bool pos_y = omega_y > 0.0f;
       const bool exit_x = is_exit && x_wall;
@@ -263,8 +280,9 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
       const bool refl_y =
           exit_y && ((pos_y && riy1 == p.global_ny) || (!pos_y && riy0 == 0));
 
-      const int fcx = __float2int_rd(x1 * p.inv_dx);
-      const int fcy = __float2int_rd(y1 * p.inv_dy);
+      // floor, then int32 as XLA converts (NaN to 0, saturated)
+      const int fcx = floor_int(x1 * p.inv_dx);
+      const int fcy = floor_int(y1 * p.inv_dy);
       const int in_cx = min(max(fcx, rix0), rix1 - 1);
       const int in_cy = min(max(fcy, riy0), riy1 - 1);
       const int cx1 =
@@ -291,56 +309,58 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
                   ((refl_x || refl_y) ? 1ULL : 0ULL);
 
       // ---- deposit bookkeeping: K = deposit per unit path ----
-      const float heating =
+      const Real heating =
           energy - (1.0f - sig_a / sig_t) * (energy * C::kAvgScatterFrac);
-      const float K = weight * (sig_t * C::kBarns) * heating * number_density;
+      const Real K = weight * (sig_t * C::kBarns) * heating * number_density;
 
       // Exit distance of the first cell.
-      const float ex_pos = static_cast<float>(cellx + 1) * p.dx;
-      const float ex_neg = static_cast<float>(cellx) * p.dx - C::kObc;
-      const float ey_pos = static_cast<float>(celly + 1) * p.dy;
-      const float ey_neg = static_cast<float>(celly) * p.dy - C::kObc;
-      const float cdt_x = omega_x >= 0.0f ? (ex_pos - x) * u_x_inv
-                                          : (ex_neg - x) * u_x_inv;
-      const float cdt_y = omega_y >= 0.0f ? (ey_pos - y) * u_y_inv
-                                          : (ey_neg - y) * u_y_inv;
-      const float d_head = tmin(tmax(tmin(cdt_x, cdt_y) * speed, 0.0f), d);
+      const Real ex_pos = static_cast<Real>(cellx + 1) * p.dx;
+      const Real ex_neg = static_cast<Real>(cellx) * p.dx - C::kObc;
+      const Real ey_pos = static_cast<Real>(celly + 1) * p.dy;
+      const Real ey_neg = static_cast<Real>(celly) * p.dy - C::kObc;
+      const Real cdt_x = omega_x >= 0.0f ? (ex_pos - x) * u_x_inv
+                                         : (ex_neg - x) * u_x_inv;
+      const Real cdt_y = omega_y >= 0.0f ? (ey_pos - y) * u_y_inv
+                                         : (ey_neg - y) * u_y_inv;
+      const Real d_head =
+          tmin(tmax(tmin(cdt_x, cdt_y) * speed, Real(0)), d);
 
       // Entry distance of the final cell.
-      const float d_inx =
-          cx1 > cellx ? (static_cast<float>(cx1) * p.dx - x) * u_x_inv
+      const Real d_inx =
+          cx1 > cellx ? (static_cast<Real>(cx1) * p.dx - x) * u_x_inv
           : cx1 < cellx
-              ? (static_cast<float>(cx1 + 1) * p.dx - x) * u_x_inv
-              : 0.0f;
-      const float d_iny =
-          cy1 > celly ? (static_cast<float>(cy1) * p.dy - y) * u_y_inv
+              ? (static_cast<Real>(cx1 + 1) * p.dx - x) * u_x_inv
+              : Real(0);
+      const Real d_iny =
+          cy1 > celly ? (static_cast<Real>(cy1) * p.dy - y) * u_y_inv
           : cy1 < celly
-              ? (static_cast<float>(cy1 + 1) * p.dy - y) * u_y_inv
-              : 0.0f;
-      const float d_in =
-          tmax(tmin(tmax(tmax(d_inx, d_iny) * speed, 0.0f), d), d_head);
+              ? (static_cast<Real>(cy1 + 1) * p.dy - y) * u_y_inv
+              : Real(0);
+      const Real d_in =
+          tmax(tmin(tmax(tmax(d_inx, d_iny) * speed, Real(0)), d), d_head);
 
       const bool crossed = ncross > 0;
       // One crossing: no interior cells; the head takes the gap.
-      const float d_head_eff = emit ? d_head : d_in;
+      const Real d_head_eff = emit ? d_head : d_in;
 
-      // First cell: accumulate, then flush on leaving it.
-      const float acc1 = deposit + K * (crossed ? d_head_eff : d);
+      // First cell: accumulate, then flush on leaving it (atomicAdd on
+      // float* or, in float64, the native atomicAdd on double*).
+      const Real acc1 = deposit + K * (crossed ? d_head_eff : d);
       if (crossed) {
-        const float v1 = acc1 * p.inv_ntotal;
+        const Real v1 = acc1 * p.inv_ntotal;
         if (v1 != 0.0f) {
           atomicAdd(&p.tally[(celly - p.y_off) * p.nx + (cellx - p.x_off)],
                     v1);
         }
       }
       // Final cell: the tail accumulates.
-      const float acc2 = crossed ? K * (d - d_in) : acc1;
+      const Real acc2 = crossed ? K * (d - d_in) : acc1;
 
       // ---- interior segment, from the pre-piece position, in window-local
       // cell units (an exact shift; 0 when unwindowed) ----
       if (emit) {
-        const float seg_len = tmax(d_in - d_head_eff, 0.0f);
-        float* out = p.segs + 5 * row;
+        const Real seg_len = tmax(d_in - d_head_eff, Real(0));
+        Real* out = p.segs + 5 * row;
         out[0] = (x + d_head_eff * omega_x) * p.inv_dx - xo;
         out[1] = (y + d_head_eff * omega_y) * p.inv_dy - yo;
         out[2] = (x + d_in * omega_x) * p.inv_dx - xo;
@@ -361,7 +381,7 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
 
       // Death or census: flush the final cell.
       if (died || is_census) {
-        const float v2 = acc2 * p.inv_ntotal;
+        const Real v2 = acc2 * p.inv_ntotal;
         if (v2 != 0.0f) {
           atomicAdd(&p.tally[(cy1 - p.y_off) * p.nx + (cx1 - p.x_off)], v2);
         }
@@ -376,7 +396,7 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
       if (is_census) dt = 0.0f;
       if (is_coll) {
         sig_a = p.same_xs ? sig_s : xs_value<X>(energy, absorb, hint_a);
-        speed = sqrtf(C::kSpeedCoef * energy);
+        speed = nt_sqrt(C::kSpeedCoef * energy);
       }
 
       x = x1;
@@ -430,25 +450,37 @@ __device__ __forceinline__ void flight_pieces(const FlightParams p) {
   }
 }
 
-// The entry points.  Table mode caps the registers at kTableBlocks blocks
-// an SM (64 registers) beside the blocks' coarse indexes in shared memory;
-// the analytic mode keeps the compiler's own allocation.
+// The entry points.  Table mode caps the registers at TableBlocks<Real>
+// blocks an SM beside the blocks' coarse indexes in shared memory: in
+// float32 8 (64 registers), in float64 kTableBlocks64 (the doubles take
+// two registers each; under float32's cap they would spill); the analytic
+// mode keeps the compiler's own allocation.
 constexpr int kTableBlocks = 8;
+constexpr int kTableBlocks64 = 5;
 
-template <RngScheme R>
+template <typename Real>
+struct TableBlocks {
+  static constexpr int value = kTableBlocks;
+};
+template <>
+struct TableBlocks<double> {
+  static constexpr int value = kTableBlocks64;
+};
+
+template <RngScheme R, typename Real>
 __global__ void __launch_bounds__(kThreads)
-flight_kernel_analytic(const FlightParams p) {
+flight_kernel_analytic(const FlightParamsT<Real> p) {
   flight_pieces<XsMode::kAnalytic, R>(p);
 }
 
-template <RngScheme R>
-__global__ void __launch_bounds__(kThreads, kTableBlocks)
-flight_kernel_table(const FlightParams p) {
+template <RngScheme R, typename Real>
+__global__ void __launch_bounds__(kThreads, TableBlocks<Real>::value)
+flight_kernel_table(const FlightParamsT<Real> p) {
   flight_pieces<XsMode::kTable, R>(p);
 }
 
-template <XsMode X, RngScheme R>
-void launch(const FlightParams& p, unsigned int blocks, size_t smem,
+template <XsMode X, RngScheme R, typename Real>
+void launch(const FlightParamsT<Real>& p, unsigned int blocks, size_t smem,
             cudaStream_t s) {
   if constexpr (X == XsMode::kAnalytic) {
     flight_kernel_analytic<R><<<blocks, kThreads, smem, s>>>(p);
@@ -457,19 +489,13 @@ void launch(const FlightParams& p, unsigned int blocks, size_t smem,
   }
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes by flight_kernel.py.
-
-extern "C" int nt_flight_params_size() {
-  return static_cast<int>(sizeof(FlightParams));
-}
-
 // Launches one round of up to p->max_pieces pieces over the p->n_active
 // lanes of p->active (lanes 0 .. n_active - 1 when it is null) on `stream`,
-// with the instantiation of p's modes, and returns cudaGetLastError() (0
-// when the launch was accepted; cudaErrorInvalidValue for an unknown mode).
-extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
+// with the instantiation of p's modes and working type, and returns
+// cudaGetLastError() (0 when the launch was accepted;
+// cudaErrorInvalidValue for an unknown mode).
+template <typename Real>
+int launch_round(const FlightParamsT<Real>* p, void* stream) {
   if (p->n_active <= 0) return 0;
   const unsigned int blocks =
       static_cast<unsigned int>((p->n_active + kThreads - 1) / kThreads);
@@ -491,4 +517,24 @@ extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes by flight_kernel.py.
+
+extern "C" int nt_flight_params_size() {
+  return static_cast<int>(sizeof(FlightParams));
+}
+
+extern "C" int nt_flight_params_size_f64() {
+  return static_cast<int>(sizeof(FlightParams64));
+}
+
+extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
+  return launch_round(p, stream);
+}
+
+extern "C" int nt_flight_launch_f64(const FlightParams64* p, void* stream) {
+  return launch_round(p, stream);
 }

@@ -59,19 +59,36 @@
 // are finite cell coordinates, as the flight kernel writes them: with a
 // finite start and extent every wall time is finite, so fminf/fmaxf give
 // the plain version's NaN-propagating min/max values.  The row count is
-// read on the device (the flight kernel's atomic counter).  T = 128 (a
-// 64 KB tile; measured against T = 64 in PERF.md).
+// read on the device (the flight kernel's atomic counter).
+//
+// The working type is a template parameter: float32 rows into a float32
+// tally, or float64 rows (what the flight kernel's float64 instantiations
+// write) into a float64 tally, the plain version's arithmetic in that type
+// (neutral_tpu's rasterize_xla in float64).  The tile side T is the
+// type's (kTile): float32 T = 128 (a 64 KB tile; measured against T = 64
+// in PERF.md), float64 T = 64 (32 KB of doubles: under the 48 KB that
+// needs no opt-in, several blocks an SM; measured against T = 128 in
+// PERF.md).  Each type's bins, work items and tile kernel follow its T, and
+// its tile kernel has its own occupancy (tile_blocks<Real>), from which the
+// scan picks its C.  The shared-memory double add compiles to a
+// compare-and-swap loop as the float add does; the tile flush's global
+// add is the native atomicAdd(double*).  The float32 instantiations keep
+// the code they had before the working type was a template parameter:
+// what differs by type goes through common.cuh's overloads (floor_int,
+// nt_fabs, nt_fmin/nt_fmax) and tile_acc.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
-// Layout shared with raster_kernel._RasterParams (ctypes).
-struct RasterParams {
-  const float* segs;                    // (cap, 5) rows
+// Layout shared with raster_kernel._RasterParams (ctypes; Real = float)
+// and _RasterParams64 (Real = double).
+template <typename Real>
+struct RasterParamsT {
+  const Real* segs;                     // (cap, 5) rows
   const unsigned long long* nseg;       // rows written (may exceed cap)
-  float* tally;                         // (ny * nx,) flat, row-major
+  Real* tally;                          // (ny * nx,) flat, row-major
   int* pieces;                          // (piece_cap,) row indices by tile
   unsigned long long* work;             // 4 * ntiles + 4 entries, see Work
   unsigned long long* out;              // [pieces, overflow], host-read
@@ -81,11 +98,19 @@ struct RasterParams {
   int ny;
 };
 
+using RasterParams = RasterParamsT<float>;
+using RasterParams64 = RasterParamsT<double>;
+
 namespace {
 
 using namespace nt;
 
-constexpr int T = 128;                  // tally tile side in cells
+// The tally tile side in cells of each working type.
+template <typename Real>
+constexpr int kTile = 128;
+template <>
+constexpr int kTile<double> = 64;
+
 constexpr int kThreads = 256;           // bin kernels
 constexpr int kBlocks = 132 * 16;       // 16 blocks per SM of an H100
 constexpr int kScanThreads = 1024;
@@ -95,8 +120,10 @@ constexpr int kTileThreads = 512;
 constexpr int kMinChunk = 1024;
 constexpr int kMaxChunk = 16384;
 constexpr int kItemsPerBlock = 8;
-constexpr float kTiny = static_cast<float>(1.0e-12);
-constexpr float kBig = static_cast<float>(1.0e30);
+template <typename Real>
+constexpr Real kTiny = static_cast<Real>(1.0e-12);
+template <typename Real>
+constexpr Real kBig = static_cast<Real>(1.0e30);
 
 // The workspace (zeroed once by the caller): per-tile piece counts (zero
 // between calls), piece offsets (ntiles + 1), fill cursors, work-item
@@ -115,50 +142,58 @@ __device__ __forceinline__ Work views(unsigned long long* w, int ntiles) {
           w + 4 * ntiles + 2, w + 4 * ntiles + 3};
 }
 
+template <typename Real>
 struct Row {
-  float gx0, gy0, dgx, dgy, ivx, ivy, kk;
+  Real gx0, gy0, dgx, dgy, ivx, ivy, kk;
   int sx, sy, cx0, cy0;
 };
 
 // t of the cell wall at integer coordinate w: the walk's (ex - gx0) * ivx.
-__device__ __forceinline__ float wall_t(int w, float g0, float iv) {
-  return (static_cast<float>(w) - g0) * iv;
+template <typename Real>
+__device__ __forceinline__ Real wall_t(int w, Real g0, Real iv) {
+  return (static_cast<Real>(w) - g0) * iv;
 }
 
 // The walk's per-row set-up (deposit_segments_plain); false for kk == 0.
-__device__ __forceinline__ bool load_row(const float* segs,
+template <typename Real>
+__device__ __forceinline__ bool load_row(const Real* segs,
                                          unsigned long long s, int nx,
-                                         int ny, Row& r) {
-  const float* row = segs + 5 * s;
+                                         int ny, Row<Real>& r) {
+  const Real* row = segs + 5 * s;
   r.kk = row[4];
   if (r.kk == 0.0f) return false;
   r.gx0 = row[0];
   r.gy0 = row[1];
   r.dgx = row[2] - r.gx0;
   r.dgy = row[3] - r.gy0;
-  r.ivx = 1.0f /
-          (fabsf(r.dgx) < kTiny ? (r.dgx < 0.0f ? -kTiny : kTiny) : r.dgx);
-  r.ivy = 1.0f /
-          (fabsf(r.dgy) < kTiny ? (r.dgy < 0.0f ? -kTiny : kTiny) : r.dgy);
+  r.ivx = 1.0f / (nt_fabs(r.dgx) < kTiny<Real>
+                      ? (r.dgx < 0.0f ? -kTiny<Real> : kTiny<Real>)
+                      : r.dgx);
+  r.ivy = 1.0f / (nt_fabs(r.dgy) < kTiny<Real>
+                      ? (r.dgy < 0.0f ? -kTiny<Real> : kTiny<Real>)
+                      : r.dgy);
   r.sx = (r.dgx > 0.0f) - (r.dgx < 0.0f);
   r.sy = (r.dgy > 0.0f) - (r.dgy < 0.0f);
-  r.cx0 = min(max(__float2int_rd(r.gx0), 0), nx - 1);
-  r.cy0 = min(max(__float2int_rd(r.gy0), 0), ny - 1);
+  r.cx0 = min(max(floor_int(r.gx0), 0), nx - 1);
+  r.cy0 = min(max(floor_int(r.gy0), 0), ny - 1);
   return true;
 }
 
 // The tiles a row visits, in order (tile_pieces_plain): visit(tile id).
-template <typename Visit>
-__device__ __forceinline__ void walk_tiles(const Row& r, int ntx, int nty,
-                                           Visit visit) {
+template <typename Real, typename Visit>
+__device__ __forceinline__ void walk_tiles(const Row<Real>& r, int ntx,
+                                           int nty, Visit visit) {
+  constexpr int T = kTile<Real>;
   int tx = r.cx0 / T;
   int ty = r.cy0 / T;
   for (int it = 0; it < ntx + nty + 2; ++it) {
     visit(ty * ntx + tx);
-    const float t_x =
-        r.sx == 0 ? kBig : wall_t((r.sx > 0 ? tx + 1 : tx) * T, r.gx0, r.ivx);
-    const float t_y =
-        r.sy == 0 ? kBig : wall_t((r.sy > 0 ? ty + 1 : ty) * T, r.gy0, r.ivy);
+    const Real t_x = r.sx == 0 ? kBig<Real>
+                               : wall_t((r.sx > 0 ? tx + 1 : tx) * T, r.gx0,
+                                        r.ivx);
+    const Real t_y = r.sy == 0 ? kBig<Real>
+                               : wall_t((r.sy > 0 ? ty + 1 : ty) * T, r.gy0,
+                                        r.ivy);
     const bool step_x = (t_x <= t_y) && (t_x < 1.0f);
     const bool step_y = !step_x && (t_y < 1.0f);
     tx += step_x ? r.sx : 0;
@@ -172,8 +207,10 @@ __device__ __forceinline__ void walk_tiles(const Row& r, int ntx, int nty,
 // The cell along one axis that the walk occupies when it crosses the other
 // axis's wall at t, inside tile index tidx of this axis: past every wall
 // whose t is below t (raster._cross_cell).
-__device__ __forceinline__ int cross_cell(float g0, float iv, float dg, int s,
-                                          int c0, int tidx, float t) {
+template <typename Real>
+__device__ __forceinline__ int cross_cell(Real g0, Real iv, Real dg, int s,
+                                          int c0, int tidx, Real t) {
+  constexpr int T = kTile<Real>;
   if (s == 0) return c0;
   int lo = tidx * T;
   int hi = lo + T - 1;
@@ -182,8 +219,8 @@ __device__ __forceinline__ int cross_cell(float g0, float iv, float dg, int s,
   } else {
     hi = min(hi, c0);
   }
-  int c = __float2int_rd(fminf(fmaxf(g0 + t * dg, static_cast<float>(lo)),
-                               static_cast<float>(hi)));
+  int c = floor_int(nt_fmin(nt_fmax(g0 + t * dg, static_cast<Real>(lo)),
+                            static_cast<Real>(hi)));
   if (s > 0) {
     while (c < hi && wall_t(c + 1, g0, iv) < t) ++c;
     while (c > lo && !(wall_t(c, g0, iv) < t)) --c;
@@ -199,8 +236,10 @@ __device__ __forceinline__ int cross_cell(float g0, float iv, float dg, int s,
 // x wall's), at that wall's t, and along the other axis the cell that
 // cross_cell finds (deposit_pieces_plain).  Sets the local cell and t;
 // false if the cell is not in the tile (never, for the bins' pieces).
-__device__ __forceinline__ bool enter(const Row& r, int tx, int ty, int& lx,
-                                      int& ly, float& t_cur) {
+template <typename Real>
+__device__ __forceinline__ bool enter(const Row<Real>& r, int tx, int ty,
+                                      int& lx, int& ly, Real& t_cur) {
+  constexpr int T = kTile<Real>;
   const int x_lo = tx * T;
   const int y_lo = ty * T;
   const bool cross_x = tx != r.cx0 / T;
@@ -209,8 +248,8 @@ __device__ __forceinline__ bool enter(const Row& r, int tx, int ty, int& lx,
   int cy = r.cy0;
   t_cur = 0.0f;
   if (cross_x || cross_y) {
-    const float t_x = wall_t(r.sx > 0 ? x_lo : x_lo + T, r.gx0, r.ivx);
-    const float t_y = wall_t(r.sy > 0 ? y_lo : y_lo + T, r.gy0, r.ivy);
+    const Real t_x = wall_t(r.sx > 0 ? x_lo : x_lo + T, r.gx0, r.ivx);
+    const Real t_y = wall_t(r.sy > 0 ? y_lo : y_lo + T, r.gy0, r.ivy);
     if (cross_x && (!cross_y || t_y < t_x)) {
       t_cur = t_x;
       cx = r.sx > 0 ? x_lo : x_lo + T - 1;
@@ -232,19 +271,20 @@ __device__ __forceinline__ bool enter(const Row& r, int tx, int ty, int& lx,
 // steps, with each axis's next wall time recomputed (by the same
 // expression) only when that axis steps.  kClip: the tile reaches past the
 // grid, whose cells are dropped.
-template <bool kClip>
-__device__ __forceinline__ void walk_cells(const Row& r, int lx, int ly,
-                                           float t_cur, int x_lo, int y_lo,
-                                           int nx, int ny, float* acc) {
+template <bool kClip, typename Real>
+__device__ __forceinline__ void walk_cells(const Row<Real>& r, int lx, int ly,
+                                           Real t_cur, int x_lo, int y_lo,
+                                           int nx, int ny, Real* acc) {
+  constexpr int T = kTile<Real>;
   const int ox = x_lo + (r.sx > 0 ? 1 : 0);
   const int oy = y_lo + (r.sy > 0 ? 1 : 0);
-  float t_nx = r.sx == 0 ? kBig : wall_t(ox + lx, r.gx0, r.ivx);
-  float t_ny = r.sy == 0 ? kBig : wall_t(oy + ly, r.gy0, r.ivy);
+  Real t_nx = r.sx == 0 ? kBig<Real> : wall_t(ox + lx, r.gx0, r.ivx);
+  Real t_ny = r.sy == 0 ? kBig<Real> : wall_t(oy + ly, r.gy0, r.ivy);
   while (t_cur < 1.0f) {
-    const float tn = fminf(fminf(t_nx, t_ny), 1.0f);
-    const float frac = fmaxf(tn - t_cur, 0.0f);
+    const Real tn = nt_fmin(nt_fmin(t_nx, t_ny), Real(1));
+    const Real frac = nt_fmax(tn - t_cur, Real(0));
     if (!kClip || (x_lo + lx < nx && y_lo + ly < ny)) {
-      const float v = r.kk * frac;
+      const Real v = r.kk * frac;
       if (v != 0.0f) atomicAdd(&acc[ly * T + lx], v);
     }
     t_cur = tn;
@@ -260,7 +300,10 @@ __device__ __forceinline__ void walk_cells(const Row& r, int lx, int ly,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) count_kernel(const RasterParams p) {
+template <typename Real>
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const RasterParamsT<Real> p) {
+  constexpr int T = kTile<Real>;
   const unsigned long long nseg =
       min(*p.nseg, static_cast<unsigned long long>(p.cap));
   const int ntx = (p.nx + T - 1) / T;
@@ -271,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) count_kernel(const RasterParams p) {
            static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
            threadIdx.x;
        s < nseg; s += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
-    Row r;
+    Row<Real> r;
     if (!load_row(p.segs, s, p.nx, p.ny, r)) continue;
     walk_tiles(r, ntx, nty, [&](int tile) {
       const unsigned peers = __match_any_sync(__activemask(), tile);
@@ -286,8 +329,9 @@ __global__ void __launch_bounds__(kThreads) count_kernel(const RasterParams p) {
 // One block: picks C from the call's pieces and the tile kernel's resident
 // `blocks`, then scans the piece counts (offsets, cursors) and their work
 // items (ceil(count / C)) in passes of kScanThreads tiles.
+template <typename Real>
 __global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const RasterParams p, int ntiles, int blocks) {
+scan_kernel(const RasterParamsT<Real> p, int ntiles, int blocks) {
   const Work w = views(p.work, ntiles);
   __shared__ unsigned long long warp_a[32];
   __shared__ unsigned long long warp_b[32];
@@ -374,7 +418,10 @@ scan_kernel(const RasterParams p, int ntiles, int blocks) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fill_kernel(const RasterParams p) {
+template <typename Real>
+__global__ void __launch_bounds__(kThreads)
+fill_kernel(const RasterParamsT<Real> p) {
+  constexpr int T = kTile<Real>;
   if (p.out[1] != 0) return;            // overflow: the caller re-runs
   const unsigned long long nseg =
       min(*p.nseg, static_cast<unsigned long long>(p.cap));
@@ -386,7 +433,7 @@ __global__ void __launch_bounds__(kThreads) fill_kernel(const RasterParams p) {
            static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
            threadIdx.x;
        s < nseg; s += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
-    Row r;
+    Row<Real> r;
     if (!load_row(p.segs, s, p.nx, p.ny, r)) continue;
     walk_tiles(r, ntx, nty, [&](int tile) {
       const unsigned peers = __match_any_sync(__activemask(), tile);
@@ -403,9 +450,19 @@ __global__ void __launch_bounds__(kThreads) fill_kernel(const RasterParams p) {
   }
 }
 
+// The tile in the block's dynamic shared memory (one extern float array,
+// which starts aligned): as it is in float32, read as doubles in float64.
+__device__ __forceinline__ float* tile_acc(float* acc, float) { return acc; }
+__device__ __forceinline__ double* tile_acc(float* acc, double) {
+  return reinterpret_cast<double*>(acc);
+}
+
+template <typename Real>
 __global__ void __launch_bounds__(kTileThreads)
-tile_kernel(const RasterParams p) {
-  extern __shared__ float acc[];        // T * T floats
+tile_kernel(const RasterParamsT<Real> p) {
+  constexpr int T = kTile<Real>;
+  extern __shared__ float acc_smem[];   // T * T of the working type
+  Real* const acc = tile_acc(acc_smem, Real(0));
   __shared__ unsigned long long item_sh;
   if (p.out[1] != 0) return;            // overflow: the caller re-runs
   const int ntx = (p.nx + T - 1) / T;
@@ -436,9 +493,9 @@ tile_kernel(const RasterParams p) {
     const int ty = lo / ntx;
     const bool clip = (tx + 1) * T > p.nx || (ty + 1) * T > p.ny;
     for (int k = threadIdx.x; k < n; k += kTileThreads) {
-      Row r;
+      Row<Real> r;
       int lx, ly;
-      float t;
+      Real t;
       if (!load_row(p.segs,
                     static_cast<unsigned long long>(p.pieces[begin + k]),
                     p.nx, p.ny, r) ||
@@ -455,7 +512,7 @@ tile_kernel(const RasterParams p) {
     }
     __syncthreads();
     for (int i = threadIdx.x; i < T * T; i += kTileThreads) {
-      const float v = acc[i];
+      const Real v = acc[i];
       if (v != 0.0f) {
         acc[i] = 0.0f;
         const int cx = tx * T + (i % T);
@@ -471,30 +528,39 @@ tile_kernel(const RasterParams p) {
 
 constexpr int kMaxDevices = 64;
 
-// Persistent blocks of tile_kernel on the current device: every SM filled
-// to its occupancy (set up once per device).
+// Dynamic shared memory of a tile_kernel<Real> block: its T x T tile.
+template <typename Real>
+constexpr int kTileBytes = kTile<Real> * kTile<Real> *
+                           static_cast<int>(sizeof(Real));
+
+// Persistent blocks of tile_kernel<Real> on the current device: every SM
+// filled to its occupancy beside its tile (set up once per device and
+// working type).
+template <typename Real>
 int tile_blocks() {
   static int blocks[kMaxDevices] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= kMaxDevices) return 0;
   if (blocks[dev] == 0) {
-    constexpr int bytes = T * T * static_cast<int>(sizeof(float));
-    cudaFuncSetAttribute(tile_kernel,
+    constexpr int bytes = kTileBytes<Real>;
+    cudaFuncSetAttribute(tile_kernel<Real>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     int sms = 0;
     int per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tile_kernel,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tile_kernel<Real>,
                                                   kTileThreads, bytes);
     blocks[dev] = sms * (per_sm > 1 ? per_sm : 1);
   }
   return blocks[dev];
 }
 
-int launch_bin(const RasterParams& p, cudaStream_t s) {
+template <typename Real>
+int launch_bin(const RasterParamsT<Real>& p, cudaStream_t s) {
+  constexpr int T = kTile<Real>;
   const int ntiles = ((p.nx + T - 1) / T) * ((p.ny + T - 1) / T);
-  const int blocks = tile_blocks();
+  const int blocks = tile_blocks<Real>();
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidDevice);
   count_kernel<<<kBlocks, kThreads, 0, s>>>(p);
   scan_kernel<<<1, kScanThreads, 0, s>>>(p, ntiles, blocks);
@@ -502,11 +568,28 @@ int launch_bin(const RasterParams& p, cudaStream_t s) {
   return 0;
 }
 
-int launch_tiles(const RasterParams& p, cudaStream_t s) {
-  const int blocks = tile_blocks();
+template <typename Real>
+int launch_tiles(const RasterParamsT<Real>& p, cudaStream_t s) {
+  const int blocks = tile_blocks<Real>();
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  tile_kernel<<<blocks, kTileThreads, T * T * sizeof(float), s>>>(p);
+  tile_kernel<<<blocks, kTileThreads, kTileBytes<Real>, s>>>(p);
   return 0;
+}
+
+// Stage 1 on `stream`: count, scan and fill the bins of the first
+// min(*p->nseg, p->cap) rows; writes p->out.  Returns cudaGetLastError().
+template <typename Real>
+int bin(const RasterParamsT<Real>* p, void* stream) {
+  const int err = launch_bin(*p, static_cast<cudaStream_t>(stream));
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+// Stage 2 on `stream`: the tile deposit of the bins into p->tally (nothing
+// when stage 1 flagged an overflow).  Returns cudaGetLastError().
+template <typename Real>
+int tiles(const RasterParamsT<Real>* p, void* stream) {
+  const int err = launch_tiles(*p, static_cast<cudaStream_t>(stream));
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -517,16 +600,33 @@ extern "C" int nt_raster_params_size() {
   return static_cast<int>(sizeof(RasterParams));
 }
 
-// Stage 1 on `stream`: count, scan and fill the bins of the first
-// min(*p->nseg, p->cap) rows; writes p->out.  Returns cudaGetLastError().
-extern "C" int nt_raster_bin(const RasterParams* p, void* stream) {
-  const int err = launch_bin(*p, static_cast<cudaStream_t>(stream));
-  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+extern "C" int nt_raster_params_size_f64() {
+  return static_cast<int>(sizeof(RasterParams64));
 }
 
-// Stage 2 on `stream`: the tile deposit of the bins into p->tally (nothing
-// when stage 1 flagged an overflow).  Returns cudaGetLastError().
+// The tile side T of the float32 (f64 = 0) or float64 (f64 = 1) kernels.
+extern "C" int nt_raster_tile_side(int f64) {
+  return f64 ? kTile<double> : kTile<float>;
+}
+
+// Persistent blocks of the float32 (f64 = 0) or float64 (f64 = 1) tile
+// kernel on the current device (SMs x blocks an SM; 0 on an error).
+extern "C" int nt_raster_tile_blocks(int f64) {
+  return f64 ? tile_blocks<double>() : tile_blocks<float>();
+}
+
+extern "C" int nt_raster_bin(const RasterParams* p, void* stream) {
+  return bin(p, stream);
+}
+
+extern "C" int nt_raster_bin_f64(const RasterParams64* p, void* stream) {
+  return bin(p, stream);
+}
+
 extern "C" int nt_raster_tiles(const RasterParams* p, void* stream) {
-  const int err = launch_tiles(*p, static_cast<cudaStream_t>(stream));
-  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  return tiles(p, stream);
+}
+
+extern "C" int nt_raster_tiles_f64(const RasterParams64* p, void* stream) {
+  return tiles(p, stream);
 }

@@ -30,11 +30,12 @@ flight_kernel.py with raster_kernel.py), each census started by the begin
 kernel (begin_kernel.py), and needs a CUDA device; `plain`
 runs the plain PyTorch version on any device, and on CUDA only when asked
 for by name; `auto` is `kernel` on CUDA and `plain` otherwise
-(`pick_engine`).  The sweep and begin kernels run float32 and float64
-(float64 in global coordinates, as `neutral_tpu`'s XLA float64 engine);
-the flight and deposit kernels float32 only, and `auto` never gives a
-float64 deck the flight transport (`neutral_tpu`'s `is_f32` rule), so an
-explicit `--transport flight --dtype float64` runs the plain engine.
+(`pick_engine`).  Every kernel runs float32 and float64 (float64 in
+global coordinates, as `neutral_tpu`'s XLA float64 engines): `auto` never
+gives a float64 deck the flight transport (`neutral_tpu`'s `is_f32`
+rule), and an explicit `--transport flight --dtype float64` runs the
+float64 flight and segment-deposit kernels, as JAX's `engine="flight"`
+runs its XLA flight engine in float64 on a GPU or CPU.
 Grid decks (`density_file`) run on the sweep transport only.  Decks
 without a uniform pitch, non-uniform meshes and `fast_math 0`, run on the
 sweep transport, as JAX runs them on its XLA edge-array sweep: on a card
@@ -188,21 +189,16 @@ def pitch_refusal(cfg: SimConfig) -> str | None:
 def kernel_refusal(dtype: torch.dtype, cfg: SimConfig | None = None,
                    transport: str | None = None) -> str | None:
     """Why no kernel runs this deck in `dtype` on `transport` (None: the
-    kernels run it): a tally whose dtype is not the state's, or float64 on
-    the flight transport, whose float64 kernels are a later slice than the
-    sweep's.  A deck without a pitch is no reason: the sweep kernel takes
-    it in edge-array mode, and the flight transport refuses it itself
-    (pick_transport)."""
+    kernels run it): a working type other than float32 and float64, or a
+    tally whose dtype is not the state's.  The transport decides nothing
+    now: both transports' kernels run both working types.  A deck without
+    a pitch is no reason either: the sweep kernel takes it in edge-array
+    mode, and the flight transport refuses it itself (pick_transport)."""
     if dtype not in (torch.float32, torch.float64):
         return f"needs float32 or float64, got {dtype}"
     if cfg is not None and getattr(torch, cfg.tally_dtype) != dtype:
         return (f"needs the tally in the state's dtype, got a "
                 f"{cfg.tally_dtype} tally for {dtype} particles")
-    if dtype == torch.float64 and transport == "flight":
-        return ("on the flight transport needs float32: the flight and "
-                "segment-deposit kernels have no float64 instantiation yet "
-                "(a later slice; the sweep transport runs float64 on its "
-                "kernels)")
     return None
 
 
@@ -521,7 +517,8 @@ class Simulation(SimulationBase):
                                  device=self.device)
         # The kernel loop's buffers, kept from census to census.
         kernel = self.engine == "kernel"
-        self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device)
+        self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device,
+                                     dtype=self.dtype)
                        if kernel and self.transport == "flight" else None)
         self.sweep = (SweepBuffers(self.device)
                       if kernel and self.transport == "sweep" else None)
@@ -613,11 +610,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--mesh-scale", type=int, default=None,
                    help="divide nx/ny by this factor (quick runs)")
     p.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="kernel = the transport's CUDA kernels (the sweep "
-                        "transport's in float32 and float64, the flight "
-                        "transport's in float32); plain = their plain "
-                        "PyTorch versions; auto = kernel on CUDA where one "
-                        "exists, else plain")
+                   help="kernel = the transport's CUDA kernels (float32 "
+                        "and float64); plain = their plain PyTorch "
+                        "versions; auto = kernel on CUDA where one exists, "
+                        "else plain")
     p.add_argument("--transport", default="auto", choices=TRANSPORTS,
                    help="sweep = one event per step; flight = closed-form "
                         "flight pieces and segment deposits; auto = flight "

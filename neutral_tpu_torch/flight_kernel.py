@@ -32,8 +32,13 @@ between censuses by the caller.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, threefry or pcg64si draws (csrc/flight.cu); the rects are device
-arrays of any length.  The spatial window of a decomposed run
-(`x_off`/`y_off`, flight.py's) is a runtime parameter.  `flight_params`,
+arrays of any length.  Each mode has a float32 and a float64 instantiation
+(the working type of the state, the tally, the rects' densities and the
+segment rows; positions global in both, as flight.py keeps them):
+`_FlightParams` and `_FlightParams64` are the two parameter layouts, and
+the segment deposit follows the rows' type (raster_kernel.py).  The
+spatial window of a decomposed run (`x_off`/`y_off`, flight.py's) is a
+runtime parameter.  `flight_params`,
 `flight_round` and `after_round` are one round; `flight_chunk_kernel`
 loops them for one state, and the decomposed runs (parallel/) run a round
 on every shard before they read the counters of all shards at once.  The
@@ -57,20 +62,30 @@ from . import build
 from .particles import ParticleState
 from .raster_kernel import (GROWTH, SegmentDeposit, deposit_segments_kernel,
                             redeposit_segments)
-from .sweep_kernel import (TABLE_POINTERS, check_inputs, rect_arrays,
+from .sweep_kernel import (REALS, TABLE_POINTERS, check_inputs, rect_arrays,
                            state_pointers, table_fields, window_fields)
 from .transport import Geometry
 from .xs import CrossSection
 
-SEG_ROWS = 1 << 22         # rows of a new segment buffer (80 MiB)
-SEG_ROWS_MAX = 1 << 26     # rows it may grow to (1.25 GiB)
+# The segment buffer's budgets are bytes: a row is 5 values of the working
+# type, 20 bytes in float32 and 40 in float64.
+SEG_BYTES = 80 << 20       # a new segment buffer (4M float32 rows)
+SEG_BYTES_MAX = 5 << 28    # what it may grow to (1.25 GiB, 64M float32 rows)
+SEG_ROWS = SEG_BYTES // 20          # float32 rows of a new buffer
+SEG_ROWS_MAX = SEG_BYTES_MAX // 20  # float32 rows it may grow to
 FIRST_PIECES = 16          # pieces per lane of a census's first launch
 RUN_OUT = 1 << 14          # pieces of a launch that runs its lanes out
 
 
-class _FlightParams(ctypes.Structure):
-    """Mirror of `FlightParams` in csrc/flight.cu."""
-    _fields_ = (
+def seg_rows(nbytes: int, dtype: torch.dtype) -> int:
+    """Segment rows of `dtype` that `nbytes` bytes hold."""
+    return nbytes // (5 * dtype.itemsize)
+
+
+def _flight_fields(real) -> list:
+    """`FlightParamsT<Real>`'s fields in csrc/flight.cu, its scalars of the
+    ctypes type `real`."""
+    return (
         [(f, ctypes.c_void_p) for f in (
             "x", "y", "omega_x", "omega_y", "energy", "weight",
             "dt_to_census", "mfp_to_collision", "deposit", "cellx",
@@ -83,22 +98,44 @@ class _FlightParams(ctypes.Structure):
             "max_pieces", "nx", "ny", "scatter_entries", "absorb_entries",
             "scatter_shift", "absorb_shift", "same_xs", "nrects", "xs_mode",
             "rng", "x_off", "y_off", "global_nx", "global_ny")]
-        + [(f, ctypes.c_float) for f in (
-            "dx", "dy", "inv_dx", "inv_dy", "inv_ntotal")])
+        + [(f, real) for f in ("dx", "dy", "inv_dx", "inv_dy",
+                               "inv_ntotal")])
+
+
+class _FlightParams(ctypes.Structure):
+    """Mirror of `FlightParams` (float32) in csrc/flight.cu."""
+    _fields_ = _flight_fields(ctypes.c_float)
+
+
+class _FlightParams64(ctypes.Structure):
+    """Mirror of `FlightParams64` (float64) in csrc/flight.cu."""
+    _fields_ = _flight_fields(ctypes.c_double)
+
+
+# The parameter layout and entry-point suffix of each working type.
+_LAYOUTS = {torch.float32: (_FlightParams, ""),
+            torch.float64: (_FlightParams64, "_f64")}
+
+
+def _real(params: ctypes.Structure) -> torch.dtype:
+    """The working type of a parameter layout."""
+    return (torch.float64 if isinstance(params, _FlightParams64)
+            else torch.float32)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     lib = build.load()
-    lib.nt_flight_params_size.argtypes = []
-    lib.nt_flight_params_size.restype = ctypes.c_int
-    lib.nt_flight_launch.argtypes = [ctypes.POINTER(_FlightParams),
-                                     ctypes.c_void_p]
-    lib.nt_flight_launch.restype = ctypes.c_int
-    if lib.nt_flight_params_size() != ctypes.sizeof(_FlightParams):
-        raise RuntimeError("csrc/flight.cu FlightParams does not match "
-                           "flight_kernel._FlightParams")
+    for cls, sfx in _LAYOUTS.values():
+        size = getattr(lib, f"nt_flight_params_size{sfx}")
+        size.argtypes, size.restype = [], ctypes.c_int
+        launch = getattr(lib, f"nt_flight_launch{sfx}")
+        launch.argtypes = [ctypes.POINTER(cls), ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        if size() != ctypes.sizeof(cls):
+            raise RuntimeError(f"csrc/flight.cu FlightParams{sfx} does not "
+                               f"match flight_kernel.{cls.__name__}")
     return lib
 
 
@@ -135,26 +172,34 @@ def grown_rows(cap: int, reserved: int, max_rows: int) -> int:
 
 class FlightBuffers:
     """The flight loop's device buffers for one state and (nx, ny) tally on
-    one device, kept by the caller between censuses: the six counters
-    [facets, collisions, lanes still working, segment rows reserved, the
-    deposit's pieces, its overflow flag]; the two lane lists of a round
-    (the launch's and the next, swapped after each launch); the segment
-    buffer of `rows` (rows, 5) float32 rows, grown after a round that
-    refused rows, up to `max_rows`; and the segment deposit's buffers.
-    `n_active` is the length of the next launch's list, None when the next
-    launch covers every lane (the first of a census, or of a shard that
-    received migrants); `round` counts the census's launches."""
+    one device in working type `dtype` (float32 or float64), kept by the
+    caller between censuses: the six counters [facets, collisions, lanes
+    still working, segment rows reserved, the deposit's pieces, its
+    overflow flag]; the two lane lists of a round (the launch's and the
+    next, swapped after each launch); the segment buffer of `rows` (rows,
+    5) rows of `dtype` (None: SEG_BYTES' worth), grown after a round that
+    refused rows, up to `max_rows` (None: SEG_BYTES_MAX' worth); and the
+    segment deposit's buffers.  `n_active` is the length of the next
+    launch's list, None when the next launch covers every lane (the first
+    of a census, or of a shard that received migrants); `round` counts the
+    census's launches."""
 
-    def __init__(self, nx: int, ny: int, device, rows: int = SEG_ROWS,
-                 max_rows: int = SEG_ROWS_MAX):
+    def __init__(self, nx: int, ny: int, device, rows: int | None = None,
+                 max_rows: int | None = None,
+                 dtype: torch.dtype = torch.float32):
+        if dtype not in REALS:
+            raise ValueError(f"segment rows in float32 or float64, got "
+                             f"{dtype}")
+        rows = seg_rows(SEG_BYTES, dtype) if rows is None else rows
+        if max_rows is None:
+            max_rows = seg_rows(SEG_BYTES_MAX, dtype)
         if rows < 1:
             raise ValueError(f"segment buffer needs at least 1 row, got "
                              f"{rows}")
-        self.deposit = SegmentDeposit(nx, ny, device)
+        self.deposit = SegmentDeposit(nx, ny, device, dtype=dtype)
         self.device = self.deposit.device          # with its index
         self.counts = torch.zeros(6, dtype=torch.int64, device=self.device)
-        self.segs = torch.empty((rows, 5), dtype=torch.float32,
-                                device=self.device)
+        self.segs = torch.empty((rows, 5), dtype=dtype, device=self.device)
         self.max_rows = max(max_rows, rows)
         self.lists = [torch.empty(0, dtype=torch.int32, device=self.device)
                       for _ in range(2)]
@@ -176,29 +221,33 @@ def flight_params(state: ParticleState, tally: torch.Tensor, rects: tuple,
                   absorb_tab: CrossSection, master_key: int,
                   inv_ntotal: float, x_off=None,
                   y_off=None) -> _FlightParams:
-    """The parameters of a census's launches, after check_inputs: `rects`
-    is rect_arrays(geom.rects) and `x_off`/`y_off` the window (None:
-    none).  flight_round sets the fields of each launch (lists, pieces,
-    segment buffer, counters)."""
+    """The parameters of a census's launches in the state's working type,
+    after check_inputs: `rects` is rect_arrays(geom.rects, dtype=the
+    working type) and `x_off`/`y_off` the window (None: none).
+    flight_round sets the fields of each launch (lists, pieces, segment
+    buffer, counters)."""
     if geom.rects is None:
         raise ValueError("flight kernel needs geom.rects")
     check_inputs(state, tally, geom, scatter_tab, absorb_tab,
-                 "flight kernel")
+                 "flight kernel", REALS)
     if state.n >= 2**31:
         raise ValueError(f"flight kernel: lane lists are int32, so at most "
                          f"2**31 - 1 lanes, got {state.n}")
-    p = _FlightParams()
+    if rects[1].dtype != state.dtype:
+        raise ValueError(f"flight kernel: rect densities in "
+                         f"{rects[1].dtype}, state in {state.dtype}")
+    p = _LAYOUTS[state.dtype][0]()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
-    table_fields(p, geom, scatter_tab, absorb_tab)
+    table_fields(p, geom, scatter_tab, absorb_tab, state.dtype)
     p.nrects = rects[0].shape[0]
     p.rect_bounds = rects[0].data_ptr()
     p.rect_density = rects[1].data_ptr()
     p.master_key = int(master_key)
     p.n = state.n
     window_fields(p, geom, x_off, y_off)
-    # ctypes rounds each Python float to float32 as np.float32 does, as
-    # xs.const does for the plain version.
+    # ctypes rounds each Python float to float32 as np.float32 does, or
+    # keeps it whole in float64, as xs.const does for the plain version.
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
     p.inv_dx, p.inv_dy = 1.0 / geom.dx, 1.0 / geom.dy
     return p
@@ -219,6 +268,9 @@ def flight_round(params: _FlightParams, buffers: FlightBuffers,
     Returns the round's record: the lanes launched, the pieces per lane and
     its three CUDA events (start, flight done, deposit done) as "marks"."""
     b = buffers
+    if b.segs.dtype != _real(params):
+        raise ValueError(f"flight kernel: {_real(params)} parameters beside "
+                         f"a segment buffer of {b.segs.dtype} rows")
     lanes = params.n if b.n_active is None else b.n_active
     if max_pieces is None:
         max_pieces = pieces_for(b.round, lanes, b.resident)
@@ -236,14 +288,14 @@ def flight_round(params: _FlightParams, buffers: FlightBuffers,
     params.seg_cap = b.segs.shape[0]
     params.max_pieces = int(max_pieces)
     lib = load_library()
+    launch = getattr(lib, f"nt_flight_launch{_LAYOUTS[_real(params)][1]}")
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         b.counts[2:4].zero_()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        build.check_launch(
-            lib, lib.nt_flight_launch(ctypes.byref(params), stream),
-            "flight kernel")
+        build.check_launch(lib, launch(ctypes.byref(params), stream),
+                           "flight kernel")
         flight_chunk_kernel.launches += 1
         ev[1].record()
         deposit_segments_kernel(tally, b.segs, b.counts[3:4], geom.nx,
@@ -275,9 +327,9 @@ def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
         flight_chunk_kernel.refusals += 1
         rows = grown_rows(cap, reserved, b.max_rows)
         if rows != cap:
+            dtype = b.segs.dtype
             b.segs = None                     # free it before the new one
-            b.segs = torch.empty((rows, 5), dtype=torch.float32,
-                                 device=b.device)
+            b.segs = torch.empty((rows, 5), dtype=dtype, device=b.device)
     b.n_active = working
     record.update(working=working, rows=rows_written(reserved, cap),
                   refused=reserved > cap)
@@ -338,11 +390,12 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     CUDA events.
     """
     dev = state.device
-    rects = (None if geom.rects is None else rect_arrays(geom.rects, dev))
+    rects = (None if geom.rects is None
+             else rect_arrays(geom.rects, dev, state.dtype))
     params = flight_params(state, tally, rects, geom, scatter_tab,
                            absorb_tab, master_key, inv_ntotal, x_off, y_off)
     if buffers is None:
-        buffers = FlightBuffers(geom.nx, geom.ny, dev)
+        buffers = FlightBuffers(geom.nx, geom.ny, dev, dtype=state.dtype)
     buffers.start_census()
     counts = buffers.counts
     counts.zero_()

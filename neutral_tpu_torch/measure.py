@@ -3,10 +3,12 @@
     python neutral_tpu_torch/measure.py census [--root DIR] [--reps 5]
         [--dtype float64] [--modes MODE ...]
     python neutral_tpu_torch/measure.py flight [--root DIR] [--reps 5]
+        [--dtype float64]
     python neutral_tpu_torch/measure.py deposit [--root DIR] [--reps 5]
-        [--rows FILE] [--deck DECK]
+        [--rows FILE] [--deck DECK] [--dtype float64]
     python neutral_tpu_torch/measure.py run DECK [--root DIR] [--reps 1]
         [--shards N --decomposition D] [--dtype float64]
+        [--transport flight]
     python neutral_tpu_torch/measure.py compare FILE [--key total_s]
     python neutral_tpu_torch/measure.py scaled [--nparticles N]
     python neutral_tpu_torch/measure.py profile DECK [--decomposition D]
@@ -44,7 +46,8 @@ deck's 10,000,000 particles, and stretched_1m and fast_math0_1m at
 the segment deposits) over one step-1 census of the split deck at
 1,000,000 particles, analytic and beside the 30,000-entry `.cs` tables,
 `--reps` times after a warm-up, with the package under `--root` as
-`census` does, and prints each mode's end-state digest.
+`census` does, and prints each mode's end-state digest.  `--dtype
+float64` runs it in float64 (the flight kernel's float64 instantiations).
 
 `deposit` times the segment deposit of the step-1 segment rows of DECK
 (default: the stream deck, 1,000,000 particles, 4000^2 mesh) into a fresh
@@ -54,7 +57,8 @@ tiled kernel also its two stages (bins, tile deposit), the bins' sizes, T
 and C.  The rows come
 from that package's flight kernel, or from `--rows FILE` when it exists
 (written there otherwise), so that the runs of two checkouts in one call
-deposit the same rows.
+deposit the same rows.  `--dtype float64` deposits float64 rows (from the
+float64 flight kernel) into a float64 tally.
 
 `run` runs DECK at full size through `driver.make_simulation` (one device,
 or N shards on the one card under decomposition D) with the package under
@@ -63,7 +67,9 @@ timed run its steps' times, the cumulative phases, the launches,
 migrations and peak device memory: run it for two checkouts in turns in
 one call (A, B, B, A, ...) to compare whole steps.  `--dtype float64`
 runs the deck in float64 (state and tally; `auto` then takes the sweep
-transport and its float64 kernels).  `compare` reads the
+transport and its float64 kernels); `--transport sweep|flight` picks the
+transport by name (`--transport flight --dtype float64`: the float64
+flight and deposit kernels).  `compare` reads the
 JSON lines of such runs (with other lines between them) and prints, per
 deck and decomposition and per checkout, the runs' count, median, minimum
 and quartiles of `--key` (a dotted key such as phases.raster reads a
@@ -94,9 +100,11 @@ tail (under 10% of the shard's first launch's lanes with work).
 build.py, its csrc/) and prints one record per compiled kernel: its name
 as cu++filt demangles it, with the float32 instantiations named as before
 the working type became a template parameter (", float>" and "<float>"
-dropped, "SweepParamsT"/"BeginParamsT" read as "SweepParams"/
-"BeginParams") and the sweep kernel's pitch-mode instantiations as
-before the edge mode became one (", (nt::EdgeMode)0" dropped), ptxas's
+dropped, "SweepParamsT<...>" and its kin of the begin, flight and
+deposit kernels read as "SweepParams" and so on, and a kernel left
+without template arguments named without its return type) and the sweep
+kernel's pitch-mode instantiations as before the edge mode became one
+(", (nt::EdgeMode)0" dropped), ptxas's
 registers, spill stores and loads and stack frame from the build log,
 and a digest of its SASS (cuobjdump -sass, addresses and encodings
 stripped): two checkouts whose kernels of one name print
@@ -243,9 +251,9 @@ def table_deck(deck: str, tmp: str) -> str:
     return os.path.join(d, os.path.basename(deck))
 
 
-def flight(reps: int, tmp: str) -> list:
+def flight(reps: int, tmp: str, dtype: str = "float32") -> list:
     """The flight kernel's own milliseconds over `reps` split censuses at
-    1,000,000 particles, analytic and in table mode."""
+    1,000,000 particles in `dtype`, analytic and in table mode."""
     import hashlib
     import torch
     from neutral_tpu_torch import driver, flight_kernel, transport
@@ -255,11 +263,16 @@ def flight(reps: int, tmp: str) -> list:
     out = []
     for mode, deck in (("analytic", split), ("table", table_deck(split, tmp))):
         cfg = driver.load_config(deck).with_(expected_tally=None)
+        if dtype != cfg.dtype:
+            cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
         sim = driver.Simulation(cfg, device="cuda", engine="plain",
-                                quiet=True)
+                                transport="flight", quiet=True)
         start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                          cfg.dt, 1)
-        buffers = flight_kernel.FlightBuffers(cfg.nx, cfg.ny, "cuda")
+        # (float32 as a checkout from before float64 flight calls it)
+        buffers = (flight_kernel.FlightBuffers(cfg.nx, cfg.ny, "cuda")
+                   if dtype == "float32" else flight_kernel.FlightBuffers(
+                       cfg.nx, cfg.ny, "cuda", dtype=sim.dtype))
         times, launches = [], 0
         for rep in range(reps + 1):
             state = start.clone()
@@ -271,7 +284,8 @@ def flight(reps: int, tmp: str) -> list:
         digest = hashlib.sha256()
         for f in STATE_FIELDS:
             digest.update(getattr(state, f).cpu().numpy().tobytes())
-        out.append({"deck": f"flight {mode}", "shards": 1,
+        name = f"flight {mode}" + ("" if dtype == "float32" else f" {dtype}")
+        out.append({"deck": name, "shards": 1,
                     "decomposition": None, "flight_ms": times,
                     "min_ms": min(times),
                     "median_ms": sorted(times)[len(times) // 2],
@@ -282,18 +296,22 @@ def flight(reps: int, tmp: str) -> list:
     return out
 
 
-def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
-    """Milliseconds of `reps` segment deposits of `deck`'s step-1 rows."""
+def deposit(reps: int, deck: str, rows_path: str | None,
+            dtype: str = "float32") -> dict:
+    """Milliseconds of `reps` segment deposits of `deck`'s step-1 rows in
+    `dtype`."""
     import torch
     from neutral_tpu_torch import driver, flight_kernel, raster_kernel
     from neutral_tpu_torch import transport
 
     cfg = driver.load_config(deck).with_(expected_tally=None)
+    if dtype != cfg.dtype:
+        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
     if rows_path and os.path.exists(rows_path):
         rows = torch.load(rows_path).cuda()
     else:
         sim = driver.Simulation(cfg, device="cuda", engine="plain",
-                                quiet=True)
+                                transport="flight", quiet=True)
         start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                          cfg.dt, 1)
         segs = []
@@ -305,11 +323,15 @@ def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
         if rows_path:
             torch.save(rows.cpu(), rows_path)
     nseg = torch.tensor([rows.shape[0]], dtype=torch.int64, device="cuda")
-    tally = torch.zeros(cfg.nx * cfg.ny, dtype=torch.float32, device="cuda")
+    tally = torch.zeros(cfg.nx * cfg.ny, dtype=rows.dtype, device="cuda")
     tiled = hasattr(raster_kernel, "SegmentDeposit")
     kw, stages = {}, []
     if tiled:
-        kw["deposit"] = raster_kernel.SegmentDeposit(cfg.nx, cfg.ny, "cuda")
+        # (float32 as a checkout from before float64 deposits calls it)
+        kw["deposit"] = (raster_kernel.SegmentDeposit(cfg.nx, cfg.ny, "cuda")
+                         if dtype == "float32" else
+                         raster_kernel.SegmentDeposit(cfg.nx, cfg.ny, "cuda",
+                                                      dtype=rows.dtype))
         kw["stages"] = stages
     times, bin_ms, tile_ms = [], [], []
     for rep in range(reps + 1):
@@ -327,7 +349,8 @@ def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
             for ev0, ev1, ev2 in stages[-1:]:
                 bin_ms.append(ev0.elapsed_time(ev1))
                 tile_ms.append(ev1.elapsed_time(ev2))
-    out = {"deck": deck, "rows": rows.shape[0], "deposit_ms": times,
+    out = {"deck": deck if dtype == "float32" else f"{deck} {dtype}",
+           "rows": rows.shape[0], "deposit_ms": times,
            "min_ms": min(times), "median_ms": sorted(times)[len(times) // 2],
            "tally_sum": float(tally.double().sum())}
     if tiled:
@@ -336,10 +359,10 @@ def deposit(reps: int, deck: str, rows_path: str | None) -> dict:
 
 
 def run(deck: str, shards: int, decomposition: str, reps: int,
-        dtype: str | None = None) -> list:
+        dtype: str | None = None, transport: str = "auto") -> list:
     """Every step of `deck` at full size, on one device or `shards`
     shards on the one card, `reps` times after a warm-up run, in `dtype`
-    (state and tally; None: the deck's)."""
+    (state and tally; None: the deck's) on `transport`."""
     import torch
     from neutral_tpu_torch import driver
 
@@ -347,19 +370,24 @@ def run(deck: str, shards: int, decomposition: str, reps: int,
     if dtype:
         cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
     devices = [torch.device("cuda", 0)] * shards
+    kw = {} if transport == "auto" else {"transport": transport}
     # warm-up run: builds the kernels, fills PyTorch's caches
-    driver.make_simulation(cfg, decomposition, devices, quiet=True).run()
+    driver.make_simulation(cfg, decomposition, devices, quiet=True,
+                           **kw).run()
     out = []
     for _ in range(reps):
         torch.cuda.reset_peak_memory_stats()
-        sim = driver.make_simulation(cfg, decomposition, devices, quiet=True)
+        sim = driver.make_simulation(cfg, decomposition, devices, quiet=True,
+                                     **kw)
         sim.run()
         phases = {}
         for m in sim.step_metrics:
             for k, v in m.phases.items():
                 phases[k] = phases.get(k, 0.0) + v
         ms = sim.step_metrics
-        out.append({"deck": deck if not dtype else f"{deck} {dtype}",
+        name = " ".join([deck] + ([dtype] if dtype else [])
+                        + ([transport] if kw else []))
+        out.append({"deck": name,
                     "shards": shards,
                     "decomposition": decomposition if shards > 1 else None,
                     "steps_s": [m.step_time for m in ms],
@@ -538,7 +566,12 @@ def _kernel_name(demangled: str) -> str:
     before the edge mode was one."""
     name = re.sub(r", \([\w:]*EdgeMode\)0>", ">", demangled)
     name = name.replace(", float>", ">").replace("<float>", "")
-    return re.sub(r"\b(Sweep|Begin)ParamsT\b", r"\1Params", name)
+    # the parameter struct's template, however the demangler spells it
+    name = re.sub(r"\b(Sweep|Begin|Flight|Raster)ParamsT(<\w+>)?",
+                  r"\1Params", name)
+    # a kernel left without template arguments: no return type, as before
+    return re.sub(r"^void (<unnamed>|\(anonymous namespace\))(::\w+\()",
+                  r"\1\2", name)
 
 
 def kernels(sass_file: str | None = None) -> list:
@@ -605,6 +638,8 @@ def main(argv: list[str] | None = None) -> int:
     g.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
     g.add_argument("--reps", type=int, default=5)
+    g.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
     d = sub.add_parser("deposit", help="time the segment deposit")
     d.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package to time")
@@ -612,6 +647,8 @@ def main(argv: list[str] | None = None) -> int:
     d.add_argument("--rows", default=None,
                    help="file of the rows (torch.save), read if it exists")
     d.add_argument("--deck", default="problems/stream.params")
+    d.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
     r = sub.add_parser("run", help="time every step of a full deck")
     r.add_argument("deck")
     r.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -621,6 +658,8 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--decomposition", default="replicated",
                    choices=["replicated", "spatial", "spatial2d"])
     r.add_argument("--dtype", default=None, choices=["float32", "float64"])
+    r.add_argument("--transport", default="auto",
+                   choices=["auto", "sweep", "flight"])
     m = sub.add_parser("compare", help="compare the records of `run`")
     m.add_argument("file")
     m.add_argument("--key", default="total_s")
@@ -664,16 +703,16 @@ def main(argv: list[str] | None = None) -> int:
                        for m in args.modes]
         elif args.what == "flight":
             with tempfile.TemporaryDirectory() as tmp:
-                rec = flight(args.reps, tmp)
+                rec = flight(args.reps, tmp, args.dtype)
         elif args.what == "deposit":
-            rec = [deposit(args.reps, args.deck, rows)]
+            rec = [deposit(args.reps, args.deck, rows, args.dtype)]
         elif args.what == "tail":
             rec = tail(args.deck, args.decomposition, args.steps)
         elif args.what == "kernels":
             rec = kernels(sass)
         else:
             rec = run(args.deck, args.shards, args.decomposition, args.reps,
-                      args.dtype)
+                      args.dtype, args.transport)
         for r in rec:
             r["root"] = args.root
     else:

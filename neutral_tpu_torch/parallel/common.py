@@ -319,7 +319,8 @@ class DecomposedSimulation(SimulationBase):
             sh.rects = (None if rects is None
                         else rect_arrays(rects, device, self.dtype))
             if self.deposits:
-                sh.flight = FlightBuffers(geom.nx, geom.ny, device)
+                sh.flight = FlightBuffers(geom.nx, geom.ny, device,
+                                          dtype=self.dtype)
                 sh.counts = sh.flight.counts
             else:
                 sh.sweep = SweepBuffers(device)

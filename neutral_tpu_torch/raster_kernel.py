@@ -3,10 +3,13 @@
 Counterpart of `neutral_tpu/raster.py`'s two Pallas rasterizers
 (`_raster_kernel` and `_walk_kernel`): every row [gx0, gy0, gx1, gy1, kk]
 of a segment buffer adds kk times its clipped overlap into each cell it
-crosses.  The kernel bins the rows' pieces by `TILE` x `TILE` tally tile
-and deposits every tile's pieces, in work items of C pieces (chosen on the
+crosses.  The kernel bins the rows' pieces by T x T tally tile and
+deposits every tile's pieces, in work items of C pieces (chosen on the
 device for each call, 1024 to 16384), into the tile held in shared
-memory, which it then adds into the tally.  The
+memory, which it then adds into the tally.  It runs float32 rows into a
+float32 tally (T = `TILE`) and float64 rows into a float64 tally (T =
+`TILES[torch.float64]`), the two instantiations of csrc/raster.cu; a
+mixed pair raises.  The
 plain version of the function is `raster.deposit_segments_plain`, those
 of the two stages `raster.tile_pieces_plain` and
 `raster.deposit_pieces_plain`; this wrapper launches the kernel or raises
@@ -33,47 +36,89 @@ import torch
 
 from . import build
 
-TILE = 128                 # T of csrc/raster.cu: tile side in cells
+# The tile side T in cells of each working type (csrc/raster.cu kTile).
+TILES = {torch.float32: 128, torch.float64: 64}
+TILE = TILES[torch.float32]
 INITIAL_PIECES = 1 << 20   # piece buffer of a new SegmentDeposit
 GROWTH = 2                 # an overflow grows it to this times the need
 
+_RASTER_FIELDS = [("segs", ctypes.c_void_p), ("nseg", ctypes.c_void_p),
+                  ("tally", ctypes.c_void_p), ("pieces", ctypes.c_void_p),
+                  ("work", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                  ("cap", ctypes.c_int64), ("piece_cap", ctypes.c_int64),
+                  ("nx", ctypes.c_int), ("ny", ctypes.c_int)]
+
 
 class _RasterParams(ctypes.Structure):
-    """Mirror of `RasterParams` in csrc/raster.cu."""
-    _fields_ = [("segs", ctypes.c_void_p), ("nseg", ctypes.c_void_p),
-                ("tally", ctypes.c_void_p), ("pieces", ctypes.c_void_p),
-                ("work", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("cap", ctypes.c_int64), ("piece_cap", ctypes.c_int64),
-                ("nx", ctypes.c_int), ("ny", ctypes.c_int)]
+    """Mirror of `RasterParams` (float32) in csrc/raster.cu."""
+    _fields_ = _RASTER_FIELDS
+
+
+class _RasterParams64(ctypes.Structure):
+    """Mirror of `RasterParams64` (float64) in csrc/raster.cu: the same
+    fields, its rows and tally of doubles."""
+    _fields_ = _RASTER_FIELDS
+
+
+# The parameter layout and entry-point suffix of each working type.
+_LAYOUTS = {torch.float32: (_RasterParams, ""),
+            torch.float64: (_RasterParams64, "_f64")}
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     lib = build.load()
-    lib.nt_raster_params_size.argtypes = []
-    lib.nt_raster_params_size.restype = ctypes.c_int
-    for fn in (lib.nt_raster_bin, lib.nt_raster_tiles):
-        fn.argtypes = [ctypes.POINTER(_RasterParams), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    if lib.nt_raster_params_size() != ctypes.sizeof(_RasterParams):
-        raise RuntimeError("csrc/raster.cu RasterParams does not match "
-                           "raster_kernel._RasterParams")
+    for fn in (lib.nt_raster_tile_side, lib.nt_raster_tile_blocks):
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for real, (cls, sfx) in _LAYOUTS.items():
+        size = getattr(lib, f"nt_raster_params_size{sfx}")
+        size.argtypes, size.restype = [], ctypes.c_int
+        for stage in ("bin", "tiles"):
+            fn = getattr(lib, f"nt_raster_{stage}{sfx}")
+            fn.argtypes = [ctypes.POINTER(cls), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        if size() != ctypes.sizeof(cls):
+            raise RuntimeError(f"csrc/raster.cu RasterParams{sfx} does not "
+                               f"match raster_kernel.{cls.__name__}")
+        if lib.nt_raster_tile_side(int(bool(sfx))) != TILES[real]:
+            raise RuntimeError(f"csrc/raster.cu kTile of {real} does not "
+                               f"match raster_kernel.TILES")
     return lib
 
 
+def tile_blocks_per_sm(dtype: torch.dtype, device) -> int:
+    """Blocks of the tile kernel of working type `dtype` that one SM of
+    the CUDA `device` holds beside its T x T tile (the occupancy its
+    persistent grid is sized by)."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        blocks = lib.nt_raster_tile_blocks(int(dtype == torch.float64))
+    if blocks <= 0:
+        raise RuntimeError("segment-deposit kernel: no tile-kernel occupancy "
+                           f"on {device}")
+    return blocks // torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
 class SegmentDeposit:
-    """The kernel's buffers for one (nx, ny) tally on one device, kept
-    between calls: the int32 piece buffer (row indices grouped by tile,
-    grown on overflow), the per-tile workspace of `csrc/raster.cu`'s
-    `Work` (4 * ntiles + 4 int64, the counts zero between calls) and, for
-    callers that pass no counters of their own, the [pieces, overflow]
+    """The kernel's buffers for one (nx, ny) tally of `dtype` (float32 or
+    float64) on one device, kept between calls: the int32 piece buffer
+    (row indices grouped by tile, grown on overflow), the per-tile
+    workspace of `csrc/raster.cu`'s `Work` (4 * ntiles + 4 int64 over the
+    dtype's T x T tiles, the counts zero between calls) and, for callers
+    that pass no counters of their own, the [pieces, overflow]
     counters."""
 
     def __init__(self, nx: int, ny: int, device,
-                 pieces: int = INITIAL_PIECES):
-        self.nx, self.ny = nx, ny
-        self.ntiles = -(-nx // TILE) * -(-ny // TILE)
+                 pieces: int = INITIAL_PIECES,
+                 dtype: torch.dtype = torch.float32):
+        if dtype not in TILES:
+            raise ValueError(f"segment deposit in float32 or float64, got "
+                             f"{dtype}")
+        self.nx, self.ny, self.dtype = nx, ny, dtype
+        self.tile = TILES[dtype]
+        self.ntiles = -(-nx // self.tile) * -(-ny // self.tile)
         self.work = torch.zeros(4 * self.ntiles + 4, dtype=torch.int64,
                                 device=device)
         self.device = self.work.device          # with its index
@@ -96,7 +141,7 @@ class SegmentDeposit:
         w = self.work.cpu()
         per_tile = w[nt + 1:2 * nt + 1] - w[nt:2 * nt]
         busy = per_tile[per_tile > 0]
-        return {"tile": TILE, "chunk": int(w[4 * nt + 3]),
+        return {"tile": self.tile, "chunk": int(w[4 * nt + 3]),
                 "pieces": int(w[2 * nt]), "tiles_with_pieces": busy.numel(),
                 "pieces_per_tile_max": int(per_tile.max()),
                 "pieces_per_tile_mean": (float(busy.double().mean())
@@ -106,18 +151,22 @@ class SegmentDeposit:
 
 
 def _check(tally, segs, nseg, nx, ny):
+    real = tally.dtype
+    if real not in TILES or segs.dtype != real:
+        raise ValueError(f"segment-deposit kernel: rows of {segs.dtype} into "
+                         f"a tally of {real}: it takes float32 or float64 "
+                         "rows and tally, one working type")
     dev = tally.device
     if dev.type != "cuda":
         raise ValueError(f"segment-deposit kernel needs CUDA tensors, got "
                          f"{dev}")
-    if (tally.dtype != torch.float32 or tally.shape != (nx * ny,)
-            or not tally.is_contiguous()):
-        raise ValueError("tally: expected a contiguous float32 "
+    if tally.shape != (nx * ny,) or not tally.is_contiguous():
+        raise ValueError(f"tally: expected a contiguous {real} "
                          f"({nx * ny},) tensor")
-    if (segs.device != dev or segs.dtype != torch.float32 or segs.dim() != 2
+    if (segs.device != dev or segs.dim() != 2
             or segs.shape[1] != 5 or not segs.is_contiguous()
             or segs.shape[0] >= 2**31):
-        raise ValueError("segs: expected a contiguous (cap, 5) float32 "
+        raise ValueError(f"segs: expected a contiguous (cap, 5) {real} "
                          f"tensor on {dev} with cap < 2**31, got "
                          f"{tuple(segs.shape)} {segs.dtype} on {segs.device}")
     if (nseg.device != dev or nseg.dtype != torch.int64
@@ -132,10 +181,10 @@ def deposit_segments_kernel(tally: torch.Tensor, segs: torch.Tensor,
                             stages: list | None = None) -> None:
     """Add the first min(nseg, len(segs)) rows of `segs` into `tally`.
 
-    `tally` is the flat (ny*nx,) float32 tally, `segs` a contiguous
-    (cap, 5) float32 buffer and `nseg` a one-element int64 tensor, all on
-    one CUDA device.  `deposit` holds the buffers (a new SegmentDeposit
-    when None).  With `counts`, a (2,) int64 tensor on the device, the
+    `tally` is the flat (ny*nx,) tally, `segs` a contiguous (cap, 5)
+    buffer of the tally's dtype (float32 or float64) and `nseg` a
+    one-element int64 tensor, all on one CUDA device.  `deposit` holds the
+    buffers (a new SegmentDeposit of that dtype when None).  With `counts`, a (2,) int64 tensor on the device, the
     call launches on the current stream, writes [pieces, overflow] there
     and does not wait: on overflow the caller calls `redeposit_segments`
     before the rows change.  Without it the call reads its own counters (a
@@ -146,11 +195,13 @@ def deposit_segments_kernel(tally: torch.Tensor, segs: torch.Tensor,
     _check(tally, segs, nseg, nx, ny)
     dev = tally.device
     if deposit is None:
-        deposit = SegmentDeposit(nx, ny, dev)
-    elif (deposit.nx, deposit.ny, deposit.device) != (nx, ny, dev):
+        deposit = SegmentDeposit(nx, ny, dev, dtype=tally.dtype)
+    elif ((deposit.nx, deposit.ny, deposit.device, deposit.dtype)
+          != (nx, ny, dev, tally.dtype)):
         raise ValueError(f"deposit holds buffers of a ({deposit.nx}, "
-                         f"{deposit.ny}) tally on {deposit.device}, not "
-                         f"({nx}, {ny}) on {dev}")
+                         f"{deposit.ny}) {deposit.dtype} tally on "
+                         f"{deposit.device}, not ({nx}, {ny}) {tally.dtype} "
+                         f"on {dev}")
     own = counts is None
     if own:
         counts = deposit.out
@@ -184,23 +235,25 @@ def redeposit_segments(tally: torch.Tensor, segs: torch.Tensor,
 def _launch(deposit, tally, segs, nseg, counts, stages) -> None:
     """Both stages of one deposit on the current stream."""
     lib = load_library()
-    p = _RasterParams(segs=segs.data_ptr(), nseg=nseg.data_ptr(),
-                      tally=tally.data_ptr(),
-                      pieces=deposit.pieces.data_ptr(),
-                      work=deposit.work.data_ptr(), out=counts.data_ptr(),
-                      cap=segs.shape[0], piece_cap=deposit.pieces.shape[0],
-                      nx=deposit.nx, ny=deposit.ny)
+    cls, sfx = _LAYOUTS[deposit.dtype]
+    p = cls(segs=segs.data_ptr(), nseg=nseg.data_ptr(),
+            tally=tally.data_ptr(), pieces=deposit.pieces.data_ptr(),
+            work=deposit.work.data_ptr(), out=counts.data_ptr(),
+            cap=segs.shape[0], piece_cap=deposit.pieces.shape[0],
+            nx=deposit.nx, ny=deposit.ny)
+    bins = getattr(lib, f"nt_raster_bin{sfx}")
+    tiles = getattr(lib, f"nt_raster_tiles{sfx}")
     with torch.cuda.device(tally.device):
         stream = torch.cuda.current_stream().cuda_stream
         ev = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
               if stages is not None else None)
         if ev:
             ev[0].record()
-        build.check_launch(lib, lib.nt_raster_bin(ctypes.byref(p), stream),
+        build.check_launch(lib, bins(ctypes.byref(p), stream),
                            "segment-deposit kernel (bins)")
         if ev:
             ev[1].record()
-        build.check_launch(lib, lib.nt_raster_tiles(ctypes.byref(p), stream),
+        build.check_launch(lib, tiles(ctypes.byref(p), stream),
                            "segment-deposit kernel (tiles)")
         if ev:
             ev[2].record()

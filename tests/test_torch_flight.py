@@ -281,23 +281,34 @@ def _sorted_rows(segs):
     return rows[np.lexsort(rows.T[::-1])]
 
 
+def _bits(t):
+    """A float64 tensor's bit patterns (-0.0 differs from 0.0, NaN equals
+    itself); others as they are."""
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("max_pieces,rows", [(64, None), (1, None),
                                              (None, 1000)],
                          ids=["64", "1", "1000_rows"])
 @pytest.mark.parametrize("deck", DECKS)
-def test_flight_kernel_matches_plain_on_card(deck, max_pieces, rows):
+def test_flight_kernel_matches_plain_on_card(deck, max_pieces, rows, dtype):
     """Kernel and plain version from one begin_timestep state of the full
     deck's geometry at 65,536 particles: equal counts, all 14 per-lane
-    fields and sorted segment rows; tally sums to 1e-5 (atomics add in
-    another order).  max_pieces=1 splits the census over many launches;
-    a segment buffer of 1000 rows (grown up to 4000) refuses rows in many
-    rounds, under the default pieces per launch."""
+    fields (bitwise in float64) and sorted segment rows; tally sums to
+    1e-5 in float32 and 1e-12 in float64 (atomics add in another order).
+    max_pieces=1 splits the census over many launches; a segment buffer
+    of 1000 rows (grown up to 4000) refuses rows in many rounds, under the
+    default pieces per launch.  float64 runs the flight and deposit
+    kernels' float64 instantiations."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = tt.load_config(f"problems/{deck}.params").with_(
-        nparticles=65536, expected_tally=None)
-    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+        nparticles=65536, expected_tally=None, dtype=dtype,
+        tally_dtype=dtype)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain",
+                            transport="flight", quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     args = (sim.geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
@@ -305,7 +316,7 @@ def test_flight_kernel_matches_plain_on_card(deck, max_pieces, rows):
     ksegs, psegs = [], []
     buffers = (None if rows is None else
                FlightBuffers(sim.geom.nx, sim.geom.ny, "cuda", rows=rows,
-                             max_rows=4 * rows))
+                             max_rows=4 * rows, dtype=sim.dtype))
     refusals0 = flight_chunk_kernel.refusals
     ks, knf, knc, launches, _ = flight_chunk_kernel(
         start.clone(), kt, *args, max_pieces=max_pieces, segments=ksegs,
@@ -316,10 +327,12 @@ def test_flight_kernel_matches_plain_on_card(deck, max_pieces, rows):
     if max_pieces == 1:
         assert launches > 1
     for f in STATE_FIELDS:
-        np.testing.assert_array_equal(getattr(ks, f).cpu().numpy(),
-                                      getattr(ps, f).cpu().numpy(), f)
+        np.testing.assert_array_equal(_bits(getattr(ks, f)).cpu().numpy(),
+                                      _bits(getattr(ps, f)).cpu().numpy(), f)
+    assert torch.cat(ksegs).dtype == sim.dtype
     np.testing.assert_array_equal(_sorted_rows(ksegs), _sorted_rows(psegs))
     if rows is not None and len(torch.cat(psegs)) > 4 * rows:
         assert flight_chunk_kernel.refusals - refusals0 > 1
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
-    assert abs(ksum - psum) <= 1e-5 * abs(psum)
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    assert abs(ksum - psum) <= tol * abs(psum)

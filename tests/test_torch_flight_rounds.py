@@ -29,6 +29,7 @@ from neutral_tpu_torch.flight_kernel import (FIRST_PIECES, RUN_OUT,
                                              FlightBuffers, grown_rows,
                                              pieces_for, rows_written)
 from neutral_tpu_torch.particles import STATE_FIELDS
+from neutral_tpu_torch.raster_kernel import TILE, TILES
 from test_torch_flight import FAMILIES, make_cfg, run_jax
 
 RESIDENT = 64        # lanes "on the card at once" of the growing schedule
@@ -254,3 +255,36 @@ def test_flight_buffers_start_small_and_reject_empty():
     assert FlightBuffers(64, 64, "cpu", rows=8, max_rows=2).max_rows == 8
     with pytest.raises(ValueError, match="at least 1 row"):
         FlightBuffers(64, 64, "cpu", rows=0)
+
+
+def test_float64_segment_buffer_budgets_are_bytes():
+    """The segment buffer's budgets are bytes (SEG_BYTES, SEG_BYTES_MAX):
+    a float64 buffer, whose rows are 40 bytes, starts at and grows to half
+    the float32 buffer's rows in the same bytes; a round that refused rows
+    grows it in its own type (twice the rows wanted, up to the budget);
+    its segment deposit takes float64 rows at the float64 tile side; other
+    types raise."""
+    f64 = torch.float64
+    b32, b = FlightBuffers(64, 64, "cpu"), FlightBuffers(64, 64, "cpu",
+                                                         dtype=f64)
+    assert (b32.segs.dtype, b.segs.dtype) == (torch.float32, f64)
+    assert b.segs.shape == (flight_kernel.SEG_ROWS // 2, 5)
+    assert b.segs.nbytes == b32.segs.nbytes == flight_kernel.SEG_BYTES
+    assert b.max_rows == flight_kernel.SEG_ROWS_MAX // 2
+    assert b.max_rows * 40 == b32.max_rows * 20 == flight_kernel.SEG_BYTES_MAX
+    assert (b.deposit.dtype, b.deposit.tile) == (f64, TILES[f64])
+    assert b.deposit.ntiles == 1 and b32.deposit.tile == TILE
+    refusals = flight_kernel.flight_chunk_kernel.refusals
+    for reserved, rows in ((400, 800), (10**9, b.max_rows)):
+        small = FlightBuffers(64, 64, "cpu", rows=100,
+                              max_rows=None if rows == b.max_rows else 1000,
+                              dtype=f64)
+        rec = {}
+        flight_kernel.after_round(small, torch.zeros(64 * 64, dtype=f64),
+                                  None, rec, [5, reserved, 0, 0], [])
+        assert small.segs.shape == (rows, 5) and small.segs.dtype == f64
+        assert rec == {"working": 5, "rows": 100, "refused": True}
+        assert small.n_active == 5
+    assert flight_kernel.flight_chunk_kernel.refusals == refusals + 2
+    with pytest.raises(ValueError, match="float32 or float64"):
+        FlightBuffers(64, 64, "cpu", dtype=torch.float16)

@@ -1,17 +1,18 @@
 """float64 decks on the card's kernels: the float64 instantiations of the
-sweep, begin and lookup kernels (csrc/sweep.cu, csrc/begin.cu,
-csrc/table.cu, over csrc/common.cuh) and the routing that sends float64
-decks to them.
+sweep, begin, lookup, flight and segment-deposit kernels (csrc/sweep.cu,
+csrc/begin.cu, csrc/table.cu, csrc/flight.cu, csrc/raster.cu, over
+csrc/common.cuh) and the routing that sends float64 decks to them.
 
 float64 is the reference's own precision.  neutral_tpu runs it as device
-programs that XLA compiles (transport.py sweep_chunk and begin_timestep),
-in global coordinates, and its `auto` never gives a float64 deck the
-flight engine (the is_f32 term at neutral_tpu/driver.py:303).  The port
-now does the same on the card: `auto` takes the sweep transport and the
-kernel engine for float64 decks with a float64 tally (with a pitch or,
-through the edge-array mode, without one); an
-explicit `--transport flight --dtype float64` keeps the plain engine, and
-`--engine kernel` refuses it before any state is made.
+programs that XLA compiles (transport.py sweep_chunk and begin_timestep,
+flight.py flight_chunk_impl and raster.py rasterize_xla), in global
+coordinates, and its `auto` never gives a float64 deck the flight engine
+(the is_f32 term at neutral_tpu/driver.py:303); `engine="flight"` runs it
+there by name.  The port does the same on the card: `auto` takes the
+sweep transport and the kernel engine for float64 decks with a float64
+tally (with a pitch or, through the edge-array mode, without one); an
+explicit `--transport flight --dtype float64` takes the float64 flight
+and segment-deposit kernels.
 
 On the CPU, without a card:
 
@@ -28,7 +29,11 @@ On the CPU, without a card:
   kernels are held to bitwise on the card) against JAX's XLA float64
   engine: the four families of tests/test_transport.py and pcg64si,
   table, grid and window variants, per-step counts exactly equal, the
-  tally to rtol 1e-9 (atomics and index_add_ add in other orders).
+  tally to rtol 1e-9 (atomics and index_add_ add in other orders);
+- the float64 flight path through `driver.main --transport flight
+  --dtype float64` against JAX's `engine="flight"` float64 run on the
+  stream, split and csp families, and on 2x2 blocks against the single
+  device.
 
 The `cuda` cases hold each float64 kernel to its plain float64 version on
 the card, bitwise (all 14 fields and the counts), in every mode; they skip
@@ -47,7 +52,8 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import begin_kernel, driver, sweep_kernel, transport
+from neutral_tpu_torch import (begin_kernel, driver, flight_kernel,
+                               raster_kernel, sweep_kernel, transport)
 from neutral_tpu_torch.particles import STATE_FIELDS, ParticleState
 from neutral_tpu_torch.table_kernel import (PROBE_TABLES, probe_energies,
                                             probe_table, table_lookup_kernel)
@@ -97,24 +103,30 @@ def test_auto_sends_float64_decks_to_the_sweep_kernels(name):
 
 @pytest.mark.parametrize("how", ["simulation", "cli"])
 def test_kernel_float64_flight_raises_before_state(how, monkeypatch):
-    """--engine kernel --dtype float64 --transport flight raises, naming
-    the later slice, before the geometry or any particle is made; under
-    auto the same run takes the plain engine."""
+    """--engine kernel --dtype float64 --transport flight is the float64
+    flight and segment-deposit kernels' on a CUDA device (`kernel` and
+    `auto` both pick them), while `auto` still gives float64 decks the
+    sweep transport; on the CPU `--engine kernel` raises before the
+    geometry or any particle is made."""
     def no_state(*a, **k):
         raise AssertionError("state made before the refusal")
 
     monkeypatch.setattr(driver, "make_geometry", no_state)
     monkeypatch.setattr(driver, "inject_particles", no_state)
     cfg = deck("stream")
-    with pytest.raises(ValueError, match="flight transport needs float32"):
+    for engine in ("kernel", "auto"):
+        assert driver.pick_engine(engine, torch.device("cuda"), F64, cfg,
+                                  "flight") == "kernel"
+    assert driver.kernel_refusal(F64, cfg, "flight") is None
+    assert driver.auto_transport(cfg) == "sweep"
+    with pytest.raises(ValueError, match="needs a CUDA device"):
         if how == "simulation":
-            driver.Simulation(cfg, device="cuda", engine="kernel",
+            driver.Simulation(cfg, device="cpu", engine="kernel",
                               transport="flight")
         else:
             driver.main(["problems/stream.params", "--dtype", "float64",
-                         "--engine", "kernel", "--transport", "flight"])
-    assert driver.pick_engine("auto", torch.device("cuda"), F64, cfg,
-                              "flight") == "plain"
+                         "--engine", "kernel", "--transport", "flight",
+                         "--device", "cpu"])
 
 
 @pytest.mark.parametrize("state,tally", [("float64", "float32"),
@@ -306,7 +318,8 @@ def c_layout(fields: list) -> tuple[dict, int]:
 
 @pytest.mark.parametrize("cls32,cls64", [
     (sweep_kernel._SweepParams, sweep_kernel._SweepParams64),
-    (begin_kernel._BeginParams, begin_kernel._BeginParams64)])
+    (begin_kernel._BeginParams, begin_kernel._BeginParams64),
+    (flight_kernel._FlightParams, flight_kernel._FlightParams64)])
 def test_float64_param_layouts(cls32, cls64):
     """The float64 layouts repeat the float32 ones but for their floats,
     which are doubles on 8-byte boundaries; every offset and the size
@@ -331,6 +344,24 @@ def test_float64_param_layouts(cls32, cls64):
         assert getattr(cls64, name).offset == getattr(cls32,
                                                       name).offset, name
     assert sweep_kernel.REALS == (torch.float32, F64)
+
+
+def test_float64_raster_param_layout():
+    """The segment deposit's float64 layout is the float32 one: its rows
+    and tally are pointers, so every field keeps its offset, and the size
+    follows the C layout rules; each working type names its own layout
+    and tile side."""
+    cls32, cls64 = raster_kernel._RasterParams, raster_kernel._RasterParams64
+    assert cls32 is not cls64 and cls32._fields_ == cls64._fields_
+    offsets, size = c_layout(cls64._fields_)
+    for name, _ in cls64._fields_:
+        assert getattr(cls64, name).offset == offsets[name], name
+        assert getattr(cls32, name).offset == offsets[name], name
+    assert ctypes.sizeof(cls64) == ctypes.sizeof(cls32) == size
+    assert raster_kernel._LAYOUTS == {torch.float32: (cls32, ""),
+                                      F64: (cls64, "_f64")}
+    assert set(raster_kernel.TILES) == set(sweep_kernel.REALS)
+    assert raster_kernel.TILE == raster_kernel.TILES[torch.float32] == 128
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +430,73 @@ def test_float64_sweep_path_matches_jax_xla_f64(variant, tmp_path):
     np.testing.assert_allclose(got_tally.sum(), jt.sum(), rtol=1e-9)
     np.testing.assert_allclose(got_tally, jt, rtol=0.0,
                                atol=1e-9 * np.abs(jt).max())
+
+
+# ---------------------------------------------------------------------------
+# the float64 flight path through the CLI against JAX's float64 flight engine
+# ---------------------------------------------------------------------------
+
+def family_deck(path, kind: str) -> str:
+    """test_torch_flight.make_cfg's family `kind` at 48^2 and 150
+    particles, 2 steps, as a deck file at `path`."""
+    cfg = make_cfg(tt, kind, n=150, nx=48)
+    s = cfg.source
+    with open(path, "w") as f:
+        f.write(f"nparticles {cfg.nparticles}\ninitial_energy "
+                f"{cfg.initial_energy!r}\ndt {cfg.dt!r}\nnx {cfg.nx}\n"
+                f"ny {cfg.ny}\niterations {cfg.niters}\nsource "
+                f"xpos={s.xpos!r} ypos={s.ypos!r} width={s.width!r} "
+                f"height={s.height!r}\n")
+        for i, r in enumerate(cfg.problems):
+            f.write(f"problem_{i} density={r.density!r} energy=0.0 "
+                    f"xpos={r.xpos!r} ypos={r.ypos!r} width={r.width!r} "
+                    f"height={r.height!r}\n")
+    return str(path)
+
+
+def cli_run(capsys, argv: list) -> tuple[list, float, str]:
+    """driver.main(argv) on the CPU: (per-step (facets, collisions), the
+    tally sum, the output)."""
+    assert driver.main([*argv, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    steps = [(int(f), int(c)) for f, c in re.findall(
+        r"Facets\s+(\d+)\nCollisions\s+(\d+)", out)]
+    total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
+    return steps, total, out
+
+
+@pytest.mark.parametrize("kind", ["stream", "split", "csp"])
+def test_float64_flight_path_matches_jax_flight_f64(kind, capsys, tmp_path):
+    """`python -m neutral_tpu_torch DECK --transport flight --dtype
+    float64` on the CPU (the plain engine, which the float64 flight and
+    deposit kernels are held to bitwise on the card) against JAX's
+    `engine="flight"` float64 run of the same family (48^2, 150
+    particles, 2 steps): per-step facet and collision counts exactly
+    equal, the tally's sum to rtol 1e-12 (the deposits add in other
+    orders).  Then on 2x2 blocks (`--shards 4 --decomposition
+    spatial2d`): the single device's per-step counts and its tally to
+    rtol 1e-12."""
+    import neutral_tpu as nt
+    import neutral_tpu.driver as jdriver
+
+    path = family_deck(tmp_path / f"{kind}.params", kind)
+    argv = [path, "--transport", "flight", "--dtype", "float64"]
+    steps, total, out = cli_run(capsys, argv)
+    assert "Engine: plain." in out and "Transport: flight." in out
+    jsim = jdriver.Simulation(make_cfg(nt, kind, n=150, nx=48).with_(
+        engine="flight"), quiet=True)
+    want = [(m.nfacets, m.ncollisions)
+            for m in (jsim.step(t) for t in range(1, 3))]
+    assert steps == want and len(steps) == 2
+    assert sum(f + c for f, c in steps) > 0
+    jt = float(np.asarray(jsim.tally, np.float64).sum())
+    assert jt != 0.0
+    assert abs(total - jt) <= 1e-12 * abs(jt)
+    blocks, btotal, out = cli_run(capsys, [*argv, "--shards", "4",
+                                           "--decomposition", "spatial2d"])
+    assert "Decomposition: spatial2d, 4 shards" in out
+    assert blocks == steps
+    assert abs(btotal - total) <= 1e-12 * abs(total)
 
 
 # ---------------------------------------------------------------------------
@@ -538,19 +636,25 @@ def test_float64_lookup_kernel_matches_plain_on_card(name):
 
 
 @pytest.mark.cuda
-def test_float64_checkpoint_resumes_bitwise_on_kernels(tmp_path):
+@pytest.mark.parametrize("deck_name,transport_name", [("scatter", "sweep"),
+                                                      ("csp", "flight")])
+def test_float64_checkpoint_resumes_bitwise_on_kernels(deck_name,
+                                                       transport_name,
+                                                       tmp_path):
     """A float64 run on the kernels checkpointed after step 1 and restored
     onto the kernel engine: step 2 gives the uninterrupted run's counts,
-    all 14 fields bitwise and the tally."""
+    all 14 fields bitwise and the tally; on the sweep kernel (scatter) and
+    on the flight and segment-deposit kernels (csp by name on the flight
+    transport)."""
     needs_card()
-    cfg = deck("scatter", nparticles=65536, expected_tally=None)
-    whole = driver.Simulation(cfg, quiet=True)
-    assert (whole.engine, whole.transport) == ("kernel", "sweep")
+    cfg = deck(deck_name, nparticles=65536, expected_tally=None)
+    whole = driver.Simulation(cfg, transport=transport_name, quiet=True)
+    assert (whole.engine, whole.transport) == ("kernel", transport_name)
     whole.step(1)
     path = str(tmp_path / "ck.npz")
     whole.checkpoint(path, 1)
     want = whole.step(2)
-    resumed = driver.Simulation(cfg, quiet=True)
+    resumed = driver.Simulation(cfg, transport=transport_name, quiet=True)
     assert resumed.restore(path) == 1
     got = resumed.step(2)
     assert (got.nfacets, got.ncollisions) == (want.nfacets, want.ncollisions)

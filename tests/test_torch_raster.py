@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from neutral_tpu_torch import raster
-from neutral_tpu_torch.raster_kernel import (TILE, SegmentDeposit,
+from neutral_tpu_torch.raster_kernel import (TILES, SegmentDeposit,
                                              deposit_segments_kernel)
 
 NX, NY = 300, 260          # more than two 128-cell tiles each way
@@ -116,19 +116,40 @@ def test_segment_kernel_wrapper_on_cpu_raises():
     assert deposit_segments_kernel.launches == launches0
 
 
+def test_segment_kernel_refuses_mixed_working_types():
+    """The wrapper takes float32 rows into a float32 tally or float64 rows
+    into a float64 tally; a mixed pair, or another type, raises before the
+    device is looked at (here on CPU tensors), and launches nothing."""
+    launches0 = deposit_segments_kernel.launches
+    for tally, segs in ((torch.float32, torch.float64),
+                        (torch.float64, torch.float32),
+                        (torch.float16, torch.float16)):
+        with pytest.raises(ValueError, match="one working type"):
+            deposit_segments_kernel(torch.zeros(NX * NY, dtype=tally),
+                                    torch.zeros((4, 5), dtype=segs),
+                                    torch.tensor([4]), NX, NY)
+    with pytest.raises(ValueError, match="CUDA"):
+        deposit_segments_kernel(torch.zeros(NX * NY, dtype=torch.float64),
+                                torch.zeros((4, 5), dtype=torch.float64),
+                                torch.tensor([4]), NX, NY)
+    assert deposit_segments_kernel.launches == launches0
+
+
 @pytest.mark.cuda
-def test_segment_kernel_matches_plain_on_card():
-    """The CUDA segment deposit against the plain one on the card, float32:
-    per cell to 1e-5 of the largest cell and sums to 1e-5 (atomics add
-    overlapping segments in another order).  Rows past `nseg` are ignored.
-    Besides make_segments' rows, rows on the kernel's tile grid: through
-    tile corners, along and from tile walls, with x/y ties.  Twice: with
-    a new SegmentDeposit, and with one whose piece buffer is too small, so
-    that the first launch overflows and deposits nothing and the re-run
-    gives the same tally."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_kernel_matches_plain_on_card(dtype):
+    """The CUDA segment deposit against the plain one on the card: per
+    cell to 1e-5 of the largest cell and sums to 1e-5 in float32, 1e-12 in
+    float64 (atomics add overlapping segments in another order).  Rows
+    past `nseg` are ignored.  Besides make_segments' rows, rows on the
+    kernel's tile grid (its T in that type): through tile corners, along
+    and from tile walls, with x/y ties.  Twice: with a new SegmentDeposit,
+    and with one whose piece buffer is too small, so that the first launch
+    overflows and deposits nothing and the re-run gives the same tally."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    t = TILE
+    t = TILES[dtype]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
     seams = np.array([[0.0, 0.0, 3 * t, 3 * t, 1.0],
                       [3 * t, 3 * t, 0.0, 0.0, 1.25],
                       [t, 1.5, t, 3 * t + 0.5, 1.0],
@@ -137,14 +158,15 @@ def test_segment_kernel_matches_plain_on_card():
                       [40.0, 3.0, 2 * t, 2 * t, 0.8],
                       [0.5, 0.5, 2 * t + 0.5, 2 * t + 0.5, 0.75]])
     segs = torch.tensor(np.concatenate([seams, make_segments(0)]),
-                        dtype=torch.float32, device="cuda")
+                        dtype=dtype, device="cuda")
     nseg = segs.shape[0] - 3
-    pt = torch.zeros(NX * NY, dtype=torch.float32, device="cuda")
+    pt = torch.zeros(NX * NY, dtype=dtype, device="cuda")
     raster.deposit_segments_plain(pt, segs[:nseg], NX, NY)
     p = pt.double().cpu().numpy()
     for pieces, overflows in ((None, 0), (8, 1)):
         dep = (None if pieces is None
-               else SegmentDeposit(NX, NY, "cuda", pieces=pieces))
+               else SegmentDeposit(NX, NY, "cuda", pieces=pieces,
+                                   dtype=dtype))
         kt = torch.zeros_like(pt)
         launches0 = deposit_segments_kernel.launches
         overflows0 = deposit_segments_kernel.overflows
@@ -154,5 +176,5 @@ def test_segment_kernel_matches_plain_on_card():
         assert deposit_segments_kernel.launches == (launches0 + 1
                                                     + overflows)
         k = kt.double().cpu().numpy()
-        np.testing.assert_allclose(k, p, rtol=0, atol=1e-5 * np.abs(p).max())
-        np.testing.assert_allclose(k.sum(), p.sum(), rtol=1e-5)
+        np.testing.assert_allclose(k, p, rtol=0, atol=tol * np.abs(p).max())
+        np.testing.assert_allclose(k.sum(), p.sum(), rtol=tol)

@@ -18,11 +18,13 @@ import pytest
 import torch
 
 from neutral_tpu_torch import raster
-from neutral_tpu_torch.raster_kernel import (TILE, SegmentDeposit,
+from neutral_tpu_torch.raster_kernel import (TILE, TILES, SegmentDeposit,
                                              deposit_segments_kernel,
                                              redeposit_segments)
 
 NX, NY = 300, 260          # partial tiles on both axes at every tile size
+# A small side, and the kernel's T in float32 and in float64.
+TILE_SIDES = [16, TILE, TILES[torch.float64]]
 
 
 def seam_rows(tile: int) -> np.ndarray:
@@ -143,7 +145,7 @@ def test_tile_bins_match_expand_pairs(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("tile", [16, TILE])
+@pytest.mark.parametrize("tile", TILE_SIDES)
 def test_tile_deposit_matches_oracle_f64(tile, seed):
     from neutral_tpu import raster as jraster
 
@@ -156,7 +158,7 @@ def test_tile_deposit_matches_oracle_f64(tile, seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("tile", [16, TILE])
+@pytest.mark.parametrize("tile", TILE_SIDES)
 def test_tile_deposit_matches_row_walk_f32(tile, seed):
     """float32, the kernel's type: per cell to 1e-5 of the largest cell and
     sums to 1e-5 against the whole-row walk (and the oracle)."""
@@ -176,8 +178,28 @@ def test_tile_deposit_matches_row_walk_f32(tile, seed):
                                atol=1e-5 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("tile", [TILE, TILES[torch.float64]])
+def test_tile_deposit_matches_rasterize_xla_f64(tile):
+    """The two stages in float64 at the kernels' T against
+    neutral_tpu.raster.rasterize_xla in float64 (the function JAX's float64
+    flight engine deposits with): per cell to 1e-12."""
+    import jax.numpy as jnp
+    from neutral_tpu import raster as jraster
+
+    segs = make_segments(4, tile)
+    buf = np.zeros((segs.shape[0], 8))
+    buf[:, :5] = segs
+    want = jraster.rasterize_xla(jnp.zeros(NX * NY, jnp.float64),
+                                 jnp.asarray(buf),
+                                 jnp.int32(segs.shape[0]), nx=NX, ny=NY,
+                                 max_steps=NX + NY + 2)
+    np.testing.assert_allclose(tiled(segs, torch.float64, tile),
+                               np.asarray(want).reshape(NY, NX), rtol=1e-12,
+                               atol=1e-12)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("tile", [16, TILE])
+@pytest.mark.parametrize("tile", TILE_SIDES)
 def test_tile_walk_equals_row_walk_per_row(tile, dtype):
     """Row by row the tiled walk gives every cell exactly the value of the
     whole-row walk: the pieces enter each tile at the cell and t where the
@@ -211,6 +233,10 @@ def test_segment_deposit_buffers_and_wrapper_checks():
     ntiles = -(-NX // TILE) * -(-NY // TILE)
     assert TILE == 128 and dep.ntiles == ntiles
     assert dep.work.shape == (4 * ntiles + 4,) and not dep.work.any()
+    t64 = TILES[torch.float64]
+    dep64 = SegmentDeposit(NX, NY, "cpu", dtype=torch.float64)
+    assert (dep64.tile, dep64.ntiles) == (t64, -(-NX // t64) * -(-NY // t64))
+    assert dep64.work.shape == (4 * dep64.ntiles + 4,)
     dep.grow(1000)
     assert dep.pieces.shape[0] >= 1250
     launches0 = deposit_segments_kernel.launches
@@ -226,20 +252,23 @@ def test_segment_deposit_buffers_and_wrapper_checks():
 
 
 @pytest.mark.cuda
-def test_tile_stages_match_plain_on_card():
-    """The kernel's T on the card: the bins equal
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_stages_match_plain_on_card(dtype):
+    """The kernel's T on the card, in each working type: the bins equal
     tile_pieces_plain's (offsets exactly, each tile's rows as a multiset:
     atomics fill them in another order) and the tally equals
     deposit_pieces_plain's per cell to 1e-5 of the largest cell, with sums
-    to 1e-5.  The piece buffer starts too small, so the first launch
-    overflows, deposits nothing, and the re-run deposits everything."""
+    to 1e-5 (float32; 1e-12 in float64).  The piece buffer starts too
+    small, so the first launch overflows, deposits nothing, and the re-run
+    deposits everything."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    tile = TILE
+    tile = TILES[dtype]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
     segs = torch.tensor(np.concatenate([make_segments(5, tile), OFF_GRID]),
-                        dtype=torch.float32, device="cuda")
-    dep = SegmentDeposit(NX, NY, "cuda", pieces=16)
-    kt = torch.zeros(NX * NY, dtype=torch.float32, device="cuda")
+                        dtype=dtype, device="cuda")
+    dep = SegmentDeposit(NX, NY, "cuda", pieces=16, dtype=dtype)
+    kt = torch.zeros(NX * NY, dtype=dtype, device="cuda")
     launches0 = deposit_segments_kernel.launches
     overflows0 = deposit_segments_kernel.overflows
     deposit_segments_kernel(kt, segs, torch.tensor([segs.shape[0]],
@@ -255,9 +284,9 @@ def test_tile_stages_match_plain_on_card():
     for k in range(nt):
         a, b = int(offsets[k]), int(offsets[k + 1])
         assert torch.equal(torch.sort(got[a:b])[0], pieces[a:b])
-    pt = torch.zeros(NX * NY, dtype=torch.float32)
+    pt = torch.zeros(NX * NY, dtype=dtype)
     raster.deposit_pieces_plain(pt, segs.cpu(), (offsets, pieces), NX, NY,
                                 tile)
     k, p = kt.double().cpu().numpy(), pt.double().numpy()
-    np.testing.assert_allclose(k, p, rtol=0, atol=1e-5 * np.abs(p).max())
-    np.testing.assert_allclose(k.sum(), p.sum(), rtol=1e-5)
+    np.testing.assert_allclose(k, p, rtol=0, atol=tol * np.abs(p).max())
+    np.testing.assert_allclose(k.sum(), p.sum(), rtol=tol)

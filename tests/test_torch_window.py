@@ -247,13 +247,16 @@ def test_whole_mesh_window_is_bitwise_unwindowed(transport_name):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("deck,transport_name", [
     ("problems/scatter.params", "sweep"), ("problems/split.params", "flight"),
     ("problems/stream.params", "flight")])
-def test_windowed_kernel_matches_plain_on_card(deck, transport_name):
+def test_windowed_kernel_matches_plain_on_card(deck, transport_name, dtype):
     """The windowed sweep and flight kernels against their windowed plain
     versions at 65,536 particles on the full decks' geometry, in the 2x2
-    block (2000, 2000) that the source box straddles."""
-    cfg = tt.load_config(deck).with_(nparticles=65536, expected_tally=None)
+    block (2000, 2000) that the source box straddles, in float32 and in
+    float64 (the kernels' float64 instantiations, bitwise)."""
+    cfg = tt.load_config(deck).with_(nparticles=65536, expected_tally=None,
+                                     dtype=dtype, tally_dtype=dtype)
     kernel_matches_plain_on_card(cfg, transport_name,
                                  window=(2000, 2000, 2000, 2000))
