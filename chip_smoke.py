@@ -270,13 +270,48 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    each launching the float64 flight, deposit and begin kernels and no
    plain version or sweep kernel.  Prints its seconds.  (Phase 28 runs
    after phase 26; Result stays the last.)
+29. A state and a tally of different types (MIXED_PAIRS: a float32 state
+   with a float64 tally, a float64 state with a float32 tally; the mixed
+   instantiations of csrc/sweep_mixed.cu, csrc/flight.cu and
+   csrc/raster.cu): per pair, ptxas's registers and spills of its sweep,
+   flight and deposit instantiations; the sweep kernel against its plain
+   version in all 16 of its instantiations (8 modes on the uniform pitch,
+   8 in edge-array mode on the stretched mesh), the flight kernel in all
+   4 (stream and split analytic, split under pcg64si, table and table
+   pcg64si; split analytic again under the forced-small segment buffer)
+   and the deposit on the stream and split rows into a tally of the
+   tally's type: counts, all 14 fields and the segment rows bitwise, the
+   tally's sums and each of its cells against the largest cell to 1e-12
+   (a float64 tally) or 1e-5 (a float32 one).  The mains (MIXED_MAIN:
+   analytic regions threefry on the pitch, stream and split analytic, and
+   the deposit of stream's rows) run F64_MAIN_N = 1M lanes, as phases 26
+   and 28; every other census MIXED_N = 2^18 lanes born at MIXED_E0 = 1.5
+   eV (the deck's at 1e3-2.5e4 eV): a history ends when an absorption
+   finds it below 1 eV, so these run ~80 collisions a lane, not ~700, and
+   their plain versions seconds, not minutes.  Then through
+   driver.make_simulation under auto, full size: scatter (10M, 2 steps)
+   in both pairs on the sweep kernel; stream, split and csp (1M) with a
+   float32 state on the flight kernels and with a float64 state on the
+   sweep kernel; stream with a float64 state on the flight kernels by
+   name; scatter on 4 y-slabs and stream on 2x2 blocks sharing the card,
+   in both pairs.  Each with every count set to 0 just before and read
+   after: its transport's kernels and the begin kernel launched, no plain
+   version (the plain sweep, flight, deposit and begin counters at 0); its
+   tally of the tally's type within 1e-3 of the golden (csp: omp3's); its
+   per-step counts equal to those of the earlier phase's run of the same
+   deck whose tally is of the state's type (the physics reads no tally),
+   with both step times printed; a decomposed run's counts equal to the
+   single device's (over rects split at the blocks' walls on the flight
+   transport).  Prints its seconds.
 27. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran; the float64 instantiations as sweep_kernel_f64,
    table_lookup_f64, begin_kernel_f64, flight_kernel_f64 and
    segment_deposit_kernel_f64 beside the float32 entries, the sweep
    kernel's edge-array mode as sweep_kernel_edge_array and
    sweep_kernel_edge_array_f64, the begin kernel's no-pitch comparisons in
-   its entries' no_pitch_modes), then the JSON result line.
+   its entries' no_pitch_modes, the mixed pairs' as sweep_kernel_f32t64,
+   flight_kernel_f32t64, segment_deposit_kernel_f32t64 and their _f64t32
+   twins), then the JSON result line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 work this run gave it: the larger of the bytes it must move (each lane's
@@ -297,7 +332,10 @@ counted once).  The float64 flight kernel's bound (phase 28) counts the
 same way, with 40 bytes a segment row; the float64 deposit's reads 40
 bytes a row, writes 8 a tally cell and does FLOPS_VISIT FP64 instructions a
 cell visited and a row's two reciprocals.  A deck without a
-pitch adds its two edge arrays, read once.  The
+pitch adds its two edge arrays, read once.  A tally of its own type (phase
+29) counts its cells at 4 or 8 bytes by that type, the rest as the state's
+type; a deposit walks in the rows' type (FP64 instructions for float64
+rows).  The
 flight kernel's `ms` is its own device time (CUDA events), without the
 segment deposits, whose time stands beside it; its entry also holds csp's
 own time and bound over all 10 steps of its main path and the launches of
@@ -404,6 +442,12 @@ BEGIN_REPS = 20                  # timed calls of the begin kernel
 # Phase 26: float64 on the card's kernels.
 F64_MAIN_N = 1_000_000           # the analytic, threefry comparison
 F64_MODE_N = 1 << 18             # the other modes' comparisons
+# Phase 29: a state and a tally of different types.
+MIXED_PAIRS = (("float32", "float64"), ("float64", "float32"))
+MIXED_N = 1 << 18                # its comparisons' lanes but the mains'
+MIXED_E0 = 1.5                   # eV: their lanes' birth but the mains'
+MIXED_MAIN = ("analytic regions threefry pitch", "analytic split",
+              "analytic stream")   # at F64_MAIN_N lanes, as phases 26, 28
 # float64 work of an event and of a collision, in FP64 instructions (an
 # FMA one), from the plain version's operations (transport.sweep_core,
 # collision_physics) with each IEEE reciprocal, division, square root and
@@ -465,11 +509,13 @@ def work_bound(r: dict) -> dict:
     lanes, collisions, events or pieces, segment rows and cell visits, in
     table mode its tables and without a pitch its edge arrays (each read
     once); in float64 ("f64" in r) its doubles and its FP64
-    instructions."""
+    instructions; a tally of its own type ("tally_bytes" a cell, phase 29)
+    its cells at that size."""
     rows = r.get("rows", 0)
     f64 = r.get("f64", False)
     nbytes = (r["n"] * (LANE_BYTES_F64 if f64 else LANE_BYTES)
-              + r["ncells"] * (8 if f64 else 4) + rows * (40 if f64 else 20)
+              + r["ncells"] * r.get("tally_bytes", 8 if f64 else 4)
+              + rows * (40 if f64 else 20)
               + r.get("table_bytes", 0) + r.get("edge_bytes", 0))
     int_ops = r["collisions"] * 2 * DRAW_OPS[r["rng"]]
     events = (r["collisions"] + r["n"] if "rows" in r
@@ -531,6 +577,13 @@ def differing_field(a, b, torch, fields):
     return None
 
 
+def differing_bits(a, b, torch, fields):
+    """The first of `fields` in which states a and b differ bitwise, or
+    None."""
+    return next((f for f in fields if not torch.equal(
+        bits(torch, getattr(a, f)), bits(torch, getattr(b, f)))), None)
+
+
 def timed(torch, fn, *args, **kw):
     """(milliseconds, result) of fn(*args, **kw), device synchronised."""
     torch.cuda.synchronize()
@@ -570,7 +623,7 @@ def check_outside(torch, name, start, state, outside, fields):
 
 def compare(nparticles: int, torch, driver, transport, sweep_kernel,
             fields, deck=SCATTER, label="compare", window=None, events=64,
-            dtype="float32", bitwise=False):
+            dtype="float32", bitwise=False, tally=None, cells=False):
     """Phase 3 at one size (and phases 8-10, 18-19 and 24 on `deck`, phase
     12 in `window`, phase 26 in float64): returns a dict of the kernel's
     and the plain version's times (ms, plain_ms), max_abs_err and the work
@@ -581,11 +634,14 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
     per launch, so that one census takes many launches; its state must be
     equal too (the main path's census fits in one launch).  In float64, and
     in float32 with `bitwise`, the 14 fields compare bitwise; the tally
-    sums to 1e-12 in float64."""
+    sums to 1e-12 in a float64 tally.  `tally` is the tally's dtype (None:
+    `dtype`; phase 29 gives it the other); with `cells` each cell is held
+    against the largest cell at the sums' tolerance too."""
+    tally = tally or dtype
     cfg = driver.load_config(deck).with_(nparticles=nparticles,
                                          expected_tally=None)
-    if dtype != cfg.dtype:
-        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    if (dtype, tally) != (cfg.dtype, cfg.tally_dtype):
+        cfg = cfg.with_(dtype=dtype, tally_dtype=tally)
     sim = driver.Simulation(cfg, device="cuda", engine="plain",
                             transport="sweep", quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
@@ -594,10 +650,7 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
                                              window)
     args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
     same = ((lambda a, b: differing_field(a, b, torch, fields)) if not bitwise
-            else lambda a, b: next(
-                (f for f in fields if not torch.equal(
-                    bits(torch, getattr(a, f)), bits(torch, getattr(b, f)))),
-                None))
+            else lambda a, b: differing_bits(a, b, torch, fields))
 
     def run(fn, **kw):
         state, tally = start.clone(), torch.zeros_like(tally0)
@@ -635,15 +688,17 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
                   fields)
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
+    peak = float(pt.double().abs().max())
     rel = abs(ksum - psum) / abs(psum)
     print(f"[{label} n={nparticles}] all {len(fields)} per-lane state fields "
           "equal; tally sums "
           f"{ksum:.9e} / {psum:.9e} (rel {rel:.3e}), max abs err per cell "
-          f"{max_abs_err:.3e}")
-    tol = 1e-12 if dtype == "float64" else 1e-5
+          f"{max_abs_err:.3e} (largest cell {peak:.3e})")
+    tol = 1e-12 if tally == "float64" else 1e-5
     if not rel <= tol:
         fail(f"{label} n={nparticles}: tally sums differ by {rel:.3e} "
              f"(> {tol})")
+    check_cells(f"{label} n={nparticles}", cells, max_abs_err, peak, tol)
     launches0 = sweep_kernel.sweep_chunk_kernel.launches
     _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel,
                              max_events=events)
@@ -658,12 +713,22 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
             "collisions": knc, "rng": cfg.rng, "grid_blocks": blocks,
             "slot_use": slot_use, "slot_use_pid_order": slot_pid,
             "below_threshold": int((ks.energy < THRESHOLD).sum()),
-            "f64": dtype == "float64",
+            "f64": dtype == "float64", "tally_bytes": kt.element_size(),
             **({} if geom.dx else {"edge_bytes": (
                 geom.edgex.numel() + geom.edgey.numel())
                 * geom.edgex.element_size()}),
             **({} if sim.cs_scatter.analytic else {"energy": ks.energy}),
             **table_work(sim, loads, knc)}
+
+
+def check_cells(name: str, cells: bool, max_abs_err: float, peak: float,
+                tol: float) -> None:
+    """With `cells`, fail unless every cell of the kernel's tally is within
+    `tol` of the largest cell of the plain version's: a flush into the
+    wrong cell keeps the sum, not the cells."""
+    if cells and not max_abs_err <= tol * peak:
+        fail(f"{name}: a tally cell differs by {max_abs_err:.3e}, more than "
+             f"{tol} of the largest cell {peak:.3e}")
 
 
 def sorted_rows(torch, segs):
@@ -687,7 +752,8 @@ def cell_visits(torch, rows) -> int:
 
 def compare_flight(deck: str, torch, driver, transport, flight,
                    flight_kernel, fields, label="flight", window=None,
-                   small=False, dtype="float32", n=MODE_N):
+                   small=False, dtype="float32", n=MODE_N, tally=None,
+                   bitwise=False, cells=False):
     """Phase 5 on one deck (and phases 8-9, phase 13 in `window`, phase 28
     in float64 at `n` particles): returns a dict as compare's, with the
     kernel census's segment rows ("segs") and their count.  "ms" and
@@ -697,24 +763,30 @@ def compare_flight(deck: str, torch, driver, transport, flight,
     census's whole time.  With `small`, the kernel census runs once more
     under a forced-small segment buffer.  In float64 the 14 fields compare
     bitwise, the tally sums to 1e-12 and the small buffer's tally per cell
-    to 1e-12 of the largest cell."""
+    to 1e-12 of the largest cell (in a float64 tally).  `tally` is the
+    tally's dtype (None: `dtype`); with `bitwise` float32 fields compare
+    bitwise too, and with `cells` each cell of the tally is held against
+    the largest cell at the sums' tolerance."""
+    tally = tally or dtype
     cfg = driver.load_config(deck).with_(nparticles=n, expected_tally=None)
-    if dtype != cfg.dtype:
-        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    if (dtype, tally) != (cfg.dtype, cfg.tally_dtype):
+        cfg = cfg.with_(dtype=dtype, tally_dtype=tally)
     sim = driver.Simulation(cfg, device="cuda", engine="plain",
                             transport="flight", quiet=True)
     if dtype == "float32" and driver.auto_transport(cfg) != "flight":
         fail(f"{deck}: auto picks the {driver.auto_transport(cfg)} "
              "transport")
-    tol = 1e-12 if dtype == "float64" else 1e-5
+    tol = 1e-12 if tally == "float64" else 1e-5
+    same = (differing_bits if bitwise else differing_field)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                      cfg.dt, 1)
     geom, tally0, win, outside = window_args(torch, transport, sim, start,
                                              window)
     args = (geom, sim.cs_scatter, sim.cs_absorb, 1, 1.0 / cfg.nparticles)
     name = f"{label} {deck.split('/')[-1].split('.')[0]}"
-    dep = {"buffers": flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda",
-                                                  dtype=sim.dtype)}
+    dep = {"buffers": flight_kernel.FlightBuffers(
+        geom.nx, geom.ny, "cuda", dtype=sim.dtype,
+        tally_dtype=sim.tally.dtype)}
     times = {}
 
     def run(fn, segments=None, **kw):
@@ -743,7 +815,7 @@ def compare_flight(deck: str, torch, driver, transport, flight,
              f"{(pnf, pnc)}")
     if knf == 0:
         fail(f"{name}: no facet events, the comparison is empty")
-    f = differing_field(ks, ps, torch, fields)
+    f = same(ks, ps, torch, fields)
     if f is not None:
         n_bad = int((bits(torch, getattr(ks, f))
                      != bits(torch, getattr(ps, f))).sum())
@@ -757,18 +829,20 @@ def compare_flight(deck: str, torch, driver, transport, flight,
              f"{prows.shape[0]} plain)")
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
+    peak = float(pt.double().abs().max())
     rel = abs(ksum - psum) / abs(psum)
     print(f"[{name}] all {len(fields)} per-lane state fields equal, "
           f"{krows.shape[0]} segment rows equal as multisets; tally sums "
           f"{ksum:.9e} / {psum:.9e} (rel {rel:.3e}), max abs err per cell "
-          f"{max_abs_err:.3e}")
+          f"{max_abs_err:.3e} (largest cell {peak:.3e})")
     if not rel <= tol:
         fail(f"{name}: tally sums differ by {rel:.3e} (> {tol})")
+    check_cells(name, cells, max_abs_err, peak, tol)
     cs, cnf, cnc, cl, _ = run(flight_kernel.flight_chunk_kernel, csegs,
                               max_pieces=1, **dep)
     one_ms = times["flight_chunk_kernel"][0]
     if (cl < 2 or (cnf, cnc) != (pnf, pnc)
-            or differing_field(cs, ps, torch, fields) is not None
+            or same(cs, ps, torch, fields) is not None
             or not torch.equal(sorted_rows(torch, csegs), prows)):
         fail(f"{name}: the census in {cl} launches of 1 piece differs from "
              "the plain version")
@@ -778,12 +852,13 @@ def compare_flight(deck: str, torch, driver, transport, flight,
         ssegs, refusals0 = [], flight_kernel.flight_chunk_kernel.refusals
         buf = flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda",
                                           rows=SMALL_ROWS, max_rows=SMALL_MAX,
-                                          dtype=sim.dtype)
+                                          dtype=sim.dtype,
+                                          tally_dtype=sim.tally.dtype)
         ss, snf, snc, sl, st = run(flight_kernel.flight_chunk_kernel, ssegs,
                                    buffers=buf)
         refusals = flight_kernel.flight_chunk_kernel.refusals - refusals0
         if ((snf, snc) != (pnf, pnc)
-                or differing_field(ss, ps, torch, fields) is not None
+                or same(ss, ps, torch, fields) is not None
                 or not torch.equal(sorted_rows(torch, ssegs), prows)):
             fail(f"{name}: the census under a {SMALL_ROWS}-row segment "
                  "buffer differs from the plain version")
@@ -794,7 +869,6 @@ def compare_flight(deck: str, torch, driver, transport, flight,
         ssum = float(st.double().sum())
         srel = abs(ssum - psum) / abs(psum)
         serr = float((st.double() - pt.double()).abs().max())
-        peak = float(pt.double().abs().max())
         if not (srel <= tol and serr <= tol * peak):
             fail(f"{name}: the tally under a {SMALL_ROWS}-row segment buffer "
                  f"differs from the plain version's: sums by {srel:.3e}, a "
@@ -810,25 +884,30 @@ def compare_flight(deck: str, torch, driver, transport, flight,
             "max_abs_err": max_abs_err, "n": n,
             "ncells": geom.nx * geom.ny, "facets": knf, "collisions": knc,
             "rng": cfg.rng, "segs": ksegs, "f64": dtype == "float64",
+            "tally_bytes": kt.element_size(),
             "rows": sum(r.shape[0] for r in ksegs),
             **table_work(sim, loads, knc)}
 
 
-def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label):
+def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label,
+                   tally_dtype=None):
     """Phase 6 on one set of segment rows into an nx x ny tally (and phase
-    28 on float64 rows, into a float64 tally): returns a dict of the
-    kernel's time (CUDA events) and its stages', the plain version's time,
+    28 on float64 rows, into a float64 tally; phase 29 into a tally of
+    `tally_dtype`, None: the rows' type): returns a dict of the kernel's
+    time (CUDA events) and its stages', the plain version's time,
     max_abs_err, the bins' sizes, the tile kernel's blocks an SM and the
-    bound (in float64 40 bytes a row and 8 a cell, and FP64
-    instructions)."""
+    bound (40 bytes a float64 row, 8 a float64 tally cell, and FP64
+    instructions for a walk in float64)."""
     rows = torch.cat(segs).contiguous()
     f64 = rows.dtype == torch.float64
-    tol = 1e-12 if f64 else 1e-5
+    tally_dtype = tally_dtype or rows.dtype
+    tol = 1e-12 if tally_dtype == torch.float64 else 1e-5
     nseg = torch.tensor([rows.shape[0]], dtype=torch.int64,
                         device=rows.device)
-    kt = torch.zeros(nx * ny, dtype=rows.dtype, device=rows.device)
+    kt = torch.zeros(nx * ny, dtype=tally_dtype, device=rows.device)
     pt = torch.zeros_like(kt)
-    dep = raster_kernel.SegmentDeposit(nx, ny, "cuda", dtype=rows.dtype)
+    dep = raster_kernel.SegmentDeposit(nx, ny, "cuda", dtype=rows.dtype,
+                                       tally_dtype=tally_dtype)
     # warm-up: the first launch overflows the new piece buffer, which grows
     raster_kernel.deposit_segments_kernel(kt, rows, nseg, nx, ny, dep)
     kt.zero_()
@@ -841,15 +920,15 @@ def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label):
     ev = stages[0]
     bin_ms, tile_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     st = dep.stats()
-    st["tile_blocks_per_sm"] = raster_kernel.tile_blocks_per_sm(rows.dtype,
-                                                                rows.device)
+    st["tile_blocks_per_sm"] = raster_kernel.tile_blocks_per_sm(
+        rows.dtype, rows.device, tally_dtype)
     p_ms, _ = timed(torch, raster.deposit_segments_plain, pt, rows, nx, ny)
     ksum, psum = float(kt.double().sum()), float(pt.double().sum())
     max_abs_err = float((kt.double() - pt.double()).abs().max())
     peak = float(pt.double().abs().max())
     rel = abs(ksum - psum) / abs(psum)
     print(f"[raster {label}] {rows.shape[0]} {rows.dtype} segment rows, "
-          f"{nx}x{ny} tally: "
+          f"{nx}x{ny} {tally_dtype} tally: "
           f"kernel {bin_ms + tile_ms:.3f} ms (bins {bin_ms:.3f} + tiles "
           f"{tile_ms:.3f}; {wall_ms:.3f} ms on the clock), plain "
           f"{p_ms:.3f} ms; T {st['tile']}, C {st['chunk']}, tile kernel "
@@ -864,11 +943,10 @@ def compare_raster(segs, torch, nx, ny, raster, raster_kernel, label):
         fail(f"segment deposit {label}: kernel and plain version differ by "
              f"more than {tol}")
     visits = cell_visits(torch, rows)
-    work = (bound(rows.shape[0] * 40 + nx * ny * 8, 0,
-                  visits * FLOPS_VISIT
+    nbytes = rows.shape[0] * (40 if f64 else 20) + nx * ny * kt.element_size()
+    work = (bound(nbytes, 0, visits * FLOPS_VISIT
                   + rows.shape[0] * f64_ops({"rcp": 2}), PEAK_F64_INSTR)
-            if f64 else bound(rows.shape[0] * 20 + nx * ny * 4, 0,
-                              visits * FLOPS_VISIT))
+            if f64 else bound(nbytes, 0, visits * FLOPS_VISIT))
     return {"ms": bin_ms + tile_ms, "bin_ms": bin_ms, "tile_ms": tile_ms,
             "wall_ms": wall_ms, "plain_ms": p_ms, "max_abs_err": max_abs_err,
             "rows": rows.shape[0], "cell_visits": visits, **st, **work}
@@ -907,13 +985,15 @@ def kernel_wrappers():
     """(wrapper, count attribute) of every kernel and plain version of
     the main paths."""
     from neutral_tpu_torch import (begin_kernel, flight, flight_kernel,
-                                   raster_kernel, sweep_kernel, transport)
+                                   raster, raster_kernel, sweep_kernel,
+                                   transport)
     return [(sweep_kernel.sweep_chunk_kernel, "launches"),
             (sweep_kernel.sweep_chunk_plain, "calls"),
             (flight_kernel.flight_chunk_kernel, "launches"),
             (flight.flight_chunk_plain, "calls"),
             (raster_kernel.deposit_segments_kernel, "launches"),
             (raster_kernel.deposit_segments_kernel, "overflows"),
+            (raster.deposit_segments_plain, "calls"),
             (begin_kernel.begin_timestep_kernel, "launches"),
             (transport.begin_timestep, "calls")]
 
@@ -969,6 +1049,7 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
     if not math.isfinite(total):
         fail(f"{name}: tally sum {total} is not finite")
+    main_path.runs[name] = (step_counts(out), step_seconds(out))
     steps = re.findall(r"Step time\s+(\S+)s\nWallclock.*\nFacets\s+(\d+)\n"
                        r"Collisions\s+(\d+)", out)
     migrated = re.findall(r"Migrated (\d+) particles between shards", out)
@@ -990,6 +1071,7 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
 
 
 main_path.walls = {}     # wall seconds of each main path, by label
+main_path.runs = {}      # (per-step counts, step seconds), by label
 main_path.begin_launches = {}    # begin kernel launches, by label
 
 
@@ -1233,12 +1315,15 @@ def run_modes(tmp: str, torch, driver, transport, flight, sweep_kernel,
     return res
 
 
-def split_single_counts(deck, torch, driver, flight) -> list:
+def split_single_counts(deck, torch, driver, flight, transport="auto",
+                        **cfg_kw) -> list:
     """Per-step (facets, collisions) of a single-device kernel run of the
-    full `deck` over its rects split at the 2x2 blocks' grid lines (the
-    geometry that spatial2d's windows give)."""
+    full `deck` (its config with `cfg_kw`, on `transport`) over its rects
+    split at the 2x2 blocks' grid lines (the geometry that spatial2d's
+    windows give)."""
     import dataclasses
-    sim = driver.Simulation(driver.load_config(deck), quiet=True)
+    sim = driver.Simulation(driver.load_config(deck).with_(**cfg_kw),
+                            transport=transport, quiet=True)
     sim.geom = dataclasses.replace(sim.geom, rects=flight.split_rects(
         sim.geom.rects, [2000], [2000]))
     sim.run()
@@ -1369,14 +1454,16 @@ def big_split(torch, driver, wrappers, fields) -> dict:
             "peak_gib": peak, "tally": total}
 
 
-def sweep_registers(log: str, real: str = "float", edge: int = 0) -> int:
+def sweep_registers(log: str, real: str = "float", edge: int = 0,
+                    tally: str | None = None) -> int:
     """ptxas's register count of the sweep kernel's analytic, region,
-    threefry instantiation in the working type `real` (float or double)
-    and edge mode `edge` (0 pitch, 1 edge arrays), from the build's log:
-    its mangled name ends the template arguments with the working type's
-    code, f or d, and the edge mode's."""
+    threefry instantiation in the working type `real` (float or double),
+    edge mode `edge` (0 pitch, 1 edge arrays) and tally type `tally`
+    (None: `real`), from the build's log: its mangled name ends the
+    template arguments with the working type's code, f or d, the edge
+    mode's and the tally type's."""
     tag = (f"XsModeE0ELNS1_11DensityModeE0ELNS1_9RngSchemeE0E{real[0]}"
-           f"LNS1_8EdgeModeE{edge}E")
+           f"LNS1_8EdgeModeE{edge}E{(tally or real)[0]}E")
     for name, regs in re.findall(r"Compiling entry function '([^']*)'"
                                  r".*?Used (\d+) registers", log, re.S):
         if "sweep_kernel" in name and tag in name:
@@ -2128,11 +2215,12 @@ def float64_phase(tmp: str, torch, driver, transport, sweep_kernel,
     return res
 
 
-def kernel_resources(log: str, names: tuple, real: str) -> dict:
+def kernel_resources(log: str, names: tuple, real: str,
+                     tally: str | None = None) -> dict:
     """ptxas's registers and spill bytes, by demangled name, of the
     kernels in the build's log whose names contain one of `names` and whose
-    template arguments end with the working type `real` (float or
-    double)."""
+    template arguments end with the working type `real` (float or double)
+    and the tally type `tally` (None: `real`)."""
     from neutral_tpu_torch import measure
     found = {}
     for name, body in re.findall(r"Compiling entry function '([^']*)'"
@@ -2148,7 +2236,7 @@ def kernel_resources(log: str, names: tuple, real: str) -> dict:
     names_of = measure._demangle(sorted(found))
     return {names_of[k].replace("(anonymous namespace)::", ""): v
             for k, v in found.items()
-            if re.search(rf"\b{real}>\(", names_of[k])}
+            if re.search(rf"\b{real}, {tally or real}>\(", names_of[k])}
 
 
 def float64_flight_phase(tmp: str, torch, driver, transport, flight,
@@ -2284,6 +2372,345 @@ def float64_flight_phase(tmp: str, torch, driver, transport, flight,
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[f64 flight] phase 28 took {res['seconds']:.1f} s", flush=True)
     return res
+
+
+def mixed_run(torch, driver, wrappers, deck: str, label: str, state: str,
+              tally: str, transport_name: str = "auto",
+              decomposition: str | None = None, want: list | None = None,
+              want_transport: str | None = None) -> dict:
+    """Phase 29's main path: `deck` at full size through
+    driver.make_simulation (one device, or 4 shards on the card under
+    `decomposition`) in a `state` state with a `tally` tally, every count
+    set to 0 just before and read just after.  Fails unless the kernel
+    engine ran it on `want_transport`, with its transport's kernels, the
+    begin kernel once a census and shard and no plain version, its tally
+    of the tally's type within 1e-3 of the golden (csp: omp3's), and, when
+    `want` is given, those per-step counts.  Returns its per-step counts,
+    step seconds, tally, relative error and counts."""
+    cfg = driver.load_config(deck).with_(dtype=state, tally_dtype=tally)
+    devices = [torch.device("cuda", 0)] * (4 if decomposition else 1)
+    kw = {} if transport_name == "auto" else {"transport": transport_name}
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    sim = driver.make_simulation(cfg, decomposition or "replicated",
+                                 devices, quiet=True, **kw)
+    total = sim.run()
+    wall = time.perf_counter() - t0
+    c = read_counts(wrappers)
+    counts = [(m.nfacets, m.ncollisions) for m in sim.step_metrics]
+    steps = [m.step_time for m in sim.step_metrics]
+    tallies = ([sh.tally for sh in sim.shards] if decomposition
+               else [sim.tally])
+    kernel = ("sweep_chunk_kernel" if sim.transport == "sweep"
+              else "flight_chunk_kernel")
+    censuses = len(steps) * len(devices)
+    if (sim.engine != "kernel" or sim.transport != want_transport
+            or sim.dtype != getattr(torch, state)
+            or any(t.dtype != getattr(torch, tally) for t in tallies)
+            or c[kernel] <= 0
+            or (sim.transport == "flight"
+                and c["deposit_segments_kernel"] <= 0)
+            or c["begin_timestep_kernel"] != censuses
+            or any(c[k] for k in ("sweep_chunk_plain", "flight_chunk_plain",
+                                  "deposit_segments_plain",
+                                  "begin_timestep"))):
+        fail(f"{label}: engine {sim.engine}, transport {sim.transport}, "
+             f"state {sim.dtype}, tallies "
+             f"{sorted({str(t.dtype) for t in tallies})}, counts {c} (want "
+             f"the {want_transport} transport's {state}/{tally} kernels, "
+             f"{censuses} begin launches and no plain version)")
+    expected = (CSP_OMP3_TALLY if "csp" in os.path.basename(deck)
+                else cfg.expected_tally)
+    rel = abs(total - expected) / abs(expected)
+    print(f"[main {label}] {sim.transport} transport, {len(devices)} "
+          f"device(s): tally {total:.9e} against {expected:.9e} (rel "
+          f"{rel:.3e}); counts {counts}; steps "
+          + ", ".join(f"{t:.4f}" for t in steps) + f" s; wall {wall:.1f} s; "
+          f"launches {c}", flush=True)
+    if not rel <= 1e-3:
+        fail(f"{label}: tally {total:.9e} is {rel:.3e} from {expected:.9e} "
+             "(> 1e-3)")
+    if want is not None and counts != want:
+        fail(f"{label}: per-step counts {counts} differ from the single "
+             f"device's {want}")
+    del sim
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_s": steps, "tally": total, "rel": rel,
+            "wall_s": wall, "transport": want_transport,
+            "launches": {k: c[k] for k in (
+                kernel, "deposit_segments_kernel",
+                "deposit_segments_kernel.overflows",
+                "begin_timestep_kernel")}}
+
+
+def mixed_phase(tmp: str, torch, driver, transport, flight, sweep_kernel,
+                flight_kernel, raster, raster_kernel, fields, wrappers,
+                log) -> dict:
+    """Phase 29: a state and a tally of different types on the kernels.
+    Returns, per pair, the sweep, flight and deposit kernels'
+    comparisons, their registers and the main paths' runs and
+    launches."""
+    import numpy as np
+    from neutral_tpu_torch.xs import resonance_log_table, write_cs_file
+
+    t_phase = time.perf_counter()
+    keys, values = resonance_log_table()
+    cfg = driver.load_config(SCATTER)
+    rng = np.random.default_rng(7)           # phase 10's random grid
+    dens = rng.uniform(1.0e3, 2.0e4, size=(cfg.ny, cfg.nx))
+    dens[rng.random((cfg.ny, cfg.nx)) < 0.25] = 0.0
+    grid_file = os.path.join(tmp, "dens.npy")
+    np.save(grid_file, dens)
+    del dens
+
+    def deck_dir(name, src, extra, table=False, grid=False):
+        d = os.path.join(tmp, name.replace(" ", "_"))
+        os.mkdir(d)
+        if table:
+            for fname in ("elastic_scatter.cs", "capture.cs"):
+                write_cs_file(os.path.join(d, fname), keys, values)
+        if grid:
+            os.symlink(grid_file, os.path.join(d, "dens.npy"))
+        return deck_copy(src, d, extra
+                         + ("density_file dens.npy\n" if grid else ""))
+
+    # Every sweep instantiation: (cross-sections, density, draws) x facet
+    # edges (the uniform pitch, or the stretched mesh's edge arrays).  Each
+    # plain census costs its lanes' longest history in sweeps (on scatter
+    # ~700 collisions, from 1e3 eV down to an absorption below 1 eV: some
+    # 7-9 s), so every mode but the main one has its lanes born at
+    # MIXED_E0: the same lanes and mesh, every event kind and flush, fewer
+    # events a lane.
+    cut = f"initial_energy {MIXED_E0!r}\n"
+    sweep_decks = {}
+    for edges, stretch in (("pitch", ""), ("edge array", STRETCH)):
+        for xs in ("analytic", "table"):
+            for density in ("regions", "grid"):
+                for draws in ("threefry", "pcg64si"):
+                    mode = f"{xs} {density} {draws} {edges}"
+                    sweep_decks[mode] = deck_dir(
+                        mode, SCATTER, stretch + (
+                            "rng pcg64si\n" if draws == "pcg64si" else "")
+                        + ("" if mode in MIXED_MAIN else cut),
+                        table=xs == "table", grid=density == "grid")
+    stream, split, csp = FLIGHT_DECKS
+    flight_decks = {
+        "analytic stream": stream, "analytic split": split,
+        "pcg64si split": deck_dir("pcg split", split,
+                                  "rng pcg64si\n" + cut),
+        "table split": deck_dir("table split", split, cut, table=True),
+        "table pcg64si split": deck_dir("table pcg split", split,
+                                        "rng pcg64si\n" + cut, table=True)}
+
+    res = {}
+    for state, tally in MIXED_PAIRS:
+        pair = f"{state}/{tally}"
+        real, tal = (ctype_name(state), ctype_name(tally))
+        r = res[pair] = {"sweep": {}, "flight": {}, "deposit": {},
+                         "runs": {}, "registers": {
+                             "sweep": sweep_registers(log, real, 0, tal),
+                             "sweep_edge_array": sweep_registers(
+                                 log, real, 1, tal),
+                             "flight": kernel_resources(
+                                 log, ("flight_kernel",), real, tal),
+                             "deposit": kernel_resources(
+                                 log, ("count_kernel", "scan_kernel",
+                                       "fill_kernel", "tile_kernel"),
+                                 real, tal)}}
+        regs = r["registers"]
+        print(f"[mixed {pair}] registers: sweep {regs['sweep']} (edge "
+              f"arrays {regs['sweep_edge_array']}); "
+              + "; ".join(f"{k}: {v['registers']} (spill "
+                          f"{v['spill_stores']}/{v['spill_loads']})"
+                          for k, v in {**regs["flight"],
+                                       **regs["deposit"]}.items()),
+              flush=True)
+        if len(regs["flight"]) != 4 or len(regs["deposit"]) != 4:
+            fail(f"mixed {pair}: the build log holds "
+                 f"{len(regs['flight'])} flight and {len(regs['deposit'])} "
+                 "deposit instantiations (want 4 and 4)")
+
+        # -- the sweep kernel against its plain version, all 16 modes ---
+        for mode, deck in sweep_decks.items():
+            n = F64_MAIN_N if mode in MIXED_MAIN else MIXED_N
+            c = compare(n, torch, driver, transport, sweep_kernel,
+                        fields, deck=deck, label=f"mixed {pair} {mode}",
+                        dtype=state, tally=tally, bitwise=True, cells=True)
+            c.pop("energy", None)
+            r["sweep"][mode] = mode_entry(
+                [c], f"{mode}: the scatter deck (4000x4000)"
+                + (" with the stretch" if "edge" in mode else "")
+                + f", {n} particles, one census"
+                + ("" if mode in MIXED_MAIN else
+                   f" of lanes born at {MIXED_E0} eV")
+                + f", a {state} state and a {tally} tally, all 14 fields "
+                "bitwise")
+            torch.cuda.empty_cache()
+
+        # -- the flight kernel, then the deposit on its rows -----------
+        rows = {}
+        for mode, deck in flight_decks.items():
+            n = F64_MAIN_N if mode in MIXED_MAIN else MIXED_N
+            c = compare_flight(deck, torch, driver, transport, flight,
+                               flight_kernel, fields,
+                               label=f"mixed {pair} {mode}",
+                               small=mode == "analytic split", dtype=state,
+                               n=n, tally=tally, bitwise=True, cells=True)
+            segs = c.pop("segs")
+            if mode in MIXED_MAIN:
+                rows[mode] = segs
+            r["flight"][mode] = mode_entry(
+                [c], f"{deck}, {n} particles, one step-1 census"
+                + ("" if mode in MIXED_MAIN else
+                   f" of lanes born at {MIXED_E0} eV")
+                + f", a {state} state and a {tally} tally, all 14 fields "
+                "and the segment rows bitwise")
+            torch.cuda.empty_cache()
+        geom = driver.make_geometry(driver.load_config(split))
+        for mode, segs in rows.items():
+            r["deposit"][mode] = compare_raster(
+                segs, torch, geom.nx, geom.ny, raster, raster_kernel,
+                f"mixed {pair} {mode}", getattr(torch, tally))
+        del rows
+        torch.cuda.empty_cache()
+
+    # -- the main paths, through Simulation under auto -------------------
+    f32, f64 = "float32", "float64"
+    paths = [   # deck, label, state, tally, transport, want, same-type's
+        (SCATTER, "scatter", f32, f64, "auto", "sweep", "scatter"),
+        (SCATTER, "scatter", f64, f32, "auto", "sweep", "f64 scatter"),
+        *[(d, n, f32, f64, "auto", "flight", n)
+          for d, n in zip(FLIGHT_DECKS, ("stream", "split", "csp"))],
+        *[(d, n, f64, f32, "auto", "sweep", f"f64 {n}")
+          for d, n in zip(FLIGHT_DECKS, ("stream", "split", "csp"))],
+        (stream, "flight stream", f64, f32, "flight", "flight",
+         "f64 flight stream")]
+    decomposed = [   # as above, with the decomposition
+        (SCATTER, "scatter", f32, f64, "auto", "sweep", "spatial",
+         "spatial scatter"),
+        (SCATTER, "scatter", f64, f32, "auto", "sweep", "spatial",
+         "f64 scatter spatial"),
+        (stream, "stream", f32, f64, "auto", "flight", "spatial2d",
+         "spatial2d stream"),
+        (stream, "flight stream", f64, f32, "flight", "flight", "spatial2d",
+         "f64 flight stream spatial2d")]
+    single = {}
+
+    def same_type(label, deck, state, transport_name, want_transport,
+                  decomposition=None):
+        """(per-step counts, step seconds) of the same deck with a tally
+        of the state's type: an earlier phase's main path, or run here."""
+        if label in main_path.runs:
+            return main_path.runs[label]
+        run = mixed_run(torch, driver, wrappers, deck, f"{label} (same "
+                        "type)", state, state, transport_name, decomposition,
+                        want_transport=want_transport)
+        return run["counts"], run["step_s"]
+
+    for deck, name, state, tally, tp, want_tp, ref in paths:
+        label = f"{state}/{tally} {name}"
+        run = mixed_run(torch, driver, wrappers, deck, label, state, tally,
+                        tp, want_transport=want_tp)
+        single[(deck, state, tally, tp)] = run["counts"]
+        ref_counts, ref_steps = same_type(ref, deck, state, tp, want_tp)
+        report_same_type(label, run, ref, ref_counts, ref_steps)
+        res[f"{state}/{tally}"]["runs"][name] = run
+    for deck, name, state, tally, tp, want_tp, dec, ref in decomposed:
+        label = f"{state}/{tally} {name} {dec}"
+        # The flight transport's blocks end pieces at their walls: the
+        # single device's counts are those over rects split there.
+        want = (split_single_counts(deck, torch, driver, flight, tp,
+                                    dtype=state, tally_dtype=tally)
+                if want_tp == "flight" else single[(deck, state, tally, tp)])
+        run = mixed_run(torch, driver, wrappers, deck, label, state, tally,
+                        tp, dec, want=want, want_transport=want_tp)
+        ref_counts, ref_steps = same_type(ref, deck, state, tp, want_tp, dec)
+        report_same_type(label, run, ref, ref_counts, ref_steps)
+        print(f"[main {label}] per-step counts equal to the single "
+              f"device's{' over split rects' if want_tp == 'flight' else ''}"
+              f" {run['counts']}", flush=True)
+        res[f"{state}/{tally}"]["runs"][f"{name} {dec}"] = run
+    for pair, r in res.items():
+        r["launches"] = {k: sum(run["launches"].get(k, 0)
+                                for run in r["runs"].values())
+                         for k in ("sweep_chunk_kernel", "flight_chunk_kernel",
+                                   "deposit_segments_kernel",
+                                   "deposit_segments_kernel.overflows",
+                                   "begin_timestep_kernel")}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[mixed] phase 29 took {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def mixed_entries(mixed: dict) -> list:
+    """Phase 29's entries of the kernels line: per (state, tally) pair the
+    sweep, flight and deposit kernels' mixed instantiations, each with its
+    main comparison's times and bound, every mode's, and the launches of
+    the pair's main paths."""
+    out = []
+    for state, tally in MIXED_PAIRS:
+        r = mixed[f"{state}/{tally}"]
+        sfx = f"_f{state[-2:]}t{tally[-2:]}"
+        pair = (f"a {state} state with a {tally} tally, {F64_MAIN_N} "
+                "particles, 4000x4000 mesh, one step-1 census")
+        for name, source, replaces, modes, main, launches, shape in (
+                ("sweep_kernel", "neutral_tpu_torch/csrc/sweep_mixed.cu",
+                 "neutral_tpu/pallas_sweep.py:59", r["sweep"],
+                 "analytic regions threefry pitch",
+                 r["launches"]["sweep_chunk_kernel"],
+                 f"the scatter deck, {pair}; modes: all 16 instantiations "
+                 "of the pair (the edge-array ones on the stretched "
+                 "mesh)"),
+                ("flight_kernel", "neutral_tpu_torch/csrc/flight.cu",
+                 "neutral_tpu/pallas_flight.py:59", r["flight"],
+                 "analytic split", r["launches"]["flight_chunk_kernel"],
+                 f"the split deck, {pair}; ms is the flight kernel's own "
+                 "device time (CUDA events), the deposits' beside it; "
+                 "modes: stream and the split copies of all 4 "
+                 "instantiations"),
+                ("segment_deposit_kernel",
+                 "neutral_tpu_torch/csrc/raster.cu",
+                 "neutral_tpu/raster.py:331 and neutral_tpu/raster.py:161",
+                 r["deposit"], "analytic stream",
+                 r["launches"]["deposit_segments_kernel"],
+                 f"the stream deck's segment rows ({state}) of a census "
+                 f"of {F64_MAIN_N} particles into a {tally} tally; ms is bins "
+                 "+ tiles from CUDA events; modes: split's rows too")):
+            m = modes[main]   # a census of the deck's own lanes
+            out.append({
+                "name": name + sfx, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(v["max_abs_err"] for v in modes.values()),
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None, "modes": modes,
+                "main_paths": {k: {q: v[q] for q in ("counts", "step_s",
+                                                     "tally", "rel",
+                                                     "transport")}
+                               for k, v in r["runs"].items()},
+                "registers": r["registers"], "shape": shape
+                + f"; launches: phase 29's main paths of the pair"})
+    return out
+
+
+def report_same_type(label: str, run: dict, ref: str, ref_counts: list,
+                     ref_steps: list) -> None:
+    """Print a phase 29 main path's step times beside those of its state
+    type's run with a tally of that type (`ref`), and fail unless their
+    per-step counts are equal: the physics reads no tally."""
+    if run["counts"] != ref_counts:
+        fail(f"{label}: per-step counts {run['counts']} differ from "
+             f"{ref!r}'s {ref_counts}, whose tally is of the state's type")
+    print(f"[main {label}] step times "
+          + ", ".join(f"{t:.4f}" for t in run["step_s"]) + f" s against "
+          + ", ".join(f"{t:.4f}" for t in ref_steps)
+          + f" s of {ref!r} (a tally of the state's type); per-step counts "
+          "equal", flush=True)
+
+
+def ctype_name(dtype: str) -> str:
+    """The C++ type of a float dtype's name."""
+    return {"float32": "float", "float64": "double"}[dtype]
 
 
 def log_uniform_f64(count: int):
@@ -2633,6 +3060,14 @@ def main() -> int:
                                 STATE_FIELDS, wrappers, log)
     tmp.cleanup()
 
+    # ---- 29. a state and a tally of different types ---------------------
+    stamp(29)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    mixed = mixed_phase(tmp.name, torch, driver, transport, flight,
+                        sweep_kernel, flight_kernel, raster, raster_kernel,
+                        STATE_FIELDS, wrappers, log)
+    tmp.cleanup()
+
     # ---- 27. result -----------------------------------------------------
     stamp(27)
     top = results[COMPARE_SIZES[-1]]
@@ -2953,6 +3388,7 @@ def main() -> int:
                   "CUDA events; modes hold split's and csp's rows and the "
                   "window-local rows of split and stream in the 2000x2000 "
                   "block; launches and overflows: phase 28's main paths"},
+        *mixed_entries(mixed),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -48,10 +48,23 @@
 // flight_chunk_impl, computes on a GPU or CPU) are template parameters
 // (common.cuh), one instantiation per combination, chosen at launch.
 // Positions are global in both working types, as in flight_core; the
-// state, the tally and the segment rows are in the working type (the plain
-// version writes float64 rows in float64, flight.py's
-// p.kk.to(state.dtype)).  The wrapper (flight_kernel.py) rejects everything
-// else.  The build passes -fmad=false (build.py), so no a*b+c is fused.
+// state and the segment rows are in the working type (the plain version
+// writes float64 rows in float64, flight.py's p.kk.to(state.dtype)).
+//
+// The tally has a type of its own (Tally, a template parameter beside the
+// working type, as SimConfig.tally_dtype is in neutral_tpu, whose TPU kernel
+// takes it as its own parameter, pallas_flight.py:214): each flush is the
+// accumulated deposit rounded to the tally's type times inv_ntotal in that
+// type, skipped when 0, and a row's kk is (K * seg_len) rounded to the
+// tally's type, times inv_ntotal in it, rounded to the working type
+// (flight.py's (K * seg_len).to(tally) * inv, then .to(state.dtype)).
+// With Tally = Real every cast is no operation and the layout is the one
+// the working type had before: those 8 instantiations keep their code.
+// The mixed pairs (a float32 state with a float64 tally, a float64 state
+// with a float32 tally) add 8 more, with their own layouts and entry points
+// (suffixed _f32t64 and _f64t32).  The wrapper (flight_kernel.py) rejects
+// everything else.  The build passes -fmad=false (build.py), so no a*b+c
+// is fused.
 // The float32 instantiations keep the code they had before the working
 // type was a template parameter: what differs by type goes through
 // common.cuh's overloads (nt_sqrt, floor_int, tmin/tmax, the tables'
@@ -86,10 +99,13 @@
 
 #include "common.cuh"
 
-// Layout shared with flight_kernel._FlightParams (ctypes; Real = float) and
-// _FlightParams64 (Real = double); nt_flight_params_size() and
-// nt_flight_params_size_f64() let the wrapper check that they agree.
-template <typename Real>
+// Layout shared with flight_kernel._FlightParams (ctypes; Real = float),
+// _FlightParams64 (Real = double), _FlightParams32t64 (Real = float, Tally =
+// double) and _FlightParams64t32 (Real = double, Tally = float);
+// nt_flight_params_size() and its _f64, _f32t64 and _f64t32 twins let the
+// wrapper check that they agree.  The tally and inv_ntotal are of the
+// tally's type, the rest of the working type.
+template <typename Real, typename Tally = Real>
 struct FlightParamsT {
   Real* x;
   Real* y;
@@ -105,7 +121,7 @@ struct FlightParamsT {
   uint8_t* dead;
   const int64_t* pid;
   int64_t* counter;
-  Real* tally;                  // (ny * nx,) flat, row-major, window-local
+  Tally* tally;                 // (ny * nx,) flat, row-major, window-local
   Real* segs;                   // (seg_cap, 5) rows [gx0, gy0, gx1, gy1, kk]
                                 // in window-local cell units
   // [facets, collisions, lanes still working (the next list's length),
@@ -146,11 +162,13 @@ struct FlightParamsT {
   Real dy;
   Real inv_dx;
   Real inv_dy;
-  Real inv_ntotal;
+  Tally inv_ntotal;
 };
 
 using FlightParams = FlightParamsT<float>;
 using FlightParams64 = FlightParamsT<double>;
+using FlightParams32t64 = FlightParamsT<float, double>;
+using FlightParams64t32 = FlightParamsT<double, float>;
 
 namespace {
 
@@ -162,8 +180,9 @@ constexpr int kThreads = 128;
 // run it).  It takes the parameters by value, as a kernel does: the
 // analytic entry then compiles to the code of the single kernel it
 // replaces.
-template <XsMode X, RngScheme R, typename Real>
-__device__ __forceinline__ void flight_pieces(const FlightParamsT<Real> p) {
+template <XsMode X, RngScheme R, typename Real, typename Tally>
+__device__ __forceinline__ void flight_pieces(
+    const FlightParamsT<Real, Tally> p) {
   using C = Const<Real>;
   // Table mode stages the coarse indexes at the block's start, with every
   // thread, before any lane is loaded.  The dynamic shared memory starts
@@ -343,11 +362,11 @@ __device__ __forceinline__ void flight_pieces(const FlightParamsT<Real> p) {
       // One crossing: no interior cells; the head takes the gap.
       const Real d_head_eff = emit ? d_head : d_in;
 
-      // First cell: accumulate, then flush on leaving it (atomicAdd on
-      // float* or, in float64, the native atomicAdd on double*).
+      // First cell: accumulate, then flush on leaving it, in the tally's
+      // type (atomicAdd on float* or the native atomicAdd on double*).
       const Real acc1 = deposit + K * (crossed ? d_head_eff : d);
       if (crossed) {
-        const Real v1 = acc1 * p.inv_ntotal;
+        const Tally v1 = static_cast<Tally>(acc1) * p.inv_ntotal;
         if (v1 != 0.0f) {
           atomicAdd(&p.tally[(celly - p.y_off) * p.nx + (cellx - p.x_off)],
                     v1);
@@ -365,7 +384,8 @@ __device__ __forceinline__ void flight_pieces(const FlightParamsT<Real> p) {
         out[1] = (y + d_head_eff * omega_y) * p.inv_dy - yo;
         out[2] = (x + d_in * omega_x) * p.inv_dx - xo;
         out[3] = (y + d_in * omega_y) * p.inv_dy - yo;
-        out[4] = (K * seg_len) * p.inv_ntotal;
+        out[4] = static_cast<Real>(static_cast<Tally>(K * seg_len) *
+                                   p.inv_ntotal);
       }
 
       // ---- collision (omega after the collision, then the reflection) ----
@@ -381,7 +401,7 @@ __device__ __forceinline__ void flight_pieces(const FlightParamsT<Real> p) {
 
       // Death or census: flush the final cell.
       if (died || is_census) {
-        const Real v2 = acc2 * p.inv_ntotal;
+        const Tally v2 = static_cast<Tally>(acc2) * p.inv_ntotal;
         if (v2 != 0.0f) {
           atomicAdd(&p.tally[(cy1 - p.y_off) * p.nx + (cx1 - p.x_off)], v2);
         }
@@ -451,10 +471,11 @@ __device__ __forceinline__ void flight_pieces(const FlightParamsT<Real> p) {
 }
 
 // The entry points.  Table mode caps the registers at TableBlocks<Real>
-// blocks an SM beside the blocks' coarse indexes in shared memory: in
-// float32 8 (64 registers), in float64 kTableBlocks64 (the doubles take
-// two registers each; under float32's cap they would spill); the analytic
-// mode keeps the compiler's own allocation.
+// blocks an SM beside the blocks' coarse indexes in shared memory: for a
+// float32 state 8 (64 registers), for a float64 state kTableBlocks64 (the
+// doubles take two registers each; under float32's cap they would spill),
+// whatever the tally's type; the analytic mode keeps the compiler's own
+// allocation.
 constexpr int kTableBlocks = 8;
 constexpr int kTableBlocks64 = 5;
 
@@ -467,21 +488,21 @@ struct TableBlocks<double> {
   static constexpr int value = kTableBlocks64;
 };
 
-template <RngScheme R, typename Real>
+template <RngScheme R, typename Real, typename Tally>
 __global__ void __launch_bounds__(kThreads)
-flight_kernel_analytic(const FlightParamsT<Real> p) {
+flight_kernel_analytic(const FlightParamsT<Real, Tally> p) {
   flight_pieces<XsMode::kAnalytic, R>(p);
 }
 
-template <RngScheme R, typename Real>
+template <RngScheme R, typename Real, typename Tally>
 __global__ void __launch_bounds__(kThreads, TableBlocks<Real>::value)
-flight_kernel_table(const FlightParamsT<Real> p) {
+flight_kernel_table(const FlightParamsT<Real, Tally> p) {
   flight_pieces<XsMode::kTable, R>(p);
 }
 
-template <XsMode X, RngScheme R, typename Real>
-void launch(const FlightParamsT<Real>& p, unsigned int blocks, size_t smem,
-            cudaStream_t s) {
+template <XsMode X, RngScheme R, typename Real, typename Tally>
+void launch(const FlightParamsT<Real, Tally>& p, unsigned int blocks,
+            size_t smem, cudaStream_t s) {
   if constexpr (X == XsMode::kAnalytic) {
     flight_kernel_analytic<R><<<blocks, kThreads, smem, s>>>(p);
   } else {
@@ -491,11 +512,11 @@ void launch(const FlightParamsT<Real>& p, unsigned int blocks, size_t smem,
 
 // Launches one round of up to p->max_pieces pieces over the p->n_active
 // lanes of p->active (lanes 0 .. n_active - 1 when it is null) on `stream`,
-// with the instantiation of p's modes and working type, and returns
-// cudaGetLastError() (0 when the launch was accepted;
+// with the instantiation of p's modes, working type and tally type, and
+// returns cudaGetLastError() (0 when the launch was accepted;
 // cudaErrorInvalidValue for an unknown mode).
-template <typename Real>
-int launch_round(const FlightParamsT<Real>* p, void* stream) {
+template <typename Real, typename Tally>
+int launch_round(const FlightParamsT<Real, Tally>* p, void* stream) {
   if (p->n_active <= 0) return 0;
   const unsigned int blocks =
       static_cast<unsigned int>((p->n_active + kThreads - 1) / kThreads);
@@ -536,5 +557,23 @@ extern "C" int nt_flight_launch(const FlightParams* p, void* stream) {
 }
 
 extern "C" int nt_flight_launch_f64(const FlightParams64* p, void* stream) {
+  return launch_round(p, stream);
+}
+
+extern "C" int nt_flight_params_size_f32t64() {
+  return static_cast<int>(sizeof(FlightParams32t64));
+}
+
+extern "C" int nt_flight_params_size_f64t32() {
+  return static_cast<int>(sizeof(FlightParams64t32));
+}
+
+extern "C" int nt_flight_launch_f32t64(const FlightParams32t64* p,
+                                       void* stream) {
+  return launch_round(p, stream);
+}
+
+extern "C" int nt_flight_launch_f64t32(const FlightParams64t32* p,
+                                       void* stream) {
   return launch_round(p, stream);
 }

@@ -69,26 +69,41 @@
 // in PERF.md), float64 T = 64 (32 KB of doubles: under the 48 KB that
 // needs no opt-in, several blocks an SM; measured against T = 128 in
 // PERF.md).  Each type's bins, work items and tile kernel follow its T, and
-// its tile kernel has its own occupancy (tile_blocks<Real>), from which the
-// scan picks its C.  The shared-memory double add compiles to a
+// its tile kernel has its own occupancy (tile_blocks), from which the scan
+// picks its C.  The shared-memory double add compiles to a
 // compare-and-swap loop as the float add does; the tile flush's global
 // add is the native atomicAdd(double*).  The float32 instantiations keep
 // the code they had before the working type was a template parameter:
 // what differs by type goes through common.cuh's overloads (floor_int,
 // nt_fabs, nt_fmin/nt_fmax) and tile_acc.
+//
+// The tally has a type of its own (Tally, a template parameter beside the
+// rows' type, as SimConfig.tally_dtype is in neutral_tpu): the walk is in
+// the rows' type, and each cell's added value is kk and frac each rounded
+// to the tally's type, then multiplied in it (deposit_segments_plain's
+// kk.to(tally) * frac.to(tally)), into a tile of the tally's type.  So T
+// follows the tally: 128 for a float32 tally, 64 for a float64 one, whose
+// 32 KB tile of doubles leaves room for several blocks an SM (kTile of the
+// tally's type).  With Tally = Real the casts are no operations and the
+// layout is the one the working type had before: those 8 instantiations
+// keep their code.  The mixed pairs (float32 rows into a float64 tally, as
+// a float32 state with a float64 tally writes them, and float64 rows into a
+// float32 tally) add 8 more, with their own layouts and entry points
+// (suffixed _f32t64 and _f64t32).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
-// Layout shared with raster_kernel._RasterParams (ctypes; Real = float)
-// and _RasterParams64 (Real = double).
-template <typename Real>
+// Layout shared with raster_kernel._RasterParams (ctypes; Real = float),
+// _RasterParams64 (Real = double) and the mixed pairs' _RasterParams32t64
+// and _RasterParams64t32 (all alike: the rows and tally are pointers).
+template <typename Real, typename Tally = Real>
 struct RasterParamsT {
   const Real* segs;                     // (cap, 5) rows
   const unsigned long long* nseg;       // rows written (may exceed cap)
-  Real* tally;                          // (ny * nx,) flat, row-major
+  Tally* tally;                         // (ny * nx,) flat, row-major
   int* pieces;                          // (piece_cap,) row indices by tile
   unsigned long long* work;             // 4 * ntiles + 4 entries, see Work
   unsigned long long* out;              // [pieces, overflow], host-read
@@ -100,12 +115,14 @@ struct RasterParamsT {
 
 using RasterParams = RasterParamsT<float>;
 using RasterParams64 = RasterParamsT<double>;
+using RasterParams32t64 = RasterParamsT<float, double>;
+using RasterParams64t32 = RasterParamsT<double, float>;
 
 namespace {
 
 using namespace nt;
 
-// The tally tile side in cells of each working type.
+// The tally tile side in cells of each tally type.
 template <typename Real>
 constexpr int kTile = 128;
 template <>
@@ -179,11 +196,11 @@ __device__ __forceinline__ bool load_row(const Real* segs,
   return true;
 }
 
-// The tiles a row visits, in order (tile_pieces_plain): visit(tile id).
-template <typename Real, typename Visit>
+// The tiles of side T a row visits, in order (tile_pieces_plain):
+// visit(tile id).
+template <int T, typename Real, typename Visit>
 __device__ __forceinline__ void walk_tiles(const Row<Real>& r, int ntx,
                                            int nty, Visit visit) {
-  constexpr int T = kTile<Real>;
   int tx = r.cx0 / T;
   int ty = r.cy0 / T;
   for (int it = 0; it < ntx + nty + 2; ++it) {
@@ -206,11 +223,10 @@ __device__ __forceinline__ void walk_tiles(const Row<Real>& r, int ntx,
 
 // The cell along one axis that the walk occupies when it crosses the other
 // axis's wall at t, inside tile index tidx of this axis: past every wall
-// whose t is below t (raster._cross_cell).
-template <typename Real>
+// whose t is below t (raster._cross_cell), in tiles of side T.
+template <int T, typename Real>
 __device__ __forceinline__ int cross_cell(Real g0, Real iv, Real dg, int s,
                                           int c0, int tidx, Real t) {
-  constexpr int T = kTile<Real>;
   if (s == 0) return c0;
   int lo = tidx * T;
   int hi = lo + T - 1;
@@ -236,10 +252,9 @@ __device__ __forceinline__ int cross_cell(Real g0, Real iv, Real dg, int s,
 // x wall's), at that wall's t, and along the other axis the cell that
 // cross_cell finds (deposit_pieces_plain).  Sets the local cell and t;
 // false if the cell is not in the tile (never, for the bins' pieces).
-template <typename Real>
+template <int T, typename Real>
 __device__ __forceinline__ bool enter(const Row<Real>& r, int tx, int ty,
                                       int& lx, int& ly, Real& t_cur) {
-  constexpr int T = kTile<Real>;
   const int x_lo = tx * T;
   const int y_lo = ty * T;
   const bool cross_x = tx != r.cx0 / T;
@@ -253,11 +268,11 @@ __device__ __forceinline__ bool enter(const Row<Real>& r, int tx, int ty,
     if (cross_x && (!cross_y || t_y < t_x)) {
       t_cur = t_x;
       cx = r.sx > 0 ? x_lo : x_lo + T - 1;
-      cy = cross_cell(r.gy0, r.ivy, r.dgy, r.sy, r.cy0, ty, t_x);
+      cy = cross_cell<T>(r.gy0, r.ivy, r.dgy, r.sy, r.cy0, ty, t_x);
     } else {
       t_cur = t_y;
       cy = r.sy > 0 ? y_lo : y_lo + T - 1;
-      cx = cross_cell(r.gx0, r.ivx, r.dgx, r.sx, r.cx0, tx, t_y);
+      cx = cross_cell<T>(r.gx0, r.ivx, r.dgx, r.sx, r.cx0, tx, t_y);
     }
   }
   lx = cx - x_lo;
@@ -269,13 +284,13 @@ __device__ __forceinline__ bool enter(const Row<Real>& r, int tx, int ty,
 // The walk of a row from local cell (lx, ly) of the tile at (x_lo, y_lo) at
 // t_cur until it leaves the tile or t reaches 1: deposit_segments_plain's
 // steps, with each axis's next wall time recomputed (by the same
-// expression) only when that axis steps.  kClip: the tile reaches past the
-// grid, whose cells are dropped.
-template <bool kClip, typename Real>
+// expression) only when that axis steps; each cell's kk * frac, both
+// rounded to the tally's type first, goes into the tile `acc` of that type.
+// kClip: the tile reaches past the grid, whose cells are dropped.
+template <bool kClip, int T, typename Real, typename Tally>
 __device__ __forceinline__ void walk_cells(const Row<Real>& r, int lx, int ly,
                                            Real t_cur, int x_lo, int y_lo,
-                                           int nx, int ny, Real* acc) {
-  constexpr int T = kTile<Real>;
+                                           int nx, int ny, Tally* acc) {
   const int ox = x_lo + (r.sx > 0 ? 1 : 0);
   const int oy = y_lo + (r.sy > 0 ? 1 : 0);
   Real t_nx = r.sx == 0 ? kBig<Real> : wall_t(ox + lx, r.gx0, r.ivx);
@@ -284,7 +299,7 @@ __device__ __forceinline__ void walk_cells(const Row<Real>& r, int lx, int ly,
     const Real tn = nt_fmin(nt_fmin(t_nx, t_ny), Real(1));
     const Real frac = nt_fmax(tn - t_cur, Real(0));
     if (!kClip || (x_lo + lx < nx && y_lo + ly < ny)) {
-      const Real v = r.kk * frac;
+      const Tally v = static_cast<Tally>(r.kk) * static_cast<Tally>(frac);
       if (v != 0.0f) atomicAdd(&acc[ly * T + lx], v);
     }
     t_cur = tn;
@@ -300,10 +315,10 @@ __device__ __forceinline__ void walk_cells(const Row<Real>& r, int lx, int ly,
   }
 }
 
-template <typename Real>
+template <typename Real, typename Tally>
 __global__ void __launch_bounds__(kThreads)
-count_kernel(const RasterParamsT<Real> p) {
-  constexpr int T = kTile<Real>;
+count_kernel(const RasterParamsT<Real, Tally> p) {
+  constexpr int T = kTile<Tally>;
   const unsigned long long nseg =
       min(*p.nseg, static_cast<unsigned long long>(p.cap));
   const int ntx = (p.nx + T - 1) / T;
@@ -316,7 +331,7 @@ count_kernel(const RasterParamsT<Real> p) {
        s < nseg; s += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
     Row<Real> r;
     if (!load_row(p.segs, s, p.nx, p.ny, r)) continue;
-    walk_tiles(r, ntx, nty, [&](int tile) {
+    walk_tiles<T>(r, ntx, nty, [&](int tile) {
       const unsigned peers = __match_any_sync(__activemask(), tile);
       if (lane == __ffs(peers) - 1) {
         atomicAdd(&w.count[tile],
@@ -329,9 +344,9 @@ count_kernel(const RasterParamsT<Real> p) {
 // One block: picks C from the call's pieces and the tile kernel's resident
 // `blocks`, then scans the piece counts (offsets, cursors) and their work
 // items (ceil(count / C)) in passes of kScanThreads tiles.
-template <typename Real>
+template <typename Real, typename Tally>
 __global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const RasterParamsT<Real> p, int ntiles, int blocks) {
+scan_kernel(const RasterParamsT<Real, Tally> p, int ntiles, int blocks) {
   const Work w = views(p.work, ntiles);
   __shared__ unsigned long long warp_a[32];
   __shared__ unsigned long long warp_b[32];
@@ -418,10 +433,10 @@ scan_kernel(const RasterParamsT<Real> p, int ntiles, int blocks) {
   }
 }
 
-template <typename Real>
+template <typename Real, typename Tally>
 __global__ void __launch_bounds__(kThreads)
-fill_kernel(const RasterParamsT<Real> p) {
-  constexpr int T = kTile<Real>;
+fill_kernel(const RasterParamsT<Real, Tally> p) {
+  constexpr int T = kTile<Tally>;
   if (p.out[1] != 0) return;            // overflow: the caller re-runs
   const unsigned long long nseg =
       min(*p.nseg, static_cast<unsigned long long>(p.cap));
@@ -435,7 +450,7 @@ fill_kernel(const RasterParamsT<Real> p) {
        s < nseg; s += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
     Row<Real> r;
     if (!load_row(p.segs, s, p.nx, p.ny, r)) continue;
-    walk_tiles(r, ntx, nty, [&](int tile) {
+    walk_tiles<T>(r, ntx, nty, [&](int tile) {
       const unsigned peers = __match_any_sync(__activemask(), tile);
       const int leader = __ffs(peers) - 1;
       unsigned long long base = 0;
@@ -451,18 +466,19 @@ fill_kernel(const RasterParamsT<Real> p) {
 }
 
 // The tile in the block's dynamic shared memory (one extern float array,
-// which starts aligned): as it is in float32, read as doubles in float64.
+// which starts aligned): as it is for a float32 tally, read as doubles for
+// a float64 one.
 __device__ __forceinline__ float* tile_acc(float* acc, float) { return acc; }
 __device__ __forceinline__ double* tile_acc(float* acc, double) {
   return reinterpret_cast<double*>(acc);
 }
 
-template <typename Real>
+template <typename Real, typename Tally>
 __global__ void __launch_bounds__(kTileThreads)
-tile_kernel(const RasterParamsT<Real> p) {
-  constexpr int T = kTile<Real>;
-  extern __shared__ float acc_smem[];   // T * T of the working type
-  Real* const acc = tile_acc(acc_smem, Real(0));
+tile_kernel(const RasterParamsT<Real, Tally> p) {
+  constexpr int T = kTile<Tally>;
+  extern __shared__ float acc_smem[];   // T * T of the tally's type
+  Tally* const acc = tile_acc(acc_smem, Tally(0));
   __shared__ unsigned long long item_sh;
   if (p.out[1] != 0) return;            // overflow: the caller re-runs
   const int ntx = (p.nx + T - 1) / T;
@@ -499,20 +515,20 @@ tile_kernel(const RasterParamsT<Real> p) {
       if (!load_row(p.segs,
                     static_cast<unsigned long long>(p.pieces[begin + k]),
                     p.nx, p.ny, r) ||
-          !enter(r, tx, ty, lx, ly, t)) {
+          !enter<T>(r, tx, ty, lx, ly, t)) {
         continue;
       }
       const int x_lo = tx * T;
       const int y_lo = ty * T;
       if (clip) {
-        walk_cells<true>(r, lx, ly, t, x_lo, y_lo, p.nx, p.ny, acc);
+        walk_cells<true, T>(r, lx, ly, t, x_lo, y_lo, p.nx, p.ny, acc);
       } else {
-        walk_cells<false>(r, lx, ly, t, x_lo, y_lo, p.nx, p.ny, acc);
+        walk_cells<false, T>(r, lx, ly, t, x_lo, y_lo, p.nx, p.ny, acc);
       }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < T * T; i += kTileThreads) {
-      const Real v = acc[i];
+      const Tally v = acc[i];
       if (v != 0.0f) {
         acc[i] = 0.0f;
         const int cx = tx * T + (i % T);
@@ -528,39 +544,40 @@ tile_kernel(const RasterParamsT<Real> p) {
 
 constexpr int kMaxDevices = 64;
 
-// Dynamic shared memory of a tile_kernel<Real> block: its T x T tile.
-template <typename Real>
-constexpr int kTileBytes = kTile<Real> * kTile<Real> *
-                           static_cast<int>(sizeof(Real));
+// Dynamic shared memory of a tile_kernel block of tally type Tally: its
+// T x T tile.
+template <typename Tally>
+constexpr int kTileBytes = kTile<Tally> * kTile<Tally> *
+                           static_cast<int>(sizeof(Tally));
 
-// Persistent blocks of tile_kernel<Real> on the current device: every SM
-// filled to its occupancy beside its tile (set up once per device and
-// working type).
-template <typename Real>
+// Persistent blocks of tile_kernel<Real, Tally> on the current device:
+// every SM filled to its occupancy beside its tile (set up once per device,
+// rows' type and tally type).
+template <typename Real, typename Tally>
 int tile_blocks() {
   static int blocks[kMaxDevices] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= kMaxDevices) return 0;
   if (blocks[dev] == 0) {
-    constexpr int bytes = kTileBytes<Real>;
-    cudaFuncSetAttribute(tile_kernel<Real>,
+    constexpr int bytes = kTileBytes<Tally>;
+    cudaFuncSetAttribute(tile_kernel<Real, Tally>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     int sms = 0;
     int per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tile_kernel<Real>,
-                                                  kTileThreads, bytes);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, tile_kernel<Real, Tally>, kTileThreads, bytes);
     blocks[dev] = sms * (per_sm > 1 ? per_sm : 1);
   }
   return blocks[dev];
 }
 
-template <typename Real>
-int launch_bin(const RasterParamsT<Real>& p, cudaStream_t s) {
-  constexpr int T = kTile<Real>;
+template <typename Real, typename Tally>
+int launch_bin(const RasterParamsT<Real, Tally>& p, cudaStream_t s) {
+  constexpr int T = kTile<Tally>;
   const int ntiles = ((p.nx + T - 1) / T) * ((p.ny + T - 1) / T);
-  const int blocks = tile_blocks<Real>();
+  const int blocks = tile_blocks<Real, Tally>();
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidDevice);
   count_kernel<<<kBlocks, kThreads, 0, s>>>(p);
   scan_kernel<<<1, kScanThreads, 0, s>>>(p, ntiles, blocks);
@@ -568,26 +585,26 @@ int launch_bin(const RasterParamsT<Real>& p, cudaStream_t s) {
   return 0;
 }
 
-template <typename Real>
-int launch_tiles(const RasterParamsT<Real>& p, cudaStream_t s) {
-  const int blocks = tile_blocks<Real>();
+template <typename Real, typename Tally>
+int launch_tiles(const RasterParamsT<Real, Tally>& p, cudaStream_t s) {
+  const int blocks = tile_blocks<Real, Tally>();
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  tile_kernel<<<blocks, kTileThreads, kTileBytes<Real>, s>>>(p);
+  tile_kernel<<<blocks, kTileThreads, kTileBytes<Tally>, s>>>(p);
   return 0;
 }
 
 // Stage 1 on `stream`: count, scan and fill the bins of the first
 // min(*p->nseg, p->cap) rows; writes p->out.  Returns cudaGetLastError().
-template <typename Real>
-int bin(const RasterParamsT<Real>* p, void* stream) {
+template <typename Real, typename Tally>
+int bin(const RasterParamsT<Real, Tally>* p, void* stream) {
   const int err = launch_bin(*p, static_cast<cudaStream_t>(stream));
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
 // Stage 2 on `stream`: the tile deposit of the bins into p->tally (nothing
 // when stage 1 flagged an overflow).  Returns cudaGetLastError().
-template <typename Real>
-int tiles(const RasterParamsT<Real>* p, void* stream) {
+template <typename Real, typename Tally>
+int tiles(const RasterParamsT<Real, Tally>* p, void* stream) {
   const int err = launch_tiles(*p, static_cast<cudaStream_t>(stream));
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
@@ -604,15 +621,31 @@ extern "C" int nt_raster_params_size_f64() {
   return static_cast<int>(sizeof(RasterParams64));
 }
 
-// The tile side T of the float32 (f64 = 0) or float64 (f64 = 1) kernels.
+extern "C" int nt_raster_params_size_f32t64() {
+  return static_cast<int>(sizeof(RasterParams32t64));
+}
+
+extern "C" int nt_raster_params_size_f64t32() {
+  return static_cast<int>(sizeof(RasterParams64t32));
+}
+
+// The tile side T of the kernels into a float32 (f64 = 0) or float64
+// (f64 = 1) tally, from rows of either type.
 extern "C" int nt_raster_tile_side(int f64) {
   return f64 ? kTile<double> : kTile<float>;
 }
 
-// Persistent blocks of the float32 (f64 = 0) or float64 (f64 = 1) tile
-// kernel on the current device (SMs x blocks an SM; 0 on an error).
-extern "C" int nt_raster_tile_blocks(int f64) {
-  return f64 ? tile_blocks<double>() : tile_blocks<float>();
+// Persistent blocks of the tile kernel of float32 (rows_f64 = 0) or float64
+// (rows_f64 = 1) rows into a float32 (tally_f64 = 0) or float64
+// (tally_f64 = 1) tally on the current device (SMs x blocks an SM; 0 on an
+// error).
+extern "C" int nt_raster_tile_blocks(int rows_f64, int tally_f64) {
+  if (rows_f64) {
+    return tally_f64 ? tile_blocks<double, double>()
+                     : tile_blocks<double, float>();
+  }
+  return tally_f64 ? tile_blocks<float, double>()
+                   : tile_blocks<float, float>();
 }
 
 extern "C" int nt_raster_bin(const RasterParams* p, void* stream) {
@@ -628,5 +661,25 @@ extern "C" int nt_raster_tiles(const RasterParams* p, void* stream) {
 }
 
 extern "C" int nt_raster_tiles_f64(const RasterParams64* p, void* stream) {
+  return tiles(p, stream);
+}
+
+extern "C" int nt_raster_bin_f32t64(const RasterParams32t64* p,
+                                    void* stream) {
+  return bin(p, stream);
+}
+
+extern "C" int nt_raster_bin_f64t32(const RasterParams64t32* p,
+                                    void* stream) {
+  return bin(p, stream);
+}
+
+extern "C" int nt_raster_tiles_f32t64(const RasterParams32t64* p,
+                                      void* stream) {
+  return tiles(p, stream);
+}
+
+extern "C" int nt_raster_tiles_f64t32(const RasterParams64t32* p,
+                                      void* stream) {
   return tiles(p, stream);
 }

@@ -189,16 +189,18 @@ def pitch_refusal(cfg: SimConfig) -> str | None:
 def kernel_refusal(dtype: torch.dtype, cfg: SimConfig | None = None,
                    transport: str | None = None) -> str | None:
     """Why no kernel runs this deck in `dtype` on `transport` (None: the
-    kernels run it): a working type other than float32 and float64, or a
-    tally whose dtype is not the state's.  The transport decides nothing
-    now: both transports' kernels run both working types.  A deck without
-    a pitch is no reason either: the sweep kernel takes it in edge-array
-    mode, and the flight transport refuses it itself (pick_transport)."""
+    kernels run it): a working type, or a tally type (`cfg.tally_dtype`),
+    other than float32 and float64.  Every pair of the two runs on the
+    kernels of both transports: a tally of the state's type, or of the
+    other (the mixed instantiations).  The transport decides nothing: both
+    transports' kernels run every pair.  A deck without a pitch is no
+    reason either: the sweep kernel takes it in edge-array mode, and the
+    flight transport refuses it itself (pick_transport)."""
     if dtype not in (torch.float32, torch.float64):
         return f"needs float32 or float64, got {dtype}"
-    if cfg is not None and getattr(torch, cfg.tally_dtype) != dtype:
-        return (f"needs the tally in the state's dtype, got a "
-                f"{cfg.tally_dtype} tally for {dtype} particles")
+    if cfg is not None and cfg.tally_dtype not in ("float32", "float64"):
+        return (f"needs a float32 or float64 tally, got a "
+                f"{cfg.tally_dtype} tally")
     return None
 
 
@@ -206,9 +208,10 @@ def pick_engine(engine: str, device: torch.device, dtype: torch.dtype,
                 cfg: SimConfig | None = None,
                 transport: str | None = None) -> str:
     """The engine that runs a deck: `auto` is `kernel` on a CUDA device
-    where a kernel exists for the deck (`cfg`), its dtype and its
-    `transport` (kernel_refusal), and `plain` everywhere else; `kernel`
-    raises on the CPU and where kernel_refusal gives a reason."""
+    where a kernel exists for the deck (`cfg`), its dtype, its tally's
+    dtype and its `transport` (kernel_refusal: every float32/float64 pair
+    on both transports), and `plain` everywhere else; `kernel` raises on
+    the CPU and where kernel_refusal gives a reason."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine}")
     refusal = kernel_refusal(dtype, cfg, transport)
@@ -518,7 +521,8 @@ class Simulation(SimulationBase):
         # The kernel loop's buffers, kept from census to census.
         kernel = self.engine == "kernel"
         self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device,
-                                     dtype=self.dtype)
+                                     dtype=self.dtype,
+                                     tally_dtype=self.tally.dtype)
                        if kernel and self.transport == "flight" else None)
         self.sweep = (SweepBuffers(self.device)
                       if kernel and self.transport == "sweep" else None)

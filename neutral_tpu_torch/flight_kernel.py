@@ -33,12 +33,14 @@ between censuses by the caller.
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, threefry or pcg64si draws (csrc/flight.cu); the rects are device
 arrays of any length.  Each mode has a float32 and a float64 instantiation
-(the working type of the state, the tally, the rects' densities and the
-segment rows; positions global in both, as flight.py keeps them):
-`_FlightParams` and `_FlightParams64` are the two parameter layouts, and
-the segment deposit follows the rows' type (raster_kernel.py).  The
-spatial window of a decomposed run (`x_off`/`y_off`, flight.py's) is a
-runtime parameter.  `flight_params`,
+(the working type of the state, the rects' densities and the segment rows;
+positions global in both, as flight.py keeps them), each with a tally of
+either type (SimConfig.tally_dtype): `_FlightParams` and `_FlightParams64`
+are the layouts with a tally of the state's type, `_FlightParams32t64`
+and `_FlightParams64t32` those of the mixed pairs (`_LAYOUTS`), and the
+segment deposit takes the rows' type and the tally's (raster_kernel.py).
+The spatial window of a decomposed run (`x_off`/`y_off`, flight.py's) is
+a runtime parameter.  `flight_params`,
 `flight_round` and `after_round` are one round; `flight_chunk_kernel`
 loops them for one state, and the decomposed runs (parallel/) run a round
 on every shard before they read the counters of all shards at once.  The
@@ -82,9 +84,9 @@ def seg_rows(nbytes: int, dtype: torch.dtype) -> int:
     return nbytes // (5 * dtype.itemsize)
 
 
-def _flight_fields(real) -> list:
-    """`FlightParamsT<Real>`'s fields in csrc/flight.cu, its scalars of the
-    ctypes type `real`."""
+def _flight_fields(real, tally=None) -> list:
+    """`FlightParamsT<Real, Tally>`'s fields in csrc/flight.cu, its scalars
+    of the ctypes type `real` but inv_ntotal, of `tally` (None: `real`)."""
     return (
         [(f, ctypes.c_void_p) for f in (
             "x", "y", "omega_x", "omega_y", "energy", "weight",
@@ -98,8 +100,8 @@ def _flight_fields(real) -> list:
             "max_pieces", "nx", "ny", "scatter_entries", "absorb_entries",
             "scatter_shift", "absorb_shift", "same_xs", "nrects", "xs_mode",
             "rng", "x_off", "y_off", "global_nx", "global_ny")]
-        + [(f, real) for f in ("dx", "dy", "inv_dx", "inv_dy",
-                               "inv_ntotal")])
+        + [(f, real) for f in ("dx", "dy", "inv_dx", "inv_dy")]
+        + [("inv_ntotal", tally or real)])
 
 
 class _FlightParams(ctypes.Structure):
@@ -112,15 +114,29 @@ class _FlightParams64(ctypes.Structure):
     _fields_ = _flight_fields(ctypes.c_double)
 
 
-# The parameter layout and entry-point suffix of each working type.
-_LAYOUTS = {torch.float32: (_FlightParams, ""),
-            torch.float64: (_FlightParams64, "_f64")}
+class _FlightParams32t64(ctypes.Structure):
+    """Mirror of `FlightParams32t64` (a float32 state, a float64 tally) in
+    csrc/flight.cu."""
+    _fields_ = _flight_fields(ctypes.c_float, ctypes.c_double)
 
 
-def _real(params: ctypes.Structure) -> torch.dtype:
-    """The working type of a parameter layout."""
-    return (torch.float64 if isinstance(params, _FlightParams64)
-            else torch.float32)
+class _FlightParams64t32(ctypes.Structure):
+    """Mirror of `FlightParams64t32` (a float64 state, a float32 tally) in
+    csrc/flight.cu."""
+    _fields_ = _flight_fields(ctypes.c_double, ctypes.c_float)
+
+
+# The parameter layout and entry-point suffix of each (state, tally) pair.
+_LAYOUTS = {(torch.float32, torch.float32): (_FlightParams, ""),
+            (torch.float64, torch.float64): (_FlightParams64, "_f64"),
+            (torch.float32, torch.float64): (_FlightParams32t64, "_f32t64"),
+            (torch.float64, torch.float32): (_FlightParams64t32, "_f64t32")}
+
+
+def _types(params: ctypes.Structure) -> tuple:
+    """(working type, tally type) of a parameter layout."""
+    return next(pair for pair, (cls, _) in _LAYOUTS.items()
+                if type(params) is cls)
 
 
 @functools.cache
@@ -171,22 +187,25 @@ def grown_rows(cap: int, reserved: int, max_rows: int) -> int:
 
 
 class FlightBuffers:
-    """The flight loop's device buffers for one state and (nx, ny) tally on
-    one device in working type `dtype` (float32 or float64), kept by the
-    caller between censuses: the six counters [facets, collisions, lanes
+    """The flight loop's device buffers for one state of working type
+    `dtype` and one (nx, ny) tally of `tally_dtype` (None: `dtype`; each
+    float32 or float64) on one device, kept by the caller between
+    censuses: the six counters [facets, collisions, lanes
     still working, segment rows reserved, the deposit's pieces, its
     overflow flag]; the two lane lists of a round (the launch's and the
     next, swapped after each launch); the segment buffer of `rows` (rows,
     5) rows of `dtype` (None: SEG_BYTES' worth), grown after a round that
-    refused rows, up to `max_rows` (None: SEG_BYTES_MAX' worth); and the
-    segment deposit's buffers.  `n_active` is the length of the next
-    launch's list, None when the next launch covers every lane (the first
-    of a census, or of a shard that received migrants); `round` counts the
-    census's launches."""
+    refused rows, up to `max_rows` (None: SEG_BYTES_MAX' worth), both in
+    bytes of the rows' type; and the segment deposit's buffers, for rows of
+    `dtype` into a tally of `tally_dtype`.  `n_active` is the length of the
+    next launch's list, None when the next launch covers every lane (the
+    first of a census, or of a shard that received migrants); `round`
+    counts the census's launches."""
 
     def __init__(self, nx: int, ny: int, device, rows: int | None = None,
                  max_rows: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tally_dtype: torch.dtype | None = None):
         if dtype not in REALS:
             raise ValueError(f"segment rows in float32 or float64, got "
                              f"{dtype}")
@@ -196,7 +215,8 @@ class FlightBuffers:
         if rows < 1:
             raise ValueError(f"segment buffer needs at least 1 row, got "
                              f"{rows}")
-        self.deposit = SegmentDeposit(nx, ny, device, dtype=dtype)
+        self.deposit = SegmentDeposit(nx, ny, device, dtype=dtype,
+                                      tally_dtype=tally_dtype)
         self.device = self.deposit.device          # with its index
         self.counts = torch.zeros(6, dtype=torch.int64, device=self.device)
         self.segs = torch.empty((rows, 5), dtype=dtype, device=self.device)
@@ -220,10 +240,11 @@ def flight_params(state: ParticleState, tally: torch.Tensor, rects: tuple,
                   geom: Geometry, scatter_tab: CrossSection,
                   absorb_tab: CrossSection, master_key: int,
                   inv_ntotal: float, x_off=None,
-                  y_off=None) -> _FlightParams:
-    """The parameters of a census's launches in the state's working type,
-    after check_inputs: `rects` is rect_arrays(geom.rects, dtype=the
-    working type) and `x_off`/`y_off` the window (None: none).
+                  y_off=None) -> ctypes.Structure:
+    """The parameters of a census's launches in the state's working type
+    and the tally's type (`_LAYOUTS`), after check_inputs: `rects` is
+    rect_arrays(geom.rects, dtype=the working type) and `x_off`/`y_off`
+    the window (None: none).
     flight_round sets the fields of each launch (lists, pieces, segment
     buffer, counters)."""
     if geom.rects is None:
@@ -236,7 +257,7 @@ def flight_params(state: ParticleState, tally: torch.Tensor, rects: tuple,
     if rects[1].dtype != state.dtype:
         raise ValueError(f"flight kernel: rect densities in "
                          f"{rects[1].dtype}, state in {state.dtype}")
-    p = _LAYOUTS[state.dtype][0]()
+    p = _LAYOUTS[(state.dtype, tally.dtype)][0]()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
     table_fields(p, geom, scatter_tab, absorb_tab, state.dtype)
@@ -247,13 +268,14 @@ def flight_params(state: ParticleState, tally: torch.Tensor, rects: tuple,
     p.n = state.n
     window_fields(p, geom, x_off, y_off)
     # ctypes rounds each Python float to float32 as np.float32 does, or
-    # keeps it whole in float64, as xs.const does for the plain version.
+    # keeps it whole in float64, as xs.const does for the plain version
+    # (inv_ntotal in the tally's type, the rest in the working type).
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
     p.inv_dx, p.inv_dy = 1.0 / geom.dx, 1.0 / geom.dy
     return p
 
 
-def flight_round(params: _FlightParams, buffers: FlightBuffers,
+def flight_round(params: ctypes.Structure, buffers: FlightBuffers,
                  tally: torch.Tensor, geom: Geometry,
                  max_pieces: int | None = None,
                  segments: list | None = None) -> dict:
@@ -268,9 +290,12 @@ def flight_round(params: _FlightParams, buffers: FlightBuffers,
     Returns the round's record: the lanes launched, the pieces per lane and
     its three CUDA events (start, flight done, deposit done) as "marks"."""
     b = buffers
-    if b.segs.dtype != _real(params):
-        raise ValueError(f"flight kernel: {_real(params)} parameters beside "
-                         f"a segment buffer of {b.segs.dtype} rows")
+    real, tally_dtype = _types(params)
+    if (b.segs.dtype, b.deposit.tally_dtype) != (real, tally_dtype):
+        raise ValueError(f"flight kernel: parameters of a {real} state and "
+                         f"a {tally_dtype} tally beside buffers of "
+                         f"{b.segs.dtype} rows into a "
+                         f"{b.deposit.tally_dtype} tally")
     lanes = params.n if b.n_active is None else b.n_active
     if max_pieces is None:
         max_pieces = pieces_for(b.round, lanes, b.resident)
@@ -288,7 +313,8 @@ def flight_round(params: _FlightParams, buffers: FlightBuffers,
     params.seg_cap = b.segs.shape[0]
     params.max_pieces = int(max_pieces)
     lib = load_library()
-    launch = getattr(lib, f"nt_flight_launch{_LAYOUTS[_real(params)][1]}")
+    sfx = _LAYOUTS[(real, tally_dtype)][1]
+    launch = getattr(lib, f"nt_flight_launch{sfx}")
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         b.counts[2:4].zero_()
@@ -395,7 +421,8 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     params = flight_params(state, tally, rects, geom, scatter_tab,
                            absorb_tab, master_key, inv_ntotal, x_off, y_off)
     if buffers is None:
-        buffers = FlightBuffers(geom.nx, geom.ny, dev, dtype=state.dtype)
+        buffers = FlightBuffers(geom.nx, geom.ny, dev, dtype=state.dtype,
+                                tally_dtype=tally.dtype)
     buffers.start_census()
     counts = buffers.counts
     counts.zero_()

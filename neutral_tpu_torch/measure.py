@@ -1,20 +1,24 @@
 """Measurements of the port on a card, beside chip_smoke.py.
 
     python neutral_tpu_torch/measure.py census [--root DIR] [--reps 5]
-        [--dtype float64] [--modes MODE ...]
+        [--dtype float64] [--tally-dtype T] [--modes MODE ...]
     python neutral_tpu_torch/measure.py flight [--root DIR] [--reps 5]
-        [--dtype float64]
+        [--dtype float64] [--tally-dtype T]
     python neutral_tpu_torch/measure.py deposit [--root DIR] [--reps 5]
-        [--rows FILE] [--deck DECK] [--dtype float64]
+        [--rows FILE] [--deck DECK] [--dtype float64] [--tally-dtype T]
     python neutral_tpu_torch/measure.py run DECK [--root DIR] [--reps 1]
         [--shards N --decomposition D] [--dtype float64]
-        [--transport flight]
+        [--tally-dtype T] [--transport flight]
     python neutral_tpu_torch/measure.py compare FILE [--key total_s]
     python neutral_tpu_torch/measure.py scaled [--nparticles N]
     python neutral_tpu_torch/measure.py profile DECK [--decomposition D]
     python neutral_tpu_torch/measure.py tail DECK [--root DIR]
         [--decomposition D] [--steps]
     python neutral_tpu_torch/measure.py kernels [--root DIR] [--sass FILE]
+        [--dtype D [--tally-dtype T]]
+    python neutral_tpu_torch/measure.py kernels-diff PARENT CHANGE
+    python neutral_tpu_torch/measure.py build [--root DIR] [--reps 2]
+        [--merge SRC.cu SRC.cu ...]
 
 `census` times one step-1 census of the scatter deck through the sweep
 kernel in each of its modes, `--reps` times after a warm-up, with the
@@ -108,12 +112,36 @@ kernel's pitch-mode instantiations as before the edge mode became one
 registers, spill stores and loads and stack frame from the build log,
 and a digest of its SASS (cuobjdump -sass, addresses and encodings
 stripped): two checkouts whose kernels of one name print
-the same digest compiled to the same instructions.  `--sass FILE` also
+the same digest compiled to the same instructions.  A kernel whose tally
+is of its working type is named as before the tally type was a template
+parameter (its last template argument dropped); those of a state and a
+tally of different types keep their whole name.  `--sass FILE` also
 writes the whole SASS listing there.
+
+`kernels-diff` reads two files of `kernels` records (a parent's, then a
+change's) and prints one record: how many kernels of one name both
+have, how many of those keep their digest, registers, spills and stack,
+the names of those that do not and of the parent's that the change
+lacks, and how many the change adds.
+
+`build` times the kernel library's build from nothing, as build.py makes
+it (one nvcc process a source of `--root`'s csrc/, all started together,
+then the link), in a new directory each of `--reps` times: the wall time
+and each source's seconds.  With `--merge`, the named sources compile as
+one translation unit (a file that includes each in turn), so that a
+source split in two is timed against the two as one.
+
+`--tally-dtype` (float32 or float64; default `--dtype`) gives the tally
+a type of its own beside the state's working type: a float32 state with
+a float64 tally, or a float64 state with a float32 tally, runs the
+kernels' mixed instantiations (`deposit` then puts the state type's rows
+into a tally of that type).  For `kernels`, `--dtype` and `--tally-dtype`
+pick the instantiations of that (working type, tally type) pair, read
+from their parameter struct (default: every kernel).
 
 Each prints one JSON line per measurement, with the card's name and
 power limit.  All need a card but `kernels`, which needs nvcc and
-cuobjdump.
+cuobjdump, and `build`, which needs nvcc.
 """
 
 from __future__ import annotations
@@ -127,6 +155,14 @@ import subprocess
 import sys
 import tempfile
 import time
+
+
+def pair_name(dtype: str, tally: str) -> str:
+    """A record name's suffix for a state of `dtype` and a tally of
+    `tally`: nothing for float32 and float32, as before the tally had a
+    type of its own."""
+    return (("" if dtype == "float32" else f" {dtype}")
+            + ("" if tally == dtype else f" tally {tally}"))
 
 
 def card() -> str:
@@ -184,21 +220,23 @@ def census_deck(mode: str, tmp: str) -> tuple[str, int, tuple | None]:
     return deck, 1_000_000, None
 
 
-def census(reps: int, mode: str, tmp: str, dtype: str = "float32") -> dict:
+def census(reps: int, mode: str, tmp: str, dtype: str = "float32",
+           tally: str | None = None) -> dict:
     """Milliseconds of `reps` scatter censuses of `mode` through the sweep
-    kernel in `dtype`, with the census's counts, end-state digest and slot
-    use."""
+    kernel in `dtype` into a tally of `tally` (None: `dtype`), with the
+    census's counts, end-state digest and slot use."""
     import dataclasses
     import hashlib
     import torch
     from neutral_tpu_torch import driver, sweep_kernel, transport
     from neutral_tpu_torch.particles import STATE_FIELDS
 
+    tally = tally or dtype
     deck, nparticles, window = census_deck(mode, tmp)
     cfg = driver.load_config(deck).with_(nparticles=nparticles,
                                          expected_tally=None)
-    if dtype != cfg.dtype:
-        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    if (dtype, tally) != (cfg.dtype, cfg.tally_dtype):
+        cfg = cfg.with_(dtype=dtype, tally_dtype=tally)
     sim = driver.Simulation(cfg, device="cuda", engine="plain",
                             transport="sweep", quiet=True)
     start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
@@ -224,7 +262,7 @@ def census(reps: int, mode: str, tmp: str, dtype: str = "float32") -> dict:
     digest = hashlib.sha256()
     for f in STATE_FIELDS:
         digest.update(getattr(state, f).cpu().numpy().tobytes())
-    name = f"census {mode}" + ("" if dtype == "float32" else f" {dtype}")
+    name = f"census {mode}" + pair_name(dtype, tally)
     return {"deck": name, "shards": 1, "decomposition": None,
             "census_ms": times, "min_ms": min(times),
             "median_ms": sorted(times)[len(times) // 2], "facets": nf,
@@ -251,28 +289,34 @@ def table_deck(deck: str, tmp: str) -> str:
     return os.path.join(d, os.path.basename(deck))
 
 
-def flight(reps: int, tmp: str, dtype: str = "float32") -> list:
+def flight(reps: int, tmp: str, dtype: str = "float32",
+           tally: str | None = None) -> list:
     """The flight kernel's own milliseconds over `reps` split censuses at
-    1,000,000 particles in `dtype`, analytic and in table mode."""
+    1,000,000 particles in `dtype` into a tally of `tally` (None: `dtype`),
+    analytic and in table mode."""
     import hashlib
     import torch
     from neutral_tpu_torch import driver, flight_kernel, transport
     from neutral_tpu_torch.particles import STATE_FIELDS
 
+    tally = tally or dtype
     split = "problems/split.params"
     out = []
     for mode, deck in (("analytic", split), ("table", table_deck(split, tmp))):
         cfg = driver.load_config(deck).with_(expected_tally=None)
-        if dtype != cfg.dtype:
-            cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+        if (dtype, tally) != (cfg.dtype, cfg.tally_dtype):
+            cfg = cfg.with_(dtype=dtype, tally_dtype=tally)
         sim = driver.Simulation(cfg, device="cuda", engine="plain",
                                 transport="flight", quiet=True)
         start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                          cfg.dt, 1)
-        # (float32 as a checkout from before float64 flight calls it)
+        # (float32 as a checkout from before float64 flight calls it, a
+        # tally of the state's type as one from before the mixed pairs)
+        kw = ({} if tally == dtype else {"tally_dtype": sim.tally.dtype})
         buffers = (flight_kernel.FlightBuffers(cfg.nx, cfg.ny, "cuda")
-                   if dtype == "float32" else flight_kernel.FlightBuffers(
-                       cfg.nx, cfg.ny, "cuda", dtype=sim.dtype))
+                   if dtype == tally == "float32" else
+                   flight_kernel.FlightBuffers(cfg.nx, cfg.ny, "cuda",
+                                              dtype=sim.dtype, **kw))
         times, launches = [], 0
         for rep in range(reps + 1):
             state = start.clone()
@@ -284,7 +328,7 @@ def flight(reps: int, tmp: str, dtype: str = "float32") -> list:
         digest = hashlib.sha256()
         for f in STATE_FIELDS:
             digest.update(getattr(state, f).cpu().numpy().tobytes())
-        name = f"flight {mode}" + ("" if dtype == "float32" else f" {dtype}")
+        name = f"flight {mode}" + pair_name(dtype, tally)
         out.append({"deck": name, "shards": 1,
                     "decomposition": None, "flight_ms": times,
                     "min_ms": min(times),
@@ -297,16 +341,17 @@ def flight(reps: int, tmp: str, dtype: str = "float32") -> list:
 
 
 def deposit(reps: int, deck: str, rows_path: str | None,
-            dtype: str = "float32") -> dict:
+            dtype: str = "float32", tally: str | None = None) -> dict:
     """Milliseconds of `reps` segment deposits of `deck`'s step-1 rows in
-    `dtype`."""
+    `dtype` into a tally of `tally` (None: `dtype`)."""
     import torch
     from neutral_tpu_torch import driver, flight_kernel, raster_kernel
     from neutral_tpu_torch import transport
 
+    tally_name = tally or dtype
     cfg = driver.load_config(deck).with_(expected_tally=None)
-    if dtype != cfg.dtype:
-        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    if (dtype, tally_name) != (cfg.dtype, cfg.tally_dtype):
+        cfg = cfg.with_(dtype=dtype, tally_dtype=tally_name)
     if rows_path and os.path.exists(rows_path):
         rows = torch.load(rows_path).cuda()
     else:
@@ -323,15 +368,20 @@ def deposit(reps: int, deck: str, rows_path: str | None,
         if rows_path:
             torch.save(rows.cpu(), rows_path)
     nseg = torch.tensor([rows.shape[0]], dtype=torch.int64, device="cuda")
-    tally = torch.zeros(cfg.nx * cfg.ny, dtype=rows.dtype, device="cuda")
+    tally = torch.zeros(cfg.nx * cfg.ny, dtype=getattr(torch, tally_name),
+                        device="cuda")
     tiled = hasattr(raster_kernel, "SegmentDeposit")
     kw, stages = {}, []
     if tiled:
-        # (float32 as a checkout from before float64 deposits calls it)
+        # (float32 as a checkout from before float64 deposits calls it, a
+        # tally of the rows' type as one from before the mixed pairs)
+        mixed = ({} if tally.dtype == rows.dtype
+                 else {"tally_dtype": tally.dtype})
         kw["deposit"] = (raster_kernel.SegmentDeposit(cfg.nx, cfg.ny, "cuda")
-                         if dtype == "float32" else
+                         if dtype == tally_name == "float32" else
                          raster_kernel.SegmentDeposit(cfg.nx, cfg.ny, "cuda",
-                                                      dtype=rows.dtype))
+                                                      dtype=rows.dtype,
+                                                      **mixed))
         kw["stages"] = stages
     times, bin_ms, tile_ms = [], [], []
     for rep in range(reps + 1):
@@ -349,7 +399,7 @@ def deposit(reps: int, deck: str, rows_path: str | None,
             for ev0, ev1, ev2 in stages[-1:]:
                 bin_ms.append(ev0.elapsed_time(ev1))
                 tile_ms.append(ev1.elapsed_time(ev2))
-    out = {"deck": deck if dtype == "float32" else f"{deck} {dtype}",
+    out = {"deck": deck + pair_name(dtype, tally_name),
            "rows": rows.shape[0], "deposit_ms": times,
            "min_ms": min(times), "median_ms": sorted(times)[len(times) // 2],
            "tally_sum": float(tally.double().sum())}
@@ -359,16 +409,19 @@ def deposit(reps: int, deck: str, rows_path: str | None,
 
 
 def run(deck: str, shards: int, decomposition: str, reps: int,
-        dtype: str | None = None, transport: str = "auto") -> list:
+        dtype: str | None = None, transport: str = "auto",
+        tally: str | None = None) -> list:
     """Every step of `deck` at full size, on one device or `shards`
     shards on the one card, `reps` times after a warm-up run, in `dtype`
-    (state and tally; None: the deck's) on `transport`."""
+    (the state's, and the tally's unless `tally` names its own; None: the
+    deck's) on `transport`."""
     import torch
     from neutral_tpu_torch import driver
 
     cfg = driver.load_config(deck)
-    if dtype:
-        cfg = cfg.with_(dtype=dtype, tally_dtype=dtype)
+    if dtype or tally:
+        cfg = cfg.with_(dtype=dtype or cfg.dtype,
+                        tally_dtype=tally or dtype or cfg.dtype)
     devices = [torch.device("cuda", 0)] * shards
     kw = {} if transport == "auto" else {"transport": transport}
     # warm-up run: builds the kernels, fills PyTorch's caches
@@ -386,6 +439,8 @@ def run(deck: str, shards: int, decomposition: str, reps: int,
                 phases[k] = phases.get(k, 0.0) + v
         ms = sim.step_metrics
         name = " ".join([deck] + ([dtype] if dtype else [])
+                        + ([f"tally {tally}"] if tally and tally != (
+                            dtype or "float32") else [])
                         + ([transport] if kw else []))
         out.append({"deck": name,
                     "shards": shards,
@@ -560,24 +615,46 @@ def _demangle(names: list[str]) -> dict:
     return dict(zip(names, out.splitlines()))
 
 
+def kernel_pair(demangled: str) -> tuple | None:
+    """(working type, tally type) of a kernel, from its template arguments
+    (the sweep kernel's `..., float, (nt::EdgeMode)0, double>`: a float32
+    state and a float64 tally; one type: the kernel's working type, and a
+    tally of that type or none), or None for a kernel without one."""
+    m = re.search(r"<(.*)>\(", demangled)
+    types = re.findall(r"\b(float|double)\b", m[1]) if m else []
+    if not types:
+        return None
+    names = {"float": "float32", "double": "float64"}
+    return names[types[0]], names[types[-1]]
+
+
 def _kernel_name(demangled: str) -> str:
     """A kernel's name with its float32 instantiation named as before the
-    working type was a template parameter, and a pitch-mode sweep kernel as
-    before the edge mode was one."""
-    name = re.sub(r", \([\w:]*EdgeMode\)0>", ">", demangled)
+    working type was a template parameter, a pitch-mode sweep kernel as
+    before the edge mode was one, and an instantiation whose tally is of
+    its working type as before the tally type was one (a state and a tally
+    of different types keep their whole name: no older name to match)."""
+    pair = kernel_pair(demangled)
+    if pair is not None and pair[0] != pair[1]:
+        return demangled
+    # a tally of the working type: the kernel's last template argument
+    # (after the sweep kernel's edge mode) dropped
+    name = re.sub(r"(<|, )(float|double)((?:, \([\w:]+\)\d+)?), \2>\(",
+                  r"\1\2\3>(", demangled)
+    name = re.sub(r", \([\w:]*EdgeMode\)0>", ">", name)
     name = name.replace(", float>", ">").replace("<float>", "")
     # the parameter struct's template, however the demangler spells it
-    name = re.sub(r"\b(Sweep|Begin|Flight|Raster)ParamsT(<\w+>)?",
+    name = re.sub(r"\b(Sweep|Begin|Flight|Raster)ParamsT(<[\w, ]+>)?",
                   r"\1Params", name)
     # a kernel left without template arguments: no return type, as before
     return re.sub(r"^void (<unnamed>|\(anonymous namespace\))(::\w+\()",
                   r"\1\2", name)
 
 
-def kernels(sass_file: str | None = None) -> list:
+def kernels(sass_file: str | None = None, pair: tuple | None = None) -> list:
     """Per kernel of the library that build.py makes from this package's
-    csrc/: ptxas's registers, spills and stack, and a digest of its
-    SASS."""
+    csrc/ (only those of the (working type, tally type) `pair`, if given):
+    ptxas's registers, spills and stack, and a digest of its SASS."""
     import hashlib
     from neutral_tpu_torch import build
 
@@ -615,11 +692,90 @@ def kernels(sass_file: str | None = None) -> list:
             if text:
                 code[fn].append(text)
     names = _demangle(sorted(set(props) | set(code)))
+    if pair is not None:
+        names = {k: v for k, v in names.items() if kernel_pair(v) == pair}
     return [{"kernel": _kernel_name(names[k]),
              "sass_sha256": hashlib.sha256(
                  "\n".join(code.get(k, [])).encode()).hexdigest()[:16],
              "sass_lines": len(code.get(k, [])), **props.get(k, {})}
             for k in sorted(names, key=lambda k: _kernel_name(names[k]))]
+
+
+KERNEL_KEYS = ("sass_sha256", "registers", "spill_stores", "spill_loads",
+               "stack")
+
+
+def kernels_diff(parent_file: str, change_file: str) -> dict:
+    """The kernels of two `kernels` listings matched by name: counts, and
+    the names that changed or went."""
+    def load(path):
+        with open(path) as f:
+            return {r["kernel"]: r for r in map(json.loads, f) if r}
+
+    par, new = load(parent_file), load(change_file)
+    both = [k for k in par if k in new]
+    changed = [k for k in both
+               if any(par[k].get(x) != new[k].get(x) for x in KERNEL_KEYS)]
+    return {"what": "kernels-diff", "parent": len(par), "change": len(new),
+            "matched": len(both), "unchanged": len(both) - len(changed),
+            "changed": changed, "only_parent": [k for k in par
+                                                if k not in new],
+            "only_change": len([k for k in new if k not in par])}
+
+
+def build_times(reps: int, merge: list[str]) -> list:
+    """Per rep: the wall time of a build of this package's kernel library
+    from nothing (every translation unit's nvcc started together, then the
+    link) and each unit's seconds, with the sources in `merge` compiled as
+    one unit."""
+    import threading
+    from pathlib import Path
+    from neutral_tpu_torch import build
+
+    missing = [m for m in merge if not (build.CSRC_DIR / m).is_file()]
+    if missing or len(merge) == 1:
+        raise SystemExit(f"--merge takes two or more sources of "
+                         f"{build.CSRC_DIR}, not {merge}")
+    nvcc, out = build.nvcc_path(), []
+
+    def compile_unit(unit: Path, tmp: str, secs: dict) -> None:
+        t0 = time.perf_counter()
+        subprocess.run([nvcc, *build.NVCC_FLAGS, "-c", str(unit), "-o",
+                        os.path.join(tmp, f"{unit.stem}.o")], check=True,
+                       capture_output=True)
+        secs[unit.name] = time.perf_counter() - t0
+
+    for rep in range(reps):
+        with tempfile.TemporaryDirectory() as tmp:
+            units = [s for s in build.sources()
+                     if s.suffix == ".cu" and s.name not in merge]
+            if merge:
+                unit = Path(tmp) / ("+".join(Path(m).stem for m in merge)
+                                    + ".cu")
+                unit.write_text("".join(f'#include "{build.CSRC_DIR / m}"\n'
+                                        for m in merge))
+                units.append(unit)
+            secs = {}
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=compile_unit,
+                                        args=(u, tmp, secs)) for u in units]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if len(secs) != len(units):
+                raise RuntimeError("a translation unit failed to compile")
+            t1 = time.perf_counter()
+            subprocess.run([nvcc, *build.GENCODE, "-shared", "-o",
+                            os.path.join(tmp, "lib.so"),
+                            *(os.path.join(tmp, f"{u.stem}.o")
+                              for u in units)], check=True,
+                           capture_output=True)
+            out.append({"what": "build", "rep": rep, "merge": merge,
+                        "wall_s": time.perf_counter() - t0,
+                        "link_s": time.perf_counter() - t1,
+                        "units_s": dict(sorted(secs.items()))})
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -632,6 +788,8 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--reps", type=int, default=5)
     c.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
+    c.add_argument("--tally-dtype", default=None,
+                   choices=["float32", "float64"])
     c.add_argument("--modes", nargs="+", default=list(CENSUS_MODES),
                    choices=[*CENSUS_MODES, *NO_PITCH_MODES])
     g = sub.add_parser("flight", help="time split's flight kernel per mode")
@@ -639,6 +797,8 @@ def main(argv: list[str] | None = None) -> int:
         os.path.abspath(__file__))), help="checkout whose package to time")
     g.add_argument("--reps", type=int, default=5)
     g.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
+    g.add_argument("--tally-dtype", default=None,
                    choices=["float32", "float64"])
     d = sub.add_parser("deposit", help="time the segment deposit")
     d.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -649,6 +809,8 @@ def main(argv: list[str] | None = None) -> int:
     d.add_argument("--deck", default="problems/stream.params")
     d.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
+    d.add_argument("--tally-dtype", default=None,
+                   choices=["float32", "float64"])
     r = sub.add_parser("run", help="time every step of a full deck")
     r.add_argument("deck")
     r.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -658,6 +820,8 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--decomposition", default="replicated",
                    choices=["replicated", "spatial", "spatial2d"])
     r.add_argument("--dtype", default=None, choices=["float32", "float64"])
+    r.add_argument("--tally-dtype", default=None,
+                   choices=["float32", "float64"])
     r.add_argument("--transport", default="auto",
                    choices=["auto", "sweep", "flight"])
     m = sub.add_parser("compare", help="compare the records of `run`")
@@ -681,14 +845,29 @@ def main(argv: list[str] | None = None) -> int:
     k.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose kernels to build")
     k.add_argument("--sass", default=None, help="write the SASS listing here")
+    k.add_argument("--dtype", default=None, choices=["float32", "float64"])
+    k.add_argument("--tally-dtype", default=None,
+                   choices=["float32", "float64"])
+    x = sub.add_parser("kernels-diff", help="two `kernels` listings")
+    x.add_argument("parent")
+    x.add_argument("change")
+    b = sub.add_parser("build", help="time the kernel library's build")
+    b.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose kernels to build")
+    b.add_argument("--reps", type=int, default=2)
+    b.add_argument("--merge", nargs="+", default=[],
+                   help="sources of csrc/ to compile as one unit")
     args = p.parse_args(argv)
 
     if args.what == "compare":
         for r in compare(args.file, args.key):
             print(json.dumps(r), flush=True)
         return 0
+    if args.what == "kernels-diff":
+        print(json.dumps(kernels_diff(args.parent, args.change)), flush=True)
+        return 0
     if args.what in ("census", "flight", "deposit", "run", "tail",
-                     "kernels"):
+                     "kernels", "build"):
         # This file's own directory would shadow nothing useful: the
         # package comes from the root asked for.
         rows = args.what == "deposit" and args.rows
@@ -699,20 +878,25 @@ def main(argv: list[str] | None = None) -> int:
         os.chdir(args.root)
         if args.what == "census":
             with tempfile.TemporaryDirectory() as tmp:
-                rec = [census(args.reps, m, tmp, args.dtype)
-                       for m in args.modes]
+                rec = [census(args.reps, m, tmp, args.dtype,
+                              args.tally_dtype) for m in args.modes]
         elif args.what == "flight":
             with tempfile.TemporaryDirectory() as tmp:
-                rec = flight(args.reps, tmp, args.dtype)
+                rec = flight(args.reps, tmp, args.dtype, args.tally_dtype)
         elif args.what == "deposit":
-            rec = [deposit(args.reps, args.deck, rows, args.dtype)]
+            rec = [deposit(args.reps, args.deck, rows, args.dtype,
+                           args.tally_dtype)]
         elif args.what == "tail":
             rec = tail(args.deck, args.decomposition, args.steps)
+        elif args.what == "build":
+            rec = build_times(args.reps, args.merge)
         elif args.what == "kernels":
-            rec = kernels(sass)
+            dtype = args.dtype or args.tally_dtype
+            rec = kernels(sass, (dtype, args.tally_dtype or dtype)
+                          if dtype else None)
         else:
             rec = run(args.deck, args.shards, args.decomposition, args.reps,
-                      args.dtype, args.transport)
+                      args.dtype, args.transport, args.tally_dtype)
         for r in rec:
             r["root"] = args.root
     else:

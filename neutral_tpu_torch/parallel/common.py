@@ -320,7 +320,8 @@ class DecomposedSimulation(SimulationBase):
                         else rect_arrays(rects, device, self.dtype))
             if self.deposits:
                 sh.flight = FlightBuffers(geom.nx, geom.ny, device,
-                                          dtype=self.dtype)
+                                          dtype=self.dtype,
+                                          tally_dtype=tally.dtype)
                 sh.counts = sh.flight.counts
             else:
                 sh.sweep = SweepBuffers(device)

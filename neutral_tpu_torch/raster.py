@@ -74,8 +74,10 @@ def deposit_segments_plain(tally: torch.Tensor, segs: torch.Tensor,
     Each step adds kk * frac at the current cell, then moves to the
     neighbour across the nearer of the two cell walls; a segment ends when
     its parameter reaches 1, after at most nx + ny + 2 steps.  Finished
-    segments leave the working set as it halves.
+    segments leave the working set as it halves.  `.calls` counts calls;
+    callers may reset it.
     """
+    deposit_segments_plain.calls += 1
     dtype = segs.dtype
     gx0 = segs[:, 0]
     gy0 = segs[:, 1]
@@ -123,6 +125,9 @@ def deposit_segments_plain(tally: torch.Tensor, segs: torch.Tensor,
                                   t_cur))
             live = live[keep]
         n_live = n_now
+
+
+deposit_segments_plain.calls = 0
 
 
 def _wall_t(w: torch.Tensor, g0: torch.Tensor, iv: torch.Tensor

@@ -6,10 +6,14 @@ of a segment buffer adds kk times its clipped overlap into each cell it
 crosses.  The kernel bins the rows' pieces by T x T tally tile and
 deposits every tile's pieces, in work items of C pieces (chosen on the
 device for each call, 1024 to 16384), into the tile held in shared
-memory, which it then adds into the tally.  It runs float32 rows into a
-float32 tally (T = `TILE`) and float64 rows into a float64 tally (T =
-`TILES[torch.float64]`), the two instantiations of csrc/raster.cu; a
-mixed pair raises.  The
+memory, which it then adds into the tally.  It runs float32 or float64
+rows into a float32 or float64 tally, the four instantiations of
+csrc/raster.cu: the walk in the rows' type, each cell's value kk * frac
+in the tally's, and T the tally's type's (`TILES`: 128 for a float32
+tally, 64 for a float64 one).  A float32 state with a float64 tally
+writes float32 rows into a float64 tally, a float64 state with a float32
+tally float64 rows into a float32 tally (flight.py).  Other types
+raise.  The
 plain version of the function is `raster.deposit_segments_plain`, those
 of the two stages `raster.tile_pieces_plain` and
 `raster.deposit_pieces_plain`; this wrapper launches the kernel or raises
@@ -36,7 +40,8 @@ import torch
 
 from . import build
 
-# The tile side T in cells of each working type (csrc/raster.cu kTile).
+# The tile side T in cells of each tally type (csrc/raster.cu kTile), the
+# same for rows of either type.
 TILES = {torch.float32: 128, torch.float64: 64}
 TILE = TILES[torch.float32]
 INITIAL_PIECES = 1 << 20   # piece buffer of a new SegmentDeposit
@@ -60,18 +65,34 @@ class _RasterParams64(ctypes.Structure):
     _fields_ = _RASTER_FIELDS
 
 
-# The parameter layout and entry-point suffix of each working type.
-_LAYOUTS = {torch.float32: (_RasterParams, ""),
-            torch.float64: (_RasterParams64, "_f64")}
+class _RasterParams32t64(ctypes.Structure):
+    """Mirror of `RasterParams32t64` in csrc/raster.cu: float32 rows into a
+    float64 tally."""
+    _fields_ = _RASTER_FIELDS
+
+
+class _RasterParams64t32(ctypes.Structure):
+    """Mirror of `RasterParams64t32` in csrc/raster.cu: float64 rows into a
+    float32 tally."""
+    _fields_ = _RASTER_FIELDS
+
+
+# The parameter layout and entry-point suffix of each (rows, tally) pair.
+_LAYOUTS = {(torch.float32, torch.float32): (_RasterParams, ""),
+            (torch.float64, torch.float64): (_RasterParams64, "_f64"),
+            (torch.float32, torch.float64): (_RasterParams32t64, "_f32t64"),
+            (torch.float64, torch.float32): (_RasterParams64t32, "_f64t32")}
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     lib = build.load()
-    for fn in (lib.nt_raster_tile_side, lib.nt_raster_tile_blocks):
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    for real, (cls, sfx) in _LAYOUTS.items():
+    lib.nt_raster_tile_side.argtypes = [ctypes.c_int]
+    lib.nt_raster_tile_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nt_raster_tile_side.restype = ctypes.c_int
+    lib.nt_raster_tile_blocks.restype = ctypes.c_int
+    for (rows, tally), (cls, sfx) in _LAYOUTS.items():
         size = getattr(lib, f"nt_raster_params_size{sfx}")
         size.argtypes, size.restype = [], ctypes.c_int
         for stage in ("bin", "tiles"):
@@ -81,19 +102,27 @@ def load_library() -> ctypes.CDLL:
         if size() != ctypes.sizeof(cls):
             raise RuntimeError(f"csrc/raster.cu RasterParams{sfx} does not "
                                f"match raster_kernel.{cls.__name__}")
-        if lib.nt_raster_tile_side(int(bool(sfx))) != TILES[real]:
-            raise RuntimeError(f"csrc/raster.cu kTile of {real} does not "
-                               f"match raster_kernel.TILES")
+        if lib.nt_raster_tile_side(_f64(tally)) != TILES[tally]:
+            raise RuntimeError(f"csrc/raster.cu kTile of a {tally} tally "
+                               f"does not match raster_kernel.TILES")
     return lib
 
 
-def tile_blocks_per_sm(dtype: torch.dtype, device) -> int:
-    """Blocks of the tile kernel of working type `dtype` that one SM of
-    the CUDA `device` holds beside its T x T tile (the occupancy its
-    persistent grid is sized by)."""
+def _f64(dtype: torch.dtype) -> int:
+    """The 0/1 type code of nt_raster_tile_side/nt_raster_tile_blocks."""
+    return int(dtype == torch.float64)
+
+
+def tile_blocks_per_sm(dtype: torch.dtype, device,
+                       tally_dtype: torch.dtype | None = None) -> int:
+    """Blocks of the tile kernel of rows of `dtype` into a tally of
+    `tally_dtype` (None: `dtype`) that one SM of the CUDA `device` holds
+    beside its T x T tile (the occupancy its persistent grid is sized
+    by)."""
     lib = load_library()
     with torch.cuda.device(device):
-        blocks = lib.nt_raster_tile_blocks(int(dtype == torch.float64))
+        blocks = lib.nt_raster_tile_blocks(_f64(dtype),
+                                           _f64(tally_dtype or dtype))
     if blocks <= 0:
         raise RuntimeError("segment-deposit kernel: no tile-kernel occupancy "
                            f"on {device}")
@@ -102,22 +131,26 @@ def tile_blocks_per_sm(dtype: torch.dtype, device) -> int:
 
 
 class SegmentDeposit:
-    """The kernel's buffers for one (nx, ny) tally of `dtype` (float32 or
-    float64) on one device, kept between calls: the int32 piece buffer
-    (row indices grouped by tile, grown on overflow), the per-tile
-    workspace of `csrc/raster.cu`'s `Work` (4 * ntiles + 4 int64 over the
-    dtype's T x T tiles, the counts zero between calls) and, for callers
-    that pass no counters of their own, the [pieces, overflow]
-    counters."""
+    """The kernel's buffers for rows of `dtype` into one (nx, ny) tally of
+    `tally_dtype` (None: `dtype`; each float32 or float64) on one device,
+    kept between calls: the int32 piece buffer (row indices grouped by
+    tile, grown on overflow), the per-tile workspace of `csrc/raster.cu`'s
+    `Work` (4 * ntiles + 4 int64 over the tally type's T x T tiles, the
+    counts zero between calls) and, for callers that pass no counters of
+    their own, the [pieces, overflow] counters."""
 
     def __init__(self, nx: int, ny: int, device,
                  pieces: int = INITIAL_PIECES,
-                 dtype: torch.dtype = torch.float32):
-        if dtype not in TILES:
-            raise ValueError(f"segment deposit in float32 or float64, got "
-                             f"{dtype}")
+                 dtype: torch.dtype = torch.float32,
+                 tally_dtype: torch.dtype | None = None):
+        tally_dtype = tally_dtype or dtype
+        if dtype not in TILES or tally_dtype not in TILES:
+            raise ValueError(f"segment deposit of float32 or float64 rows "
+                             f"into a float32 or float64 tally, got "
+                             f"{dtype} rows, a {tally_dtype} tally")
         self.nx, self.ny, self.dtype = nx, ny, dtype
-        self.tile = TILES[dtype]
+        self.tally_dtype = tally_dtype
+        self.tile = TILES[tally_dtype]
         self.ntiles = -(-nx // self.tile) * -(-ny // self.tile)
         self.work = torch.zeros(4 * self.ntiles + 4, dtype=torch.int64,
                                 device=device)
@@ -152,10 +185,10 @@ class SegmentDeposit:
 
 def _check(tally, segs, nseg, nx, ny):
     real = tally.dtype
-    if real not in TILES or segs.dtype != real:
+    if real not in TILES or segs.dtype not in TILES:
         raise ValueError(f"segment-deposit kernel: rows of {segs.dtype} into "
                          f"a tally of {real}: it takes float32 or float64 "
-                         "rows and tally, one working type")
+                         "rows into a float32 or float64 tally")
     dev = tally.device
     if dev.type != "cuda":
         raise ValueError(f"segment-deposit kernel needs CUDA tensors, got "
@@ -166,7 +199,7 @@ def _check(tally, segs, nseg, nx, ny):
     if (segs.device != dev or segs.dim() != 2
             or segs.shape[1] != 5 or not segs.is_contiguous()
             or segs.shape[0] >= 2**31):
-        raise ValueError(f"segs: expected a contiguous (cap, 5) {real} "
+        raise ValueError(f"segs: expected a contiguous (cap, 5) "
                          f"tensor on {dev} with cap < 2**31, got "
                          f"{tuple(segs.shape)} {segs.dtype} on {segs.device}")
     if (nseg.device != dev or nseg.dtype != torch.int64
@@ -182,26 +215,28 @@ def deposit_segments_kernel(tally: torch.Tensor, segs: torch.Tensor,
     """Add the first min(nseg, len(segs)) rows of `segs` into `tally`.
 
     `tally` is the flat (ny*nx,) tally, `segs` a contiguous (cap, 5)
-    buffer of the tally's dtype (float32 or float64) and `nseg` a
+    buffer (each of float32 or float64, either pair) and `nseg` a
     one-element int64 tensor, all on one CUDA device.  `deposit` holds the
-    buffers (a new SegmentDeposit of that dtype when None).  With `counts`, a (2,) int64 tensor on the device, the
-    call launches on the current stream, writes [pieces, overflow] there
-    and does not wait: on overflow the caller calls `redeposit_segments`
-    before the rows change.  Without it the call reads its own counters (a
-    host wait) and does so itself.  When
-    `stages` is a list, the CUDA events (start, bins done, deposit done)
-    of each launch are appended to it.
+    buffers (a new SegmentDeposit of those dtypes when None).  With
+    `counts`, a (2,) int64 tensor on the device, the call launches on the
+    current stream, writes [pieces, overflow] there and does not wait: on
+    overflow the caller calls `redeposit_segments` before the rows change.
+    Without it the call reads its own counters (a host wait) and does so
+    itself.  When `stages` is a list, the CUDA events (start, bins done,
+    deposit done) of each launch are appended to it.
     """
     _check(tally, segs, nseg, nx, ny)
     dev = tally.device
     if deposit is None:
-        deposit = SegmentDeposit(nx, ny, dev, dtype=tally.dtype)
-    elif ((deposit.nx, deposit.ny, deposit.device, deposit.dtype)
-          != (nx, ny, dev, tally.dtype)):
-        raise ValueError(f"deposit holds buffers of a ({deposit.nx}, "
-                         f"{deposit.ny}) {deposit.dtype} tally on "
-                         f"{deposit.device}, not ({nx}, {ny}) {tally.dtype} "
-                         f"on {dev}")
+        deposit = SegmentDeposit(nx, ny, dev, dtype=segs.dtype,
+                                 tally_dtype=tally.dtype)
+    elif ((deposit.nx, deposit.ny, deposit.device, deposit.dtype,
+           deposit.tally_dtype) != (nx, ny, dev, segs.dtype, tally.dtype)):
+        raise ValueError(f"deposit holds buffers of {deposit.dtype} rows "
+                         f"into a ({deposit.nx}, {deposit.ny}) "
+                         f"{deposit.tally_dtype} tally on {deposit.device}, "
+                         f"not {segs.dtype} rows into ({nx}, {ny}) "
+                         f"{tally.dtype} on {dev}")
     own = counts is None
     if own:
         counts = deposit.out
@@ -235,7 +270,7 @@ def redeposit_segments(tally: torch.Tensor, segs: torch.Tensor,
 def _launch(deposit, tally, segs, nseg, counts, stages) -> None:
     """Both stages of one deposit on the current stream."""
     lib = load_library()
-    cls, sfx = _LAYOUTS[deposit.dtype]
+    cls, sfx = _LAYOUTS[(deposit.dtype, deposit.tally_dtype)]
     p = cls(segs=segs.data_ptr(), nseg=nseg.data_ptr(),
             tally=tally.data_ptr(), pieces=deposit.pieces.data_ptr(),
             work=deposit.work.data_ptr(), out=counts.data_ptr(),

@@ -21,7 +21,12 @@ non-uniform mesh, a fast_math 0 deck), from the mesh's edge arrays
 instantiation (csrc/sweep.cu), in float32 (cell-local positions on a
 pitch, global without) and in float64 (global positions, the working type
 of neutral_tpu's XLA float64 engine): `_SweepParams` and `_SweepParams64`
-are the two parameter layouts.  The spatial
+are the two parameter layouts.  The tally has a type of its own
+(SimConfig.tally_dtype), float32 or float64 beside a state of either:
+a state and a tally of different types take the instantiations of
+csrc/sweep_mixed.cu, whose layouts (`_SweepParams32t64`,
+`_SweepParams64t32`) hold the tally and inv_ntotal in the tally's type
+(`_LAYOUTS`, by the pair).  The spatial
 window of a decomposed run (`x_off`/`y_off`, transport.py's) is a runtime
 parameter of every instantiation.  `sweep_params` is a census's launch
 parameters and `sweep_round` one launch over the lists of `SweepBuffers`;
@@ -76,9 +81,9 @@ TABLE_POINTERS = tuple(f"{t}_{part}" for t in ("scatter", "absorb")
 REALS = (torch.float32, torch.float64)
 
 
-def _sweep_fields(real) -> list:
-    """`SweepParamsT<Real>`'s fields in csrc/sweep.cu, its scalars of the
-    ctypes type `real`."""
+def _sweep_fields(real, tally=None) -> list:
+    """`SweepParamsT<Real, Tally>`'s fields in csrc/sweep.cuh, its scalars
+    of the ctypes type `real` but inv_ntotal, of `tally` (None: `real`)."""
     return (
         [(f, ctypes.c_void_p) for f in (
             "x", "y", "omega_x", "omega_y", "energy", "weight",
@@ -94,7 +99,8 @@ def _sweep_fields(real) -> list:
             "nregions", "xs_mode",
             "density_mode", "rng", "x_off", "y_off", "global_nx",
             "global_ny")]
-        + [(f, real) for f in ("dx", "dy", "inv_ntotal")]
+        + [(f, real) for f in ("dx", "dy")]
+        + [("inv_ntotal", tally or real)]
         + [(f, ctypes.c_void_p) for f in ("edgex", "edgey")]
         + [("edge_mode", ctypes.c_int)])
 
@@ -109,9 +115,23 @@ class _SweepParams64(ctypes.Structure):
     _fields_ = _sweep_fields(ctypes.c_double)
 
 
-# The parameter layout and entry-point suffix of each working type.
-_LAYOUTS = {torch.float32: (_SweepParams, ""),
-            torch.float64: (_SweepParams64, "_f64")}
+class _SweepParams32t64(ctypes.Structure):
+    """Mirror of `SweepParams32t64` (a float32 state, a float64 tally) in
+    csrc/sweep_mixed.cu."""
+    _fields_ = _sweep_fields(ctypes.c_float, ctypes.c_double)
+
+
+class _SweepParams64t32(ctypes.Structure):
+    """Mirror of `SweepParams64t32` (a float64 state, a float32 tally) in
+    csrc/sweep_mixed.cu."""
+    _fields_ = _sweep_fields(ctypes.c_double, ctypes.c_float)
+
+
+# The parameter layout and entry-point suffix of each (state, tally) pair.
+_LAYOUTS = {(torch.float32, torch.float32): (_SweepParams, ""),
+            (torch.float64, torch.float64): (_SweepParams64, "_f64"),
+            (torch.float32, torch.float64): (_SweepParams32t64, "_f32t64"),
+            (torch.float64, torch.float32): (_SweepParams64t32, "_f64t32")}
 
 
 @functools.cache
@@ -130,7 +150,7 @@ def load_library() -> ctypes.CDLL:
         launch.argtypes = [ctypes.POINTER(cls), ctypes.c_void_p]
         launch.restype = ctypes.c_int
         if size() != ctypes.sizeof(cls):
-            raise RuntimeError(f"csrc/sweep.cu SweepParams{sfx} does not "
+            raise RuntimeError(f"csrc/sweep.cuh's layout{sfx} does not "
                                f"match sweep_kernel.{cls.__name__}")
     if lib.nt_sweep_threads() != THREADS:
         raise RuntimeError("csrc/sweep.cu kThreads does not match "
@@ -139,14 +159,17 @@ def load_library() -> ctypes.CDLL:
 
 
 def _suffix(params: ctypes.Structure) -> str:
-    """The entry-point suffix of a parameter layout ("" or "_f64")."""
-    return "_f64" if isinstance(params, _SweepParams64) else ""
+    """The entry-point suffix of a parameter layout ("", "_f64", "_f32t64"
+    or "_f64t32")."""
+    return next(sfx for cls, sfx in _LAYOUTS.values()
+                if type(params) is cls)
 
 
-def resident_blocks(params: _SweepParams | _SweepParams64,
+def resident_blocks(params: ctypes.Structure,
                     device: torch.device) -> tuple[int, int]:
-    """(SMs, blocks per SM) of the sweep kernel's instantiation (modes and
-    working type) for a launch with `params` on `device` (an indexed CUDA
+    """(SMs, blocks per SM) of the sweep kernel's instantiation (modes,
+    working type and tally type) for a launch with `params` on `device` (an
+    indexed CUDA
     device), beside the launch's dynamic shared memory (its tables' coarse
     indexes), from the CUDA occupancy calculator."""
     lib = load_library()
@@ -271,8 +294,10 @@ def check_inputs(state: ParticleState, tally: torch.Tensor | None,
                  pitch: bool = True) -> None:
     """Raise unless the kernel `what` implements this configuration: CUDA
     tensors of the kernel's dtypes in one working type of `reals` (the
-    state's floats, the tally, the tables and a density grid alike: a
-    float64 state with a float32 tally raises), a uniform pitch where
+    state's floats, the tables and a density grid alike: a float64 state
+    beside float32 tables raises), a tally of any type of `reals` (a
+    float32 state with a float64 tally and the other way round run the
+    mixed instantiations), a uniform pitch where
     `pitch` (the flight kernel; the sweep kernel checks a geometry without
     one with check_edges, and the begin kernel reads no facet edge),
     threefry or pcg64si draws, both cross-sections analytic or both stored
@@ -282,8 +307,10 @@ def check_inputs(state: ParticleState, tally: torch.Tensor | None,
     if real not in reals:
         raise ValueError(f"{what} takes a state of "
                          f"{' or '.join(map(str, reals))}, got {real}")
-    others = {"tally": tally,
-              "geom.density": geom.density if geom.regions is None else None}
+    if tally is not None and tally.dtype not in reals:
+        raise ValueError(f"{what} takes a tally of "
+                         f"{' or '.join(map(str, reals))}, got {tally.dtype}")
+    others = {"geom.density": geom.density if geom.regions is None else None}
     if not scatter_tab.analytic:
         others |= {f"{name} table {part}": getattr(tab, part)
                    for name, tab in (("scatter", scatter_tab),
@@ -310,7 +337,7 @@ def check_inputs(state: ParticleState, tally: torch.Tensor | None,
         _check_tensor(f"state.{f}", getattr(state, f), (state.n,), dt, dev)
     ncells = geom.nx * geom.ny
     if tally is not None:
-        _check_tensor("tally", tally, (ncells,), real, dev)
+        _check_tensor("tally", tally, (ncells,), tally.dtype, dev)
     if not scatter_tab.analytic:
         for name, tab in (("scatter", scatter_tab), ("absorb", absorb_tab)):
             if tab.nentries < 2:
@@ -387,12 +414,12 @@ def sweep_params(state: ParticleState, tally: torch.Tensor,
                  regions: tuple | None, geom: Geometry,
                  scatter_tab: CrossSection, absorb_tab: CrossSection,
                  master_key: int, inv_ntotal: float, x_off=None,
-                 y_off=None) -> _SweepParams | _SweepParams64:
-    """The parameters of a census's launches in the state's working type,
-    after check_inputs: `regions` is rect_arrays(geom.regions, dtype=the
-    working type), or None for a grid deck, and `x_off`/`y_off` the window
-    (None: none).  sweep_round sets the fields of each launch (lists,
-    grid, events, counters)."""
+                 y_off=None) -> ctypes.Structure:
+    """The parameters of a census's launches in the state's working type
+    and the tally's type (`_LAYOUTS`), after check_inputs: `regions` is
+    rect_arrays(geom.regions, dtype=the working type), or None for a grid
+    deck, and `x_off`/`y_off` the window (None: none).  sweep_round sets
+    the fields of each launch (lists, grid, events, counters)."""
     check_inputs(state, tally, geom, scatter_tab, absorb_tab, "sweep kernel",
                  REALS, pitch=False)
     check_edges(geom, state.dtype, state.device, "sweep kernel")
@@ -402,7 +429,7 @@ def sweep_params(state: ParticleState, tally: torch.Tensor,
     if regions is not None and regions[1].dtype != state.dtype:
         raise ValueError(f"sweep kernel: region densities in "
                          f"{regions[1].dtype}, state in {state.dtype}")
-    p = _LAYOUTS[state.dtype][0]()
+    p = _LAYOUTS[(state.dtype, tally.dtype)][0]()
     state_pointers(p, state)
     p.tally = tally.data_ptr()
     table_fields(p, geom, scatter_tab, absorb_tab, state.dtype)
@@ -410,7 +437,8 @@ def sweep_params(state: ParticleState, tally: torch.Tensor,
     p.n = state.n
     window_fields(p, geom, x_off, y_off)
     # ctypes rounds each Python float to float32 as np.float32 does, or
-    # keeps it whole in float64, as xs.const does.
+    # keeps it whole in float64, as xs.const does (inv_ntotal in the
+    # tally's type, the pitch in the working type).
     p.dx, p.dy, p.inv_ntotal = geom.dx, geom.dy, inv_ntotal
     edge_fields(p, geom)
     if regions is None:
@@ -444,7 +472,7 @@ def sweep_chunk_plain(state: ParticleState, tally: torch.Tensor,
 sweep_chunk_plain.calls = 0
 
 
-def sweep_round(params: _SweepParams | _SweepParams64, buffers: SweepBuffers,
+def sweep_round(params: ctypes.Structure, buffers: SweepBuffers,
                 max_events: int = MAX_EVENTS) -> None:
     """One launch on the buffers' device and its current stream, over the
     next list of `buffers` (every lane when it has none), of at most

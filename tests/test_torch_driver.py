@@ -155,24 +155,24 @@ def test_pick_engine_routes_by_device_and_dtype(engine, device, dtype, want):
 def test_engine_kernel_float64_raises_before_state(device, match):
     """--engine kernel with float64 on the flight transport raises in
     Simulation.__init__, before any tensor is made on the device, where
-    no kernel runs it: on the CPU, and on CUDA beside a float32 tally (the
-    kernels take one working type).  With a float64 tally on CUDA the
-    kernel engine takes it (the flight and segment-deposit kernels'
-    float64 instantiations), as `auto` does."""
+    no kernel runs it: on the CPU.  On CUDA the kernel engine takes it,
+    as `auto` does, with a float64 tally (the flight and segment-deposit
+    kernels' float64 instantiations) and beside a float32 tally (`match`:
+    their mixed instantiations)."""
     cfg = tt.load_config(DECK).with_(dtype="float64", tally_dtype="float64")
     if device == "cuda":
-        for engine in ("kernel", "auto"):
-            assert driver.pick_engine(engine, torch.device("cuda"),
-                                      torch.float64, cfg,
-                                      "flight") == "kernel"
-        cfg = cfg.with_(tally_dtype="float32")
+        for tally in ("float64", match):
+            for engine in ("kernel", "auto"):
+                assert driver.pick_engine(
+                    engine, torch.device("cuda"), torch.float64,
+                    cfg.with_(tally_dtype=tally), "flight") == "kernel"
+        return
     with pytest.raises(ValueError, match=match):
         driver.Simulation(cfg, device=device, engine="kernel",
                           transport="flight")
-    if device == "cpu":
-        with pytest.raises(ValueError, match=match):
-            driver.main([DECK, "--dtype", "float64", "--engine", "kernel",
-                         "--transport", "flight", "--device", device])
+    with pytest.raises(ValueError, match=match):
+        driver.main([DECK, "--dtype", "float64", "--engine", "kernel",
+                     "--transport", "flight", "--device", device])
 
 
 def test_kernel_wrapper_on_cpu_runs_plain_version():

@@ -132,20 +132,23 @@ def test_kernel_float64_flight_raises_before_state(how, monkeypatch):
 @pytest.mark.parametrize("state,tally", [("float64", "float32"),
                                          ("float32", "float64")])
 def test_mixed_state_and_tally_dtypes(state, tally):
-    """A tally in another dtype than the state: `auto` takes the plain
-    engine, `kernel` raises, and the sweep kernel's wrapper refuses the
-    pair (on the CPU too: the dtypes are checked before the device)."""
+    """A tally in another dtype than the state: `auto` and `kernel` take
+    the kernels on a CUDA device (the mixed instantiations,
+    csrc/sweep_mixed.cu), and the sweep kernel's wrapper takes the pair:
+    on the CPU it passes every dtype check and raises only at the device
+    check, launching nothing."""
     cfg = make_cfg(tt, "scatter", n=64, nx=16, iters=1, dtype=state).with_(
         tally_dtype=tally)
     cuda = torch.device("cuda")
     dtype = getattr(torch, state)
-    assert driver.pick_engine("auto", cuda, dtype, cfg, "sweep") == "plain"
-    with pytest.raises(ValueError, match="tally in the state's dtype"):
-        driver.pick_engine("kernel", cuda, dtype, cfg, "sweep")
+    assert driver.pick_engine("auto", cuda, dtype, cfg, "sweep") == "kernel"
+    assert driver.pick_engine("kernel", cuda, dtype, cfg, "sweep") == "kernel"
     sim = driver.Simulation(cfg, device="cpu", quiet=True)
     assert sim.tally.dtype == getattr(torch, tally)
+    assert sweep_kernel._LAYOUTS[(dtype, sim.tally.dtype)][1] == (
+        "_f32t64" if state == "float32" else "_f64t32")
     launches = sweep_kernel.sweep_chunk_kernel.launches
-    with pytest.raises(ValueError, match="one working type"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         sweep_kernel.sweep_chunk_kernel(sim.state, sim.tally, sim.geom,
                                         sim.cs_scatter, sim.cs_absorb, 1,
                                         1.0 / cfg.nparticles)
@@ -358,8 +361,9 @@ def test_float64_raster_param_layout():
         assert getattr(cls64, name).offset == offsets[name], name
         assert getattr(cls32, name).offset == offsets[name], name
     assert ctypes.sizeof(cls64) == ctypes.sizeof(cls32) == size
-    assert raster_kernel._LAYOUTS == {torch.float32: (cls32, ""),
-                                      F64: (cls64, "_f64")}
+    assert raster_kernel._LAYOUTS[(torch.float32, torch.float32)] == (
+        cls32, "")
+    assert raster_kernel._LAYOUTS[(F64, F64)] == (cls64, "_f64")
     assert set(raster_kernel.TILES) == set(sweep_kernel.REALS)
     assert raster_kernel.TILE == raster_kernel.TILES[torch.float32] == 128
 

@@ -278,7 +278,7 @@ def test_sweep_kernel_packs_the_edge_array_mode(deck, dtype):
     sweep_kernel.check_edges(geom, real, cpu, "sweep kernel")
     window = dataclasses.replace(geom, nx=cfg.nx // 2, ny=cfg.ny // 2)
     sweep_kernel.check_edges(window, real, cpu, "sweep kernel")
-    layout = sweep_kernel._LAYOUTS[real][0]
+    layout = sweep_kernel._LAYOUTS[(real, real)][0]
     p = layout()
     sweep_kernel.edge_fields(p, geom)
     assert p.edge_mode == want

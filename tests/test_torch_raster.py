@@ -117,14 +117,22 @@ def test_segment_kernel_wrapper_on_cpu_raises():
 
 
 def test_segment_kernel_refuses_mixed_working_types():
-    """The wrapper takes float32 rows into a float32 tally or float64 rows
-    into a float64 tally; a mixed pair, or another type, raises before the
-    device is looked at (here on CPU tensors), and launches nothing."""
+    """The wrapper takes float32 or float64 rows into a float32 or float64
+    tally, a mixed pair included (the kernel's mixed instantiations: here
+    on CPU tensors they pass the type check and raise at the device); any
+    other type raises before the device is looked at; nothing launches."""
     launches0 = deposit_segments_kernel.launches
     for tally, segs in ((torch.float32, torch.float64),
-                        (torch.float64, torch.float32),
-                        (torch.float16, torch.float16)):
-        with pytest.raises(ValueError, match="one working type"):
+                        (torch.float64, torch.float32)):
+        with pytest.raises(ValueError, match="CUDA"):
+            deposit_segments_kernel(torch.zeros(NX * NY, dtype=tally),
+                                    torch.zeros((4, 5), dtype=segs),
+                                    torch.tensor([4]), NX, NY)
+    for tally, segs in ((torch.float16, torch.float16),
+                        (torch.float32, torch.float16),
+                        (torch.float16, torch.float64)):
+        with pytest.raises(ValueError, match="float32 or float64 rows into "
+                                             "a float32 or float64 tally"):
             deposit_segments_kernel(torch.zeros(NX * NY, dtype=tally),
                                     torch.zeros((4, 5), dtype=segs),
                                     torch.tensor([4]), NX, NY)
