@@ -1,12 +1,21 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (neutral_tpu_torch) on one GPU.
+"""Smoke test of the PyTorch/CUDA port (neutral_tpu_torch) on one GPU, and
+on several where the machine has them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase; 30 where there are 2+ cards
+    python3 chip_smoke.py --cards    # phases 1-2 and 30 alone (four cards)
 
 (`python3 chip_smoke.py --process <CLI arguments> [--then <CLI
-arguments> ...]` is one process of phase 23: `python -m
+arguments> ...]` is one process of phases 23 and 30: `python -m
 neutral_tpu_torch <CLI arguments>` for each run in turn, its kernels'
-launch counts printed after each.)
+launch counts, its launches by card and its cards' peak memory printed
+after each.)
+
+Every run of one card through the CLI passes `--device cuda:0`, and the
+runs of phases 14 and 23 too: on a machine with several cards they
+measure what they measure on one (shards sharing one card, one device),
+since the CLI's `--shards` otherwise defaults to one shard per visible
+card.
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -303,6 +312,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with both step times printed; a decomposed run's counts equal to the
    single device's (over rects split at the blocks' walls on the flight
    transport).  Prints its seconds.
+30. Several cards (when torch.cuda.device_count() >= 2; the 4x1 and 2x2
+   layouts need four, and on fewer phase 30 prints so and does not try
+   them; on one card it prints one line saying it needs several): first
+   the single-card references on cuda:0 through `driver.main`, scatter
+   (10M, 2 steps), stream, split and csp (1M), scatter in float64, and
+   stream, split and csp over rects split at the 2x2 blocks' walls
+   (`split_single_counts`); then, with the kernel engine throughout:
+   1xN, one process over the N cards (`--device cuda --shards 4`, the
+   shards on the cards in turn): scatter under all three decompositions,
+   stream, split and csp under replicated and spatial2d, and scatter in
+   float64 replicated; 4x1 over NCCL, four processes with a card each
+   (`--device cuda`, through `--process`): phase 23's MP_RUNS; 2x2: two
+   processes with two cards each, scatter on 2x2 blocks with every card
+   visible to both (each takes a block of two) and stream on 2x2 blocks
+   with CUDA_VISIBLE_DEVICES giving each its own two.  Each run must
+   give its single-card reference's per-step counts exactly (a spatial2d
+   flight run: the split-rect run's) and pass its golden (csp: within
+   1e-3 of omp3's tally); its layout line must name its cards, its
+   processes must print `Process group: nccl`, and every card must have
+   launched the begin kernel and its transport's kernels (counted by card,
+   the wrappers' `cards`), with no plain version.  Prints each run's step
+   times beside the single card's and, where phase 14 ran in this
+   invocation, beside its four shards on one card, its migrate and
+   exchange phases, the lanes that crossed between processes and each
+   card's peak memory.  The processes of each layout have CARDS_TIMEOUT
+   seconds.
 27. Result: a JSON line on the kernels (each with its bound, and the times
    of every mode it ran; the float64 instantiations as sweep_kernel_f64,
    table_lookup_f64, begin_kernel_f64, flight_kernel_f64 and
@@ -311,7 +346,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    sweep_kernel_edge_array_f64, the begin kernel's no-pitch comparisons in
    its entries' no_pitch_modes, the mixed pairs' as sweep_kernel_f32t64,
    flight_kernel_f32t64, segment_deposit_kernel_f32t64 and their _f64t32
-   twins), then the JSON result line.
+   twins; with phase 30, the main kernels' `launches_on_cards`: each
+   phase 30 run's launches by card), then the JSON result line.  With
+   `--cards`, a JSON line of phase 30's runs (launches by card, step
+   times, peak memory by card) stands in place of the kernels line.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 work this run gave it: the larger of the bytes it must move (each lane's
@@ -412,6 +450,22 @@ MP_RUNS = (("scatter", SCATTER, "replicated"),
            ("stream", FLIGHT_DECKS[0], "spatial2d"),
            ("csp", FLIGHT_DECKS[2], "spatial2d"))
 MP_TIMEOUT = 300                 # seconds phase 23's processes may take
+# Phase 30: several cards.  The single-card references (name, deck, CLI
+# arguments), the 1xN runs (name, deck, decomposition, arguments) and the
+# 2x2 runs (name, deck, decomposition): every card visible to both
+# processes, then each process with its own two (CUDA_VISIBLE_DEVICES).
+CARD_DECKS = (("scatter", SCATTER, ()), ("stream", FLIGHT_DECKS[0], ()),
+              ("split", FLIGHT_DECKS[1], ()), ("csp", FLIGHT_DECKS[2], ()),
+              ("f64 scatter", SCATTER, ("--dtype", "float64")))
+CARDS_1XN = tuple(
+    [("scatter", SCATTER, d, ()) for d in ("replicated", "spatial",
+                                            "spatial2d")]
+    + [(deck.split("/")[-1].split(".")[0], deck, d, ())
+       for deck in FLIGHT_DECKS for d in ("replicated", "spatial2d")]
+    + [("f64 scatter", SCATTER, "replicated", ("--dtype", "float64"))])
+CARDS_2X2 = (("scatter", SCATTER, "spatial2d"),
+             ("stream", FLIGHT_DECKS[0], "spatial2d"))
+CARDS_TIMEOUT = 400              # seconds phase 30's processes may take
 # Phase 24: phase 22's scatter family born below and just above 1e-2 eV.
 THRESHOLD = 1.0e-2               # the resonance table's lowest key, eV
 LOW_ENERGY = {"born 5e-3": 5.0e-3, "crossing 1.01e-2": 1.01e-2}
@@ -1018,6 +1072,8 @@ def check_begin(name: str, out: str, c: dict, shards: int) -> int:
 def reset_counts(wrappers):
     for fn, attr in wrappers:
         setattr(fn, attr, 0)
+        if hasattr(fn, "cards"):
+            fn.cards.clear()
 
 
 def read_counts(wrappers) -> dict:
@@ -1026,12 +1082,34 @@ def read_counts(wrappers) -> dict:
             for fn, attr in wrappers}
 
 
+def read_cards(wrappers) -> dict:
+    """Each kernel's launches by card ({name: {"cuda:i": n}}), counted by
+    the wrappers beside their launches."""
+    return {fn.__name__: {f"cuda:{k}": v for k, v in sorted(fn.cards.items())}
+            for fn, attr in wrappers if attr == "launches"}
+
+
+def reset_peaks(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def card_peaks(torch) -> dict:
+    """Peak allocated GiB of every card this process used, by card."""
+    peaks = {f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 2**30
+             for i in range(torch.cuda.device_count())}
+    return {k: v for k, v in peaks.items() if v > 0}
+
+
 def main_path(deck, torch, driver, wrappers, argv=(), label=None):
-    """Run driver.main on `deck` (with `argv`) with every count set to 0
-    just before; returns (stdout, tally, {wrapper name: count}) read just
-    after."""
+    """Run driver.main on `deck` (with `argv`; on cuda:0 unless it names a
+    device) with every count set to 0 just before; returns (stdout,
+    tally, {wrapper name: count}) read just after (and the launches by
+    card and the cards' peak memory into main_path.cards and .peaks)."""
+    argv = list(argv) if "--device" in argv else ["--device", "cuda:0",
+                                                  *argv]
     reset_counts(wrappers)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peaks(torch)
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
@@ -1064,15 +1142,21 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
               f" / last {flights[i - 1]['last']}" if flights else "")
         print(f"[main {name}] step {iterations[i - 1]}: {ev} events in "
               f"{st:.4f} s = {ev / st:.4e} events/s{moved}{fl}")
+    main_path.cards[name] = read_cards(wrappers)
+    main_path.peaks[name] = peaks = card_peaks(torch)
+    by_card = (f" ({', '.join(f'{k} {v:.2f}' for k, v in peaks.items())})"
+               if len(peaks) > 1 else "")
     print(f"[main {name}] counts {counts}, tally {total:.12e}, wall "
           f"{wall:.1f} s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{max(peaks.values(), default=0.0):.2f} GiB{by_card}", flush=True)
     return out, total, counts
 
 
 main_path.walls = {}     # wall seconds of each main path, by label
 main_path.runs = {}      # (per-step counts, step seconds), by label
 main_path.begin_launches = {}    # begin kernel launches, by label
+main_path.cards = {}     # kernel launches by card, by label
+main_path.peaks = {}     # peak GiB by card, by label
 
 
 def check_kernel_path(name: str, out: str, c: dict,
@@ -2727,28 +2811,31 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def two_processes(decomposed: dict) -> list:
-    """Phase 23.  Returns the launches of both processes of every run,
-    summed as check_kernel_path returns them."""
-    launches = [0, 0, 0, 0]
+def spawn_runs(runs: list, nprocs: int, what: str, envs=None,
+               timeout: float = MP_TIMEOUT) -> list:
+    """`nprocs` processes (this file with --process, `envs[r]` added to
+    process r's environment), which run every run of `runs` (CLI
+    arguments) in turn over one process group on 127.0.0.1; returns each
+    process's output, one piece a run (its lines from `RUN i` on), once
+    all have exited 0 within `timeout` seconds (all are killed
+    otherwise)."""
     coordinator = ["--coordinator", f"127.0.0.1:{free_port()}",
-                   "--num-processes", "2"]
-    runs = [[deck, *SHARDS, decomposition, *coordinator]
-            for _, deck, decomposition in MP_RUNS]
+                   "--num-processes", str(nprocs)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--process",
          *[a for i, run in enumerate(runs)
-           for a in ([] if i == 0 else ["--then"]) + run
-           + ["--process-id", str(r)]]],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
+           for a in ([] if i == 0 else ["--then"]) + list(run)
+           + coordinator + ["--process-id", str(r)]]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, **(envs[r] if envs else {})})
+        for r in range(nprocs)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
     except subprocess.TimeoutExpired:
-        fail(f"two processes: a process took over {MP_TIMEOUT} s")
+        fail(f"{what}: a process took over {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2758,62 +2845,263 @@ def two_processes(decomposed: dict) -> list:
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             print(out[-6000:])
-            fail(f"two processes: process {r} exited {p.returncode}")
+            fail(f"{what}: process {r} exited {p.returncode}")
     # Each process's output, one piece a run (re.split keeps the
     # process's start-up lines before the first marker in piece 0).
     pieces = [re.split(r"^RUN \d+$", o, flags=re.M)[1:] for o in outs]
-    if any(len(ps) != len(MP_RUNS) for ps in pieces):
-        fail("two processes: a process did not report every run")
+    if any(len(ps) != len(runs) for ps in pieces):
+        fail(f"{what}: a process did not report every run")
+    print(f"[{what}] {len(runs)} runs in one set of {nprocs} processes: "
+          f"wall {wall:.1f} s, start-up included", flush=True)
+    return pieces
+
+
+def process_run(what: str, label: str, pieces: list, i: int, nprocs: int,
+                want_counts: list, launches: list) -> dict:
+    """Check run `i` of spawn_runs' `pieces` (`label`: its decomposition
+    and deck name): process 0's `Distributed:` line, a kernel run, its
+    golden (csp: omp3's tally), its per-step counts equal to
+    `want_counts`, and every process's kernels launched and no plain
+    version, each census of each of its shards begun once by the begin
+    kernel.  Adds its launches to `launches` (as check_kernel_path
+    returns them); returns its output, counts and cards."""
+    out = pieces[0][i]
+    counts = [json.loads(re.search(r"^COUNTS (.*)$", ps[i], re.M)[1])
+              for ps in pieces]
+    if (f"Distributed: {nprocs} processes, 4 shards." not in out
+            or "Engine: kernel." not in out):
+        fail(f"{what}, {label}: not a {nprocs}-process kernel run")
+    check_golden(f"{what} {label}", out, float(re.search(
+        r"Final global_energy_tally (\S+)", out)[1]))
+    flight = "Transport: flight." in out
+    for r, c in enumerate(counts):
+        ran = (c["flight_chunk_kernel"] > 0
+               and c["deposit_segments_kernel"] > 0 if flight
+               else c["sweep_chunk_kernel"] > 0)
+        if (not ran or c["sweep_chunk_plain"] != 0
+                or c["flight_chunk_plain"] != 0):
+            fail(f"{what}, {label}: process {r} counts {c}")
+        for k, key in enumerate(("sweep_chunk_kernel", "flight_chunk_kernel",
+                                 "deposit_segments_kernel",
+                                 "deposit_segments_kernel.overflows")):
+            launches[k] += c[key]
+        main_path.begin_launches[f"{what} {label} {r}"] = check_begin(
+            f"{what}, {label}: process {r}", out, c, 4 // nprocs)
+    if step_counts(out) != want_counts:
+        fail(f"{what}, {label}: per-step counts {step_counts(out)} differ "
+             f"from {want_counts}")
+    cards = [json.loads(re.search(r"^CARDS (.*)$", ps[i], re.M)[1])
+             for ps in pieces]
+    peaks = [json.loads(re.search(r"^PEAK (.*)$", ps[i], re.M)[1])
+             for ps in pieces]
+    return {"out": out, "counts": counts, "cards": cards, "peaks": peaks,
+            "wall": float(re.search(r"^WALL (\S+)$", out, re.M)[1])}
+
+
+def phase_seconds(out: str, phase: str) -> float:
+    """A phase's cumulative seconds from the PHASE BREAKDOWN line (0.0
+    when the run has no such phase)."""
+    m = re.search(rf"PHASE BREAKDOWN.*{phase}=([0-9.]+)s", out)
+    return float(m[1]) if m else 0.0
+
+
+def crossed(out: str) -> list:
+    """The lanes that crossed between processes, per step."""
+    return [int(k) for k in re.findall(
+        r"Migrated \d+ particles between shards, (\d+) of them", out)]
+
+
+def two_processes(decomposed: dict) -> list:
+    """Phase 23.  Returns the launches of both processes of every run,
+    summed as check_kernel_path returns them."""
+    launches = [0, 0, 0, 0]
+    runs = [[deck, "--device", "cuda:0", *SHARDS, decomposition]
+            for _, deck, decomposition in MP_RUNS]
+    pieces = spawn_runs(runs, 2, "two processes")
     for i, (name, deck, decomposition) in enumerate(MP_RUNS):
         label = f"{decomposition} {name}"
-        out = pieces[0][i]
-        counts = [json.loads(re.search(r"^COUNTS (.*)$", ps[i], re.M)[1])
-                  for ps in pieces]
-        run_wall = float(re.search(r"^WALL (\S+)$", out, re.M)[1])
-        if ("Distributed: 2 processes, 4 shards." not in out
-                or f"Decomposition: {decomposition}, 4 shards on cuda:0"
-                not in out or "Engine: kernel." not in out):
-            fail(f"two processes, {label}: not a 2-process kernel run")
-        total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
-        if name == "csp":
-            rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
-            print(f"[two processes {label}] tally {total:.9e} against "
-                  f"omp3's {CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
-            if not rel <= 1e-3:
-                fail(f"two processes, {label}: tally {rel:.3e} from omp3's")
-        elif "PASSED validation." not in out:
-            fail(f"two processes, {label}: no 'PASSED validation.'")
-        flight = "Transport: flight." in out
-        for r, c in enumerate(counts):
-            ran = (c["flight_chunk_kernel"] > 0
-                   and c["deposit_segments_kernel"] > 0 if flight
-                   else c["sweep_chunk_kernel"] > 0)
-            if (not ran or c["sweep_chunk_plain"] != 0
-                    or c["flight_chunk_plain"] != 0):
-                fail(f"two processes, {label}: process {r} counts {c}")
-            launches = [a + c[k] for a, k in zip(launches, (
-                "sweep_chunk_kernel", "flight_chunk_kernel",
-                "deposit_segments_kernel",
-                "deposit_segments_kernel.overflows"))]
-            main_path.begin_launches[f"two processes {label} {r}"] = (
-                check_begin(f"two processes, {label}: process {r}", out, c,
-                            2))
         ref = decomposed["runs"][label]
-        if step_counts(out) != ref["counts"]:
-            fail(f"two processes, {label}: per-step counts "
-                 f"{step_counts(out)} differ from phase 14's {ref['counts']}")
-        exchange = re.search(r"PHASE BREAKDOWN.*exchange=([0-9.]+)s", out)
-        across = [int(k) for k in re.findall(
-            r"Migrated \d+ particles between shards, (\d+) of them", out)]
+        r = process_run("two processes", label, pieces, i, 2, ref["counts"],
+                        launches)
+        out = r["out"]
+        if f"Decomposition: {decomposition}, 4 shards on cuda:0" not in out:
+            fail(f"two processes, {label}: not 4 shards on cuda:0")
         print(f"[two processes {label}] per-step counts equal to phase "
               f"14's; step times {step_seconds(out)} s against phase 14's "
               f"{ref['step_s']} s; exchange "
-              f"{float(exchange[1]) if exchange else 0.0:.4f} s in all; "
-              f"lanes between the processes per step {across}; launches "
-              f"per process {counts}; wall {run_wall:.1f} s", flush=True)
-    print(f"[two processes] {len(MP_RUNS)} runs in one pair of processes: "
-          f"wall {wall:.1f} s, start-up included", flush=True)
+              f"{phase_seconds(out, 'exchange'):.4f} s in all; "
+              f"lanes between the processes per step {crossed(out)}; "
+              f"launches per process {r['counts']}; wall {r['wall']:.1f} s",
+              flush=True)
     return launches
+
+
+def card_references(torch, driver, flight, wrappers) -> dict:
+    """Phase 30's single-card runs on cuda:0: each deck of CARD_DECKS
+    through driver.main (its golden passed), and stream, split and csp
+    over rects split at the 2x2 blocks' walls; returns per label its
+    per-step counts and step seconds ("<deck> blocks": counts alone)."""
+    refs = {}
+    for name, deck, extra in CARD_DECKS:
+        label = card_label("1 card", name)
+        out, total, c = main_path(deck, torch, driver, wrappers, argv=extra,
+                                  label=label)
+        check_golden(label, out, total)
+        check_kernel_path(label, out, c, passed=False)
+        refs[name] = {"counts": step_counts(out), "step_s": step_seconds(out)}
+    for deck in FLIGHT_DECKS:
+        name = deck.split("/")[-1].split(".")[0]
+        refs[f"{name} blocks"] = {
+            "counts": split_single_counts(deck, torch, driver, flight)}
+    return refs
+
+
+def card_label(layout: str, name: str) -> str:
+    """A phase 30 run's label: its layout and deck, "f64 " first for a
+    float64 run (as the float64 phases' labels, which the begin kernel's
+    float64 entry collects)."""
+    if name.startswith("f64 "):
+        return f"f64 {layout} {name[4:]}"
+    return f"{layout} {name}"
+
+
+def check_golden(label: str, out: str, total: float) -> None:
+    """Fail unless a run printed `PASSED validation.` (csp: its tally
+    within 1e-3 of omp3's)."""
+    if label.endswith("csp"):
+        rel = abs(total - CSP_OMP3_TALLY) / CSP_OMP3_TALLY
+        print(f"[main {label}] tally {total:.9e} against omp3's "
+              f"{CSP_OMP3_TALLY:.7e}: rel {rel:.3e}")
+        if not rel <= 1e-3:
+            fail(f"{label}: tally {rel:.3e} from omp3's")
+    elif "PASSED validation." not in out:
+        fail(f"{label}: no 'PASSED validation.'")
+
+
+def card_reference(refs: dict, name: str, decomposition: str) -> list:
+    """The single-card per-step counts that a decomposed run of deck
+    `name` must give: the split-rect run's for a flight deck on blocks."""
+    if decomposition == "spatial2d" and f"{name} blocks" in refs:
+        return refs[f"{name} blocks"]["counts"]
+    return refs[name]["counts"]
+
+
+def check_cards(label: str, cards: dict, want: list, flight: bool) -> None:
+    """Fail unless every card of `want` launched the begin kernel and its
+    transport's kernels (`cards`: read_cards' launches by card)."""
+    kernels = (["begin_timestep_kernel", "flight_chunk_kernel",
+                "deposit_segments_kernel"] if flight
+               else ["begin_timestep_kernel", "sweep_chunk_kernel"])
+    for k in kernels:
+        idle = [d for d in want if not cards[k].get(d)]
+        if idle:
+            fail(f"{label}: {k} never launched on {idle} ({cards})")
+
+
+def several_cards(torch, driver, flight, wrappers) -> dict:
+    """Phase 30.  Returns its runs (step times, phases, lanes between
+    processes, peak memory and launches by card) and the launches of its
+    kernels summed as check_kernel_path returns them, float64 apart."""
+    n = torch.cuda.device_count()
+    res = {"cards": n, "runs": {}, "launches": [0, 0, 0, 0],
+           "launches_f64": 0, "launches_on_cards": {}}
+    refs = card_references(torch, driver, flight, wrappers)
+
+    def record(label, name, decomposition, out, cards, peaks, wall):
+        single = refs[name]["step_s"]
+        one_card = main_path.runs.get(f"{decomposition} {name}")
+        res["runs"][label] = {
+            "step_s": step_seconds(out), "single_card_step_s": single,
+            "phase14_step_s": one_card[1] if one_card else None,
+            "migrate_s": phase_seconds(out, "migrate"),
+            "exchange_s": phase_seconds(out, "exchange"),
+            "crossed_processes": crossed(out), "peak_gib": peaks,
+            "wall_s": wall}
+        for k, by_card in cards.items():
+            if by_card:
+                res["launches_on_cards"].setdefault(k, {})[label] = by_card
+        print(f"[cards {label}] per-step counts equal to one card's; step "
+              f"times {step_seconds(out)} s against one card's {single} s"
+              + (f" and phase 14's four shards on one card's {one_card[1]} s"
+                 if one_card else " (phase 14 did not run)")
+              + f"; migrate {phase_seconds(out, 'migrate'):.4f} s, exchange "
+              f"{phase_seconds(out, 'exchange'):.4f} s; lanes between "
+              f"processes per step {crossed(out)}; peak GiB by card {peaks}; "
+              f"launches by card {cards}", flush=True)
+
+    # 1xN: one process, the shards on the cards in turn
+    for name, deck, decomposition, extra in CARDS_1XN:
+        f64 = "--dtype" in extra
+        label = card_label(f"1x{n} {decomposition}", name)
+        out, total, c = main_path(
+            deck, torch, driver, wrappers, label=label,
+            argv=["--device", "cuda", *SHARDS, decomposition, *extra])
+        cards = [f"cuda:{i % n}" for i in range(4)]
+        if (f"Decomposition: {decomposition}, 4 shards on "
+                f"{', '.join(cards)}") not in out:
+            fail(f"{label}: the shards are not on {cards}")
+        check_golden(label, out, total)
+        got = check_kernel_path(label, out, c, passed=False)
+        if f64:
+            res["launches_f64"] += got[0]
+        else:
+            res["launches"] = [a + g for a, g in zip(res["launches"], got)]
+        want = card_reference(refs, name, decomposition)
+        if step_counts(out) != want:
+            fail(f"{label}: per-step counts {step_counts(out)} differ from "
+                 f"one card's {want}")
+        check_cards(label, main_path.cards[label], sorted(set(cards)),
+                    "Transport: flight." in out)
+        record(label, name, decomposition, out, main_path.cards[label],
+               main_path.peaks[label], main_path.walls[label])
+    if n < 4:
+        print(f"[cards] {n} cards: the 4x1 and 2x2 layouts need four; not "
+              "run", flush=True)
+        return res
+    for d in range(n):
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+
+    # 4x1: four processes, one card each, over NCCL
+    layouts = [("4x1", 4, [(name, deck, dec) for name, deck, dec in MP_RUNS],
+                None),
+               ("2x2", 2, [CARDS_2X2[0]], None),
+               ("2x2 own cards", 2, [CARDS_2X2[1]],
+                [{"CUDA_VISIBLE_DEVICES": v} for v in ("0,1", "2,3")])]
+    for what, nprocs, runs, envs in layouts:
+        pieces = spawn_runs([[deck, "--device", "cuda", *SHARDS, dec]
+                             for _, deck, dec in runs], nprocs, what, envs,
+                            CARDS_TIMEOUT)
+        for i, (name, deck, dec) in enumerate(runs):
+            label = f"{what} {dec} {name}"
+            r = process_run(what, f"{dec} {name}", pieces, i, nprocs,
+                            card_reference(refs, name, dec), res["launches"])
+            out = r["out"]
+            if "Process group: nccl" not in out:
+                fail(f"{label}: not over NCCL")
+            # each process's own cards, as it numbers them: a block of the
+            # cards that all see, or all that it sees alone
+            mine = [[f"cuda:{j}" for j in (
+                range(n // nprocs) if envs else
+                range(p * n // nprocs, (p + 1) * n // nprocs))]
+                for p in range(nprocs)]
+            shards = [mine[p][j % len(mine[p])] for p in range(nprocs)
+                      for j in range(4 // nprocs)]
+            if (f"Decomposition: {dec}, 4 shards on {', '.join(shards)}"
+                    not in out):
+                fail(f"{label}: the shards are not on {shards}")
+            for p, by_card in enumerate(r["cards"]):
+                check_cards(f"{label}, process {p}", by_card, mine[p],
+                            "Transport: flight." in out)
+            merged = {}
+            for p, by in enumerate(r["cards"]):
+                for k, by_card in by.items():
+                    for d, v in by_card.items():
+                        merged.setdefault(k, {})[f"process {p} {d}"] = v
+            peaks = {f"process {p} {d}": v for p, pk in enumerate(r["peaks"])
+                     for d, v in pk.items()}
+            record(label, name, dec, out, merged, peaks, r["wall"])
+    return res
 
 
 def stamp(phase: int) -> None:
@@ -2825,10 +3113,11 @@ def stamp(phase: int) -> None:
 
 def process_main(argv: list) -> int:
     """`chip_smoke.py --process <CLI arguments> [--then <CLI arguments>
-    ...]`: one process of phase 23, driver.main on each run's arguments in
-    turn, with every count set to 0 just before it; each run's output
-    follows a line `RUN i`, and its counts and wall seconds are printed
-    just after, on lines of their own."""
+    ...]`: one process of phases 23 and 30, driver.main on each run's
+    arguments in turn, with every count set to 0 just before it; each
+    run's output follows a line `RUN i`, and its counts, its launches by
+    card, its cards' peak memory and its wall seconds are printed just
+    after, on lines of their own."""
     from neutral_tpu_torch import driver
     wrappers = kernel_wrappers()
     runs, run = [], []
@@ -2838,19 +3127,34 @@ def process_main(argv: list) -> int:
             run = []
         else:
             run.append(a)
+    import torch
     for i, run in enumerate(runs):
         print(f"RUN {i}", flush=True)
         reset_counts(wrappers)
+        if torch.cuda.is_initialized():   # (a fresh process has no peaks)
+            reset_peaks(torch)
         t0 = time.perf_counter()
         rc = driver.main(run)
         print(f"COUNTS {json.dumps(read_counts(wrappers))}", flush=True)
+        print(f"CARDS {json.dumps(read_cards(wrappers))}", flush=True)
+        print(f"PEAK {json.dumps(card_peaks(torch))}", flush=True)
         print(f"WALL {time.perf_counter() - t0:.3f}", flush=True)
         if rc != 0:
             return rc
     return 0
 
 
-def main() -> int:
+def phase30(torch, driver, flight, wrappers) -> dict | None:
+    """Phase 30 where the machine has several cards (None on one)."""
+    stamp(30)
+    if torch.cuda.device_count() < 2:
+        print("[cards] one card: phase 30 needs several "
+              "(torch.cuda.device_count() >= 2)", flush=True)
+        return None
+    return several_cards(torch, driver, flight, wrappers)
+
+
+def main(cards_only: bool = False) -> int:
     import torch
 
     # ---- 1. device ------------------------------------------------------
@@ -2883,6 +3187,16 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     wrappers = kernel_wrappers()
+    if cards_only:
+        cards = phase30(torch, driver, flight, wrappers)
+        if cards is None:
+            fail("--cards: phase 30 needs several cards")
+        print(f"[device] nvidia-smi: {nvidia_smi()}")
+        print(json.dumps({"phase30": cards}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. sweep kernel against plain version --------------------------
     stamp(3)
@@ -3068,6 +3382,30 @@ def main() -> int:
                         STATE_FIELDS, wrappers, log)
     tmp.cleanup()
 
+    # ---- 30. several cards -----------------------------------------------
+    cards = phase30(torch, driver, flight, wrappers)
+    on_cards = {}
+    if cards is not None:
+        sweep_launches += cards["launches"][0]
+        flight_launches += cards["launches"][1]
+        raster_launches += cards["launches"][2]
+        overflows += cards["launches"][3]
+        f64["launches"]["sweep"] += cards["launches_f64"]
+        by_kernel = cards["launches_on_cards"]
+        f64_runs = {k: {r: c for r, c in v.items() if r.startswith("f64 ")}
+                    for k, v in by_kernel.items()}
+        f32_runs = {k: {r: c for r, c in v.items()
+                        if not r.startswith("f64 ")}
+                    for k, v in by_kernel.items()}
+        on_cards = {
+            "sweep_kernel": f32_runs.get("sweep_chunk_kernel", {}),
+            "flight_kernel": f32_runs.get("flight_chunk_kernel", {}),
+            "segment_deposit_kernel": f32_runs.get(
+                "deposit_segments_kernel", {}),
+            "begin_kernel": f32_runs.get("begin_timestep_kernel", {}),
+            "sweep_kernel_f64": f64_runs.get("sweep_chunk_kernel", {}),
+            "begin_kernel_f64": f64_runs.get("begin_timestep_kernel", {})}
+
     # ---- 27. result -----------------------------------------------------
     stamp(27)
     top = results[COMPARE_SIZES[-1]]
@@ -3137,7 +3475,7 @@ def main() -> int:
                      "steps each" + (", with y-slabs and 2x2 blocks"
                                      if dtype == "float64" else "") + ")"}
     print(f"[device] nvidia-smi: {nvidia_smi()}")
-    print(json.dumps({"kernels": [
+    kernels_line = [
         {"name": "sweep_kernel",
          "route": "cuda",
          "source": "neutral_tpu_torch/csrc/sweep.cu",
@@ -3389,7 +3727,11 @@ def main() -> int:
                   "window-local rows of split and stream in the 2000x2000 "
                   "block; launches and overflows: phase 28's main paths"},
         *mixed_entries(mixed),
-    ]}))
+    ]
+    for k in kernels_line:
+        if k["name"] in on_cards:
+            k["launches_on_cards"] = on_cards[k["name"]]
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -3398,4 +3740,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(process_main(sys.argv[2:]) if sys.argv[1:2] == ["--process"]
-             else main())
+             else main(cards_only=sys.argv[1:] == ["--cards"]))

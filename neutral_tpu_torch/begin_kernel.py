@@ -24,6 +24,7 @@ kernel launches; callers may reset it.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -188,11 +189,13 @@ def begin_timestep_kernel(state: ParticleState, geom: Geometry,
             ctypes.byref(p), torch.cuda.current_stream().cuda_stream),
             "begin kernel")
     begin_timestep_kernel.launches += 1
+    begin_timestep_kernel.cards[dev.index] += 1
     fields = {f: getattr(state, f) for f in STATE_FIELDS} | out
     return ParticleState(**fields), live
 
 
 begin_timestep_kernel.launches = 0
+begin_timestep_kernel.cards = collections.Counter()  # launches by card
 
 
 def begin_census(engine: str, state: ParticleState, geom: Geometry,

@@ -110,12 +110,16 @@ DECOMPOSITIONS = ("replicated", "spatial", "spatial2d")
 
 def check_device(device: torch.device) -> torch.device:
     """`device` itself; raise on a CUDA device when PyTorch sees no card
-    (a run never moves to the CPU by itself)."""
+    (a run never moves to the CPU by itself) or not the card it names."""
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device} was asked for, but torch.cuda.is_available() "
             'is False; pass device="cpu" to run the plain versions on the '
             "CPU")
+    if (device.type == "cuda" and device.index is not None
+            and device.index >= torch.cuda.device_count()):
+        raise ValueError(f"device {device} was asked for, but PyTorch sees "
+                         f"{torch.cuda.device_count()} card(s)")
     return device
 
 
@@ -339,7 +343,7 @@ class SimulationBase:
         self.elapsed_sim_time = 0.0
         self.wallclock = 0.0
         self.last_step = 0          # the last step run (or restored)
-        self.profile = Profile(self.device)
+        self.profile = Profile([self.device])
         from .parallel.distributed import rank, world
         # process 0 of a run over several processes alone writes files
         self.writes = rank() == 0
@@ -633,9 +637,19 @@ def main(argv: list[str] | None = None) -> int:
                         "(x, y) blocks, both with particle migration")
     p.add_argument("--shards", type=int, default=None,
                    help="shards of a decomposed run (default: one per "
-                        "visible card, torch.cuda.device_count(); 1 on the "
+                        "visible card, torch.cuda.device_count(), or one "
+                        "per process over several processes; 1 on the "
                         "CPU); shards take the cards in turn, so several "
-                        "may share one")
+                        "may share one (--device cuda:K puts them all on "
+                        "card K).  Over several processes each takes its "
+                        "block of shards onto its own cards: processes "
+                        "that see the same cards split them in contiguous "
+                        "blocks (4 processes on 4 cards: one each; 2 "
+                        "processes: two each), a process that sees cards "
+                        "of its own (CUDA_VISIBLE_DEVICES) takes them all, "
+                        "more processes than cards share them in turn; "
+                        "NCCL joins processes whose cards are their own, "
+                        "gloo the rest")
     p.add_argument("--checkpoint", default=None, metavar="PATH.npz",
                    help="write an npz checkpoint after the final step")
     p.add_argument("--restore", default=None, metavar="PATH.npz",
@@ -704,26 +718,23 @@ def main(argv: list[str] | None = None) -> int:
     from .parallel import distributed, shard_devices
     if args.distributed or args.coordinator:
         distributed.initialise_distributed(
-            args.coordinator, args.num_processes, args.process_id)
+            args.coordinator, args.num_processes, args.process_id,
+            device=device)
     nprocs, main_process = distributed.world(), distributed.rank() == 0
     out = print if main_process else (lambda *a, **k: None)
     trace_dir = args.trace_dir
-    if nprocs > 1:
-        if device.type == "cuda" and device.index is None:
-            device = torch.device(
-                "cuda", distributed.rank() % torch.cuda.device_count())
-        # every global shard, as this process sees it: its own on `device`
-        devices = shard_devices(args.shards or nprocs, device)
-        if trace_dir:
-            trace_dir = os.path.join(trace_dir,
-                                     f"process{distributed.rank()}")
-    else:
-        devices = shard_devices(args.shards, device)
+    # every global shard's device; this process drives its own block
+    devices = shard_devices(args.shards or (nprocs if nprocs > 1 else None),
+                            device)
+    if nprocs > 1 and trace_dir:
+        trace_dir = os.path.join(trace_dir, f"process{distributed.rank()}")
     name = (torch.cuda.get_device_name(devices[0])
             if device.type == "cuda" else "cpu")
     if nprocs > 1:
         out(f"Distributed: {nprocs} processes, {len(devices)} shards.")
-        out(f"Process group: {distributed.BACKEND}, host-staged exchange.")
+        out(f"Process group: {distributed.backend()}, "
+            + ("exchange on the cards." if distributed.backend() == "nccl"
+               else "host-staged exchange."))
     out(f"Starting up on device {devices[0]} ({name}).")
     out(f"Loading problem from {args.params}.")
     sim = make_simulation(cfg, args.decomposition, devices,

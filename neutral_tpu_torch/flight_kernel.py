@@ -55,6 +55,7 @@ segment rows; callers may reset both.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -323,6 +324,7 @@ def flight_round(params: ctypes.Structure, buffers: FlightBuffers,
         build.check_launch(lib, launch(ctypes.byref(params), stream),
                            "flight kernel")
         flight_chunk_kernel.launches += 1
+        flight_chunk_kernel.cards[b.device.index] += 1
         ev[1].record()
         deposit_segments_kernel(tally, b.segs, b.counts[3:4], geom.nx,
                                 geom.ny, b.deposit, b.counts[4:6])
@@ -444,4 +446,5 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
 
 
 flight_chunk_kernel.launches = 0
+flight_chunk_kernel.cards = collections.Counter()  # launches by card index
 flight_chunk_kernel.refusals = 0

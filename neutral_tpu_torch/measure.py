@@ -8,12 +8,14 @@
         [--rows FILE] [--deck DECK] [--dtype float64] [--tally-dtype T]
     python neutral_tpu_torch/measure.py run DECK [--root DIR] [--reps 1]
         [--shards N --decomposition D] [--dtype float64]
-        [--tally-dtype T] [--transport flight]
+        [--tally-dtype T] [--transport flight] [--cards N [N ...]]
+        [--processes W]
     python neutral_tpu_torch/measure.py compare FILE [--key total_s]
     python neutral_tpu_torch/measure.py scaled [--nparticles N]
     python neutral_tpu_torch/measure.py profile DECK [--decomposition D]
+        [--cards N]
     python neutral_tpu_torch/measure.py tail DECK [--root DIR]
-        [--decomposition D] [--steps]
+        [--decomposition D] [--steps] [--cards N]
     python neutral_tpu_torch/measure.py kernels [--root DIR] [--sass FILE]
         [--dtype D [--tally-dtype T]]
     python neutral_tpu_torch/measure.py kernels-diff PARENT CHANGE
@@ -65,11 +67,20 @@ deposit the same rows.  `--dtype float64` deposits float64 rows (from the
 float64 flight kernel) into a float64 tally.
 
 `run` runs DECK at full size through `driver.make_simulation` (one device,
-or N shards on the one card under decomposition D) with the package under
+or N shards under decomposition D, over the first `--cards` cards in
+turn: 1, the default, puts them all on cuda:0; `--cards 1 2 4` runs each
+count in turn, a warm-up run each) with the package under
 `--root`, once as a warm-up and `--reps` times timed, and prints for each
 timed run its steps' times, the cumulative phases, the launches,
-migrations and peak device memory: run it for two checkouts in turns in
-one call (A, B, B, A, ...) to compare whole steps.  `--dtype float64`
+migrations (and lanes exchanged between processes) and each card's peak
+device memory: run it for two checkouts in turns in one call (A, B, B,
+A, ...) to compare whole steps.  `--processes W` runs it over W
+processes that see the first `--cards` cards (CUDA_VISIBLE_DEVICES),
+joined through a coordinator on 127.0.0.1, each placing its block of
+shards as the package does (this tree: on its own cards, NCCL where no
+card is shared; a checkout whose `initialise_distributed` takes no
+device: process r on cuda:(r % cards), gloo), and prints process 0's
+record with every process's peak memory per card and step times.  `--dtype float64`
 runs the deck in float64 (state and tally; `auto` then takes the sweep
 transport and its float64 kernels); `--transport sweep|flight` picks the
 transport by name (`--transport flight --dtype float64`: the float64
@@ -89,12 +100,16 @@ counts, tally and peak device memory.
 
 `profile` runs the first step of DECK (full size) under
 `torch.profiler` on one device, or under decomposition D with four shards
-on the one card, and prints the 25 operations with the most CUDA time and
-the 25 with the most host time, then the step's metrics.
+over the first `--cards` cards (default: the one card), and prints the 25
+operations with the most CUDA time and the 25 with the most host time,
+then the step's metrics with each card's busy share of the step (the
+union of its kernels', copies' and sets' intervals over the step's wall
+time).
 
 `tail` runs step 1 of DECK (full size; every step with `--steps`), after
 a warm-up step, on one device or under decomposition D with four shards
-on the one card, with the package under `--root`, and prints per step the
+over the first `--cards` cards, with the package under `--root`, and
+prints per step the
 record of every flight-kernel launch: the lanes it covers, the lanes with
 work at its start and still working after it, and its device time (CUDA
 events), with the count and device time of the launches in the census
@@ -408,13 +423,53 @@ def deposit(reps: int, deck: str, rows_path: str | None,
     return out
 
 
+def card_list(ncards: int, nshards: int) -> list:
+    """The devices of `nshards` shards over the first `ncards` cards, in
+    turn (`ncards` 1: every shard on cuda:0)."""
+    import torch
+    if ncards > torch.cuda.device_count():
+        raise ValueError(f"--cards {ncards}, but the machine shows "
+                         f"{torch.cuda.device_count()}")
+    return [torch.device("cuda", i % ncards) for i in range(nshards)]
+
+
+def sim_cards(sim) -> list:
+    """The cards this process's part of `sim` runs on."""
+    shards = getattr(sim, "shards", None)
+    return sorted({sh.device for sh in shards} if shards else {sim.device},
+                  key=str)
+
+
+def join_processes(coordinator: str, processes: int, process_id: int):
+    """Join the run over `processes` processes with the package on
+    sys.path, and return its devices rule: a package whose
+    initialise_distributed takes a device places each process's shards on
+    its own cards (its shard_devices); an older one (gloo alone) put
+    process r's shards on cuda:(r % cards), as its CLI did."""
+    import inspect
+    import torch
+    from neutral_tpu_torch.parallel import distributed, shard_devices
+
+    init = distributed.initialise_distributed
+    if "device" in inspect.signature(init).parameters:
+        init(coordinator, processes, process_id, device="cuda")
+        return lambda n: shard_devices(n, "cuda")
+    init(coordinator, processes, process_id)
+    dev = torch.device("cuda", process_id % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return lambda n: [dev] * n
+
+
 def run(deck: str, shards: int, decomposition: str, reps: int,
         dtype: str | None = None, transport: str = "auto",
-        tally: str | None = None) -> list:
+        tally: str | None = None, cards: int = 1,
+        process: tuple | None = None) -> list:
     """Every step of `deck` at full size, on one device or `shards`
-    shards on the one card, `reps` times after a warm-up run, in `dtype`
-    (the state's, and the tally's unless `tally` names its own; None: the
-    deck's) on `transport`."""
+    shards over the first `cards` cards in turn, `reps` times after a
+    warm-up run, in `dtype` (the state's, and the tally's unless `tally`
+    names its own; None: the deck's) on `transport`.  `process`
+    (coordinator, processes, process_id): this process's part of a run
+    over several processes, its shards on its own cards."""
     import torch
     from neutral_tpu_torch import driver
 
@@ -422,14 +477,21 @@ def run(deck: str, shards: int, decomposition: str, reps: int,
     if dtype or tally:
         cfg = cfg.with_(dtype=dtype or cfg.dtype,
                         tally_dtype=tally or dtype or cfg.dtype)
-    devices = [torch.device("cuda", 0)] * shards
+    if process:
+        devices = join_processes(*process)(shards)
+    else:
+        devices = card_list(cards, shards)
     kw = {} if transport == "auto" else {"transport": transport}
     # warm-up run: builds the kernels, fills PyTorch's caches
-    driver.make_simulation(cfg, decomposition, devices, quiet=True,
-                           **kw).run()
+    sim = driver.make_simulation(cfg, decomposition, devices, quiet=True,
+                                 **kw)
+    sim.run()
+    used = sim_cards(sim)
+    del sim
     out = []
     for _ in range(reps):
-        torch.cuda.reset_peak_memory_stats()
+        for d in used:
+            torch.cuda.reset_peak_memory_stats(d)
         sim = driver.make_simulation(cfg, decomposition, devices, quiet=True,
                                      **kw)
         sim.run()
@@ -442,32 +504,91 @@ def run(deck: str, shards: int, decomposition: str, reps: int,
                         + ([f"tally {tally}"] if tally and tally != (
                             dtype or "float32") else [])
                         + ([transport] if kw else []))
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                 for d in used}
         out.append({"deck": name,
                     "shards": shards,
                     "decomposition": decomposition if shards > 1 else None,
+                    "cards": len(used) if not process else cards,
+                    "processes": process[1] if process else 1,
                     "steps_s": [m.step_time for m in ms],
                     "total_s": sum(m.step_time for m in ms),
                     "phases": phases,
                     "launches": sum(m.nlaunches for m in ms),
                     "migrated": sum(m.nmigrated for m in ms),
+                    "exchanged": sum(m.nexchanged for m in ms),
                     "facets": sum(m.nfacets for m in ms),
                     "collisions": sum(m.ncollisions for m in ms),
                     "tally": float(sim.host_tally().sum()),
-                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+                    "peak_gib": max(peaks.values()),
+                    "peak_gib_per_card": peaks})
         del sim
     return out
 
 
-def tail(deck: str, decomposition: str | None, steps: bool) -> list:
+PROCESS_TIMEOUT = 1800           # seconds a process of `run --processes` may take
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(argv: list, processes: int, cards: int) -> list:
+    """`run` over `processes` processes that see the first `cards` cards
+    (CUDA_VISIBLE_DEVICES): this file once per process with `argv` and its
+    rank, joined through a coordinator on 127.0.0.1, each given
+    PROCESS_TIMEOUT seconds.  Returns one record per timed run: process
+    0's, with every process's peak memory per card (keyed "process r
+    cuda:i") and, per process, its step times."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    env = {**os.environ,
+           "CUDA_VISIBLE_DEVICES": ",".join(map(str, range(cards)))}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *argv,
+         "--coordinator", coordinator, "--process-id", str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(processes)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PROCESS_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:], file=sys.stderr)
+            raise RuntimeError(f"run: process {r} exited {p.returncode}")
+    recs = [[json.loads(line) for line in out.splitlines()
+             if line.startswith("{")] for out in outs]
+    merged = []
+    for per_rep in zip(*recs):
+        rec = dict(per_rep[0])
+        rec["peak_gib_per_card"] = {
+            f"process {r} {d}": v for r, x in enumerate(per_rep)
+            for d, v in x["peak_gib_per_card"].items()}
+        rec["peak_gib"] = max(rec["peak_gib_per_card"].values())
+        rec["steps_s_per_process"] = [x["steps_s"] for x in per_rep]
+        merged.append(rec)
+    return merged
+
+
+def tail(deck: str, decomposition: str | None, steps: bool,
+         cards: int = 1) -> list:
     """Per flight-kernel launch of step 1 (every step with `steps`) of the
-    full `deck`, on one device or on four shards of the one card under
-    `decomposition`: the lanes the launch covers, the lanes with work at
-    its start and still working after it, and its device milliseconds."""
-    import torch
+    full `deck`, on one device or on four shards over the first `cards`
+    cards under `decomposition`: the lanes the launch covers, the lanes
+    with work at its start and still working after it, and its device
+    milliseconds."""
     from neutral_tpu_torch import driver
 
     cfg = driver.load_config(deck)
-    devices = [torch.device("cuda", 0)] * (4 if decomposition else 1)
+    devices = card_list(cards, 4 if decomposition else 1)
     make = functools.partial(driver.make_simulation, cfg,
                              decomposition or "replicated", devices,
                              quiet=True)
@@ -520,13 +641,15 @@ def compare(path: str, key: str) -> list:
             if v is None or "root" not in r:
                 continue
             g = groups.setdefault((r["deck"], r.get("shards"),
-                                   r.get("decomposition")), {})
+                                   r.get("decomposition"),
+                                   r.get("cards", 1),
+                                   r.get("processes", 1)), {})
             g.setdefault(r["root"], []).extend(
                 v if isinstance(v, list) else [v])
     out = []
-    for (deck, shards, dec), by_root in groups.items():
+    for (deck, shards, dec, cards, procs), by_root in groups.items():
         rec = {"deck": deck, "shards": shards, "decomposition": dec,
-               "key": key}
+               "cards": cards, "processes": procs, "key": key}
         for root, v in by_root.items():
             v = np.asarray(v)
             rec[root] = {"n": int(v.size), "median": float(np.median(v)),
@@ -576,14 +699,37 @@ def scaled(nparticles: int) -> list:
     return out
 
 
-def profile(deck: str, decomposition: str | None) -> list:
-    """Step 1 of `deck` under torch.profiler; prints the top operations."""
+def busy_shares(events, wall_us: float) -> dict:
+    """Each card's busy share of `wall_us`: the union of its device
+    activity's intervals (kernels, copies, sets) in a profiler's events,
+    over the window."""
+    from torch.autograd import DeviceType
+
+    spans = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    out = {}
+    for dev, iv in sorted(spans.items()):
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out[f"cuda:{dev}"] = busy / wall_us
+    return out
+
+
+def profile(deck: str, decomposition: str | None, cards: int = 1) -> list:
+    """Step 1 of `deck` under torch.profiler; prints the top operations
+    and each card's busy share of the step."""
     import torch
     from torch.profiler import ProfilerActivity
     from neutral_tpu_torch import driver
 
     cfg = driver.load_config(deck)
-    devices = [torch.device("cuda", 0)] * (4 if decomposition else 1)
+    devices = card_list(cards, 4 if decomposition else 1)
     sim = driver.make_simulation(cfg, decomposition or "replicated",
                                  devices, quiet=True)
     sim.step(1)                      # warm-up: builds, caches, allocates
@@ -596,6 +742,8 @@ def profile(deck: str, decomposition: str | None) -> list:
     print(ka.table(sort_by="cuda_time_total", row_limit=25), flush=True)
     print(ka.table(sort_by="self_cpu_time_total", row_limit=25), flush=True)
     return [{"deck": deck, "decomposition": decomposition,
+             "cards": cards, "busy_share": busy_shares(
+                 prof.events(), m.step_time * 1e6),
              "step_s": m.step_time, "facets": m.nfacets,
              "collisions": m.ncollisions, "migrated": m.nmigrated,
              "launches": m.nlaunches, "phases": m.phases}]
@@ -824,6 +972,17 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["float32", "float64"])
     r.add_argument("--transport", default="auto",
                    choices=["auto", "sweep", "flight"])
+    r.add_argument("--cards", type=int, nargs="+", default=[1],
+                   help="spread the shards over this many cards in turn "
+                        "(several counts: one after the other, in one "
+                        "process); with --processes, the cards the "
+                        "processes see")
+    r.add_argument("--processes", type=int, default=1,
+                   help="run over this many processes (their shards on "
+                        "their own cards: the package's rule)")
+    r.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    r.add_argument("--process-id", type=int, default=None,
+                   help=argparse.SUPPRESS)
     m = sub.add_parser("compare", help="compare the records of `run`")
     m.add_argument("file")
     m.add_argument("--key", default="total_s")
@@ -833,6 +992,8 @@ def main(argv: list[str] | None = None) -> int:
     f.add_argument("deck")
     f.add_argument("--decomposition", default=None,
                    choices=["replicated", "spatial", "spatial2d"])
+    f.add_argument("--cards", type=int, default=1,
+                   help="spread the four shards over this many cards")
     t = sub.add_parser("tail", help="per-launch lanes of the flight kernel")
     t.add_argument("deck")
     t.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -841,6 +1002,8 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["replicated", "spatial", "spatial2d"])
     t.add_argument("--steps", action="store_true",
                    help="every step of the deck, not step 1 alone")
+    t.add_argument("--cards", type=int, default=1,
+                   help="spread the four shards over this many cards")
     k = sub.add_parser("kernels", help="registers, spills and SASS digests")
     k.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose kernels to build")
@@ -866,8 +1029,14 @@ def main(argv: list[str] | None = None) -> int:
     if args.what == "kernels-diff":
         print(json.dumps(kernels_diff(args.parent, args.change)), flush=True)
         return 0
-    if args.what in ("census", "flight", "deposit", "run", "tail",
-                     "kernels", "build"):
+    if (args.what == "run" and args.processes > 1
+            and args.process_id is None):
+        if len(args.cards) != 1:
+            p.error("--processes takes one --cards count")
+        rec = run_processes(argv if argv is not None else sys.argv[1:],
+                            args.processes, args.cards[0])
+    elif args.what in ("census", "flight", "deposit", "run", "tail",
+                       "kernels", "build"):
         # This file's own directory would shadow nothing useful: the
         # package comes from the root asked for.
         rows = args.what == "deposit" and args.rows
@@ -887,7 +1056,8 @@ def main(argv: list[str] | None = None) -> int:
             rec = [deposit(args.reps, args.deck, rows, args.dtype,
                            args.tally_dtype)]
         elif args.what == "tail":
-            rec = tail(args.deck, args.decomposition, args.steps)
+            rec = tail(args.deck, args.decomposition, args.steps,
+                       args.cards)
         elif args.what == "build":
             rec = build_times(args.reps, args.merge)
         elif args.what == "kernels":
@@ -895,15 +1065,18 @@ def main(argv: list[str] | None = None) -> int:
             rec = kernels(sass, (dtype, args.tally_dtype or dtype)
                           if dtype else None)
         else:
-            rec = run(args.deck, args.shards, args.decomposition, args.reps,
-                      args.dtype, args.transport, args.tally_dtype)
+            rec = [r for cards in args.cards for r in run(
+                args.deck, args.shards, args.decomposition, args.reps,
+                args.dtype, args.transport, args.tally_dtype, cards,
+                (args.coordinator, args.processes, args.process_id)
+                if args.process_id is not None else None)]
         for r in rec:
             r["root"] = args.root
     else:
         sys.path[0] = os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))
         rec = (scaled(args.nparticles) if args.what == "scaled"
-               else profile(args.deck, args.decomposition))
+               else profile(args.deck, args.decomposition, args.cards))
     for r in rec:
         r["card"] = card()
         print(json.dumps(r), flush=True)

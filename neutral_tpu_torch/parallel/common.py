@@ -16,12 +16,13 @@ the kernel engine) and reads all shards' live counts at once; then:
    deposit, with its own pieces per lane, `flight_kernel.pieces_for`);
    with the plain engine, the plain version until no lane in its window
    has work;
-2. one host read of every shard's counters at once (`read_counters`):
-   facets, collisions, lanes still working, the segment rows reserved,
-   the segment deposit's piece count and overflow flag and, in the
-   spatial modes, how many lanes leave for each other shard and how many
-   slots are free; with several processes one gather of those rows
-   (`distributed.all_gather_rows`) gives every process the same global
+2. one host read of every shard's counters at once
+   (`distributed.gather_counters`): facets, collisions, lanes still
+   working, the segment rows reserved, the segment deposit's piece count
+   and overflow flag and, in the spatial modes, how many lanes leave for
+   each other shard and how many slots are free; with several processes
+   the same call gathers those rows from every process (on the card under
+   NCCL, then one read), so that every process holds the same global
    counters, from which all of them take the same decisions (which shard
    works next, what moves where), and so make the same collective calls;
    then each flight shard's host part of the round
@@ -33,11 +34,20 @@ the kernel engine) and reads all shards' live counts at once; then:
    grow when dead slots run out.  The counts of step 2 size every gather,
    so migration itself waits for nothing.  A shard that received lanes
    covers all of its lanes in its next launch, which rebuilds its list.
-   Lanes bound for another process's shard go through the host: packed
-   into one buffer per pair of processes and swapped by one all-to-all
-   (`exchange`), sized from the gathered counters; arrivals land in
-   source-shard order, so every shard holds bitwise the lanes of the
-   single-process run with the same shards.
+   Lanes bound for another process's shard are packed into one buffer
+   per pair of processes and swapped by one all-to-all (`exchange`: card
+   to card under NCCL, staged on the host under gloo), sized from the
+   gathered counters; arrivals land in source-shard order, so every shard
+   holds bitwise the lanes of the single-process run with the same
+   shards.
+
+The shards of one process may lie on several cards (one process driving
+four cards, or two cards in each of two processes): every launch runs
+under its card's device guard on that card's current stream, the loop
+launches every shard's chunk before its one read, so the cards work at
+the same time, and the step's clock waits for every card of the process
+(`Profile`).  Lanes move between cards of one process by device-to-device
+copies, always in the order of the host's decisions.
 
 No shard is waited for on its own.  Histories are keyed by pid, so the
 decomposition changes nothing physical: a replicated run equals the
@@ -82,22 +92,28 @@ from ..particles import STATE_FIELDS, ParticleState, state_from_numpy
 from ..sweep_kernel import (MAX_EVENTS, SweepBuffers, rect_arrays,
                             sweep_chunk_plain, sweep_params, sweep_round)
 from ..transport import Geometry, window_cells
-from .distributed import (all_gather_arrays, all_gather_rows, exchange,
+from . import distributed
+from .distributed import (all_gather_arrays, exchange, gather_counters,
                           local_shards, process_of, rank, world)
 
 
 def shard_devices(n: int | None = None, device="cuda") -> list:
-    """The devices of `n` shards on `device`'s type (the counterpart of
-    `make_device_mesh`): the visible cards in turn for "cuda", so that
-    several shards may share one card, the named device alone for an
-    indexed one ("cuda:1"), and the CPU for "cpu".  `n` None: one shard
-    per visible card (torch.cuda.device_count()), or 1 on the CPU."""
+    """The devices of `n` global shards on `device`'s type (the
+    counterpart of `make_device_mesh`): the visible cards in turn for
+    "cuda", so that several shards may share one card, the named device
+    alone for an indexed one ("cuda:1"), and the CPU for "cpu".  `n`
+    None: one shard per visible card (torch.cuda.device_count()), or 1 on
+    the CPU.  In a run over several processes on CUDA, each process's
+    block of shards takes that process's cards in turn
+    (`distributed.shard_devices`; `n` None: one shard per process)."""
     device = torch.device(device)
+    if device.type == "cuda" and distributed.world() > 1:
+        return distributed.shard_devices(n or distributed.world())
     if device.type == "cuda" and device.index is None:
         check_device(device)
         ncards = torch.cuda.device_count()
         return [torch.device("cuda", i % ncards) for i in range(n or ncards)]
-    return [device] * (n or 1)
+    return [check_device(device)] * (n or 1)
 
 
 def to_device(obj, device):
@@ -108,12 +124,6 @@ def to_device(obj, device):
              if isinstance(getattr(obj, f.name), torch.Tensor)
              and getattr(obj, f.name).device != device}
     return dataclasses.replace(obj, **moved) if moved else obj
-
-
-def read_counters(rows: list) -> np.ndarray:
-    """Every shard's counter row (1-d int64 tensors, one per shard, on the
-    shards' devices) in one host read, as an (nshards, len) array."""
-    return torch.stack([r.to(rows[0].device) for r in rows]).cpu().numpy()
 
 
 def first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -145,16 +155,16 @@ def packed_bytes(like: ParticleState, k: int) -> int:
                for f in STATE_FIELDS)
 
 
-def pack_lanes(blocks: list) -> torch.Tensor:
-    """Blocks of lanes (each the STATE_FIELDS tensors of some lanes) as one
-    uint8 host buffer: each field's values over all the blocks in turn, as
-    bytes, padded to 8 bytes so that every field starts aligned."""
-    device = blocks[0][0].device
+def pack_lanes(blocks: list, device) -> torch.Tensor:
+    """Blocks of lanes (each the STATE_FIELDS tensors of some lanes, on any
+    devices) as one uint8 buffer on `device`: each field's values over all
+    the blocks in turn, as bytes, padded to 8 bytes so that every field
+    starts aligned."""
     parts = []
     for i in range(len(STATE_FIELDS)):
         b = torch.cat([blk[i].to(device) for blk in blocks]).view(torch.uint8)
         parts += [b, b.new_zeros(-b.numel() % 8)]
-    return torch.cat(parts).cpu()
+    return torch.cat(parts)
 
 
 def unpack_lanes(buf: torch.Tensor, counts: list, like: ParticleState
@@ -220,8 +230,11 @@ class DecomposedSimulation(SimulationBase):
         self.world = world()
         super().__init__(cfg, device=devices[self.local.start], engine=engine,
                          transport=transport, quiet=quiet)
-        for d in devices[self.local.start:self.local.stop]:
+        mine = devices[self.local.start:self.local.stop]
+        for d in mine:
             check_device(d)
+        # a step's clock waits for every card of this process's shards
+        self.profile.devices = sorted(set(mine), key=str)
         self.devices = devices
         self.nshards = len(devices)
         # the rank of the process that owns each global shard, and the
@@ -236,9 +249,11 @@ class DecomposedSimulation(SimulationBase):
         self.deposits = self.engine == "kernel" and self.transport == "flight"
         self.nctrl = 6 if self.deposits else 3
         self.shards = self.make_shards()
-        names = sorted({str(d) for d in devices})
+        # each shard's device in shard order, or the one they all share
+        names = [str(d) for d in devices]
+        on = names[0] if len(set(names)) == 1 else ", ".join(names)
         self.layout = (f"{self.decomposition}, {self.nshards} shards on "
-                       f"{', '.join(names)}{self.grid_note()}")
+                       f"{on}{self.grid_note()}")
         for d in {sh.device for sh in self.shards if sh.device.type == "cuda"}:
             torch.cuda.synchronize(d)     # set-up, not step 1's time
 
@@ -266,15 +281,14 @@ class DecomposedSimulation(SimulationBase):
     def shard_tallies(self) -> list[np.ndarray]:
         """Every global shard's tally as a host array, in shard order
         (gathered from every process: a collective)."""
-        return all_gather_arrays([sh.tally.cpu().numpy()
-                                  for sh in self.shards])
+        return all_gather_arrays([sh.tally for sh in self.shards])
 
     def states(self) -> list[ParticleState]:
         """Every global shard's particles: with several processes gathered
         to the host of every process (a collective)."""
         if self.world == 1:
             return [sh.state for sh in self.shards]
-        arrays = all_gather_arrays([getattr(sh.state, f).cpu().numpy()
+        arrays = all_gather_arrays([getattr(sh.state, f)
                                     for sh in self.shards
                                     for f in STATE_FIELDS])
         k = len(STATE_FIELDS)
@@ -346,8 +360,7 @@ class DecomposedSimulation(SimulationBase):
             if sh.sweep is not None:
                 sh.sweep.start_census()
         # Every global shard's [live lanes, lanes]: one read, one gather.
-        begun = all_gather_rows(np.concatenate(
-            [read_counters(rows), [[sh.state.n] for sh in self.shards]], 1))
+        begun = gather_counters(rows, [[sh.state.n] for sh in self.shards])
         nprocessed = int(begun[:, 0].sum())
         t_begin = time.perf_counter()
         n = self.nshards
@@ -372,8 +385,7 @@ class DecomposedSimulation(SimulationBase):
                             if self.migrates else counts)
             # Every global shard's counters, then [launched, sweeps]: one
             # read and one gather for the chunk.
-            ctrl = all_gather_rows(np.concatenate(
-                [read_counters(rows), np.array(host, dtype=np.int64)], 1))
+            ctrl = gather_counters(rows, host)
             for s, rec in chunk.items():
                 sh = self.shards[s - self.local.start]
                 after_round(sh.flight, sh.tally, sh.geom, rec, ctrl[s, 2:6],
@@ -506,10 +518,10 @@ class DecomposedSimulation(SimulationBase):
     def _exchange(self, sends: np.ndarray, out: dict) -> dict:
         """Swap the lanes that cross between processes: this process packs
         the lanes of `out` (keyed (source, destination)) bound for each
-        other process into one host buffer (pack_lanes), one all-to-all
-        swaps the buffers, whose sizes both sides know from `sends`, and
-        the arrivals come back keyed as in `out`.  Pairs go in (source,
-        destination) order on both sides."""
+        other process into one buffer on its first card (pack_lanes), one
+        all-to-all swaps the buffers, whose sizes both sides know from
+        `sends`, and the arrivals come back keyed as in `out`.  Pairs go
+        in (source, destination) order on both sides."""
         me, like = rank(), self.shards[0].state
         mine = self.process == me
         send, recv_bytes = [], []
@@ -518,8 +530,10 @@ class DecomposedSimulation(SimulationBase):
             pairs = ([] if p == me else
                      [(s, int(d)) for s in self.local
                       for d in np.flatnonzero(sends[s] * theirs)])
-            send.append(pack_lanes([out[pair] for pair in pairs]) if pairs
-                        else torch.empty(0, dtype=torch.uint8))
+            send.append(pack_lanes([out[pair] for pair in pairs],
+                                   self.device) if pairs
+                        else torch.empty(0, dtype=torch.uint8,
+                                         device=self.device))
             recv_bytes.append(0 if p == me else packed_bytes(
                 like, int(sends[np.ix_(theirs, mine)].sum())))
         got = {}

@@ -2,9 +2,10 @@
 `neutral_tpu/profiler.py`).
 
 The counterpart of the reference harness's profiler entries (main.c:54-59,
-82, 99, 115-116).  PyTorch returns before the device finishes, so on a
-CUDA device every stop first waits for the device with
-`torch.cuda.synchronize()`: a step's time covers its device work.
+82, 99, 115-116).  PyTorch returns before the device finishes, so every
+start and stop first waits with `torch.cuda.synchronize()` for each card
+the profile holds (every card of a process's shards): a step's time
+covers its device work on all of them.
 `maybe_trace` records a torch.profiler trace (CPU, and CUDA when a card is
 there: the kernels of csrc/ show under their own names) in place of
 neutral_tpu's jax.profiler trace.
@@ -28,14 +29,16 @@ class ProfileEntry:
 
 @dataclass
 class Profile:
-    """Ordered named wall-clock entries, like arch's profiler_entries."""
-    device: torch.device = torch.device("cpu")
+    """Ordered named wall-clock entries, like arch's profiler_entries,
+    timed over `devices` (the CUDA ones are waited for)."""
+    devices: list = field(default_factory=lambda: [torch.device("cpu")])
     entries: list[ProfileEntry] = field(default_factory=list)
     _t0: float = 0.0
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in self.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def start(self) -> None:
         self._sync()

@@ -33,6 +33,7 @@ callers may reset them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -294,7 +295,9 @@ def _launch(deposit, tally, segs, nseg, counts, stages) -> None:
             ev[2].record()
             stages.append(ev)
     deposit_segments_kernel.launches += 1
+    deposit_segments_kernel.cards[tally.device.index] += 1
 
 
 deposit_segments_kernel.launches = 0
+deposit_segments_kernel.cards = collections.Counter()  # launches by card
 deposit_segments_kernel.overflows = 0

@@ -53,6 +53,7 @@ plain runs; callers may reset both.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -505,6 +506,7 @@ def sweep_round(params: ctypes.Structure, buffers: SweepBuffers,
             build.check_launch(lib, launch(ctypes.byref(params), stream),
                                "sweep kernel")
             sweep_chunk_kernel.launches += 1
+            sweep_chunk_kernel.cards[b.device.index] += 1
     b.lists.reverse()               # the next list is the next launch's
 
 
@@ -542,3 +544,4 @@ def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
 
 
 sweep_chunk_kernel.launches = 0
+sweep_chunk_kernel.cards = collections.Counter()   # launches by card index
