@@ -1,0 +1,7 @@
+"""begin_ms: the program's "begin" phase (StepMetrics.phases), summed
+over a solve's censuses, meaned over the window's solves;
+nothing where the cell's censuses have no such phase."""
+
+
+def read(ctx):
+    return ctx.phase_ms("begin")

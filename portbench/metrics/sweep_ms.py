@@ -1,0 +1,7 @@
+"""sweep_ms: the program's "sweep" phase (StepMetrics.phases), summed
+over a solve's censuses, meaned over the window's solves;
+nothing where the cell's censuses have no such phase."""
+
+
+def read(ctx):
+    return ctx.phase_ms("sweep")
