@@ -54,9 +54,10 @@ breakdown.
 
 Around the loop: VisIt dumps (`visit_dump 1`), npz checkpoints that any
 layout restores (`--checkpoint`, `--restore`: the run resumes at the step
-after the checkpoint), a torch.profiler trace (`--trace-dir`), and
-`--backend native`, the history-based C++ engine on the host
-(native/), which prints the same per-step contract.
+after the checkpoint), a torch.profiler trace of set-up and the run
+(`--trace-dir`: the program's `nt.*` spans, profiler.span, beside the
+kernels), and `--backend native`, the history-based C++ engine on the
+host (native/), which prints the same per-step contract.
 
 A run may span processes, the counterpart of the reference's MPI launch
 (main.c:62-64): `--coordinator HOST:PORT --num-processes W --process-id
@@ -79,6 +80,7 @@ runs over that list alone, with pieces per lane that grow as it shrinks
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -97,7 +99,7 @@ from .flight_kernel import FlightBuffers, flight_chunk_kernel, launch_records
 from .mesh import build_mesh, density_grid, region_cell_bounds
 from .particles import (ParticleState, inject_particles, merge_states,
                         state_from_numpy)
-from .profiler import Profile, maybe_trace
+from .profiler import Profile, Spans, maybe_trace, span
 from .sweep_kernel import (MAX_EVENTS, SweepBuffers, sweep_chunk_kernel,
                            sweep_chunk_plain)
 from .transport import Geometry, use_local_coords
@@ -287,6 +289,11 @@ class StepMetrics:
     # spatial decomposition adds "migrate" (wall clock), and over several
     # processes "exchange", its part from packing the lanes bound for
     # other processes to unpacking theirs (wall clock, waits included).
+    # The wall-clock phases are read from the step's spans
+    # (profiler.span): "begin" is nt.begin's wall time, "sweep" nt.sweep's
+    # and "migrate" nt.migrate's; "loop" is nt.census's less nt.begin's,
+    # "flight", "raster" and "migrate"; a spatial run's "sweep" leaves
+    # out "migrate" too.
     phases: dict
     nmigrated: int = 0    # lanes moved between shards (spatial runs)
     nexchanged: int = 0   # of those, lanes moved between processes
@@ -294,6 +301,10 @@ class StepMetrics:
     # its shard, lanes launched, pieces per lane, lanes still working after
     # it, segment rows written, whether rows were refused, device ms
     rounds: list = dataclasses.field(default_factory=list)
+    # host reads in the census that waited for the card: its `*.read`
+    # spans (the live count, each launch's counters, the event counts);
+    # printed as the step's "Host waits" line
+    nwaits: int = 0
 
 
 def within_tolerance(expected: float, actual: float, tol: float) -> bool:
@@ -330,16 +341,18 @@ class SimulationBase:
                                   self.transport)
         check_device(self.device)
 
-        self.geom = make_geometry(cfg, self.dtype, self.device)
-        self.mesh = build_mesh(cfg, dtype=self.dtype, device=self.device)
-        self.cs_scatter, self.cs_absorb = load_cross_sections(
-            cfg, self.dtype, self.device)
-        # The reference ships byte-identical capture/scatter tables; when
-        # the loaded pair matches, one lookup serves both.
-        if (torch.equal(self.cs_scatter.keys, self.cs_absorb.keys)
-                and torch.equal(self.cs_scatter.values,
-                                self.cs_absorb.values)):
-            self.geom = dataclasses.replace(self.geom, same_xs=True)
+        with span("setup.mesh"):
+            self.geom = make_geometry(cfg, self.dtype, self.device)
+            self.mesh = build_mesh(cfg, dtype=self.dtype, device=self.device)
+        with span("setup.xs"):
+            self.cs_scatter, self.cs_absorb = load_cross_sections(
+                cfg, self.dtype, self.device)
+            # The reference ships byte-identical capture/scatter tables;
+            # when the loaded pair matches, one lookup serves both.
+            if (torch.equal(self.cs_scatter.keys, self.cs_absorb.keys)
+                    and torch.equal(self.cs_scatter.values,
+                                    self.cs_absorb.values)):
+                self.geom = dataclasses.replace(self.geom, same_xs=True)
         self.elapsed_sim_time = 0.0
         self.wallclock = 0.0
         self.last_step = 0          # the last step run (or restored)
@@ -464,6 +477,7 @@ class SimulationBase:
                     f"{m.nexchanged} of them between processes")
             elif "migrate" in m.phases:
                 out(f"Migrated {m.nmigrated} particles between shards")
+            out(f"Host waits {m.nwaits} (reads that waited for the device)")
             out(f"Step time  {m.step_time:.4f}s")
             out(f"Wallclock  {self.wallclock:.4f}s")
             out(f"Facets     {m.nfacets}")
@@ -515,70 +529,87 @@ class Simulation(SimulationBase):
                  transport: str = "auto", quiet: bool = False):
         super().__init__(cfg, device=device, engine=engine,
                          transport=transport, quiet=quiet)
-        self.state = inject_particles(
-            self.mesh, nparticles=cfg.nparticles,
-            initial_energy=cfg.initial_energy, dt=cfg.dt, dtype=self.dtype,
-            device=self.device, **self.source())
-        self.tally = torch.zeros(cfg.nx * cfg.ny,
-                                 dtype=getattr(torch, cfg.tally_dtype),
-                                 device=self.device)
-        # The kernel loop's buffers, kept from census to census.
-        kernel = self.engine == "kernel"
-        self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device,
-                                     dtype=self.dtype,
-                                     tally_dtype=self.tally.dtype)
-                       if kernel and self.transport == "flight" else None)
-        self.sweep = (SweepBuffers(self.device)
-                      if kernel and self.transport == "sweep" else None)
+        with span("setup.inject"):
+            self.state = inject_particles(
+                self.mesh, nparticles=cfg.nparticles,
+                initial_energy=cfg.initial_energy, dt=cfg.dt,
+                dtype=self.dtype, device=self.device, **self.source())
+        with span("setup.buffers"):
+            self.tally = torch.zeros(cfg.nx * cfg.ny,
+                                     dtype=getattr(torch, cfg.tally_dtype),
+                                     device=self.device)
+            # The kernel loop's buffers, kept from census to census.
+            kernel = self.engine == "kernel"
+            self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device,
+                                         dtype=self.dtype,
+                                         tally_dtype=self.tally.dtype)
+                           if kernel and self.transport == "flight" else None)
+            self.sweep = (SweepBuffers(self.device)
+                          if kernel and self.transport == "sweep" else None)
         # Injection belongs to set-up, not to step 1's time.
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("setup.wait"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def step(self, tt: int) -> StepMetrics:
         """Advance one census timestep (master_key = tt, as main.c:101)."""
+        flight = self.transport == "flight"
         self.profile.start()
-        t0 = time.perf_counter()
-        state, live = begin_census(self.engine, self.state, self.geom,
-                                   self.cs_scatter, self.cfg.dt, tt)
-        nprocessed = int(live)                    # waits for the device
-        t_begin = time.perf_counter()
-        inv_ntotal = 1.0 / self.cfg.nparticles
-        args = (state, self.tally, self.geom, self.cs_scatter,
-                self.cs_absorb, tt, inv_ntotal)
-        nsweeps = nlaunches = 0
-        parts, rounds = {}, []
-        if self.transport == "flight":
-            if self.engine == "kernel":
-                state, nf, nc, nlaunches, parts = flight_chunk_kernel(
-                    *args, buffers=self.flight, rounds=rounds)
-                nsweeps = sum(r["pieces"] for r in rounds)
-            else:
-                state, nf, nc, nsweeps, parts = flight_chunk_plain(*args)
-        elif self.engine == "kernel":
-            state, nf, nc, nlaunches = sweep_chunk_kernel(
-                *args, buffers=self.sweep)
-        else:
-            state, nf, nc, nsweeps = sweep_chunk_plain(*args)
-        self.state = state
-        step_time = self.profile.stop(f"step{tt}")
-        census = time.perf_counter() - t_begin
-        phases = {"begin": t_begin - t0}
-        if self.transport == "flight":
+        spans = Spans()
+        with span("census", spans):
+            with span("begin", spans):
+                state, live = begin_census(self.engine, self.state,
+                                           self.geom, self.cs_scatter,
+                                           self.cfg.dt, tt)
+                with span("begin.read", spans):
+                    nprocessed = int(live)        # waits for the device
+            # The sweep phase runs from here to the clock's stop.
+            with contextlib.nullcontext() if flight else span("sweep",
+                                                              spans):
+                inv_ntotal = 1.0 / self.cfg.nparticles
+                args = (state, self.tally, self.geom, self.cs_scatter,
+                        self.cs_absorb, tt, inv_ntotal)
+                nsweeps = nlaunches = 0
+                parts, rounds = {}, []
+                if flight and self.engine == "kernel":
+                    state, nf, nc, nlaunches, parts = flight_chunk_kernel(
+                        *args, buffers=self.flight, rounds=rounds,
+                        spans=spans)
+                    nsweeps = sum(r["pieces"] for r in rounds)
+                elif flight:
+                    state, nf, nc, nsweeps, parts = flight_chunk_plain(*args)
+                elif self.engine == "kernel":
+                    state, nf, nc, nlaunches = sweep_chunk_kernel(
+                        *args, buffers=self.sweep, spans=spans)
+                else:
+                    state, nf, nc, nsweeps = sweep_chunk_plain(*args)
+                self.state = state
+                step_time = self.profile.stop(f"step{tt}")
+        wall = spans.seconds
+        phases = {"begin": wall["begin"]}
+        if flight:
             phases.update(parts)
-            phases["loop"] = census - parts["flight"] - parts["raster"]
+            phases["loop"] = (wall["census"] - wall["begin"]
+                              - parts["flight"] - parts["raster"])
         else:
-            phases["sweep"] = census
+            phases["sweep"] = wall["sweep"]
         m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
                         ncollisions=nc, nprocessed=nprocessed,
                         nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
                         rounds=[{"shard": 0} | r
-                                for r in launch_records(rounds)])
+                                for r in launch_records(rounds)],
+                        nwaits=spans.waits())
         self.step_metrics.append(m)
         return m
 
     def host_tally(self) -> np.ndarray:
-        """Flat (ny*nx,) tally as float64 on the host."""
-        return self.tally.cpu().numpy().astype(np.float64)
+        """Flat (ny*nx,) tally as float64 on the host (one wait for the
+        card)."""
+        with span("tally_read"):
+            with span("tally_read.copy"):
+                tally = self.tally.cpu()
+            with span("tally_read.convert"):
+                return tally.numpy().astype(np.float64)
 
     def states(self) -> list[ParticleState]:
         return [self.state]
@@ -595,12 +626,13 @@ def make_simulation(cfg: SimConfig, decomposition: str, devices: list,
     `devices` (parallel/) when there are several or the run spans
     processes."""
     from . import parallel
-    if len(devices) == 1 and parallel.distributed.world() == 1:
-        return Simulation(cfg, device=devices[0], **kw)
-    cls = {"replicated": parallel.ShardedSimulation,
-           "spatial": parallel.SpatialSimulation,
-           "spatial2d": parallel.Spatial2DSimulation}[decomposition]
-    return cls(cfg, devices=devices, **kw)
+    with span("setup"):
+        if len(devices) == 1 and parallel.distributed.world() == 1:
+            return Simulation(cfg, device=devices[0], **kw)
+        cls = {"replicated": parallel.ShardedSimulation,
+               "spatial": parallel.SpatialSimulation,
+               "spatial2d": parallel.Spatial2DSimulation}[decomposition]
+        return cls(cfg, devices=devices, **kw)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -658,7 +690,11 @@ def main(argv: list[str] | None = None) -> int:
                         "it")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace (CPU and CUDA "
-                        "activity, Chrome format) of the run here")
+                        "activity, Chrome format) of the run here, from "
+                        "set-up on: the program's nt.* spans (set-up, "
+                        "census, begin, sweep or flight rounds, each host "
+                        "read of the card, the tally read) beside the "
+                        "kernels, copies and sets")
     p.add_argument("--backend", default="torch", choices=["torch", "native"],
                    help="torch = this package (default); native = the "
                         "history-based C++/OpenMP engine on the host")
@@ -737,19 +773,19 @@ def main(argv: list[str] | None = None) -> int:
                else "host-staged exchange."))
     out(f"Starting up on device {devices[0]} ({name}).")
     out(f"Loading problem from {args.params}.")
-    sim = make_simulation(cfg, args.decomposition, devices,
-                          engine=args.engine, transport=args.transport,
-                          quiet=not main_process)
-    out(f"Engine: {sim.engine}.")
-    out(f"Transport: {sim.transport}.")
-    out(f"Decomposition: {getattr(sim, 'layout', 'none (1 device)')}.")
-    start = 1
-    if args.restore:
-        t0 = time.perf_counter()
-        start = sim.restore(args.restore) + 1
-        out(f"Restored checkpoint at step {start - 1} in "
-            f"{time.perf_counter() - t0:.3f} s")
     with maybe_trace(trace_dir):
+        sim = make_simulation(cfg, args.decomposition, devices,
+                              engine=args.engine, transport=args.transport,
+                              quiet=not main_process)
+        out(f"Engine: {sim.engine}.")
+        out(f"Transport: {sim.transport}.")
+        out(f"Decomposition: {getattr(sim, 'layout', 'none (1 device)')}.")
+        start = 1
+        if args.restore:
+            t0 = time.perf_counter()
+            start = sim.restore(args.restore) + 1
+            out(f"Restored checkpoint at step {start - 1} in "
+                f"{time.perf_counter() - t0:.3f} s")
         sim.run(start)
     if args.checkpoint:
         t0 = time.perf_counter()

@@ -63,6 +63,7 @@ import torch
 
 from . import build
 from .particles import ParticleState
+from .profiler import Spans, span
 from .raster_kernel import (GROWTH, SegmentDeposit, deposit_segments_kernel,
                             redeposit_segments)
 from .sweep_kernel import (REALS, TABLE_POINTERS, check_inputs, rect_arrays,
@@ -344,8 +345,8 @@ def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
     reserved, the deposit's pieces, its overflow flag): deposit the rows
     again after an overflow (its events go to `marks`), grow the segment
     buffer after a refusal, and take the next list's length.  Adds to
-    `record` the lanes still working, the rows written and whether rows
-    were refused."""
+    `record` the lanes still working, the rows written, whether rows
+    were refused and whether the deposit overflowed (a re-deposit)."""
     working, reserved, need, overflow = (int(v) for v in ctrl)
     b = buffers
     if overflow:
@@ -360,7 +361,7 @@ def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
             b.segs = torch.empty((rows, 5), dtype=dtype, device=b.device)
     b.n_active = working
     record.update(working=working, rows=rows_written(reserved, cap),
-                  refused=reserved > cap)
+                  refused=reserved > cap, overflow=bool(overflow))
 
 
 def redeposit(tally: torch.Tensor, buffers: FlightBuffers, geom: Geometry,
@@ -403,7 +404,8 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
                         inv_ntotal: float, max_pieces: int | None = None,
                         segments: list | None = None, x_off=None,
                         y_off=None, buffers: FlightBuffers | None = None,
-                        rounds: list | None = None):
+                        rounds: list | None = None,
+                        spans: Spans | None = None):
     """Run every lane to census or death (or, under the window `x_off`/
     `y_off`, until it leaves the window) with the CUDA flight kernel.
 
@@ -412,10 +414,13 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     `segments` is a list, each round's segment rows are appended to it
     (flight_round); when `rounds` is, each round's record (flight_round's,
     with after_round's additions).  `buffers` holds the loop's buffers
-    between calls (new ones when None).  Returns (state, nfacets,
-    ncollisions, nlaunches, phases) with `phases` the device seconds of the
-    flight launches ("flight") and of the segment deposits ("raster"), from
-    CUDA events.
+    between calls (new ones when None).  Each round is a span
+    (nt.flight.round, holding nt.flight.read around its read of the
+    counters and nt.flight.host around after_round), and so is the final
+    read of the event counts (nt.census.read), added to `spans` when
+    given.  Returns (state, nfacets, ncollisions, nlaunches, phases) with
+    `phases` the device seconds of the flight launches ("flight") and of
+    the segment deposits ("raster"), from CUDA events.
     """
     dev = state.device
     rects = (None if geom.rects is None
@@ -431,17 +436,23 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     marks = []
     nlaunches = 0
     while True:
-        rec = flight_round(params, buffers, tally, geom, max_pieces,
-                           segments)
-        marks.append(rec["marks"])
-        nlaunches += 1
-        # One read per round; it waits for the flight launch and deposit.
-        after_round(buffers, tally, geom, rec, counts[2:].tolist(), marks)
+        with span("flight.round", spans):
+            rec = flight_round(params, buffers, tally, geom, max_pieces,
+                               segments)
+            marks.append(rec["marks"])
+            nlaunches += 1
+            # One read per round; it waits for the flight launch and
+            # deposit.
+            with span("flight.read", spans):
+                ctrl = counts[2:].tolist()
+            with span("flight.host", spans):
+                after_round(buffers, tally, geom, rec, ctrl, marks)
         if rounds is not None:
             rounds.append(rec)
         if rec["working"] == 0:
             break
-    nf, nc = (int(v) for v in counts[:2].tolist())
+    with span("census.read", spans):
+        nf, nc = (int(v) for v in counts[:2].tolist())
     return state, nf, nc, nlaunches, event_phases(marks)
 
 

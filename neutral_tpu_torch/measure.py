@@ -12,8 +12,6 @@
         [--processes W]
     python neutral_tpu_torch/measure.py compare FILE [--key total_s]
     python neutral_tpu_torch/measure.py scaled [--nparticles N]
-    python neutral_tpu_torch/measure.py profile DECK [--decomposition D]
-        [--cards N]
     python neutral_tpu_torch/measure.py tail DECK [--root DIR]
         [--decomposition D] [--steps] [--cards N]
     python neutral_tpu_torch/measure.py kernels [--root DIR] [--sass FILE]
@@ -97,14 +95,6 @@ first's.
 step, float32) through `Simulation` and through `Spatial2DSimulation` on
 2x2 blocks, four shards on the one card, and prints each run's events/s,
 counts, tally and peak device memory.
-
-`profile` runs the first step of DECK (full size) under
-`torch.profiler` on one device, or under decomposition D with four shards
-over the first `--cards` cards (default: the one card), and prints the 25
-operations with the most CUDA time and the 25 with the most host time,
-then the step's metrics with each card's busy share of the step (the
-union of its kernels', copies' and sets' intervals over the step's wall
-time).
 
 `tail` runs step 1 of DECK (full size; every step with `--steps`), after
 a warm-up step, on one device or under decomposition D with four shards
@@ -699,56 +689,6 @@ def scaled(nparticles: int) -> list:
     return out
 
 
-def busy_shares(events, wall_us: float) -> dict:
-    """Each card's busy share of `wall_us`: the union of its device
-    activity's intervals (kernels, copies, sets) in a profiler's events,
-    over the window."""
-    from torch.autograd import DeviceType
-
-    spans = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA:
-            spans.setdefault(e.device_index, []).append(
-                (e.time_range.start, e.time_range.end))
-    out = {}
-    for dev, iv in sorted(spans.items()):
-        busy, end = 0.0, float("-inf")
-        for a, b in sorted(iv):
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        out[f"cuda:{dev}"] = busy / wall_us
-    return out
-
-
-def profile(deck: str, decomposition: str | None, cards: int = 1) -> list:
-    """Step 1 of `deck` under torch.profiler; prints the top operations
-    and each card's busy share of the step."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from neutral_tpu_torch import driver
-
-    cfg = driver.load_config(deck)
-    devices = card_list(cards, 4 if decomposition else 1)
-    sim = driver.make_simulation(cfg, decomposition or "replicated",
-                                 devices, quiet=True)
-    sim.step(1)                      # warm-up: builds, caches, allocates
-    sim = driver.make_simulation(cfg, decomposition or "replicated",
-                                 devices, quiet=True)
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        m = sim.step(1)
-    ka = prof.key_averages()
-    print(ka.table(sort_by="cuda_time_total", row_limit=25), flush=True)
-    print(ka.table(sort_by="self_cpu_time_total", row_limit=25), flush=True)
-    return [{"deck": deck, "decomposition": decomposition,
-             "cards": cards, "busy_share": busy_shares(
-                 prof.events(), m.step_time * 1e6),
-             "step_s": m.step_time, "facets": m.nfacets,
-             "collisions": m.ncollisions, "migrated": m.nmigrated,
-             "launches": m.nlaunches, "phases": m.phases}]
-
-
 def _demangle(names: list[str]) -> dict:
     """Mangled -> demangled names, by the CUDA toolkit's cu++filt (or
     c++filt)."""
@@ -988,12 +928,6 @@ def main(argv: list[str] | None = None) -> int:
     m.add_argument("--key", default="total_s")
     s = sub.add_parser("scaled", help="the scaled 4096^2 configuration")
     s.add_argument("--nparticles", type=int, default=100_000_000)
-    f = sub.add_parser("profile", help="step 1 of a deck under the profiler")
-    f.add_argument("deck")
-    f.add_argument("--decomposition", default=None,
-                   choices=["replicated", "spatial", "spatial2d"])
-    f.add_argument("--cards", type=int, default=1,
-                   help="spread the four shards over this many cards")
     t = sub.add_parser("tail", help="per-launch lanes of the flight kernel")
     t.add_argument("deck")
     t.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -1075,8 +1009,7 @@ def main(argv: list[str] | None = None) -> int:
     else:
         sys.path[0] = os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))
-        rec = (scaled(args.nparticles) if args.what == "scaled"
-               else profile(args.deck, args.decomposition, args.cards))
+        rec = scaled(args.nparticles)
     for r in rec:
         r["card"] = card()
         print(json.dumps(r), flush=True)

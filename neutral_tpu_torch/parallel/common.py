@@ -76,8 +76,8 @@ its overflow, repartition and abort path (growth replaces them).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -89,6 +89,7 @@ from ..flight import flight_chunk_plain
 from ..flight_kernel import (FlightBuffers, after_round, event_phases,
                              flight_params, flight_round, launch_records)
 from ..particles import STATE_FIELDS, ParticleState, state_from_numpy
+from ..profiler import Spans, span
 from ..sweep_kernel import (MAX_EVENTS, SweepBuffers, rect_arrays,
                             sweep_chunk_plain, sweep_params, sweep_round)
 from ..transport import Geometry, window_cells
@@ -254,8 +255,10 @@ class DecomposedSimulation(SimulationBase):
         on = names[0] if len(set(names)) == 1 else ", ".join(names)
         self.layout = (f"{self.decomposition}, {self.nshards} shards on "
                        f"{on}{self.grid_note()}")
-        for d in {sh.device for sh in self.shards if sh.device.type == "cuda"}:
-            torch.cuda.synchronize(d)     # set-up, not step 1's time
+        with span("setup.wait"):          # set-up, not step 1's time
+            for d in {sh.device for sh in self.shards
+                      if sh.device.type == "cuda"}:
+                torch.cuda.synchronize(d)
 
     # -- hooks ------------------------------------------------------------
     def make_shards(self) -> list:
@@ -316,11 +319,12 @@ class DecomposedSimulation(SimulationBase):
         """A shard on `device` holding the injected particles `pid`."""
         from ..particles import inject_fields
         cfg = self.cfg
-        state = inject_fields(
-            to_device(self.mesh, device), pid.to(device),
-            torch.ones(pid.shape, dtype=torch.bool, device=device),
-            initial_energy=cfg.initial_energy, dt=cfg.dt, dtype=self.dtype,
-            **self.source())
+        with span("setup.inject"):
+            state = inject_fields(
+                to_device(self.mesh, device), pid.to(device),
+                torch.ones(pid.shape, dtype=torch.bool, device=device),
+                initial_energy=cfg.initial_energy, dt=cfg.dt,
+                dtype=self.dtype, **self.source())
         geom = to_device(geom, device)
         tally = torch.zeros(geom.nx * geom.ny,
                             dtype=getattr(torch, cfg.tally_dtype),
@@ -345,95 +349,128 @@ class DecomposedSimulation(SimulationBase):
     # -- the step -----------------------------------------------------------
     def step(self, tt: int) -> StepMetrics:
         """Advance one census timestep on every shard (master_key = tt).
-        Every count it returns is global: over every process's shards."""
+        Every count it returns is global: over every process's shards.
+        Its spans are Simulation.step's: nt.census, nt.begin with
+        nt.begin.read, then nt.sweep around the loop (sweep transport) or
+        one nt.flight.round a pass of the loop (flight transport), each
+        pass's read (nt.sweep.read, nt.flight.read), the flight shards'
+        after_round (nt.flight.host), and nt.migrate and nt.exchange."""
         cfg = self.cfg
+        flight = self.transport == "flight"
         self.profile.start()
-        t0 = time.perf_counter()
-        rows = []
-        for sh in self.shards:
-            sh.state, live = begin_census(self.engine, sh.state, sh.geom,
-                                          sh.tables[0], cfg.dt, tt,
-                                          sh.x_off, sh.y_off)
-            rows.append(live)
-            if sh.flight is not None:
-                sh.flight.start_census()
-            if sh.sweep is not None:
-                sh.sweep.start_census()
-        # Every global shard's [live lanes, lanes]: one read, one gather.
-        begun = gather_counters(rows, [[sh.state.n] for sh in self.shards])
-        nprocessed = int(begun[:, 0].sum())
-        t_begin = time.perf_counter()
-        n = self.nshards
-        work = begun[:, 1] > 0
-        nf = nc = nsweeps = nlaunches = nmigrated = nexchanged = 0
-        marks, parts = [], {"flight": 0.0, "raster": 0.0}
-        t_migrate = t_exchange = 0.0
-        rounds = []
-        while work.any():
-            rows, host, chunk = [], [], {}
-            for s, sh in zip(self.local, self.shards):
-                w = bool(work[s])
-                counts, sweeps = (self._chunk(sh, tt, marks, parts) if w
-                                  else (torch.zeros(self.nctrl,
-                                                    dtype=torch.int64,
-                                                    device=sh.device), 0))
-                if w and self.deposits:
-                    chunk[s] = {"shard": s} | sweeps
-                    sweeps = sweeps["pieces"]
-                host.append([int(w and self.engine == "kernel"), sweeps])
-                rows.append(torch.cat([counts, self._departures(sh)])
-                            if self.migrates else counts)
-            # Every global shard's counters, then [launched, sweeps]: one
-            # read and one gather for the chunk.
-            ctrl = gather_counters(rows, host)
-            for s, rec in chunk.items():
-                sh = self.shards[s - self.local.start]
-                after_round(sh.flight, sh.tally, sh.geom, rec, ctrl[s, 2:6],
-                            marks)
-                rounds.append(rec)
-            for s, sh in zip(self.local, self.shards):
-                if work[s] and sh.sweep is not None:
-                    sh.sweep.n_active = int(ctrl[s, 2])
-            nf += int(ctrl[:, 0].sum())
-            nc += int(ctrl[:, 1].sum())
-            nlaunches += int(ctrl[:, -2].sum())
-            nsweeps += int(ctrl[:, -1].max())
-            received = np.zeros(n, dtype=np.int64)
-            if self.migrates:
-                t1 = time.perf_counter()
-                sends = ctrl[:, self.nctrl:self.nctrl + n]
-                t_exchange += self._migrate(sends, ctrl[:, self.nctrl + n])
-                received = sends.sum(axis=0)
-                nmigrated += int(sends.sum())
-                nexchanged += int(sends[self.crossing].sum())
-                t_migrate += time.perf_counter() - t1
-                for s, sh in zip(self.local, self.shards):
-                    for b in (sh.flight, sh.sweep):
-                        if received[s] and b is not None:
-                            b.n_active = None
-            work = (ctrl[:, 2] > 0) | (received > 0)
-        step_time = self.profile.stop(f"step{tt}")
-        census = time.perf_counter() - t_begin
-        phases = {"begin": t_begin - t0}
-        if self.transport == "flight":
+        spans = Spans()
+        with span("census", spans):
+            with span("begin", spans):
+                rows = []
+                for sh in self.shards:
+                    sh.state, live = begin_census(self.engine, sh.state,
+                                                  sh.geom, sh.tables[0],
+                                                  cfg.dt, tt, sh.x_off,
+                                                  sh.y_off)
+                    rows.append(live)
+                    if sh.flight is not None:
+                        sh.flight.start_census()
+                    if sh.sweep is not None:
+                        sh.sweep.start_census()
+                # Every global shard's [live lanes, lanes]: one read, one
+                # gather.
+                with span("begin.read", spans):
+                    begun = gather_counters(rows, [[sh.state.n]
+                                                   for sh in self.shards])
+                nprocessed = int(begun[:, 0].sum())
+            # The sweep phase runs from here to the clock's stop.
+            with contextlib.nullcontext() if flight else span("sweep",
+                                                              spans):
+                n = self.nshards
+                work = begun[:, 1] > 0
+                nf = nc = nsweeps = nlaunches = nmigrated = nexchanged = 0
+                marks, parts = [], {"flight": 0.0, "raster": 0.0}
+                rounds = []
+                while work.any():
+                    with (span("flight.round", spans) if flight
+                          else contextlib.nullcontext()):
+                        ctrl, received = self._pass(tt, work, marks, parts,
+                                                    rounds, spans)
+                    nf += int(ctrl[:, 0].sum())
+                    nc += int(ctrl[:, 1].sum())
+                    nlaunches += int(ctrl[:, -2].sum())
+                    nsweeps += int(ctrl[:, -1].max())
+                    if self.migrates:
+                        sends = ctrl[:, self.nctrl:self.nctrl + n]
+                        nmigrated += int(sends.sum())
+                        nexchanged += int(sends[self.crossing].sum())
+                    work = (ctrl[:, 2] > 0) | (received > 0)
+                step_time = self.profile.stop(f"step{tt}")
+        wall = spans.seconds
+        t_migrate = wall.get("migrate", 0.0)
+        phases = {"begin": wall["begin"]}
+        if flight:
             if self.engine == "kernel":
                 parts = event_phases(marks)
             phases.update(parts)
-            phases["loop"] = (census - parts["flight"] - parts["raster"]
+            phases["loop"] = (wall["census"] - wall["begin"]
+                              - parts["flight"] - parts["raster"]
                               - t_migrate)
         else:
-            phases["sweep"] = census - t_migrate
+            phases["sweep"] = wall["sweep"] - t_migrate
         if self.migrates:
             phases["migrate"] = t_migrate
             if self.world > 1:
-                phases["exchange"] = t_exchange
+                phases["exchange"] = wall.get("exchange", 0.0)
         m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
                         ncollisions=nc, nprocessed=nprocessed,
                         nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
                         nmigrated=nmigrated, nexchanged=nexchanged,
-                        rounds=launch_records(rounds))
+                        rounds=launch_records(rounds), nwaits=spans.waits())
         self.step_metrics.append(m)
         return m
+
+    def _pass(self, tt: int, work: np.ndarray, marks: list, parts: dict,
+              rounds: list, spans: Spans) -> tuple:
+        """One pass of the step's loop: a chunk on every shard with work,
+        the one read of every shard's counters, the flight shards' host
+        part of the round and, in the spatial modes, migration.  Returns
+        (every global shard's counters as read, the lanes each global
+        shard received)."""
+        n = self.nshards
+        rows, host, chunk = [], [], {}
+        for s, sh in zip(self.local, self.shards):
+            w = bool(work[s])
+            ctrl, sweeps = (self._chunk(sh, tt, marks, parts) if w
+                            else (torch.zeros(self.nctrl, dtype=torch.int64,
+                                              device=sh.device), 0))
+            if w and self.deposits:
+                chunk[s] = {"shard": s} | sweeps
+                sweeps = sweeps["pieces"]
+            host.append([int(w and self.engine == "kernel"), sweeps])
+            rows.append(torch.cat([ctrl, self._departures(sh)])
+                        if self.migrates else ctrl)
+        # Every global shard's counters, then [launched, sweeps]: one read
+        # and one gather for the chunk.
+        read = "flight.read" if self.transport == "flight" else "sweep.read"
+        with span(read, spans):
+            ctrl = gather_counters(rows, host)
+        if chunk:
+            with span("flight.host", spans):
+                for s, rec in chunk.items():
+                    sh = self.shards[s - self.local.start]
+                    after_round(sh.flight, sh.tally, sh.geom, rec,
+                                ctrl[s, 2:6], marks)
+                    rounds.append(rec)
+        for s, sh in zip(self.local, self.shards):
+            if work[s] and sh.sweep is not None:
+                sh.sweep.n_active = int(ctrl[s, 2])
+        received = np.zeros(n, dtype=np.int64)
+        if self.migrates:
+            with span("migrate", spans):
+                sends = ctrl[:, self.nctrl:self.nctrl + n]
+                self._migrate(sends, ctrl[:, self.nctrl + n], spans)
+                received = sends.sum(axis=0)
+                for s, sh in zip(self.local, self.shards):
+                    for b in (sh.flight, sh.sweep):
+                        if received[s] and b is not None:
+                            b.n_active = None
+        return ctrl, received
 
     def _chunk(self, sh: Shard, tt: int, marks: list, parts: dict):
         """One chunk on shard `sh`: (its nctrl counters as an int64
@@ -479,11 +516,12 @@ class DecomposedSimulation(SimulationBase):
         return torch.cat([(sh.dest[None] == shards).sum(1),
                           state.dead.sum().reshape(1)])
 
-    def _migrate(self, sends: np.ndarray, free: np.ndarray) -> float:
+    def _migrate(self, sends: np.ndarray, free: np.ndarray,
+                 spans: Spans | None = None) -> None:
         """Move every departing lane to its owner shard: sends[s, d] lanes
         from s to d (read with the counters), free[s] dead slots on s.
-        Returns the seconds of the exchange between processes (0.0 when
-        no lane crosses one)."""
+        The exchange between processes, when a lane crosses one, is the
+        span nt.exchange, added to `spans`."""
         out = {}
         for s, sh in zip(self.local, self.shards):
             gone = []
@@ -494,11 +532,9 @@ class DecomposedSimulation(SimulationBase):
                 gone.append(idx)
             if gone:
                 sh.state.dead[torch.cat(gone)] = True
-        t_exchange = 0.0
         if sends[self.crossing].any():
-            t0 = time.perf_counter()
-            out.update(self._exchange(sends, out))
-            t_exchange = time.perf_counter() - t0
+            with span("exchange", spans):
+                out.update(self._exchange(sends, out))
         for r, sh in zip(self.local, self.shards):
             k = int(sends[:, r].sum())
             if k == 0:
@@ -513,7 +549,6 @@ class DecomposedSimulation(SimulationBase):
             for i, f in enumerate(STATE_FIELDS):
                 getattr(sh.state, f)[slots] = torch.cat(
                     [a[i].to(sh.device) for a in arrivals])
-        return t_exchange
 
     def _exchange(self, sends: np.ndarray, out: dict) -> dict:
         """Swap the lanes that cross between processes: this process packs

@@ -9,6 +9,38 @@ covers its device work on all of them.
 `maybe_trace` records a torch.profiler trace (CPU, and CUDA when a card is
 there: the kernels of csrc/ show under their own names) in place of
 neutral_tpu's jax.profiler trace.
+
+`span` marks a layer boundary of the program: under a running profiler it
+opens `record_function("nt." + name)`, which lands on the trace's host
+clock beside the card's kernels, copies and sets; with none running it
+only checks that none is.  Given a `Spans`, it also adds its wall time and
+one entry to it: `StepMetrics.phases` and `StepMetrics.nwaits` are read
+from the spans of the step.  The spans, nested as they open:
+
+    nt.setup          make_simulation
+      nt.setup.mesh     make_geometry, build_mesh
+      nt.setup.xs       load_cross_sections, the same-table compare
+      nt.setup.inject   inject_particles
+      nt.setup.buffers  the tally, FlightBuffers, SweepBuffers
+      nt.setup.wait     the closing synchronize
+    nt.census         Simulation.step
+      nt.begin          begin_census
+        nt.begin.read     the host read of the live count
+      nt.sweep          the sweep transport's census
+        nt.sweep.read     each launch's read of the lanes still working
+        nt.census.read    the read of the census's event counts
+      nt.flight.round   one flight round (flight transport), each with
+        nt.flight.read    the round's read of the counters
+        nt.flight.host    after_round: re-deposit, segment buffer growth
+      nt.census.read    (flight transport) the census's event counts
+      nt.migrate        migration between shards (spatial decompositions)
+        nt.exchange       the lanes' exchange between processes
+    nt.tally_read     host_tally
+      nt.tally_read.copy     the copy to the host
+      nt.tally_read.convert  the conversion to float64
+
+Every `*.read` span, `nt.setup.wait` and `nt.tally_read` is a host wait
+for the card.
 """
 
 from __future__ import annotations
@@ -61,10 +93,48 @@ class Profile:
         return "\n".join(lines)
 
 
+PREFIX = "nt."
+
+
+@dataclass
+class Spans:
+    """Wall seconds and entries of the spans opened with it, by name
+    (without PREFIX)."""
+    seconds: dict = field(default_factory=dict)
+    counts: dict = field(default_factory=dict)
+
+    def add(self, name: str, seconds: float) -> None:
+        self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def waits(self) -> int:
+        """Entries of the `*.read` spans: host reads that wait for the
+        card."""
+        return sum(n for k, n in self.counts.items() if k.endswith(".read"))
+
+
+@contextlib.contextmanager
+def span(name: str, spans: Spans | None = None):
+    """The span PREFIX + `name` on a running profiler's trace (nothing
+    when none runs), and, given `spans`, its wall time and one entry
+    added to it."""
+    scope = (torch.profiler.record_function(PREFIX + name)
+             if torch.autograd.profiler._is_profiler_enabled
+             else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    try:
+        with scope:
+            yield
+    finally:
+        if spans is not None:
+            spans.add(name, time.perf_counter() - t0)
+
+
 @contextlib.contextmanager
 def maybe_trace(trace_dir: str | None):
     """Trace the region with torch.profiler into `trace_dir`/trace.json (a
-    Chrome trace); nothing when `trace_dir` is None."""
+    Chrome trace, which holds the `nt.*` spans beside the kernels); nothing
+    when `trace_dir` is None."""
     if trace_dir is None:
         yield
         return

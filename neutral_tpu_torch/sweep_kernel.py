@@ -62,6 +62,7 @@ import torch
 
 from . import build, transport
 from .particles import ParticleState
+from .profiler import Spans, span
 from .transport import Geometry
 from .xs import CrossSection
 
@@ -515,13 +516,16 @@ def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
                        absorb_tab: CrossSection, master_key: int,
                        inv_ntotal: float, max_events: int = MAX_EVENTS,
                        x_off=None, y_off=None,
-                       buffers: SweepBuffers | None = None):
+                       buffers: SweepBuffers | None = None,
+                       spans: Spans | None = None):
     """Run every lane to census or death (or, under the window `x_off`/
     `y_off`, until it leaves the window) with the CUDA sweep kernel.
 
     Updates `state`'s tensors and `tally` in place (no copy of the 14
     state arrays).  `buffers` holds the loop's buffers between calls (new
-    ones when None).  Returns (state, nfacets, ncollisions, nlaunches).
+    ones when None).  Each host read is a span (nt.sweep.read after each
+    launch, nt.census.read at the end), added to `spans` when given.
+    Returns (state, nfacets, ncollisions, nlaunches).
     """
     regions = (None if geom.regions is None
                else rect_arrays(geom.regions, state.device, state.dtype))
@@ -535,11 +539,13 @@ def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     while True:
         sweep_round(params, buffers, max_events)
         launches += 1
-        working = int(buffers.counts[2])          # waits for the launch
+        with span("sweep.read", spans):
+            working = int(buffers.counts[2])      # waits for the launch
         if working == 0:
             break
         buffers.n_active = working
-    nf, nc = (int(v) for v in buffers.counts[:2].tolist())
+    with span("census.read", spans):
+        nf, nc = (int(v) for v in buffers.counts[:2].tolist())
     return state, nf, nc, launches
 
 

@@ -283,7 +283,8 @@ def test_float64_segment_buffer_budgets_are_bytes():
         flight_kernel.after_round(small, torch.zeros(64 * 64, dtype=f64),
                                   None, rec, [5, reserved, 0, 0], [])
         assert small.segs.shape == (rows, 5) and small.segs.dtype == f64
-        assert rec == {"working": 5, "rows": 100, "refused": True}
+        assert rec == {"working": 5, "rows": 100, "refused": True,
+                       "overflow": False}
         assert small.n_active == 5
     assert flight_kernel.flight_chunk_kernel.refusals == refusals + 2
     with pytest.raises(ValueError, match="float32 or float64"):
