@@ -99,7 +99,7 @@ from .flight_kernel import FlightBuffers, flight_chunk_kernel, launch_records
 from .mesh import build_mesh, density_grid, region_cell_bounds
 from .particles import (ParticleState, inject_particles, merge_states,
                         state_from_numpy)
-from .profiler import Profile, Spans, maybe_trace, span
+from .profiler import TALLY_READS, Profile, Spans, maybe_trace, span
 from .sweep_kernel import (MAX_EVENTS, SweepBuffers, sweep_chunk_kernel,
                            sweep_chunk_plain)
 from .transport import Geometry, use_local_coords
@@ -604,12 +604,26 @@ class Simulation(SimulationBase):
 
     def host_tally(self) -> np.ndarray:
         """Flat (ny*nx,) tally as float64 on the host (one wait for the
-        card)."""
+        card), a copy that a later step leaves as it is.
+
+        On a card the tally is converted to float64 there (exact) and
+        copied once into a page-locked block of torch's caching host
+        allocator; the array holds that block for as long as the caller
+        keeps it, and once it is dropped the block goes back to the cache
+        for the next read.  A caller that keeps n arrays holds n pinned
+        blocks."""
+        tally = self.tally
+        on_card = tally.device.type == "cuda"
         with span("tally_read"):
-            with span("tally_read.copy"):
-                tally = self.tally.cpu()
             with span("tally_read.convert"):
-                return tally.numpy().astype(np.float64)
+                if on_card:
+                    tally = tally.to(torch.float64)
+            with span("tally_read.copy"):
+                host = torch.empty(tally.shape, dtype=torch.float64,
+                                   pin_memory=on_card)
+                host.copy_(tally)
+            TALLY_READS.add(host.data_ptr() if on_card else None)
+            return host.numpy()
 
     def states(self) -> list[ParticleState]:
         return [self.state]

@@ -36,11 +36,20 @@ from the spans of the step.  The spans, nested as they open:
       nt.migrate        migration between shards (spatial decompositions)
         nt.exchange       the lanes' exchange between processes
     nt.tally_read     host_tally
-      nt.tally_read.copy     the copy to the host
-      nt.tally_read.convert  the conversion to float64
+      nt.tally_read.convert  on a card, the tally's conversion to float64
+                             there (exact; empty for a float64 tally)
+      nt.tally_read.copy     the blocking copy into a float64 host block:
+                             pinned from torch's caching host allocator
+                             on a card, pageable (and converting) on the
+                             CPU
 
 Every `*.read` span, `nt.setup.wait` and `nt.tally_read` is a host wait
 for the card.
+
+`TALLY_READS` (a `TallyReads`) counts the process's tally reads and, of
+them, those whose pinned block had an address not seen before: `fresh`
+counts the host allocations (`cudaHostAlloc`), `reads - fresh` on a card
+the blocks reused from the cache.
 """
 
 from __future__ import annotations
@@ -111,6 +120,25 @@ class Spans:
         """Entries of the `*.read` spans: host reads that wait for the
         card."""
         return sum(n for k, n in self.counts.items() if k.endswith(".read"))
+
+
+@dataclass
+class TallyReads:
+    """Tally reads (`host_tally`) and, of them, those into a pinned block
+    at an address not seen before (no pinned block on the CPU: `address`
+    None)."""
+    reads: int = 0
+    fresh: int = 0
+    seen: set = field(default_factory=set)
+
+    def add(self, address: int | None) -> None:
+        self.reads += 1
+        if address is not None and address not in self.seen:
+            self.seen.add(address)
+            self.fresh += 1
+
+
+TALLY_READS = TallyReads()
 
 
 @contextlib.contextmanager
