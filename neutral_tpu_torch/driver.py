@@ -285,7 +285,12 @@ class StepMetrics:
     # "sweep" (the census; wall clock), for the flight transport "flight"
     # and "raster" (the pieces and the segment deposits: device time from
     # CUDA events with the kernel engine, wall clock with the plain one)
-    # and "loop" (the rest of the census's wall time: the host loop); a
+    # and "loop" (the rest of the census's wall time: the host loop); the
+    # kernel engine's flight transport adds, from the same events,
+    # "raster_bins" and "raster_tiles" (the deposits' two stages, which
+    # add up to "raster") and "raster_overflow" (of "raster", the
+    # deposit launches whose piece buffer overflowed and which deposited
+    # nothing before their re-run; flight_kernel.event_phases); a
     # spatial decomposition adds "migrate" (wall clock), and over several
     # processes "exchange", its part from packing the lanes bound for
     # other processes to unpacking theirs (wall clock, waits included).
@@ -299,12 +304,20 @@ class StepMetrics:
     nexchanged: int = 0   # of those, lanes moved between processes
     # flight kernel: one record per launch (flight_kernel.launch_records):
     # its shard, lanes launched, pieces per lane, lanes still working after
-    # it, segment rows written, whether rows were refused, device ms
+    # it, segment rows written, whether rows were refused, the deposit's
+    # pieces ("deposit_pieces"), whether it overflowed, device ms
     rounds: list = dataclasses.field(default_factory=list)
     # host reads in the census that waited for the card: its `*.read`
     # spans (the live count, each launch's counters, the event counts);
     # printed as the step's "Host waits" line
     nwaits: int = 0
+
+    @property
+    def noverflows(self) -> int:
+        """Segment deposits re-run after their piece buffer overflowed (the
+        rounds' "overflow"); printed on the "Host waits" line of the
+        flight kernel's steps."""
+        return sum(r["overflow"] for r in self.rounds)
 
 
 def within_tolerance(expected: float, actual: float, tol: float) -> bool:
@@ -477,7 +490,11 @@ class SimulationBase:
                     f"{m.nexchanged} of them between processes")
             elif "migrate" in m.phases:
                 out(f"Migrated {m.nmigrated} particles between shards")
-            out(f"Host waits {m.nwaits} (reads that waited for the device)")
+            waits = f"Host waits {m.nwaits} (reads that waited for the device)"
+            if self.engine == "kernel" and self.transport == "flight":
+                # the segment deposits re-run after a piece-buffer overflow
+                waits += f"; deposit re-runs {m.noverflows}"
+            out(waits)
             out(f"Step time  {m.step_time:.4f}s")
             out(f"Wallclock  {self.wallclock:.4f}s")
             out(f"Facets     {m.nfacets}")

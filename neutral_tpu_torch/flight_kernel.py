@@ -22,8 +22,9 @@ host read of the counters.
   (`grown_rows`); the deposit reads min(rows reserved, capacity)
   (`rows_written`).
 - *Deposit.*  After an overflow of the deposit's piece buffer the host
-  grows it and deposits the same rows again (`redeposit`) before the next
-  round.
+  grows it and deposits the same rows again (`redeposit`, in the span
+  nt.flight.redeposit) before the next round.  The overflowed launch
+  deposited nothing; its device time is kept apart (`event_phases`).
 
 All per-history state lives in the state tensors between launches, each
 lane at its own index, so the rounds, the lists and the refusals change
@@ -51,6 +52,10 @@ configuration the kernel does not implement.
 `flight_chunk_kernel.launches` counts flight-kernel launches (made by
 `flight_round`, from either loop) and `.refusals` the rounds that refused
 segment rows; callers may reset both.
+
+A round's CUDA events ("marks", one dict a deposit launch) time its flight
+launch and its deposit's two stages, the bins and the tiles (raster_kernel
+`stages`); `event_phases` sums them into the step's device phases.
 """
 
 from __future__ import annotations
@@ -290,7 +295,10 @@ def flight_round(params: ctypes.Structure, buffers: FlightBuffers,
     `segments` is a list, the round's rows are appended to it as an
     (nseg, 5) copy (a host read; for checks).  Does not wait otherwise.
     Returns the round's record: the lanes launched, the pieces per lane and
-    its three CUDA events (start, flight done, deposit done) as "marks"."""
+    its CUDA events as "marks": {"flight": (start, flight done),
+    "deposit": (deposit start = flight done, bins done, deposit done),
+    "overflow": False, which after_round sets when the deposit
+    overflowed}."""
     b = buffers
     real, tally_dtype = _types(params)
     if (b.segs.dtype, b.deposit.tally_dtype) != (real, tally_dtype):
@@ -320,22 +328,25 @@ def flight_round(params: ctypes.Structure, buffers: FlightBuffers,
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         b.counts[2:4].zero_()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         build.check_launch(lib, launch(ctypes.byref(params), stream),
                            "flight kernel")
         flight_chunk_kernel.launches += 1
         flight_chunk_kernel.cards[b.device.index] += 1
         ev[1].record()
+        stages = []
         deposit_segments_kernel(tally, b.segs, b.counts[3:4], geom.nx,
-                                geom.ny, b.deposit, b.counts[4:6])
-        ev[2].record()
+                                geom.ny, b.deposit, b.counts[4:6], stages)
         if segments is not None:
             n = rows_written(int(b.counts[3]), b.segs.shape[0])
             segments.append(b.segs[:n].clone())
     b.lists.reverse()               # the next list is the next launch's
     b.round += 1
-    return {"lanes": lanes, "pieces": int(max_pieces), "marks": ev}
+    _, bins, done = stages[0]
+    return {"lanes": lanes, "pieces": int(max_pieces),
+            "marks": {"flight": tuple(ev), "deposit": (ev[1], bins, done),
+                      "overflow": False}}
 
 
 def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
@@ -343,14 +354,18 @@ def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
     """The host's part of a round after its one read of the counters
     (`ctrl` = counts[2:6] as read: lanes still working, segment rows
     reserved, the deposit's pieces, its overflow flag): deposit the rows
-    again after an overflow (its events go to `marks`), grow the segment
-    buffer after a refusal, and take the next list's length.  Adds to
-    `record` the lanes still working, the rows written, whether rows
-    were refused and whether the deposit overflowed (a re-deposit)."""
+    again after an overflow (the round's marks flagged as overflowed, the
+    re-run's appended to `marks`), grow the segment buffer after a
+    refusal, and take the next list's length.  Adds to `record` the lanes
+    still working, the rows written, whether rows were refused, the
+    deposit's pieces ("deposit_pieces") and whether the deposit
+    overflowed (a re-deposit)."""
     working, reserved, need, overflow = (int(v) for v in ctrl)
     b = buffers
     if overflow:
-        marks.append(redeposit(tally, b, geom, need))
+        record["marks"]["overflow"] = True
+        with span("flight.redeposit"):
+            marks.append(redeposit(tally, b, geom, need))
     cap = b.segs.shape[0]
     if reserved > cap:
         flight_chunk_kernel.refusals += 1
@@ -361,30 +376,51 @@ def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
             b.segs = torch.empty((rows, 5), dtype=dtype, device=b.device)
     b.n_active = working
     record.update(working=working, rows=rows_written(reserved, cap),
-                  refused=reserved > cap, overflow=bool(overflow))
+                  refused=reserved > cap, deposit_pieces=need,
+                  overflow=bool(overflow))
 
 
 def redeposit(tally: torch.Tensor, buffers: FlightBuffers, geom: Geometry,
-              need: int) -> list:
+              need: int) -> dict:
     """After a round whose deposit overflowed (counts[5], read by the
     caller with need = counts[4]): grow the piece buffer and deposit the
-    round's rows again, before the next flight launch.  Returns events as
-    flight_round's, with no flight time."""
+    round's rows again, before the next flight launch.  Returns its marks
+    as flight_round's, with no flight launch: the deposit's span runs from
+    before the buffer's growth."""
     b = buffers
     with torch.cuda.device(b.device):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        stages = []
         redeposit_segments(tally, b.segs, b.counts[3:4], geom.nx, geom.ny,
-                           b.deposit, b.counts[4:6], need)
-        ev[1].record()
-    return [ev[0], ev[0], ev[1]]
+                           b.deposit, b.counts[4:6], need, stages)
+    _, bins, done = stages[0]
+    return {"deposit": (start, bins, done), "overflow": False}
 
 
 def event_phases(marks: list) -> dict:
-    """Device seconds of the flight launches ("flight") and of the segment
-    deposits ("raster") of rounds whose events have completed."""
-    return {"flight": sum(e[0].elapsed_time(e[1]) for e in marks) / 1e3,
-            "raster": sum(e[1].elapsed_time(e[2]) for e in marks) / 1e3}
+    """Device seconds of completed rounds and re-runs (their marks): the
+    flight launches ("flight"); every segment deposit launch, re-runs
+    included ("raster"), split into its bin stage ("raster_bins") and its
+    tile stage ("raster_tiles"), the two adding up to "raster"; and of
+    "raster" the launches whose piece buffer overflowed, which deposited
+    nothing ("raster_overflow")."""
+    def seconds(a, b):
+        return a.elapsed_time(b) / 1e3
+
+    out = dict.fromkeys(("flight", "raster", "raster_bins", "raster_tiles",
+                         "raster_overflow"), 0.0)
+    for m in marks:
+        if "flight" in m:
+            out["flight"] += seconds(*m["flight"])
+        start, bins, done = m["deposit"]
+        whole = seconds(start, done)
+        out["raster"] += whole
+        out["raster_bins"] += seconds(start, bins)
+        out["raster_tiles"] += seconds(bins, done)
+        if m["overflow"]:
+            out["raster_overflow"] += whole
+    return out
 
 
 def launch_records(rounds: list) -> list:
@@ -392,9 +428,9 @@ def launch_records(rounds: list) -> list:
     flight launch's device milliseconds ("flight_ms")."""
     out = []
     for r in rounds:
-        e = r["marks"]
+        start, done = r["marks"]["flight"]
         out.append({k: v for k, v in r.items() if k != "marks"}
-                   | {"flight_ms": e[0].elapsed_time(e[1])})
+                   | {"flight_ms": start.elapsed_time(done)})
     return out
 
 
@@ -416,11 +452,11 @@ def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
     with after_round's additions).  `buffers` holds the loop's buffers
     between calls (new ones when None).  Each round is a span
     (nt.flight.round, holding nt.flight.read around its read of the
-    counters and nt.flight.host around after_round), and so is the final
-    read of the event counts (nt.census.read), added to `spans` when
-    given.  Returns (state, nfacets, ncollisions, nlaunches, phases) with
-    `phases` the device seconds of the flight launches ("flight") and of
-    the segment deposits ("raster"), from CUDA events.
+    counters and nt.flight.host around after_round, which holds
+    nt.flight.redeposit around a re-run), and so is the final read of the
+    event counts (nt.census.read), added to `spans` when given.  Returns
+    (state, nfacets, ncollisions, nlaunches, phases) with `phases`
+    event_phases' device seconds, from CUDA events.
     """
     dev = state.device
     rects = (None if geom.rects is None

@@ -32,6 +32,8 @@ from the spans of the step.  The spans, nested as they open:
       nt.flight.round   one flight round (flight transport), each with
         nt.flight.read    the round's read of the counters
         nt.flight.host    after_round: re-deposit, segment buffer growth
+          nt.flight.redeposit  a deposit's re-run after its piece buffer
+                               overflowed: the buffer's growth and launch
       nt.census.read    (flight transport) the census's event counts
       nt.migrate        migration between shards (spatial decompositions)
         nt.exchange       the lanes' exchange between processes

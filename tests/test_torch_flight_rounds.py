@@ -284,7 +284,7 @@ def test_float64_segment_buffer_budgets_are_bytes():
                                   None, rec, [5, reserved, 0, 0], [])
         assert small.segs.shape == (rows, 5) and small.segs.dtype == f64
         assert rec == {"working": 5, "rows": 100, "refused": True,
-                       "overflow": False}
+                       "deposit_pieces": 0, "overflow": False}
         assert small.n_active == 5
     assert flight_kernel.flight_chunk_kernel.refusals == refusals + 2
     with pytest.raises(ValueError, match="float32 or float64"):

@@ -35,6 +35,7 @@ PARENT = {
     "nt.census.read": "nt.census",
     "nt.flight.round": "nt.census", "nt.flight.read": "nt.flight.round",
     "nt.flight.host": "nt.flight.round",
+    "nt.flight.redeposit": "nt.flight.host",
     "nt.migrate": "nt.census",
     "nt.tally_read.copy": "nt.tally_read",
     "nt.tally_read.convert": "nt.tally_read",
@@ -200,10 +201,18 @@ WORKING = [7, 3, 0]          # lanes still working after each launch
 
 
 class Mark:
-    """A CUDA event's stand-in: 0.5 ms between any two."""
+    """A CUDA event's stand-in, recorded at `ms` milliseconds."""
+
+    def __init__(self, ms):
+        self.ms = ms
 
     def elapsed_time(self, other):
-        return 0.5
+        return other.ms - self.ms
+
+
+# A round's marks: flight 0.5 ms, then the deposit's bins 0.1 and tiles
+# 0.4 ms.
+MARKS = (Mark(0.0), Mark(0.5), Mark(0.6), Mark(1.0))
 
 
 def as_kernel_engine(monkeypatch, sim):
@@ -227,8 +236,13 @@ def as_kernel_engine(monkeypatch, sim):
                      segments=None):
         launched(buffers.counts)
         buffers.counts[3] = 1            # a row reserved, none refused
+        buffers.counts[4] = 5            # the deposit's pieces
         buffers.round += 1
-        return {"lanes": params.n, "pieces": 2, "marks": [Mark()] * 3}
+        start, flown, bins, done = MARKS
+        return {"lanes": params.n, "pieces": 2,
+                "marks": {"flight": (start, flown),
+                          "deposit": (flown, bins, done),
+                          "overflow": False}}
 
     params = lambda state, *a, **k: types.SimpleNamespace(n=state.n)  # noqa
     monkeypatch.setattr(sweep_kernel, "sweep_params", params)
@@ -269,13 +283,21 @@ def test_kernel_loops_read_in_spans(kind, monkeypatch, recorded):
         assert m.nwaits == wall.waits() == 1 + len(WORKING) + 1
         assert m.phases["begin"] == wall.seconds["begin"]
         if flight:
-            assert set(m.phases) == {"begin", "flight", "raster", "loop"}
+            assert set(m.phases) == {"begin", "flight", "raster", "loop",
+                                     "raster_bins", "raster_tiles",
+                                     "raster_overflow"}
             assert m.phases["flight"] == pytest.approx(1.5e-3)
+            assert m.phases["raster"] == pytest.approx(1.5e-3)
+            assert m.phases["raster_bins"] == pytest.approx(0.3e-3)
+            assert m.phases["raster_tiles"] == pytest.approx(1.2e-3)
+            assert m.phases["raster_overflow"] == 0.0
+            assert m.noverflows == 0
             assert m.phases["loop"] == pytest.approx(
                 wall.seconds["census"] - wall.seconds["begin"] - 3e-3,
                 abs=1e-12)
             assert [r["working"] for r in m.rounds] == WORKING
             assert [r["overflow"] for r in m.rounds] == [False] * 3
+            assert [r["deposit_pieces"] for r in m.rounds] == [5] * 3
             assert [r["refused"] for r in m.rounds] == [False] * 3
         else:
             assert set(m.phases) == {"begin", "sweep"}
