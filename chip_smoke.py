@@ -4,6 +4,7 @@ on several where the machine has them.
 
     python3 chip_smoke.py            # every phase; 30 where there are 2+ cards
     python3 chip_smoke.py --cards    # phases 1-2 and 30 alone (four cards)
+    python3 chip_smoke.py --inject   # phases 1-2 and 31 alone
 
 (`python3 chip_smoke.py --process <CLI arguments> [--then <CLI
 arguments> ...]` is one process of phases 23 and 30: `python -m
@@ -234,7 +235,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase 23) must have started each census of each shard once: the begin
    kernel on the kernel engine and never transport.begin_timestep (which
    counts its calls), the plain version on the plain engine and never the
-   kernel.
+   kernel.  Each must have injected as phase 31 says.
 26. float64 on the card's kernels (the float64 instantiations of the sweep,
    begin and lookup kernels, global coordinates; `auto` routes float64
    decks there, JAX's is_f32 rule sending them to the sweep transport):
@@ -312,6 +313,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with both step times printed; a decomposed run's counts equal to the
    single device's (over rects split at the blocks' walls on the flight
    transport).  Prints its seconds.
+31. The inject kernel (csrc/inject.cu, inject_kernel.inject_particles_kernel)
+   against particles.inject_particles on the card, in float32 and
+   float64: the scatter deck at its 10,000,000 particles (the cell-local
+   frame in float32), csp and stream at their 1,000,000, scatter at
+   1,000,000, a pcg64si copy of stream and a stretched copy of scatter at
+   1,000,000 (no pitch: the edge search, the global frame), each on the
+   mesh and source box Simulation gives it: all 14 fields bitwise, one
+   counted launch.  Prints each mode's device time (INJECT_REPS calls in
+   one CUDA graph), one call on the clock, the plain version's time and
+   the bound.  Every main path of one device (and phase 29's) must have
+   injected its Simulation once: by one inject kernel launch on the
+   kernel engine and never inject_particles (which counts its calls), by
+   inject_particles on the plain engine and never the kernel; every
+   decomposed one (each process of phases 23 and 30 too) through neither,
+   its shards injecting through particles.inject_fields.
 30. Several cards (when torch.cuda.device_count() >= 2; the 4x1 and 2x2
    layouts need four, and on fewer phase 30 prints so and does not try
    them; on one card it prints one line saying it needs several): first
@@ -346,10 +362,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    sweep_kernel_edge_array_f64, the begin kernel's no-pitch comparisons in
    its entries' no_pitch_modes, the mixed pairs' as sweep_kernel_f32t64,
    flight_kernel_f32t64, segment_deposit_kernel_f32t64 and their _f64t32
-   twins; with phase 30, the main kernels' `launches_on_cards`: each
+   twins, the inject kernel as inject_kernel and inject_kernel_f64; with
+   phase 30, the main kernels' `launches_on_cards`: each
    phase 30 run's launches by card), then the JSON result line.  With
    `--cards`, a JSON line of phase 30's runs (launches by card, step
-   times, peak memory by card) stands in place of the kernels line.
+   times, peak memory by card) stands in place of the kernels line; with
+   `--inject`, the kernels line holds the inject kernel's entries alone.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 work this run gave it: the larger of the bytes it must move (each lane's
@@ -398,7 +416,11 @@ clock, mean free path and counter written), 4 more a dead lane (its old
 mean free path, which a live lane's draw replaces), the scatter
 table's keys and values in table mode, and a live lane's pair draw and
 12 float operations; its `ms` is device time as the lookup's is, and no
-PyTorch call computes its function (`library_ms` null).
+PyTorch call computes its function (`library_ms` null).  The inject
+kernel's bound: a lane's 14 fields written once (61 bytes in float32, 97
+in float64), the edge arrays read once on a mesh without a pitch, and two
+pair draws a lane; its float work (the mapping, the cell, cos and sin) is
+not counted.  Its `ms` is device time as the begin kernel's is.
 """
 
 from __future__ import annotations
@@ -493,6 +515,11 @@ BEGIN_LANE_BYTES = 21 + 16
 BEGIN_DEAD_BYTES = 4
 FLOPS_BEGIN = FLOPS_INTERPOLATE + 6
 BEGIN_REPS = 20                  # timed calls of the begin kernel
+# The inject kernel writes a lane's 14 fields once (nine floats, two int32
+# cells, the dead flag, pid and counter) and reads nothing but a mesh
+# without a pitch's two edge arrays; it makes two pair draws a lane.
+INJECT_INT_BYTES = 2 * 4 + 1 + 2 * 8
+INJECT_REPS = 20                 # timed calls of the inject kernel
 # Phase 26: float64 on the card's kernels.
 F64_MAIN_N = 1_000_000           # the analytic, threefry comparison
 F64_MODE_N = 1 << 18             # the other modes' comparisons
@@ -1039,8 +1066,8 @@ def kernel_wrappers():
     """(wrapper, count attribute) of every kernel and plain version of
     the main paths."""
     from neutral_tpu_torch import (begin_kernel, flight, flight_kernel,
-                                   raster, raster_kernel, sweep_kernel,
-                                   transport)
+                                   inject_kernel, particles, raster,
+                                   raster_kernel, sweep_kernel, transport)
     return [(sweep_kernel.sweep_chunk_kernel, "launches"),
             (sweep_kernel.sweep_chunk_plain, "calls"),
             (flight_kernel.flight_chunk_kernel, "launches"),
@@ -1049,7 +1076,9 @@ def kernel_wrappers():
             (raster_kernel.deposit_segments_kernel, "overflows"),
             (raster.deposit_segments_plain, "calls"),
             (begin_kernel.begin_timestep_kernel, "launches"),
-            (transport.begin_timestep, "calls")]
+            (transport.begin_timestep, "calls"),
+            (inject_kernel.inject_particles_kernel, "launches"),
+            (particles.inject_particles, "calls")]
 
 
 def check_begin(name: str, out: str, c: dict, shards: int) -> int:
@@ -1067,6 +1096,21 @@ def check_begin(name: str, out: str, c: dict, shards: int) -> int:
              f"{'kernel' if kernel else 'plain version'} and none of the "
              "other")
     return c["begin_timestep_kernel"]
+
+
+def check_inject(name: str, single: bool, kernel: bool, c: dict) -> int:
+    """Fail unless a run injected as its layout and engine do: a single
+    device's Simulation once, by one inject kernel launch on the kernel
+    engine and one particles.inject_particles call on the plain one, and
+    never the other; a decomposition through neither (its shards inject
+    through particles.inject_fields).  Returns the kernel's launches."""
+    want = ((1, 0) if kernel else (0, 1)) if single else (0, 0)
+    got = (c["inject_particles_kernel"], c["inject_particles"])
+    if got != want:
+        fail(f"{name}: inject kernel launches and plain inject calls {got}; "
+             f"want {want} ({'one device' if single else 'a decomposition'}"
+             f", the {'kernel' if kernel else 'plain'} engine)")
+    return got[0]
 
 
 def reset_counts(wrappers):
@@ -1124,6 +1168,9 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     shards = re.search(r"^Decomposition: \w+, (\d+) shards", out, re.M)
     main_path.begin_launches[name] = check_begin(
         name, out, counts, int(shards[1]) if shards else 1)
+    main_path.inject_launches[name] = check_inject(
+        name, "Decomposition: none (1 device)." in out,
+        "Engine: kernel." in out, counts)
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
     if not math.isfinite(total):
         fail(f"{name}: tally sum {total} is not finite")
@@ -1155,6 +1202,7 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
 main_path.walls = {}     # wall seconds of each main path, by label
 main_path.runs = {}      # (per-step counts, step seconds), by label
 main_path.begin_launches = {}    # begin kernel launches, by label
+main_path.inject_launches = {}   # inject kernel launches, by label
 main_path.cards = {}     # kernel launches by card, by label
 main_path.peaks = {}     # peak GiB by card, by label
 
@@ -2131,6 +2179,115 @@ def begin_phase(tmp: str, torch, driver, transport,
     return res
 
 
+def inject_compare(torch, driver, deck: str, label: str, dtype: str,
+                   n: int | None = None) -> dict:
+    """Phase 31 on one deck at n particles (its own count if None) in
+    `dtype`: the inject kernel against particles.inject_particles on the
+    mesh and source box that Simulation gives it (the cell-local frame on
+    the sweep transport in float32 with a pitch), all 14 fields bitwise,
+    one counted launch.  Returns the kernel's device time (INJECT_REPS calls in one
+    CUDA graph), its time on the clock, the plain version's and the
+    bound."""
+    from neutral_tpu_torch.inject_kernel import inject_particles_kernel
+    from neutral_tpu_torch.particles import STATE_FIELDS, inject_particles
+
+    cfg = driver.load_config(deck)
+    cfg = cfg.with_(nparticles=n or cfg.nparticles, expected_tally=None,
+                    dtype=dtype, tally_dtype=dtype)
+    sim = driver.Simulation(cfg, device="cuda", engine="plain", quiet=True)
+    n = cfg.nparticles
+    kw = dict(nparticles=n, initial_energy=cfg.initial_energy, dt=cfg.dt,
+              dtype=sim.dtype, device=sim.device, **sim.source())
+    launches = inject_particles_kernel.launches
+    got = inject_particles_kernel(sim.mesh, **kw)
+    want = inject_particles(sim.mesh, **kw)
+    torch.cuda.synchronize()
+    bad = [f for f in STATE_FIELDS
+           if not torch.equal(bits(torch, getattr(got, f)),
+                              bits(torch, getattr(want, f)))]
+    if bad or inject_particles_kernel.launches != launches + 1:
+        fail(f"inject {label}: fields {bad} differ from the plain "
+             f"version's; {inject_particles_kernel.launches - launches} "
+             "launches for one call")
+    del got, want
+    ms = graph_ms(torch, lambda: inject_particles_kernel(sim.mesh, **kw),
+                  INJECT_REPS)
+    wall_ms = min(timed(torch, inject_particles_kernel, sim.mesh, **kw)[0]
+                  for _ in range(3))
+    plain_ms = sorted(timed(torch, inject_particles, sim.mesh, **kw)[0]
+                      for _ in range(3))[1]
+    real = 4 if dtype == "float32" else 8
+    edges = 0 if sim.mesh.uniform else (cfg.nx + cfg.ny + 2) * real
+    b = bound(n * (9 * real + INJECT_INT_BYTES) + edges,
+              2 * n * DRAW_OPS[cfg.rng], 0)
+    frame, uniform = sim.coords(), bool(sim.mesh.uniform)
+    print(f"[inject {label}] {n} lanes, {cfg.rng}, "
+          f"{'uniform' if uniform else 'stretched'} mesh, {frame} "
+          f"frame: kernel {ms:.4f} ms (device, {INJECT_REPS} calls in one "
+          f"CUDA graph; {wall_ms:.3f} ms on the clock), plain "
+          f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); all {len(STATE_FIELDS)} fields equal bit "
+          "for bit, one launch", flush=True)
+    del sim
+    torch.cuda.empty_cache()
+    return {"ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+            "max_abs_err": 0.0, "n": n, "rng": cfg.rng, "frame": frame,
+            "uniform": uniform, **b}
+
+
+def inject_phase(tmp: str, torch, driver) -> dict:
+    """Phase 31: the inject kernel against its plain version, in float32
+    and float64, on each deck of the benchmark at its own count (scatter
+    10,000,000, csp and stream 1,000,000), on scatter at 1,000,000, on a
+    pcg64si copy of stream and on a stretched copy of scatter (no pitch:
+    the edge search, the global frame).  Returns each mode's comparison
+    by working type."""
+    modes = [("scatter", SCATTER, None), ("csp", FLIGHT_DECKS[2], None),
+             ("stream", FLIGHT_DECKS[0], None),
+             ("scatter 1M", SCATTER, MODE_N),
+             ("pcg64si stream", deck_copy(FLIGHT_DECKS[0], tmp,
+                                          "rng pcg64si\n"), None),
+             ("stretched scatter 1M", deck_copy(SCATTER, tmp, STRETCH),
+              MODE_N)]
+    return {dtype: {label: inject_compare(torch, driver, deck, label, dtype,
+                                          n)
+                    for label, deck, n in modes}
+            for dtype in ("float32", "float64")}
+
+
+def inject_entries(inject: dict, launches: dict) -> list:
+    """The inject kernel's entries of the kernels line, float32 and
+    float64: scatter's 10,000,000 lanes as the main comparison, every
+    mode's, and the launches of the main paths (`launches`, by label; a
+    float64 run's label starts with "f64 ")."""
+    out = []
+    for dtype, sfx in (("float32", ""), ("float64", "_f64")):
+        modes, top = inject[dtype], inject[dtype]["scatter"]
+        mine = {k: v for k, v in launches.items()
+                if k.startswith("f64 ") == (dtype == "float64")}
+        out.append({
+            "name": "inject_kernel" + sfx, "route": "cuda",
+            "source": "neutral_tpu_torch/csrc/inject.cu",
+            "replaces": "neutral_tpu/particles.py:267",
+            "launches": sum(mine.values()), "max_abs_err": 0.0,
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "wall_ms": top["wall_ms"],
+            "launches_per_main_path": mine, "modes": modes,
+            "shape": f"the scatter deck's {top['n']} particles, 4000x4000 "
+                     f"mesh, the {top['frame']} frame; ms is the device "
+                     f"time of one of {INJECT_REPS} calls captured in one "
+                     "CUDA graph, wall_ms one call on the host clock, "
+                     "plain_ms particles.inject_particles' on the host "
+                     "clock (median of 3); bound: the 14 fields written "
+                     "once and two pair draws a lane, float work not "
+                     "counted; modes: csp and stream at 1,000,000, scatter "
+                     "at 1,000,000, a pcg64si stream and a stretched "
+                     "scatter; launches: one a single-device Simulation "
+                     "on the kernel engine, summed over every main path"})
+    return out
+
+
 def f64_steps(torch, driver) -> dict:
     """Phase 26: one full-size step of each flight deck in float64 on the
     flight transport's kernels and on the sweep kernel (auto's choice),
@@ -2503,6 +2660,7 @@ def mixed_run(torch, driver, wrappers, deck: str, label: str, state: str,
              f"{sorted({str(t.dtype) for t in tallies})}, counts {c} (want "
              f"the {want_transport} transport's {state}/{tally} kernels, "
              f"{censuses} begin launches and no plain version)")
+    check_inject(label, not decomposition, True, c)
     expected = (CSP_OMP3_TALLY if "csp" in os.path.basename(deck)
                 else cfg.expected_tally)
     rel = abs(total - expected) / abs(expected)
@@ -2887,6 +3045,7 @@ def process_run(what: str, label: str, pieces: list, i: int, nprocs: int,
             launches[k] += c[key]
         main_path.begin_launches[f"{what} {label} {r}"] = check_begin(
             f"{what}, {label}: process {r}", out, c, 4 // nprocs)
+        check_inject(f"{what}, {label}: process {r}", False, True, c)
     if step_counts(out) != want_counts:
         fail(f"{what}, {label}: per-step counts {step_counts(out)} differ "
              f"from {want_counts}")
@@ -3154,7 +3313,7 @@ def phase30(torch, driver, flight, wrappers) -> dict | None:
     return several_cards(torch, driver, flight, wrappers)
 
 
-def main(cards_only: bool = False) -> int:
+def main(cards_only: bool = False, inject_only: bool = False) -> int:
     import torch
 
     # ---- 1. device ------------------------------------------------------
@@ -3193,6 +3352,15 @@ def main(cards_only: bool = False) -> int:
             fail("--cards: phase 30 needs several cards")
         print(f"[device] nvidia-smi: {nvidia_smi()}")
         print(json.dumps({"phase30": cards}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if inject_only:
+        stamp(31)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            inject = inject_phase(tmp, torch, driver)
+        print(json.dumps({"kernels": inject_entries(inject, {})}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -3380,6 +3548,12 @@ def main(cards_only: bool = False) -> int:
     mixed = mixed_phase(tmp.name, torch, driver, transport, flight,
                         sweep_kernel, flight_kernel, raster, raster_kernel,
                         STATE_FIELDS, wrappers, log)
+    tmp.cleanup()
+
+    # ---- 31. the inject kernel ------------------------------------------
+    stamp(31)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    inject = inject_phase(tmp.name, torch, driver)
     tmp.cleanup()
 
     # ---- 30. several cards -----------------------------------------------
@@ -3727,6 +3901,7 @@ def main(cards_only: bool = False) -> int:
                   "window-local rows of split and stream in the 2000x2000 "
                   "block; launches and overflows: phase 28's main paths"},
         *mixed_entries(mixed),
+        *inject_entries(inject, main_path.inject_launches),
     ]
     for k in kernels_line:
         if k["name"] in on_cards:
@@ -3740,4 +3915,5 @@ def main(cards_only: bool = False) -> int:
 
 if __name__ == "__main__":
     sys.exit(process_main(sys.argv[2:]) if sys.argv[1:2] == ["--process"]
-             else main(cards_only=sys.argv[1:] == ["--cards"]))
+             else main(cards_only=sys.argv[1:] == ["--cards"],
+                       inject_only=sys.argv[1:] == ["--inject"]))

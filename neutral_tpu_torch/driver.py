@@ -27,7 +27,9 @@ below 1.0 (a near-vacuum region, where facet events dominate: stream, csp,
 split) and sweep otherwise (scatter).  The engine: `kernel` runs the
 census through the transport's CUDA kernels (sweep_kernel.py, or
 flight_kernel.py with raster_kernel.py), each census started by the begin
-kernel (begin_kernel.py), and needs a CUDA device; `plain`
+kernel (begin_kernel.py), `Simulation`'s particles injected by the inject
+kernel (inject_kernel.py; the decompositions' shards inject through the
+plain version), and needs a CUDA device; `plain`
 runs the plain PyTorch version on any device, and on CUDA only when asked
 for by name; `auto` is `kernel` on CUDA and `plain` otherwise
 (`pick_engine`).  Every kernel runs float32 and float64 (float64 in
@@ -96,6 +98,7 @@ from .config import SimConfig, load_config
 from .constants import VALIDATE_TOLERANCE
 from .flight import disjoint_rects, flight_chunk_plain
 from .flight_kernel import FlightBuffers, flight_chunk_kernel, launch_records
+from .inject_kernel import inject_particles_kernel
 from .mesh import build_mesh, density_grid, region_cell_bounds
 from .particles import (ParticleState, inject_particles, merge_states,
                         state_from_numpy)
@@ -546,8 +549,10 @@ class Simulation(SimulationBase):
                  transport: str = "auto", quiet: bool = False):
         super().__init__(cfg, device=device, engine=engine,
                          transport=transport, quiet=quiet)
+        inject = (inject_particles_kernel if self.engine == "kernel"
+                  else inject_particles)
         with span("setup.inject"):
-            self.state = inject_particles(
+            self.state = inject(
                 self.mesh, nparticles=cfg.nparticles,
                 initial_energy=cfg.initial_energy, dt=cfg.dt,
                 dtype=self.dtype, device=self.device, **self.source())

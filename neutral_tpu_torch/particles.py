@@ -202,7 +202,16 @@ def inject_particles(mesh: Mesh2D, *, nparticles: int, source_x0: float,
     Source geometry is in physical coordinates; `local_coords=(dx, dy)`
     stores x/y as cell-local offsets.  No padding lanes: the kernel takes
     any lane count.
+
+    The plain engine and the CPU inject through this function.  On the
+    kernel engine `Simulation` injects through
+    `inject_kernel.inject_particles_kernel` instead, one launch of
+    csrc/inject.cu that gives the same 14 fields bit for bit; the
+    decompositions' shards (parallel/) inject through `inject_fields` and
+    `source_cells` on every engine.  `inject_particles.calls` counts its
+    calls; callers may reset it.
     """
+    inject_particles.calls += 1
     pid = torch.arange(int(nparticles), dtype=torch.int64, device=device)
     alive = torch.ones(pid.shape, dtype=torch.bool, device=device)
     return inject_fields(
@@ -210,3 +219,6 @@ def inject_particles(mesh: Mesh2D, *, nparticles: int, source_x0: float,
         source_width=source_width, source_height=source_height,
         initial_energy=initial_energy, dt=dt, dtype=dtype,
         rng_scheme=rng_scheme, local_coords=local_coords)
+
+
+inject_particles.calls = 0

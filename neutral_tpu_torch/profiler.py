@@ -20,7 +20,10 @@ from the spans of the step.  The spans, nested as they open:
     nt.setup          make_simulation
       nt.setup.mesh     make_geometry, build_mesh
       nt.setup.xs       load_cross_sections, the same-table compare
-      nt.setup.inject   inject_particles
+      nt.setup.inject   the injection: one launch of the inject kernel
+                        (inject_kernel.py) on the kernel engine,
+                        particles.inject_particles on the plain engine
+                        and in the decompositions' shards
       nt.setup.buffers  the tally, FlightBuffers, SweepBuffers
       nt.setup.wait     the closing synchronize
     nt.census         Simulation.step
