@@ -322,12 +322,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    mesh and source box Simulation gives it: all 14 fields bitwise, one
    counted launch.  Prints each mode's device time (INJECT_REPS calls in
    one CUDA graph), one call on the clock, the plain version's time and
-   the bound.  Every main path of one device (and phase 29's) must have
-   injected its Simulation once: by one inject kernel launch on the
-   kernel engine and never inject_particles (which counts its calls), by
-   inject_particles on the plain engine and never the kernel; every
-   decomposed one (each process of phases 23 and 30 too) through neither,
-   its shards injecting through particles.inject_fields.
+   the bound.  Every main path (and phase 29's, and each process of
+   phases 23 and 30) must have injected each of its shards once (a single
+   device's Simulation: one): by one inject kernel launch on the kernel
+   engine, a decomposition's shard with its vector of pids, and never
+   inject_particles (which counts its calls), by inject_particles on the
+   plain engine and never the kernel.
 30. Several cards (when torch.cuda.device_count() >= 2; the 4x1 and 2x2
    layouts need four, and on fewer phase 30 prints so and does not try
    them; on one card it prints one line saying it needs several): first
@@ -741,8 +741,8 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
 
     loads = int((~start.dead).sum())    # every lane of step 1 is live
     buffers = sweep_kernel.SweepBuffers("cuda")
-    run(sweep_kernel.sweep_chunk_kernel, buffers=buffers)         # warm-up
-    k_ms, ks, knf, knc, kt = run(sweep_kernel.sweep_chunk_kernel,
+    run(driver.census.sweep_chunk_kernel, buffers=buffers)         # warm-up
+    k_ms, ks, knf, knc, kt = run(driver.census.sweep_chunk_kernel,
                                  buffers=buffers)
     slot_use = buffers.slot_use()
     slot_pid = sweep_kernel.thread_slot_use(ks.counter - start.counter)
@@ -780,10 +780,10 @@ def compare(nparticles: int, torch, driver, transport, sweep_kernel,
         fail(f"{label} n={nparticles}: tally sums differ by {rel:.3e} "
              f"(> {tol})")
     check_cells(f"{label} n={nparticles}", cells, max_abs_err, peak, tol)
-    launches0 = sweep_kernel.sweep_chunk_kernel.launches
-    _, cs, cnf, cnc, _ = run(sweep_kernel.sweep_chunk_kernel,
+    launches0 = driver.census.sweep_chunk_kernel.launches
+    _, cs, cnf, cnc, _ = run(driver.census.sweep_chunk_kernel,
                              max_events=events)
-    nl = sweep_kernel.sweep_chunk_kernel.launches - launches0
+    nl = driver.census.sweep_chunk_kernel.launches - launches0
     if nl < 2 or (cnf, cnc) != (pnf, pnc) or same(cs, ps) is not None:
         fail(f"{label} n={nparticles}: the census in {nl} launches of "
              f"{events} events differs from the plain version")
@@ -879,8 +879,8 @@ def compare_flight(deck: str, torch, driver, transport, flight,
 
     ksegs, psegs, csegs, rounds = [], [], [], []
     # warm-up (it grows the deposit's piece buffer), collects the rows
-    run(flight_kernel.flight_chunk_kernel, ksegs, **dep)
-    ks, knf, knc, kl, kt = run(flight_kernel.flight_chunk_kernel,
+    run(driver.census.flight_chunk_kernel, ksegs, **dep)
+    ks, knf, knc, kl, kt = run(driver.census.flight_chunk_kernel,
                                rounds=rounds, **dep)
     # a launch loads each lane of its list; every lane of step 1 is live
     loads = sum(r["lanes"] for r in rounds[1:]) + int((~start.dead).sum())
@@ -919,7 +919,7 @@ def compare_flight(deck: str, torch, driver, transport, flight,
     if not rel <= tol:
         fail(f"{name}: tally sums differ by {rel:.3e} (> {tol})")
     check_cells(name, cells, max_abs_err, peak, tol)
-    cs, cnf, cnc, cl, _ = run(flight_kernel.flight_chunk_kernel, csegs,
+    cs, cnf, cnc, cl, _ = run(driver.census.flight_chunk_kernel, csegs,
                               max_pieces=1, **dep)
     one_ms = times["flight_chunk_kernel"][0]
     if (cl < 2 or (cnf, cnc) != (pnf, pnc)
@@ -930,14 +930,14 @@ def compare_flight(deck: str, torch, driver, transport, flight,
     print(f"[{name}] 1 piece per launch: {cl} launches in "
           f"{one_ms:.3f} ms, counts, per-lane state and segment rows equal")
     if small:
-        ssegs, refusals0 = [], flight_kernel.flight_chunk_kernel.refusals
+        ssegs, refusals0 = [], driver.census.flight_chunk_kernel.refusals
         buf = flight_kernel.FlightBuffers(geom.nx, geom.ny, "cuda",
                                           rows=SMALL_ROWS, max_rows=SMALL_MAX,
                                           dtype=sim.dtype,
                                           tally_dtype=sim.tally.dtype)
-        ss, snf, snc, sl, st = run(flight_kernel.flight_chunk_kernel, ssegs,
+        ss, snf, snc, sl, st = run(driver.census.flight_chunk_kernel, ssegs,
                                    buffers=buf)
-        refusals = flight_kernel.flight_chunk_kernel.refusals - refusals0
+        refusals = driver.census.flight_chunk_kernel.refusals - refusals0
         if ((snf, snc) != (pnf, pnc)
                 or same(ss, ps, torch, fields) is not None
                 or not torch.equal(sorted_rows(torch, ssegs), prows)):
@@ -1065,12 +1065,12 @@ def flight_steps(out: str) -> list:
 def kernel_wrappers():
     """(wrapper, count attribute) of every kernel and plain version of
     the main paths."""
-    from neutral_tpu_torch import (begin_kernel, flight, flight_kernel,
+    from neutral_tpu_torch import (begin_kernel, census, flight,
                                    inject_kernel, particles, raster,
                                    raster_kernel, sweep_kernel, transport)
-    return [(sweep_kernel.sweep_chunk_kernel, "launches"),
+    return [(census.sweep_chunk_kernel, "launches"),
             (sweep_kernel.sweep_chunk_plain, "calls"),
-            (flight_kernel.flight_chunk_kernel, "launches"),
+            (census.flight_chunk_kernel, "launches"),
             (flight.flight_chunk_plain, "calls"),
             (raster_kernel.deposit_segments_kernel, "launches"),
             (raster_kernel.deposit_segments_kernel, "overflows"),
@@ -1098,18 +1098,17 @@ def check_begin(name: str, out: str, c: dict, shards: int) -> int:
     return c["begin_timestep_kernel"]
 
 
-def check_inject(name: str, single: bool, kernel: bool, c: dict) -> int:
-    """Fail unless a run injected as its layout and engine do: a single
-    device's Simulation once, by one inject kernel launch on the kernel
-    engine and one particles.inject_particles call on the plain one, and
-    never the other; a decomposition through neither (its shards inject
-    through particles.inject_fields).  Returns the kernel's launches."""
-    want = ((1, 0) if kernel else (0, 1)) if single else (0, 0)
+def check_inject(name: str, shards: int, kernel: bool, c: dict) -> int:
+    """Fail unless a process injected each of its `shards` shards once (a
+    single device's Simulation: one), by one inject kernel launch on the
+    kernel engine and one particles.inject_particles call on the plain
+    one, and never the other.  Returns the kernel's launches."""
+    want = (shards, 0) if kernel else (0, shards)
     got = (c["inject_particles_kernel"], c["inject_particles"])
     if got != want:
         fail(f"{name}: inject kernel launches and plain inject calls {got}; "
-             f"want {want} ({'one device' if single else 'a decomposition'}"
-             f", the {'kernel' if kernel else 'plain'} engine)")
+             f"want {want} ({shards} shard(s), the "
+             f"{'kernel' if kernel else 'plain'} engine)")
     return got[0]
 
 
@@ -1169,8 +1168,8 @@ def main_path(deck, torch, driver, wrappers, argv=(), label=None):
     main_path.begin_launches[name] = check_begin(
         name, out, counts, int(shards[1]) if shards else 1)
     main_path.inject_launches[name] = check_inject(
-        name, "Decomposition: none (1 device)." in out,
-        "Engine: kernel." in out, counts)
+        name, int(shards[1]) if shards else 1, "Engine: kernel." in out,
+        counts)
     total = float(re.search(r"Final global_energy_tally (\S+)", out)[1])
     if not math.isfinite(total):
         fail(f"{name}: tally sum {total} is not finite")
@@ -1456,8 +1455,9 @@ def split_single_counts(deck, torch, driver, flight, transport="auto",
     import dataclasses
     sim = driver.Simulation(driver.load_config(deck).with_(**cfg_kw),
                             transport=transport, quiet=True)
-    sim.geom = dataclasses.replace(sim.geom, rects=flight.split_rects(
-        sim.geom.rects, [2000], [2000]))
+    # the census runs over its one shard's geometry
+    sim.shards[0].geom = dataclasses.replace(
+        sim.geom, rects=flight.split_rects(sim.geom.rects, [2000], [2000]))
     sim.run()
     return [(m.nfacets, m.ncollisions) for m in sim.step_metrics]
 
@@ -1811,8 +1811,9 @@ def restored_split_counts(ck: str, torch, driver, flight) -> list:
     (the geometry of spatial2d's windows)."""
     import dataclasses
     sim = driver.Simulation(driver.load_config(FLIGHT_DECKS[2]), quiet=True)
-    sim.geom = dataclasses.replace(sim.geom, rects=flight.split_rects(
-        sim.geom.rects, [2000], [2000]))
+    # the census runs over its one shard's geometry
+    sim.shards[0].geom = dataclasses.replace(
+        sim.geom, rects=flight.split_rects(sim.geom.rects, [2000], [2000]))
     start = sim.restore(ck) + 1
     return [(m.nfacets, m.ncollisions)
             for m in (sim.step(t) for t in range(start, sim.cfg.niters + 1))]
@@ -2660,7 +2661,7 @@ def mixed_run(torch, driver, wrappers, deck: str, label: str, state: str,
              f"{sorted({str(t.dtype) for t in tallies})}, counts {c} (want "
              f"the {want_transport} transport's {state}/{tally} kernels, "
              f"{censuses} begin launches and no plain version)")
-    check_inject(label, not decomposition, True, c)
+    check_inject(label, len(devices) if decomposition else 1, True, c)
     expected = (CSP_OMP3_TALLY if "csp" in os.path.basename(deck)
                 else cfg.expected_tally)
     rel = abs(total - expected) / abs(expected)
@@ -3045,7 +3046,7 @@ def process_run(what: str, label: str, pieces: list, i: int, nprocs: int,
             launches[k] += c[key]
         main_path.begin_launches[f"{what} {label} {r}"] = check_begin(
             f"{what}, {label}: process {r}", out, c, 4 // nprocs)
-        check_inject(f"{what}, {label}: process {r}", False, True, c)
+        check_inject(f"{what}, {label}: process {r}", 4 // nprocs, True, c)
     if step_counts(out) != want_counts:
         fail(f"{what}, {label}: per-step counts {step_counts(out)} differ "
              f"from {want_counts}")

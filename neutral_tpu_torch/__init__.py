@@ -18,7 +18,7 @@ from .xs import CrossSection  # noqa: F401
 from .particles import (ParticleState, inject_particles,  # noqa: F401
                         state_from_numpy, state_to_numpy)
 from .transport import Geometry, begin_timestep, run_timestep  # noqa: F401
-from .sweep_kernel import sweep_chunk_kernel, sweep_chunk_plain  # noqa: F401
+from .sweep_kernel import sweep_chunk_plain  # noqa: F401
 from .flight import flight_chunk_plain  # noqa: F401
-from .flight_kernel import flight_chunk_kernel  # noqa: F401
+from .census import flight_chunk_kernel, sweep_chunk_kernel  # noqa: F401
 from .driver import Simulation  # noqa: F401

@@ -32,7 +32,7 @@ import torch
 
 from . import build, transport
 from .particles import STATE_FIELDS, ParticleState
-from .sweep_kernel import (REALS, TABLE_POINTERS, check_inputs, rect_arrays,
+from .sweep_kernel import (REALS, TABLE_POINTERS, check_inputs, kernel_rects,
                            state_pointers, table_fields, window_fields)
 from .transport import Geometry
 from .xs import CrossSection
@@ -121,14 +121,6 @@ def _card_blocks(device: torch.device, real: torch.dtype, modes: tuple,
     return sms * max(blocks.value, 1)
 
 
-@functools.cache
-def region_arrays(regions: tuple, device: torch.device, dtype: torch.dtype):
-    """rect_arrays(regions) on `device` in `dtype`, made once per process,
-    deck, device and dtype (so that a launch copies nothing from the
-    host)."""
-    return rect_arrays(regions, device, dtype)
-
-
 def check_begin_inputs(state: ParticleState, geom: Geometry,
                        scatter_tab: CrossSection) -> None:
     """Raise ValueError unless the kernel implements this configuration:
@@ -176,7 +168,7 @@ def begin_timestep_kernel(state: ParticleState, geom: Geometry,
         p.density_mode = 1
         p.density = geom.density.data_ptr()
     else:
-        bounds, density = region_arrays(geom.regions, dev, real)
+        bounds, density = kernel_rects(geom.regions, dev, real)
         p.nregions = bounds.shape[0]
         p.region_bounds = bounds.data_ptr()
         p.region_density = density.data_ptr()

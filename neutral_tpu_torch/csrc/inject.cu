@@ -10,7 +10,10 @@
 // lanes.  Here one thread takes one lane at a time (a grid-stride loop,
 // 64-bit lane indices) and writes its 14 fields once:
 //
-//   * pid = the lane index, counter 0, dead false;
+//   * pid = the lane's entry of the pid vector, or the lane index when
+//     there is none (a decomposition's shard holds the pids born in its
+//     block; a single device's state every pid in order), counter 0,
+//     dead false;
 //   * the position from the pair draw at counter 0 of the key (pid, 0)
 //     (common.cuh uniform2, threefry or pcg64si, mapped to the working
 //     type as every kernel maps it): x = x0 + r0a * width and y = y0 + r0b
@@ -68,6 +71,7 @@ struct InjectParamsT {
   int64_t* counter;
   const Real* edgex;            // the mesh's (nx + 1,) and (ny + 1,) edges
   const Real* edgey;
+  const int64_t* pid_in;        // the lanes' pids; null: the lane index
   long long n;
   int blocks;
   int nx;
@@ -139,7 +143,8 @@ inject_kernel(const InjectParamsT<Real> p) {
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < p.n; i += stride) {
-    const DrawKey key = draw_key<R>(static_cast<uint64_t>(i), 0);
+    const long long pid = p.pid_in != nullptr ? __ldg(p.pid_in + i) : i;
+    const DrawKey key = draw_key<R>(static_cast<uint64_t>(pid), 0);
     Real r0a, r0b, r1a, r1b;
     uniform2<R>(key, 0, r0a, r0b);
     uniform2<R>(key, 1, r1a, r1b);
@@ -164,7 +169,7 @@ inject_kernel(const InjectParamsT<Real> p) {
     p.cellx[i] = cellx;
     p.celly[i] = celly;
     p.dead[i] = 0;
-    p.pid[i] = i;
+    p.pid[i] = pid;
     p.counter[i] = 0;
   }
 }

@@ -27,9 +27,8 @@ below 1.0 (a near-vacuum region, where facet events dominate: stream, csp,
 split) and sweep otherwise (scatter).  The engine: `kernel` runs the
 census through the transport's CUDA kernels (sweep_kernel.py, or
 flight_kernel.py with raster_kernel.py), each census started by the begin
-kernel (begin_kernel.py), `Simulation`'s particles injected by the inject
-kernel (inject_kernel.py; the decompositions' shards inject through the
-plain version), and needs a CUDA device; `plain`
+kernel (begin_kernel.py), every shard's particles injected by the inject
+kernel (inject_kernel.py), and needs a CUDA device; `plain`
 runs the plain PyTorch version on any device, and on CUDA only when asked
 for by name; `auto` is `kernel` on CUDA and `plain` otherwise
 (`pick_engine`).  Every kernel runs float32 and float64 (float64 in
@@ -50,9 +49,10 @@ Runs go to the card unless the caller asks for the CPU (`device="cpu"`,
 never falls back to the CPU.  With more than one shard (`--shards`, by
 default one per visible card) the CLI runs one of the decompositions of
 parallel/ (`--decomposition replicated|spatial|spatial2d`), several shards
-may share one card; with one it runs `Simulation`.  Both share
-`SimulationBase`: set-up, the step print, validation and the phase
-breakdown.
+may share one card; with one it runs `Simulation`, which holds one shard
+over the whole mesh.  Both share `SimulationBase`: set-up, the step (the
+census loop of census.py over the layout's shards, and its StepMetrics),
+the step print, validation and the phase breakdown.
 
 Around the loop: VisIt dumps (`visit_dump 1`), npz checkpoints that any
 layout restores (`--checkpoint`, `--restore`: the run resumes at the step
@@ -71,12 +71,11 @@ class (even with one shard each), and process 0 alone prints and writes
 files.  The printed counts are global; the step time and the phases are
 process 0's.
 
-The JAX driver's power-of-4 compaction ladder is not ported.  On the
-flight transport its work is done in the card's own form: each flight
-launch writes the lanes still working into a list, and the next launch
-runs over that list alone, with pieces per lane that grow as it shrinks
-(flight_kernel.py).  The sweep transport still launches over every lane
-(ROADMAP keeps the question open there).
+The JAX driver's power-of-4 compaction ladder is not ported.  Its work
+is done in the card's own form: each sweep or flight launch writes the
+lanes still working into a list, and the next launch runs over that list
+alone (sweep_kernel.py; on the flight transport with pieces per lane that
+grow as the list shrinks, flight_kernel.py).
 """
 
 from __future__ import annotations
@@ -87,24 +86,20 @@ import dataclasses
 import os
 import sys
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from . import io_utils
-from .begin_kernel import begin_census
+from . import census, io_utils
+from .census import StepMetrics, flight_chunk_kernel, sweep_chunk_kernel
 from .config import SimConfig, load_config
 from .constants import VALIDATE_TOLERANCE
 from .flight import disjoint_rects, flight_chunk_plain
-from .flight_kernel import FlightBuffers, flight_chunk_kernel, launch_records
-from .inject_kernel import inject_particles_kernel
+from .flight_kernel import launch_records
 from .mesh import build_mesh, density_grid, region_cell_bounds
-from .particles import (ParticleState, inject_particles, merge_states,
-                        state_from_numpy)
-from .profiler import TALLY_READS, Profile, Spans, maybe_trace, span
-from .sweep_kernel import (MAX_EVENTS, SweepBuffers, sweep_chunk_kernel,
-                           sweep_chunk_plain)
+from .particles import ParticleState, merge_states, state_from_numpy
+from .profiler import Profile, Spans, maybe_trace, span
+from .sweep_kernel import MAX_EVENTS, sweep_chunk_plain
 from .transport import Geometry, use_local_coords
 from .xs import CrossSection, find_cs_files
 
@@ -195,16 +190,15 @@ def pitch_refusal(cfg: SimConfig) -> str | None:
     return None
 
 
-def kernel_refusal(dtype: torch.dtype, cfg: SimConfig | None = None,
-                   transport: str | None = None) -> str | None:
-    """Why no kernel runs this deck in `dtype` on `transport` (None: the
-    kernels run it): a working type, or a tally type (`cfg.tally_dtype`),
-    other than float32 and float64.  Every pair of the two runs on the
-    kernels of both transports: a tally of the state's type, or of the
-    other (the mixed instantiations).  The transport decides nothing: both
-    transports' kernels run every pair.  A deck without a pitch is no
-    reason either: the sweep kernel takes it in edge-array mode, and the
-    flight transport refuses it itself (pick_transport)."""
+def kernel_refusal(dtype: torch.dtype,
+                   cfg: SimConfig | None = None) -> str | None:
+    """Why no kernel runs this deck in `dtype` (None: the kernels run it):
+    a working type, or a tally type (`cfg.tally_dtype`), other than
+    float32 and float64.  Every pair of the two runs on the kernels of
+    both transports: a tally of the state's type, or of the other (the
+    mixed instantiations).  A deck without a pitch is no reason either:
+    the sweep kernel takes it in edge-array mode, and the flight transport
+    refuses it itself (pick_transport)."""
     if dtype not in (torch.float32, torch.float64):
         return f"needs float32 or float64, got {dtype}"
     if cfg is not None and cfg.tally_dtype not in ("float32", "float64"):
@@ -214,16 +208,15 @@ def kernel_refusal(dtype: torch.dtype, cfg: SimConfig | None = None,
 
 
 def pick_engine(engine: str, device: torch.device, dtype: torch.dtype,
-                cfg: SimConfig | None = None,
-                transport: str | None = None) -> str:
+                cfg: SimConfig | None = None) -> str:
     """The engine that runs a deck: `auto` is `kernel` on a CUDA device
-    where a kernel exists for the deck (`cfg`), its dtype, its tally's
-    dtype and its `transport` (kernel_refusal: every float32/float64 pair
-    on both transports), and `plain` everywhere else; `kernel` raises on
-    the CPU and where kernel_refusal gives a reason."""
+    where a kernel exists for the deck (`cfg`), its dtype and its tally's
+    dtype (kernel_refusal: every float32/float64 pair on both
+    transports), and `plain` everywhere else; `kernel` raises on the CPU
+    and where kernel_refusal gives a reason."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine}")
-    refusal = kernel_refusal(dtype, cfg, transport)
+    refusal = kernel_refusal(dtype, cfg)
     if engine == "auto":
         return ("kernel" if device.type == "cuda" and refusal is None
                 else "plain")
@@ -269,60 +262,6 @@ def auto_transport(cfg: SimConfig) -> str:
     return "sweep"
 
 
-@dataclass
-class StepMetrics:
-    step: int
-    step_time: float
-    nfacets: int
-    ncollisions: int
-    nprocessed: int
-    # plain engine: sweeps run (events or pieces); flight kernel: flight
-    # pieces granted per lane over the step's launches (a decomposed run:
-    # the most any shard granted in each round, summed)
-    nsweeps: int
-    nlaunches: int        # kernel engine: sweep or flight kernel launches
-    # Split of the step, in seconds: "begin" (the census start,
-    # begin_kernel.begin_census: the begin kernel or, on the plain engine,
-    # transport.begin_timestep; up to the host read of the live count;
-    # wall clock), then for the sweep transport
-    # "sweep" (the census; wall clock), for the flight transport "flight"
-    # and "raster" (the pieces and the segment deposits: device time from
-    # CUDA events with the kernel engine, wall clock with the plain one)
-    # and "loop" (the rest of the census's wall time: the host loop); the
-    # kernel engine's flight transport adds, from the same events,
-    # "raster_bins" and "raster_tiles" (the deposits' two stages, which
-    # add up to "raster") and "raster_overflow" (of "raster", the
-    # deposit launches whose piece buffer overflowed and which deposited
-    # nothing before their re-run; flight_kernel.event_phases); a
-    # spatial decomposition adds "migrate" (wall clock), and over several
-    # processes "exchange", its part from packing the lanes bound for
-    # other processes to unpacking theirs (wall clock, waits included).
-    # The wall-clock phases are read from the step's spans
-    # (profiler.span): "begin" is nt.begin's wall time, "sweep" nt.sweep's
-    # and "migrate" nt.migrate's; "loop" is nt.census's less nt.begin's,
-    # "flight", "raster" and "migrate"; a spatial run's "sweep" leaves
-    # out "migrate" too.
-    phases: dict
-    nmigrated: int = 0    # lanes moved between shards (spatial runs)
-    nexchanged: int = 0   # of those, lanes moved between processes
-    # flight kernel: one record per launch (flight_kernel.launch_records):
-    # its shard, lanes launched, pieces per lane, lanes still working after
-    # it, segment rows written, whether rows were refused, the deposit's
-    # pieces ("deposit_pieces"), whether it overflowed, device ms
-    rounds: list = dataclasses.field(default_factory=list)
-    # host reads in the census that waited for the card: its `*.read`
-    # spans (the live count, each launch's counters, the event counts);
-    # printed as the step's "Host waits" line
-    nwaits: int = 0
-
-    @property
-    def noverflows(self) -> int:
-        """Segment deposits re-run after their piece buffer overflowed (the
-        rounds' "overflow"); printed on the "Host waits" line of the
-        flight kernel's steps."""
-        return sum(r["overflow"] for r in self.rounds)
-
-
 def within_tolerance(expected: float, actual: float, tol: float) -> bool:
     """Relative-tolerance check, as arch's within_tolerance."""
     if expected == 0.0:
@@ -343,8 +282,13 @@ class SimulationBase:
     """What every simulation shares: the deck's geometry, mesh and
     cross-sections on a device, the engine and transport, the timestep
     loop with the reference's per-step print, validation and the phase
-    breakdown.  Subclasses own the particles and the tally: `step(tt)`
-    returns a StepMetrics, `host_tally()` the global tally."""
+    breakdown, and the step: the census loop (census.py) over
+    `self.shards`, this process's shards.  Subclasses make the shards and
+    run the census's passes (`passes`); `host_tally()` gives the global
+    tally."""
+
+    migrates = False        # lanes move between shards (spatial modes)
+    read_counters = staticmethod(census.read_counters)
 
     def __init__(self, cfg: SimConfig, *, device="cuda", engine: str = "auto",
                  transport: str = "auto", quiet: bool = False):
@@ -353,8 +297,7 @@ class SimulationBase:
         self.dtype = getattr(torch, cfg.dtype)
         self.quiet = quiet
         self.transport = pick_transport(cfg, transport)
-        self.engine = pick_engine(engine, self.device, self.dtype, cfg,
-                                  self.transport)
+        self.engine = pick_engine(engine, self.device, self.dtype, cfg)
         check_device(self.device)
 
         with span("setup.mesh"):
@@ -376,7 +319,9 @@ class SimulationBase:
         from .parallel.distributed import rank, world
         # process 0 of a run over several processes alone writes files
         self.writes = rank() == 0
-        self.scope = f", process 0 of {world()}" if world() > 1 else ""
+        self.world = world()
+        self.scope = (f", process 0 of {self.world}" if self.world > 1
+                      else "")
         self.step_metrics: list[StepMetrics] = []
 
     def coords(self) -> str:
@@ -399,8 +344,52 @@ class SimulationBase:
                     local_coords=(self.geom.dx, self.geom.dy) if local
                     else None)
 
-    # -- what subclasses provide -------------------------------------------
+    # -- the step -------------------------------------------------------------
     def step(self, tt: int) -> StepMetrics:
+        """Advance one census timestep on every shard of this process
+        (master_key = tt, as main.c:101); every count it returns is global,
+        over every process's shards.  Its spans: nt.census, holding
+        nt.begin (with nt.begin.read) and then nt.sweep around the passes
+        (sweep transport) or one nt.flight.round a pass (flight
+        transport), with each pass's read, the flight shards' after_round
+        (nt.flight.host), and nt.migrate and nt.exchange (census.passes)."""
+        flight = self.transport == "flight"
+        self.profile.start()
+        spans = Spans()
+        with span("census", spans):
+            begun = census.begin(self.shards, self.engine, self.cfg.dt, tt,
+                                 spans, self.read_counters)
+            # The sweep phase runs from here to the clock's stop.
+            with contextlib.nullcontext() if flight else span("sweep",
+                                                              spans):
+                m = self.passes(tt, begun[:, 1] > 0, spans)
+                step_time = self.profile.stop(f"step{tt}")
+        wall = spans.seconds
+        t_migrate = wall.get("migrate", 0.0)
+        phases = {"begin": wall["begin"]}
+        if flight:
+            phases.update(m.phases)
+            phases["loop"] = (wall["census"] - wall["begin"]
+                              - m.phases["flight"] - m.phases["raster"]
+                              - t_migrate)
+        else:
+            phases["sweep"] = wall["sweep"] - t_migrate
+        if self.migrates:
+            phases["migrate"] = t_migrate
+            if self.world > 1:
+                phases["exchange"] = wall.get("exchange", 0.0)
+        m.step, m.step_time, m.phases = tt, step_time, phases
+        m.nprocessed = int(begun[:, 0].sum())
+        m.rounds = launch_records(m.rounds)
+        m.nwaits = spans.waits()
+        self.step_metrics.append(m)
+        return m
+
+    # -- what subclasses provide -------------------------------------------
+    def passes(self, tt: int, work: np.ndarray,
+               spans: Spans) -> StepMetrics:
+        """The census's passes after its begin (census.passes), over the
+        global shards that start with lanes (`work`)."""
         raise NotImplementedError
 
     def host_tally(self) -> np.ndarray:
@@ -408,7 +397,7 @@ class SimulationBase:
 
     def states(self) -> list[ParticleState]:
         """The particle states that hold every live lane once."""
-        raise NotImplementedError
+        return [sh.state for sh in self.shards]
 
     def set_state(self, fields: dict, tally: np.ndarray) -> None:
         """Put a checkpoint's lanes and global tally in place."""
@@ -543,117 +532,65 @@ class SimulationBase:
 
 class Simulation(SimulationBase):
     """Single-device simulation, on the card unless `device` says
-    otherwise."""
+    otherwise: one shard over the whole mesh (census.new_shard), holding
+    every pid."""
 
     def __init__(self, cfg: SimConfig, *, device="cuda", engine: str = "auto",
                  transport: str = "auto", quiet: bool = False):
         super().__init__(cfg, device=device, engine=engine,
                          transport=transport, quiet=quiet)
-        inject = (inject_particles_kernel if self.engine == "kernel"
-                  else inject_particles)
-        with span("setup.inject"):
-            self.state = inject(
-                self.mesh, nparticles=cfg.nparticles,
-                initial_energy=cfg.initial_energy, dt=cfg.dt,
-                dtype=self.dtype, device=self.device, **self.source())
-        with span("setup.buffers"):
-            self.tally = torch.zeros(cfg.nx * cfg.ny,
-                                     dtype=getattr(torch, cfg.tally_dtype),
-                                     device=self.device)
-            # The kernel loop's buffers, kept from census to census.
-            kernel = self.engine == "kernel"
-            self.flight = (FlightBuffers(cfg.nx, cfg.ny, self.device,
-                                         dtype=self.dtype,
-                                         tally_dtype=self.tally.dtype)
-                           if kernel and self.transport == "flight" else None)
-            self.sweep = (SweepBuffers(self.device)
-                          if kernel and self.transport == "sweep" else None)
+        self.shards = [census.new_shard(self, self.device, self.geom)]
         # Injection belongs to set-up, not to step 1's time.
         with span("setup.wait"):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-    def step(self, tt: int) -> StepMetrics:
-        """Advance one census timestep (master_key = tt, as main.c:101)."""
-        flight = self.transport == "flight"
-        self.profile.start()
-        spans = Spans()
-        with span("census", spans):
-            with span("begin", spans):
-                state, live = begin_census(self.engine, self.state,
-                                           self.geom, self.cs_scatter,
-                                           self.cfg.dt, tt)
-                with span("begin.read", spans):
-                    nprocessed = int(live)        # waits for the device
-            # The sweep phase runs from here to the clock's stop.
-            with contextlib.nullcontext() if flight else span("sweep",
-                                                              spans):
-                inv_ntotal = 1.0 / self.cfg.nparticles
-                args = (state, self.tally, self.geom, self.cs_scatter,
-                        self.cs_absorb, tt, inv_ntotal)
-                nsweeps = nlaunches = 0
-                parts, rounds = {}, []
-                if flight and self.engine == "kernel":
-                    state, nf, nc, nlaunches, parts = flight_chunk_kernel(
-                        *args, buffers=self.flight, rounds=rounds,
-                        spans=spans)
-                    nsweeps = sum(r["pieces"] for r in rounds)
-                elif flight:
-                    state, nf, nc, nsweeps, parts = flight_chunk_plain(*args)
-                elif self.engine == "kernel":
-                    state, nf, nc, nlaunches = sweep_chunk_kernel(
-                        *args, buffers=self.sweep, spans=spans)
-                else:
-                    state, nf, nc, nsweeps = sweep_chunk_plain(*args)
-                self.state = state
-                step_time = self.profile.stop(f"step{tt}")
-        wall = spans.seconds
-        phases = {"begin": wall["begin"]}
-        if flight:
-            phases.update(parts)
-            phases["loop"] = (wall["census"] - wall["begin"]
-                              - parts["flight"] - parts["raster"])
+    @property
+    def state(self) -> ParticleState:
+        return self.shards[0].state
+
+    @state.setter
+    def state(self, state: ParticleState) -> None:
+        self.shards[0].state = state
+
+    @property
+    def tally(self) -> torch.Tensor:
+        return self.shards[0].tally
+
+    def passes(self, tt: int, work: np.ndarray,
+               spans: Spans) -> StepMetrics:
+        """The one shard's census through this module's names
+        sweep_chunk_kernel, flight_chunk_kernel, sweep_chunk_plain and
+        flight_chunk_plain, looked up as the step runs (the benchmark's
+        fault checks replace them, portbench/control.py)."""
+        sh, out = self.shards[0], StepMetrics()
+        args = (sh.state, sh.tally, sh.geom, *sh.tables, tt,
+                1.0 / self.cfg.nparticles)
+        kernel = self.engine == "kernel"
+        if self.transport == "flight":
+            sh.state, nf, nc, n, out.phases = (flight_chunk_kernel(
+                *args, buffers=sh.buffers, rounds=out.rounds, spans=spans)
+                if kernel else flight_chunk_plain(*args))
         else:
-            phases["sweep"] = wall["sweep"]
-        m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
-                        ncollisions=nc, nprocessed=nprocessed,
-                        nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
-                        rounds=[{"shard": 0} | r
-                                for r in launch_records(rounds)],
-                        nwaits=spans.waits())
-        self.step_metrics.append(m)
-        return m
+            sh.state, nf, nc, n = (sweep_chunk_kernel(
+                *args, buffers=sh.buffers, spans=spans)
+                if kernel else sweep_chunk_plain(*args))
+        out.nfacets, out.ncollisions = nf, nc
+        out.nlaunches, out.nsweeps = (
+            (n, sum(r["pieces"] for r in out.rounds)) if kernel else (0, n))
+        return out
 
     def host_tally(self) -> np.ndarray:
         """Flat (ny*nx,) tally as float64 on the host (one wait for the
-        card), a copy that a later step leaves as it is.
-
-        On a card the tally is converted to float64 there (exact) and
-        copied once into a page-locked block of torch's caching host
-        allocator; the array holds that block for as long as the caller
-        keeps it, and once it is dropped the block goes back to the cache
-        for the next read.  A caller that keeps n arrays holds n pinned
-        blocks."""
-        tally = self.tally
-        on_card = tally.device.type == "cuda"
-        with span("tally_read"):
-            with span("tally_read.convert"):
-                if on_card:
-                    tally = tally.to(torch.float64)
-            with span("tally_read.copy"):
-                host = torch.empty(tally.shape, dtype=torch.float64,
-                                   pin_memory=on_card)
-                host.copy_(tally)
-            TALLY_READS.add(host.data_ptr() if on_card else None)
-            return host.numpy()
-
-    def states(self) -> list[ParticleState]:
-        return [self.state]
+        card), a copy that a later step leaves as it is, in a pinned block
+        on a card (census.read_tallies)."""
+        return census.read_tallies([self.tally])[0]
 
     def set_state(self, fields: dict, tally: np.ndarray) -> None:
-        self.state = state_from_numpy(fields, self.device, self.dtype)
-        self.tally = torch.as_tensor(np.asarray(tally),
-                                     device=self.device).to(self.tally.dtype)
+        sh = self.shards[0]
+        sh.state = state_from_numpy(fields, self.device, self.dtype)
+        sh.tally = torch.as_tensor(np.asarray(tally),
+                                   device=self.device).to(sh.tally.dtype)
 
 
 def make_simulation(cfg: SimConfig, decomposition: str, devices: list,
@@ -779,8 +716,8 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device(args.device)
     # Refuse an engine or transport the deck cannot take before touching
     # the device.
-    pick_engine(args.engine, device, getattr(torch, cfg.dtype), cfg,
-                pick_transport(cfg, args.transport))
+    pick_transport(cfg, args.transport)
+    pick_engine(args.engine, device, getattr(torch, cfg.dtype), cfg)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"neutral_tpu_torch: --device {args.device}, but "
               "torch.cuda.is_available() is False; pass --device cpu to "

@@ -1,10 +1,12 @@
-"""The flight kernel (csrc/flight.cu) and its host loop.
+"""The flight kernel (csrc/flight.cu) and one round of its host loop.
 
-Counterpart of `neutral_tpu/pallas_flight.py`.  `flight_chunk_kernel` runs
-every lane to census or death with the hand-written CUDA flight kernel,
-one thread per working lane, in rounds.  Each round is one flight launch
-and one segment deposit (raster_kernel.py) of the launch's rows, then one
-host read of the counters.
+Counterpart of `neutral_tpu/pallas_flight.py`.  The kernel runs lanes to
+census or death, one thread per working lane, in rounds.  A round
+(`flight_round`) is one flight launch and one segment deposit
+(raster_kernel.py) of the launch's rows; then one host read of the
+counters, and the host's part of the round (`after_round`).  The census
+loop (census.py: `census.flight_chunk_kernel` for one state, and the
+decompositions' shards) runs rounds until no lane works.
 
 - *Lanes.*  A census's first launch covers every lane.  Each launch
   writes the lanes still working after it into a list, whose length is
@@ -41,17 +43,10 @@ are the layouts with a tally of the state's type, `_FlightParams32t64`
 and `_FlightParams64t32` those of the mixed pairs (`_LAYOUTS`), and the
 segment deposit takes the rows' type and the tally's (raster_kernel.py).
 The spatial window of a decomposed run (`x_off`/`y_off`, flight.py's) is
-a runtime parameter.  `flight_params`,
-`flight_round` and `after_round` are one round; `flight_chunk_kernel`
-loops them for one state, and the decomposed runs (parallel/) run a round
-on every shard before they read the counters of all shards at once.  The
-plain version is `flight.flight_chunk_plain`, and that of one launch
-`flight.flight_round_plain`.  `flight_chunk_kernel` launches the kernel or
-raises: on a state that does not lie on a CUDA device, and on any
-configuration the kernel does not implement.
-`flight_chunk_kernel.launches` counts flight-kernel launches (made by
-`flight_round`, from either loop) and `.refusals` the rounds that refused
-segment rows; callers may reset both.
+a runtime parameter.  `flight_params` raises on a state that does not lie
+on a CUDA device and on any configuration the kernel does not implement.
+The plain version is `flight.flight_chunk_plain`, and that of one launch
+`flight.flight_round_plain`.
 
 A round's CUDA events ("marks", one dict a deposit launch) time its flight
 launch and its deposit's two stages, the bins and the tiles (raster_kernel
@@ -60,7 +55,6 @@ launch and its deposit's two stages, the bins and the tiles (raster_kernel
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
@@ -68,10 +62,10 @@ import torch
 
 from . import build
 from .particles import ParticleState
-from .profiler import Spans, span
+from .profiler import span
 from .raster_kernel import (GROWTH, SegmentDeposit, deposit_segments_kernel,
                             redeposit_segments)
-from .sweep_kernel import (REALS, TABLE_POINTERS, check_inputs, rect_arrays,
+from .sweep_kernel import (REALS, TABLE_POINTERS, check_inputs,
                            state_pointers, table_fields, window_fields)
 from .transport import Geometry
 from .xs import CrossSection
@@ -238,9 +232,11 @@ class FlightBuffers:
         self.start_census()
 
     def start_census(self) -> None:
-        """The next launch is a census's first: it covers every lane."""
+        """The next launch is a census's first: it covers every lane, and
+        the counters start at 0."""
         self.n_active = None
         self.round = 0
+        self.counts.zero_()
 
 
 def flight_params(state: ParticleState, tally: torch.Tensor, rects: tuple,
@@ -332,8 +328,6 @@ def flight_round(params: ctypes.Structure, buffers: FlightBuffers,
         ev[0].record()
         build.check_launch(lib, launch(ctypes.byref(params), stream),
                            "flight kernel")
-        flight_chunk_kernel.launches += 1
-        flight_chunk_kernel.cards[b.device.index] += 1
         ev[1].record()
         stages = []
         deposit_segments_kernel(tally, b.segs, b.counts[3:4], geom.nx,
@@ -368,7 +362,6 @@ def after_round(buffers: FlightBuffers, tally: torch.Tensor, geom: Geometry,
             marks.append(redeposit(tally, b, geom, need))
     cap = b.segs.shape[0]
     if reserved > cap:
-        flight_chunk_kernel.refusals += 1
         rows = grown_rows(cap, reserved, b.max_rows)
         if rows != cap:
             dtype = b.segs.dtype
@@ -404,16 +397,18 @@ def event_phases(marks: list) -> dict:
     included ("raster"), split into its bin stage ("raster_bins") and its
     tile stage ("raster_tiles"), the two adding up to "raster"; and of
     "raster" the launches whose piece buffer overflowed, which deposited
-    nothing ("raster_overflow")."""
+    nothing ("raster_overflow").  Waits for each mark's last event: a
+    re-run launched after the census's last read may still be running."""
     def seconds(a, b):
         return a.elapsed_time(b) / 1e3
 
     out = dict.fromkeys(("flight", "raster", "raster_bins", "raster_tiles",
                          "raster_overflow"), 0.0)
     for m in marks:
+        start, bins, done = m["deposit"]
+        done.synchronize()
         if "flight" in m:
             out["flight"] += seconds(*m["flight"])
-        start, bins, done = m["deposit"]
         whole = seconds(start, done)
         out["raster"] += whole
         out["raster_bins"] += seconds(start, bins)
@@ -433,65 +428,3 @@ def launch_records(rounds: list) -> list:
                    | {"flight_ms": start.elapsed_time(done)})
     return out
 
-
-def flight_chunk_kernel(state: ParticleState, tally: torch.Tensor,
-                        geom: Geometry, scatter_tab: CrossSection,
-                        absorb_tab: CrossSection, master_key: int,
-                        inv_ntotal: float, max_pieces: int | None = None,
-                        segments: list | None = None, x_off=None,
-                        y_off=None, buffers: FlightBuffers | None = None,
-                        rounds: list | None = None,
-                        spans: Spans | None = None):
-    """Run every lane to census or death (or, under the window `x_off`/
-    `y_off`, until it leaves the window) with the CUDA flight kernel.
-
-    Updates `state`'s tensors and `tally` in place.  `max_pieces` fixes
-    the pieces per lane of every launch (None: pieces_for).  When
-    `segments` is a list, each round's segment rows are appended to it
-    (flight_round); when `rounds` is, each round's record (flight_round's,
-    with after_round's additions).  `buffers` holds the loop's buffers
-    between calls (new ones when None).  Each round is a span
-    (nt.flight.round, holding nt.flight.read around its read of the
-    counters and nt.flight.host around after_round, which holds
-    nt.flight.redeposit around a re-run), and so is the final read of the
-    event counts (nt.census.read), added to `spans` when given.  Returns
-    (state, nfacets, ncollisions, nlaunches, phases) with `phases`
-    event_phases' device seconds, from CUDA events.
-    """
-    dev = state.device
-    rects = (None if geom.rects is None
-             else rect_arrays(geom.rects, dev, state.dtype))
-    params = flight_params(state, tally, rects, geom, scatter_tab,
-                           absorb_tab, master_key, inv_ntotal, x_off, y_off)
-    if buffers is None:
-        buffers = FlightBuffers(geom.nx, geom.ny, dev, dtype=state.dtype,
-                                tally_dtype=tally.dtype)
-    buffers.start_census()
-    counts = buffers.counts
-    counts.zero_()
-    marks = []
-    nlaunches = 0
-    while True:
-        with span("flight.round", spans):
-            rec = flight_round(params, buffers, tally, geom, max_pieces,
-                               segments)
-            marks.append(rec["marks"])
-            nlaunches += 1
-            # One read per round; it waits for the flight launch and
-            # deposit.
-            with span("flight.read", spans):
-                ctrl = counts[2:].tolist()
-            with span("flight.host", spans):
-                after_round(buffers, tally, geom, rec, ctrl, marks)
-        if rounds is not None:
-            rounds.append(rec)
-        if rec["working"] == 0:
-            break
-    with span("census.read", spans):
-        nf, nc = (int(v) for v in counts[:2].tolist())
-    return state, nf, nc, nlaunches, event_phases(marks)
-
-
-flight_chunk_kernel.launches = 0
-flight_chunk_kernel.cards = collections.Counter()  # launches by card index
-flight_chunk_kernel.refusals = 0

@@ -8,14 +8,16 @@ threefry draw on int64 words several hundred launches);
 hand-written CUDA kernel, bit for bit: every lane's 14 fields, its
 position and cell from the draw at counter 0, its angle from the draw at
 counter 1, in the global or the cell-local frame, on a uniform mesh or
-any other.
+any other, for the pids 0..n-1 or for a vector of pids (a decomposition's
+shard: the pids born in its block or its range).
 
 The kernel has float32 and float64 instantiations under both draw
 schemes.  `inject_particles_kernel` launches the kernel or raises: on a
 mesh that does not lie on a CUDA device and on any working type or scheme
 the kernel does not implement.  It never runs the plain version.
-`Simulation` chooses between the two by engine: the kernel engine takes
-the kernel, the plain engine `particles.inject_particles`.
+Every shard (census.new_shard: `Simulation`'s one, and each of a
+decomposition's) chooses between the two by engine: the kernel engine
+takes the kernel, the plain engine `particles.inject_particles`.
 `inject_particles_kernel.launches` counts kernel launches and
 `inject_particles_kernel.cards` the launches by card; callers may reset
 both.
@@ -46,7 +48,8 @@ def _inject_fields(real) -> list:
     """`InjectParamsT<Real>`'s fields in csrc/inject.cu, its constants of
     the ctypes type `real`."""
     return (
-        [(f, ctypes.c_void_p) for f in (*STATE_FIELDS, "edgex", "edgey")]
+        [(f, ctypes.c_void_p) for f in (*STATE_FIELDS, "edgex", "edgey",
+                                        "pid_in")]
         + [("n", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "blocks", "nx", "ny", "uniform", "local", "rng")]
@@ -126,12 +129,21 @@ def inject_particles_kernel(mesh: Mesh2D, *, nparticles: int,
                             dtype: torch.dtype = torch.float32,
                             rng_scheme: str = "threefry",
                             local_coords: tuple[float, float] | None = None,
-                            device=None) -> ParticleState:
+                            device=None, pid: torch.Tensor | None = None
+                            ) -> ParticleState:
     """particles.inject_particles in one launch of the CUDA kernel, on the
     mesh's card and its current stream (no wait): the same arguments, the
-    same 14 fields, each a fresh tensor."""
+    same 14 fields, each a fresh tensor.  `pid` (None: 0..nparticles-1)
+    is a contiguous int64 vector of the nparticles lanes' pids on that
+    card."""
     dev = check_inject_inputs(mesh, device, dtype, rng_scheme)
     n = int(nparticles)
+    if pid is not None and (pid.dtype != torch.int64 or pid.device != dev
+                            or tuple(pid.shape) != (n,)
+                            or not pid.is_contiguous()):
+        raise ValueError(f"inject kernel: pid must be a contiguous ({n},) "
+                         f"int64 vector on {dev}, got {tuple(pid.shape)} "
+                         f"{pid.dtype} on {pid.device}")
     out = {f: torch.empty(n, dtype=INT_FIELDS.get(f, dtype), device=dev)
            for f in STATE_FIELDS}
     cls, sfx = _LAYOUTS[dtype]
@@ -139,6 +151,7 @@ def inject_particles_kernel(mesh: Mesh2D, *, nparticles: int,
     for f, t in out.items():
         setattr(p, f, t.data_ptr())
     p.edgex, p.edgey = mesh.edgex.data_ptr(), mesh.edgey.data_ptr()
+    p.pid_in = None if pid is None else pid.data_ptr()
     p.n = n
     p.nx, p.ny = mesh.nx, mesh.ny
     p.uniform = int(bool(mesh.uniform))

@@ -233,7 +233,7 @@ def census(reps: int, mode: str, tmp: str, dtype: str = "float32",
     import dataclasses
     import hashlib
     import torch
-    from neutral_tpu_torch import driver, sweep_kernel, transport
+    from neutral_tpu_torch import census, driver, sweep_kernel, transport
     from neutral_tpu_torch.particles import STATE_FIELDS
 
     tally = tally or dtype
@@ -258,7 +258,7 @@ def census(reps: int, mode: str, tmp: str, dtype: str = "float32",
                             device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, nf, nc, launches = sweep_kernel.sweep_chunk_kernel(
+        _, nf, nc, launches = census.sweep_chunk_kernel(
             state, tally, geom, sim.cs_scatter, sim.cs_absorb, 1,
             1.0 / cfg.nparticles, **win, buffers=buffers)
         torch.cuda.synchronize()
@@ -301,7 +301,7 @@ def flight(reps: int, tmp: str, dtype: str = "float32",
     analytic and in table mode."""
     import hashlib
     import torch
-    from neutral_tpu_torch import driver, flight_kernel, transport
+    from neutral_tpu_torch import census, driver, flight_kernel, transport
     from neutral_tpu_torch.particles import STATE_FIELDS
 
     tally = tally or dtype
@@ -325,7 +325,7 @@ def flight(reps: int, tmp: str, dtype: str = "float32",
         times, launches = [], 0
         for rep in range(reps + 1):
             state = start.clone()
-            _, nf, nc, launches, ph = flight_kernel.flight_chunk_kernel(
+            _, nf, nc, launches, ph = census.flight_chunk_kernel(
                 state, torch.zeros_like(sim.tally), sim.geom, sim.cs_scatter,
                 sim.cs_absorb, 1, 1.0 / cfg.nparticles, buffers=buffers)
             if rep:                               # the first is a warm-up
@@ -350,7 +350,8 @@ def deposit(reps: int, deck: str, rows_path: str | None,
     """Milliseconds of `reps` segment deposits of `deck`'s step-1 rows in
     `dtype` into a tally of `tally` (None: `dtype`)."""
     import torch
-    from neutral_tpu_torch import driver, flight_kernel, raster_kernel
+    from neutral_tpu_torch import (census, driver, flight_kernel,
+                                   raster_kernel)
     from neutral_tpu_torch import transport
 
     tally_name = tally or dtype
@@ -365,7 +366,7 @@ def deposit(reps: int, deck: str, rows_path: str | None,
         start = transport.begin_timestep(sim.state, sim.geom, sim.cs_scatter,
                                          cfg.dt, 1)
         segs = []
-        flight_kernel.flight_chunk_kernel(
+        census.flight_chunk_kernel(
             start, torch.zeros_like(sim.tally), sim.geom, sim.cs_scatter,
             sim.cs_absorb, 1, 1.0 / cfg.nparticles, segments=segs)
         rows = torch.cat(segs).contiguous()

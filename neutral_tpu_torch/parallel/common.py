@@ -1,45 +1,26 @@
-"""The decomposed runs' shared machinery: shards, one loop, one read.
+"""The decomposed runs' shared machinery: shards, migration, gathers.
 
 Port of `neutral_tpu/parallel/`.  A run is split into shards, each with
 its own device (several shards may share one card), its own particles and
 its own tally.  The JAX package built each decomposition from `shard_map`
-programs with collectives; here one Python loop drives every shard of a
-process (`DecomposedSimulation.step`), and a run over several processes
-(distributed.py) splits the global shards into contiguous blocks, one per
-process, each driven by the same loop.  A step starts every shard's
-census (`begin_kernel.begin_census`: one begin kernel launch a shard with
-the kernel engine) and reads all shards' live counts at once; then:
-
-1. every shard with work runs one chunk: one kernel launch over the
-   shard's list of working lanes (the sweep kernel, bounded by
-   `MAX_EVENTS` per lane, or a flight round: flight kernel and segment
-   deposit, with its own pieces per lane, `flight_kernel.pieces_for`);
-   with the plain engine, the plain version until no lane in its window
-   has work;
-2. one host read of every shard's counters at once
-   (`distributed.gather_counters`): facets, collisions, lanes still
-   working, the segment rows reserved, the segment deposit's piece count
-   and overflow flag and, in the spatial modes, how many lanes leave for
-   each other shard and how many slots are free; with several processes
-   the same call gathers those rows from every process (on the card under
-   NCCL, then one read), so that every process holds the same global
-   counters, from which all of them take the same decisions (which shard
-   works next, what moves where), and so make the same collective calls;
-   then each flight shard's host part of the round
-   (`flight_kernel.after_round`: a re-run of an overflowed deposit, the
-   growth of a segment buffer that refused rows, the next list's length)
-   and each sweep shard's next list length, which need no read;
-3. migration (spatial modes): each lane that left its shard's window goes
-   straight to its owner shard, into a dead slot, and the owner's tensors
-   grow when dead slots run out.  The counts of step 2 size every gather,
-   so migration itself waits for nothing.  A shard that received lanes
-   covers all of its lanes in its next launch, which rebuilds its list.
-   Lanes bound for another process's shard are packed into one buffer
-   per pair of processes and swapped by one all-to-all (`exchange`: card
-   to card under NCCL, staged on the host under gloo), sized from the
-   gathered counters; arrivals land in source-shard order, so every shard
-   holds bitwise the lanes of the single-process run with the same
-   shards.
+programs with collectives; here the census loop of census.py, the one
+that `Simulation` runs over its one shard, drives every shard of a
+process, and a run over several processes (distributed.py) splits the
+global shards into contiguous blocks, one per process, each driven by the
+same loop.  Each pass reads every global shard's counters at once
+(`distributed.gather_counters`; with several processes on the card under
+NCCL, then one read), so that every process takes the same decisions and
+makes the same collective calls.  This module adds migration (spatial
+modes, `departures` and `migrate`): each lane that left its shard's
+window goes straight to its owner shard, into a dead slot, the owner's
+tensors growing when dead slots run out; the departures read with the
+counters size every gather, so migration waits for nothing, and a shard
+that received lanes covers all of its lanes in its next launch.  Lanes
+bound for another process's shard are packed into one buffer per pair of
+processes and swapped by one all-to-all (`exchange`: card to card under
+NCCL, staged on the host under gloo); arrivals land in source-shard
+order, so every shard holds bitwise the lanes of the single-process run
+with the same shards.
 
 The shards of one process may lie on several cards (one process driving
 four cards, or two cards in each of two processes): every launch runs
@@ -63,7 +44,8 @@ checkpoint on its owner shard (`restore_owner`, the counterpart of JAX's
 `_partition_by_owner`) and each shard's part of the tally in place: a
 checkpoint of one layout restores into any other.  With several processes
 the states and tallies are gathered to every process (as JAX's
-`process_allgather` does), and process 0 alone writes files.
+`process_allgather` does), and process 0 alone writes files; in one
+process the tallies are read as `Simulation`'s is (census.read_tallies).
 
 JAX's flight_sharded.py has no module of its own here: its decomposed
 flight step is the flight branch of the same loop, whose lists of working
@@ -76,26 +58,18 @@ its overflow, repartition and abort path (growth replaces them).
 
 from __future__ import annotations
 
-import contextlib
-import dataclasses
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 
-from ..begin_kernel import begin_census
-from ..driver import SimulationBase, StepMetrics, check_device
-from ..flight import flight_chunk_plain
-from ..flight_kernel import (FlightBuffers, after_round, event_phases,
-                             flight_params, flight_round, launch_records)
+from .. import census
+from ..census import Shard
+from ..driver import SimulationBase, check_device
 from ..particles import STATE_FIELDS, ParticleState, state_from_numpy
 from ..profiler import Spans, span
-from ..sweep_kernel import (MAX_EVENTS, SweepBuffers, rect_arrays,
-                            sweep_chunk_plain, sweep_params, sweep_round)
-from ..transport import Geometry, window_cells
+from ..transport import window_cells
 from . import distributed
 from .distributed import (all_gather_arrays, exchange, gather_counters,
-                          local_shards, process_of, rank, world)
+                          local_shards, process_of, rank)
 
 
 def shard_devices(n: int | None = None, device="cuda") -> list:
@@ -115,16 +89,6 @@ def shard_devices(n: int | None = None, device="cuda") -> list:
         ncards = torch.cuda.device_count()
         return [torch.device("cuda", i % ncards) for i in range(n or ncards)]
     return [check_device(device)] * (n or 1)
-
-
-def to_device(obj, device):
-    """Dataclass `obj` with every tensor field on `device` (itself when
-    they all are there already)."""
-    moved = {f.name: getattr(obj, f.name).to(device)
-             for f in dataclasses.fields(obj)
-             if isinstance(getattr(obj, f.name), torch.Tensor)
-             and getattr(obj, f.name).device != device}
-    return dataclasses.replace(obj, **moved) if moved else obj
 
 
 def first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -182,31 +146,6 @@ def unpack_lanes(buf: torch.Tensor, counts: list, like: ParticleState
     return [list(blk) for blk in zip(*fields)]
 
 
-@dataclass
-class Shard:
-    """One shard: its device, particles, tally and geometry.
-
-    `geom` has the shard's extent (the whole mesh in the replicated mode,
-    the window's block in the spatial ones, with a grid deck's density
-    block) and `x_off`/`y_off` place the window (None: no window on that
-    axis).  `tables` are the cross-sections on `device`.  The kernel
-    engine keeps its counters and region or rect arrays here, and the
-    sweep or flight loop's buffers (whose counters `counts` is); the
-    spatial modes keep each lane's destination shard."""
-    device: torch.device
-    geom: Geometry
-    state: ParticleState
-    tally: torch.Tensor
-    tables: tuple
-    x_off: int | None = None
-    y_off: int | None = None
-    counts: torch.Tensor | None = None
-    rects: tuple | None = None
-    flight: FlightBuffers | None = None
-    sweep: SweepBuffers | None = None
-    dest: torch.Tensor | None = None
-
-
 class DecomposedSimulation(SimulationBase):
     """A run over shards on `devices` (default: one per visible card).
 
@@ -219,7 +158,7 @@ class DecomposedSimulation(SimulationBase):
     `migrates` and name each cell's owner shard (`owner`)."""
 
     decomposition = ""
-    migrates = False
+    read_counters = staticmethod(gather_counters)
 
     def __init__(self, cfg, *, devices=None, engine: str = "auto",
                  transport: str = "auto", quiet: bool = False):
@@ -228,7 +167,6 @@ class DecomposedSimulation(SimulationBase):
         if len({d.type for d in devices}) != 1:
             raise ValueError(f"shards on devices of one type only: {devices}")
         self.local = local_shards(len(devices))
-        self.world = world()
         super().__init__(cfg, device=devices[self.local.start], engine=engine,
                          transport=transport, quiet=quiet)
         mine = devices[self.local.start:self.local.stop]
@@ -243,12 +181,6 @@ class DecomposedSimulation(SimulationBase):
         self.process = np.array([process_of(s, self.nshards)
                                  for s in range(self.nshards)])
         self.crossing = self.process[:, None] != self.process[None, :]
-        # A chunk's counters: [facets, collisions, lanes still working], and
-        # with the flight kernel its three more (segment rows reserved, the
-        # deposit's pieces, its overflow flag); the spatial modes append
-        # departures per shard and dead lanes when they read them.
-        self.deposits = self.engine == "kernel" and self.transport == "flight"
-        self.nctrl = 6 if self.deposits else 3
         self.shards = self.make_shards()
         # each shard's device in shard order, or the one they all share
         names = [str(d) for d in devices]
@@ -282,15 +214,19 @@ class DecomposedSimulation(SimulationBase):
 
     # -- gathers and checkpoints -----------------------------------------------
     def shard_tallies(self) -> list[np.ndarray]:
-        """Every global shard's tally as a host array, in shard order
-        (gathered from every process: a collective)."""
-        return all_gather_arrays([sh.tally for sh in self.shards])
+        """Every global shard's tally as a host array, in shard order: in
+        one process float64, read as Simulation's is (census.read_tallies),
+        and over several gathered from every process (a collective)."""
+        tallies = [sh.tally for sh in self.shards]
+        if self.world == 1:
+            return census.read_tallies(tallies)
+        return all_gather_arrays(tallies)
 
     def states(self) -> list[ParticleState]:
         """Every global shard's particles: with several processes gathered
         to the host of every process (a collective)."""
         if self.world == 1:
-            return [sh.state for sh in self.shards]
+            return super().states()
         arrays = all_gather_arrays([getattr(sh.state, f)
                                     for sh in self.shards
                                     for f in STATE_FIELDS])
@@ -313,194 +249,17 @@ class DecomposedSimulation(SimulationBase):
             sh.tally = torch.as_tensor(self.tally_part(tally, s),
                                        device=sh.device).to(sh.tally.dtype)
 
-    # -- set-up helpers ---------------------------------------------------
-    def new_shard(self, device, geom: Geometry, pid: torch.Tensor,
-                  x_off=None, y_off=None) -> Shard:
-        """A shard on `device` holding the injected particles `pid`."""
-        from ..particles import inject_fields
-        cfg = self.cfg
-        with span("setup.inject"):
-            state = inject_fields(
-                to_device(self.mesh, device), pid.to(device),
-                torch.ones(pid.shape, dtype=torch.bool, device=device),
-                initial_energy=cfg.initial_energy, dt=cfg.dt,
-                dtype=self.dtype, **self.source())
-        geom = to_device(geom, device)
-        tally = torch.zeros(geom.nx * geom.ny,
-                            dtype=getattr(torch, cfg.tally_dtype),
-                            device=device)
-        tables = (to_device(self.cs_scatter, device),
-                  to_device(self.cs_absorb, device))
-        sh = Shard(device, geom, state, tally, tables, x_off, y_off)
-        if self.engine == "kernel":
-            rects = geom.rects if self.deposits else geom.regions
-            sh.rects = (None if rects is None
-                        else rect_arrays(rects, device, self.dtype))
-            if self.deposits:
-                sh.flight = FlightBuffers(geom.nx, geom.ny, device,
-                                          dtype=self.dtype,
-                                          tally_dtype=tally.dtype)
-                sh.counts = sh.flight.counts
-            else:
-                sh.sweep = SweepBuffers(device)
-                sh.counts = sh.sweep.counts
-        return sh
-
-    # -- the step -----------------------------------------------------------
-    def step(self, tt: int) -> StepMetrics:
-        """Advance one census timestep on every shard (master_key = tt).
-        Every count it returns is global: over every process's shards.
-        Its spans are Simulation.step's: nt.census, nt.begin with
-        nt.begin.read, then nt.sweep around the loop (sweep transport) or
-        one nt.flight.round a pass of the loop (flight transport), each
-        pass's read (nt.sweep.read, nt.flight.read), the flight shards'
-        after_round (nt.flight.host), and nt.migrate and nt.exchange."""
-        cfg = self.cfg
-        flight = self.transport == "flight"
-        self.profile.start()
-        spans = Spans()
-        with span("census", spans):
-            with span("begin", spans):
-                rows = []
-                for sh in self.shards:
-                    sh.state, live = begin_census(self.engine, sh.state,
-                                                  sh.geom, sh.tables[0],
-                                                  cfg.dt, tt, sh.x_off,
-                                                  sh.y_off)
-                    rows.append(live)
-                    if sh.flight is not None:
-                        sh.flight.start_census()
-                    if sh.sweep is not None:
-                        sh.sweep.start_census()
-                # Every global shard's [live lanes, lanes]: one read, one
-                # gather.
-                with span("begin.read", spans):
-                    begun = gather_counters(rows, [[sh.state.n]
-                                                   for sh in self.shards])
-                nprocessed = int(begun[:, 0].sum())
-            # The sweep phase runs from here to the clock's stop.
-            with contextlib.nullcontext() if flight else span("sweep",
-                                                              spans):
-                n = self.nshards
-                work = begun[:, 1] > 0
-                nf = nc = nsweeps = nlaunches = nmigrated = nexchanged = 0
-                marks, parts = [], {"flight": 0.0, "raster": 0.0}
-                rounds = []
-                while work.any():
-                    with (span("flight.round", spans) if flight
-                          else contextlib.nullcontext()):
-                        ctrl, received = self._pass(tt, work, marks, parts,
-                                                    rounds, spans)
-                    nf += int(ctrl[:, 0].sum())
-                    nc += int(ctrl[:, 1].sum())
-                    nlaunches += int(ctrl[:, -2].sum())
-                    nsweeps += int(ctrl[:, -1].max())
-                    if self.migrates:
-                        sends = ctrl[:, self.nctrl:self.nctrl + n]
-                        nmigrated += int(sends.sum())
-                        nexchanged += int(sends[self.crossing].sum())
-                    work = (ctrl[:, 2] > 0) | (received > 0)
-                step_time = self.profile.stop(f"step{tt}")
-        wall = spans.seconds
-        t_migrate = wall.get("migrate", 0.0)
-        phases = {"begin": wall["begin"]}
-        if flight:
-            if self.engine == "kernel":
-                parts = event_phases(marks)
-            phases.update(parts)
-            phases["loop"] = (wall["census"] - wall["begin"]
-                              - parts["flight"] - parts["raster"]
-                              - t_migrate)
-        else:
-            phases["sweep"] = wall["sweep"] - t_migrate
-        if self.migrates:
-            phases["migrate"] = t_migrate
-            if self.world > 1:
-                phases["exchange"] = wall.get("exchange", 0.0)
-        m = StepMetrics(step=tt, step_time=step_time, nfacets=nf,
-                        ncollisions=nc, nprocessed=nprocessed,
-                        nsweeps=nsweeps, nlaunches=nlaunches, phases=phases,
-                        nmigrated=nmigrated, nexchanged=nexchanged,
-                        rounds=launch_records(rounds), nwaits=spans.waits())
-        self.step_metrics.append(m)
-        return m
-
-    def _pass(self, tt: int, work: np.ndarray, marks: list, parts: dict,
-              rounds: list, spans: Spans) -> tuple:
-        """One pass of the step's loop: a chunk on every shard with work,
-        the one read of every shard's counters, the flight shards' host
-        part of the round and, in the spatial modes, migration.  Returns
-        (every global shard's counters as read, the lanes each global
-        shard received)."""
-        n = self.nshards
-        rows, host, chunk = [], [], {}
-        for s, sh in zip(self.local, self.shards):
-            w = bool(work[s])
-            ctrl, sweeps = (self._chunk(sh, tt, marks, parts) if w
-                            else (torch.zeros(self.nctrl, dtype=torch.int64,
-                                              device=sh.device), 0))
-            if w and self.deposits:
-                chunk[s] = {"shard": s} | sweeps
-                sweeps = sweeps["pieces"]
-            host.append([int(w and self.engine == "kernel"), sweeps])
-            rows.append(torch.cat([ctrl, self._departures(sh)])
-                        if self.migrates else ctrl)
-        # Every global shard's counters, then [launched, sweeps]: one read
-        # and one gather for the chunk.
-        read = "flight.read" if self.transport == "flight" else "sweep.read"
-        with span(read, spans):
-            ctrl = gather_counters(rows, host)
-        if chunk:
-            with span("flight.host", spans):
-                for s, rec in chunk.items():
-                    sh = self.shards[s - self.local.start]
-                    after_round(sh.flight, sh.tally, sh.geom, rec,
-                                ctrl[s, 2:6], marks)
-                    rounds.append(rec)
-        for s, sh in zip(self.local, self.shards):
-            if work[s] and sh.sweep is not None:
-                sh.sweep.n_active = int(ctrl[s, 2])
-        received = np.zeros(n, dtype=np.int64)
-        if self.migrates:
-            with span("migrate", spans):
-                sends = ctrl[:, self.nctrl:self.nctrl + n]
-                self._migrate(sends, ctrl[:, self.nctrl + n], spans)
-                received = sends.sum(axis=0)
-                for s, sh in zip(self.local, self.shards):
-                    for b in (sh.flight, sh.sweep):
-                        if received[s] and b is not None:
-                            b.n_active = None
-        return ctrl, received
-
-    def _chunk(self, sh: Shard, tt: int, marks: list, parts: dict):
-        """One chunk on shard `sh`: (its nctrl counters as an int64
-        tensor on its device, sweeps run), or with the flight kernel
-        (the counters, the round's record; flight_round's)."""
-        scatter, absorb = sh.tables
-        args = (sh.state, sh.tally, sh.geom, scatter, absorb, tt,
-                1.0 / self.cfg.nparticles)
-        win = dict(x_off=sh.x_off, y_off=sh.y_off)
-        if self.engine == "plain":
-            if self.transport == "flight":
-                sh.state, f, c, sweeps, t = flight_chunk_plain(*args, **win)
-                parts["flight"] += t["flight"]
-                parts["raster"] += t["raster"]
-            else:
-                sh.state, f, c, sweeps = sweep_chunk_plain(*args, **win)
-            return torch.tensor([f, c, 0], device=sh.device), sweeps
-        sh.counts.zero_()
-        if self.transport == "flight":
-            params = flight_params(sh.state, sh.tally, sh.rects, *args[2:],
-                                   **win)
-            rec = flight_round(params, sh.flight, sh.tally, sh.geom)
-            marks.append(rec["marks"])
-            return sh.counts, rec
-        params = sweep_params(sh.state, sh.tally, sh.rects, *args[2:], **win)
-        sweep_round(params, sh.sweep, MAX_EVENTS)
-        return sh.counts[:3], 0
+    # -- the census -----------------------------------------------------------
+    def passes(self, tt: int, work: np.ndarray,
+               spans: Spans) -> census.StepMetrics:
+        return census.passes(
+            self.shards, tt, 1.0 / self.cfg.nparticles, work,
+            transport=self.transport, engine=self.engine, spans=spans,
+            read=self.read_counters, local=self.local,
+            migration=self if self.migrates else None)
 
     # -- migration (spatial modes) -----------------------------------------
-    def _departures(self, sh: Shard) -> torch.Tensor:
+    def departures(self, sh: Shard) -> torch.Tensor:
         """[lanes leaving for each shard..., dead lanes] of shard `sh`, as
         an int64 tensor on its device; records each lane's destination
         (nshards: it stays)."""
@@ -516,12 +275,17 @@ class DecomposedSimulation(SimulationBase):
         return torch.cat([(sh.dest[None] == shards).sum(1),
                           state.dead.sum().reshape(1)])
 
-    def _migrate(self, sends: np.ndarray, free: np.ndarray,
-                 spans: Spans | None = None) -> None:
-        """Move every departing lane to its owner shard: sends[s, d] lanes
-        from s to d (read with the counters), free[s] dead slots on s.
-        The exchange between processes, when a lane crosses one, is the
-        span nt.exchange, added to `spans`."""
+    def migrate(self, columns: np.ndarray,
+                spans: Spans | None = None) -> tuple:
+        """Move every departing lane to its owner shard, from `columns`,
+        every global shard's departures as read with the counters:
+        sends[s, d] lanes from s to d and free[s] dead slots on s.  The
+        exchange between processes, when a lane crosses one, is the span
+        nt.exchange, added to `spans`.  Returns (the lanes each global
+        shard received, the lanes moved, those that crossed between
+        processes)."""
+        n = self.nshards
+        sends, free = columns[:, :n], columns[:, n]
         out = {}
         for s, sh in zip(self.local, self.shards):
             gone = []
@@ -549,6 +313,8 @@ class DecomposedSimulation(SimulationBase):
             for i, f in enumerate(STATE_FIELDS):
                 getattr(sh.state, f)[slots] = torch.cat(
                     [a[i].to(sh.device) for a in arrivals])
+        return (sends.sum(axis=0), int(sends.sum()),
+                int(sends[self.crossing].sum()))
 
     def _exchange(self, sends: np.ndarray, out: dict) -> dict:
         """Swap the lanes that cross between processes: this process packs

@@ -44,6 +44,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..census import read_counters
+
 TIMEOUT = datetime.timedelta(minutes=5)
 _CARDS_KEY = "neutral_tpu_torch/cards/"
 
@@ -261,18 +263,17 @@ def gather_counters(rows: list[torch.Tensor], host: np.ndarray
     """Every global shard's counters as one (nshards, len + m) int64 host
     array: this process's rows (1-d int64 tensors of one length, one per
     local shard, on the shards' devices) beside its (k, m) int64 `host`
-    columns, from every process in rank order.  One host read: alone or
-    under gloo the rows are read and then gathered on the host; under
-    NCCL they are gathered on this process's first card and read
-    there."""
-    host = np.asarray(host, dtype=np.int64).reshape(len(rows), -1)
+    columns, from every process in rank order.  Alone or under gloo each
+    row is read once (census.read_counters) and the block gathered on the
+    host; under NCCL the rows are gathered on this process's first card
+    and read there, once."""
     dev = comm_device()
     if dev.type == "cuda":
+        host = np.asarray(host, dtype=np.int64).reshape(len(rows), -1)
         block = torch.cat([torch.stack([r.to(dev) for r in rows]),
                            torch.from_numpy(host).to(dev)], 1)
         return _all_gather(block).reshape(-1, block.shape[1]).cpu().numpy()
-    block = np.concatenate([torch.stack([r.to(rows[0].device) for r in rows])
-                            .cpu().numpy(), host], 1)
+    block = read_counters(rows, host)
     if world() == 1:
         return block
     return _all_gather(torch.from_numpy(block)).reshape(

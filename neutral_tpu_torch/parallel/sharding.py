@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..census import new_shard
 from .common import DecomposedSimulation
 
 
@@ -31,7 +32,7 @@ class ShardedSimulation(DecomposedSimulation):
 
     def make_shards(self) -> list:
         n, per = self.cfg.nparticles, self.pids_per_shard()
-        return [self.new_shard(self.devices[i], self.geom, torch.arange(
+        return [new_shard(self, self.devices[i], self.geom, torch.arange(
                     min(i * per, n), min((i + 1) * per, n),
                     device=self.devices[i]))
                 for i in self.local]

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..census import new_shard
 from ..particles import source_cells
 from .common import DecomposedSimulation
 
@@ -91,8 +92,8 @@ class SpatialSimulation(DecomposedSimulation):
                     y0:y0 + self.rows, x0:x0 + self.cols].reshape(-1)
             geom = dataclasses.replace(self.geom, nx=self.cols,
                                        ny=self.rows, density=density)
-            shards.append(self.new_shard(
-                dev, geom, pid[owner == s],
+            shards.append(new_shard(
+                self, dev, geom, pid[owner == s],
                 x_off=x0 if self.px > 1 else None,
                 y_off=y0 if self.py > 1 else None))
         return shards

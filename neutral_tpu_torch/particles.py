@@ -193,27 +193,29 @@ def inject_particles(mesh: Mesh2D, *, nparticles: int, source_x0: float,
                      dtype: torch.dtype = torch.float32,
                      rng_scheme: str = "threefry",
                      local_coords: tuple[float, float] | None = None,
-                     device=None) -> ParticleState:
+                     device=None, pid: torch.Tensor | None = None
+                     ) -> ParticleState:
     """Vectorized source injection (the reference's init,
     omp3/neutral.c:576-625): position from draw (pid, 0, 0), cell from an
     edge search, isotropic angle from draw (pid, 0, 1), unit weight, zero
-    mean free paths.
+    mean free paths, for the pids 0..nparticles-1 or, given `pid`, for
+    that int64 vector of nparticles pids (a decomposition's shard).
 
     Source geometry is in physical coordinates; `local_coords=(dx, dy)`
     stores x/y as cell-local offsets.  No padding lanes: the kernel takes
     any lane count.
 
-    The plain engine and the CPU inject through this function.  On the
-    kernel engine `Simulation` injects through
-    `inject_kernel.inject_particles_kernel` instead, one launch of
-    csrc/inject.cu that gives the same 14 fields bit for bit; the
-    decompositions' shards (parallel/) inject through `inject_fields` and
-    `source_cells` on every engine.  `inject_particles.calls` counts its
-    calls; callers may reset it.
+    The plain engine's shards inject through this function, the kernel
+    engine's through `inject_kernel.inject_particles_kernel`, one launch
+    of csrc/inject.cu that gives the same 14 fields bit for bit
+    (census.new_shard chooses, for `Simulation`'s one shard and for each
+    of a decomposition's).  `inject_particles.calls` counts its calls;
+    callers may reset it.
     """
     inject_particles.calls += 1
-    pid = torch.arange(int(nparticles), dtype=torch.int64, device=device)
-    alive = torch.ones(pid.shape, dtype=torch.bool, device=device)
+    if pid is None:
+        pid = torch.arange(int(nparticles), dtype=torch.int64, device=device)
+    alive = torch.ones(pid.shape, dtype=torch.bool, device=pid.device)
     return inject_fields(
         mesh, pid, alive, source_x0=source_x0, source_y0=source_y0,
         source_width=source_width, source_height=source_height,

@@ -20,27 +20,27 @@ from the spans of the step.  The spans, nested as they open:
     nt.setup          make_simulation
       nt.setup.mesh     make_geometry, build_mesh
       nt.setup.xs       load_cross_sections, the same-table compare
-      nt.setup.inject   the injection: one launch of the inject kernel
+      nt.setup.inject   a shard's injection (census.new_shard, once a
+                        shard): one launch of the inject kernel
                         (inject_kernel.py) on the kernel engine,
                         particles.inject_particles on the plain engine
-                        and in the decompositions' shards
-      nt.setup.buffers  the tally, FlightBuffers, SweepBuffers
+      nt.setup.buffers  a shard's tally, FlightBuffers, SweepBuffers
       nt.setup.wait     the closing synchronize
-    nt.census         Simulation.step
-      nt.begin          begin_census
-        nt.begin.read     the host read of the live count
-      nt.sweep          the sweep transport's census
-        nt.sweep.read     each launch's read of the lanes still working
-        nt.census.read    the read of the census's event counts
-      nt.flight.round   one flight round (flight transport), each with
-        nt.flight.read    the round's read of the counters
+    nt.census         SimulationBase.step, the census loop (census.py)
+      nt.begin          begin_census on every shard
+        nt.begin.read     the host read of the live counts
+      nt.sweep          the sweep transport's passes
+        nt.sweep.read     each pass's read of the counters (facets and
+                          collisions so far, lanes still working)
+      nt.flight.round   one pass of flight rounds (flight transport),
+                        each with
+        nt.flight.read    the pass's read of the counters
         nt.flight.host    after_round: re-deposit, segment buffer growth
           nt.flight.redeposit  a deposit's re-run after its piece buffer
                                overflowed: the buffer's growth and launch
-      nt.census.read    (flight transport) the census's event counts
       nt.migrate        migration between shards (spatial decompositions)
         nt.exchange       the lanes' exchange between processes
-    nt.tally_read     host_tally
+    nt.tally_read     host_tally (census.read_tallies)
       nt.tally_read.convert  on a card, the tally's conversion to float64
                              there (exact; empty for a float64 tally)
       nt.tally_read.copy     the blocking copy into a float64 host block:

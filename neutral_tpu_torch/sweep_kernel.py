@@ -1,17 +1,17 @@
 """The fused sweep kernel (csrc/sweep.cu) and its plain version.
 
-Counterpart of `neutral_tpu/pallas_sweep.py`.  `sweep_chunk_kernel` runs
-every lane to census or death through the hand-written CUDA kernel:
-persistent threads, each running one lane at a time and taking the next
-from a work list, tally flushes by atomicAdd, event counts reduced in the
-kernel.  It loops on the host: each launch runs at most `max_events`
-events per lane, and writes the lanes still working after it into the
-next launch's list, whose length the host reads back; it launches again
-over that list until it is empty.  A census's first launch runs over
-every lane, with no list.  All per-history state, `deposit` included,
-lives in the state tensors between launches, each lane at its own index,
-so the number of launches and the order of the lanes change nothing in
-the result.
+Counterpart of `neutral_tpu/pallas_sweep.py`.  The kernel runs lanes to
+census or death: persistent threads, each running one lane at a time and
+taking the next from a work list, tally flushes by atomicAdd, event counts
+reduced in the kernel.  `sweep_round` is one launch: at most `max_events`
+events per lane, over the list of working lanes that the previous launch
+wrote (a census's first launch runs over every lane, with no list); the
+lanes still working after it make the next list, whose length the host
+reads back.  The census loop (census.py: `census.sweep_chunk_kernel` for
+one state, and the decompositions' shards) launches again until the list
+is empty.  All per-history state, `deposit` included, lives in the state
+tensors between launches, each lane at its own index, so the number of
+launches and the order of the lanes change nothing in the result.
 
 The kernel's modes follow the deck: analytic cross-sections or stored
 tables, region rectangles or a density grid, threefry or pcg64si draws,
@@ -29,31 +29,24 @@ csrc/sweep_mixed.cu, whose layouts (`_SweepParams32t64`,
 (`_LAYOUTS`, by the pair).  The spatial
 window of a decomposed run (`x_off`/`y_off`, transport.py's) is a runtime
 parameter of every instantiation.  `sweep_params` is a census's launch
-parameters and `sweep_round` one launch over the lists of `SweepBuffers`;
-`sweep_chunk_kernel` loops them for one state, and the decomposed runs
-(parallel/) launch every shard before they read the counters of all
-shards at once.  The grid fills the card once (`grid_blocks`, from the
+parameters and `sweep_round` one launch over the lists of `SweepBuffers`.
+The grid fills the card once (`grid_blocks`, from the
 occupancy that `resident_blocks` reads from the library for each launch's
 instantiation and shared memory).
 
 `sweep_chunk_plain` is the plain PyTorch version (transport.sweep_chunk run
-to completion).  `sweep_chunk_kernel` launches the kernel or raises: on a
-state that does not lie on a CUDA device, and on any configuration the
-kernel does not implement.  Choosing the plain version is the caller's
-(`driver.pick_engine`).  `SweepBuffers.slot_use` is the share of the
-launches' thread slots that ran events, from the kernel's counters, and
-`thread_slot_use` the share that one thread per lane in pid order would
-fill, from per-lane event counts (the kernel's layout before it had a
-work list).
-
-`sweep_chunk_kernel.launches` counts kernel launches (made by
-`sweep_round`, from either loop) and `sweep_chunk_plain.calls` counts
-plain runs; callers may reset both.
+to completion); `sweep_chunk_plain.calls` counts its calls, and callers
+may reset it.  `sweep_params` raises on a state that does not lie on a
+CUDA device and on any configuration the kernel does not implement;
+choosing the plain version is the caller's (`driver.pick_engine`).
+`SweepBuffers.slot_use` is the share of the launches' thread slots that
+ran events, from the kernel's counters, and `thread_slot_use` the share
+that one thread per lane in pid order would fill, from per-lane event
+counts (the kernel's layout before it had a work list).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
@@ -62,7 +55,6 @@ import torch
 
 from . import build, transport
 from .particles import ParticleState
-from .profiler import Spans, span
 from .transport import Geometry
 from .xs import CrossSection
 
@@ -226,8 +218,10 @@ class SweepBuffers:
         self.start_census()
 
     def start_census(self) -> None:
-        """The next launch is a census's first: it covers every lane."""
+        """The next launch is a census's first: it covers every lane, and
+        the counters start at 0."""
         self.n_active = None
+        self.counts.zero_()
 
     def slot_use(self) -> float:
         """counts[4] / (32 * counts[5]) (a host read)."""
@@ -367,6 +361,15 @@ def rect_arrays(rects: tuple, device: torch.device,
     return bounds, density
 
 
+@functools.cache
+def kernel_rects(rects: tuple | None, device: torch.device,
+                 dtype: torch.dtype):
+    """rect_arrays(rects) on `device` in `dtype` (None for None), made
+    once per process, deck, device and dtype, so that a census copies
+    nothing from the host for them."""
+    return None if rects is None else rect_arrays(rects, device, dtype)
+
+
 def window_fields(p: ctypes.Structure, geom: Geometry, x_off=None,
                   y_off=None) -> None:
     """Set a kernel's extent and window fields: nx/ny (the window's, or
@@ -475,12 +478,13 @@ sweep_chunk_plain.calls = 0
 
 
 def sweep_round(params: ctypes.Structure, buffers: SweepBuffers,
-                max_events: int = MAX_EVENTS) -> None:
+                max_events: int = MAX_EVENTS) -> bool:
     """One launch on the buffers' device and its current stream, over the
     next list of `buffers` (every lane when it has none), of at most
     `max_events` events per lane; the lanes still working after it make
     the next list, whose length counts[2] holds once the launch is done.
-    Does not wait for it."""
+    Does not wait for it.  Returns whether a kernel ran (not for an empty
+    list)."""
     if max_events < 1:
         raise ValueError(f"max_events must be >= 1, got {max_events}")
     b = buffers
@@ -506,48 +510,6 @@ def sweep_round(params: ctypes.Structure, buffers: SweepBuffers,
             launch = getattr(lib, f"nt_sweep_launch{_suffix(params)}")
             build.check_launch(lib, launch(ctypes.byref(params), stream),
                                "sweep kernel")
-            sweep_chunk_kernel.launches += 1
-            sweep_chunk_kernel.cards[b.device.index] += 1
     b.lists.reverse()               # the next list is the next launch's
+    return lanes > 0
 
-
-def sweep_chunk_kernel(state: ParticleState, tally: torch.Tensor,
-                       geom: Geometry, scatter_tab: CrossSection,
-                       absorb_tab: CrossSection, master_key: int,
-                       inv_ntotal: float, max_events: int = MAX_EVENTS,
-                       x_off=None, y_off=None,
-                       buffers: SweepBuffers | None = None,
-                       spans: Spans | None = None):
-    """Run every lane to census or death (or, under the window `x_off`/
-    `y_off`, until it leaves the window) with the CUDA sweep kernel.
-
-    Updates `state`'s tensors and `tally` in place (no copy of the 14
-    state arrays).  `buffers` holds the loop's buffers between calls (new
-    ones when None).  Each host read is a span (nt.sweep.read after each
-    launch, nt.census.read at the end), added to `spans` when given.
-    Returns (state, nfacets, ncollisions, nlaunches).
-    """
-    regions = (None if geom.regions is None
-               else rect_arrays(geom.regions, state.device, state.dtype))
-    params = sweep_params(state, tally, regions, geom, scatter_tab,
-                          absorb_tab, master_key, inv_ntotal, x_off, y_off)
-    if buffers is None:
-        buffers = SweepBuffers(state.device)
-    buffers.start_census()
-    buffers.counts.zero_()
-    launches = 0
-    while True:
-        sweep_round(params, buffers, max_events)
-        launches += 1
-        with span("sweep.read", spans):
-            working = int(buffers.counts[2])      # waits for the launch
-        if working == 0:
-            break
-        buffers.n_active = working
-    with span("census.read", spans):
-        nf, nc = (int(v) for v in buffers.counts[:2].tolist())
-    return state, nf, nc, launches
-
-
-sweep_chunk_kernel.launches = 0
-sweep_chunk_kernel.cards = collections.Counter()   # launches by card index

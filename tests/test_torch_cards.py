@@ -291,7 +291,7 @@ def test_decomposition_over_cards_matches_one_card(decomposition):
     launches counted, the step clock over every card."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two or more CUDA devices")
-    from neutral_tpu_torch import begin_kernel, sweep_kernel
+    from neutral_tpu_torch import begin_kernel, census
 
     cfg = tt.load_config("problems/scatter.params").with_(
         nparticles=65536, expected_tally=None)
@@ -302,11 +302,11 @@ def test_decomposition_over_cards_matches_one_card(decomposition):
     sim = cls(cfg, devices=devices, quiet=True)
     assert sim.engine == single.engine == "kernel"
     assert sim.profile.devices == sorted(set(devices), key=str)
-    sweep_kernel.sweep_chunk_kernel.cards.clear()
+    census.sweep_chunk_kernel.cards.clear()
     begin_kernel.begin_timestep_kernel.cards.clear()
     assert counts(sim) == counts(single)
     a, b = sim.host_tally().sum(), single.host_tally().sum()
     assert abs(a - b) <= 1e-5 * abs(b)
     for d in set(devices):
         assert begin_kernel.begin_timestep_kernel.cards[d.index] > 0
-        assert sweep_kernel.sweep_chunk_kernel.cards[d.index] > 0
+        assert census.sweep_chunk_kernel.cards[d.index] > 0

@@ -22,10 +22,9 @@ import torch
 
 import neutral_tpu_torch as tt
 from neutral_tpu_torch import driver, flight, transport
-from neutral_tpu_torch.flight_kernel import flight_chunk_kernel
+from neutral_tpu_torch.census import flight_chunk_kernel, sweep_chunk_kernel
 from neutral_tpu_torch.particles import STATE_FIELDS
-from neutral_tpu_torch.sweep_kernel import (sweep_chunk_kernel,
-                                            sweep_chunk_plain)
+from neutral_tpu_torch.sweep_kernel import sweep_chunk_plain
 
 DECK = "problems/scatter.params"
 SMALL = ["--nparticles", "2000", "--mesh-scale", "62"]
@@ -165,7 +164,7 @@ def test_engine_kernel_float64_raises_before_state(device, match):
             for engine in ("kernel", "auto"):
                 assert driver.pick_engine(
                     engine, torch.device("cuda"), torch.float64,
-                    cfg.with_(tally_dtype=tally), "flight") == "kernel"
+                    cfg.with_(tally_dtype=tally)) == "kernel"
         return
     with pytest.raises(ValueError, match=match):
         driver.Simulation(cfg, device=device, engine="kernel",

@@ -28,7 +28,8 @@ import torch
 
 import neutral_tpu_torch as tt
 from neutral_tpu_torch import driver, flight, transport
-from neutral_tpu_torch.flight_kernel import FlightBuffers, flight_chunk_kernel
+from neutral_tpu_torch.census import flight_chunk_kernel
+from neutral_tpu_torch.flight_kernel import FlightBuffers
 from neutral_tpu_torch.particles import STATE_FIELDS
 
 FAMILIES = ["stream", "csp", "split", "scatter"]

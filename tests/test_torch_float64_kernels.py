@@ -52,7 +52,7 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import (begin_kernel, driver, flight_kernel,
+from neutral_tpu_torch import (begin_kernel, census, driver, flight_kernel,
                                raster_kernel, sweep_kernel, transport)
 from neutral_tpu_torch.particles import STATE_FIELDS, ParticleState
 from neutral_tpu_torch.table_kernel import (PROBE_TABLES, probe_energies,
@@ -91,12 +91,12 @@ def test_auto_sends_float64_decks_to_the_sweep_kernels(name):
     transports are the old ones."""
     cfg = deck(name)
     assert driver.pick_transport(cfg, "auto") == "sweep"
-    assert driver.pick_engine("auto", torch.device("cuda"), F64, cfg,
-                              "sweep") == "kernel"
-    assert driver.pick_engine("kernel", torch.device("cuda"), F64, cfg,
-                              "sweep") == "kernel"
-    assert driver.pick_engine("auto", torch.device("cpu"), F64, cfg,
-                              "sweep") == "plain"
+    assert driver.pick_engine("auto", torch.device("cuda"), F64,
+                              cfg) == "kernel"
+    assert driver.pick_engine("kernel", torch.device("cuda"), F64,
+                              cfg) == "kernel"
+    assert driver.pick_engine("auto", torch.device("cpu"), F64,
+                              cfg) == "plain"
     f32 = driver.pick_transport(deck(name, "float32"), "auto")
     assert f32 == ("sweep" if name == "scatter" else "flight")
 
@@ -112,12 +112,12 @@ def test_kernel_float64_flight_raises_before_state(how, monkeypatch):
         raise AssertionError("state made before the refusal")
 
     monkeypatch.setattr(driver, "make_geometry", no_state)
-    monkeypatch.setattr(driver, "inject_particles", no_state)
+    monkeypatch.setattr(census, "inject_particles", no_state)
     cfg = deck("stream")
     for engine in ("kernel", "auto"):
-        assert driver.pick_engine(engine, torch.device("cuda"), F64, cfg,
-                                  "flight") == "kernel"
-    assert driver.kernel_refusal(F64, cfg, "flight") is None
+        assert driver.pick_engine(engine, torch.device("cuda"), F64,
+                                  cfg) == "kernel"
+    assert driver.kernel_refusal(F64, cfg) is None
     assert driver.auto_transport(cfg) == "sweep"
     with pytest.raises(ValueError, match="needs a CUDA device"):
         if how == "simulation":
@@ -141,18 +141,18 @@ def test_mixed_state_and_tally_dtypes(state, tally):
         tally_dtype=tally)
     cuda = torch.device("cuda")
     dtype = getattr(torch, state)
-    assert driver.pick_engine("auto", cuda, dtype, cfg, "sweep") == "kernel"
-    assert driver.pick_engine("kernel", cuda, dtype, cfg, "sweep") == "kernel"
+    assert driver.pick_engine("auto", cuda, dtype, cfg) == "kernel"
+    assert driver.pick_engine("kernel", cuda, dtype, cfg) == "kernel"
     sim = driver.Simulation(cfg, device="cpu", quiet=True)
     assert sim.tally.dtype == getattr(torch, tally)
     assert sweep_kernel._LAYOUTS[(dtype, sim.tally.dtype)][1] == (
         "_f32t64" if state == "float32" else "_f64t32")
-    launches = sweep_kernel.sweep_chunk_kernel.launches
+    launches = census.sweep_chunk_kernel.launches
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        sweep_kernel.sweep_chunk_kernel(sim.state, sim.tally, sim.geom,
+        census.sweep_chunk_kernel(sim.state, sim.tally, sim.geom,
                                         sim.cs_scatter, sim.cs_absorb, 1,
                                         1.0 / cfg.nparticles)
-    assert sweep_kernel.sweep_chunk_kernel.launches == launches
+    assert census.sweep_chunk_kernel.launches == launches
 
 
 @pytest.mark.parametrize("transport_name", ["auto", "flight"])
@@ -536,7 +536,7 @@ def sweep_matches_plain(cfg, window=None, events=(sweep_kernel.MAX_EVENTS,
     assert pnf + pnc > 0
     for ev in events:
         kt = torch.zeros_like(pt)
-        ks, knf, knc, _ = sweep_kernel.sweep_chunk_kernel(
+        ks, knf, knc, _ = census.sweep_chunk_kernel(
             start.clone(), kt, *args, max_events=ev, **win)
         assert (knf, knc) == (pnf, pnc), ev
         for f in STATE_FIELDS:

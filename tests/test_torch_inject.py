@@ -1,6 +1,7 @@
 """Source injection in the port: the inject kernel's refusals and
-parameter layout, `Simulation`'s choice of injection by engine and, on
-the card, the kernel against the plain version.
+parameter layout, the shards' choice of injection by engine
+(census.new_shard, for `Simulation` and for a decomposition's shards)
+and, on the card, the kernel against the plain version.
 
 `inject_kernel.inject_particles_kernel` computes in one launch of
 csrc/inject.cu what `particles.inject_particles` computes in eager
@@ -8,9 +9,10 @@ operations.  The `cuda` tests hold the kernel to the plain version on the
 card, all 14 fields bitwise (bit patterns), over float32 and float64,
 threefry and pcg64si, a uniform and a stretched mesh, the global and the
 cell-local frame (cell-local in float32 only, as `Simulation` uses it),
-at 1, 1,024 and 70,000 lanes, and over the scatter, csp and stream decks
-at their own particle counts through `Simulation` on the kernel engine
-(one counted launch each); they skip without a card:
+at 1, 1,024 and 70,000 lanes, over a spatial shard's vector of pids
+against `particles.inject_fields`, and over the scatter, csp and stream
+decks at their own particle counts through `Simulation` on the kernel
+engine (one counted launch each); they skip without a card:
 
     python -m pytest tests/test_torch_inject.py -q -m cuda --noconftest
 """
@@ -23,9 +25,10 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import driver, inject_kernel
+from neutral_tpu_torch import census, driver, inject_kernel, parallel
 from neutral_tpu_torch.mesh import build_mesh
-from neutral_tpu_torch.particles import STATE_FIELDS, inject_particles
+from neutral_tpu_torch.particles import (STATE_FIELDS, inject_fields,
+                                         inject_particles, source_cells)
 
 ROOT = Path(__file__).resolve().parent.parent
 NX = 48
@@ -124,7 +127,7 @@ def test_simulation_injects_by_engine(monkeypatch, engine, kind):
         calls.append(kw)
         return inject_particles(mesh, **kw)
 
-    monkeypatch.setattr(driver, "inject_particles_kernel", stand_in)
+    monkeypatch.setattr(census, "inject_particles_kernel", stand_in)
     monkeypatch.setattr(driver, "pick_engine", lambda *a: engine)
     plain_calls = inject_particles.calls
     sim = driver.Simulation(cfg, device="cpu", quiet=True)
@@ -143,10 +146,71 @@ def test_simulation_injects_by_engine(monkeypatch, engine, kind):
         return
     assert len(calls) == 1
     kw = calls[0]
-    assert kw["nparticles"] == cfg.nparticles
+    assert kw["nparticles"] == cfg.nparticles and kw["pid"] is None
     assert kw["dtype"] == torch.float32 and kw["device"] == sim.device
     assert kw["local_coords"] == ((sim.geom.dx, sim.geom.dy)
                                   if kind == "scatter" else None)
+
+
+def shard_pids(cfg, device, slabs=2) -> list:
+    """The pid vector of each of `slabs` y-slabs of `cfg`: the pids whose
+    birth cell lies in the slab (SpatialSimulation's partition), computed
+    here from source_cells."""
+    mesh = build_mesh(cfg, getattr(torch, cfg.dtype), device)
+    kw = inject_args(cfg, "global", device)
+    pid = torch.arange(cfg.nparticles, device=device)
+    _, _, _, celly = source_cells(
+        mesh, pid, source_x0=kw["source_x0"], source_y0=kw["source_y0"],
+        source_width=kw["source_width"], source_height=kw["source_height"],
+        dtype=kw["dtype"], rng_scheme=cfg.rng)
+    rows = cfg.ny // slabs
+    return [pid[celly // rows == s] for s in range(slabs)]
+
+
+@pytest.mark.parametrize("engine", ["kernel", "plain"])
+def test_shards_inject_their_pids_by_engine(monkeypatch, engine):
+    """A decomposition's shards inject as Simulation does, by engine: the
+    kernel engine once a shard through inject_particles_kernel with the
+    shard's pid vector (here a stand-in that runs the plain version), the
+    plain engine through inject_particles with the same vector; every
+    shard holds bitwise inject_fields of its pids."""
+    cfg = deck().with_(nparticles=500)
+    calls = []
+
+    def stand_in(mesh, **kw):
+        calls.append(kw)
+        return inject_particles(mesh, **kw)
+
+    monkeypatch.setattr(census, "inject_particles_kernel", stand_in)
+    monkeypatch.setattr(driver, "pick_engine", lambda *a: engine)
+    plain_calls = inject_particles.calls
+    sim = parallel.SpatialSimulation(cfg, devices=["cpu"] * 2, quiet=True)
+    assert inject_particles.calls == plain_calls + 2
+    assert len(calls) == (2 if engine == "kernel" else 0)
+    want = shard_pids(cfg, "cpu")
+    assert sum(p.numel() for p in want) == cfg.nparticles
+    for s, (sh, pid) in enumerate(zip(sim.shards, want)):
+        assert pid.numel() > 0
+        if calls:
+            assert torch.equal(calls[s]["pid"], pid)
+            assert calls[s]["nparticles"] == pid.numel()
+        assert_bitwise(sh.state, inject_fields(
+            sim.mesh, pid, torch.ones(pid.shape, dtype=torch.bool),
+            initial_energy=cfg.initial_energy, dt=cfg.dt,
+            dtype=torch.float32, **sim.source()))
+    assert sim.coords() == "cell-local"
+
+
+def test_inject_kernel_refuses_a_pid_vector_it_cannot_read():
+    """A pid vector of another dtype, length or device raises before any
+    launch (the CPU mesh is refused first, so the check runs on a mesh
+    whose device check passes only on a card)."""
+    cfg = deck()
+    mesh = build_mesh(cfg, torch.float32, "cpu")
+    kw = inject_args(cfg, "global", "cpu")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        inject_kernel.inject_particles_kernel(
+            mesh, nparticles=3, pid=torch.arange(3), **kw)
 
 
 def c_struct_fields(source: str, name: str) -> list[tuple[str, str]]:
@@ -243,3 +307,35 @@ def test_inject_kernel_matches_plain_on_decks(name):
     torch.cuda.synchronize()
     assert sim.state.n == cfg.nparticles
     assert_bitwise(sim.state, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,scheme", [
+    (d, r) for d in ("float32", "float64") for r in inject_kernel.SCHEMES])
+def test_inject_kernel_pid_vector_matches_plain_on_card(dtype, scheme):
+    """The inject kernel over a spatial shard's vector of pids against
+    inject_fields of the same pids on the card: all 14 fields bitwise, in
+    float32 and float64, under both schemes, one counted launch a shard;
+    a pid vector it cannot read raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = deck(dtype, "uniform", scheme).with_(nparticles=70_000)
+    cuda = torch.device("cuda")
+    m = build_mesh(cfg, getattr(torch, dtype), cuda)
+    kw = inject_args(cfg, "global", cuda)
+    for pid in shard_pids(cfg, cuda):
+        launches = inject_kernel.inject_particles_kernel.launches
+        got = inject_kernel.inject_particles_kernel(
+            m, nparticles=pid.numel(), pid=pid, **kw)
+        plain = dict(kw)
+        del plain["device"]
+        want = inject_fields(m, pid, torch.ones(pid.shape, dtype=torch.bool,
+                                                device=cuda), **plain)
+        torch.cuda.synchronize()
+        assert inject_kernel.inject_particles_kernel.launches == launches + 1
+        assert 0 < got.n < cfg.nparticles
+        assert_bitwise(got, want)
+    for bad in (pid.to(torch.int32), pid[:-1], pid.cpu()):
+        with pytest.raises(ValueError, match="pid must be"):
+            inject_kernel.inject_particles_kernel(
+                m, nparticles=pid.numel(), pid=bad, **kw)

@@ -48,8 +48,8 @@ import neutral_tpu_torch as tt
 from neutral_tpu_torch import driver, flight, oracle, particles, raster
 from neutral_tpu_torch import transport
 from neutral_tpu_torch.particles import STATE_FIELDS
-from neutral_tpu_torch.sweep_kernel import (sweep_chunk_kernel,
-                                            sweep_chunk_plain)
+from neutral_tpu_torch.census import sweep_chunk_kernel
+from neutral_tpu_torch.sweep_kernel import sweep_chunk_plain
 from neutral_tpu_torch.xs import CrossSection, make_resonance_table, to_int
 
 THRESHOLD = 1.0e-2          # the resonance table's lowest key, in eV

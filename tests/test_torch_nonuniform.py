@@ -30,7 +30,7 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import (begin_kernel, driver, sweep_kernel,
+from neutral_tpu_torch import (begin_kernel, census, driver, sweep_kernel,
                                transport)
 from neutral_tpu_torch.particles import STATE_FIELDS
 from neutral_tpu_torch.parallel import Spatial2DSimulation, SpatialSimulation
@@ -207,13 +207,10 @@ def test_auto_routes_to_plain_sweep():
         for deck in DECKS:
             cfg = DECKS[deck](tt, dtype=dtype, tally_dtype=dtype)
             assert driver.pick_transport(cfg, "auto") == "sweep"
-            for transport_name in (None, "sweep"):
-                assert driver.pick_engine(
-                    "auto", cuda, getattr(torch, dtype), cfg,
-                    transport_name) == "kernel"
+            assert driver.pick_engine("auto", cuda, getattr(torch, dtype),
+                                      cfg) == "kernel"
             assert driver.pick_engine("auto", torch.device("cpu"),
-                                      getattr(torch, dtype), cfg,
-                                      "sweep") == "plain"
+                                      getattr(torch, dtype), cfg) == "plain"
         uniform = light_cfg(tt, dtype=dtype, tally_dtype=dtype)
         assert driver.pick_engine("auto", cuda, getattr(torch, dtype),
                                   uniform) == "kernel"
@@ -234,7 +231,7 @@ def test_kernel_and_flight_raise_before_state(deck, match, how, monkeypatch,
     def no_state(*a, **k):
         raise AssertionError("state was built")
     monkeypatch.setattr(driver, "make_geometry", no_state)
-    monkeypatch.setattr(driver, "inject_particles", no_state)
+    monkeypatch.setattr(census, "inject_particles", no_state)
     cfg = DECKS[deck](tt, dtype="float32", tally_dtype="float32")
     deck = write_deck(cfg.with_(nparticles=10), tmp_path / "deck.params")
     if how == "transport":
@@ -246,7 +243,7 @@ def test_kernel_and_flight_raise_before_state(deck, match, how, monkeypatch,
         return
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert driver.pick_engine("kernel", torch.device("cuda"), torch.float32,
-                              cfg, "sweep") == "kernel"
+                              cfg) == "kernel"
     with pytest.raises(RuntimeError, match="is_available"):
         driver.Simulation(cfg, device="cuda", engine="kernel", quiet=True)
     assert driver.main([deck, "--engine", "kernel"]) == 2
@@ -311,7 +308,7 @@ def test_kernels_take_the_deck_up_to_the_device_check(deck):
     calls = (transport.begin_timestep.calls, sweep_kernel.sweep_chunk_plain
              .calls)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        sweep_kernel.sweep_chunk_kernel(sim.state, sim.tally, *args)
+        census.sweep_chunk_kernel(sim.state, sim.tally, *args)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         begin_kernel.begin_timestep_kernel(sim.state, sim.geom,
                                            sim.cs_scatter, 1e-7, 1)
@@ -499,7 +496,7 @@ def test_edge_array_kernels_match_plain_on_card(deck, dtype, rng):
     assert pnf > 0 and pnc > 0
     for events in (sweep_kernel.MAX_EVENTS, 1):
         kt = torch.zeros_like(pt)
-        ks, knf, knc, _ = sweep_kernel.sweep_chunk_kernel(
+        ks, knf, knc, _ = census.sweep_chunk_kernel(
             start.clone(), kt, *args, max_events=events)
         assert (knf, knc) == (pnf, pnc), events
         for f in STATE_FIELDS:
@@ -507,14 +504,14 @@ def test_edge_array_kernels_match_plain_on_card(deck, dtype, rng):
         tol = 1e-12 if dtype == "float64" else 1e-5
         torch.testing.assert_close(kt.double(), pt.double(), rtol=tol,
                                    atol=tol * float(pt.abs().max()))
-    launches = (sweep_kernel.sweep_chunk_kernel.launches,
+    launches = (census.sweep_chunk_kernel.launches,
                 begin_kernel.begin_timestep_kernel.launches)
     plain = (sweep_kernel.sweep_chunk_plain.calls,
              transport.begin_timestep.calls)
     run = driver.Simulation(cfg, device="cuda", quiet=True)
     assert (run.engine, run.transport) == ("kernel", "sweep")
     assert stats_of(run) and np.isfinite(run.host_tally()).all()
-    assert sweep_kernel.sweep_chunk_kernel.launches > launches[0]
+    assert census.sweep_chunk_kernel.launches > launches[0]
     assert (begin_kernel.begin_timestep_kernel.launches
             == launches[1] + cfg.niters)
     assert plain == (sweep_kernel.sweep_chunk_plain.calls,

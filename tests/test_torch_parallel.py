@@ -82,7 +82,8 @@ def run_single(kind, xcuts=(), ycuts=(), transport_name="auto"):
     sim = driver.Simulation(make_cfg(tt, kind), device="cpu",
                             transport=transport_name, quiet=True)
     if sim.transport == "flight":
-        sim.geom = dataclasses.replace(
+        # the census runs over its one shard's geometry
+        sim.shards[0].geom = dataclasses.replace(
             sim.geom, rects=flight.split_rects(sim.geom.rects, xcuts, ycuts))
     stats = stats_of(sim)
     return sim.host_tally(), stats, alive_pids(sim.state)

@@ -4,13 +4,16 @@ Each layer boundary of a solve opens `nt.<name>` on a running
 torch.profiler's trace: set-up and its parts, the census, begin, the sweep
 or each flight round, each host read of the card, the tally read and its
 parts.  These tests run the plain engine on small decks under the
-profiler with CPU activity, and the kernel engine's host loops on the CPU
-with their launches replaced by stand-ins that set the counters as a
-launch would (the loops' reads, spans and records are the real ones).
-They hold the spans' nesting, `StepMetrics.phases` (its keys, and its
-wall times from the spans, over the interval of the step's clock),
-`StepMetrics.nwaits` (the read spans, printed as "Host waits"), that no
-profiler means no `record_function`, and the `--trace-dir` trace.
+profiler with CPU activity, and the kernel engine's census loop
+(census.py) on the CPU with its launches replaced by stand-ins that set
+the counters as a launch would (the loop's reads, spans and records are
+the real ones), through `Simulation`, two replicated shards and two
+y-slabs alike.  They hold the spans' nesting, `StepMetrics.phases` (its
+keys, and its wall times from the spans, over the interval of the step's
+clock), `StepMetrics.nwaits` (the read spans, printed as "Host waits"),
+the names through which `Simulation.step` runs its census and reads its
+tally (where the benchmark plants its faults), that no profiler means no
+`record_function`, and the `--trace-dir` trace.
 """
 
 import contextlib
@@ -22,8 +25,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import (driver, flight_kernel, parallel, profiler,
-                               sweep_kernel)
+from neutral_tpu_torch import (census, driver, flight_kernel, parallel,
+                               profiler, sweep_kernel)
 
 # each span's parent, as profiler.py lists them
 PARENT = {
@@ -32,7 +35,6 @@ PARENT = {
     "nt.setup.wait": "nt.setup",
     "nt.begin": "nt.census", "nt.begin.read": "nt.begin",
     "nt.sweep": "nt.census", "nt.sweep.read": "nt.sweep",
-    "nt.census.read": "nt.census",
     "nt.flight.round": "nt.census", "nt.flight.read": "nt.flight.round",
     "nt.flight.host": "nt.flight.round",
     "nt.flight.redeposit": "nt.flight.host",
@@ -95,8 +97,7 @@ class Recorded(profiler.Spans):
 @pytest.fixture
 def recorded(monkeypatch):
     Recorded.made = []
-    for mod in (driver, parallel.common):
-        monkeypatch.setattr(mod, "Spans", Recorded)
+    monkeypatch.setattr(driver, "Spans", Recorded)
     return Recorded.made
 
 
@@ -184,7 +185,7 @@ def test_phases_keep_the_step_clocks_interval(kind, decomposition,
             yield
         log.append("close " + name)
 
-    for mod in (driver, parallel.common):
+    for mod in (driver, census, parallel.common):
         monkeypatch.setattr(mod, "span", logged)
     sim.step(1)
     assert log[0] == "start" and log[1] == "open census"
@@ -195,9 +196,10 @@ def test_phases_keep_the_step_clocks_interval(kind, decomposition,
         assert log[-2:] == ["stop", "close census"]
 
 
-# -- the kernel engine's host loops, launches replaced ------------------------
+# -- the kernel engine's census loop, launches replaced ----------------------
 
 WORKING = [7, 3, 0]          # lanes still working after each launch
+LAYOUTS = {"none": None, "replicated": 2, "spatial": 2}   # shards
 
 
 class Mark:
@@ -209,33 +211,52 @@ class Mark:
     def elapsed_time(self, other):
         return other.ms - self.ms
 
+    def synchronize(self):
+        """Recorded already: nothing to wait for."""
+
 
 # A round's marks: flight 0.5 ms, then the deposit's bins 0.1 and tiles
 # 0.4 ms.
 MARKS = (Mark(0.0), Mark(0.5), Mark(0.6), Mark(1.0))
 
 
-def as_kernel_engine(monkeypatch, sim):
-    """`sim` (plain, CPU) run through the kernel engine's host loops: begin
-    on the plain path, and each launch a stand-in that counts 10 facets
-    and 4 collisions and leaves WORKING's next count working."""
-    begin = driver.begin_census
-    monkeypatch.setattr(driver, "begin_census",
-                        lambda engine, *a, **k: begin("plain", *a, **k))
-    left = iter(WORKING * sim.cfg.niters)
+def layout_sim(cfg, layout):
+    """`Simulation` (layout "none") or a decomposition over CPU shards."""
+    if LAYOUTS[layout] is None:
+        return driver.Simulation(cfg, device="cpu", quiet=True)
+    return driver.make_simulation(cfg, layout, ["cpu"] * LAYOUTS[layout],
+                                  quiet=True)
 
-    def launched(counts):
+
+def as_kernel_engine(monkeypatch, sim):
+    """`sim` (plain, CPU) run through the kernel engine's census loop:
+    begin on the plain path, and each launch a stand-in that counts 10
+    facets and 4 collisions and leaves WORKING's next count working, on
+    every shard in turn.  A flight round reserves one row of a one-row
+    segment buffer, and the last round of a census two: refused in the
+    first census, which grows the buffer, and taken in the second."""
+    begin = census.begin_census
+    monkeypatch.setattr(census, "begin_census",
+                        lambda engine, *a, **k: begin("plain", *a, **k))
+    left = {}
+
+    def launched(buffers):
+        counts = buffers.counts
+        working = left.setdefault(id(buffers),
+                                  iter(WORKING * sim.cfg.niters))
         counts[0] += 10
         counts[1] += 4
-        counts[2] = next(left)
+        counts[2] = next(working)
+        return True
 
     def sweep_round(params, buffers, max_events=None):
-        launched(buffers.counts)
+        return launched(buffers)
 
     def flight_round(params, buffers, tally, geom, max_pieces=None,
                      segments=None):
-        launched(buffers.counts)
-        buffers.counts[3] = 1            # a row reserved, none refused
+        launched(buffers)
+        # a row reserved, or two (refused) when no lane works on
+        buffers.counts[3] = 1 if buffers.counts[2] else 2
         buffers.counts[4] = 5            # the deposit's pieces
         buffers.round += 1
         start, flown, bins, done = MARKS
@@ -245,63 +266,128 @@ def as_kernel_engine(monkeypatch, sim):
                           "overflow": False}}
 
     params = lambda state, *a, **k: types.SimpleNamespace(n=state.n)  # noqa
-    monkeypatch.setattr(sweep_kernel, "sweep_params", params)
-    monkeypatch.setattr(sweep_kernel, "sweep_round", sweep_round)
-    monkeypatch.setattr(flight_kernel, "flight_params", params)
-    monkeypatch.setattr(flight_kernel, "flight_round", flight_round)
+    monkeypatch.setattr(census, "sweep_params", params)
+    monkeypatch.setattr(census, "sweep_round", sweep_round)
+    monkeypatch.setattr(census, "flight_params", params)
+    monkeypatch.setattr(census, "flight_round", flight_round)
     sim.engine = "kernel"
-    if sim.transport == "flight":
-        sim.flight = flight_kernel.FlightBuffers(
-            sim.cfg.nx, sim.cfg.ny, sim.device, dtype=sim.dtype,
-            tally_dtype=sim.tally.dtype)
-    else:
-        sim.sweep = sweep_kernel.SweepBuffers(sim.device)
+    for sh in sim.shards:
+        sh.buffers = (flight_kernel.FlightBuffers(
+            sh.geom.nx, sh.geom.ny, sh.device, rows=1, dtype=sim.dtype,
+            tally_dtype=sh.tally.dtype) if sim.transport == "flight"
+            else sweep_kernel.SweepBuffers(sh.device))
     return sim
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("kind", ["thin", "stream"])
-def test_kernel_loops_read_in_spans(kind, monkeypatch, recorded):
+def test_kernel_loops_read_in_spans(kind, layout, monkeypatch, recorded):
+    """One loop for every layout: the same spans, reads and phase keys
+    (a spatial run adds "migrate"), with every count summed over the
+    shards; one read a pass, whose last holds the event counts."""
     cfg = small_cfg(kind)
-    sim = driver.Simulation(cfg, device="cpu", quiet=True)
-    as_kernel_engine(monkeypatch, sim)
+    sim = as_kernel_engine(monkeypatch, layout_sim(cfg, layout))
+    k = len(sim.shards)
+    flight = kind == "stream"
+    counter = census.flight_chunk_kernel if flight else (
+        census.sweep_chunk_kernel)
+    launches0 = counter.launches
+    refusals0 = census.flight_chunk_kernel.refusals
     steps, spans = traced(
         lambda: [sim.step(t) for t in range(1, cfg.niters + 1)])
     check_nesting(spans)
     names = [n for n, _, _ in spans]
-    launches = len(WORKING) * cfg.niters
-    assert names.count("nt.census.read") == cfg.niters
-    flight = kind == "stream"
+    passes = len(WORKING) * cfg.niters
+    assert "nt.census.read" not in names
     read = "nt.flight.read" if flight else "nt.sweep.read"
-    assert names.count(read) == launches
+    assert names.count(read) == passes
+    assert counter.launches - launches0 == k * passes
     if flight:
-        assert names.count("nt.flight.round") == launches
-        assert names.count("nt.flight.host") == launches
-    for m, wall in zip(steps, recorded):
-        assert (m.nfacets, m.ncollisions) == (30, 12)
-        assert m.nlaunches == len(WORKING)
-        # the live count, one read a launch, the event counts
-        assert m.nwaits == wall.waits() == 1 + len(WORKING) + 1
+        assert names.count("nt.flight.round") == passes
+        assert names.count("nt.flight.host") == passes
+        assert census.flight_chunk_kernel.refusals - refusals0 == k
+    migrate = {"migrate"} if layout == "spatial" else set()
+    assert names.count("nt.migrate") == (passes if migrate else 0)
+    for first, m, wall in zip((True, False), steps, recorded):
+        assert (m.nfacets, m.ncollisions) == (30 * k, 12 * k)
+        assert m.nlaunches == len(WORKING) * k
+        # the live counts, then one read a pass
+        assert m.nwaits == wall.waits() == 1 + len(WORKING)
         assert m.phases["begin"] == wall.seconds["begin"]
+        t_migrate = wall.seconds.get("migrate", 0.0)
         if flight:
             assert set(m.phases) == {"begin", "flight", "raster", "loop",
                                      "raster_bins", "raster_tiles",
-                                     "raster_overflow"}
-            assert m.phases["flight"] == pytest.approx(1.5e-3)
-            assert m.phases["raster"] == pytest.approx(1.5e-3)
-            assert m.phases["raster_bins"] == pytest.approx(0.3e-3)
-            assert m.phases["raster_tiles"] == pytest.approx(1.2e-3)
+                                     "raster_overflow"} | migrate
+            assert m.phases["flight"] == pytest.approx(1.5e-3 * k)
+            assert m.phases["raster"] == pytest.approx(1.5e-3 * k)
+            assert m.phases["raster_bins"] == pytest.approx(0.3e-3 * k)
+            assert m.phases["raster_tiles"] == pytest.approx(1.2e-3 * k)
             assert m.phases["raster_overflow"] == 0.0
             assert m.noverflows == 0
             assert m.phases["loop"] == pytest.approx(
-                wall.seconds["census"] - wall.seconds["begin"] - 3e-3,
-                abs=1e-12)
-            assert [r["working"] for r in m.rounds] == WORKING
-            assert [r["overflow"] for r in m.rounds] == [False] * 3
-            assert [r["deposit_pieces"] for r in m.rounds] == [5] * 3
-            assert [r["refused"] for r in m.rounds] == [False] * 3
+                wall.seconds["census"] - wall.seconds["begin"] - 3e-3 * k
+                - t_migrate, abs=1e-12)
+            assert m.nsweeps == 2 * len(WORKING)
+            assert len(m.rounds) == k * len(WORKING)
+            for s in range(k):
+                mine = [r for r in m.rounds if r["shard"] == s]
+                assert [r["working"] for r in mine] == WORKING
+                assert [r["refused"] for r in mine] == [False, False, first]
+                assert [r["rows"] for r in mine] == [1, 1, 1 if first else 2]
+            assert [r["overflow"] for r in m.rounds] == [False] * (3 * k)
+            assert [r["deposit_pieces"] for r in m.rounds] == [5] * (3 * k)
         else:
-            assert set(m.phases) == {"begin", "sweep"}
-            assert m.phases["sweep"] == wall.seconds["sweep"]
+            assert set(m.phases) == {"begin", "sweep"} | migrate
+            assert m.phases["sweep"] == wall.seconds["sweep"] - t_migrate
+        if migrate:
+            assert m.phases["migrate"] == t_migrate
+
+
+# The names of driver.py through which Simulation.step runs its census,
+# as the benchmark's fault checks replace them (portbench/control.py).
+SEAM = ("sweep_chunk_kernel", "flight_chunk_kernel", "sweep_chunk_plain",
+        "flight_chunk_plain")
+
+
+@pytest.mark.parametrize("engine", ["plain", "kernel"])
+@pytest.mark.parametrize("kind", ["thin", "stream"])
+def test_simulation_runs_its_census_through_the_seam(kind, engine,
+                                                     monkeypatch):
+    """Simulation.step runs its census through driver's names, looked up
+    when it runs: replaced there, the replacement runs (once a step, the
+    one of the step's engine and transport) and what it returns is the
+    step's.  The object make_simulation returns for one device reads its
+    tally through driver.Simulation.host_tally."""
+    cfg = small_cfg(kind)
+    sim = driver.make_simulation(cfg, "replicated", ["cpu"], quiet=True)
+    assert type(sim) is driver.Simulation
+    if engine == "kernel":
+        as_kernel_engine(monkeypatch, sim)
+    calls = []
+
+    def wrap(name):
+        orig = getattr(driver, name)
+
+        def census_of(state, tally, *args, **kw):
+            calls.append(name)
+            out = orig(state, tally, *args, **kw)
+            return (out[0], 1000 + out[1], *out[2:])
+        return census_of
+
+    for name in SEAM:
+        monkeypatch.setattr(driver, name, wrap(name))
+    m = sim.step(1)
+    want = ("flight" if kind == "stream" else "sweep") + "_chunk_" + engine
+    assert calls == [want]
+    assert m.nfacets >= 1000
+    host = driver.Simulation.host_tally
+    read = []
+    monkeypatch.setattr(driver.Simulation, "host_tally",
+                        lambda self: read.append(self) or host(self) * 1.1)
+    total = sim.validate()
+    assert read == [sim]
+    assert total == pytest.approx(1.1 * float(host(sim).sum()), rel=1e-12)
 
 
 # -- the helper ---------------------------------------------------------------

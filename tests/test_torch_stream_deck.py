@@ -133,6 +133,9 @@ class Mark:
     def elapsed_time(self, other):
         return other.ms - self.ms
 
+    def synchronize(self):
+        """Recorded already: nothing to wait for."""
+
 
 def round_marks(t0, flight, bins, tiles, overflow=False):
     """A flight round's marks: the flight launch, then the deposit's bins
@@ -216,7 +219,7 @@ def test_deposit_stages_and_a_forced_overflow_on_card():
         sim = driver.Simulation(cfg, device="cuda", quiet=True)
         assert (sim.engine, sim.transport) == ("kernel", "flight")
         if pieces is not None:
-            sim.flight.deposit = SegmentDeposit(
+            sim.shards[0].buffers.deposit = SegmentDeposit(
                 cfg.nx, cfg.ny, sim.device, pieces=pieces,
                 dtype=torch.float32, tally_dtype=torch.float32)
         m = sim.step(check.master_key(SEED, 0, 1))

@@ -50,8 +50,9 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import (driver, flight, flight_kernel, raster,
-                               raster_kernel, sweep_kernel, transport)
+from neutral_tpu_torch import (census, driver, flight, flight_kernel,
+                               raster, raster_kernel, sweep_kernel,
+                               transport)
 from neutral_tpu_torch.particles import STATE_FIELDS
 from neutral_tpu_torch.xs import const, resonance_log_table, write_cs_file
 
@@ -328,15 +329,17 @@ def test_every_pair_takes_the_kernels_on_a_card(state, tally,
     cfg = make_cfg(tt, "split", n=64, nx=16, dtype=state).with_(
         tally_dtype=tally)
     dtype = getattr(torch, state)
-    assert driver.kernel_refusal(dtype, cfg, transport_name) is None
+    assert driver.kernel_refusal(dtype, cfg) is None
     for engine in ("auto", "kernel"):
-        assert driver.pick_engine(engine, torch.device("cuda"), dtype, cfg,
-                                  transport_name) == "kernel"
-    assert driver.pick_engine("auto", torch.device("cpu"), dtype, cfg,
-                              transport_name) == "plain"
+        assert driver.pick_engine(engine, torch.device("cuda"), dtype,
+                                  cfg) == "kernel"
+    assert driver.pick_engine("auto", torch.device("cpu"), dtype,
+                              cfg) == "plain"
     with pytest.raises(ValueError, match="float32 or float64 tally"):
         driver.pick_engine("kernel", torch.device("cuda"), dtype,
-                           cfg.with_(tally_dtype="float16"), transport_name)
+                           cfg.with_(tally_dtype="float16"))
+    # the transport decides nothing, so it is no argument
+    assert driver.pick_transport(cfg, transport_name) == transport_name
 
 
 def test_auto_transport_follows_the_state_type():
@@ -379,14 +382,14 @@ def test_kernel_wrappers_take_a_tally_of_either_type(state, tally, what,
         geom = dataclasses.replace(
             geom, regions=None, density=torch.ones(16 * 16, dtype=other))
     message = "needs CUDA tensors" if what == "tally" else "one working type"
-    launches = (sweep_kernel.sweep_chunk_kernel.launches,
-                flight_kernel.flight_chunk_kernel.launches)
-    for fn in (sweep_kernel.sweep_chunk_kernel,
-               flight_kernel.flight_chunk_kernel):
+    launches = (census.sweep_chunk_kernel.launches,
+                census.flight_chunk_kernel.launches)
+    for fn in (census.sweep_chunk_kernel,
+               census.flight_chunk_kernel):
         with pytest.raises(ValueError, match=message):
             fn(sim.state, sim.tally, geom, *tabs, 1, 1.0 / 64)
-    assert launches == (sweep_kernel.sweep_chunk_kernel.launches,
-                        flight_kernel.flight_chunk_kernel.launches)
+    assert launches == (census.sweep_chunk_kernel.launches,
+                        census.flight_chunk_kernel.launches)
 
 
 def c_layout(fields: list) -> tuple[dict, int]:
@@ -522,11 +525,11 @@ def test_mixed_sweep_kernel_matches_plain_on_card(state, tally, mode,
     pt = torch.zeros_like(sim.tally)
     ps, pnf, pnc, _ = sweep_kernel.sweep_chunk_plain(start.clone(), pt,
                                                      *args)
-    launches = sweep_kernel.sweep_chunk_kernel.launches
+    launches = census.sweep_chunk_kernel.launches
     kt = torch.zeros_like(pt)
-    ks, knf, knc, _ = sweep_kernel.sweep_chunk_kernel(start.clone(), kt,
+    ks, knf, knc, _ = census.sweep_chunk_kernel(start.clone(), kt,
                                                       *args)
-    assert sweep_kernel.sweep_chunk_kernel.launches > launches
+    assert census.sweep_chunk_kernel.launches > launches
     assert (knf, knc) == (pnf, pnc) and pnf + pnc > 0
     assert_states_bitwise(ks, ps)
     assert kt.dtype == getattr(torch, tally)
@@ -550,7 +553,7 @@ def test_mixed_flight_and_deposit_kernels_match_plain_on_card(
     psegs, ksegs = [], []
     ps, pnf, pnc, _, _ = flight.flight_chunk_plain(start.clone(), pt, *args,
                                                    segments=psegs)
-    ks, knf, knc, _, _ = flight_kernel.flight_chunk_kernel(
+    ks, knf, knc, _, _ = census.flight_chunk_kernel(
         start.clone(), kt, *args, segments=ksegs)
     assert (knf, knc) == (pnf, pnc) and pnf > 0
     assert_states_bitwise(ks, ps)

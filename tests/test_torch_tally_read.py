@@ -1,4 +1,6 @@
-"""The global tally's read to the host (`Simulation.host_tally`).
+"""The global tally's read to the host (`census.read_tallies`, which
+`Simulation.host_tally` and a one-process decomposition's `host_tally`
+run).
 
 A read returns the flat tally as float64, bitwise what
 `tally.cpu().numpy().astype(np.float64)` gives, in a block of its own that
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 import neutral_tpu_torch as tt
-from neutral_tpu_torch import driver, profiler
+from neutral_tpu_torch import census, driver, profiler
 
 PAIRS = [("float32", "float32"), ("float64", "float64"),
          ("float32", "float64"), ("float64", "float32")]
@@ -47,7 +49,7 @@ def bitwise_equal(a, b):
 def reads(monkeypatch):
     """A fresh record of the process's tally reads."""
     record = profiler.TallyReads()
-    monkeypatch.setattr(driver, "TALLY_READS", record)
+    monkeypatch.setattr(census, "TALLY_READS", record)
     return record
 
 
@@ -87,6 +89,32 @@ def test_host_tally_does_not_alias_the_live_tally(dtype, tally_dtype,
     bitwise_equal(later, old_read(sim))
     assert not np.array_equal(later, first)
     assert reads.reads == 3
+
+
+@pytest.mark.parametrize("decomposition", ["replicated", "spatial2d"])
+def test_decomposition_reads_its_tallies_in_one_read(decomposition, reads):
+    """A one-process decomposition reads every shard's tally through the
+    same read, once a host_tally: float64 partials, bitwise the old read
+    of each shard, summed (replicated) or placed (2x2 blocks) as before."""
+    cfg = small_cfg("float32", "float32")
+    sim = driver.make_simulation(cfg, decomposition, ["cpu"] * 4,
+                                 quiet=True)
+    sim.step(1)
+    parts = sim.shard_tallies()
+    assert (reads.reads, reads.fresh) == (1, 0)
+    for part, sh in zip(parts, sim.shards):
+        bitwise_equal(part, sh.tally.cpu().numpy().astype(np.float64))
+    got = sim.host_tally()
+    assert reads.reads == 2
+    if decomposition == "replicated":
+        want = sum(sh.tally.cpu().numpy().astype(np.float64)
+                   for sh in sim.shards)
+    else:
+        want = np.block([[sim.shards[2 * r + c].tally.cpu().numpy()
+                          .astype(np.float64).reshape(16, 16)
+                          for c in range(2)] for r in range(2)]).reshape(-1)
+    bitwise_equal(got, want)
+    assert np.abs(got).sum() > 0
 
 
 # -- on a card ----------------------------------------------------------------
